@@ -1,0 +1,313 @@
+"""Single-device time-stepping driver (torch port of the single-device core
+of wavetpu/solver/leapfrog.py).
+
+Layer 0 is the analytic solution, layer 1 the Taylor half-step derived from
+the step function, then the leapfrog march with the per-layer L-inf errors
+against the separable oracle written into device vectors - the analog of
+the reference's `max_abs_errors.push_back` (mpi_new.cpp:350) with no host
+round trip inside the loop.  PyTorch runs eagerly, so the march is a Python
+loop that enqueues one K1 launch and a few error reductions per layer; the
+only synchronisation is the read-back of the error vectors at the end.
+
+Devices: `device=None` means the CUDA device and raises without one; the
+CPU runs only when asked (`device="cpu"`), and then the kernels' plain
+versions run (kernels/stencil_cuda.py dispatches on the tensor's device).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from wavetpu_torch.core.problem import Problem
+from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
+from wavetpu_torch.verify import oracle
+
+
+@dataclasses.dataclass
+class SolveResult:
+    problem: Problem
+    u_prev: torch.Tensor       # layer final_step-1 (fundamental (N,N,N) domain)
+    u_cur: torch.Tensor        # layer final_step
+    abs_errors: np.ndarray     # per-layer L-inf abs error, shape (timesteps+1,)
+    rel_errors: np.ndarray     # per-layer L-inf rel error, shape (timesteps+1,)
+    init_seconds: float = 0.0
+    solve_seconds: float = 0.0
+    steps_computed: Optional[int] = None  # steps THIS run marched (throughput)
+    final_step: Optional[int] = None      # layer index u_cur holds
+    # Compensated-scheme state (None on the standard scheme): the increment
+    # v = u_n - u_{n-1} and the Kahan carry at final_step.
+    comp_v: Optional[torch.Tensor] = None
+    comp_carry: Optional[torch.Tensor] = None
+
+    @property
+    def gcells_per_second(self) -> float:
+        """(N+1)^3 cell updates per step (the reference's grid-point count,
+        `Problem.cells_per_step`) over the solve wall time."""
+        steps = (
+            self.steps_computed
+            if self.steps_computed is not None
+            else self.problem.timesteps
+        )
+        total = self.problem.cells_per_step * steps
+        return total / self.solve_seconds / 1e9 if self.solve_seconds else 0.0
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA device unless the caller
+    names another.  Without a CUDA device, `None` raises - the port never
+    carries on on the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: wavetpu_torch runs on the GPU unless asked "
+                "for the CPU (device='cpu', or --platform cpu on the CLI)"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def prepare_kernels(device: torch.device) -> None:
+    """Build and load the CUDA kernels before any timed region (a no-op on
+    the CPU): the nvcc build counts as set-up, never as solve time."""
+    if device.type == "cuda":
+        build.load("stencil")
+
+
+def _error_fn(problem: Problem, dtype, device, phase: float = oracle.TWO_PI):
+    """Returns (u, n) -> (abs_e, rel_e), 0-d device tensors.  The oracle
+    evaluates in the compute dtype (f32 for bf16 state).
+
+    The error interior excludes index 0 on every axis
+    (`oracle.interior_masks_1d`), so the errors are taken on the interior
+    view u[1:, 1:, 1:] - the same maxima as masking the full field, without
+    the masking passes - and the spatial product ((sx*sy)*sz) is formed once
+    (times ct(n) per layer, the same multiply order as
+    `oracle.analytic_field`).
+    """
+    f_dtype = stencil_ref.compute_dtype(dtype)
+    sx, sy, sz = oracle.spatial_factors(problem, f_dtype, device)
+    ct_table = oracle.time_factor_table(problem, f_dtype, device, phase)
+    assert not oracle.interior_masks_1d(problem.N)[0]
+    spatial = sx[1:, None, None] * sy[None, 1:, None] * sz[None, None, 1:]
+
+    def errors(u, n):
+        return oracle.layer_errors(u[1:, 1:, 1:].to(f_dtype),
+                                   spatial * ct_table[n])
+
+    return errors
+
+
+def analytic_layer(problem: Problem, dtype=torch.float32, device=None,
+                   phase: float = oracle.TWO_PI, n: int = 0) -> torch.Tensor:
+    """The analytic solution at layer n, Dirichlet re-imposed (n=0 is the
+    reference's layer-0 fill, openmp_sol.cpp:126-133).  bf16 state
+    evaluates in f32 and rounds once."""
+    device = resolve_device(device)
+    f = stencil_ref.compute_dtype(dtype)
+    sx, sy, sz = oracle.spatial_factors(problem, f, device)
+    ct = oracle.time_factor(problem, n, f, device, phase)
+    u = oracle.analytic_field(sx, sy, sz, ct)
+    return stencil_ref.apply_dirichlet(u).to(dtype)
+
+
+def initial_layer0(problem: Problem, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    """Layer 0: the analytic solution at t=0."""
+    return analytic_layer(problem, dtype, device, oracle.TWO_PI, 0)
+
+
+def initial_state(problem: Problem, dtype=torch.float32,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layers 0 and 1: analytic init + the Taylor half-step (reference
+    `calculate_start`, openmp_sol.cpp:123-145) - the standalone form; the
+    solvers derive layer 1 from their step function instead."""
+    u0 = initial_layer0(problem, dtype, device)
+    return u0, stencil_ref.taylor_half_step(u0, problem).to(dtype)
+
+
+def _march(problem, step, errors, compute_errors, u_prev, u, start, stop,
+           abs_all, rel_all):
+    """March layers start+1..stop from (layer start-1, layer start), writing
+    each layer's errors into the device vectors.  Shared by solve and
+    resume, so a resumed run's op sequence is the uninterrupted run's."""
+    for n in range(start + 1, stop + 1):
+        u_next = step(u_prev, u, problem)
+        if compute_errors:
+            a, r = errors(u_next, n)
+            abs_all[n] = a
+            rel_all[n] = r
+        u_prev, u = u, u_next
+    return u_prev, u
+
+
+def _zeros(length, dtype, device):
+    return torch.zeros(length, dtype=stencil_ref.compute_dtype(dtype),
+                       device=device)
+
+
+def _host(v: torch.Tensor) -> np.ndarray:
+    return v.cpu().numpy().astype(np.float64)
+
+
+def solve(
+    problem: Problem,
+    dtype=torch.float32,
+    step_fn: Optional[Callable] = None,
+    compute_errors: bool = True,
+    stop_step: Optional[int] = None,
+    device=None,
+) -> SolveResult:
+    """The standard leapfrog solve with the reference's two timing phases:
+    `init_seconds` covers the kernel build/load and the state set-up (layer
+    0 and the oracle factors); `solve_seconds` brackets the march, from the
+    layer-1 bootstrap to the read-back of the error vectors.
+
+    `step_fn(u_prev, u, problem) -> u_next` defaults to K1
+    (`stencil_cuda.leapfrog_step`).  Layer 1 is derived from it -
+    u1 = (u0 + step(u0, u0))/2 in the compute dtype, which equals the
+    Taylor half-step for any leapfrog-form step.
+    """
+    device = resolve_device(device)
+    step = stencil_cuda.leapfrog_step if step_fn is None else step_fn
+    nsteps = problem.timesteps if stop_step is None else stop_step
+    if not 1 <= nsteps <= problem.timesteps:
+        raise ValueError(
+            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
+        )
+    t0 = time.perf_counter()
+    prepare_kernels(device)
+    errors = _error_fn(problem, dtype, device)
+    u0 = initial_layer0(problem, dtype, device)
+    abs_all = _zeros(nsteps + 1, dtype, device)
+    rel_all = _zeros(nsteps + 1, dtype, device)
+    _sync(device)
+    t1 = time.perf_counter()
+
+    f = stencil_ref.compute_dtype(dtype)
+    u1 = (0.5 * (u0.to(f) + step(u0, u0, problem).to(f))).to(dtype)
+    # Layer 0 is assigned from the oracle: its error is 0 by definition.
+    if compute_errors:
+        abs_all[1], rel_all[1] = errors(u1, 1)
+    u_prev, u_cur = _march(problem, step, errors, compute_errors, u0, u1,
+                           1, nsteps, abs_all, rel_all)
+    abs_np, rel_np = _host(abs_all), _host(rel_all)
+    _sync(device)
+    t2 = time.perf_counter()
+    return SolveResult(
+        problem=problem, u_prev=u_prev, u_cur=u_cur,
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=stop_step,
+        final_step=nsteps,
+    )
+
+
+def resume(
+    problem: Problem,
+    u_prev,
+    u_cur,
+    start_step: int,
+    dtype=torch.float32,
+    step_fn: Optional[Callable] = None,
+    compute_errors: bool = True,
+    device=None,
+) -> SolveResult:
+    """Re-enter the standard march at layer `start_step` and run to the end.
+
+    `u_prev` / `u_cur` (tensors, or numpy arrays e.g. from a wavetpu
+    SolveResult - see io/state.py) are layers start_step-1 / start_step.
+    The error vectors cover layers start_step+1..timesteps; earlier entries
+    are zero (they belong to the run that produced the state).
+    """
+    device = resolve_device(device)
+    step = stencil_cuda.leapfrog_step if step_fn is None else step_fn
+    nsteps = problem.timesteps
+    if not 1 <= start_step <= nsteps:
+        raise ValueError(
+            f"start_step must be in [1, {nsteps}], got {start_step}"
+        )
+    t0 = time.perf_counter()
+    prepare_kernels(device)
+    errors = _error_fn(problem, dtype, device)
+    u_p = torch.as_tensor(u_prev).to(device=device, dtype=dtype)
+    u_c = torch.as_tensor(u_cur).to(device=device, dtype=dtype)
+    abs_all = _zeros(nsteps + 1, dtype, device)
+    rel_all = _zeros(nsteps + 1, dtype, device)
+    _sync(device)
+    t1 = time.perf_counter()
+    u_p, u_c = _march(problem, step, errors, compute_errors, u_p, u_c,
+                      start_step, nsteps, abs_all, rel_all)
+    abs_np, rel_np = _host(abs_all), _host(rel_all)
+    _sync(device)
+    t2 = time.perf_counter()
+    return SolveResult(
+        problem=problem, u_prev=u_p, u_cur=u_c,
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=nsteps - start_step, final_step=nsteps,
+    )
+
+
+def solve_compensated(
+    problem: Problem,
+    dtype=torch.float32,
+    comp_step_fn: Optional[Callable] = None,
+    compute_errors: bool = True,
+    stop_step: Optional[int] = None,
+    device=None,
+) -> SolveResult:
+    """The 1-step compensated (Kahan) solve: layer 1 is the same step with
+    v = carry = 0 and coeff = a2tau2/2; `comp_step_fn(u, v, carry, problem,
+    coeff)` defaults to K2 (`stencil_cuda.compensated_step`).  bf16 state is
+    refused (its representation error dwarfs what compensation recovers).
+    """
+    if dtype == torch.bfloat16:
+        raise ValueError(
+            "compensated scheme requires f32/f64 state (bf16 representation "
+            "error dominates anything the compensation recovers)"
+        )
+    device = resolve_device(device)
+    step = (stencil_cuda.compensated_step if comp_step_fn is None
+            else comp_step_fn)
+    nsteps = problem.timesteps if stop_step is None else stop_step
+    if not 1 <= nsteps <= problem.timesteps:
+        raise ValueError(
+            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
+        )
+    t0 = time.perf_counter()
+    prepare_kernels(device)
+    errors = _error_fn(problem, dtype, device)
+    u0 = initial_layer0(problem, dtype, device)
+    zero = torch.zeros_like(u0)
+    abs_all = _zeros(nsteps + 1, dtype, device)
+    rel_all = _zeros(nsteps + 1, dtype, device)
+    _sync(device)
+    t1 = time.perf_counter()
+
+    u, v, c = step(u0, zero, zero, problem, 0.5 * problem.a2tau2)
+    if compute_errors:
+        abs_all[1], rel_all[1] = errors(u, 1)
+    for n in range(2, nsteps + 1):
+        u, v, c = step(u, v, c, problem, None)
+        if compute_errors:
+            abs_all[n], rel_all[n] = errors(u, n)
+    abs_np, rel_np = _host(abs_all), _host(rel_all)
+    _sync(device)
+    t2 = time.perf_counter()
+    return SolveResult(
+        problem=problem, u_prev=u - v, u_cur=u,
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=stop_step, final_step=nsteps,
+        comp_v=v, comp_carry=c,
+    )
