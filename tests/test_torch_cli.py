@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,6 +53,95 @@ def test_f64_layer_lines_byte_identical(tmp_path, extra, capsys):
     assert ours == ref
 
 
+def layer_numbers(path):
+    return np.array([[float(x) for x in ln.split(":")[1].split()]
+                     for ln in layer_lines(path)])
+
+
+@pytest.mark.parametrize("k", ["3", "5"])
+def test_f64_kfused_layer_lines_byte_identical(tmp_path, k, capsys):
+    # wavetpu's own f64 onion cannot store its f64 row maxima into its f32
+    # rows under this jax (ROADMAP.md queue 3), so the port's k-fused
+    # report is held against wavetpu's 1-step report: the k-fused march is
+    # the 1-step march, bit for bit.
+    assert cli.main(ARGS + ["--fuse-steps", k, "--dtype", "f64",
+                            "--platform", "cpu", "--out-dir",
+                            str(tmp_path / "ours")]) == 0
+    assert f"fuse-steps: {k}" in capsys.readouterr().out
+    assert jcli.main(ARGS + ["--dtype", "f64", "--platform", "cpu",
+                             "--backend", "single", "--out-dir",
+                             str(tmp_path / "ref")]) == 0
+    ours = layer_lines(tmp_path / "ours" / "output_N15_Np1_CUDA.txt")
+    assert len(ours) == 13
+    assert ours == layer_lines(tmp_path / "ref" / "output_N15_Np1_TPU.txt")
+
+
+# f32 and bf16 against wavetpu's run of the same flags: XLA-CPU's FMA
+# contraction moves the states by an ulp (queue 3), so the layer errors
+# agree to 1e-6 absolute, not byte for byte.
+@pytest.mark.parametrize("extra", [
+    ["--fuse-steps", "3"],
+    ["--dtype", "bf16"],
+    ["--dtype", "bf16", "--fuse-steps", "5"],
+], ids=["kfused-f32", "bf16", "kfused-bf16"])
+def test_layer_errors_match_wavetpu(tmp_path, extra, capsys):
+    assert cli.main(ARGS + extra + ["--platform", "cpu", "--out-dir",
+                                    str(tmp_path / "ours")]) == 0
+    assert jcli.main(ARGS + extra + ["--platform", "cpu", "--backend",
+                                     "single", "--out-dir",
+                                     str(tmp_path / "ref")]) == 0
+    ours = layer_numbers(tmp_path / "ours" / "output_N15_Np1_CUDA.txt")
+    ref = layer_numbers(tmp_path / "ref" / "output_N15_Np1_TPU.txt")
+    assert ours.shape == (13, 2)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
+    side = json.loads(
+        (tmp_path / "ours" / "output_N15_Np1_CUDA.json").read_text())
+    assert side["run_config"]["dtype"] == (
+        "bfloat16" if "bf16" in extra else "float32")
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--fuse-steps", "3"],
+    ["--scheme", "compensated", "--fuse-steps", "3"],
+], ids=["varc", "kfused-varc", "flagship-varc"])
+def test_c2_field_preset(tmp_path, extra, capsys):
+    assert cli.main(ARGS + extra + ["--c2-field", "gaussian-lens",
+                                    "--platform", "cpu", "--out-dir",
+                                    str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "errors: disabled (--c2-field has no analytic oracle)" in out
+    assert "max abs error" not in out
+    side = json.loads((tmp_path / "output_N15_Np1_CUDA.json").read_text())
+    assert side["run_config"]["c2_field"] == "gaussian-lens"
+    assert side["errors_computed"] is False
+    text = (tmp_path / "output_N15_Np1_CUDA.txt").read_text()
+    assert "errors not computed" in text
+
+
+def test_c2_field_npy(tmp_path, capsys):
+    # An .npy of c^2 on the grid (times tau^2 by the CLI), as wavetpu reads
+    # it: here the constant a^2, the constant-speed physics.
+    from wavetpu_torch.core.problem import Problem
+
+    p = Problem.from_argv(ARGS)
+    path = tmp_path / "c2.npy"
+    np.save(path, np.full((15, 15, 15), p.a2))
+    assert cli.main(ARGS + ["--c2-field", str(path), "--fuse-steps", "3",
+                            "--platform", "cpu", "--out-dir",
+                            str(tmp_path / "o")]) == 0
+    side = json.loads(
+        (tmp_path / "o" / "output_N15_Np1_CUDA.json").read_text())
+    assert side["run_config"]["c2_field"] == str(path)
+    np.save(tmp_path / "bad.npy", np.ones((15, 15, 14)))
+    assert cli.main(ARGS + ["--c2-field", str(tmp_path / "bad.npy"),
+                            "--platform", "cpu"]) == 2
+    assert "array shape" in capsys.readouterr().err
+    assert cli.main(ARGS + ["--c2-field", "no-such-preset", "--platform",
+                            "cpu"]) == 2
+    assert "neither a preset" in capsys.readouterr().err
+
+
 def test_f32_report_and_sidecar(tmp_path, capsys):
     rc = cli.main(["16", "1", "1", "1", "1", "1", "8", "--platform", "cpu",
                    "--scheme", "compensated", "--fuse-steps", "4",
@@ -83,12 +173,16 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
     assert not os.listdir(tmp_path)
 
 
+# K that does not divide N is wavetpu's pad-and-mask march (K9), with or
+# without a field: the port's standard k-fused march and its field operand
+# take K | N only.
 @pytest.mark.parametrize("argv,needle", [
     (["8", "1", "1", "1", "1", "--mesh", "2,1,1"], "queue 1 item 10"),
-    (["8", "1", "1", "1", "1", "--c2-field", "constant"], "K5"),
+    (["8", "1", "1", "1", "1", "--c2-field", "constant", "--fuse-steps",
+      "3"], "K9"),
     (["8", "1", "1", "1", "1", "--ckpt-every", "2"], "queue 1 item 9"),
     (["8", "1", "1", "1", "1", "--resume", "x.npz"], "queue 1 item 8"),
-    (["8", "1", "1", "1", "1", "--fuse-steps", "2"], "K3"),
+    (["8", "1", "1", "1", "1", "--fuse-steps", "3"], "K9"),
     (["serve"], "queue 1 item 12"),
 ], ids=["mesh", "c2-field", "ckpt-every", "resume", "standard-kfused",
         "serve"])
@@ -100,13 +194,18 @@ def test_unported_flags_name_their_roadmap_item(argv, needle, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["8", "1", "1", "1", "1", "--dtype", "f64"],  # f64 only on the CPU
-    ["8", "1", "1", "1", "1", "--dtype", "bf16", "--platform", "cpu"],
+    ["8", "1", "1", "1", "1", "--dtype", "bf16", "--scheme", "compensated",
+     "--platform", "cpu"],  # bf16 runs on the standard scheme only
     ["8", "1", "1", "1", "1", "--platform", "tpu"],
     ["8", "1", "1", "1", "1", "--v-dtype", "bf16", "--platform", "cpu"],
     ["8", "1", "1", "1", "1", "--scheme", "compensated", "--fuse-steps",
      "3", "--platform", "cpu"],  # 3 does not divide 8
     ["8", "1", "1", "1", "--platform", "cpu"],  # too few positionals
     ["8", "1", "1", "1", "1", "--bogus", "--platform", "cpu"],
+    ["8", "1", "1", "1", "1", "--scheme", "compensated", "--c2-field",
+     "constant", "--platform", "cpu"],  # needs --fuse-steps K
+    ["8", "1", "1", "1", "1", "--fuse-steps", "16", "--platform", "cpu"],
+    ["8", "1", "1", "1", "1", "--dtype", "f16", "--platform", "cpu"],
 ])
 def test_usage_errors_exit_2(argv, capsys):
     assert cli.main(argv) == 2

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from wavetpu_torch.core.problem import Problem
-from wavetpu_torch.kernels import stencil_cuda
+from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.solver import kfused, kfused_comp, leapfrog
 
 pytestmark = pytest.mark.gpu
@@ -40,6 +40,13 @@ def field(n, seed, scale=1.0, dtype=torch.float32):
 def equal(got, want):
     for a, b in zip(got, want):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def c2_field(p, seed, dtype=torch.float32):
+    """A positive tau^2 c^2 field around a2tau2 (0.5x to 1.5x)."""
+    g = torch.Generator().manual_seed(seed)
+    return (p.a2tau2 * (0.5 + torch.rand((p.N,) * 3, generator=g,
+                                         dtype=torch.float64))).to(dtype)
 
 
 @pytest.mark.parametrize("n", [16, 48])
@@ -72,6 +79,56 @@ def test_k2(cuda, n, dtype):
         equal(got, want)
 
 
+@pytest.mark.parametrize("n", [16, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_k5(cuda, n, dtype):
+    p = Problem(N=n, timesteps=10)
+    up, u = field(n, 1, dtype=dtype).to(cuda), field(n, 2, dtype=dtype).to(cuda)
+    fld = c2_field(p, 3, stencil_ref.compute_dtype(dtype)).to(cuda)
+    before = dict(stencil_cuda.launches)
+    got = stencil_cuda.fused_step(up, u, inv_h2=p.inv_h2, c2tau2_field=fld)
+    assert stencil_cuda.launches["var_step"] == before["var_step"] + 1
+    assert stencil_cuda.launches["step"] == before["step"]
+    equal([got], [stencil_cuda.fused_step_plain(up, u, inv_h2=p.inv_h2,
+                                                c2tau2_field=fld)])
+
+
+# (n, k): n = 15, 21 take the run-time tile depth (tx = 5, 7).
+@pytest.mark.parametrize("n,k", [(16, 2), (16, 4), (16, 8), (48, 3), (48, 4),
+                                 (48, 6), (15, 3), (15, 5), (21, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k3(cuda, n, k, dtype, with_field, with_errors):
+    p = Problem(N=n, timesteps=20)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
+    sxct = ct[2:2 + k][:, None] * sx[None, :]
+    up, u = field(n, 11, dtype=dtype).to(cuda), field(n, 12, dtype=dtype).to(cuda)
+    fld = c2_field(p, 13).to(cuda) if with_field else None
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, c2tau2_field=fld,
+              with_errors=with_errors)
+    name = "kstep_field" if with_field else "kstep"
+    before = stencil_cuda.launches[name]
+    got = stencil_cuda.fused_kstep(up, u, syz, rsyz, sxct, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    want = stencil_cuda.fused_kstep_plain(up, u, syz, rsyz, sxct, **kw)
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    equal(got, want)
+
+
+def test_k3_error_rows_propagate_nan(cuda):
+    p = Problem(N=16, timesteps=20)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
+    sxct = ct[2:4][:, None] * sx[None, :]
+    u = field(16, 14)
+    u[5, 3, 3] = float("nan")
+    u = u.to(cuda)
+    out = stencil_cuda.fused_kstep(u, u, syz, rsyz, sxct, k=2,
+                                   coeff=p.a2tau2, inv_h2=p.inv_h2)
+    assert torch.isnan(out[2][0, 5]) and torch.isnan(out[3][0, 5])
+
+
 MODES = {
     "f32v_bf16carry": (torch.float32, torch.bfloat16),
     "f32v_f32carry": (torch.float32, torch.float32),
@@ -98,6 +155,52 @@ def test_k4(cuda, n, k, bx, mode):
     equal(got, want)
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("n,k,bx", [(16, 1, 8), (16, 4, 8), (48, 4, 8),
+                                    (15, 3, 15)])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k4f(cuda, n, k, bx, mode, with_errors):
+    # Rows off is how the variable-c flagship launches K4f.
+    v_dt, c_dt = MODES[mode]
+    p = Problem(N=n, timesteps=20)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
+    sxct = ct[2:2 + k][:, None] * sx[None, :]
+    u = field(n, 6).to(cuda)
+    v = field(n, 7, 1e-3).to(cuda, v_dt)
+    c = None if c_dt is None else field(n, 8, 1e-8).to(cuda, c_dt)
+    fld = c2_field(p, 9).to(cuda)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, block_x=bx,
+              c2tau2_field=fld, with_errors=with_errors)
+    before = dict(stencil_cuda.launches)
+    got = stencil_cuda.fused_kstep_comp(u, v, c, syz, rsyz, sxct, **kw)
+    assert (stencil_cuda.launches["kstep_comp_field"]
+            == before["kstep_comp_field"] + 1)
+    assert stencil_cuda.launches["kstep_comp"] == before["kstep_comp"]
+    want = stencil_cuda.fused_kstep_comp_plain(u, v, c, syz, rsyz, sxct, **kw)
+    equal(got, want)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_k4f_bootstrap(cuda, mode):
+    # The variable-c flagship's layer 1: K4f at k=1 with half the field,
+    # zero v and carry, zero oracle planes and no error rows.
+    v_dt, c_dt = MODES[mode]
+    n = 48
+    p = Problem(N=n, timesteps=20)
+    u = field(n, 6).to(cuda)
+    v = torch.zeros((n,) * 3, dtype=v_dt, device=cuda)
+    c = None if c_dt is None else torch.zeros((n,) * 3, dtype=c_dt,
+                                              device=cuda)
+    zero = torch.zeros((n, n), device=cuda)
+    sxct = torch.zeros((1, n), device=cuda)
+    kw = dict(k=1, coeff=None, inv_h2=p.inv_h2, block_x=8,
+              with_errors=False, c2tau2_field=0.5 * c2_field(p, 9).to(cuda))
+    got = stencil_cuda.fused_kstep_comp(u, v, c, zero, zero, sxct, **kw)
+    want = stencil_cuda.fused_kstep_comp_plain(u, v, c, zero, zero, sxct,
+                                               **kw)
+    equal(got, want)
+
+
 def test_k4_error_rows_propagate_nan(cuda):
     p = Problem(N=16, timesteps=20)
     sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
@@ -121,15 +224,62 @@ def test_cuda_tensors_never_fall_back(cuda):
         stencil_cuda.fused_kstep_comp(
             d, d, None, d[0], d[0], d[:2, 0], k=2, coeff=1.0,
             inv_h2=p.inv_h2)
+    d = u.double()
+    with pytest.raises(ValueError):  # K3 takes no f64 state on the card
+        stencil_cuda.fused_kstep(d, d, None, None, None, k=2, coeff=1.0,
+                                 inv_h2=p.inv_h2, with_errors=False)
+    with pytest.raises(ValueError):  # K3 takes no k = 1 (K1's job)
+        stencil_cuda.fused_kstep(u, u, None, None, None, k=1, coeff=1.0,
+                                 inv_h2=p.inv_h2, with_errors=False)
+    with pytest.raises(ValueError):  # k must divide N
+        stencil_cuda.fused_kstep(u, u, None, None, None, k=3, coeff=1.0,
+                                 inv_h2=p.inv_h2, with_errors=False)
+    with pytest.raises(ValueError):  # a field in the wrong dtype
+        stencil_cuda.fused_step(u, u, inv_h2=p.inv_h2, c2tau2_field=d)
+    with pytest.raises(ValueError):  # a field on the CPU
+        stencil_cuda.fused_kstep(u, u, None, None, None, k=2, coeff=1.0,
+                                 inv_h2=p.inv_h2, with_errors=False,
+                                 c2tau2_field=u.cpu())
+    with pytest.raises(ValueError):  # a field of the wrong shape
+        stencil_cuda.fused_kstep_comp(
+            u, u, None, u[0], u[0], u[:2, 0].contiguous(), k=2, coeff=1.0,
+            inv_h2=p.inv_h2, c2tau2_field=u[:8].contiguous())
 
 
-@pytest.mark.parametrize("solver", ["standard", "compensated", "flagship"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+@pytest.mark.parametrize("n,k", [(16, 4), (48, 3)])
+def test_kfused_equals_1step_on_card(cuda, dtype, with_field, n, k):
+    p = Problem(N=n, timesteps=14)
+    if with_field:
+        fld = stencil_ref.make_preset_c2tau2_field(p, "gaussian-lens")
+        a = kfused.solve_kfused(p, dtype=dtype, k=k, c2tau2_field=fld,
+                                compute_errors=False, device=cuda)
+        b = leapfrog.solve(p, dtype=dtype, c2tau2_field=fld,
+                           compute_errors=False, device=cuda)
+    else:
+        a = kfused.solve_kfused(p, dtype=dtype, k=k, device=cuda)
+        b = leapfrog.solve(p, dtype=dtype, device=cuda)
+    assert torch.equal(a.u_cur, b.u_cur) and torch.equal(a.u_prev, b.u_prev)
+
+
+@pytest.mark.parametrize("solver", ["standard", "compensated", "flagship",
+                                    "kfused", "varc", "kfused_varc",
+                                    "flagship_varc"])
 def test_solvers_card_vs_cpu(cuda, solver):
     p = Problem(N=16, timesteps=11)
+    fld = stencil_ref.make_preset_c2tau2_field(p, "gaussian-lens")
     run = {
         "standard": lambda d: leapfrog.solve(p, device=d),
         "compensated": lambda d: leapfrog.solve_compensated(p, device=d),
         "flagship": lambda d: kfused_comp.solve_kfused_comp(p, device=d),
+        "kfused": lambda d: kfused.solve_kfused(p, device=d),
+        "varc": lambda d: leapfrog.solve(
+            p, c2tau2_field=fld, compute_errors=False, device=d),
+        "kfused_varc": lambda d: kfused.solve_kfused(
+            p, c2tau2_field=fld, compute_errors=False, device=d),
+        "flagship_varc": lambda d: kfused_comp.solve_kfused_comp(
+            p, c2tau2_field=fld, compute_errors=False, device=d),
     }[solver]
     stencil_cuda.reset_launches()
     gpu = run(cuda)

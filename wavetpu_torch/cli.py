@@ -13,12 +13,23 @@ Flags:
                                     incremental scheme (K2); compensated
                                     with --fuse-steps K is the flagship
                                     velocity-form march (K4)
-  --fuse-steps K                    K layers per kernel launch; K >= 2 needs
-                                    --scheme compensated (K | N, K <= 8)
-  --dtype {f32,f64}                 state dtype; f64 runs only on the CPU
+  --fuse-steps K                    K layers per kernel launch (2 <= K <= 8,
+                                    K | N): the standard k-fused march (K3,
+                                    bitwise equal to the 1-step march) or,
+                                    with --scheme compensated, the flagship
+  --dtype {f32,f64,bf16}            state dtype; f64 runs only on the CPU;
+                                    bf16 (f32 compute) only on the standard
+                                    scheme
   --v-dtype {f32,bf16}              increment-stream dtype of the flagship:
                                     bf16 = the carry-less increment-form
                                     bf16 mode
+  --c2-field PRESET|FILE.npy        variable wave speed c^2(x,y,z): a preset
+                                    (constant, gaussian-lens, two-layer) or
+                                    an .npy of c^2 on the (N,N,N) grid.  The
+                                    1-step march runs K5, --fuse-steps K
+                                    K3's field operand, the compensated
+                                    scheme (which needs --fuse-steps K) K4's.
+                                    Errors are off (no analytic oracle).
   --no-errors                       skip the per-layer analytic errors
   --out-dir DIR                     where the report files go
   --platform {gpu,cpu}              gpu (default) runs the CUDA kernels;
@@ -49,7 +60,6 @@ _NOT_PORTED = {
     "phase-timing": "queue 1 item 10 (solver/timing.py)",
     "kernel": "queue 1 item 4 (kernel selection; the port picks the CUDA "
               "kernels on the GPU and their plain versions on the CPU)",
-    "c2-field": "queue 2 K5 (variable c)",
     "stop-step": "queue 1 item 8 (checkpoint I/O)",
     "save-state": "queue 1 item 8 (checkpoint I/O)",
     "resume": "queue 1 item 8 (checkpoint I/O)",
@@ -75,13 +85,14 @@ _NOT_PORTED_SUBCOMMANDS = {
     "profile": "queue 1 item 7 (perf + metrics)",
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
-           "out-dir", "platform")
+           "out-dir", "platform", "c2-field")
 _VALUELESS = ("no-errors", "overlap", "distributed", "debug-nans",
               "no-watchdog", "phase-timing")
 _USAGE = (
     "usage: python -m wavetpu_torch N Np Lx Ly Lz [T] [timesteps] "
-    "[--scheme standard|compensated] [--fuse-steps K] [--dtype f32|f64] "
-    "[--v-dtype f32|bf16] [--no-errors] [--out-dir DIR] "
+    "[--scheme standard|compensated] [--fuse-steps K] "
+    "[--dtype f32|f64|bf16] [--v-dtype f32|bf16] "
+    "[--c2-field PRESET|FILE.npy] [--no-errors] [--out-dir DIR] "
     "[--platform gpu|cpu] | --version"
 )
 
@@ -97,11 +108,8 @@ def _parse(argv):
     for name, item in _NOT_PORTED.items():
         if name in flags:
             raise _NotPorted(f"--{name} is not ported yet: ROADMAP.md {item}")
-    if flags.get("dtype") == "bf16":
-        raise _NotPorted("--dtype bf16 is not ported yet: ROADMAP.md queue 1 "
-                         "item 4")
-    if flags.get("dtype", "f32") not in ("f32", "f64"):
-        raise ValueError(f"--dtype must be f32|f64, got {flags['dtype']}")
+    if flags.get("dtype", "f32") not in ("f32", "f64", "bf16"):
+        raise ValueError(f"--dtype must be f32|f64|bf16, got {flags['dtype']}")
     platform = flags.get("platform", "gpu")
     if platform not in ("gpu", "cpu"):
         raise ValueError(f"--platform must be gpu|cpu, got {platform}")
@@ -113,10 +121,17 @@ def _parse(argv):
     fuse_steps = int(flags.get("fuse-steps", "1"))
     if fuse_steps < 1:
         raise ValueError(f"--fuse-steps must be >= 1, got {fuse_steps}")
-    if fuse_steps > 1 and scheme == "standard":
-        raise _NotPorted(
-            "--fuse-steps K > 1 with the standard scheme is not ported yet: "
-            "ROADMAP.md queue 1 item 5 (the k-fused march, kernel K3)"
+    if scheme == "compensated" and flags.get("dtype") == "bf16":
+        raise ValueError(
+            "--dtype bf16 is not available for the compensated scheme "
+            "(it requires an f32/f64 carrier; for a bf16 increment stream "
+            "use --v-dtype bf16)"
+        )
+    if "c2-field" in flags and scheme == "compensated" and fuse_steps < 2:
+        raise ValueError(
+            "--c2-field with the compensated scheme rides the velocity-form "
+            "onion: add --fuse-steps K (the 1-step compensated kernel "
+            "carries a scalar coefficient)"
         )
     v_dtype = flags.get("v-dtype")
     if v_dtype is not None and v_dtype not in ("f32", "bf16"):
@@ -127,12 +142,49 @@ def _parse(argv):
             "--scheme compensated --fuse-steps K"
         )
     problem = Problem.from_argv(pos)
-    if fuse_steps > 1 and (problem.N % fuse_steps or fuse_steps > 8):
+    if fuse_steps > 8:
         raise ValueError(
-            f"--fuse-steps {fuse_steps} must divide N={problem.N} and be "
-            f"<= 8 (the K4 kernel's tile)"
+            f"--fuse-steps {fuse_steps} must be <= 8 (the cone tile of the "
+            f"k-step kernels K3 and K4)"
+        )
+    if fuse_steps > 1 and problem.N % fuse_steps:
+        if scheme == "standard":
+            raise _NotPorted(
+                f"--fuse-steps {fuse_steps} with N={problem.N} (K does not "
+                f"divide N: wavetpu's pad-and-mask march) is not ported "
+                f"yet: ROADMAP.md queue 1 item 10 (kernel K9)"
+            )
+        raise ValueError(
+            f"--fuse-steps {fuse_steps} must divide N={problem.N} for the "
+            f"compensated k-fused march"
         )
     return problem, flags, scheme, fuse_steps, platform
+
+
+def _c2_field(spec: str, problem: Problem):
+    """The host tau^2 c^2 field of `--c2-field`: a preset, or an .npy of c^2
+    on the (N,N,N) grid times tau^2 (wavetpu/cli.py:660-698).  Raises
+    ValueError with the message to print."""
+    import numpy as np
+
+    from wavetpu_torch.kernels import stencil_ref
+
+    if spec in stencil_ref.C2_PRESET_NAMES:
+        return stencil_ref.make_preset_c2tau2_field(problem, spec)
+    try:
+        arr = np.load(spec)
+    except Exception as e:
+        raise ValueError(
+            f"--c2-field {spec!r} is neither a preset "
+            f"({', '.join(sorted(stencil_ref.C2_PRESET_NAMES))}) nor a "
+            f"loadable .npy file: {e}"
+        ) from e
+    if arr.shape != (problem.N,) * 3:
+        raise ValueError(
+            f"--c2-field array shape {arr.shape} != {(problem.N,) * 3} "
+            f"(c^2 values on the fundamental grid)"
+        )
+    return np.asarray(arr, np.float64) * problem.tau**2
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -165,18 +217,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     device = torch.device("cuda" if platform == "gpu" else "cpu")
 
     from wavetpu_torch.io import report
-    from wavetpu_torch.solver import kfused_comp, leapfrog
+    from wavetpu_torch.solver import kfused, kfused_comp, leapfrog
 
     # Courant printout before solving (openmp_sol.cpp:214).
     print(f"C = {problem.courant:.6g}")
+    compute_errors = "no-errors" not in flags
+    c2_field = None
+    if "c2-field" in flags:
+        try:
+            c2_field = _c2_field(flags["c2-field"], problem)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if compute_errors:
+            # The analytic oracle only holds for constant speed.
+            print("errors: disabled (--c2-field has no analytic oracle)")
+            compute_errors = False
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
     print(f"device: {device_name}")
     print(f"scheme: {scheme}")
     if fuse_steps > 1:
         print(f"fuse-steps: {fuse_steps}")
-    dtype = torch.float64 if flags.get("dtype") == "f64" else torch.float32
-    compute_errors = "no-errors" not in flags
+    dtype = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
+        flags.get("dtype"), torch.float32)
     v_bf16 = flags.get("v-dtype") == "bf16"
 
     if scheme == "compensated" and fuse_steps > 1:
@@ -184,17 +248,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             problem, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors,
             v_dtype=torch.bfloat16 if v_bf16 else None, carry=not v_bf16,
-            device=device,
+            c2tau2_field=c2_field, device=device,
         )
     elif scheme == "compensated":
         result = leapfrog.solve_compensated(
             problem, dtype=dtype, compute_errors=compute_errors,
             device=device,
         )
+    elif fuse_steps > 1:
+        result = kfused.solve_kfused(
+            problem, dtype=dtype, k=fuse_steps,
+            compute_errors=compute_errors, c2tau2_field=c2_field,
+            device=device,
+        )
     else:
         result = leapfrog.solve(
             problem, dtype=dtype, compute_errors=compute_errors,
-            device=device,
+            c2tau2_field=c2_field, device=device,
         )
 
     path = report.write_report(
@@ -208,6 +278,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "fuse_steps": fuse_steps,
             "dtype": str(result.u_cur.dtype).replace("torch.", ""),
             "v_dtype": flags.get("v-dtype"),
+            "c2_field": flags.get("c2-field"),
         },
     )
     print(f"grids initialized in {int(result.init_seconds * 1000)}ms")

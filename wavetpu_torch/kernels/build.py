@@ -7,7 +7,9 @@ compiled by nvcc for Hopper and loaded with ctypes:
          -Xcompiler -fPIC -o <build dir>/lib<name>-<hash>.so csrc/<name>.cu
 
 No PyTorch headers are included, so a build takes about a minute (stencil.cu
-holds 64 instantiations of the k-step kernel).  The build
+holds 64 instantiations of K4, kstep.cu 28 of K3; the two build side by
+side).  Sources share `csrc/*.cuh`, which every library's hash covers.  The
+build
 directory is `kernels/_build/` inside the checkout (git ignores it; the
 WAVETPU_TORCH_BUILD_DIR environment variable moves it).  The file name
 carries a hash of the source and the flags, so an edited source rebuilds

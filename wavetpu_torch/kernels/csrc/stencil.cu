@@ -1,5 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the wave-equation stencil: the
 // CUDA counterparts of the Pallas kernels in wavetpu/kernels/stencil_pallas.py.
+// This file holds K1 and K5 (1-step), K2 (1-step compensated) and K4 (the
+// compensated k-step, with K4f's field operand); K3 is in kstep.cu.
 //
 // Built by wavetpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared
@@ -18,47 +20,9 @@
 // does not synchronise, and returns cudaGetLastError() so that a refused
 // launch (too many threads, too much shared memory) raises in Python.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-// dtype codes shared with stencil_cuda.py.
-enum { WT_F32 = 0, WT_F64 = 1, WT_BF16 = 2, WT_NONE = -1 };
+#include "common.cuh"
 
 namespace {
-
-template <typename T>
-struct Conv;
-
-template <>
-struct Conv<float> {
-  using F = float;
-  static __device__ __forceinline__ float to(float x) { return x; }
-  static __device__ __forceinline__ float from(float x) { return x; }
-};
-
-template <>
-struct Conv<double> {
-  using F = double;
-  static __device__ __forceinline__ double to(double x) { return x; }
-  static __device__ __forceinline__ double from(double x) { return x; }
-};
-
-template <>
-struct Conv<__nv_bfloat16> {
-  using F = float;
-  static __device__ __forceinline__ float to(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
 
 // One cell of the 1-step kernels: its flat index, its six wrapped
 // neighbours, and whether it lies on a stored Dirichlet plane.  The
@@ -115,9 +79,19 @@ dim3 grid_1step(int n) {
 // once); the 7-point re-reads of u are served by L1/L2.  Design: one
 // thread per cell, a 32 (z) x 8 (y) block per x plane, so every load and
 // the store coalesce along z and no index is divided.
-template <typename T>
+//
+// K5 (FIELD): the variable-speed step, replacing
+// stencil_pallas._var_step_kernel (through _fused_step(c2tau2_field=) /
+// make_step_fn(c2tau2_field=)):
+//   out = (2u + c2tau2[cell]*lap(u)) - u_prev
+// the same body with the field's cell in place of coeff, launched with
+// (alpha, beta) = (2, 1): 1*u_prev is exact, so it is K1's arithmetic, and
+// the k-fused var-c substep (K3's field operand) repeats it.  Bound: bytes,
+// 16 B/cell for f32 (the field is one more read).
+template <typename T, bool FIELD>
 __global__ void step_kernel(const T* __restrict__ uprev,
                             const T* __restrict__ u, T* __restrict__ out,
+                            const typename Conv<T>::F* __restrict__ c2,
                             int n, typename Conv<T>::F alpha,
                             typename Conv<T>::F beta,
                             typename Conv<T>::F coeff,
@@ -128,7 +102,7 @@ __global__ void step_kernel(const T* __restrict__ uprev,
   if (!cell_of_thread(n, e)) return;
   const F c = Conv<T>::to(u[e.c]);
   const F lap = laplacian<T, F>(u, e, c, ix, iy, iz);
-  F o = alpha * c + coeff * lap;
+  F o = alpha * c + (FIELD ? c2[e.c] : coeff) * lap;
   if (use_beta) o = o - beta * Conv<T>::to(uprev[e.c]);
   out[e.c] = Conv<T>::from(e.interior ? o : F(0));
 }
@@ -171,35 +145,32 @@ __global__ void comp_step_kernel(const T* __restrict__ u,
 // slab the TPU kernel holds) while its y/z halo cells are loaded from
 // memory (the TPU kernel holds whole y/z planes), so for the same block_x
 // the result is the TPU kernel's.  Per substep s the kernel also emits the
-// per-x-plane error maxes of the central cells,
-//   dmax[s-1, x] = max_{y,z} |t - sxct[s-1, x] * syz[y, z]|
-//   rmax[s-1, x] = max_{y,z} |t - sxct[s-1, x] * syz[y, z]| * rsyz[y, z]
-// combined with max on the bits of a non-negative float (unsigned order =
-// float order, and a NaN - bits above +inf - wins, as jnp.max propagates
-// it; fmaxf would drop it): a warp reduction, a shared atomicMax per warp,
-// a global atomicMax per tile.
+// per-x-plane error maxes of the central cells' u (csrc/common.cuh:
+// rows_reduce / rows_flush, NaN-propagating).
+// With a field (K4f, `has_field` of the TPU kernel) the Laplacian
+// coefficient of every substep is the field's cell c2tau2[x, y, z]:
+// d = mask(c2tau2*lap(u)).  The field is a run-time pointer (null: the
+// scalar coeff), read through the cache at each substep, so the 64
+// instantiations serve both.
 // Bound: bytes.  Per launch u and v are read and written once and the
-// carry read and written once (20 B/cell for f32 u/v + bf16 carry) however
-// many substeps run.  Design: a tile of tx (x) * ty (y) * tz (z) output
-// cells; its cone, (tx+2k)(ty+2k)(tz+2k) cells, has one thread per (y, z)
-// column, which keeps the column's u, v and carry in registers (the x
-// neighbours are the thread's own registers).  Each substep publishes u to
-// shared memory for the y/z neighbours (double-buffered, one barrier per
-// substep), then updates the column inside the shrinking cone.  The
+// carry read and written once (20 B/cell for f32 u/v + bf16 carry; the
+// field adds 4) however many substeps run.  Design: the cone tile of
+// csrc/common.cuh, the column's u, v and carry in registers.  The
 // redundant cone work is the price of keeping intermediate layers out of
 // device memory; streaming x through a pipeline would remove it.
-constexpr int kMaxTx = 8;
-constexpr int kConeThreads = 640;  // stencil_cuda._K4_MAX_THREADS
-
 // TX is the tile depth when known at compile time (kMaxTx, the usual case:
 // every predicate on the column length folds away), 0 for a run-time tx.
 // The fixed-depth instantiation doubles the build but is the faster one;
 // kernels/tile_ab.py times the two against each other (PERF.md).
+// A k=1 tile (the flagship's tail and variable-c bootstrap) holds 30 column
+// registers, so it is held to two blocks per SM (at most 51 registers per
+// thread); left free, ptxas gives it more and one block per SM.
 template <int K, int TX, typename VT, typename CT, bool HAS_CARRY>
-__global__ void __launch_bounds__(kConeThreads)
+__global__ void __launch_bounds__(kConeThreads, K == 1 ? 2 : 1)
 kstep_comp_kernel(const float* __restrict__ u, const VT* __restrict__ v,
                   const CT* __restrict__ carry, float* __restrict__ u_out,
                   VT* __restrict__ v_out, CT* __restrict__ carry_out,
+                  const float* __restrict__ c2,
                   const float* __restrict__ syz,
                   const float* __restrict__ rsyz,
                   const float* __restrict__ sxct,
@@ -208,73 +179,50 @@ kstep_comp_kernel(const float* __restrict__ u, const VT* __restrict__ v,
                   float ix, float iy, float iz) {
   constexpr int kEx = (TX > 0 ? TX : kMaxTx) + 2 * K;  // register column
   const int tx = TX > 0 ? TX : tx_arg;
-  extern __shared__ float plane[];      // [2][ex][ey * ez]
-  __shared__ unsigned emax[2][2][kMaxTx];  // [substep parity][abs|rel][x]
-  const int ex = tx + 2 * K, ey = ty + 2 * K, ez = tz + 2 * K;
-  const int cols = ey * ez;
-  const int tid = threadIdx.x;
-  const bool live = tid < cols;        // the block is padded to whole warps
-  const int lz = live ? tid % ez : 0;
-  const int ly = live ? tid / ez : 0;
-  const int x1 = blockIdx.z * tx, y1 = blockIdx.y * ty, z1 = blockIdx.x * tz;
-  const int xb0 = (x1 / bx) * bx;  // the block_x slab this tile lies in
-  const int gy = wrap(y1 - K + ly, n), gz = wrap(z1 - K + lz, n);
-  const bool interior = gy != 0 && gz != 0;
-  const int64_t nn = (int64_t)n * n;
-  const int64_t row = (int64_t)gy * n + gz;
-  // Central column: its cells are this tile's outputs.
-  const bool central = live && ly >= K && ly < K + ty && lz >= K &&
-                       lz < K + tz && y1 + ly - K < n && z1 + lz - K < n;
+  extern __shared__ float plane[];  // [2][ex][ey * ez]
+  __shared__ RowMax emax;
+  const Cone cn = cone_of_thread(K, tx, ty, tz, n);
+  const int xb0 = (cn.x1 / bx) * bx;  // the block_x slab this tile lies in
   const bool errors = dmax != nullptr;
   float syz_c = 0.0f, rsyz_c = 0.0f;
-  if (errors && central) {
-    syz_c = syz[row];
-    rsyz_c = rsyz[row];
+  if (errors && cn.central) {
+    syz_c = syz[cn.row];
+    rsyz_c = rsyz[cn.row];
   }
-  if (tid < 2 * 2 * kMaxTx) (&emax[0][0][0])[tid] = 0u;
+  rows_clear(emax, cn);
 
   float U[kEx], V[kEx], C[kEx];
 #pragma unroll
   for (int x = 0; x < kEx; ++x) {
     U[x] = V[x] = C[x] = 0.0f;
-    if (live && x < ex) {
-      const int xu = x1 - K + x;  // unwrapped x
-      const int64_t g = (int64_t)wrap(xu, n) * nn + row;
+    if (cn.live && x < cn.ex) {
+      const int xu = cn.x1 - K + x;  // unwrapped x
+      const int64_t g = cone_index<K>(cn, x, n);
       U[x] = u[g];
       V[x] = Conv<VT>::to(v[g]);
-      if (HAS_CARRY && xu >= xb0 && xu < xb0 + bx) C[x] = Conv<CT>::to(carry[g]);
+      if (HAS_CARRY && xu >= xb0 && xu < xb0 + bx)
+        C[x] = Conv<CT>::to(carry[g]);
     }
   }
 
 #pragma unroll
   for (int s = 1; s <= K; ++s) {
-    float* pl = plane + (s & 1) * ex * cols;
-    if (live) {
-#pragma unroll
-      for (int x = 0; x < kEx; ++x)
-        if (x < ex) pl[x * cols + tid] = U[x];
-    }
+    float* pl = plane + (s & 1) * cn.ex * cn.cols;
+    publish_column(pl, U, cn);
     __syncthreads();
-    if (errors && s > 1 && tid < 2 * kMaxTx && (tid % kMaxTx) < tx) {
-      // Flush substep s-1's per-plane maxes (all its warps passed the
-      // barrier above) and clear them for substep s+1.
-      const int which = tid / kMaxTx, p = tid % kMaxTx;
-      unsigned* rows = which ? rmax : dmax;
-      atomicMax(&rows[(int64_t)(s - 2) * n + x1 + p],
-                emax[(s - 1) & 1][which][p]);
-      emax[(s - 1) & 1][which][p] = 0u;
-    }
-    if (live && ly >= s && ly < ey - s && lz >= s && lz < ez - s) {
+    if (errors && s > 1) rows_flush(emax, dmax, rmax, s - 1, n, cn, tx);
+    if (cn.live && cn.ly >= s && cn.ly < cn.ey - s && cn.lz >= s &&
+        cn.lz < cn.ez - s) {
       float left = U[s - 1];
 #pragma unroll
       for (int x = 1; x < kEx - 1; ++x) {
-        if (x >= s && x < ex - s) {
+        if (x >= s && x < cn.ex - s) {
           const float c = U[x];
-          const int i = x * cols + tid;
-          float lap = (left + U[x + 1] - 2.0f * c) * ix;
-          lap = lap + (pl[i - ez] + pl[i + ez] - 2.0f * c) * iy;
-          lap = lap + (pl[i - 1] + pl[i + 1] - 2.0f * c) * iz;
-          const float d = interior ? coeff * lap : 0.0f;
+          const float lap = cone_laplacian(left, U[x + 1], c, pl,
+                                           x * cn.cols + cn.tid, cn.ez, ix,
+                                           iy, iz);
+          const float co = c2 ? c2[cone_index<K>(cn, x, n)] : coeff;
+          const float d = cn.interior ? co * lap : 0.0f;
           const float vn = V[x] + d;
           const float yy = HAS_CARRY ? vn - C[x] : vn;
           const float t = c + yy;
@@ -285,40 +233,17 @@ kstep_comp_kernel(const float* __restrict__ u, const VT* __restrict__ v,
         }
       }
     }
-    // Warps without a central column skip the reduction (warp-uniform).
-    if (errors && __any_sync(0xffffffffu, central)) {
-#pragma unroll
-      for (int p = 0; p < kMaxTx; ++p) {
-        if (p >= tx) break;  // uniform across the block
-        unsigned db = 0u, rb = 0u;
-        if (central) {
-          const float diff = fabsf(
-              U[K + p] - sxct[(int64_t)(s - 1) * n + x1 + p] * syz_c);
-          db = __float_as_uint(diff);
-          rb = __float_as_uint(fabsf(diff * rsyz_c));
-        }
-        db = __reduce_max_sync(0xffffffffu, db);
-        rb = __reduce_max_sync(0xffffffffu, rb);
-        if ((tid & 31) == 0) {
-          atomicMax(&emax[s & 1][0][p], db);
-          atomicMax(&emax[s & 1][1][p], rb);
-        }
-      }
-    }
+    if (errors) rows_reduce<K>(emax, U, sxct, s, n, cn, tx, syz_c, rsyz_c);
   }
   if (errors) {
     __syncthreads();
-    if (tid < 2 * kMaxTx && (tid % kMaxTx) < tx) {
-      const int which = tid / kMaxTx, p = tid % kMaxTx;
-      unsigned* rows = which ? rmax : dmax;
-      atomicMax(&rows[(int64_t)(K - 1) * n + x1 + p], emax[K & 1][which][p]);
-    }
+    rows_flush(emax, dmax, rmax, K, n, cn, tx);
   }
-  if (!central) return;
+  if (!cn.central) return;
 #pragma unroll
   for (int p = 0; p < kMaxTx; ++p) {
     if (p < tx) {
-      const int64_t g = (int64_t)(x1 + p) * nn + row;
+      const int64_t g = out_index(cn, p);
       u_out[g] = U[K + p];
       v_out[g] = Conv<VT>::from(V[K + p]);
       if (HAS_CARRY) carry_out[g] = Conv<CT>::from(C[K + p]);
@@ -328,7 +253,8 @@ kstep_comp_kernel(const float* __restrict__ u, const VT* __restrict__ v,
 
 template <int K, int TX, typename VT, typename CT, bool HAS_CARRY>
 int launch_kstep(const void* u, const void* v, const void* carry,
-                 void* u_out, void* v_out, void* carry_out, const void* syz,
+                 void* u_out, void* v_out, void* carry_out, const void* c2,
+                 const void* syz,
                  const void* rsyz, const void* sxct, void* dmax, void* rmax,
                  int n, int bx, int tx, int ty, int tz, float coeff,
                  float ix, float iy, float iz, cudaStream_t stream) {
@@ -345,7 +271,8 @@ int launch_kstep(const void* u, const void* v, const void* carry,
       static_cast<const float*>(u), static_cast<const VT*>(v),
       static_cast<const CT*>(carry), static_cast<float*>(u_out),
       static_cast<VT*>(v_out), static_cast<CT*>(carry_out),
-      static_cast<const float*>(syz), static_cast<const float*>(rsyz),
+      static_cast<const float*>(c2), static_cast<const float*>(syz),
+      static_cast<const float*>(rsyz),
       static_cast<const float*>(sxct), static_cast<unsigned*>(dmax),
       static_cast<unsigned*>(rmax), n, bx, tx, ty, tz, coeff, ix, iy, iz);
   return (int)cudaGetLastError();
@@ -356,7 +283,8 @@ int launch_kstep(const void* u, const void* v, const void* carry,
 template <int K>
 int launch_kstep_mode(int v_dtype, int carry_dtype, const void* u,
                       const void* v, const void* carry, void* u_out,
-                      void* v_out, void* carry_out, const void* syz,
+                      void* v_out, void* carry_out, const void* c2,
+                      const void* syz,
                       const void* rsyz, const void* sxct, void* dmax,
                       void* rmax, int n, int bx, int tx, int ty, int tz,
                       float coeff, float ix, float iy, float iz,
@@ -364,11 +292,13 @@ int launch_kstep_mode(int v_dtype, int carry_dtype, const void* u,
 #define WT_KSTEP(VT, CT, HC)                                                 \
   return tx == kMaxTx                                                        \
              ? launch_kstep<K, kMaxTx, VT, CT, HC>(                          \
-                   u, v, carry, u_out, v_out, carry_out, syz, rsyz, sxct,    \
-                   dmax, rmax, n, bx, tx, ty, tz, coeff, ix, iy, iz, st)     \
+                   u, v, carry, u_out, v_out, carry_out, c2, syz, rsyz,      \
+                   sxct, dmax, rmax, n, bx, tx, ty, tz, coeff, ix, iy, iz,   \
+                   st)                                                       \
              : launch_kstep<K, 0, VT, CT, HC>(                               \
-                   u, v, carry, u_out, v_out, carry_out, syz, rsyz, sxct,    \
-                   dmax, rmax, n, bx, tx, ty, tz, coeff, ix, iy, iz, st)
+                   u, v, carry, u_out, v_out, carry_out, c2, syz, rsyz,      \
+                   sxct, dmax, rmax, n, bx, tx, ty, tz, coeff, ix, iy, iz,   \
+                   st)
   if (v_dtype == WT_F32 && carry_dtype == WT_BF16)
     WT_KSTEP(float, __nv_bfloat16, true);
   if (v_dtype == WT_F32 && carry_dtype == WT_F32) WT_KSTEP(float, float, true);
@@ -388,34 +318,38 @@ const char* wt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int wt_step(const void* uprev, const void* u, void* out, int n, int dtype,
-            double alpha, double beta, double coeff, double ix, double iy,
-            double iz, int use_beta, void* stream) {
+// K1 with a null c2; K5 with the (n, n, n) field c2 in the compute dtype
+// (f64 for an f64 state, else f32) and (alpha, beta) = (2, 1).
+int wt_step(const void* uprev, const void* u, void* out, const void* c2,
+            int n, int dtype, double alpha, double beta, double coeff,
+            double ix, double iy, double iz, int use_beta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_1step(n), block(kRowThreads, kColThreads);
+#define WT_STEP(T, F)                                                        \
+  if (c2)                                                                    \
+    step_kernel<T, true><<<grid, block, 0, st>>>(                            \
+        static_cast<const T*>(uprev), static_cast<const T*>(u),              \
+        static_cast<T*>(out), static_cast<const F*>(c2), n, (F)alpha,        \
+        (F)beta, (F)coeff, (F)ix, (F)iy, (F)iz, use_beta);                   \
+  else                                                                       \
+    step_kernel<T, false><<<grid, block, 0, st>>>(                           \
+        static_cast<const T*>(uprev), static_cast<const T*>(u),              \
+        static_cast<T*>(out), nullptr, n, (F)alpha, (F)beta, (F)coeff,       \
+        (F)ix, (F)iy, (F)iz, use_beta)
   switch (dtype) {
     case WT_F32:
-      step_kernel<float><<<grid, block, 0, st>>>(
-          static_cast<const float*>(uprev), static_cast<const float*>(u),
-          static_cast<float*>(out), n, (float)alpha, (float)beta,
-          (float)coeff, (float)ix, (float)iy, (float)iz, use_beta);
+      WT_STEP(float, float);
       break;
     case WT_F64:
-      step_kernel<double><<<grid, block, 0, st>>>(
-          static_cast<const double*>(uprev), static_cast<const double*>(u),
-          static_cast<double*>(out), n, alpha, beta, coeff, ix, iy, iz,
-          use_beta);
+      WT_STEP(double, double);
       break;
     case WT_BF16:
-      step_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(uprev),
-          static_cast<const __nv_bfloat16*>(u),
-          static_cast<__nv_bfloat16*>(out), n, (float)alpha, (float)beta,
-          (float)coeff, (float)ix, (float)iy, (float)iz, use_beta);
+      WT_STEP(__nv_bfloat16, float);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef WT_STEP
   return (int)cudaGetLastError();
 }
 
@@ -447,10 +381,12 @@ int wt_comp_step(const void* u, const void* v, const void* carry,
 }
 
 // u f32; (v, carry) f32/bf16, f32/f32, f32/none or bf16/none (WT_NONE and
-// null pointers for no carry).  dmax/rmax are (k, n) uint32 rows zeroed by
-// the caller, or null.  1 <= k <= 8; tx <= 8 divides bx, bx divides n.
+// null pointers for no carry).  c2 is the f32 (n, n, n) field or null.
+// dmax/rmax are (k, n) uint32 rows zeroed by the caller, or null.
+// 1 <= k <= 8; tx <= 8 divides bx, bx divides n.
 int wt_kstep_comp(const void* u, const void* v, const void* carry,
-                  void* u_out, void* v_out, void* carry_out, const void* syz,
+                  void* u_out, void* v_out, void* carry_out, const void* c2,
+                  const void* syz,
                   const void* rsyz, const void* sxct, void* dmax, void* rmax,
                   int n, int k, int bx, int tx, int ty, int tz, int v_dtype,
                   int carry_dtype, double coeff, double ix, double iy,
@@ -463,8 +399,9 @@ int wt_kstep_comp(const void* u, const void* v, const void* carry,
 #define WT_K(KK)                                                             \
   case KK:                                                                   \
     return launch_kstep_mode<KK>(v_dtype, carry_dtype, u, v, carry, u_out,   \
-                                 v_out, carry_out, syz, rsyz, sxct, dmax,    \
-                                 rmax, n, bx, tx, ty, tz, c, fx, fy, fz, st)
+                                 v_out, carry_out, c2, syz, rsyz, sxct,      \
+                                 dmax, rmax, n, bx, tx, ty, tz, c, fx, fy,   \
+                                 fz, st)
   switch (k) {
     WT_K(1);
     WT_K(2);

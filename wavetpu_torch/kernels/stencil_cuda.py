@@ -1,18 +1,25 @@
-"""Wrappers of the CUDA stencil kernels (csrc/stencil.cu), each with its
-plain PyTorch version and a launch counter - the port of
+"""Wrappers of the CUDA stencil kernels (csrc/stencil.cu, csrc/kstep.cu),
+each with its plain PyTorch version and a launch counter - the port of
 wavetpu/kernels/stencil_pallas.py's single-device kernels.
 
-| kernel | replaces (wavetpu/kernels/stencil_pallas.py)      | wrapper            |
-|--------|---------------------------------------------------|--------------------|
-| K1     | `_step_kernel` via `_fused_step` :180 (call :209) | `fused_step`       |
-| K2     | `_comp_step_kernel` via `compensated_step` :575   | `compensated_step` |
-| K4     | `_kstep_comp_kernel` via `fused_kstep_comp` :1071 | `fused_kstep_comp` |
+| kernel | replaces (wavetpu/kernels/stencil_pallas.py)          | wrapper            | counter            |
+|--------|-------------------------------------------------------|--------------------|--------------------|
+| K1     | `_step_kernel` via `_fused_step` :180 (call :209)     | `fused_step`       | `step`             |
+| K5     | `_var_step_kernel` :147 via `_fused_step(c2tau2_field=)` | `fused_step(c2tau2_field=)` | `var_step` |
+| K2     | `_comp_step_kernel` via `compensated_step` :575       | `compensated_step` | `comp_step`        |
+| K3     | `_kstep_kernel` :745 via `fused_kstep` :824           | `fused_kstep`      | `kstep`            |
+| K3f    | K3 with `c2tau2_field` (`_field_onion` :721)          | `fused_kstep(c2tau2_field=)` | `kstep_field` |
+| K4     | `_kstep_comp_kernel` via `fused_kstep_comp` :1071     | `fused_kstep_comp` | `kstep_comp`       |
+| K4f    | K4 with `c2tau2_field` (`has_field` :1043)            | `fused_kstep_comp(c2tau2_field=)` | `kstep_comp_field` |
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests and `--platform cpu` run); a
 CUDA tensor launches the kernel or raises - there is no fallback.  Each
-wrapper adds one to `launches[<kernel>]` right after its kernel launched,
-and nowhere else, so a run can show that it went through the kernels.
+wrapper adds one to `launches[<counter>]` right after its kernel launched,
+and nowhere else, so a run can show that it went through the kernels (a
+field launch counts under its own name, so a run shows the field path
+ran).  A field `c2tau2_field` is a tau^2 c^2 (N, N, N) tensor in the
+compute dtype (f32 for f32 and bf16 states; `io.state.c2tau2_field`).
 
 The plain versions repeat the kernels' arithmetic in the same order (the
 Pallas kernels' order, which for K1 is `alpha*u + coeff*lap - beta*u_prev`,
@@ -31,15 +38,19 @@ from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import build
 from wavetpu_torch.kernels.stencil_ref import compute_dtype, laplacian
 
-launches: Dict[str, int] = {"step": 0, "comp_step": 0, "kstep_comp": 0}
+launches: Dict[str, int] = {
+    "step": 0, "var_step": 0, "comp_step": 0, "kstep": 0, "kstep_field": 0,
+    "kstep_comp": 0, "kstep_comp_field": 0,
+}
 
 # dtype codes of csrc/stencil.cu.
 _CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _NONE = -1
 
-# K4's tile limits (kMaxTx and kConeThreads in csrc/stencil.cu): at most 8
-# output planes in x, and one thread per (y, z) column of the cone, 640 at
-# most (the column's u, v and carry live in registers).
+# The cone kernels' tile limits (kMaxTx and kConeThreads in csrc/common.cuh):
+# at most 8 output planes in x, and one thread per (y, z) column of the
+# cone, 640 at most (the column's state lives in registers).  K3 takes
+# 2 <= k <= 8 (k = 1 is K1's job), K4 1 <= k <= 8.
 _KSTEP_MAX_TX = 8
 _K4_MAX_THREADS = 640
 _K4_MAX_K = 8
@@ -51,21 +62,42 @@ def reset_launches() -> None:
 
 
 def _lib() -> ctypes.CDLL:
+    """csrc/stencil.cu: K1/K5, K2, K4."""
     lib = build.load("stencil")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.wt_error_string.argtypes = [i]
         lib.wt_error_string.restype = ctypes.c_char_p
-        lib.wt_step.argtypes = [p, p, p, i, i, d, d, d, d, d, d, i, p]
+        lib.wt_step.argtypes = [p, p, p, p, i, i, d, d, d, d, d, d, i, p]
         lib.wt_step.restype = i
         lib.wt_comp_step.argtypes = [p, p, p, p, p, p, i, i, d, d, d, d, p]
         lib.wt_comp_step.restype = i
         lib.wt_kstep_comp.argtypes = (
-            [p] * 11 + [i] * 8 + [d] * 4 + [p]
+            [p] * 12 + [i] * 8 + [d] * 4 + [p]
         )
         lib.wt_kstep_comp.restype = i
         lib._wt_typed = True
     return lib
+
+
+def _kstep_lib() -> ctypes.CDLL:
+    """csrc/kstep.cu: K3."""
+    lib = build.load("kstep")
+    if not getattr(lib, "_wt_typed", False):
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.wt_kstep.argtypes = [p] * 10 + [i] * 6 + [d] * 4 + [p]
+        lib.wt_kstep.restype = i
+        lib._wt_typed = True
+    return lib
+
+
+def load_libraries() -> None:
+    """Build every kernel library not built yet (one nvcc per source, in
+    parallel) and load them all, so no build lands inside a timed
+    region."""
+    build.build_all()
+    _lib()
+    _kstep_lib()
 
 
 def _check_cuda(n: int, **tensors) -> None:
@@ -89,21 +121,44 @@ def _check_cuda(n: int, **tensors) -> None:
 
 def _run(fn, *args) -> None:
     """Call a C entry point on the current stream; raise on a CUDA error
-    (a refused launch never runs, and synchronize would not report it)."""
+    (a refused launch never runs, and synchronize would not report it).
+    Every library returns cudaError_t codes; stencil's wt_error_string
+    names them."""
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = _lib().wt_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
 
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check_field(field, u) -> None:
+    """A field on the card: (N, N, N), contiguous, on u's device, in u's
+    compute dtype (what the kernels read)."""
+    n = u.shape[0]
+    _check_cuda(n, u=u, c2tau2_field=field)
+    if field.dim() != 3 or field.dtype != compute_dtype(u.dtype):
+        raise ValueError(
+            f"c2tau2_field must be ({n}, {n}, {n}) "
+            f"{compute_dtype(u.dtype)}, got {field.dtype}{tuple(field.shape)}"
+        )
+
+
 # ---------------------------------------------------------------------------
 # K1: the 1-step stencil.
 
 
-def fused_step_plain(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff):
+def fused_step_plain(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff=None,
+                     c2tau2_field=None):
     """Plain K1: out = alpha*u + coeff*lap(u) - beta*u_prev (beta term only
-    if beta != 0) in the compute dtype, y=0 / z=0 planes masked."""
+    if beta != 0) in the compute dtype, y=0 / z=0 planes masked.  With
+    `c2tau2_field`, plain K5: (alpha, beta) = (2, 1) and the field's cell in
+    place of coeff (`alpha`, `beta`, `coeff` ignored, as the TPU kernel)."""
     f = compute_dtype(u.dtype)
+    if c2tau2_field is not None:
+        alpha, beta, coeff = 2.0, 1.0, c2tau2_field.to(f)
     c = u.to(f)
     out = alpha * c + coeff * laplacian(c, inv_h2)
     if beta:
@@ -113,22 +168,30 @@ def fused_step_plain(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff):
     return out.to(u.dtype)
 
 
-def fused_step(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff):
-    """K1 (replaces stencil_pallas._fused_step's constant-speed kernel)."""
+def fused_step(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff=None,
+               c2tau2_field=None):
+    """K1 (replaces stencil_pallas._fused_step's constant-speed kernel);
+    with `c2tau2_field`, K5 (its variable-speed kernel, `_var_step_kernel`):
+    out = (2u + c2tau2*lap(u)) - u_prev, `alpha`/`beta`/`coeff` ignored."""
     if u.device.type == "cpu":
         return fused_step_plain(u_prev, u, inv_h2=inv_h2, alpha=alpha,
-                                beta=beta, coeff=coeff)
+                                beta=beta, coeff=coeff,
+                                c2tau2_field=c2tau2_field)
     n = u.shape[0]
     _check_cuda(n, u=u, u_prev=u_prev)
     if u.dtype not in _CODE or u_prev.dtype != u.dtype:
-        raise ValueError(f"K1 takes f32/f64/bf16 state, got "
+        raise ValueError(f"K1/K5 take f32/f64/bf16 state, got "
                          f"{u.dtype}/{u_prev.dtype}")
+    if c2tau2_field is not None:
+        _check_field(c2tau2_field, u)
+        alpha, beta, coeff = 2.0, 1.0, 0.0
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         _run(_lib().wt_step, u_prev.data_ptr(), u.data_ptr(),
-             out.data_ptr(), n, _CODE[u.dtype], float(alpha), float(beta),
-             float(coeff), *(float(h) for h in inv_h2), int(beta != 0))
-    launches["step"] += 1
+             out.data_ptr(), _ptr(c2tau2_field), n, _CODE[u.dtype],
+             float(alpha), float(beta), float(coeff),
+             *(float(h) for h in inv_h2), int(beta != 0))
+    launches["step" if c2tau2_field is None else "var_step"] += 1
     return out
 
 
@@ -142,6 +205,21 @@ def taylor_half_step(u0, problem: Problem):
     """u1 = u0 + (a2tau2/2)*lap(u0), Dirichlet re-imposed."""
     return fused_step(u0, u0, inv_h2=problem.inv_h2, alpha=1.0, beta=0.0,
                       coeff=0.5 * problem.a2tau2)
+
+
+def make_step_fn(c2tau2_field=None):
+    """A `(u_prev, u, problem) -> u_next` step for `leapfrog.solve(step_fn=)`
+    (stencil_pallas.make_step_fn :2166): K1 for constant speed, K5 over
+    `c2tau2_field` (a device tensor in the compute dtype, placed once by
+    the caller) for variable speed."""
+    if c2tau2_field is None:
+        return leapfrog_step
+
+    def var_step(u_prev, u, problem: Problem):
+        return fused_step(u_prev, u, inv_h2=problem.inv_h2,
+                          c2tau2_field=c2tau2_field)
+
+    return var_step
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +266,95 @@ def compensated_step(u, v, carry, problem: Problem, coeff=None):
 
 
 # ---------------------------------------------------------------------------
+# K3: k fused leapfrog substeps.
+
+
+def fused_kstep_plain(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
+                      c2tau2_field=None, with_errors=True):
+    """Plain K3: k full-field leapfrog substeps, each op for op K1's
+    (2u + coeff*lap(u)) - u_prev with the y=0 / z=0 planes masked (the
+    field's cell in place of coeff with `c2tau2_field`), a bf16 state
+    rounded to bf16 and back after every substep.  The TPU kernel's x
+    onion computes the same cells, so no slab depth enters.  Returns
+    (u_{n+k-1}, u_{n+k}, dmax, rmax) with the (k, N) f32 per-substep
+    per-x-plane error maxes of each new layer against sxct[s-1, x] * syz
+    (None, None without `with_errors`)."""
+    n = u.shape[0]
+    if n % k:
+        raise ValueError(f"k={k} must divide N={n}")
+    f = compute_dtype(u.dtype)
+    co = coeff if c2tau2_field is None else c2tau2_field.to(f)
+    prev, cur = u_prev.to(f), u.to(f)
+    dmax = rmax = None
+    if with_errors:
+        dmax = torch.zeros((k, n), dtype=torch.float32, device=u.device)
+        rmax = torch.zeros((k, n), dtype=torch.float32, device=u.device)
+        syz_f, rsyz_f = syz.to(f), rsyz.to(f)
+    for s in range(1, k + 1):
+        new = 2.0 * cur + co * laplacian(cur, inv_h2)
+        new = new - prev
+        new[:, 0, :] = 0.0
+        new[:, :, 0] = 0.0
+        if u.dtype != f:
+            new = new.to(u.dtype).to(f)
+        if with_errors:
+            diff = (new - sxct[s - 1].to(f)[:, None, None] * syz_f).abs()
+            dmax[s - 1] = diff.amax(dim=(1, 2)).float()
+            rmax[s - 1] = (diff * rsyz_f).amax(dim=(1, 2)).float()
+        prev, cur = cur, new
+    return prev.to(u.dtype), cur.to(u.dtype), dmax, rmax
+
+
+def fused_kstep(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
+                c2tau2_field=None, with_errors=True):
+    """K3 (replaces stencil_pallas.fused_kstep): k temporally fused
+    leapfrog steps of the (N,N,N) state, bitwise equal to k K1 steps (K5
+    steps with `c2tau2_field`, which then replaces `coeff`).  Returns
+    (u_{n+k-1}, u_{n+k}, dmax, rmax); dmax/rmax are the (k, N) f32
+    per-substep per-x-plane error maxes (None, None without
+    `with_errors`; then syz, rsyz and sxct are not read).  On the card:
+    f32 or bf16 state, 2 <= k <= 8, k | N."""
+    n = u.shape[0]
+    if u.device.type == "cpu":
+        return fused_kstep_plain(
+            u_prev, u, syz, rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
+            c2tau2_field=c2tau2_field, with_errors=with_errors,
+        )
+    if not 2 <= k <= _K4_MAX_K or n % k:
+        raise ValueError(f"k={k}: the K3 kernel takes 2 <= k <= {_K4_MAX_K} "
+                         f"dividing N={n} (k=1 is K1's step)")
+    _check_cuda(n, u=u, u_prev=u_prev)
+    if u.dtype not in (torch.float32, torch.bfloat16) or \
+            u_prev.dtype != u.dtype:
+        raise ValueError(f"K3 takes an f32 or bf16 state, got "
+                         f"{u.dtype}/{u_prev.dtype}")
+    if c2tau2_field is not None:
+        _check_field(c2tau2_field, u)
+    dmax = rmax = None
+    if with_errors:
+        _check_cuda(n, syz=syz, rsyz=rsyz, sxct=sxct)
+        _check_planes(n, k, syz, rsyz, sxct)
+        dmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
+        rmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
+    tx, ty, tz = kstep_tile(k, n)
+    prev_out = torch.empty_like(u)
+    out = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        _run(_kstep_lib().wt_kstep, u_prev.data_ptr(), u.data_ptr(),
+             prev_out.data_ptr(), out.data_ptr(), _ptr(c2tau2_field),
+             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
+               if with_errors else (None, None, None)),
+             _ptr(dmax), _ptr(rmax), n, k, tx, ty, tz, _CODE[u.dtype],
+             float(coeff if c2tau2_field is None else 0.0),
+             *(float(h) for h in inv_h2))
+    launches["kstep" if c2tau2_field is None else "kstep_field"] += 1
+    if with_errors:
+        # The kernel combined the rows as the bits of non-negative floats.
+        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
+    return prev_out, out, dmax, rmax
+
+
+# ---------------------------------------------------------------------------
 # K4: k fused velocity-form substeps.
 
 
@@ -206,10 +373,11 @@ def default_block_x(n: int, k: int) -> int:
 
 
 def kstep_tile(k: int, bx: int) -> Tuple[int, int, int]:
-    """(tx, ty, tz) output tile of the K4 kernel.  tx is the largest divisor
-    of bx up to 8 (a tile lies in one carry slab); tz is 32 (a warp-wide z
-    row) or 16 where a 32-wide cone leaves no room; ty is the most rows
-    whose cone, (ty+2k)(tz+2k) columns, fits 640 threads."""
+    """(tx, ty, tz) output tile of the cone kernels.  tx is the largest
+    divisor of bx up to 8 (K4: a tile lies in one carry slab; K3 passes
+    bx = N); tz is 32 (a warp-wide z row) or 16 where a 32-wide cone leaves
+    no room; ty is the most rows whose cone, (ty+2k)(tz+2k) columns, fits
+    640 threads."""
     if not 1 <= k <= _K4_MAX_K:
         raise ValueError(f"k={k}: the K4 kernel takes 1 <= k <= {_K4_MAX_K}")
     tx = max(d for d in range(1, _KSTEP_MAX_TX + 1) if bx % d == 0)
@@ -228,11 +396,21 @@ def _check_kstep(n, k, bx):
                          f"of k={k}")
 
 
+def _check_planes(n, k, syz, rsyz, sxct):
+    for name, t, shape in (("syz", syz, (n, n)), ("rsyz", rsyz, (n, n)),
+                           ("sxct", sxct, (k, n))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be f32 {shape}")
+
+
 def fused_kstep_comp_plain(u, v, carry, syz, rsyz, sxct, *, k, coeff,
-                           inv_h2, block_x, with_errors=True):
+                           inv_h2, block_x, with_errors=True,
+                           c2tau2_field=None):
     """Plain K4, slab by slab exactly as the TPU kernel: u and v onions of
     block_x + 2k planes with wrapped x halos, the carry zero on the halo
-    planes, k substeps shrinking the onion by one plane per side.  Returns
+    planes, k substeps shrinking the onion by one plane per side; with
+    `c2tau2_field` (plain K4f) the field's onion, whose slice
+    [s, bx + 2k - s) is substep s's coefficient in place of coeff.  Returns
     (u', v', carry' | None, dmax, rmax) with (k, N) f32 error rows (None
     without `with_errors`)."""
     n = u.shape[0]
@@ -254,6 +432,8 @@ def fused_kstep_comp_plain(u, v, carry, syz, rsyz, sxct, *, k, coeff,
         idx = torch.arange(x0 - k, x0 + bx + k, device=dev) % n
         U = u[idx].to(f)
         V = v[idx].to(f)
+        if c2tau2_field is not None:
+            F = c2tau2_field[idx].to(f)
         if carry is not None:
             zpad = torch.zeros((k, n, n), dtype=f, device=dev)
             C = torch.cat([zpad, carry[x0:x0 + bx].to(f), zpad], 0)
@@ -266,7 +446,9 @@ def fused_kstep_comp_plain(u, v, carry, syz, rsyz, sxct, *, k, coeff,
             lap = lap + (
                 torch.roll(uc, 1, 2) + torch.roll(uc, -1, 2) - 2.0 * uc
             ) * iz
-            d = torch.where(mask, coeff * lap, 0.0)
+            co = (coeff if c2tau2_field is None
+                  else F[s: bx + 2 * k - s])
+            d = torch.where(mask, co * lap, 0.0)
             vn = V[1:-1] + d
             y = vn - C[1:-1] if carry is not None else vn
             t = uc + y
@@ -289,20 +471,23 @@ def fused_kstep_comp_plain(u, v, carry, syz, rsyz, sxct, *, k, coeff,
 
 
 def fused_kstep_comp(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
-                     block_x: Optional[int] = None, with_errors=True):
+                     block_x: Optional[int] = None, with_errors=True,
+                     c2tau2_field=None):
     """K4 (replaces stencil_pallas.fused_kstep_comp): k compensated
     velocity-form substeps of the (N,N,N) state.  `carry=None` is the
     carry-less increment form.  Returns (u', v', carry' | None, dmax, rmax)
     with the (k, N) f32 per-substep per-x-plane error rows (None, None
     without `with_errors`).  `block_x` (default `default_block_x`) is the
     carry slab depth; results equal the TPU kernel's for the same block_x.
+    With `c2tau2_field` (f32 (N,N,N)), K4f: the increment is
+    v' = v + mask(c2tau2*lap(u)) and `coeff` is ignored.
     """
     n = u.shape[0]
     bx = block_x or default_block_x(n, k)
     if u.device.type == "cpu":
         return fused_kstep_comp_plain(
             u, v, carry, syz, rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
-            block_x=bx, with_errors=with_errors,
+            block_x=bx, with_errors=with_errors, c2tau2_field=c2tau2_field,
         )
     _check_kstep(n, k, bx)
     _check_cuda(n, u=u, v=v, carry=carry, syz=syz, rsyz=rsyz, sxct=sxct)
@@ -315,10 +500,9 @@ def fused_kstep_comp(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
                               or v.dtype != torch.float32):
         raise ValueError(f"K4 takes an f32/bf16 carry with an f32 v, got "
                          f"{carry.dtype} with {v.dtype}")
-    for name, t, shape in (("syz", syz, (n, n)), ("rsyz", rsyz, (n, n)),
-                           ("sxct", sxct, (k, n))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be f32 {shape}")
+    _check_planes(n, k, syz, rsyz, sxct)
+    if c2tau2_field is not None:
+        _check_field(c2tau2_field, u)
     tx, ty, tz = kstep_tile(k, bx)
     u_out = torch.empty_like(u)
     v_out = torch.empty_like(v)
@@ -328,17 +512,16 @@ def fused_kstep_comp(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
         dmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
         rmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(u.device):
-        _run(_lib().wt_kstep_comp, u.data_ptr(), v.data_ptr(), ptr(carry),
-             u_out.data_ptr(), v_out.data_ptr(), ptr(c_out), syz.data_ptr(),
-             rsyz.data_ptr(), sxct.data_ptr(), ptr(dmax), ptr(rmax), n, k,
-             bx, tx, ty, tz, _CODE[v.dtype],
-             _NONE if carry is None else _CODE[carry.dtype], float(coeff),
+        _run(_lib().wt_kstep_comp, u.data_ptr(), v.data_ptr(), _ptr(carry),
+             u_out.data_ptr(), v_out.data_ptr(), _ptr(c_out),
+             _ptr(c2tau2_field), syz.data_ptr(), rsyz.data_ptr(),
+             sxct.data_ptr(), _ptr(dmax), _ptr(rmax), n, k, bx, tx, ty, tz,
+             _CODE[v.dtype], _NONE if carry is None else _CODE[carry.dtype],
+             float(coeff if c2tau2_field is None else 0.0),
              *(float(h) for h in inv_h2))
-    launches["kstep_comp"] += 1
+    launches["kstep_comp" if c2tau2_field is None
+             else "kstep_comp_field"] += 1
     if with_errors:
         # The kernel combined the rows as the bits of non-negative floats.
         dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)

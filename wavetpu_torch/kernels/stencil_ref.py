@@ -19,6 +19,9 @@ their plain versions in `stencil_cuda`) keep the Pallas kernels'
 
 from __future__ import annotations
 
+from typing import Callable
+
+import numpy as np
 import torch
 
 from wavetpu_torch.core.problem import Problem
@@ -66,6 +69,91 @@ def taylor_half_step(u0, problem: Problem):
     uc = u0.to(f)
     u1 = uc + (0.5 * problem.a2tau2) * laplacian(uc, problem.inv_h2)
     return apply_dirichlet(u1).to(u0.dtype)
+
+
+def make_c2tau2_field(
+    problem: Problem, c2_fn: Callable[[np.ndarray, np.ndarray, np.ndarray], np.ndarray]
+) -> np.ndarray:
+    """Evaluate tau^2 * c^2(x, y, z) on the fundamental grid, host-side f64.
+
+    `c2_fn` takes broadcastable (x, y, z) coordinate arrays and returns the
+    squared wave speed.  The constant-speed problem is `c2_fn = lambda
+    x, y, z: problem.a2`; the result then equals `problem.a2tau2`
+    everywhere.  (A verbatim copy of wavetpu's, so a field means the same
+    physics in both packages.)
+
+    Variable wave speed is a capability extension over the reference (its
+    a^2 is hardcoded, openmp_sol.cpp:207); the analytic oracle only holds
+    for constant speed, so variable-c runs should pass compute_errors=False.
+    """
+    n = problem.N
+    x = (np.arange(n, dtype=np.float64) * problem.hx)[:, None, None]
+    y = (np.arange(n, dtype=np.float64) * problem.hy)[None, :, None]
+    z = (np.arange(n, dtype=np.float64) * problem.hz)[None, None, :]
+    c2 = np.broadcast_to(
+        np.asarray(c2_fn(x, y, z), dtype=np.float64), (n, n, n)
+    )
+    return c2 * problem.tau**2
+
+
+C2_PRESET_NAMES = ("constant", "gaussian-lens", "two-layer")
+
+
+def make_preset_c2tau2_field(problem: Problem, name: str) -> np.ndarray:
+    """The named tau^2 c^2(x,y,z) presets, the same table as wavetpu's
+    (CLI `--c2-field`), so a preset name means the same physics in both
+    packages.
+
+    constant: c^2 = a^2 everywhere (collapses to a2tau2).  gaussian-lens: a
+    slow-speed lens dipping to a^2/2 at the domain centre.  two-layer: a
+    discontinuous interface with the far z half running at DOUBLE c^2
+    (Courant-unstable at configs whose constant-c C is already near the
+    bound).
+    """
+    a2 = problem.a2
+
+    def _gaussian_lens(x, y, z):
+        s2 = 2.0 * (problem.Lx / 8.0) ** 2
+        r2 = (
+            (x - problem.Lx / 2) ** 2
+            + (y - problem.Ly / 2) ** 2
+            + (z - problem.Lz / 2) ** 2
+        )
+        return a2 * (1.0 - 0.5 * np.exp(-r2 / s2))
+
+    presets = {
+        "constant": lambda x, y, z: a2 * np.ones_like(x + y + z),
+        "gaussian-lens": _gaussian_lens,
+        "two-layer": lambda x, y, z: np.where(
+            z < problem.Lz / 2, a2, 2.0 * a2
+        ) + 0.0 * x + 0.0 * y,
+    }
+    if name not in presets:
+        raise ValueError(
+            f"c2 preset must be one of {sorted(presets)}, got {name!r}"
+        )
+    return make_c2tau2_field(problem, presets[name])
+
+
+def make_variable_c_step(c2tau2_field):
+    """A plain full-field step with spatially varying speed:
+    u_next = 2u - u_prev + tau^2 c^2(x,y,z) lap(u), Dirichlet re-imposed.
+
+    `c2tau2_field` is a device tensor (the caller places it once); the
+    returned `(u_prev, u, problem) -> u_next` slots into
+    `leapfrog.solve(step_fn=...)`.  It casts the field to the compute dtype
+    per call; the K5 step (`stencil_cuda.make_step_fn`) takes it as is.
+    """
+
+    def step(u_prev, u, problem: Problem):
+        f = compute_dtype(u.dtype)
+        uc = u.to(f)
+        u_next = 2.0 * uc - u_prev.to(f) + c2tau2_field.to(f) * laplacian(
+            uc, problem.inv_h2
+        )
+        return apply_dirichlet(u_next).to(u.dtype)
+
+    return step
 
 
 def compensated_step(u, v, carry, problem: Problem, coeff=None):

@@ -1,16 +1,17 @@
-"""A/B timing of K4's compile-time tile depth on the card.
+"""A/B timing of the cone kernels' compile-time tile depth on the card.
 
     python -m wavetpu_torch.kernels.tile_ab [--n 512] [--reps 30]
 
-csrc/stencil.cu instantiates the k-step kernel twice per storage mode and
-k: with the tile depth tx fixed at compile time (tx = kMaxTx = 8, what the
-main path launches) and with tx read at run time (any other tx).  This
-script builds the source as it is (A) and a copy whose dispatch always
-takes the run-time instantiation (B), holds B's outputs bitwise against
-A's, and times both at N (f32 v, bf16 carry; k=4 and k=1) in the order
-A, B, B, A - median of `reps` launches each, CUDA events.  It prints the
-card's name and power limit and one JSON line of the times.  Needs a CUDA
-device and nvcc.
+csrc/stencil.cu (K4) and csrc/kstep.cu (K3) instantiate their k-step
+kernel twice per mode and k: with the tile depth tx fixed at compile time
+(tx = kMaxTx = 8, what the main path launches) and with tx read at run
+time (any other tx).  For each source this script builds it as it is (A)
+and a copy whose dispatch always takes the run-time instantiation (B),
+holds B's outputs bitwise against A's, and times both at N in the order
+A, B, B, A - median of `reps` launches each, CUDA events: K4 with f32 v
+and a bf16 carry at k=4 and k=1, K3 with an f32 state at k=4, error rows
+on.  It prints the card's name and power limit and one JSON line of the
+times.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -32,24 +33,31 @@ _FIXED = "return tx == kMaxTx"
 _RUNTIME = "return false"
 
 
-def _build_variants() -> dict:
-    """{'A': library of the source, 'B': the run-time-tx-only copy}."""
-    src = (build.CSRC / "stencil.cu").read_text()
-    if src.count(_FIXED) != 1:
-        raise RuntimeError("csrc/stencil.cu: K4 dispatch not found")
+def _build_variants(sources) -> dict:
+    """{(source, 'A'): library of the source, (source, 'B'): its
+    run-time-tx-only copy}, every nvcc started at once."""
     out = build.build_dir() / "tile_ab"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "runtime_tx.cu").write_text(src.replace(_FIXED, _RUNTIME))
-    paths = {"A": build.CSRC / "stencil.cu", "B": out / "runtime_tx.cu"}
+    paths = {}
+    for name in sources:
+        src = (build.CSRC / f"{name}.cu").read_text()
+        if src.count(_FIXED) != 1:
+            raise RuntimeError(f"csrc/{name}.cu: tile dispatch not found")
+        (out / f"{name}_runtime_tx.cu").write_text(
+            src.replace(_FIXED, _RUNTIME))
+        paths[name, "A"] = build.CSRC / f"{name}.cu"
+        paths[name, "B"] = out / f"{name}_runtime_tx.cu"
     procs = {
-        k: subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-                             str(out / f"{k}.so"), str(p)])
-        for k, p in paths.items()
+        key: subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS,
+                               "-I", str(build.CSRC), "-o",
+                               str(out / f"{key[0]}_{key[1]}.so"), str(p)])
+        for key, p in paths.items()
     }
-    for k, p in procs.items():
+    for key, p in procs.items():
         if p.wait() != 0:
-            raise RuntimeError(f"nvcc failed for variant {k}")
-    return {k: ctypes.CDLL(str(out / f"{k}.so")) for k in paths}
+            raise RuntimeError(f"nvcc failed for variant {key}")
+    return {key: ctypes.CDLL(str(out / f"{key[0]}_{key[1]}.so"))
+            for key in paths}
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -75,8 +83,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("tile_ab needs a CUDA device")
     t0 = time.perf_counter()
-    libs = _build_variants()
-    print(f"built A and B in {time.perf_counter() - t0:.1f} s")
+    libs = _build_variants(("stencil", "kstep"))
+    print(f"built A and B of stencil.cu and kstep.cu in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     n = args.n
     p = Problem(N=n, timesteps=1000)
@@ -89,31 +98,42 @@ def main(argv=None) -> int:
         return a.to("cuda", dtype)
 
     u, v, c = field(1.0), field(1e-3), field(1e-8, torch.bfloat16)
+    up = field(1.0)
     sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, "cuda")
 
-    def use(name):
-        build._libs["stencil"] = libs[name]
+    def sxct(k):
+        return ct[2:2 + k][:, None] * sx[None, :]
 
     def k4(k):
-        sxct = ct[2:2 + k][:, None] * sx[None, :]
+        s = sxct(k)
         return lambda: stencil_cuda.fused_kstep_comp(
-            u, v, c, syz, rsyz, sxct, k=k, coeff=p.a2tau2, inv_h2=p.inv_h2)
+            u, v, c, syz, rsyz, s, k=k, coeff=p.a2tau2, inv_h2=p.inv_h2)
+
+    def k3(k):
+        s = sxct(k)
+        return lambda: stencil_cuda.fused_kstep(
+            up, u, syz, rsyz, s, k=k, coeff=p.a2tau2, inv_h2=p.inv_h2)
 
     result = {}
-    for k in (4, 1):
+    for label, source, fn in (("K4 k=4", "stencil", k4(4)),
+                              ("K4 k=1", "stencil", k4(1)),
+                              ("K3 k=4", "kstep", k3(4))):
+        def use(variant):
+            build._libs[source] = libs[source, variant]
+
         outs = {}
-        for name in ("A", "B"):
-            use(name)
-            outs[name] = k4(k)()
+        for variant in ("A", "B"):
+            use(variant)
+            outs[variant] = fn()
         for i, (a, b) in enumerate(zip(outs["A"], outs["B"])):
             if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
-                raise SystemExit(f"k={k} output {i}: A and B differ")
+                raise SystemExit(f"{label} output {i}: A and B differ")
         runs = []
-        for name in ("A", "B", "B", "A"):
-            use(name)
-            runs.append([name, _median_ms(k4(k), args.reps)])
-        result[f"k{k}"] = runs
-        print(f"k={k} N={n}: A and B bitwise equal; median ms {runs}")
+        for variant in ("A", "B", "B", "A"):
+            use(variant)
+            runs.append([variant, _median_ms(fn, args.reps)])
+        result[label] = runs
+        print(f"{label} N={n}: A and B bitwise equal; median ms {runs}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

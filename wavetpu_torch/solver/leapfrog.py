@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from wavetpu_torch.core.problem import Problem
-from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
+from wavetpu_torch.io import state
+from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.verify import oracle
 
 
@@ -77,10 +78,11 @@ def _sync(device: torch.device) -> None:
 
 
 def prepare_kernels(device: torch.device) -> None:
-    """Build and load the CUDA kernels before any timed region (a no-op on
-    the CPU): the nvcc build counts as set-up, never as solve time."""
+    """Build and load every CUDA kernel library before any timed region (a
+    no-op on the CPU): the nvcc build counts as set-up, never as solve
+    time."""
     if device.type == "cuda":
-        build.load("stencil")
+        stencil_cuda.load_libraries()
 
 
 def _error_fn(problem: Problem, dtype, device, phase: float = oracle.TWO_PI):
@@ -166,17 +168,28 @@ def solve(
     compute_errors: bool = True,
     stop_step: Optional[int] = None,
     device=None,
+    c2tau2_field=None,
 ) -> SolveResult:
     """The standard leapfrog solve with the reference's two timing phases:
     `init_seconds` covers the kernel build/load and the state set-up (layer
-    0 and the oracle factors); `solve_seconds` brackets the march, from the
-    layer-1 bootstrap to the read-back of the error vectors.
+    0, the oracle factors, the field); `solve_seconds` brackets the march,
+    from the layer-1 bootstrap to the read-back of the error vectors.
 
     `step_fn(u_prev, u, problem) -> u_next` defaults to K1
     (`stencil_cuda.leapfrog_step`).  Layer 1 is derived from it -
     u1 = (u0 + step(u0, u0))/2 in the compute dtype, which equals the
-    Taylor half-step for any leapfrog-form step.
+    Taylor half-step for any leapfrog-form step.  `c2tau2_field` (a host
+    tau^2 c^2 (N,N,N) array, `stencil_ref.make_c2tau2_field`, or a tensor)
+    selects the variable-c solve: the field is placed on the device once,
+    in the compute dtype, during set-up and K5 steps over it
+    (`stencil_cuda.make_step_fn`); it takes no `step_fn` and needs
+    compute_errors=False (no analytic oracle for variable c).
     """
+    if c2tau2_field is not None and (compute_errors or step_fn is not None):
+        raise ValueError(
+            "variable-c runs have no analytic oracle and step with K5: pass "
+            "compute_errors=False and no step_fn with c2tau2_field"
+        )
     device = resolve_device(device)
     step = stencil_cuda.leapfrog_step if step_fn is None else step_fn
     nsteps = problem.timesteps if stop_step is None else stop_step
@@ -186,6 +199,9 @@ def solve(
         )
     t0 = time.perf_counter()
     prepare_kernels(device)
+    if c2tau2_field is not None:
+        step = stencil_cuda.make_step_fn(
+            state.c2tau2_field(c2tau2_field, dtype, device))
     errors = _error_fn(problem, dtype, device)
     u0 = initial_layer0(problem, dtype, device)
     abs_all = _zeros(nsteps + 1, dtype, device)
