@@ -7,24 +7,30 @@ without them or when any phase fails.  Phases:
 
  1. build    - nvcc builds every kernel source of wavetpu_torch/kernels/csrc
                (one process per source, in parallel; ptxas register /
-               shared-memory report in build.log under OUT_DIR).
+               shared-memory report in build.log under OUT_DIR; the cone
+               kernels' registers are printed).
  2. kernels  - each CUDA kernel against its plain PyTorch version on the
                same inputs on the card: at N=128 in every mode - K1, K2,
                K5, K3 and K3f (k = 2, 4, 8; f32 and bf16; rows on and
                off), K4 and K4f (all three storage modes, k = 4 and 1,
-               K4f rows on and off, and its k=1 bootstrap form) - and at
-               N=512 in every mode the main-path runs launch: K1, K2, K5,
-               K3 (k=4, rows on), K3f (k=4, rows on and off), K4 (f32 v +
-               bf16 carry, k=4 and 1, rows on), K4f (the same, rows on
-               and off, and the bootstrap: k=1, half the field, zero v
-               and carry, zero oracle planes, rows off).  Held
-               bitwise, every output (the Kahan carry and the error rows
-               included): --fmad=false makes the kernel round every
-               multiply and add separately, as the plain version does, in
-               the same order.
- 3. main-path runs through the port's CLI at N=512, 1000 steps, f32, each
-    with the launch counters set to 0 just before and read just after
-    (every counter must equal the expected count, the others 0):
+               K4f rows on and off, and its k=1 bootstrap form), K6/K6f
+               (no ghosts, x+y, x+y+z and an uneven padded block; f32, bf16,
+               f64), K7 (f32, f64), K8/K8f and K9/K9f (k = 1, 2, 4, 8; f32
+               and bf16; rows on and off; K9 with pad planes) - and at the
+               shapes the main-path runs launch: K1, K2, K5, K3 (k=4, rows
+               on), K3f (k=4, rows on and off), K4 (f32 v + bf16 carry, k=4
+               and 1, rows on), K4f (the same, rows on and off, and the
+               bootstrap: k=1, half the field, zero v and carry, zero oracle
+               planes, rows off), K6/K6f/K7 on the mesh-2,2,1, 1,1,1 and
+               uneven 4,1,1 blocks, K8/K9 (k=4 rows on, k=1 rows on and off)
+               and K8f/K9f (k=4 and 1, rows off) on the 4,1,1 and N=510
+               blocks.  Held bitwise, every output (the Kahan carry and the
+               error rows included): --fmad=false makes the kernel round
+               every multiply and add separately, as the plain version
+               does, in the same order.
+ 3. main-path runs at 1000 steps, f32, each with the launch counters set
+    to 0 just before and read just after (every counter must equal the
+    expected count, the others 0).  Through the port's CLI at N=512:
       default        `512 1 1 1 1 1 1000`: K1 x1000; max abs error < 5e-3
                      (f32 rounding-accumulation class).
       flagship       `... --scheme compensated --fuse-steps 4`: K2 x1, K4
@@ -41,19 +47,38 @@ without them or when any phase fails.  Phases:
       flagship_varc  `... --scheme compensated --fuse-steps 4 --c2-field
                      gaussian-lens`: K4f x253 (1 bootstrap at k=1, 249 at
                      k=4, 3 at k=1), K2 x0.
- 4. contracts - through the solver API on the card: the k-fused state at
-               N=512 / 1000 steps equals the 1-step state bit for bit
-               (u_cur and u_prev), with constant c and with the
-               gaussian-lens field; at N=128 / 1000 steps the compensated
-               variable-c state lies nearer an f64 plain variable-c march
-               than the standard one does (wavetpu's
+      uneven_kfused  `510 ... --fuse-steps 4` (4 does not divide 510: the
+                     pad-and-mask march on one shard): K9 x253.
+      sharded        `... --mesh 1,1,1`: K6 x1000, the default run's error.
+    Through the sharded solvers' API with all four shards on the card
+    (launches per shard times shards):
+      sharded_221           mesh 2,2,1: K6 x4000, the default run's error.
+      sharded_comp_221      mesh 2,2,1, compensated: K7 x4000, error < 2e-5.
+      sharded_kfused_411    mesh 4,1,1, k=4: K8 x1012.
+      sharded_uneven_411    N=510, mesh 4,1,1, k=4: K9 x1012.
+      sharded_221_varc, sharded_kfused_411_varc, sharded_uneven_411_varc:
+                            the same with gaussian-lens, errors off: K6f
+                            x4000, K8f x1012, K9f x1012.
+ 4. contracts - through the solver API on the card, bit for bit: the
+               k-fused state at N=512 / 1000 steps equals the 1-step state,
+               with constant c and with the lens, and the sharded k-fused
+               runs equal it; sharded_221 equals the 1-step solve (states
+               and error vectors), bf16 on mesh 2,2,1 at N=128 too; at
+               N=510 K6 on mesh 4,1,1, the pad-and-mask march on one shard
+               and sharded_uneven_411 equal the 1-step solve, pad planes 0;
+               a last shard with r < k real planes (N=50, mesh 4,1,1)
+               too; sharded_comp_221 against the 1-step compensated solve
+               (bitwise, or within 2e-7); and at N=128 / 1000 steps the
+               compensated variable-c state lies nearer an f64 plain
+               variable-c march than the standard one does (wavetpu's
                tests/test_kfused_varc.py contract).
  5. agree    - every solver at N=32 on the card against the same solver on
                the CPU (the plain versions): max |diff| <= 1e-5.
- 6. times    - per-kernel times at N=512 (CUDA events around each launch,
-               median), the plain versions' times, and each kernel's bound:
-               the bytes it must move over the card's memory rate vs its
-               f32 operations over the card's f32 rate.
+ 6. times    - per-kernel times at the main-path shapes (CUDA events
+               around each launch, median), the plain versions' times, and
+               each kernel's bound: the bytes it must move over the card's
+               memory rate vs its f32 operations over the card's f32 rate;
+               K3's and K4's times beside PERF.md's.
 
 Launches made by the comparisons, contracts and timings do not count.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
@@ -64,6 +89,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -76,7 +102,9 @@ from wavetpu_torch import cli
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
-from wavetpu_torch.solver import kfused, kfused_comp, leapfrog
+from wavetpu_torch.solver import (
+    kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
+)
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 CSRC = "wavetpu_torch/kernels/csrc"
@@ -117,24 +145,99 @@ KERNELS = {
                replaces=f"{PALLAS}:147",
                what="_var_step_kernel: (2u + c2tau2*lap(u)) - u_prev",
                run="varc", bytes_per_cell=16),
+    # The sharded kernels: their bound counts the bytes of the launch's
+    # own tensors (block, ghosts, field, rows), phase_times.
+    "K6": dict(counter="sharded_step", source=f"{CSRC}/sharded.cu",
+               replaces=f"{PALLAS}:316",
+               what="_sharded_kernel: K1's update of a shard block, ghost "
+                    "faces + global mask (mesh 2,2,1 block)",
+               run="sharded_221"),
+    "K6f": dict(counter="sharded_step_field", source=f"{CSRC}/sharded.cu",
+                replaces=f"{PALLAS}:316",
+                what="_sharded_kernel has_field: K5's update of a shard "
+                     "block (mesh 2,2,1 block)",
+                run="sharded_221_varc"),
+    "K7": dict(counter="sharded_comp_step", source=f"{CSRC}/sharded.cu",
+               replaces=f"{PALLAS}:364",
+               what="_sharded_comp_kernel: K2's update of a shard block "
+                    "(mesh 2,2,1 block)",
+               run="sharded_comp_221"),
+    "K8": dict(counter="kstep_sharded", source=f"{CSRC}/sharded.cu",
+               replaces=f"{PALLAS}:1609",
+               what="_kstep_sharded_kernel: k substeps of an x-sharded "
+                    "block with ghost windows + rows (k=4, mesh 4,1,1)",
+               run="sharded_kfused_411"),
+    "K8f": dict(counter="kstep_sharded_field", source=f"{CSRC}/sharded.cu",
+                replaces=f"{PALLAS}:1593",
+                what="_kstep_sharded_kernel has_field: k variable-c "
+                     "substeps (k=4, mesh 4,1,1, rows off)",
+                run="sharded_kfused_411_varc"),
+    "K9": dict(counter="kstep_padded", source=f"{CSRC}/sharded.cu",
+               replaces=f"{PALLAS}:1782",
+               what="_kstep_padded_kernel: pad-and-mask k substeps + rows "
+                    "(k=4, N=510 on one shard)",
+               run="uneven_kfused"),
+    "K9f": dict(counter="kstep_padded_field", source=f"{CSRC}/sharded.cu",
+                replaces=f"{PALLAS}:1782",
+                what="_kstep_padded_kernel has_field: pad-and-mask "
+                     "variable-c substeps (k=4, N=510 mesh 4,1,1, rows off)",
+                run="sharded_uneven_411_varc"),
 }
-N_FULL, STEPS, K = 512, 1000, 4
+N_FULL, N_ODD, STEPS, K = 512, 510, 1000, 4
 LENS = "gaussian-lens"
-# The main-path runs: CLI flags after `512 1 1 1 1 1 1000` and the launch
-# count of every counter that must move (all others stay 0).
 NB, REM = (STEPS - 1) // K, (STEPS - 1) % K
+# The main-path CLI runs: N, the flags after `N 1 1 1 1 1 1000` and the
+# launch count of every counter that must move (all others stay 0).
 RUNS = {
-    "default": ([], {"step": STEPS}),
-    "flagship": (["--scheme", "compensated", "--fuse-steps", str(K)],
+    "default": (N_FULL, [], {"step": STEPS}),
+    "flagship": (N_FULL, ["--scheme", "compensated", "--fuse-steps", str(K)],
                  {"comp_step": 1, "kstep_comp": NB + REM}),
-    "kfused": (["--fuse-steps", str(K)], {"kstep": NB, "step": 1 + REM}),
-    "varc": (["--c2-field", LENS], {"var_step": STEPS}),
-    "kfused_varc": (["--fuse-steps", str(K), "--c2-field", LENS],
+    "kfused": (N_FULL, ["--fuse-steps", str(K)],
+               {"kstep": NB, "step": 1 + REM}),
+    "varc": (N_FULL, ["--c2-field", LENS], {"var_step": STEPS}),
+    "kfused_varc": (N_FULL, ["--fuse-steps", str(K), "--c2-field", LENS],
                     {"kstep_field": NB, "var_step": 1 + REM}),
-    "flagship_varc": (["--scheme", "compensated", "--fuse-steps", str(K),
-                       "--c2-field", LENS],
+    "flagship_varc": (N_FULL, ["--scheme", "compensated", "--fuse-steps",
+                               str(K), "--c2-field", LENS],
                       {"kstep_comp_field": 1 + NB + REM}),
+    # K does not divide N: the pad-and-mask march on a (1,1,1) mesh (K9:
+    # bootstrap at k=1, 249 blocks at k=4, 3 tail layers at k=1).
+    "uneven_kfused": (N_ODD, ["--fuse-steps", str(K)],
+                      {"kstep_padded": 1 + NB + REM}),
+    "sharded": (N_FULL, ["--mesh", "1,1,1"], {"sharded_step": STEPS}),
 }
+# The main-path runs through the API with every shard on the card: N, the
+# solver call, and the launch counts (per shard times shards).
+SHARDS = 4
+API_RUNS = {
+    "sharded_221": (N_FULL, dict(mesh=(2, 2, 1)),
+                    {"sharded_step": SHARDS * STEPS}),
+    "sharded_comp_221": (N_FULL, dict(mesh=(2, 2, 1), scheme="compensated"),
+                         {"sharded_comp_step": SHARDS * STEPS}),
+    "sharded_kfused_411": (N_FULL, dict(k=K),
+                           {"kstep_sharded": SHARDS * (1 + NB + REM)}),
+    "sharded_uneven_411": (N_ODD, dict(k=K),
+                           {"kstep_padded": SHARDS * (1 + NB + REM)}),
+    "sharded_221_varc": (N_FULL, dict(mesh=(2, 2, 1), field=LENS),
+                         {"sharded_step_field": SHARDS * STEPS}),
+    "sharded_kfused_411_varc": (N_FULL, dict(k=K, field=LENS),
+                                {"kstep_sharded_field":
+                                 SHARDS * (1 + NB + REM)}),
+    "sharded_uneven_411_varc": (N_ODD, dict(k=K, field=LENS),
+                                {"kstep_padded_field":
+                                 SHARDS * (1 + NB + REM)}),
+}
+# The error class of each run with errors at N=512/510, 1000 steps: f32
+# rounding accumulation on the standard scheme, the f32 discretization
+# limit (~6e-6 here) on the compensated one.
+ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
+               "uneven_kfused": 5e-3, "sharded": 5e-3, "sharded_221": 5e-3,
+               "sharded_comp_221": 2e-5, "sharded_kfused_411": 5e-3,
+               "sharded_uneven_411": 5e-3}
+# K3's and K4's phase-6 times and ptxas registers as recorded in PERF.md
+# (the cone sources are unchanged; this run shows them against it).
+CONE_RECORDED_MS = {"K3": 5.784064054489136, "K4": 7.525775909423828,
+                    "K4 k=1": 1.785311996936798}
 DEV = "cuda"
 CLI_EXTRA = []  # the CLI's default platform is the GPU
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -307,12 +410,166 @@ def phase_kernels(errs):
     torch.cuda.synchronize()
 
 
+def rand(shape, seed, scale=1.0, dtype=torch.float32):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(DEV, dtype)
+
+
+def face_ghosts(shape, seed, dtype):
+    """Synthetic face ghosts of a block: ((xlo, xhi), (ylo, yhi), (zlo,
+    zhi)), each shaped like the block's face."""
+    out = []
+    for axis in range(3):
+        face = list(shape)
+        face[axis] = 1
+        out.append(tuple(rand(face, seed + 2 * axis + i, dtype=dtype)
+                         for i in range(2)))
+    return out
+
+
+# Shard blocks of K6/K7: (label, mesh, N, block, r_last, offsets).
+K6_BLOCKS_128 = [
+    ("1,1,1", (1, 1, 1), 128, (128, 128, 128), None, (0, 0, 0)),
+    ("2,2,1", (2, 2, 1), 128, (64, 64, 128), None, (64, 0, 0)),
+    ("2,2,2", (2, 2, 2), 128, (64, 64, 64), None, (0, 64, 64)),
+    ("4,1,1 uneven", (4, 1, 1), 127, (32, 127, 127), (31, 127, 127),
+     (96, 0, 0)),
+]
+# The blocks the main-path runs launch K6/K7 on: mesh 2,2,1 and 1,1,1 at
+# N=512, and the last shard of mesh 4,1,1 at N=510 (128 planes, 126 real).
+_H, _B, _R = N_FULL // 2, -(-N_ODD // 4), N_ODD - 3 * -(-N_ODD // 4)
+K6_BLOCKS_FULL = [
+    ("2,2,1", (2, 2, 1), N_FULL, (_H, _H, N_FULL), None, (_H, 0, 0)),
+    ("1,1,1", (1, 1, 1), N_FULL, (N_FULL,) * 3, None, (0, 0, 0)),
+    ("4,1,1 uneven", (4, 1, 1), N_ODD, (_B, N_ODD, N_ODD),
+     (_R, N_ODD, N_ODD), (3 * _B, 0, 0)),
+]
+
+
+def chain_shapes():
+    """(name, D, N, n_real) of the K8/K9 launches of the main-path runs:
+    sharded_kfused_411 (a quarter of N=512), uneven_kfused (N=510 on one
+    shard) and the last shard of sharded_uneven_411."""
+    _, d1, r1 = sharded_kfused.uneven_layout(Problem(N=N_ODD, timesteps=1),
+                                             K, 1)
+    _, d4, r4 = sharded_kfused.uneven_layout(Problem(N=N_ODD, timesteps=1),
+                                             K, SHARDS)
+    return (("K8", N_FULL // SHARDS, N_FULL, N_FULL // SHARDS),
+            ("K9", d1, N_ODD, r1), ("K9", d4, N_ODD, r4))
+
+
+def k6_args(block, dtype, seed, field=False):
+    label, mesh, n, shape, r_last, offsets = block
+    p = Problem(N=n, timesteps=STEPS)
+    up, u = rand(shape, seed, dtype=dtype), rand(shape, seed + 1, dtype=dtype)
+    f = stencil_ref.compute_dtype(dtype)
+    fld = ((p.a2tau2 * (0.5 + rand(shape, seed + 9).abs())).to(f)
+           if field else None)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=mesh, r_last=r_last,
+              coeff=p.a2tau2, c2tau2_block=fld)
+    return (up, u, face_ghosts(shape, seed + 2, dtype), offsets, n), kw
+
+
+def chain_args(d, n, k, n_real, dtype, seed, field=False):
+    """A K8/K9 launch's operands: (D, N, N) state with zero pad past
+    n_real, (k, N, N) ghost windows, the oracle planes and (k, D) row."""
+    p = Problem(N=n, timesteps=STEPS)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, DEV)
+    sxp = torch.cat([sx, torch.zeros(d, device=DEV)])[:d]
+    sxct = (ct[2:2 + k][:, None] * sxp[None, :]).contiguous()
+    up, u = (rand((d, n, n), seed + i, dtype=dtype) for i in range(2))
+    up[n_real:], u[n_real:], sxct[:, n_real:] = 0.0, 0.0, 0.0
+    gh = [rand((k, n, n), seed + 2 + i, dtype=dtype) for i in range(4)]
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2)
+    if field:
+        kw.update(c2tau2_block=p.a2tau2 * (0.5 + rand((d, n, n),
+                                                       seed + 6).abs()),
+                  c2_ghosts=tuple(p.a2tau2 * (0.5 + rand((k, n, n),
+                                                         seed + 7 + i).abs())
+                                  for i in range(2)))
+    return (up, u, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct), kw
+
+
+def check_chain(name, d, n, k, n_real, dtype, rows, field, errs, seed=60):
+    args, kw = chain_args(d, n, k, n_real, dtype, seed, field)
+    kw["with_errors"] = rows
+    if name.startswith("K8"):
+        got = stencil_cuda.fused_kstep_sharded(*args, **kw)
+        want = stencil_cuda.fused_kstep_sharded_plain(*args, **kw)
+    else:
+        got = stencil_cuda.fused_kstep_padded(*args[:2], n_real, *args[2:],
+                                              **kw)
+        want = stencil_cuda.fused_kstep_padded_plain(*args[:2], n_real,
+                                                     *args[2:], **kw)
+    check_outputs(f"{name} D={d} N={n} k={k} n_real={n_real} {dtype} "
+                  f"rows={rows}", got, want, errs[name])
+
+
+def phase_sharded_kernels(errs):
+    """K6-K9 against their plain versions on the card: at N=128 in every
+    mode, then at the shapes the main-path runs launch."""
+    for block in K6_BLOCKS_128:
+        for dt in (torch.float32, torch.bfloat16, torch.float64):
+            for field in (False, True):
+                name = "K6f" if field else "K6"
+                args, kw = k6_args(block, dt, 10, field)
+                got = stencil_cuda.sharded_fused_step(*args, **kw)
+                want = stencil_cuda.sharded_fused_step_plain(*args, **kw)
+                check_outputs(f"{name} {block[0]} block {block[3]} {dt}",
+                              [got], [want], errs[name])
+    for block in K6_BLOCKS_128[1:] + K6_BLOCKS_FULL[:1]:
+        for dt in ((torch.float32, torch.float64) if block[2] < N_ODD
+                   else (torch.float32,)):
+            (up, u, g, offsets, n), kw = k6_args(block, dt, 20)
+            kw.pop("c2tau2_block")
+            v, c = rand(u.shape, 30, 1e-3, dt), rand(u.shape, 31, 1e-8, dt)
+            got = stencil_cuda.sharded_compensated_step(u, v, c, g, offsets,
+                                                        n, **kw)
+            want = stencil_cuda.sharded_compensated_step_plain(
+                u, v, c, g, offsets, n, **kw)
+            check_outputs(f"K7 {block[0]} block {block[3]} {dt}", got, want,
+                          errs["K7"])
+    for block in K6_BLOCKS_FULL:
+        for field in ((False, True) if block[0] == "2,2,1" else (False,)):
+            name = "K6f" if field else "K6"
+            args, kw = k6_args(block, torch.float32, 40, field)
+            got = stencil_cuda.sharded_fused_step(*args, **kw)
+            want = stencil_cuda.sharded_fused_step_plain(*args, **kw)
+            check_outputs(f"{name} {block[0]} block {block[3]} f32", [got],
+                          [want], errs[name])
+            del args, got, want
+    # N=128: a (4,1,1) block of 32 planes, and the pad-and-mask blocks of
+    # N=127 over 4 shards (32 planes, 31 real) and over one (128, 127 real).
+    for k in (1, 2, 4, 8):
+        for dt in (torch.float32, torch.bfloat16):
+            for rows in (True, False):
+                for field in (False, True):
+                    f = "f" if field else ""
+                    check_chain("K8" + f, 32, 128, k, 32, dt, rows, field,
+                                errs)
+                    check_chain("K9" + f, 32, 127, k, 31, dt, rows, field,
+                                errs)
+    check_chain("K9", 128, 127, K, 127, torch.float32, True, False, errs)
+    # The main-path shapes: sharded_kfused_411 (D=128 of 512), uneven_kfused
+    # (D=512, 510 real), sharded_uneven_411 (D=128, the last 126 real).
+    for i, (name, d, n, n_real) in enumerate(chain_shapes()):
+        check_chain(name, d, n, K, n_real, torch.float32, True, False, errs)
+        check_chain(name, d, n, 1, n_real, torch.float32, True, False, errs)
+        check_chain(name, d, n, 1, n_real, torch.float32, False, False, errs)
+        if i != 1:
+            check_chain(name + "f", d, n, K, n_real, torch.float32, False,
+                        True, errs)
+            check_chain(name + "f", d, n, 1, n_real, torch.float32, False,
+                        True, errs)
+    torch.cuda.synchronize()
+
+
 def run_cli(label):
     """One main-path run through the CLI with the counters zeroed just
     before and read just after; every counter must equal RUNS[label]'s
     count (0 when not listed).  Returns (sidecar dict, launches)."""
-    flags, want = RUNS[label]
-    argv = [str(N_FULL), "1", "1", "1", "1", "1", str(STEPS)] + flags
+    n, flags, want = RUNS[label]
+    argv = [str(n), "1", "1", "1", "1", "1", str(STEPS)] + flags
     out = os.path.join(OUT_DIR, label)
     stencil_cuda.reset_launches()
     rc = cli.main(argv + CLI_EXTRA + ["--out-dir", out])
@@ -340,9 +597,79 @@ def run_cli(label):
     return side, counts
 
 
-def phase_contracts():
+def run_api(label):
+    """One main-path run through the sharded solvers' API with every shard
+    on the card, the counters zeroed just before and read just after (as
+    run_cli).  Returns (result, summary dict, launches)."""
+    n, spec, want = API_RUNS[label]
+    p = Problem(N=n, timesteps=STEPS)
+    devices = [DEV] * SHARDS
+    kw = {}
+    if "field" in spec:
+        kw = dict(c2tau2_field=stencil_ref.make_preset_c2tau2_field(
+            p, spec["field"]), compute_errors=False)
+    stencil_cuda.reset_launches()
+    if "k" in spec:
+        res = sharded_kfused.solve_sharded_kfused(
+            p, n_shards=SHARDS, k=spec["k"], devices=devices, **kw)
+    else:
+        res = sharded.solve_sharded(p, spec["mesh"], devices=devices,
+                                    scheme=spec.get("scheme", "standard"),
+                                    **kw)
+    torch.cuda.synchronize()
+    counts = dict(stencil_cuda.launches)
+    side = {"max_abs_error": (float(res.abs_errors.max()) if not kw
+                              else None),
+            "gcells_per_second": res.gcells_per_second,
+            "solve_seconds": res.solve_seconds,
+            "init_seconds": res.init_seconds}
+    print(f"  {label}: launches={counts} max_abs_error="
+          f"{side['max_abs_error']!r} gcells_per_second="
+          f"{side['gcells_per_second']!r} solve_seconds="
+          f"{side['solve_seconds']!r}")
+    expected = {c: want.get(c, 0) for c in counts}
+    if counts != expected:
+        fail(f"{label}: launches {counts}, expected {expected}")
+    if not kw and not np.isfinite(res.abs_errors).all():
+        fail(f"{label}: non-finite errors")
+    return res, side, counts
+
+
+def same_state(label, got, want, errors=None):
+    """Fail unless the sharded result's states (and, given, its error
+    vectors) equal the single-device result's bit for bit; returns the
+    max |du| printed."""
+    u_cur = got.u_cur.fundamental(DEV) if hasattr(got.u_cur, "blocks") \
+        else got.u_cur
+    u_prev = got.u_prev.fundamental(DEV) if hasattr(got.u_prev, "blocks") \
+        else got.u_prev
+    same = torch.equal(u_cur, want.u_cur) and torch.equal(u_prev,
+                                                          want.u_prev)
+    d = (u_cur.double() - want.u_cur.double()).abs().max().item()
+    msg = f"  {label}: bitwise={same} max|du|={d:.3e}"
+    if errors:
+        same_e = (np.array_equal(got.abs_errors, want.abs_errors)
+                  and np.array_equal(got.rel_errors, want.rel_errors))
+        msg += f" errors bitwise={same_e}"
+        same = same and same_e
+    print(msg)
+    if not same:
+        fail(f"{label}: not bitwise equal")
+    return d
+
+
+def padded_planes_zero(label, res):
+    n = res.problem.N
+    full = res.u_cur.assemble(DEV)
+    if full[n:].any() or full[:, n:].any() or full[:, :, n:].any():
+        fail(f"{label}: a pad plane is nonzero")
+
+
+def phase_contracts(api):
     """Bitwise k-fused == 1-step at full width (constant c and the lens),
-    and compensated variable c nearer f64 than standard at N=128."""
+    with the sharded k-fused march (K8 on four shards of the card) equal
+    to both, and compensated variable c nearer f64 than standard at
+    N=128."""
     p = Problem(N=N_FULL, timesteps=STEPS)
     lens = stencil_ref.make_preset_c2tau2_field(p, LENS)
     for label, with_f in (("constant c", False), (LENS, True)):
@@ -357,6 +684,11 @@ def phase_contracts():
               f"bitwise={same} max|du|={d:.3e}")
         if not same:
             fail(f"k-fused state differs from the 1-step state ({label})")
+        run = "sharded_kfused_411_varc" if with_f else "sharded_kfused_411"
+        same_state(f"{run} == k-fused ({label})", api.pop(run), fused)
+        if with_f:
+            same_state(f"sharded_221_varc == 1-step ({label})",
+                       api.pop("sharded_221_varc"), one)
         del fused, one
     small = Problem(N=128, timesteps=STEPS)
     lens = stencil_ref.make_preset_c2tau2_field(small, LENS)
@@ -377,6 +709,71 @@ def phase_contracts():
             "varc_n128_err_vs_f64_compensated": e_comp}
 
 
+def phase_sharded_contracts(api):
+    """The sharded marches against the single-device ones through the API
+    on the card, bit for bit: states, and the error vectors where both
+    take them the same way."""
+    out = {}
+    p = Problem(N=N_FULL, timesteps=STEPS)
+    one = leapfrog.solve(p, device=DEV)
+    same_state("sharded_221 == 1-step (errors on)", api.pop("sharded_221"),
+               one, errors=True)
+    del one
+    small = Problem(N=128, timesteps=STEPS)
+    same_state("bf16 mesh 2,2,1 N=128 == 1-step",
+               sharded.solve_sharded(small, (2, 2, 1), devices=[DEV] * 4,
+                                     dtype=torch.bfloat16),
+               leapfrog.solve(small, torch.bfloat16, device=DEV),
+               errors=True)
+    odd = Problem(N=N_ODD, timesteps=STEPS)
+    one = leapfrog.solve(odd, device=DEV)
+    k6 = sharded.solve_sharded(odd, (4, 1, 1), devices=[DEV] * 4)
+    same_state(f"K6 mesh 4,1,1 N={N_ODD} == 1-step (errors on)", k6, one,
+               errors=True)
+    padded_planes_zero("K6 mesh 4,1,1", k6)
+    del k6
+    k9 = sharded_kfused.solve_sharded_kfused(odd, n_shards=1, k=K,
+                                             devices=[DEV])
+    d = same_state(f"uneven_kfused N={N_ODD} == 1-step", k9, one)
+    de = float(np.max(np.abs(k9.abs_errors - one.abs_errors)))
+    print(f"    its errors (in-kernel rows) vs 1-step: max|d|={de:.3e}")
+    if de > 1e-6:
+        fail("uneven_kfused errors differ from the 1-step errors by > 1e-6")
+    del k9
+    k9 = api.pop("sharded_uneven_411")
+    same_state("sharded_uneven_411 == 1-step", k9, one)
+    padded_planes_zero("sharded_uneven_411", k9)
+    del k9, one
+    # A last shard with fewer real planes than k: N=50 over 4 shards at
+    # k=4 leaves it r=2 (the two-hop seam windows).
+    tiny = Problem(N=50, timesteps=STEPS)
+    bx, dd, r = sharded_kfused.uneven_layout(tiny, K, 4)
+    same_state(f"r={r} < k={K} (N=50, D={dd}, mesh 4,1,1) == 1-step",
+               sharded_kfused.solve_sharded_kfused(tiny, n_shards=4, k=K,
+                                                   devices=[DEV] * 4),
+               leapfrog.solve(tiny, device=DEV))
+    comp = api.pop("sharded_comp_221")
+    single = leapfrog.solve_compensated(p, device=DEV)
+    got = comp.u_cur.fundamental(DEV)
+    bitwise = (torch.equal(got, single.u_cur)
+               and torch.equal(comp.comp_carry.fundamental(DEV),
+                               single.comp_carry))
+    d = (got - single.u_cur).abs().max().item()
+    out["sharded_comp_221_vs_single"] = {
+        "bitwise": bitwise, "max_abs_du": d,
+        "max_abs_error": float(comp.abs_errors.max()),
+        "single_max_abs_error": float(single.abs_errors.max())}
+    print(f"  sharded_comp_221 vs 1-step compensated: bitwise={bitwise} "
+          f"max|du|={d:.3e}; max abs error {comp.abs_errors.max()!r} vs "
+          f"{single.abs_errors.max()!r}")
+    if not (bitwise or d <= 2e-7):
+        fail("sharded_comp_221 is not within 2e-7 of the 1-step "
+             "compensated state")
+    if not comp.abs_errors.max() < ERROR_CLASS["sharded_comp_221"]:
+        fail("sharded_comp_221 is out of the compensated error class")
+    return out
+
+
 def phase_agree():
     """Every solver at a small size: card vs CPU (plain versions)."""
     small = Problem(N=32, timesteps=21)
@@ -392,8 +789,18 @@ def phase_agree():
             small, k=K, device=d, **varc)),
         ("flagship_varc", lambda d: kfused_comp.solve_kfused_comp(
             small, k=K, device=d, **varc)),
+        ("sharded", lambda d: sharded.solve_sharded(
+            small, (2, 2, 1), devices=[d] * 4)),
+        ("sharded_comp", lambda d: sharded.solve_sharded(
+            small, (2, 2, 1), devices=[d] * 4, scheme="compensated")),
+        ("sharded_kfused", lambda d: sharded_kfused.solve_sharded_kfused(
+            small, n_shards=4, k=K, devices=[d] * 4)),
+        ("sharded_uneven", lambda d: sharded_kfused.solve_sharded_kfused(
+            small, n_shards=3, k=K, devices=[d] * 3)),
     ):
         gpu, cpu = fn(DEV), fn("cpu")
+        if hasattr(gpu.u_cur, "blocks"):
+            gpu.u_cur, cpu.u_cur = gpu.u_cur.assemble(), cpu.u_cur.assemble()
         d = (gpu.u_cur.cpu().double() - cpu.u_cur.double()).abs().max().item()
         de = float(np.max(np.abs(gpu.abs_errors - cpu.abs_errors)))
         print(f"  {label} N=32: card vs cpu max|du|={d:.3e} "
@@ -486,7 +893,111 @@ def phase_times(dev_name):
     times["K4"]["ms_k1"] = k1_ms
     print(f"  K4 N={n} k=1 (the tail): {k1_ms:.4f} ms "
           f"(bound {20 * cells / rate * 1e3:.4f} ms by bytes)")
+    del up, u, v, cy, cb, fld
+    times.update(phase_times_sharded(rate))
+    for name, recorded in CONE_RECORDED_MS.items():
+        ms = times["K4"]["ms_k1"] if name == "K4 k=1" else times[name]["ms"]
+        print(f"  {name}: {ms:.4f} ms against {recorded:.4f} ms recorded "
+              f"in PERF.md ({100 * (ms / recorded - 1):+.1f}%)")
     return times, rate
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def phase_times_sharded(rate):
+    """K6-K9 at the shapes the main-path runs launch them, f32.  The bound
+    counts every input read once and every output written once - the
+    block, its ghosts, the field and the oracle rows - against the f32
+    operations per cell (K6 as K1, K7 as K2, K8/K9 as K3 per substep)."""
+    times = {}
+    k6_block = K6_BLOCKS_FULL[0]
+    runs = {}
+    for name, field in (("K6", False), ("K6f", True)):
+        args, kw = k6_args(k6_block, torch.float32, 70, field)
+        ins = list(args[:2]) + [x for g in args[2][:2] for x in g] + [
+            kw["c2tau2_block"]]
+        runs[name] = (
+            lambda a=args, k=kw: stencil_cuda.sharded_fused_step(*a, **k),
+            lambda a=args, k=kw: stencil_cuda.sharded_fused_step_plain(
+                *a, **k),
+            nbytes(*ins, args[1]), 19 * args[1].numel())
+    (_, u, g, offsets, n), kw = k6_args(k6_block, torch.float32, 80)
+    kw.pop("c2tau2_block")
+    v, c = rand(u.shape, 81, 1e-3), rand(u.shape, 82, 1e-8)
+    k7 = (u, v, c, g, offsets, n)
+    runs["K7"] = (
+        lambda k=kw: stencil_cuda.sharded_compensated_step(*k7, **k),
+        lambda k=kw: stencil_cuda.sharded_compensated_step_plain(*k7, **k),
+        2 * nbytes(u, v, c) + nbytes(*(x for gg in g[:2] for x in gg)),
+        20 * u.numel())
+    k8, k9, k9_4 = chain_shapes()
+    for name, d, nn, n_real, rows, field in (
+            k8 + (True, False), ("K8f",) + k8[1:] + (False, True),
+            k9 + (True, False), ("K9f",) + k9_4[1:] + (False, True)):
+        args, kw = chain_args(d, nn, K, n_real, torch.float32, 90, field)
+        kw["with_errors"] = rows
+        if name.startswith("K8"):
+            fn = stencil_cuda.fused_kstep_sharded
+            plain = stencil_cuda.fused_kstep_sharded_plain
+        else:
+            fn = (lambda *a, _n=n_real, **k:
+                  stencil_cuda.fused_kstep_padded(a[0], a[1], _n, *a[2:],
+                                                  **k))
+            plain = (lambda *a, _n=n_real, **k:
+                     stencil_cuda.fused_kstep_padded_plain(
+                         a[0], a[1], _n, *a[2:], **k))
+        state = list(args[:2]) + [x for g in args[2:4] for x in g]
+        oracle = list(args[4:]) if rows else []
+        fld = ([kw["c2tau2_block"], *kw["c2_ghosts"]] if field else [])
+        out_bytes = 2 * nbytes(args[1]) + (2 * nbytes(args[6]) if rows
+                                           else 0)
+        ops = (22 if rows else 19) * K * args[1].numel()
+        runs[name] = (lambda a=args, k=kw, f=fn: f(*a, **k),
+                      lambda a=args, k=kw, f=plain: f(*a, **k),
+                      nbytes(*state, *oracle, *fld) + out_bytes, ops)
+    for name, (kern, plain, nb, ops) in runs.items():
+        ms = time_launches(kern, 20)
+        plain_ms = time_launches(plain, 3, warmup=1)
+        byte_ms = nb / rate * 1e3
+        op_ms = ops / F32_OPS_PER_S * 1e3
+        times[name] = dict(ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(byte_ms, op_ms),
+                           bound_by="bytes" if byte_ms >= op_ms
+                           else "operations", bytes=nb)
+        print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+              f"{times[name]['bound_ms']:.4f} ms by {times[name]['bound_by']}"
+              f", {nb} bytes)")
+    return times
+
+
+def cone_registers(logs):
+    """ptxas's registers (and spill stores) of the cone kernels at their
+    main-path instantiations, from the verbose build log: K3 and K8/K9 at
+    k=4 (f32, depth-8 tile), K4 at k=4 and k=1 (f32 v, bf16 carry)."""
+    want = {
+        "K3 k=4": "12kstep_kernelILi4ELi8EfE",
+        "K4 k=4": "17kstep_comp_kernelILi4ELi8Ef13__nv_bfloat16Lb1EE",
+        "K4 k=1": "17kstep_comp_kernelILi1ELi8Ef13__nv_bfloat16Lb1EE",
+        "K8/K9 k=4": "18kstep_chain_kernelILi4ELi8EfE",
+    }
+    found, func, spill = {}, None, None
+    for line in "\n".join(logs.values()).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            func, spill = m.group(1), None
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            for label, key in want.items():
+                if key in func:
+                    found[label] = {"registers": int(m.group(1)),
+                                    "spill_stores": spill}
+    return found
 
 
 def main() -> int:
@@ -506,34 +1017,48 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
-    print(f"  built {sorted(logs)} in {build_s:.1f} s")
+    registers = cone_registers(logs)
+    print(f"  built {sorted(logs)} in {build_s:.1f} s; cone kernels' "
+          f"registers: {registers}")
 
     print("phase 2: kernels vs plain versions")
     errs = {name: [] for name in KERNELS}
     phase_kernels(errs)
+    phase_sharded_kernels(errs)
 
-    print(f"phase 3: main-path runs at N={N_FULL}, {STEPS} steps")
+    print(f"phase 3: main-path runs, {STEPS} steps")
     sides, counts = {}, {}
     for label in RUNS:
         sides[label], counts[label] = run_cli(label)
+    api = {}
+    for label in API_RUNS:
+        api[label], sides[label], counts[label] = run_api(label)
     std, flag, kf = sides["default"], sides["flagship"], sides["kfused"]
-    for label, side, bound in (("default", std, 5e-3),
-                               ("flagship", flag, 2e-5),
-                               ("kfused", kf, 5e-3)):
-        if not (np.isfinite(side["max_abs_error"])
-                and side["max_abs_error"] < bound):
-            fail(f"{label} max abs error {side['max_abs_error']}")
-    if abs(kf["max_abs_error"] - std["max_abs_error"]) > 1e-6:
-        fail(f"kfused max abs error {kf['max_abs_error']} is not within "
-             f"1e-6 of the default run's {std['max_abs_error']}")
+    for label, bound in ERROR_CLASS.items():
+        err = sides[label]["max_abs_error"]
+        if not (np.isfinite(err) and err < bound):
+            fail(f"{label} max abs error {err}")
+    # The same states as the default run: the same error bits for the
+    # 1-step sharded runs, within 1e-6 for the in-kernel rows.
+    for label in ("sharded", "sharded_221"):
+        if sides[label]["max_abs_error"] != std["max_abs_error"]:
+            fail(f"{label} max abs error {sides[label]['max_abs_error']} "
+                 f"is not the default run's {std['max_abs_error']}")
+    for label in ("kfused", "sharded_kfused_411"):
+        if abs(sides[label]["max_abs_error"] - std["max_abs_error"]) > 1e-6:
+            fail(f"{label} max abs error {sides[label]['max_abs_error']} is "
+                 f"not within 1e-6 of the default run's "
+                 f"{std['max_abs_error']}")
 
     print("phase 4: contracts at full width")
-    accuracy = phase_contracts()
+    accuracy = phase_contracts(api)
+    accuracy.update(phase_sharded_contracts(api))
+    del api
 
     print("phase 5: card vs CPU at N=32")
     phase_agree()
 
-    print(f"phase 6: times at N={N_FULL} ({card})")
+    print(f"phase 6: times at the main-path shapes ({card})")
     times, rate = phase_times(dev_name)
     rows = []
     for name, meta in KERNELS.items():
@@ -558,10 +1083,12 @@ def main() -> int:
     summary = {
         "card": card, "device": dev_name, "mem_rate_bytes_per_s": rate,
         "build_seconds": build_s,
+        "cone_registers": registers,
         **{label: {k: side[k] for k in keys} for label, side in sides.items()},
         "launches": counts,
         "accuracy": accuracy,
         "kernels": rows,
+        "times": times,
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -173,16 +173,17 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
     assert not os.listdir(tmp_path)
 
 
-# K that does not divide N is wavetpu's pad-and-mask march (K9), with or
-# without a field: the port's standard k-fused march and its field operand
-# take K | N only.
+# The sharded paths still to port: k-fusion on a y-sharded mesh (K10,
+# with or without a field) and the sharded compensated k-step (K11/K12).
 @pytest.mark.parametrize("argv,needle", [
-    (["8", "1", "1", "1", "1", "--mesh", "2,1,1"], "queue 1 item 10"),
+    (["8", "1", "1", "1", "1", "--mesh", "2,2,1", "--fuse-steps", "2"],
+     "K10"),
     (["8", "1", "1", "1", "1", "--c2-field", "constant", "--fuse-steps",
-      "3"], "K9"),
+      "2", "--mesh", "1,2,1"], "K10"),
     (["8", "1", "1", "1", "1", "--ckpt-every", "2"], "queue 1 item 9"),
     (["8", "1", "1", "1", "1", "--resume", "x.npz"], "queue 1 item 8"),
-    (["8", "1", "1", "1", "1", "--fuse-steps", "3"], "K9"),
+    (["8", "1", "1", "1", "1", "--fuse-steps", "2", "--scheme",
+      "compensated", "--backend", "sharded"], "K11/K12"),
     (["serve"], "queue 1 item 12"),
 ], ids=["mesh", "c2-field", "ckpt-every", "resume", "standard-kfused",
         "serve"])
@@ -225,3 +226,74 @@ def test_module_entry_point(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.stdout.startswith("wavetpu_torch ")
+
+
+def test_mesh_f64_layer_lines_byte_identical(tmp_path, capsys):
+    # The sharded 1-step march (K6 on four CPU shards) against wavetpu's
+    # pallas kernel on the same mesh: report Np4, variant CUDA.
+    assert cli.main(ARGS + ["--mesh", "2,2,1", "--dtype", "f64",
+                            "--platform", "cpu", "--out-dir",
+                            str(tmp_path / "ours")]) == 0
+    assert "mesh: 2,2,1" in capsys.readouterr().out
+    assert jcli.main(ARGS + ["--mesh", "2,2,1", "--kernel", "pallas",
+                             "--dtype", "f64", "--platform", "cpu",
+                             "--out-dir", str(tmp_path / "ref")]) == 0
+    ours = layer_lines(tmp_path / "ours" / "output_N15_Np4_CUDA.txt")
+    assert len(ours) == 13
+    assert ours == layer_lines(tmp_path / "ref" / "output_N15_Np4_TPU.txt")
+    side = json.loads(
+        (tmp_path / "ours" / "output_N15_Np4_CUDA.json").read_text())
+    assert side["variant"] == "CUDA" and side["n_procs"] == 4
+    assert side["run_config"]["backend"] == "sharded"
+    assert side["run_config"]["mesh"] == [2, 2, 1]
+
+
+@pytest.mark.parametrize("extra", [[], ["--mesh", "2,1,1"]],
+                         ids=["single", "mesh"])
+def test_uneven_kfused_f64_layer_lines_byte_identical(tmp_path, extra,
+                                                      capsys):
+    # --fuse-steps 4 does not divide N=15: the pad-and-mask march (K9), on
+    # a (1,1,1) mesh or two CPU shards.  wavetpu's f64 onion cannot store
+    # its f64 row maxima (ROADMAP.md queue 3), so the report is held
+    # against wavetpu's f64 1-step report: the same layers, bit for bit.
+    assert cli.main(ARGS + ["--fuse-steps", "4", "--dtype", "f64",
+                            "--platform", "cpu", "--out-dir",
+                            str(tmp_path / "ours")] + extra) == 0
+    assert jcli.main(ARGS + ["--dtype", "f64", "--platform", "cpu",
+                             "--backend", "single", "--out-dir",
+                             str(tmp_path / "ref")]) == 0
+    name = f"output_N15_Np{2 if extra else 1}_CUDA.txt"
+    ours = layer_lines(tmp_path / "ours" / name)
+    assert len(ours) == 13
+    assert ours == layer_lines(tmp_path / "ref" / "output_N15_Np1_TPU.txt")
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--overlap"], "item 10, step 3"),
+    (["--phase-timing"], "item 10, step 4"),
+    (["--distributed"], "item 10, step 5"),
+    (["--mesh", "2,1,1", "--scheme", "compensated", "--fuse-steps", "4"],
+     "K11/K12"),
+    (["--mesh", "1,2,1", "--fuse-steps", "4"], "K10"),
+], ids=["overlap", "phase-timing", "distributed", "comp-kfused-mesh",
+        "kfused-y-mesh"])
+def test_sharded_paths_not_ported_name_their_item(argv, needle, capsys):
+    assert cli.main(["16", "1", "1", "1", "1"] + argv
+                    + ["--platform", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and "ROADMAP.md" in err and needle in err
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--mesh", "2,2"], "--mesh wants MX,MY,MZ"),
+    (["--mesh", "1,1,1", "--backend", "single"], "contradicts"),
+    (["--backend", "bogus"], "--backend must be"),
+    (["--mesh", "2,1,2", "--fuse-steps", "2"], "(MX,MY,1)"),
+    (["--mesh", "8,1,1", "--fuse-steps", "4"], "no pad-and-mask layout"),
+    (["--mesh", "14,1,1"], "too large for N=13"),
+])
+def test_mesh_usage_errors_exit_2(argv, needle, capsys):
+    assert cli.main(["13", "1", "1", "1", "1"] + argv
+                    + ["--platform", "cpu"]) == 2
+    assert needle in capsys.readouterr().err
+

@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from wavetpu_torch import cli
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.solver import kfused, kfused_comp, leapfrog
+from wavetpu_torch.solver import (
+    kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -287,3 +290,219 @@ def test_solvers_card_vs_cpu(cuda, solver):
     cpu = run("cpu")
     assert (gpu.u_cur.cpu() - cpu.u_cur).abs().max().item() <= 1e-5
     assert np.max(np.abs(gpu.abs_errors - cpu.abs_errors)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The sharded kernels K6-K9, with synthetic ghosts from a seed.
+
+
+def rand(shape, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64).to(dtype)
+
+
+def ghosts_of(shape, seed, dtype, cuda):
+    out = []
+    for axis in range(3):
+        face = list(shape)
+        face[axis] = 1
+        out.append(tuple(rand(face, seed + 2 * axis + i, dtype).to(cuda)
+                         for i in range(2)))
+    return out
+
+
+# (mesh, N, block, r_last, offsets): every ghost pattern - none, x, y, z,
+# pairs, all three - and uneven pads (r_last < block) on x, y and z.
+K6_BLOCKS = [
+    ((1, 1, 1), 15, (15, 15, 15), None, (0, 0, 0)),
+    ((2, 1, 1), 32, (16, 32, 32), None, (16, 0, 0)),
+    ((1, 2, 1), 32, (32, 16, 32), None, (0, 0, 0)),
+    ((1, 1, 2), 32, (32, 32, 16), None, (0, 0, 16)),
+    ((2, 2, 1), 48, (24, 24, 48), None, (24, 24, 0)),
+    ((1, 3, 2), 30, (30, 10, 15), None, (0, 10, 15)),
+    ((2, 2, 2), 64, (32, 32, 32), None, (0, 32, 32)),
+    ((4, 1, 1), 15, (4, 15, 15), (3, 15, 15), (12, 0, 0)),
+    ((2, 3, 4), 17, (9, 6, 5), (8, 5, 2), (9, 12, 15)),
+]
+
+
+@pytest.mark.parametrize("mesh,n,shape,r_last,offsets", K6_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_k6(cuda, mesh, n, shape, r_last, offsets, dtype, with_field):
+    p = Problem(N=n, timesteps=10)
+    up, u = rand(shape, 1, dtype).to(cuda), rand(shape, 2, dtype).to(cuda)
+    g = ghosts_of(shape, 3, dtype, cuda)
+    f = stencil_ref.compute_dtype(dtype)
+    fld = (p.a2tau2 * (0.5 + rand(shape, 9).abs())).to(cuda, f) \
+        if with_field else None
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=mesh, r_last=r_last, coeff=p.a2tau2,
+              c2tau2_block=fld)
+    name = "sharded_step_field" if with_field else "sharded_step"
+    for alpha, beta in ((2.0, 1.0), (1.0, 0.0)):
+        before = stencil_cuda.launches[name]
+        got = stencil_cuda.sharded_fused_step(up, u, g, offsets, n,
+                                              alpha=alpha, beta=beta, **kw)
+        assert stencil_cuda.launches[name] == before + 1
+        want = stencil_cuda.sharded_fused_step_plain(
+            up.cpu(), u.cpu(), [tuple(x.cpu() for x in a) for a in g],
+            offsets, n, alpha=alpha, beta=beta,
+            **dict(kw, c2tau2_block=None if fld is None else fld.cpu()))
+        equal([got.cpu()], [want])
+        # The plain version on the card's tensors is the same function.
+        equal([got], [stencil_cuda.sharded_fused_step_plain(
+            up, u, g, offsets, n, alpha=alpha, beta=beta, **kw)])
+
+
+@pytest.mark.parametrize("mesh,n,shape,r_last,offsets", K6_BLOCKS[4:])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7(cuda, mesh, n, shape, r_last, offsets, dtype):
+    p = Problem(N=n, timesteps=10)
+    u = rand(shape, 4, dtype).to(cuda)
+    v = (rand(shape, 5, dtype) * 1e-3).to(cuda)
+    c = (rand(shape, 6, dtype) * 1e-8).to(cuda)
+    g = ghosts_of(shape, 7, dtype, cuda)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=mesh, r_last=r_last,
+              coeff=p.a2tau2)
+    before = stencil_cuda.launches["sharded_comp_step"]
+    got = stencil_cuda.sharded_compensated_step(u, v, c, g, offsets, n, **kw)
+    assert stencil_cuda.launches["sharded_comp_step"] == before + 1
+    equal(got, stencil_cuda.sharded_compensated_step_plain(
+        u, v, c, g, offsets, n, **kw))
+
+
+def chain_case(cuda, d, n, k, dtype, seed):
+    p = Problem(N=n, timesteps=20)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
+    sxp = torch.cat([sx, torch.zeros(d, device=cuda)])[:d]
+    sxct = (ct[3:3 + k][:, None] * sxp[None, :]).contiguous()
+    up, u = (rand((d, n, n), seed + i, dtype).to(cuda) for i in range(2))
+    gh = [rand((k, n, n), seed + 10 + i, dtype).to(cuda) for i in range(4)]
+    fg = [(p.a2tau2 * (0.5 + rand((k, n, n), seed + 20 + i).abs())).to(cuda)
+          for i in range(2)]
+    fld = (p.a2tau2 * (0.5 + rand((d, n, n), seed + 30).abs())).to(cuda)
+    return p, syz, rsyz, sxct, up, u, gh, fld, fg
+
+
+# (D, N, k): D = 8 and 16 take the depth-8 tile, 12, 14 and 15 a run-time
+# one.
+@pytest.mark.parametrize("d,n,k", [(16, 32, 1), (8, 16, 2), (12, 24, 3),
+                                   (16, 32, 4), (15, 15, 5), (12, 36, 6),
+                                   (14, 16, 7), (8, 48, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k8(cuda, d, n, k, dtype, with_field, with_errors):
+    p, syz, rsyz, sxct, up, u, gh, fld, fg = chain_case(cuda, d, n, k, dtype,
+                                                        40)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_block=fld if with_field else None,
+              c2_ghosts=tuple(fg) if with_field else None,
+              with_errors=with_errors)
+    args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct)
+    name = "kstep_sharded_field" if with_field else "kstep_sharded"
+    before = stencil_cuda.launches[name]
+    got = stencil_cuda.fused_kstep_sharded(*args, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    equal(got, stencil_cuda.fused_kstep_sharded_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("d,n,k,n_real", [(16, 32, 1, 13), (8, 16, 2, 8),
+                                          (12, 24, 3, 7), (16, 32, 4, 2),
+                                          (15, 15, 5, 11), (12, 36, 6, 1),
+                                          (16, 16, 7, 9), (8, 48, 8, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k9(cuda, d, n, k, n_real, dtype, with_field, with_errors):
+    p, syz, rsyz, sxct, up, u, gh, fld, fg = chain_case(cuda, d, n, k, dtype,
+                                                        50)
+    up[n_real:], u[n_real:], sxct[:, n_real:] = 0.0, 0.0, 0.0
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_block=fld if with_field else None,
+              c2_ghosts=tuple(fg) if with_field else None,
+              with_errors=with_errors)
+    args = (up, u, n_real, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct)
+    name = "kstep_padded_field" if with_field else "kstep_padded"
+    before = stencil_cuda.launches[name]
+    got = stencil_cuda.fused_kstep_padded(*args, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    equal(got, stencil_cuda.fused_kstep_padded_plain(*args, **kw))
+    assert not got[1][n_real:].any()
+
+
+def test_sharded_kernels_never_fall_back(cuda):
+    p = Problem(N=16, timesteps=10)
+    u = rand((8, 16, 16), 1).to(cuda)
+    g = ghosts_of((8, 16, 16), 2, torch.float32, cuda)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=(2, 1, 1), coeff=p.a2tau2)
+    with pytest.raises(ValueError):  # a ghost on the CPU
+        stencil_cuda.sharded_fused_step(
+            u, u, [(g[0][0].cpu(), g[0][1])] + g[1:], (0, 0, 0), 16, **kw)
+    with pytest.raises(ValueError):  # a ghost of the wrong shape
+        stencil_cuda.sharded_fused_step(
+            u, u, [(g[1][0], g[0][1])] + g[1:], (0, 0, 0), 16, **kw)
+    with pytest.raises(ValueError):  # K7 takes no bf16
+        b = u.to(torch.bfloat16)
+        stencil_cuda.sharded_compensated_step(
+            b, b, b, [tuple(x.to(torch.bfloat16) for x in a) for a in g],
+            (0, 0, 0), 16, **kw)
+    w = rand((2, 16, 16), 3).to(cuda)
+    with pytest.raises(ValueError):  # K8/K9 take no f64
+        d = u.double()
+        stencil_cuda.fused_kstep_sharded(
+            d, d, (w.double(), w.double()), (w.double(), w.double()), None,
+            None, None, k=2, coeff=1.0, inv_h2=p.inv_h2, with_errors=False)
+    with pytest.raises(ValueError):  # a ghost window of the wrong depth
+        stencil_cuda.fused_kstep_padded(
+            u, u, 5, (w, w), (w, w), None, None, None, k=4, coeff=1.0,
+            inv_h2=p.inv_h2, with_errors=False)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, 1), (4, 1, 1), (1, 2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_on_one_card_equals_single_device(cuda, mesh, dtype):
+    p = Problem(N=15, timesteps=9)
+    a = sharded.solve_sharded(p, mesh, devices=[cuda] * 8, dtype=dtype)
+    b = leapfrog.solve(p, dtype, device=cuda)
+    assert torch.equal(a.u_cur.fundamental(), b.u_cur)
+    assert torch.equal(a.u_prev.fundamental(), b.u_prev)
+    assert np.array_equal(a.abs_errors, b.abs_errors)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, 1), (4, 1, 1)])
+def test_sharded_compensated_on_one_card_equals_single_device(cuda, mesh):
+    p = Problem(N=15, timesteps=9)
+    a = sharded.solve_sharded(p, mesh, devices=[cuda] * 4,
+                              scheme="compensated")
+    b = leapfrog.solve_compensated(p, device=cuda)
+    assert torch.equal(a.u_cur.fundamental(), b.u_cur)
+    assert torch.equal(a.comp_carry.fundamental(), b.comp_carry)
+
+
+@pytest.mark.parametrize("n,k,mx", [(16, 4, 4), (16, 2, 2), (15, 4, 2),
+                                    (13, 4, 4), (15, 4, 1)])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_sharded_kfused_on_one_card_equals_single_device(cuda, n, k, mx,
+                                                         with_field):
+    p = Problem(N=n, timesteps=12)
+    kw = {}
+    if with_field:
+        kw = dict(compute_errors=False, c2tau2_field=stencil_ref.
+                  make_preset_c2tau2_field(p, "gaussian-lens"))
+    a = sharded_kfused.solve_sharded_kfused(p, n_shards=mx, k=k,
+                                            devices=[cuda] * mx, **kw)
+    if sharded_kfused._is_even(p, k, mx):
+        b = kfused.solve_kfused(p, k=k, device=cuda, **kw)
+    else:
+        b = leapfrog.solve(p, device=cuda, **kw)
+    assert torch.equal(a.u_cur.fundamental(), b.u_cur)
+    assert torch.equal(a.u_prev.fundamental(), b.u_prev)
+
+
+def test_mesh_larger_than_the_cards_exits_2(cuda, capsys):
+    n_cards = torch.cuda.device_count()
+    assert cli.main(["16", "1", "1", "1", "1", "--mesh",
+                     f"{n_cards + 1},1,1"]) == 2
+    assert "visible" in capsys.readouterr().err

@@ -36,6 +36,19 @@ Flags:
                                     cpu runs their plain PyTorch versions.
                                     Without a CUDA device the CLI exits 2
                                     unless --platform cpu is given.
+  --backend {auto,single,sharded}   auto = sharded iff the platform has more
+                                    than one device (the visible cards on
+                                    gpu; the CPU counts as one)
+  --mesh MX,MY,MZ                   explicit 3D mesh (sharded backend): the
+                                    1-step march runs K6 (K7 compensated) on
+                                    every shard; with --fuse-steps K an
+                                    (MX,1,1) mesh runs K8, or K9 where MX or
+                                    K does not divide evenly.  On gpu the
+                                    shards are the visible cards (a larger
+                                    mesh exits 2); on cpu every shard lives
+                                    on the CPU.  Standard --fuse-steps K with
+                                    K not dividing N also runs K9, on a
+                                    (1,1,1) mesh.
 
 wavetpu's other flags and subcommands are not ported yet: each exits 2
 and names the ROADMAP.md item that brings it.  Exit codes: 0 complete,
@@ -53,11 +66,11 @@ from wavetpu_torch.core.problem import Problem
 # wavetpu flags (and subcommands) the port does not take yet, with the
 # ROADMAP.md item that will bring each.
 _NOT_PORTED = {
-    "backend": "queue 1 item 10 (multi-rank sharding)",
-    "mesh": "queue 1 item 10 (multi-rank sharding)",
-    "overlap": "queue 1 item 10 (multi-rank sharding)",
-    "distributed": "queue 1 item 10 (multi-rank sharding)",
-    "phase-timing": "queue 1 item 10 (solver/timing.py)",
+    "overlap": "queue 1 item 10, step 3 (--overlap: the exchange on a "
+               "second stream)",
+    "distributed": "queue 1 item 10, step 5 (--distributed: one process "
+                   "per card)",
+    "phase-timing": "queue 1 item 10, step 4 (solver/timing.py)",
     "kernel": "queue 1 item 4 (kernel selection; the port picks the CUDA "
               "kernels on the GPU and their plain versions on the CPU)",
     "stop-step": "queue 1 item 8 (checkpoint I/O)",
@@ -85,7 +98,12 @@ _NOT_PORTED_SUBCOMMANDS = {
     "profile": "queue 1 item 7 (perf + metrics)",
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
-           "out-dir", "platform", "c2-field")
+           "out-dir", "platform", "c2-field", "backend", "mesh")
+# The sharded paths still to come, with their ROADMAP.md item.
+_K10 = ("queue 1 item 10, step 1 (kernel K10: k-fusion on a y-sharded "
+        "(MX,MY,1) mesh)")
+_K11 = ("queue 1 item 10, step 2 (kernels K11/K12: the sharded compensated "
+        "k-step)")
 _VALUELESS = ("no-errors", "overlap", "distributed", "debug-nans",
               "no-watchdog", "phase-timing")
 _USAGE = (
@@ -93,7 +111,8 @@ _USAGE = (
     "[--scheme standard|compensated] [--fuse-steps K] "
     "[--dtype f32|f64|bf16] [--v-dtype f32|bf16] "
     "[--c2-field PRESET|FILE.npy] [--no-errors] [--out-dir DIR] "
-    "[--platform gpu|cpu] | --version"
+    "[--platform gpu|cpu] [--backend auto|single|sharded] "
+    "[--mesh MX,MY,MZ] | --version"
 )
 
 
@@ -101,9 +120,23 @@ class _NotPorted(ValueError):
     pass
 
 
+def _parse_mesh(flags):
+    """The --mesh flag as (MX, MY, MZ), or None."""
+    if "mesh" not in flags:
+        return None
+    try:
+        mesh = tuple(int(x) for x in flags["mesh"].split(","))
+    except ValueError:
+        mesh = ()
+    if len(mesh) != 3 or min(mesh) < 1:
+        raise ValueError(f"--mesh wants MX,MY,MZ (each >= 1), got "
+                         f"{flags['mesh']}")
+    return mesh
+
+
 def _parse(argv):
-    """Validate argv; returns (problem, flags, scheme, fuse_steps, platform).
-    Raises ValueError (usage) or _NotPorted."""
+    """Validate argv; returns (problem, flags, scheme, fuse_steps, platform,
+    mesh).  Raises ValueError (usage) or _NotPorted."""
     pos, flags = split_flags(argv, _PORTED + tuple(_NOT_PORTED), _VALUELESS)
     for name, item in _NOT_PORTED.items():
         if name in flags:
@@ -141,24 +174,41 @@ def _parse(argv):
             "--v-dtype bf16 is the increment-form bf16 mode: it requires "
             "--scheme compensated --fuse-steps K"
         )
+    backend = flags.get("backend", "auto")
+    if backend not in ("auto", "single", "sharded"):
+        raise ValueError(f"--backend must be auto|single|sharded, got "
+                         f"{backend}")
+    mesh = _parse_mesh(flags)
+    if backend == "single" and mesh is not None:
+        raise ValueError("--mesh contradicts --backend single")
+    sharded = mesh is not None or backend == "sharded"
+    if fuse_steps > 1 and mesh is not None and mesh[2] != 1:
+        raise ValueError(
+            f"--fuse-steps supports (MX,MY,1) meshes (MX, MY >= 1, MZ = 1); "
+            f"got {flags['mesh']}"
+        )
+    if fuse_steps > 1 and sharded and scheme == "compensated":
+        raise _NotPorted(
+            f"--scheme compensated --fuse-steps {fuse_steps} on a mesh is "
+            f"not ported yet: ROADMAP.md {_K11}"
+        )
+    if fuse_steps > 1 and mesh is not None and mesh[1] > 1:
+        raise _NotPorted(
+            f"--fuse-steps {fuse_steps} on the mesh {flags['mesh']} is not "
+            f"ported yet: ROADMAP.md {_K10}"
+        )
     problem = Problem.from_argv(pos)
     if fuse_steps > 8:
         raise ValueError(
             f"--fuse-steps {fuse_steps} must be <= 8 (the cone tile of the "
-            f"k-step kernels K3 and K4)"
+            f"k-step kernels)"
         )
-    if fuse_steps > 1 and problem.N % fuse_steps:
-        if scheme == "standard":
-            raise _NotPorted(
-                f"--fuse-steps {fuse_steps} with N={problem.N} (K does not "
-                f"divide N: wavetpu's pad-and-mask march) is not ported "
-                f"yet: ROADMAP.md queue 1 item 10 (kernel K9)"
-            )
+    if fuse_steps > 1 and scheme == "compensated" and problem.N % fuse_steps:
         raise ValueError(
             f"--fuse-steps {fuse_steps} must divide N={problem.N} for the "
             f"compensated k-fused march"
         )
-    return problem, flags, scheme, fuse_steps, platform
+    return problem, flags, scheme, fuse_steps, platform, mesh
 
 
 def _c2_field(spec: str, problem: Problem):
@@ -199,7 +249,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"wavetpu_torch {__version__}")
         return 0
     try:
-        problem, flags, scheme, fuse_steps, platform = _parse(argv)
+        problem, flags, scheme, fuse_steps, platform, mesh = _parse(argv)
     except _NotPorted as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -215,9 +265,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               "--platform cpu is given", file=sys.stderr)
         return 2
     device = torch.device("cuda" if platform == "gpu" else "cpu")
+    try:
+        backend, shape, devices = _placement(problem, flags, fuse_steps,
+                                             platform, mesh)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
 
     from wavetpu_torch.io import report
-    from wavetpu_torch.solver import kfused, kfused_comp, leapfrog
+    from wavetpu_torch.solver import (
+        kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
+    )
 
     # Courant printout before solving (openmp_sol.cpp:214).
     print(f"C = {problem.courant:.6g}")
@@ -239,11 +297,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"scheme: {scheme}")
     if fuse_steps > 1:
         print(f"fuse-steps: {fuse_steps}")
+    if backend == "sharded":
+        print(f"mesh: {shape[0]},{shape[1]},{shape[2]}")
     dtype = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
         flags.get("dtype"), torch.float32)
     v_bf16 = flags.get("v-dtype") == "bf16"
 
-    if scheme == "compensated" and fuse_steps > 1:
+    if backend == "sharded" and fuse_steps > 1:
+        result = sharded_kfused.solve_sharded_kfused(
+            problem, dtype=dtype, k=fuse_steps,
+            compute_errors=compute_errors, devices=devices,
+            mesh_shape=shape, c2tau2_field=c2_field,
+        )
+    elif backend == "sharded":
+        result = sharded.solve_sharded(
+            problem, shape, devices, dtype=dtype,
+            compute_errors=compute_errors, c2tau2_field=c2_field,
+            scheme=scheme,
+        )
+    elif scheme == "compensated" and fuse_steps > 1:
         result = kfused_comp.solve_kfused_comp(
             problem, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors,
@@ -254,6 +326,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         result = leapfrog.solve_compensated(
             problem, dtype=dtype, compute_errors=compute_errors,
             device=device,
+        )
+    elif fuse_steps > 1 and problem.N % fuse_steps:
+        # K does not divide N: wavetpu's pad-and-mask march (K9) on a
+        # (1, 1, 1) mesh (wavetpu/cli.py:1201-1213).
+        result = sharded_kfused.solve_sharded_kfused(
+            problem, n_shards=1, dtype=dtype, k=fuse_steps,
+            compute_errors=compute_errors, devices=[device],
+            c2tau2_field=c2_field,
         )
     elif fuse_steps > 1:
         result = kfused.solve_kfused(
@@ -267,13 +347,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             c2tau2_field=c2_field, device=device,
         )
 
+    sharded_run = backend == "sharded"
     path = report.write_report(
         result,
         out_dir=flags.get("out-dir", "."),
+        n_procs=shape[0] * shape[1] * shape[2] if sharded_run else 1,
         errors_computed=compute_errors,
         run_config={
             "device": device_name,
             "platform": platform,
+            "backend": backend,
+            "mesh": list(shape) if sharded_run else None,
             "scheme": scheme,
             "fuse_steps": fuse_steps,
             "dtype": str(result.u_cur.dtype).replace("torch.", ""),
@@ -289,3 +373,61 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"throughput: {result.gcells_per_second:.3f} Gcell-updates/s")
     print(f"report: {path}")
     return 0
+
+
+def _placement(problem: Problem, flags, fuse_steps: int, platform: str,
+               mesh):
+    """(backend, mesh shape, devices) of the run (wavetpu/cli.py:587-658).
+
+    The platform's devices are the visible cards on gpu and the CPU (one
+    device) on cpu.  Auto means sharded iff there is more than one; an
+    explicit --mesh or --backend sharded means sharded, and k-fusion goes
+    sharded only on such explicit request.  On gpu a mesh larger than the
+    cards exits 2; on cpu every shard lives on the CPU.  Raises ValueError
+    with the message to print."""
+    import torch
+
+    n_devices = torch.cuda.device_count() if platform == "gpu" else 1
+    backend = flags.get("backend", "auto")
+    explicit = mesh is not None or backend == "sharded"
+    if explicit:
+        backend = "sharded"
+    elif fuse_steps > 1 or backend == "auto" and n_devices == 1:
+        backend = "single"
+    elif backend == "auto":
+        backend = "sharded"
+    if backend == "single":
+        shape = (1, 1, 1)
+    elif mesh is not None:
+        shape = mesh
+    elif fuse_steps > 1:
+        shape = (n_devices, 1, 1)
+    else:
+        from wavetpu_torch.core.grid import choose_mesh_shape
+
+        shape = choose_mesh_shape(n_devices)
+    n = problem.N
+    if fuse_steps > 1:
+        even_x = n % shape[0] == 0 and (n // shape[0]) % fuse_steps == 0
+        if n % shape[1] or n // shape[1] < fuse_steps:
+            raise ValueError(
+                f"--fuse-steps {fuse_steps} must fit the y depth N/MY = "
+                f"{n}/{shape[1]}")
+        if not even_x and flags.get("scheme") != "compensated":
+            # Verify a pad-and-mask layout exists before building anything.
+            from wavetpu_torch.solver import sharded_kfused
+
+            sharded_kfused.uneven_layout(problem, fuse_steps, shape[0])
+    if backend == "single":
+        return backend, shape, None
+    from wavetpu_torch.core.grid import Topology
+
+    n_shards = Topology(n, shape).n_devices  # raises if a shard is empty
+    if platform == "cpu":
+        return backend, shape, ["cpu"] * n_shards
+    if n_shards > n_devices:
+        raise ValueError(
+            f"mesh {shape[0]},{shape[1]},{shape[2]} needs {n_shards} cards, "
+            f"{n_devices} visible (on the GPU every shard is a card; "
+            f"--platform cpu puts all shards on the CPU)")
+    return backend, shape, [torch.device("cuda", i) for i in range(n_shards)]

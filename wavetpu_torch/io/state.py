@@ -6,9 +6,17 @@ for a variable-c run's coefficient: `c2tau2_field` places wavetpu's host
 tau^2 c^2 array (`stencil_ref.make_preset_c2tau2_field` in either package)
 on the device once, in the compute dtype the kernels take.
 
+A wavetpu sharded state (a `solve_sharded` / `solve_sharded_kfused`
+result, or a sharded checkpoint's arrays) is the padded global
+`Topology.padded` array; `split_sharded` cuts it into the port's shard
+blocks on given devices (a `ShardedArray`) and `assemble_sharded` puts them
+back together, so a state crosses between the packages in either
+direction.  A variable-c field crosses the same way after wavetpu's
+`pad_field`.
+
 A JAX bf16 array becomes an `ml_dtypes.bfloat16` numpy array, which
 `torch.from_numpy` refuses; its bits go through `uint16` instead and are
-reinterpreted as `torch.bfloat16` - exact, no rounding.
+reinterpreted as `torch.bfloat16` - exact, no rounding - and back.
 """
 
 from __future__ import annotations
@@ -18,6 +26,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from wavetpu_torch.core.grid import (
+    ShardedArray, Topology, build_mesh, split_global,
+)
 from wavetpu_torch.kernels.stencil_ref import compute_dtype
 from wavetpu_torch.solver import leapfrog
 
@@ -56,3 +67,34 @@ def c2tau2_field(field, dtype=torch.float32, device=None) -> torch.Tensor:
     t = field if isinstance(field, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(field, dtype=np.float64))
     return t.to(device=device, dtype=compute_dtype(dtype)).contiguous()
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array of the same dtype; bf16 comes back as
+    `ml_dtypes.bfloat16` (what a JAX bf16 array converts to) where that
+    package is installed, else as its uint16 bits."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.view(torch.int16).numpy().view(np.uint16)
+    try:
+        import ml_dtypes
+    except ImportError:
+        return bits
+    return bits.view(ml_dtypes.bfloat16)
+
+
+def split_sharded(a, n: int, mesh_shape, devices) -> ShardedArray:
+    """A wavetpu sharded array - the padded global (Topology.padded) array
+    of an N-point problem on `mesh_shape`, as numpy, bf16 included - as the
+    port's shard blocks, block i on devices[i] (mesh order; a device may
+    repeat)."""
+    topo = Topology(N=n, mesh_shape=tuple(mesh_shape))
+    mesh = build_mesh(topo.mesh_shape, devices)
+    return split_global(to_tensor(a, "cpu"), topo, mesh)
+
+
+def assemble_sharded(u: ShardedArray) -> np.ndarray:
+    """The port's shard blocks back as wavetpu's padded global numpy
+    array (`split_sharded`'s inverse)."""
+    return to_numpy(u.assemble("cpu"))

@@ -1,6 +1,6 @@
-"""Wrappers of the CUDA stencil kernels (csrc/stencil.cu, csrc/kstep.cu),
-each with its plain PyTorch version and a launch counter - the port of
-wavetpu/kernels/stencil_pallas.py's single-device kernels.
+"""Wrappers of the CUDA stencil kernels (csrc/stencil.cu, csrc/kstep.cu,
+csrc/sharded.cu), each with its plain PyTorch version and a launch counter
+- the port of wavetpu/kernels/stencil_pallas.py's kernels.
 
 | kernel | replaces (wavetpu/kernels/stencil_pallas.py)          | wrapper            | counter            |
 |--------|-------------------------------------------------------|--------------------|--------------------|
@@ -11,6 +11,15 @@ wavetpu/kernels/stencil_pallas.py's single-device kernels.
 | K3f    | K3 with `c2tau2_field` (`_field_onion` :721)          | `fused_kstep(c2tau2_field=)` | `kstep_field` |
 | K4     | `_kstep_comp_kernel` via `fused_kstep_comp` :1071     | `fused_kstep_comp` | `kstep_comp`       |
 | K4f    | K4 with `c2tau2_field` (`has_field` :1043)            | `fused_kstep_comp(c2tau2_field=)` | `kstep_comp_field` |
+| K6     | `_sharded_kernel` :316 via `sharded_fused_step` :448  | `sharded_fused_step` | `sharded_step` (`sharded_step_field` with a field) |
+| K7     | `_sharded_comp_kernel` :364 via `sharded_compensated_step` :505 | `sharded_compensated_step` | `sharded_comp_step` |
+| K8     | `_kstep_sharded_kernel` :1609 via `fused_kstep_sharded` :1690 | `fused_kstep_sharded` | `kstep_sharded` (`kstep_sharded_field`) |
+| K9     | `_kstep_padded_kernel` :1782 via `fused_kstep_padded` :1882 | `fused_kstep_padded` | `kstep_padded` (`kstep_padded_field`) |
+
+The sharded kernels (K6-K9) take one shard's block and the ghost planes
+that comm/halo.py (or the sharded k-fused solver) delivered from the
+neighbour shards; K8 and K9 are one CUDA kernel (csrc/sharded.cu
+`kstep_chain_kernel`), K9 masking the planes past its real-plane count.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests and `--platform cpu` run); a
@@ -36,11 +45,16 @@ import torch
 
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import build
-from wavetpu_torch.kernels.stencil_ref import compute_dtype, laplacian
+from wavetpu_torch.kernels.stencil_ref import (
+    compute_dtype, ghost_extend, laplacian, laplacian_ext,
+)
 
 launches: Dict[str, int] = {
     "step": 0, "var_step": 0, "comp_step": 0, "kstep": 0, "kstep_field": 0,
     "kstep_comp": 0, "kstep_comp_field": 0,
+    "sharded_step": 0, "sharded_step_field": 0, "sharded_comp_step": 0,
+    "kstep_sharded": 0, "kstep_sharded_field": 0,
+    "kstep_padded": 0, "kstep_padded_field": 0,
 }
 
 # dtype codes of csrc/stencil.cu.
@@ -91,6 +105,23 @@ def _kstep_lib() -> ctypes.CDLL:
     return lib
 
 
+def _sharded_lib() -> ctypes.CDLL:
+    """csrc/sharded.cu: K6, K7, K8/K9."""
+    lib = build.load("sharded")
+    if not getattr(lib, "_wt_typed", False):
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.wt_sharded_step.argtypes = (
+            [p] * 10 + [i] * 11 + [d] * 6 + [i, p])
+        lib.wt_sharded_step.restype = i
+        lib.wt_sharded_comp_step.argtypes = (
+            [p] * 12 + [i] * 11 + [d] * 4 + [p])
+        lib.wt_sharded_comp_step.restype = i
+        lib.wt_kstep_chain.argtypes = [p] * 16 + [i] * 8 + [d] * 4 + [p]
+        lib.wt_kstep_chain.restype = i
+        lib._wt_typed = True
+    return lib
+
+
 def load_libraries() -> None:
     """Build every kernel library not built yet (one nvcc per source, in
     parallel) and load them all, so no build lands inside a timed
@@ -98,6 +129,7 @@ def load_libraries() -> None:
     build.build_all()
     _lib()
     _kstep_lib()
+    _sharded_lib()
 
 
 def _check_cuda(n: int, **tensors) -> None:
@@ -526,3 +558,372 @@ def fused_kstep_comp(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
         # The kernel combined the rows as the bits of non-negative floats.
         dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
     return u_out, v_out, c_out, dmax, rmax
+
+
+# ---------------------------------------------------------------------------
+# The sharded kernels (csrc/sharded.cu).  A shard's `ghosts` are
+# ((xlo, xhi), (ylo, yhi), (zlo, zhi)) as comm/halo.collect_ghosts returns
+# them; only the axes whose mesh dim is > 1 are read (elsewhere the block
+# wraps onto itself, as the TPU kernel's in-block roll does).  `offsets`
+# are the block's global cell offsets, `n_global` the fundamental N, and
+# `r_last` (with `mesh_shape`) says which axes carry pad planes.
+
+
+def _need_pads(shape, mesh_shape, r_last):
+    need = tuple(m > 1 for m in mesh_shape)
+    if r_last is None:
+        return need, (False, False, False)
+    return need, tuple(r != b for r, b in zip(r_last, shape))
+
+
+def _global_mask(offsets, shape, pads, n_global, device):
+    """The TPU kernel's `_global_mask`: y and z global index != 0, and
+    global index < N on the axes that carry pad planes."""
+    g = [o + torch.arange(b, device=device) for o, b in zip(offsets, shape)]
+    mask = (g[1] != 0)[None, :, None] & (g[2] != 0)[None, None, :]
+    for axis, pad in enumerate(pads):
+        if pad:
+            view = [1, 1, 1]
+            view[axis] = -1
+            mask = mask & (g[axis] < n_global).view(view)
+    return mask
+
+
+def _ghost_lap(c, ghosts, need, inv_h2):
+    """The Laplacian of block `c` (compute dtype) with the delivered ghosts
+    on the axes that need them and the block's own wrap planes elsewhere."""
+    planes = []
+    for axis in range(3):
+        if need[axis]:
+            planes.append(tuple(g.to(c.dtype) for g in ghosts[axis]))
+        else:
+            b = c.shape[axis]
+            planes.append((c.narrow(axis, b - 1, 1), c.narrow(axis, 0, 1)))
+    return laplacian_ext(ghost_extend(c, planes), inv_h2)
+
+
+def _check_on_card(dev, dtype, **tensors) -> None:
+    """Raise unless every given (tensor, shape) is a contiguous CUDA tensor
+    of that shape and `dtype` on `dev`."""
+    for name, (t, shape) in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the kernel needs "
+                             f"{dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}{tuple(shape)}, got "
+                             f"{t.dtype}{tuple(t.shape)}")
+
+
+def _ghost_ptrs(u, ghosts, need):
+    """The six ghost pointers K6/K7 take (None on axes that need none),
+    each ghost checked to be the block's face shape on u's device."""
+    ptrs = []
+    for axis in range(3):
+        if not need[axis]:
+            ptrs += [None, None]
+            continue
+        face = list(u.shape)
+        face[axis] = 1
+        lo, hi = ghosts[axis]
+        _check_on_card(u.device, u.dtype, **{f"ghost {axis} lo": (lo, face),
+                                             f"ghost {axis} hi": (hi, face)})
+        ptrs += [lo.data_ptr(), hi.data_ptr()]
+    return ptrs
+
+
+def _block_geometry(u, offsets, n_global, pads):
+    return (*u.shape, *(int(o) for o in offsets), int(n_global),
+            *(int(p) for p in pads))
+
+
+def _check_block_state(u, dtypes, kernel, **tensors) -> None:
+    if u.device.type != "cuda":
+        raise ValueError(f"u is on {u.device}, the kernel needs CUDA")
+    if u.dtype not in dtypes:
+        raise ValueError(f"{kernel} takes a {'/'.join(map(str, dtypes))} "
+                         f"state, got {u.dtype}")
+    _check_on_card(u.device, u.dtype, u=(u, u.shape),
+                   **{k: (t, u.shape) for k, t in tensors.items()})
+
+
+# K6: the 1-step update of a shard block.
+
+
+def sharded_fused_step_plain(u_prev, u, ghosts, offsets, n_global, *,
+                             inv_h2, mesh_shape, r_last=None, alpha=2.0,
+                             beta=1.0, coeff=None, c2tau2_block=None):
+    """Plain K6: alpha*u + coeff*lap(u) - beta*u_prev (beta term only if
+    beta != 0; the block's field cell in place of coeff with
+    `c2tau2_block`) in the compute dtype, the Laplacian over the ghost
+    extension (`laplacian_ext`), the store masked by global index."""
+    f = compute_dtype(u.dtype)
+    need, pads = _need_pads(u.shape, mesh_shape, r_last)
+    c = u.to(f)
+    lap = _ghost_lap(c, ghosts, need, inv_h2)
+    co = coeff if c2tau2_block is None else c2tau2_block.to(f)
+    out = alpha * c + co * lap
+    if beta:
+        out = out - beta * u_prev.to(f)
+    mask = _global_mask(offsets, u.shape, pads, n_global, u.device)
+    return torch.where(mask, out, 0.0).to(u.dtype)
+
+
+def sharded_fused_step(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
+                       mesh_shape, r_last=None, alpha=2.0, beta=1.0,
+                       coeff=None, c2tau2_block=None):
+    """K6 (replaces stencil_pallas.sharded_fused_step): one update of a
+    shard block (bx, by, bz) with pre-exchanged ghosts, K1's arithmetic
+    (K5's with `c2tau2_block`, the block's tau^2 c^2 in the compute dtype;
+    `coeff` is then ignored).  On an uneven axis the last shard's hi ghost
+    must already sit in its first pad plane (comm/halo.absorb_hi_ghosts).
+    On the card: f32/f64/bf16 state."""
+    if u.device.type == "cpu":
+        return sharded_fused_step_plain(
+            u_prev, u, ghosts, offsets, n_global, inv_h2=inv_h2,
+            mesh_shape=mesh_shape, r_last=r_last, alpha=alpha, beta=beta,
+            coeff=coeff, c2tau2_block=c2tau2_block)
+    _check_block_state(u, tuple(_CODE), "K6", u_prev=u_prev)
+    need, pads = _need_pads(u.shape, mesh_shape, r_last)
+    if c2tau2_block is not None:
+        _check_on_card(u.device, compute_dtype(u.dtype),
+                       c2tau2_block=(c2tau2_block, u.shape))
+    ghost_ptrs = _ghost_ptrs(u, ghosts, need)
+    out = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        _run(_sharded_lib().wt_sharded_step, u_prev.data_ptr(),
+             u.data_ptr(), out.data_ptr(), _ptr(c2tau2_block), *ghost_ptrs,
+             *_block_geometry(u, offsets, n_global, pads), _CODE[u.dtype],
+             float(alpha), float(beta),
+             float(coeff if c2tau2_block is None else 0.0),
+             *(float(h) for h in inv_h2), int(beta != 0))
+    launches["sharded_step" if c2tau2_block is None
+             else "sharded_step_field"] += 1
+    return out
+
+
+# K7: the 1-step compensated update of a shard block.
+
+
+def sharded_compensated_step_plain(u, v, carry, ghosts, offsets, n_global,
+                                   *, inv_h2, mesh_shape, r_last=None,
+                                   coeff):
+    """Plain K7: d = mask(coeff*lap(u)); v' = v + d; Kahan two-sum
+    u' = u + v' through the carry; u' masked as d."""
+    f = compute_dtype(u.dtype)
+    need, pads = _need_pads(u.shape, mesh_shape, r_last)
+    c = u.to(f)
+    mask = _global_mask(offsets, u.shape, pads, n_global, u.device)
+    d = torch.where(mask, coeff * _ghost_lap(c, ghosts, need, inv_h2), 0.0)
+    v_next = v.to(f) + d
+    y = v_next - carry.to(f)
+    t = c + y
+    carry_next = (t - c) - y
+    return (torch.where(mask, t, 0.0).to(u.dtype), v_next.to(u.dtype),
+            carry_next.to(u.dtype))
+
+
+def sharded_compensated_step(u, v, carry, ghosts, offsets, n_global, *,
+                             inv_h2, mesh_shape, r_last=None, coeff):
+    """K7 (replaces stencil_pallas.sharded_compensated_step): K2's
+    compensated update of a shard block with K6's ghosts and mask.
+    Returns (u', v', carry'); on the card f32 or f64, all of one dtype."""
+    if u.device.type == "cpu":
+        return sharded_compensated_step_plain(
+            u, v, carry, ghosts, offsets, n_global, inv_h2=inv_h2,
+            mesh_shape=mesh_shape, r_last=r_last, coeff=coeff)
+    _check_block_state(u, (torch.float32, torch.float64), "K7", v=v,
+                       carry=carry)
+    need, pads = _need_pads(u.shape, mesh_shape, r_last)
+    ghost_ptrs = _ghost_ptrs(u, ghosts, need)
+    outs = tuple(torch.empty_like(u) for _ in range(3))
+    with torch.cuda.device(u.device):
+        _run(_sharded_lib().wt_sharded_comp_step, u.data_ptr(),
+             v.data_ptr(), carry.data_ptr(), *(o.data_ptr() for o in outs),
+             *ghost_ptrs, *_block_geometry(u, offsets, n_global, pads),
+             _CODE[u.dtype], float(coeff), *(float(h) for h in inv_h2))
+    launches["sharded_comp_step"] += 1
+    return outs
+
+
+# K8 and K9: k fused substeps of an x-sharded block (D, N, N) whose x
+# neighbours come from (k, N, N) ghost windows (lo, hi) of u_prev and u.
+
+
+def _kstep_chain_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
+                       sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
+                       with_errors):
+    """Plain K8/K9: each field's x chain lo | block[:n_real] | hi | zero
+    (the TPU pad-and-mask kernel's extended array), k substeps on an onion
+    that shrinks one plane per side each, each op for op K3's; outputs and
+    (k, D) error rows zero past n_real."""
+    d, ny, nz = u.shape
+    f = compute_dtype(u.dtype)
+    dev = u.device
+
+    def chain(blk, ghosts):
+        lo, hi = ghosts
+        ext = torch.zeros((d + 2 * k, ny, nz), dtype=f, device=dev)
+        ext[:k] = lo.to(f)
+        ext[k:k + n_real] = blk[:n_real].to(f)
+        ext[k + n_real:2 * k + n_real] = hi.to(f)
+        return ext
+
+    prev, cur = chain(u_prev, prev_ghosts), chain(u, cur_ghosts)
+    fld = None if c2tau2_block is None else chain(c2tau2_block, c2_ghosts)
+    iy_, iz_ = torch.arange(ny, device=dev), torch.arange(nz, device=dev)
+    mask = ((iy_[:, None] != 0) & (iz_[None, :] != 0))[None]
+    real = torch.arange(d, device=dev) < n_real
+    ix, iy, iz = inv_h2
+    dmax = rmax = None
+    if with_errors:
+        dmax = torch.zeros((k, d), dtype=torch.float32, device=dev)
+        rmax = torch.zeros((k, d), dtype=torch.float32, device=dev)
+        syz_f, rsyz_f = syz.to(f), rsyz.to(f)
+    for s in range(1, k + 1):
+        c = cur[1:-1]
+        lap = (cur[:-2] + cur[2:] - 2.0 * c) * ix
+        lap = lap + (
+            torch.roll(c, 1, 1) + torch.roll(c, -1, 1) - 2.0 * c) * iy
+        lap = lap + (
+            torch.roll(c, 1, 2) + torch.roll(c, -1, 2) - 2.0 * c) * iz
+        co = coeff if fld is None else fld[s:fld.shape[0] - s]
+        new = 2.0 * c + co * lap
+        new = new - prev[1:-1]
+        new = torch.where(mask, new, 0.0)
+        if u.dtype != f:
+            new = new.to(u.dtype).to(f)
+        if with_errors:
+            diff = (new[k - s:k - s + d]
+                    - sxct[s - 1].to(f)[:, None, None] * syz_f).abs()
+            dmax[s - 1] = torch.where(real, diff.amax(dim=(1, 2)).float(),
+                                      0.0)
+            rmax[s - 1] = torch.where(
+                real, (diff * rsyz_f).amax(dim=(1, 2)).float(), 0.0)
+        prev, cur = c, new
+    keep = real[:, None, None]
+    return (torch.where(keep, prev, 0.0).to(u.dtype),
+            torch.where(keep, cur, 0.0).to(u.dtype), dmax, rmax)
+
+
+def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
+                 rsyz, sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
+                 with_errors):
+    """Launch csrc/sharded.cu's chain kernel (K8 or K9, counted under
+    `counter`) after checking every operand."""
+    d, n = u.shape[0], u.shape[1]
+    if not 1 <= k <= _K4_MAX_K:
+        raise ValueError(f"k={k}: the sharded k-step kernels take 1 <= k <= "
+                         f"{_K4_MAX_K}")
+    if u.shape[2] != n:
+        raise ValueError(f"the block's y and z extents must be N, got "
+                         f"{tuple(u.shape)}")
+    _check_block_state(u, (torch.float32, torch.bfloat16), "K8/K9",
+                       u_prev=u_prev)
+    dev = u.device
+    window = (k, n, n)
+    _check_on_card(dev, u.dtype, prev_lo=(prev_ghosts[0], window),
+                   prev_hi=(prev_ghosts[1], window),
+                   cur_lo=(cur_ghosts[0], window),
+                   cur_hi=(cur_ghosts[1], window))
+    f32 = torch.float32
+    if c2tau2_block is not None:
+        _check_on_card(dev, f32, c2tau2_block=(c2tau2_block, u.shape),
+                       c2_lo=(c2_ghosts[0], window),
+                       c2_hi=(c2_ghosts[1], window))
+    dmax = rmax = None
+    if with_errors:
+        _check_on_card(dev, f32, syz=(syz, (n, n)), rsyz=(rsyz, (n, n)),
+                       sxct=(sxct, (k, d)))
+        dmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
+        rmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
+    tx, ty, tz = kstep_tile(k, d)
+    prev_out = torch.empty_like(u)
+    out = torch.empty_like(u)
+    c2g = (None, None) if c2tau2_block is None else c2_ghosts
+    with torch.cuda.device(dev):
+        _run(_sharded_lib().wt_kstep_chain, u_prev.data_ptr(), u.data_ptr(),
+             prev_ghosts[0].data_ptr(), prev_ghosts[1].data_ptr(),
+             cur_ghosts[0].data_ptr(), cur_ghosts[1].data_ptr(),
+             prev_out.data_ptr(), out.data_ptr(), _ptr(c2tau2_block),
+             _ptr(c2g[0]), _ptr(c2g[1]),
+             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
+               if with_errors else (None, None, None)),
+             _ptr(dmax), _ptr(rmax), d, n, int(n_real), k, tx, ty, tz,
+             _CODE[u.dtype], float(coeff if c2tau2_block is None else 0.0),
+             *(float(h) for h in inv_h2))
+    launches[counter if c2tau2_block is None else counter + "_field"] += 1
+    if with_errors:
+        # The kernel combined the rows as the bits of non-negative floats.
+        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
+    return prev_out, out, dmax, rmax
+
+
+def fused_kstep_sharded_plain(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
+                              sxct, *, k, coeff, inv_h2, c2tau2_block=None,
+                              c2_ghosts=None, with_errors=True):
+    """Plain K8: `_kstep_chain_plain` with every plane of the block real."""
+    return _kstep_chain_plain(
+        u_prev, u, u.shape[0], prev_ghosts, cur_ghosts, syz, rsyz, sxct, k=k,
+        coeff=coeff, inv_h2=inv_h2, c2tau2_block=c2tau2_block,
+        c2_ghosts=c2_ghosts, with_errors=with_errors)
+
+
+def fused_kstep_sharded(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz, sxct,
+                        *, k, coeff, inv_h2, c2tau2_block=None,
+                        c2_ghosts=None, with_errors=True):
+    """K8 (replaces stencil_pallas.fused_kstep_sharded): k temporally fused
+    leapfrog steps of one x-sharded (N/MX, N, N) block whose x halos come
+    from the (k, N, N) ghost windows `prev_ghosts` / `cur_ghosts` = (lo, hi)
+    of the cyclic x neighbours (bitwise equal to K3 on the whole domain).
+    `sxct` is the shard's (k, N/MX) oracle row slice; returns (u_{n+k-1},
+    u_{n+k}, dmax, rmax) with (k, N/MX) rows (None without `with_errors`).
+    With `c2tau2_block` and its ghost pair `c2_ghosts` the variable-c
+    substep runs and `coeff` is ignored.  k must divide the shard depth;
+    on the card f32 or bf16 state, 1 <= k <= 8."""
+    if u.shape[0] % k:
+        raise ValueError(f"k={k} must divide the shard depth {u.shape[0]}")
+    kw = dict(k=k, coeff=coeff, inv_h2=inv_h2, c2tau2_block=c2tau2_block,
+              c2_ghosts=c2_ghosts, with_errors=with_errors)
+    if u.device.type == "cpu":
+        return fused_kstep_sharded_plain(u_prev, u, prev_ghosts, cur_ghosts,
+                                         syz, rsyz, sxct, **kw)
+    return _kstep_chain("kstep_sharded", u_prev, u, u.shape[0], prev_ghosts,
+                        cur_ghosts, syz, rsyz, sxct, **kw)
+
+
+def fused_kstep_padded_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
+                             rsyz, sxct, *, k, coeff, inv_h2,
+                             c2tau2_block=None, c2_ghosts=None,
+                             with_errors=True):
+    """Plain K9: `_kstep_chain_plain` over the shard's `n_real` planes."""
+    return _kstep_chain_plain(
+        u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz, sxct, k=k,
+        coeff=coeff, inv_h2=inv_h2, c2tau2_block=c2tau2_block,
+        c2_ghosts=c2_ghosts, with_errors=with_errors)
+
+
+def fused_kstep_padded(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
+                       sxct, *, k, coeff, inv_h2, c2tau2_block=None,
+                       c2_ghosts=None, with_errors=True):
+    """K9 (replaces stencil_pallas.fused_kstep_padded): k fused leapfrog
+    steps of an uneven (pad-and-mask) x-sharded block (D, N, N) that owns
+    `n_real` <= D real planes.  The ghost windows are the k real planes
+    before its first plane and after its last real one; the kernel reads
+    them where the TPU kernel's extended array [lo | D | junk] holds them
+    (hi at n_real), so no extended copy is made.  Returns (D, N, N) blocks
+    with the pad planes zero and (k, D) error rows zero at pad columns;
+    `sxct` is (k, D) with zero pad columns.  k = 1 is the bootstrap and
+    the remainder tail.  On the card f32 or bf16 state, 1 <= k <= 8."""
+    if not 1 <= n_real <= u.shape[0]:
+        raise ValueError(f"n_real={n_real} must be in [1, {u.shape[0]}]")
+    kw = dict(k=k, coeff=coeff, inv_h2=inv_h2, c2tau2_block=c2tau2_block,
+              c2_ghosts=c2_ghosts, with_errors=with_errors)
+    if u.device.type == "cpu":
+        return fused_kstep_padded_plain(u_prev, u, n_real, prev_ghosts,
+                                        cur_ghosts, syz, rsyz, sxct, **kw)
+    return _kstep_chain("kstep_padded", u_prev, u, n_real, prev_ghosts,
+                        cur_ghosts, syz, rsyz, sxct, **kw)

@@ -42,6 +42,42 @@ def laplacian(u, inv_h2):
     return lap
 
 
+def laplacian_ext(ext, inv_h2):
+    """7-point Laplacian of the interior of a halo-extended block.
+
+    `ext` has one ghost cell on each side of each axis: shape (bx+2, by+2,
+    bz+2); the result has shape (bx, by, bz), summed in the same order as
+    `laplacian`.  Used by the sharded solver, where ghost planes arrive
+    from the neighbouring shards instead of the rolls.
+    """
+    ix, iy, iz = inv_h2
+    c = ext[1:-1, 1:-1, 1:-1]
+    lap = (ext[:-2, 1:-1, 1:-1] + ext[2:, 1:-1, 1:-1] - 2.0 * c) * ix
+    lap = lap + (ext[1:-1, :-2, 1:-1] + ext[1:-1, 2:, 1:-1] - 2.0 * c) * iy
+    lap = lap + (ext[1:-1, 1:-1, :-2] + ext[1:-1, 1:-1, 2:] - 2.0 * c) * iz
+    return lap
+
+
+def ghost_extend(u, ghosts, hi_at=None):
+    """The (bx+2, by+2, bz+2) extension of block `u`: its cells at offset 1,
+    each axis's `lo` ghost plane at position 0 and its `hi` ghost at
+    hi_at[a] + 1 (default: the block's end); the corners and any cell past
+    a hi ghost stay zero.  `ghosts` is ((xlo, xhi), (ylo, yhi), (zlo, zhi))
+    with each plane shaped like the block's face."""
+    shape = u.shape
+    hi_at = shape if hi_at is None else hi_at
+    ext = torch.zeros(tuple(s + 2 for s in shape), dtype=u.dtype,
+                      device=u.device)
+    ext[1:-1, 1:-1, 1:-1] = u
+    inner = [slice(1, s + 1) for s in shape]
+    for axis, (lo, hi) in enumerate(ghosts):
+        for pos, g in ((0, lo), (hi_at[axis] + 1, hi)):
+            idx = list(inner)
+            idx[axis] = slice(pos, pos + 1)
+            ext[tuple(idx)] = g
+    return ext
+
+
 def apply_dirichlet(u):
     """Re-impose the Dirichlet invariant on a copy: zero the stored y=0 and
     z=0 planes (the y=N / z=N planes are not stored; see problem.py)."""

@@ -1,0 +1,365 @@
+"""Multi-shard solver over a 3D mesh (torch port of wavetpu/solver/sharded.py,
+serial exchange).
+
+The analog of the reference's MPI variants (mpi_new.cpp:324-372 fused loop,
+mpi_sol.cpp:374-478 topology set-up).  One process drives every shard, as
+wavetpu's single `shard_map` program does: each step exchanges the face
+ghosts of every block (comm/halo.py, a copy onto the receiver's device per
+ghost plane), then launches the per-shard kernel - K6
+(`stencil_cuda.sharded_fused_step`, the analog of each MPI rank launching
+the reference's CUDA kernel, cuda_sol.cpp:381-443) or, for the
+compensated scheme, K7 (`sharded_compensated_step`).  The per-layer L-inf
+errors stay in per-shard device vectors; the cross-shard max (wavetpu's
+`pmax`, the reference's end-of-run MPI_Reduce(MPI_MAX), mpi_new.cpp:
+360-361) is taken once, at the read-back.
+
+The mesh is a list of devices that may name one device more than once
+(core/grid.py): all shards on one card, or all on the CPU, run the same
+code as shards on separate cards.  `devices=None` means one shard per
+visible card and raises when the mesh needs more; the CPU runs only when
+named.
+
+Sharding model (core/grid.py): the fundamental (N, N, N) state is
+zero-padded per axis to a multiple of the mesh dim.  The 1-D analytic
+factors and boundary / error masks are computed on the host in f64,
+padded, and each shard takes its slice - the reference's per-rank
+x_0/y_0/z_0 offsets (mpi_sol.cpp:423-429).  Each kernel step is op for op
+the single-device step, so the sharded solve equals `leapfrog.solve` (and
+the compensated one `leapfrog.solve_compensated`) bit for bit, errors
+included.
+
+Not ported here: the overlap mode (ROADMAP.md queue 1 item 10), the
+shifted-phase bootstrap (with ensembles, item 11) and the resume / chunk
+runners (items 8, 9).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from wavetpu_torch.comm import halo
+from wavetpu_torch.core.grid import (
+    Mesh, ShardedArray, Topology, build_mesh, choose_mesh_shape,
+    split_global,
+)
+from wavetpu_torch.core.problem import Problem
+from wavetpu_torch.kernels import stencil_cuda, stencil_ref
+from wavetpu_torch.solver import leapfrog
+from wavetpu_torch.verify import oracle
+
+
+def _padded_factors(problem: Problem, topo: Topology):
+    """Host-f64 1-D analytic factors on the padded per-axis grids; pad
+    cells get factor 0, so the padded analytic field vanishes there."""
+    n = problem.N
+
+    def pad(v, p):
+        out = np.zeros(p, dtype=np.float64)
+        out[:n] = v
+        return out
+
+    factors = oracle.spatial_factors_np(problem, n)
+    return tuple(pad(v, p) for v, p in zip(factors, topo.padded))
+
+
+def _masks(problem: Problem, topo: Topology):
+    """1-D boundary and error-interior masks over the padded axes (bool).
+
+    bc (the cells an update may leave nonzero):
+      x: real cells (global i < N) - the x=0 plane is a live periodic cell;
+      y/z: real cells off the stored Dirichlet plane (global 0).
+    err (the reference's error interior, global 1..N-1 per axis,
+         openmp_sol.cpp:174-176): global index != 0 and < N.
+    The sharded kernels reproduce the bc predicate from global offsets.
+    """
+    n = problem.N
+    bc, err = [], []
+    for axis, p in enumerate(topo.padded):
+        g = np.arange(p)
+        real = g < n
+        bc.append(real if axis == 0 else real & (g != 0))
+        err.append(real & (g != 0))
+    return tuple(bc), tuple(err)
+
+
+def pad_field(field: np.ndarray, topo: Topology) -> np.ndarray:
+    """Zero-pad an (N, N, N) host field to the topology's padded shape."""
+    field = np.asarray(field)
+    out = np.zeros(topo.padded, dtype=field.dtype)
+    n = field.shape
+    out[: n[0], : n[1], : n[2]] = field
+    return out
+
+
+def _shard_offsets(topo: Topology, coord) -> Tuple[int, int, int]:
+    """The shard's global cell offsets (the reference's per-rank
+    x_0/y_0/z_0, mpi_sol.cpp:423-429)."""
+    return tuple(c * b for c, b in zip(coord, topo.block))
+
+
+class _Shard:
+    """What one shard's march needs on its device: its offsets, its slices
+    of the factors and masks, and its error function."""
+
+    def __init__(self, problem, topo, coord, device, f_dtype, factors,
+                 masks, ct):
+        self.device = device
+        self.offsets = _shard_offsets(topo, coord)
+        sl = [slice(o, o + b) for o, b in zip(self.offsets, topo.block)]
+        fx, fy, fz = (
+            torch.tensor(v[s], dtype=f_dtype, device=device)
+            for v, s in zip(factors, sl)
+        )
+        self.factors = (fx, fy, fz)
+        bc, err = masks
+        self.bc = torch.as_tensor(
+            bc[0][sl[0], None, None] & bc[1][None, sl[1], None]
+            & bc[2][None, None, sl[2]], device=device)
+        # The error interior of a block is one box (global 1..N-1 per
+        # axis): take it as a view, as leapfrog's error pass takes
+        # u[1:, 1:, 1:], instead of masking the whole block.
+        box = []
+        for e, s in zip(err, sl):
+            idx = np.flatnonzero(e[s])
+            box.append(slice(int(idx[0]), int(idx[-1]) + 1) if idx.size
+                       else None)
+        self.box = None if None in box else tuple(box)
+        if self.box is not None:
+            bx, by, bz = self.box
+            self.spatial = (fx[bx, None, None] * fy[None, by, None]
+                            * fz[None, None, bz])
+        self.ct = ct.to(device)
+
+    def layer0(self, dtype):
+        """Layer 0 of the block: the analytic solution, zero off the bc
+        cells (leapfrog.initial_layer0's bits on the real cells)."""
+        fx, fy, fz = self.factors
+        u = oracle.analytic_field(fx, fy, fz, self.ct[0])
+        return torch.where(self.bc, u, 0.0).to(dtype)
+
+    def errors(self, u, n):
+        """(abs, rel) of layer n over the block's error interior, 0-d
+        tensors on the shard's device (zeros for a block with none)."""
+        if self.box is None:
+            z = torch.zeros((), dtype=self.ct.dtype, device=self.device)
+            return z, z
+        return oracle.layer_errors(u[self.box].to(self.ct.dtype),
+                                   self.spatial * self.ct[n])
+
+
+def _local_steps(problem: Problem, topo: Topology, mesh: Mesh, shards):
+    """The per-step functions over all shards: `step(prev, cur, fields)`
+    (K6) and `comp_step(u, v, carry, coeff)` (K7), each exchanging the
+    ghosts of the current layer first (serial: exchange, then update)."""
+    n = problem.N
+    kw = dict(inv_h2=problem.inv_h2, mesh_shape=topo.mesh_shape,
+              r_last=topo.r_last)
+
+    def exchange(cur):
+        ghosts = halo.collect_ghosts(cur, topo, mesh)
+        return ghosts, halo.absorb_hi_ghosts(cur, ghosts, topo, mesh)
+
+    def step(prev, cur, fields):
+        ghosts, u_in = exchange(cur)
+        return [
+            stencil_cuda.sharded_fused_step(
+                p, u, g, sh.offsets, n, alpha=2.0, beta=1.0,
+                coeff=None if fld is not None else problem.a2tau2,
+                c2tau2_block=fld, **kw)
+            for p, u, g, sh, fld in zip(prev, u_in, ghosts, shards, fields)
+        ]
+
+    def comp_step(u, v, carry, coeff):
+        ghosts, u_in = exchange(u)
+        outs = [
+            stencil_cuda.sharded_compensated_step(
+                a, b, c, g, sh.offsets, n, coeff=coeff, **kw)
+            for a, b, c, g, sh in zip(u_in, v, carry, ghosts, shards)
+        ]
+        return tuple(list(x) for x in zip(*outs))
+
+    return step, comp_step
+
+
+def _resolve_mesh(problem: Problem, mesh_shape, devices):
+    """(topo, mesh): `devices=None` is every visible card (raises without
+    one), `mesh_shape=None` a near-cubic factorization of their count."""
+    if devices is None:
+        leapfrog.resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if mesh_shape is None:
+        mesh_shape = choose_mesh_shape(len(devices))
+    topo = Topology(N=problem.N, mesh_shape=tuple(mesh_shape))
+    if len(devices) < topo.n_devices:
+        raise ValueError(
+            f"mesh {tuple(mesh_shape)} needs {topo.n_devices} devices, "
+            f"only {len(devices)} available"
+        )
+    return topo, build_mesh(topo.mesh_shape, devices[: topo.n_devices])
+
+
+def _field_blocks(c2tau2_field, topo: Topology, mesh: Mesh, f_dtype):
+    """The padded tau^2 c^2 field's blocks in the compute dtype (one
+    rounding from f64, as `io.state.c2tau2_field`), or Nones."""
+    if c2tau2_field is None:
+        return [None] * topo.n_devices
+    if isinstance(c2tau2_field, torch.Tensor):
+        c2tau2_field = c2tau2_field.cpu().numpy()
+    padded = pad_field(np.asarray(c2tau2_field, dtype=np.float64), topo)
+    return split_global(torch.from_numpy(padded), topo, mesh,
+                        dtype=f_dtype).blocks
+
+
+def make_sharded_solver(
+    problem: Problem,
+    topo: Topology,
+    mesh: Mesh,
+    dtype=torch.float32,
+    compute_errors: bool = True,
+    c2tau2_field=None,
+    stop_step: Optional[int] = None,
+    scheme: str = "standard",
+):
+    """Set up the sharded solve - kernels built and loaded, every shard's
+    factors, masks and field block on its device - and return `run()` ->
+    (u_prev, u_cur, abs_per_shard, rel_per_shard, v, carry): lists of
+    blocks in mesh order, the per-shard (nsteps+1,) error vectors, and for
+    the compensated scheme the increment and Kahan carry (else None)."""
+    if scheme not in ("standard", "compensated"):
+        raise ValueError(
+            f"scheme must be 'standard' or 'compensated', got {scheme!r}")
+    compensated = scheme == "compensated"
+    if compensated and c2tau2_field is not None:
+        raise ValueError(
+            "compensated scheme does not support a variable-c field yet")
+    if compensated and dtype == torch.bfloat16:
+        raise ValueError(
+            "compensated scheme requires f32/f64 state (bf16 representation "
+            "error dominates anything the compensation recovers)")
+    if c2tau2_field is not None and compute_errors:
+        raise ValueError(
+            "variable-c runs have no analytic oracle; pass "
+            "compute_errors=False with c2tau2_field")
+    nsteps = problem.timesteps if stop_step is None else stop_step
+    if not 1 <= nsteps <= problem.timesteps:
+        raise ValueError(
+            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}")
+    f = stencil_ref.compute_dtype(dtype)
+    if any(d.type == "cuda" for d in mesh.devices):
+        stencil_cuda.load_libraries()
+    factors = _padded_factors(problem, topo)
+    masks = _masks(problem, topo)
+    ct = oracle.time_factor_table(problem, f)
+    shards = [_Shard(problem, topo, coord, dev, f, factors, masks, ct)
+              for coord, dev in zip(mesh.coords, mesh.devices)]
+    fields = _field_blocks(c2tau2_field, topo, mesh, f)
+    step, comp_step = _local_steps(problem, topo, mesh, shards)
+    u0 = [sh.layer0(dtype) for sh in shards]
+
+    def run():
+        abs_s = [torch.zeros(nsteps + 1, dtype=f, device=sh.device)
+                 for sh in shards]
+        rel_s = [torch.zeros(nsteps + 1, dtype=f, device=sh.device)
+                 for sh in shards]
+
+        def record(layer, n):
+            if compute_errors:
+                for sh, u, a, r in zip(shards, layer, abs_s, rel_s):
+                    a[n], r[n] = sh.errors(u, n)
+
+        if compensated:
+            # Layer 1 is the same step with v = carry = 0 and half the
+            # coefficient: the Taylor half-step (sharded.py:429-435).
+            zero = [torch.zeros_like(u) for u in u0]
+            u, v, c = comp_step(u0, zero, zero, 0.5 * problem.a2tau2)
+            record(u, 1)
+            for n in range(2, nsteps + 1):
+                u, v, c = comp_step(u, v, c, problem.a2tau2)
+                record(u, n)
+            return [a - b for a, b in zip(u, v)], u, abs_s, rel_s, v, c
+        # Layer 1 derived from the step: u1 = (u0 + step(u0, u0))/2 in the
+        # compute dtype, as leapfrog.solve.
+        s0 = step(u0, u0, fields)
+        prev = u0
+        cur = [(0.5 * (a.to(f) + b.to(f))).to(dtype) for a, b in zip(u0, s0)]
+        record(cur, 1)
+        for n in range(2, nsteps + 1):
+            prev, cur = cur, step(prev, cur, fields)
+            record(cur, n)
+        return prev, cur, abs_s, rel_s, None, None
+
+    return run
+
+
+def _reduce(per_shard: List[torch.Tensor]) -> np.ndarray:
+    """The cross-shard max of the per-shard error vectors (wavetpu's
+    pmax), read back once."""
+    return np.max(np.stack([leapfrog._host(v) for v in per_shard]), axis=0)
+
+
+def solve_sharded(
+    problem: Problem,
+    mesh_shape: Optional[Tuple[int, int, int]] = None,
+    devices: Optional[Sequence] = None,
+    dtype=torch.float32,
+    compute_errors: bool = True,
+    c2tau2_field=None,
+    stop_step: Optional[int] = None,
+    scheme: str = "standard",
+) -> leapfrog.SolveResult:
+    """The sharded solve with the reference's timing phases (as
+    `leapfrog.solve`): `init_seconds` covers the kernel build and the
+    shards' set-up, `solve_seconds` the bootstrap, the march and the
+    read-back of the error vectors.
+
+    `devices` (default: every visible card) lists the mesh's devices in
+    mesh order and may repeat one - `devices=["cpu"] * 8` runs eight shards
+    on the CPU, `["cuda"] * 4` four on one card.  `mesh_shape` defaults to
+    a near-cubic factorization of their count.  `c2tau2_field` is an
+    (N, N, N) host tau^2 c^2 array (pair it with compute_errors=False).
+    The result's u_prev / u_cur (and comp_v / comp_carry) are
+    `ShardedArray`s in wavetpu's padded layout; its errors are the
+    cross-shard maxima.
+    """
+    t0 = time.perf_counter()
+    topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
+    run = make_sharded_solver(problem, topo, mesh, dtype, compute_errors,
+                              c2tau2_field, stop_step, scheme)
+    _sync(mesh)
+    t1 = time.perf_counter()
+    u_prev, u_cur, abs_s, rel_s, v, c = run()
+    abs_np, rel_np = _reduce(abs_s), _reduce(rel_s)
+    _sync(mesh)
+    t2 = time.perf_counter()
+
+    def sharded(blocks):
+        return None if blocks is None else ShardedArray(blocks, topo, mesh)
+
+    return leapfrog.SolveResult(
+        problem=problem, u_prev=sharded(u_prev), u_cur=sharded(u_cur),
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=stop_step,
+        final_step=problem.timesteps if stop_step is None else stop_step,
+        comp_v=sharded(v), comp_carry=sharded(c),
+    )
+
+
+def _sync(mesh: Mesh) -> None:
+    for dev in sorted({d for d in mesh.devices if d.type == "cuda"},
+                      key=str):
+        torch.cuda.synchronize(dev)
+
+
+def gather_fundamental(u: ShardedArray, problem: Problem) -> torch.Tensor:
+    """The (N, N, N) fundamental domain of a sharded field on the CPU,
+    padding stripped."""
+    if u.topo.N != problem.N:
+        raise ValueError(f"field is for N={u.topo.N}, not {problem.N}")
+    return u.fundamental("cpu")
