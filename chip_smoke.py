@@ -16,18 +16,25 @@ without them or when any phase fails.  Phases:
                K4f rows on and off, and its k=1 bootstrap form), K6/K6f
                (no ghosts, x+y, x+y+z and an uneven padded block; f32, bf16,
                f64), K7 (f32, f64), K8/K8f and K9/K9f (k = 1, 2, 4, 8; f32
-               and bf16; rows on and off; K9 with pad planes) - and at the
-               shapes the main-path runs launch: K1, K2, K5, K3 (k=4, rows
-               on), K3f (k=4, rows on and off), K4 (f32 v + bf16 carry, k=4
-               and 1, rows on), K4f (the same, rows on and off, and the
-               bootstrap: k=1, half the field, zero v and carry, zero oracle
-               planes, rows off), K6/K6f/K7 on the mesh-2,2,1, 1,1,1 and
-               uneven 4,1,1 blocks, K8/K9 (k=4 rows on, k=1 rows on and off)
-               and K8f/K9f (k=4 and 1, rows off) on the 4,1,1 and N=510
-               blocks.  Held bitwise, every output (the Kahan carry and the
-               error rows included): --fmad=false makes the kernel round
-               every multiply and add separately, as the plain version
-               does, in the same order.
+               and bf16; rows on and off; K9 with pad planes), K10/K10f
+               (k = 1, 2, 4, 8; f32 and bf16; rows and field on and off;
+               the first and the last y shard, nl_y = k), K11/K11f and
+               K12/K12f (k = 1, 2, 4, 8; K4's four storage modes; rows and
+               field on and off; K12 on both y edges and nl_y = k) - and
+               at the shapes the main-path runs launch: K1, K2, K5, K3
+               (k=4, rows on), K3f (k=4, rows on and off), K4 (f32 v + bf16
+               carry, k=4 and 1, rows on), K4f (the same, rows on and off,
+               and the bootstrap: k=1, half the field, zero v and carry,
+               zero oracle planes, rows off), K6/K6f/K7 on the mesh-2,2,1,
+               1,1,1 and uneven 4,1,1 blocks, K8/K9 (k=4 rows on, k=1 rows
+               on and off) and K8f/K9f (k=4 and 1, rows off) on the 4,1,1
+               and N=510 blocks, K10-K12 on the mesh-2,2,1 (extended) and
+               4,1,1 blocks (k=4 rows on, k=1 rows on and off, the lens
+               forms rows off, the flagship's k=1 bootstrap on zero v and
+               carry with C/2 or half the field).  Held bitwise, every
+               output (the Kahan carry and the error rows included):
+               --fmad=false makes the kernel round every multiply and add
+               separately, as the plain version does, in the same order.
  3. main-path runs at 1000 steps, f32, each with the launch counters set
     to 0 just before and read just after (every counter must equal the
     expected count, the others 0).  Through the port's CLI at N=512:
@@ -50,15 +57,27 @@ without them or when any phase fails.  Phases:
       uneven_kfused  `510 ... --fuse-steps 4` (4 does not divide 510: the
                      pad-and-mask march on one shard): K9 x253.
       sharded        `... --mesh 1,1,1`: K6 x1000, the default run's error.
+      flagship_mesh  `... --scheme compensated --fuse-steps 4 --mesh 1,1,1`:
+                     the distributed flagship on one shard, K11 x253;
+                     error < 2e-5.
     Through the sharded solvers' API with all four shards on the card
     (launches per shard times shards):
       sharded_221           mesh 2,2,1: K6 x4000, the default run's error.
       sharded_comp_221      mesh 2,2,1, compensated: K7 x4000, error < 2e-5.
       sharded_kfused_411    mesh 4,1,1, k=4: K8 x1012.
       sharded_uneven_411    N=510, mesh 4,1,1, k=4: K9 x1012.
-      sharded_221_varc, sharded_kfused_411_varc, sharded_uneven_411_varc:
+      sharded_kfused_221    mesh 2,2,1, k=4: K10 x1012, the default
+                            run's error within 1e-6.
+      sharded_flagship_411  mesh 4,1,1, compensated, k=4: K11 x1012,
+                            error < 2e-5.
+      sharded_flagship_221  mesh 2,2,1, compensated, k=4: K12 x1012,
+                            error < 2e-5.
+      sharded_221_varc, sharded_kfused_411_varc, sharded_uneven_411_varc,
+      sharded_kfused_221_varc, sharded_flagship_411_varc,
+      sharded_flagship_221_varc:
                             the same with gaussian-lens, errors off: K6f
-                            x4000, K8f x1012, K9f x1012.
+                            x4000, K8f x1012, K9f x1012, K10f, K11f and
+                            K12f x1012.
  4. contracts - through the solver API on the card, bit for bit: the
                k-fused state at N=512 / 1000 steps equals the 1-step state,
                with constant c and with the lens, and the sharded k-fused
@@ -67,8 +86,12 @@ without them or when any phase fails.  Phases:
                N=510 K6 on mesh 4,1,1, the pad-and-mask march on one shard
                and sharded_uneven_411 equal the 1-step solve, pad planes 0;
                a last shard with r < k real planes (N=50, mesh 4,1,1)
-               too; sharded_comp_221 against the 1-step compensated solve
-               (bitwise, or within 2e-7); and at N=128 / 1000 steps the
+               too; sharded_kfused_221 (and its lens form) equals the
+               k-fused march; sharded_comp_221 against the 1-step
+               compensated solve (bitwise, or within 2e-7); the distributed
+               flagships (meshes 4,1,1 and 2,2,1, constant c and the lens)
+               against the single-device flagship: "bitwise" or max |du|,
+               within 1e-6; and at N=128 / 1000 steps the
                compensated variable-c state lies nearer an f64 plain
                variable-c march than the standard one does (wavetpu's
                tests/test_kfused_varc.py contract).
@@ -78,7 +101,11 @@ without them or when any phase fails.  Phases:
                around each launch, median), the plain versions' times, and
                each kernel's bound: the bytes it must move over the card's
                memory rate vs its f32 operations over the card's f32 rate;
-               K3's and K4's times beside PERF.md's.
+               K3's and K4's times beside PERF.md's; the k-block exchange
+               of one field over four shards, apart (mesh 2,2,1: y
+               extension and x windows; mesh 4,1,1: x windows).
+
+Each phase prints its wall time.
 
 Launches made by the comparisons, contracts and timings do not count.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
@@ -99,6 +126,7 @@ import numpy as np
 import torch
 
 from wavetpu_torch import cli
+from wavetpu_torch.core.grid import build_mesh
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
@@ -182,6 +210,38 @@ KERNELS = {
                 what="_kstep_padded_kernel has_field: pad-and-mask "
                      "variable-c substeps (k=4, N=510 mesh 4,1,1, rows off)",
                 run="sharded_uneven_411_varc"),
+    "K10": dict(counter="kstep_sharded_xy", source=f"{CSRC}/kstep_xy.cu",
+                replaces=f"{PALLAS}:1972",
+                what="_kstep_sharded_xy_kernel: k substeps of a y-extended "
+                     "block + rows (k=4, mesh 2,2,1)",
+                run="sharded_kfused_221"),
+    "K10f": dict(counter="kstep_sharded_xy_field",
+                 source=f"{CSRC}/kstep_xy.cu", replaces=f"{PALLAS}:1593",
+                 what="_kstep_sharded_xy_kernel has_field: k variable-c "
+                      "substeps (k=4, mesh 2,2,1, rows off)",
+                 run="sharded_kfused_221_varc"),
+    "K11": dict(counter="kstep_comp_sharded",
+                source=f"{CSRC}/comp_sharded.cu", replaces=f"{PALLAS}:1163",
+                what="_kstep_comp_sharded_kernel: k velocity-form substeps "
+                     "of an x-sharded block + rows (k=4, mesh 4,1,1, f32 "
+                     "u/v, bf16 carry)",
+                run="sharded_flagship_411"),
+    "K11f": dict(counter="kstep_comp_sharded_field",
+                 source=f"{CSRC}/comp_sharded.cu", replaces=f"{PALLAS}:1593",
+                 what="_kstep_comp_sharded_kernel has_field: k variable-c "
+                      "velocity-form substeps (k=4, mesh 4,1,1, rows off)",
+                 run="sharded_flagship_411_varc"),
+    "K12": dict(counter="kstep_comp_sharded_xy",
+                source=f"{CSRC}/comp_sharded.cu", replaces=f"{PALLAS}:1369",
+                what="_kstep_comp_sharded_xy_kernel: k velocity-form "
+                     "substeps of a y-extended block + rows (k=4, mesh "
+                     "2,2,1, f32 u/v, bf16 carry)",
+                run="sharded_flagship_221"),
+    "K12f": dict(counter="kstep_comp_sharded_xy_field",
+                 source=f"{CSRC}/comp_sharded.cu", replaces=f"{PALLAS}:1593",
+                 what="_kstep_comp_sharded_xy_kernel has_field: k variable-c "
+                      "velocity-form substeps (k=4, mesh 2,2,1, rows off)",
+                 run="sharded_flagship_221_varc"),
 }
 N_FULL, N_ODD, STEPS, K = 512, 510, 1000, 4
 LENS = "gaussian-lens"
@@ -205,6 +265,11 @@ RUNS = {
     "uneven_kfused": (N_ODD, ["--fuse-steps", str(K)],
                       {"kstep_padded": 1 + NB + REM}),
     "sharded": (N_FULL, ["--mesh", "1,1,1"], {"sharded_step": STEPS}),
+    # The distributed flagship on one shard: K11 at k=1 for layer 1, 249
+    # blocks at k=4, 3 tail layers at k=1.
+    "flagship_mesh": (N_FULL, ["--scheme", "compensated", "--fuse-steps",
+                               str(K), "--mesh", "1,1,1"],
+                      {"kstep_comp_sharded": 1 + NB + REM}),
 }
 # The main-path runs through the API with every shard on the card: N, the
 # solver call, and the launch counts (per shard times shards).
@@ -226,6 +291,29 @@ API_RUNS = {
     "sharded_uneven_411_varc": (N_ODD, dict(k=K, field=LENS),
                                 {"kstep_padded_field":
                                  SHARDS * (1 + NB + REM)}),
+    "sharded_kfused_221": (N_FULL, dict(k=K, mesh=(2, 2, 1)),
+                           {"kstep_sharded_xy": SHARDS * (1 + NB + REM)}),
+    "sharded_flagship_411": (N_FULL, dict(k=K, mesh=(4, 1, 1),
+                                          scheme="compensated"),
+                             {"kstep_comp_sharded": SHARDS * (1 + NB + REM)}),
+    "sharded_flagship_221": (N_FULL, dict(k=K, mesh=(2, 2, 1),
+                                          scheme="compensated"),
+                             {"kstep_comp_sharded_xy":
+                              SHARDS * (1 + NB + REM)}),
+    "sharded_kfused_221_varc": (N_FULL, dict(k=K, mesh=(2, 2, 1),
+                                             field=LENS),
+                                {"kstep_sharded_xy_field":
+                                 SHARDS * (1 + NB + REM)}),
+    "sharded_flagship_411_varc": (N_FULL, dict(k=K, mesh=(4, 1, 1),
+                                               scheme="compensated",
+                                               field=LENS),
+                                  {"kstep_comp_sharded_field":
+                                   SHARDS * (1 + NB + REM)}),
+    "sharded_flagship_221_varc": (N_FULL, dict(k=K, mesh=(2, 2, 1),
+                                               scheme="compensated",
+                                               field=LENS),
+                                  {"kstep_comp_sharded_xy_field":
+                                   SHARDS * (1 + NB + REM)}),
 }
 # The error class of each run with errors at N=512/510, 1000 steps: f32
 # rounding accumulation on the standard scheme, the f32 discretization
@@ -233,7 +321,9 @@ API_RUNS = {
 ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
                "uneven_kfused": 5e-3, "sharded": 5e-3, "sharded_221": 5e-3,
                "sharded_comp_221": 2e-5, "sharded_kfused_411": 5e-3,
-               "sharded_uneven_411": 5e-3}
+               "sharded_uneven_411": 5e-3, "flagship_mesh": 2e-5,
+               "sharded_kfused_221": 5e-3, "sharded_flagship_411": 2e-5,
+               "sharded_flagship_221": 2e-5}
 # K3's and K4's phase-6 times and ptxas registers as recorded in PERF.md
 # (the cone sources are unchanged; this run shows them against it).
 CONE_RECORDED_MS = {"K3": 5.784064054489136, "K4": 7.525775909423828,
@@ -564,6 +654,141 @@ def phase_sharded_kernels(errs):
     torch.cuda.synchronize()
 
 
+# K11/K12 take K4's four storage modes (v, carry).
+COMP_MODES = dict(K4_MODES, **{"f32v+nocarry": (torch.float32, None)})
+
+
+def plane_case(d, n, k, ny, y0, whole=False):
+    """The oracle operands of a K10-K12 launch on a (d, py, n) block: the
+    central (ny, n) oracle planes from global row y0, the (k, d) rows, and
+    py = n (whole y, K11) or ny + 2k (y-extended, K10 and K12)."""
+    p = Problem(N=n, timesteps=STEPS)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, DEV)
+    planes = tuple(a[y0:y0 + ny].contiguous() for a in (syz, rsyz))
+    sxct = (ct[2:2 + k][:, None] * sx[None, :d]).contiguous()
+    return p, planes, sxct, n if whole else ny + 2 * k
+
+
+def c2_chain(p, d, k, py, seed):
+    """A positive f32 field block (d, py, N) and its (k, py, N) windows."""
+    fld = p.a2tau2 * (0.5 + rand((d, py, p.N), seed).abs())
+    return fld, tuple(p.a2tau2 * (0.5 + rand((k, py, p.N),
+                                              seed + 1 + i).abs())
+                      for i in range(2))
+
+
+def check_k10(d, n, k, ny, y0, dtype, rows, field, errs, seed=100):
+    p, planes, sxct, py = plane_case(d, n, k, ny, y0)
+    up, u = (rand((d, py, n), seed + i, dtype=dtype) for i in range(2))
+    gh = [rand((k, py, n), seed + 2 + i, dtype=dtype) for i in range(4)]
+    fld, fg = c2_chain(p, d, k, py, seed + 6) if field else (None, None)
+    args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), *planes, sxct, y0, n)
+    kw = dict(k=k, nl_y=ny, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_ext=fld, c2_ghosts=fg, with_errors=rows)
+    got = stencil_cuda.fused_kstep_sharded_xy(*args, **kw)
+    want = stencil_cuda.fused_kstep_sharded_xy_plain(*args, **kw)
+    name = "K10f" if field else "K10"
+    check_outputs(f"{name} D={d} N={n} k={k} nl_y={ny} y0={y0} {dtype} "
+                  f"rows={rows}", got, want, errs[name])
+
+
+def comp_call(name, d, n, k, ny, y0, mode, rows, field, seed=120,
+              bootstrap=False):
+    """The kernel and the plain version of one K11 or K12 launch (name
+    "K11"/"K12", "f" for the field form) on synthetic operands; with
+    `bootstrap` the layer-1 form: k=1, coeff C/2 (half the field), zero v
+    and carry, rows off."""
+    v_dt, c_dt = mode
+    whole = name.startswith("K11")
+    p, planes, sxct, py = plane_case(d, n, k, ny, y0, whole)
+    scale = 0.0 if bootstrap else 1.0
+    u = rand((d, py, n), seed)
+    v = rand((d, py, n), seed + 1, 1e-3 * scale, v_dt)
+    c = None if c_dt is None else rand((d, ny, n), seed + 2, 1e-8 * scale,
+                                       c_dt)
+    gu = tuple(rand((k, py, n), seed + 3 + i) for i in range(2))
+    gv = tuple(rand((k, py, n), seed + 5 + i, 1e-3 * scale, v_dt)
+               for i in range(2))
+    fld, fg = c2_chain(p, d, k, py, seed + 7) if field else (None, None)
+    coeff = p.a2tau2
+    if bootstrap:
+        coeff = 0.5 * coeff
+        if field:
+            fld, fg = 0.5 * fld, tuple(0.5 * g for g in fg)
+    args = (u, v, c, gu, gv, *planes, sxct)
+    kw = dict(k=k, coeff=coeff, inv_h2=p.inv_h2, c2_ghosts=fg,
+              block_x=stencil_cuda.default_block_x(d, k), with_errors=rows)
+    if whole:
+        return (lambda: stencil_cuda.fused_kstep_comp_sharded(
+                    *args, c2tau2_block=fld, **kw),
+                lambda: stencil_cuda.fused_kstep_comp_sharded_plain(
+                    *args, c2tau2_block=fld, **kw), args, fld, fg)
+    kw.update(nl_y=ny, c2tau2_ext=fld)
+    return (lambda: stencil_cuda.fused_kstep_comp_sharded_xy(
+                *args, y0, n, **kw),
+            lambda: stencil_cuda.fused_kstep_comp_sharded_xy_plain(
+                *args, y0, n, **kw), args, fld, fg)
+
+
+def check_comp(name, d, n, k, ny, y0, mname, rows, field, errs,
+               bootstrap=False):
+    kern, plain, _, _, _ = comp_call(name, d, n, k, ny, y0,
+                                     COMP_MODES[mname], rows, field,
+                                     bootstrap=bootstrap)
+    name += "f" if field else ""
+    check_outputs(f"{name} D={d} N={n} k={k} nl_y={ny} y0={y0} {mname} "
+                  f"rows={rows}{' bootstrap' if bootstrap else ''}", kern(),
+                  plain(), errs[name])
+
+
+# The main-path blocks of K10-K12: mesh 2,2,1 (the y0 = 256 shard, x depth
+# 256, 256 central rows) and mesh 4,1,1 (x depth 128).
+XY_FULL = (N_FULL // 2, N_FULL, N_FULL // 2, N_FULL // 2)
+X_FULL = (N_FULL // SHARDS, N_FULL, N_FULL, 0)
+
+
+def phase_xy_kernels(errs):
+    """K10-K12 (and their field forms) against their plain versions on the
+    card: at N=128 in every mode - k = 1, 2, 4, 8; f32/bf16 state (K10),
+    K4's four storage modes (K11/K12); rows on and off; field on and off;
+    the first (y0 = 0) and the last (y0 = N - nl_y) y shard, and nl_y = k -
+    then at the shapes and in the modes the main-path runs launch them."""
+    n = 128
+    for k in (1, 2, 4, 8):
+        for dt in (torch.float32, torch.bfloat16):
+            for rows in (True, False):
+                for field in (False, True):
+                    check_k10(32, n, k, 64, 64 if rows else 0, dt, rows,
+                              field, errs)
+            check_k10(32, n, k, k, n - k, dt, True, False, errs)
+        for mname in COMP_MODES:
+            for rows in (True, False):
+                for field in (False, True):
+                    check_comp("K11", 32, n, k, n, 0, mname, rows, field,
+                               errs)
+                    check_comp("K12", 64, n, k, 64, 64 if rows else 0,
+                               mname, rows, field, errs)
+            check_comp("K12", 64, n, k, k, n - k, mname, True, False, errs)
+    # Main path: k=4 blocks with rows, the k=1 tail with rows, the
+    # bootstrap (k=1 without rows; the flagship's on zero v and carry with
+    # half the coefficient), and the lens forms without rows.
+    mode = "f32v+bf16carry"
+    d, nn, ny, y0 = XY_FULL
+    dx, _, nyx, _ = X_FULL
+    for k, rows, field in ((K, True, False), (1, True, False),
+                           (1, False, False), (K, False, True),
+                           (1, False, True)):
+        check_k10(d, nn, k, ny, y0, torch.float32, rows, field, errs)
+        check_comp("K11", dx, nn, k, nyx, 0, mode, rows, field, errs)
+        check_comp("K12", d, nn, k, ny, y0, mode, rows, field, errs)
+    for field in (False, True):
+        check_comp("K11", dx, nn, 1, nyx, 0, mode, False, field, errs,
+                   bootstrap=True)
+        check_comp("K12", d, nn, 1, ny, y0, mode, False, field, errs,
+                   bootstrap=True)
+    torch.cuda.synchronize()
+
+
 def run_cli(label):
     """One main-path run through the CLI with the counters zeroed just
     before and read just after; every counter must equal RUNS[label]'s
@@ -609,9 +834,13 @@ def run_api(label):
         kw = dict(c2tau2_field=stencil_ref.make_preset_c2tau2_field(
             p, spec["field"]), compute_errors=False)
     stencil_cuda.reset_launches()
-    if "k" in spec:
+    if "k" in spec and spec.get("scheme") == "compensated":
+        res = kfused_comp.solve_kfused_comp_sharded(
+            p, mesh_shape=spec["mesh"], k=spec["k"], devices=devices, **kw)
+    elif "k" in spec:
         res = sharded_kfused.solve_sharded_kfused(
-            p, n_shards=SHARDS, k=spec["k"], devices=devices, **kw)
+            p, mesh_shape=spec.get("mesh", (SHARDS, 1, 1)), k=spec["k"],
+            devices=devices, **kw)
     else:
         res = sharded.solve_sharded(p, spec["mesh"], devices=devices,
                                     scheme=spec.get("scheme", "standard"),
@@ -667,9 +896,9 @@ def padded_planes_zero(label, res):
 
 def phase_contracts(api):
     """Bitwise k-fused == 1-step at full width (constant c and the lens),
-    with the sharded k-fused march (K8 on four shards of the card) equal
-    to both, and compensated variable c nearer f64 than standard at
-    N=128."""
+    with the sharded k-fused marches (K8 on mesh 4,1,1, K10 on mesh 2,2,1,
+    four shards on the card) equal to both, and compensated variable c
+    nearer f64 than standard at N=128."""
     p = Problem(N=N_FULL, timesteps=STEPS)
     lens = stencil_ref.make_preset_c2tau2_field(p, LENS)
     for label, with_f in (("constant c", False), (LENS, True)):
@@ -684,8 +913,9 @@ def phase_contracts(api):
               f"bitwise={same} max|du|={d:.3e}")
         if not same:
             fail(f"k-fused state differs from the 1-step state ({label})")
-        run = "sharded_kfused_411_varc" if with_f else "sharded_kfused_411"
-        same_state(f"{run} == k-fused ({label})", api.pop(run), fused)
+        for run in ("sharded_kfused_411", "sharded_kfused_221"):
+            run += "_varc" if with_f else ""
+            same_state(f"{run} == k-fused ({label})", api.pop(run), fused)
         if with_f:
             same_state(f"sharded_221_varc == 1-step ({label})",
                        api.pop("sharded_221_varc"), one)
@@ -774,6 +1004,39 @@ def phase_sharded_contracts(api):
     return out
 
 
+def phase_flagship_contracts(api):
+    """The distributed flagships against the single-device flagship at
+    full width, constant c with errors and the lens: bit for bit, or
+    within 1e-6 (bitwise expected on mesh 4,1,1, where K11 runs K4's op
+    sequence at one block_x)."""
+    out = {}
+    p = Problem(N=N_FULL, timesteps=STEPS)
+    lens = stencil_ref.make_preset_c2tau2_field(p, LENS)
+    for label, kw in (("", {}), ("_varc", dict(c2tau2_field=lens,
+                                                compute_errors=False))):
+        single = kfused_comp.solve_kfused_comp(p, k=K, device=DEV, **kw)
+        for mesh in ("411", "221"):
+            run = f"sharded_flagship_{mesh}{label}"
+            res = api.pop(run)
+            u = res.u_cur.fundamental(DEV)
+            bitwise = (torch.equal(u, single.u_cur) and torch.equal(
+                res.comp_carry.fundamental(DEV), single.comp_carry))
+            d = (u - single.u_cur).abs().max().item()
+            rec = {"bitwise": bitwise, "max_abs_du": d}
+            if not label:
+                rec["max_abs_d_abs_errors"] = float(np.max(np.abs(
+                    res.abs_errors - single.abs_errors)))
+            out[f"{run}_vs_flagship{label}"] = rec
+            print(f"  {run} vs flagship{label}: "
+                  f"{'bitwise' if bitwise else f'max|du|={d!r}'} {rec}")
+            if not (bitwise or d <= 1e-6):
+                fail(f"{run} is not within 1e-6 of the single-device "
+                     f"flagship (max |du| {d!r})")
+            del res, u
+        del single
+    return out
+
+
 def phase_agree():
     """Every solver at a small size: card vs CPU (plain versions)."""
     small = Problem(N=32, timesteps=21)
@@ -797,6 +1060,13 @@ def phase_agree():
             small, n_shards=4, k=K, devices=[d] * 4)),
         ("sharded_uneven", lambda d: sharded_kfused.solve_sharded_kfused(
             small, n_shards=3, k=K, devices=[d] * 3)),
+        ("sharded_kfused_xy", lambda d: sharded_kfused.solve_sharded_kfused(
+            small, mesh_shape=(2, 2, 1), k=K, devices=[d] * 4)),
+        ("sharded_flagship_x", lambda d: kfused_comp.solve_kfused_comp_sharded(
+            small, n_shards=4, k=K, devices=[d] * 4)),
+        ("sharded_flagship_xy",
+         lambda d: kfused_comp.solve_kfused_comp_sharded(
+             small, mesh_shape=(2, 2, 1), k=K, devices=[d] * 4)),
     ):
         gpu, cpu = fn(DEV), fn("cpu")
         if hasattr(gpu.u_cur, "blocks"):
@@ -958,6 +1228,40 @@ def phase_times_sharded(rate):
         runs[name] = (lambda a=args, k=kw, f=fn: f(*a, **k),
                       lambda a=args, k=kw, f=plain: f(*a, **k),
                       nbytes(*state, *oracle, *fld) + out_bytes, ops)
+    # K10-K12 on the main-path blocks (K10/K12: the y = 256 shard of mesh
+    # 2,2,1, extended to 264 rows; K11: a mesh-4,1,1 block): k=4, K10 and
+    # K12 with rows, the field forms without, f32 u/v and a bf16 carry.
+    d, nn, ny, y0 = XY_FULL
+    for name, rows, field in (("K10", True, False), ("K10f", False, True)):
+        p, planes, sxct, py = plane_case(d, nn, K, ny, y0)
+        up, u = rand((d, py, nn), 200), rand((d, py, nn), 201)
+        gh = [rand((K, py, nn), 202 + i) for i in range(4)]
+        fld, fg = c2_chain(p, d, K, py, 206) if field else (None, None)
+        args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), *planes, sxct, y0, nn)
+        kw = dict(k=K, nl_y=ny, coeff=p.a2tau2, inv_h2=p.inv_h2,
+                  c2tau2_ext=fld, c2_ghosts=fg, with_errors=rows)
+        ins = [up, u, *gh] + ([*planes, sxct] if rows else []) + (
+            [fld, *fg] if field else [])
+        cells = d * ny * nn
+        runs[name] = (
+            lambda a=args, k=kw: stencil_cuda.fused_kstep_sharded_xy(*a, **k),
+            lambda a=args, k=kw: stencil_cuda.fused_kstep_sharded_xy_plain(
+                *a, **k),
+            nbytes(*ins) + 8 * cells + (8 * K * d if rows else 0),
+            (22 if rows else 19) * K * cells)
+    for name, rows, field in (("K11", True, False), ("K11f", False, True),
+                              ("K12", True, False), ("K12f", False, True)):
+        dd, n_, nyy, yy = X_FULL if name.startswith("K11") else XY_FULL
+        kern, plain, args, fld, fg = comp_call(
+            name, dd, n_, K, nyy, yy, COMP_MODES["f32v+bf16carry"], rows,
+            field, seed=210)
+        u, v, c, gu, gv = args[:5]
+        ins = [u, v, c, *gu, *gv] + (list(args[5:]) if rows else []) + (
+            [fld, *fg] if field else [])
+        cells = dd * nyy * n_
+        runs[name] = (kern, plain,
+                      nbytes(*ins) + 10 * cells + (8 * K * dd if rows else 0),
+                      (23 if rows else 20) * K * cells)
     for name, (kern, plain, nb, ops) in runs.items():
         ms = time_launches(kern, 20)
         plain_ms = time_launches(plain, 3, warmup=1)
@@ -970,18 +1274,41 @@ def phase_times_sharded(rate):
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
               f"{times[name]['bound_ms']:.4f} ms by {times[name]['bound_by']}"
               f", {nb} bytes)")
+    # The k-block exchange of one field over the four shards, apart from
+    # the kernels: mesh 2,2,1 (y extension by K rows, then the x windows of
+    # the extended blocks) and mesh 4,1,1 (x windows only).
+    for label, shape, blk in (("exchange_221", (2, 2, 1), (d, ny, nn)),
+                              ("exchange_411", (SHARDS, 1, 1),
+                               X_FULL[:3])):
+        mesh = build_mesh(shape, [DEV] * SHARDS)
+        blocks = [rand(blk, 300 + i) for i in range(SHARDS)]
+        ms = time_launches(lambda b=blocks, m=mesh:
+                           sharded_kfused.exchange(b, m, K), 10)
+        ext, wins = sharded_kfused.exchange(blocks, mesh, K)
+        moved = 2 * nbytes(*(ext if shape[1] > 1 else []),
+                           *(w for pair in wins for w in pair))
+        times[label] = dict(ms=ms, bytes=moved)
+        print(f"  {label} (one field, {SHARDS} shards, depth {K}): "
+              f"{ms:.4f} ms, {moved} bytes read and written")
+        del blocks, ext, wins
     return times
 
 
 def cone_registers(logs):
     """ptxas's registers (and spill stores) of the cone kernels at their
-    main-path instantiations, from the verbose build log: K3 and K8/K9 at
-    k=4 (f32, depth-8 tile), K4 at k=4 and k=1 (f32 v, bf16 carry)."""
+    main-path instantiations, from the verbose build log: K3, K8/K9 and K10
+    at k=4 (f32, depth-8 tile), K4 and K11/K12 at k=4 and k=1 (f32 v, bf16
+    carry)."""
     want = {
         "K3 k=4": "12kstep_kernelILi4ELi8EfE",
         "K4 k=4": "17kstep_comp_kernelILi4ELi8Ef13__nv_bfloat16Lb1EE",
         "K4 k=1": "17kstep_comp_kernelILi1ELi8Ef13__nv_bfloat16Lb1EE",
         "K8/K9 k=4": "18kstep_chain_kernelILi4ELi8EfE",
+        "K10 k=4": "15kstep_xy_kernelILi4ELi8EfE",
+        "K11/K12 k=4":
+            "23kstep_comp_chain_kernelILi4ELi8Ef13__nv_bfloat16Lb1EE",
+        "K11/K12 k=1":
+            "23kstep_comp_chain_kernelILi1ELi8Ef13__nv_bfloat16Lb1EE",
     }
     found, func, spill = {}, None, None
     for line in "\n".join(logs.values()).splitlines():
@@ -1010,8 +1337,16 @@ def main() -> int:
     print(f"device: {dev_name} ({card}); torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    print("phase 1: build")
+    phase_s = {}
     t0 = time.perf_counter()
+
+    def done(phase, t):
+        """Record and print a phase's wall time; returns the next start."""
+        phase_s[phase] = time.perf_counter() - t
+        print(f"  [{phase}: {phase_s[phase]:.1f} s wall]", flush=True)
+        return time.perf_counter()
+
+    print("phase 1: build")
     logs = build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
@@ -1020,11 +1355,14 @@ def main() -> int:
     registers = cone_registers(logs)
     print(f"  built {sorted(logs)} in {build_s:.1f} s; cone kernels' "
           f"registers: {registers}")
+    t = done("build", t0)
 
     print("phase 2: kernels vs plain versions")
     errs = {name: [] for name in KERNELS}
     phase_kernels(errs)
     phase_sharded_kernels(errs)
+    phase_xy_kernels(errs)
+    t = done("kernels", t)
 
     print(f"phase 3: main-path runs, {STEPS} steps")
     sides, counts = {}, {}
@@ -1033,7 +1371,7 @@ def main() -> int:
     api = {}
     for label in API_RUNS:
         api[label], sides[label], counts[label] = run_api(label)
-    std, flag, kf = sides["default"], sides["flagship"], sides["kfused"]
+    std = sides["default"]
     for label, bound in ERROR_CLASS.items():
         err = sides[label]["max_abs_error"]
         if not (np.isfinite(err) and err < bound):
@@ -1044,22 +1382,27 @@ def main() -> int:
         if sides[label]["max_abs_error"] != std["max_abs_error"]:
             fail(f"{label} max abs error {sides[label]['max_abs_error']} "
                  f"is not the default run's {std['max_abs_error']}")
-    for label in ("kfused", "sharded_kfused_411"):
+    for label in ("kfused", "sharded_kfused_411", "sharded_kfused_221"):
         if abs(sides[label]["max_abs_error"] - std["max_abs_error"]) > 1e-6:
             fail(f"{label} max abs error {sides[label]['max_abs_error']} is "
                  f"not within 1e-6 of the default run's "
                  f"{std['max_abs_error']}")
+    t = done("runs", t)
 
     print("phase 4: contracts at full width")
     accuracy = phase_contracts(api)
     accuracy.update(phase_sharded_contracts(api))
+    accuracy.update(phase_flagship_contracts(api))
     del api
+    t = done("contracts", t)
 
     print("phase 5: card vs CPU at N=32")
     phase_agree()
+    t = done("agree", t)
 
     print(f"phase 6: times at the main-path shapes ({card})")
     times, rate = phase_times(dev_name)
+    done("times", t)
     rows = []
     for name, meta in KERNELS.items():
         row = {
@@ -1083,6 +1426,7 @@ def main() -> int:
     summary = {
         "card": card, "device": dev_name, "mem_rate_bytes_per_s": rate,
         "build_seconds": build_s,
+        "phase_seconds": phase_s,
         "cone_registers": registers,
         **{label: {k: side[k] for k in keys} for label, side in sides.items()},
         "launches": counts,
@@ -1096,6 +1440,8 @@ def main() -> int:
         print(f"{label}: {side['gcells_per_second']!r} Gcell/s, solve "
               f"{side['solve_seconds']!r} s, max abs error "
               f"{side['max_abs_error']!r} ({card})")
+    print(f"phase wall times (s): {phase_s}; total "
+          f"{sum(phase_s.values()):.1f}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

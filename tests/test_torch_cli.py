@@ -173,20 +173,11 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
     assert not os.listdir(tmp_path)
 
 
-# The sharded paths still to port: k-fusion on a y-sharded mesh (K10,
-# with or without a field) and the sharded compensated k-step (K11/K12).
 @pytest.mark.parametrize("argv,needle", [
-    (["8", "1", "1", "1", "1", "--mesh", "2,2,1", "--fuse-steps", "2"],
-     "K10"),
-    (["8", "1", "1", "1", "1", "--c2-field", "constant", "--fuse-steps",
-      "2", "--mesh", "1,2,1"], "K10"),
     (["8", "1", "1", "1", "1", "--ckpt-every", "2"], "queue 1 item 9"),
     (["8", "1", "1", "1", "1", "--resume", "x.npz"], "queue 1 item 8"),
-    (["8", "1", "1", "1", "1", "--fuse-steps", "2", "--scheme",
-      "compensated", "--backend", "sharded"], "K11/K12"),
     (["serve"], "queue 1 item 12"),
-], ids=["mesh", "c2-field", "ckpt-every", "resume", "standard-kfused",
-        "serve"])
+], ids=["ckpt-every", "resume", "serve"])
 def test_unported_flags_name_their_roadmap_item(argv, needle, capsys):
     assert cli.main(argv + ["--platform", "cpu"]) == 2
     err = capsys.readouterr().err
@@ -272,16 +263,80 @@ def test_uneven_kfused_f64_layer_lines_byte_identical(tmp_path, extra,
     (["--overlap"], "item 10, step 3"),
     (["--phase-timing"], "item 10, step 4"),
     (["--distributed"], "item 10, step 5"),
-    (["--mesh", "2,1,1", "--scheme", "compensated", "--fuse-steps", "4"],
-     "K11/K12"),
-    (["--mesh", "1,2,1", "--fuse-steps", "4"], "K10"),
-], ids=["overlap", "phase-timing", "distributed", "comp-kfused-mesh",
-        "kfused-y-mesh"])
+], ids=["overlap", "phase-timing", "distributed"])
 def test_sharded_paths_not_ported_name_their_item(argv, needle, capsys):
     assert cli.main(["16", "1", "1", "1", "1"] + argv
                     + ["--platform", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP.md" in err and needle in err
+
+
+# The k-fused marches on a mesh, each on CPU shards: k-fusion on a
+# y-sharded mesh (K10, with and without a field), the distributed flagship
+# on a backend-sharded (1,1,1) mesh and on (2,1,1) (K11), and k-fusion on
+# (1,2,1).  Report Np{MX*MY*MZ}, variant CUDA.
+@pytest.mark.parametrize("argv,n_procs,mesh", [
+    (["8", "1", "1", "1", "1", "--mesh", "2,2,1", "--fuse-steps", "2"], 4,
+     [2, 2, 1]),
+    (["8", "1", "1", "1", "1", "--c2-field", "constant", "--fuse-steps",
+      "2", "--mesh", "1,2,1"], 2, [1, 2, 1]),
+    (["8", "1", "1", "1", "1", "--fuse-steps", "2", "--scheme",
+      "compensated", "--backend", "sharded"], 1, [1, 1, 1]),
+    (["16", "1", "1", "1", "1", "--mesh", "2,1,1", "--scheme",
+      "compensated", "--fuse-steps", "4"], 2, [2, 1, 1]),
+    (["16", "1", "1", "1", "1", "--mesh", "1,2,1", "--fuse-steps", "4"], 2,
+     [1, 2, 1]),
+], ids=["mesh", "c2-field", "standard-kfused", "comp-kfused-mesh",
+        "kfused-y-mesh"])
+def test_sharded_kfused_paths_run(tmp_path, argv, n_procs, mesh, capsys):
+    assert cli.main(argv + ["--platform", "cpu", "--out-dir",
+                            str(tmp_path)]) == 0
+    assert f"mesh: {','.join(map(str, mesh))}" in capsys.readouterr().out
+    name = f"output_N{argv[0]}_Np{n_procs}_CUDA"
+    assert (tmp_path / f"{name}.txt").exists()
+    side = json.loads((tmp_path / f"{name}.json").read_text())
+    assert side["variant"] == "CUDA" and side["n_procs"] == n_procs
+    cfg = side["run_config"]
+    assert cfg["backend"] == "sharded" and cfg["mesh"] == mesh
+    assert cfg["fuse_steps"] == int(argv[argv.index("--fuse-steps") + 1])
+    assert cfg["scheme"] == ("compensated" if "compensated" in argv
+                             else "standard")
+    if "--c2-field" in argv:
+        assert side["errors_computed"] is False
+    else:  # N = 8-16: discretization-limited
+        assert 0 < side["max_abs_error"] < 5e-2
+
+
+@pytest.mark.parametrize("extra", [
+    ["--fuse-steps", "5", "--mesh", "3,3,1"],
+    ["--fuse-steps", "3", "--mesh", "1,3,1"],
+], ids=["mesh-3-3-1", "mesh-1-3-1"])
+def test_xy_kfused_f64_layer_lines_byte_identical(tmp_path, extra, capsys):
+    # K10 on a y-sharded mesh of CPU shards.  wavetpu's f64 onion cannot
+    # store its f64 row maxima (ROADMAP.md queue 3), so the report is held
+    # against wavetpu's f64 1-step report: the same layers, bit for bit.
+    assert cli.main(ARGS + extra + ["--dtype", "f64", "--platform", "cpu",
+                                    "--out-dir", str(tmp_path / "ours")]) == 0
+    assert jcli.main(ARGS + ["--dtype", "f64", "--platform", "cpu",
+                             "--backend", "single", "--out-dir",
+                             str(tmp_path / "ref")]) == 0
+    mx, my, mz = (int(m) for m in extra[-1].split(","))
+    ours = layer_lines(tmp_path / "ours" /
+                       f"output_N15_Np{mx * my * mz}_CUDA.txt")
+    assert len(ours) == 13
+    assert ours == layer_lines(tmp_path / "ref" / "output_N15_Np1_TPU.txt")
+
+
+def test_sharded_flagship_f64_layer_lines_byte_identical(tmp_path, capsys):
+    # K11 on three x shards of the CPU against wavetpu's sharded flagship on
+    # the same mesh (its rows are f32 diagnostics, so f64 runs there).
+    extra = ["--scheme", "compensated", "--fuse-steps", "5", "--mesh",
+             "3,1,1", "--dtype", "f64", "--platform", "cpu"]
+    assert cli.main(ARGS + extra + ["--out-dir", str(tmp_path / "ours")]) == 0
+    assert jcli.main(ARGS + extra + ["--out-dir", str(tmp_path / "ref")]) == 0
+    ours = layer_lines(tmp_path / "ours" / "output_N15_Np3_CUDA.txt")
+    assert len(ours) == 13
+    assert ours == layer_lines(tmp_path / "ref" / "output_N15_Np3_TPU.txt")
 
 
 @pytest.mark.parametrize("argv,needle", [

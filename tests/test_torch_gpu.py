@@ -501,6 +501,216 @@ def test_sharded_kfused_on_one_card_equals_single_device(cuda, n, k, mx,
     assert torch.equal(a.u_prev.fundamental(), b.u_prev)
 
 
+# ---------------------------------------------------------------------------
+# K10-K12: y-extended blocks (py = ny + 2k rows) and the distributed
+# flagship's chain, with synthetic blocks and windows from a seed.
+
+
+def xy_case(cuda, d, n, k, ny, y0, dtype, seed, whole=False):
+    """A launch's operands: blocks (d, py, n) with py = n (whole y) or
+    ny + 2k, (k, py, n) windows, the central oracle planes and (k, d)
+    rows, a field chain."""
+    p = Problem(N=n, timesteps=20)
+    py = n if whole else ny + 2 * k
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
+    planes = tuple(a[y0:y0 + ny].contiguous() for a in (syz, rsyz))
+    sxct = (ct[3:3 + k][:, None] * sx[None, :d]).contiguous()
+    blocks = [rand((d, py, n), seed + i, dtype).to(cuda) for i in range(2)]
+    gh = [rand((k, py, n), seed + 10 + i, dtype).to(cuda) for i in range(4)]
+    fld = (p.a2tau2 * (0.5 + rand((d, py, n), seed + 30).abs())).to(cuda)
+    fg = tuple((p.a2tau2 * (0.5 + rand((k, py, n), seed + 20 + i).abs()))
+               .to(cuda) for i in range(2))
+    return p, planes, sxct, blocks, gh, fld, fg
+
+
+# (D, N, k, nl_y, y0): the last shard's y0 = N - nl_y, the first's 0, and
+# nl_y = k (a ghost strip spans a whole neighbour block); D = 8 and 16 take
+# the depth-8 tile, 12, 15 and 6 a run-time one.
+XY_CASES = [(8, 16, 2, 8, 8), (8, 16, 4, 4, 12), (12, 24, 3, 6, 0),
+            (16, 32, 1, 16, 16), (15, 15, 5, 5, 10), (6, 36, 6, 9, 27),
+            (14, 16, 7, 8, 0), (8, 48, 8, 8, 40)]
+
+
+@pytest.mark.parametrize("d,n,k,ny,y0", XY_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k10(cuda, d, n, k, ny, y0, dtype, with_field, with_errors):
+    p, planes, sxct, (up, u), gh, fld, fg = xy_case(cuda, d, n, k, ny, y0,
+                                                    dtype, 60)
+    kw = dict(k=k, nl_y=ny, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_ext=fld if with_field else None,
+              c2_ghosts=fg if with_field else None, with_errors=with_errors)
+    args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), *planes, sxct, y0, n)
+    name = "kstep_sharded_xy_field" if with_field else "kstep_sharded_xy"
+    before = stencil_cuda.launches[name]
+    got = stencil_cuda.fused_kstep_sharded_xy(*args, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    assert got[1].shape == (d, ny, n)
+    equal(got, stencil_cuda.fused_kstep_sharded_xy_plain(*args, **kw))
+
+
+# (D, N, k, block_x) of K11 and (D, N, k, block_x, nl_y, y0) of K12.
+K11_CASES = [(8, 16, 1, 8), (8, 16, 2, 4), (16, 32, 4, 8), (12, 12, 3, 12),
+             (16, 64, 8, 8), (10, 40, 5, 10), (14, 42, 7, 14), (12, 36, 6, 12)]
+K12_CASES = [(8, 16, 1, 8, 8, 8), (8, 16, 4, 8, 4, 12), (16, 32, 4, 8, 8, 0),
+             (12, 24, 3, 12, 6, 18), (16, 48, 8, 8, 8, 40),
+             (10, 40, 5, 10, 10, 30), (14, 28, 7, 14, 7, 0)]
+
+
+def comp_case(cuda, d, n, k, ny, y0, mode, with_field, whole, seed=70):
+    v_dt, c_dt = MODES[mode]
+    p, planes, sxct, (u, v), gh, fld, fg = xy_case(cuda, d, n, k, ny, y0,
+                                                   torch.float32, seed,
+                                                   whole)
+    v = (1e-3 * v).to(v_dt)
+    c = (None if c_dt is None
+         else (1e-8 * rand((d, ny, n), seed + 40)).to(cuda, c_dt))
+    vg = tuple((1e-3 * g).to(v_dt) for g in gh[2:])
+    return p, (u, v, c, (gh[0], gh[1]), vg, *planes, sxct), dict(
+        k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+        c2_ghosts=fg if with_field else None), fld if with_field else None
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("d,n,k,bx", K11_CASES)
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k11(cuda, d, n, k, bx, mode, with_field, with_errors):
+    p, args, kw, fld = comp_case(cuda, d, n, k, n, 0, mode, with_field, True)
+    kw.update(block_x=bx, with_errors=with_errors, c2tau2_block=fld)
+    name = "kstep_comp_sharded_field" if with_field else "kstep_comp_sharded"
+    before = stencil_cuda.launches[name]
+    got = stencil_cuda.fused_kstep_comp_sharded(*args, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    equal(got, stencil_cuda.fused_kstep_comp_sharded_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("d,n,k,bx,ny,y0", K12_CASES)
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k12(cuda, d, n, k, bx, ny, y0, mode, with_field, with_errors):
+    p, args, kw, fld = comp_case(cuda, d, n, k, ny, y0, mode, with_field,
+                                 False)
+    kw.update(block_x=bx, with_errors=with_errors, c2tau2_ext=fld, nl_y=ny)
+    name = ("kstep_comp_sharded_xy_field" if with_field
+            else "kstep_comp_sharded_xy")
+    before = stencil_cuda.launches[name]
+    got = stencil_cuda.fused_kstep_comp_sharded_xy(*args, y0, n, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    assert got[0].shape == (d, ny, n)
+    equal(got, stencil_cuda.fused_kstep_comp_sharded_xy_plain(*args, y0, n,
+                                                              **kw))
+
+
+def test_k10_k12_error_rows_propagate_nan(cuda):
+    p, planes, sxct, (up, u), gh, _, _ = xy_case(cuda, 8, 16, 2, 8, 8,
+                                                 torch.float32, 80)
+    u[5, 5, 3] = float("nan")  # a central cell (extended row 5 = row 3)
+    kw = dict(k=2, nl_y=8, coeff=p.a2tau2, inv_h2=p.inv_h2)
+    out = stencil_cuda.fused_kstep_sharded_xy(
+        up, u, (gh[0], gh[1]), (gh[2], gh[3]), *planes, sxct, 8, 16, **kw)
+    assert torch.isnan(out[2][0, 5]) and torch.isnan(out[3][0, 5])
+    out = stencil_cuda.fused_kstep_comp_sharded_xy(
+        u, torch.zeros_like(u), None, (gh[0], gh[1]),
+        tuple(torch.zeros_like(g) for g in gh[2:]), *planes, sxct, 8, 16,
+        block_x=8, **kw)
+    assert torch.isnan(out[3][0, 5]) and torch.isnan(out[4][0, 5])
+
+
+def test_xy_and_comp_kernels_never_fall_back(cuda):
+    p, planes, sxct, (up, u), gh, fld, fg = xy_case(cuda, 8, 16, 2, 8, 8,
+                                                    torch.float32, 90)
+    kw = dict(k=2, nl_y=8, coeff=p.a2tau2, inv_h2=p.inv_h2)
+    win = ((gh[0], gh[1]), (gh[2], gh[3]))
+    with pytest.raises(ValueError):  # K10 takes no f64
+        stencil_cuda.fused_kstep_sharded_xy(
+            up.double(), u.double(), *[tuple(g.double() for g in w)
+                                       for w in win], *planes, sxct, 8, 16,
+            **kw)
+    with pytest.raises(ValueError):  # a window on the CPU
+        stencil_cuda.fused_kstep_sharded_xy(
+            up, u, (gh[0].cpu(), gh[1]), win[1], *planes, sxct, 8, 16, **kw)
+    with pytest.raises(ValueError):  # an extension that is not 2k rows
+        stencil_cuda.fused_kstep_sharded_xy(
+            up, u, *win, *planes, sxct, 8, 16, **dict(kw, nl_y=10))
+    with pytest.raises(ValueError):  # K12's carry must be the central rows
+        stencil_cuda.fused_kstep_comp_sharded_xy(
+            u, u, u, *win, *planes, sxct, 8, 16, block_x=8, **kw)
+    with pytest.raises(ValueError):  # K11 takes no bf16 u
+        b = u.to(torch.bfloat16)
+        stencil_cuda.fused_kstep_comp_sharded(
+            b, b, None, (gh[0], gh[1]), (gh[0], gh[1]), None, None, None,
+            k=2, coeff=1.0, inv_h2=p.inv_h2, with_errors=False)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, 1), (1, 2, 1), (2, 4, 1),
+                                  (4, 2, 1)])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_sharded_kfused_xy_on_one_card_equals_single_device(cuda, mesh,
+                                                            with_field):
+    p = Problem(N=16, timesteps=13)
+    kw = {}
+    if with_field:
+        kw = dict(compute_errors=False, c2tau2_field=stencil_ref.
+                  make_preset_c2tau2_field(p, "gaussian-lens"))
+    stencil_cuda.reset_launches()
+    a = sharded_kfused.solve_sharded_kfused(p, mesh_shape=mesh, k=4,
+                                            devices=[cuda] * 8, **kw)
+    name = "kstep_sharded_xy_field" if with_field else "kstep_sharded_xy"
+    assert stencil_cuda.launches[name] == mesh[0] * mesh[1] * 4
+    b = kfused.solve_kfused(p, k=4, device=cuda, **kw)
+    assert torch.equal(a.u_cur.fundamental(), b.u_cur)
+    assert torch.equal(a.u_prev.fundamental(), b.u_prev)
+
+
+@pytest.mark.parametrize("mesh", [(1, 1, 1), (2, 1, 1), (4, 1, 1),
+                                  (2, 2, 1), (2, 4, 1)])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_sharded_flagship_on_one_card(cuda, mesh, with_field):
+    # MY = 1 (K11) runs K4's op sequence at one block_x: bitwise; MY > 1
+    # (K12) zero-seeds the carry on the y ghost rows too: within 1e-6.
+    p = Problem(N=16, timesteps=13)
+    kw = {}
+    if with_field:
+        kw = dict(compute_errors=False, c2tau2_field=stencil_ref.
+                  make_preset_c2tau2_field(p, "gaussian-lens"))
+    stencil_cuda.reset_launches()
+    a = kfused_comp.solve_kfused_comp_sharded(p, mesh_shape=mesh, k=4,
+                                              block_x=4,
+                                              devices=[cuda] * 8, **kw)
+    name = "kstep_comp_sharded" + ("_xy" if mesh[1] > 1 else "") + (
+        "_field" if with_field else "")
+    assert stencil_cuda.launches[name] == mesh[0] * mesh[1] * 4
+    b = kfused_comp.solve_kfused_comp(p, k=4, block_x=4, device=cuda, **kw)
+    if mesh[1] == 1:
+        assert torch.equal(a.u_cur.fundamental(), b.u_cur)
+        assert torch.equal(a.comp_carry.fundamental(), b.comp_carry)
+    assert (a.u_cur.fundamental() - b.u_cur).abs().max().item() < 1e-6
+
+
+@pytest.mark.parametrize("solver", ["kfused_xy", "flagship_x",
+                                    "flagship_xy", "flagship_bf16"])
+def test_sharded_kfused_solvers_card_vs_cpu(cuda, solver):
+    p = Problem(N=16, timesteps=11)
+    run = {
+        "kfused_xy": lambda d: sharded_kfused.solve_sharded_kfused(
+            p, mesh_shape=(2, 2, 1), k=4, devices=[d] * 4),
+        "flagship_x": lambda d: kfused_comp.solve_kfused_comp_sharded(
+            p, n_shards=4, k=4, devices=[d] * 4),
+        "flagship_xy": lambda d: kfused_comp.solve_kfused_comp_sharded(
+            p, mesh_shape=(2, 2, 1), k=4, devices=[d] * 4),
+        "flagship_bf16": lambda d: kfused_comp.solve_kfused_comp_sharded(
+            p, mesh_shape=(2, 2, 1), k=4, devices=[d] * 4,
+            v_dtype=torch.bfloat16, carry=False),
+    }[solver]
+    gpu, cpu = run(cuda), run("cpu")
+    d = (gpu.u_cur.fundamental().cpu() - cpu.u_cur.fundamental()).abs()
+    assert d.max().item() <= 1e-5
+    assert np.max(np.abs(gpu.abs_errors - cpu.abs_errors)) <= 1e-5
+
+
 def test_mesh_larger_than_the_cards_exits_2(cuda, capsys):
     n_cards = torch.cuda.device_count()
     assert cli.main(["16", "1", "1", "1", "1", "--mesh",

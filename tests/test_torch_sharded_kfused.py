@@ -333,7 +333,7 @@ def test_stop_step():
 @pytest.mark.parametrize("kwargs,match", [
     (dict(k=1), "k must be >= 2"),
     (dict(k=9), "k must be <= 8"),
-    (dict(k=4, mesh_shape=(2, 2, 1)), "K10"),
+    (dict(k=4, mesh_shape=(2, 2, 1)), "2D-mesh k-fusion needs"),
     (dict(k=4, mesh_shape=(2, 1, 2)), r"\(MX, MY, 1\)"),
     (dict(k=4, n_shards=8), "no pad-and-mask layout"),
     (dict(k=4, c2tau2_field=np.ones((13,) * 3)), "oracle"),

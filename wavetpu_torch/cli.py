@@ -41,14 +41,18 @@ Flags:
                                     gpu; the CPU counts as one)
   --mesh MX,MY,MZ                   explicit 3D mesh (sharded backend): the
                                     1-step march runs K6 (K7 compensated) on
-                                    every shard; with --fuse-steps K an
-                                    (MX,1,1) mesh runs K8, or K9 where MX or
-                                    K does not divide evenly.  On gpu the
-                                    shards are the visible cards (a larger
-                                    mesh exits 2); on cpu every shard lives
-                                    on the CPU.  Standard --fuse-steps K with
-                                    K not dividing N also runs K9, on a
-                                    (1,1,1) mesh.
+                                    every shard; with --fuse-steps K the
+                                    mesh is (MX,MY,1): an (MX,1,1) mesh runs
+                                    K8, or K9 where MX or K does not divide
+                                    evenly, MY > 1 runs K10 on y-extended
+                                    blocks; with --scheme compensated
+                                    --fuse-steps K it is the distributed
+                                    flagship, K11 (MY = 1) or K12 (MY > 1).
+                                    On gpu the shards are the visible cards
+                                    (a larger mesh exits 2); on cpu every
+                                    shard lives on the CPU.  Standard
+                                    --fuse-steps K with K not dividing N
+                                    also runs K9, on a (1,1,1) mesh.
 
 wavetpu's other flags and subcommands are not ported yet: each exits 2
 and names the ROADMAP.md item that brings it.  Exit codes: 0 complete,
@@ -99,11 +103,6 @@ _NOT_PORTED_SUBCOMMANDS = {
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
            "out-dir", "platform", "c2-field", "backend", "mesh")
-# The sharded paths still to come, with their ROADMAP.md item.
-_K10 = ("queue 1 item 10, step 1 (kernel K10: k-fusion on a y-sharded "
-        "(MX,MY,1) mesh)")
-_K11 = ("queue 1 item 10, step 2 (kernels K11/K12: the sharded compensated "
-        "k-step)")
 _VALUELESS = ("no-errors", "overlap", "distributed", "debug-nans",
               "no-watchdog", "phase-timing")
 _USAGE = (
@@ -186,16 +185,6 @@ def _parse(argv):
         raise ValueError(
             f"--fuse-steps supports (MX,MY,1) meshes (MX, MY >= 1, MZ = 1); "
             f"got {flags['mesh']}"
-        )
-    if fuse_steps > 1 and sharded and scheme == "compensated":
-        raise _NotPorted(
-            f"--scheme compensated --fuse-steps {fuse_steps} on a mesh is "
-            f"not ported yet: ROADMAP.md {_K11}"
-        )
-    if fuse_steps > 1 and mesh is not None and mesh[1] > 1:
-        raise _NotPorted(
-            f"--fuse-steps {fuse_steps} on the mesh {flags['mesh']} is not "
-            f"ported yet: ROADMAP.md {_K10}"
         )
     problem = Problem.from_argv(pos)
     if fuse_steps > 8:
@@ -303,7 +292,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         flags.get("dtype"), torch.float32)
     v_bf16 = flags.get("v-dtype") == "bf16"
 
-    if backend == "sharded" and fuse_steps > 1:
+    if backend == "sharded" and fuse_steps > 1 and scheme == "compensated":
+        # The distributed flagship (wavetpu/cli.py:951-986).
+        result = kfused_comp.solve_kfused_comp_sharded(
+            problem, mesh_shape=shape, dtype=dtype, k=fuse_steps,
+            compute_errors=compute_errors, devices=devices,
+            v_dtype=torch.bfloat16 if v_bf16 else None, carry=not v_bf16,
+            c2tau2_field=c2_field,
+        )
+    elif backend == "sharded" and fuse_steps > 1:
         result = sharded_kfused.solve_sharded_kfused(
             problem, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors, devices=devices,
@@ -408,16 +405,16 @@ def _placement(problem: Problem, flags, fuse_steps: int, platform: str,
         shape = choose_mesh_shape(n_devices)
     n = problem.N
     if fuse_steps > 1:
-        even_x = n % shape[0] == 0 and (n // shape[0]) % fuse_steps == 0
-        if n % shape[1] or n // shape[1] < fuse_steps:
-            raise ValueError(
-                f"--fuse-steps {fuse_steps} must fit the y depth N/MY = "
-                f"{n}/{shape[1]}")
-        if not even_x and flags.get("scheme") != "compensated":
-            # Verify a pad-and-mask layout exists before building anything.
-            from wavetpu_torch.solver import sharded_kfused
+        # The mesh rules of the k-fused marches, checked before anything is
+        # built (a pad-and-mask layout must exist where K9 runs).
+        from wavetpu_torch.solver import kfused_comp, sharded_kfused
 
-            sharded_kfused.uneven_layout(problem, fuse_steps, shape[0])
+        if flags.get("scheme") != "compensated":
+            sharded_kfused._validate(problem, fuse_steps, shape[0],
+                                     shape[1])
+        elif backend == "sharded":
+            kfused_comp._validate_mesh(problem, fuse_steps, shape[0],
+                                       shape[1])
     if backend == "single":
         return backend, shape, None
     from wavetpu_torch.core.grid import Topology

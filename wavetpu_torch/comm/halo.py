@@ -84,6 +84,32 @@ def collect_ghosts(blocks: Sequence[torch.Tensor], topo: Topology,
     return out
 
 
+def extend_y(blocks: Sequence[torch.Tensor], mesh: Mesh,
+             depth: int) -> List[torch.Tensor]:
+    """Every shard's block extended with `depth` cyclic ghost rows per y
+    side (wavetpu sharded_kfused.extend_y, one y ppermute pair): a new
+    (bx, by + 2*depth, bz) tensor on the shard's device holding the last
+    `depth` rows of the lower y neighbour, the block, and the first `depth`
+    rows of the upper one, each piece copied in place (a send into the
+    receiver's buffer).  The y axis must divide evenly (no pad rows) and
+    depth <= by, so the strip comes from one neighbour."""
+    out = []
+    for i, coord in enumerate(mesh.coords):
+        blk = blocks[i]
+        bx, by, bz = blk.shape
+        lo_c, hi_c = list(coord), list(coord)
+        lo_c[1] -= 1
+        hi_c[1] += 1
+        lo, hi = blocks[mesh.index(lo_c)], blocks[mesh.index(hi_c)]
+        ext = torch.empty((bx, by + 2 * depth, bz), dtype=blk.dtype,
+                          device=mesh.devices[i])
+        ext[:, :depth].copy_(lo[:, by - depth:], non_blocking=True)
+        ext[:, depth:depth + by].copy_(blk, non_blocking=True)
+        ext[:, depth + by:].copy_(hi[:, :depth], non_blocking=True)
+        out.append(ext)
+    return out
+
+
 def _is_last(topo: Topology, coord, axis: int) -> bool:
     return coord[axis] == topo.mesh_shape[axis] - 1
 

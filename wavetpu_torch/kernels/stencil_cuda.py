@@ -1,6 +1,7 @@
 """Wrappers of the CUDA stencil kernels (csrc/stencil.cu, csrc/kstep.cu,
-csrc/sharded.cu), each with its plain PyTorch version and a launch counter
-- the port of wavetpu/kernels/stencil_pallas.py's kernels.
+csrc/sharded.cu, csrc/kstep_xy.cu, csrc/comp_sharded.cu), each with its
+plain PyTorch version and a launch counter - the port of
+wavetpu/kernels/stencil_pallas.py's kernels.
 
 | kernel | replaces (wavetpu/kernels/stencil_pallas.py)          | wrapper            | counter            |
 |--------|-------------------------------------------------------|--------------------|--------------------|
@@ -15,11 +16,17 @@ csrc/sharded.cu), each with its plain PyTorch version and a launch counter
 | K7     | `_sharded_comp_kernel` :364 via `sharded_compensated_step` :505 | `sharded_compensated_step` | `sharded_comp_step` |
 | K8     | `_kstep_sharded_kernel` :1609 via `fused_kstep_sharded` :1690 | `fused_kstep_sharded` | `kstep_sharded` (`kstep_sharded_field`) |
 | K9     | `_kstep_padded_kernel` :1782 via `fused_kstep_padded` :1882 | `fused_kstep_padded` | `kstep_padded` (`kstep_padded_field`) |
+| K10    | `_kstep_sharded_xy_kernel` :1972 via `fused_kstep_sharded_xy` :2066 | `fused_kstep_sharded_xy` | `kstep_sharded_xy` (`kstep_sharded_xy_field`) |
+| K11    | `_kstep_comp_sharded_kernel` :1163 via `fused_kstep_comp_sharded` :1264 | `fused_kstep_comp_sharded` | `kstep_comp_sharded` (`kstep_comp_sharded_field`) |
+| K12    | `_kstep_comp_sharded_xy_kernel` :1369 via `fused_kstep_comp_sharded_xy` :1478 | `fused_kstep_comp_sharded_xy` | `kstep_comp_sharded_xy` (`kstep_comp_sharded_xy_field`) |
 
-The sharded kernels (K6-K9) take one shard's block and the ghost planes
-that comm/halo.py (or the sharded k-fused solver) delivered from the
+The sharded kernels (K6-K12) take one shard's block and the ghost planes
+that comm/halo.py (or the sharded k-fused solvers) delivered from the
 neighbour shards; K8 and K9 are one CUDA kernel (csrc/sharded.cu
-`kstep_chain_kernel`), K9 masking the planes past its real-plane count.
+`kstep_chain_kernel`), K9 masking the planes past its real-plane count,
+and so are K11 and K12 (csrc/comp_sharded.cu `kstep_comp_chain_kernel`,
+whole y rows or a y-extended block).  K10 (csrc/kstep_xy.cu) and K12 take
+a block of an (MX, MY, 1) mesh extended in y by k ghost rows per side.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests and `--platform cpu` run); a
@@ -55,6 +62,9 @@ launches: Dict[str, int] = {
     "sharded_step": 0, "sharded_step_field": 0, "sharded_comp_step": 0,
     "kstep_sharded": 0, "kstep_sharded_field": 0,
     "kstep_padded": 0, "kstep_padded_field": 0,
+    "kstep_sharded_xy": 0, "kstep_sharded_xy_field": 0,
+    "kstep_comp_sharded": 0, "kstep_comp_sharded_field": 0,
+    "kstep_comp_sharded_xy": 0, "kstep_comp_sharded_xy_field": 0,
 }
 
 # dtype codes of csrc/stencil.cu.
@@ -122,6 +132,29 @@ def _sharded_lib() -> ctypes.CDLL:
     return lib
 
 
+def _xy_lib() -> ctypes.CDLL:
+    """csrc/kstep_xy.cu: K10."""
+    lib = build.load("kstep_xy")
+    if not getattr(lib, "_wt_typed", False):
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.wt_kstep_xy.argtypes = [p] * 16 + [i] * 10 + [d] * 4 + [p]
+        lib.wt_kstep_xy.restype = i
+        lib._wt_typed = True
+    return lib
+
+
+def _comp_sharded_lib() -> ctypes.CDLL:
+    """csrc/comp_sharded.cu: K11/K12."""
+    lib = build.load("comp_sharded")
+    if not getattr(lib, "_wt_typed", False):
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.wt_kstep_comp_chain.argtypes = (
+            [p] * 18 + [i] * 12 + [d] * 4 + [p])
+        lib.wt_kstep_comp_chain.restype = i
+        lib._wt_typed = True
+    return lib
+
+
 def load_libraries() -> None:
     """Build every kernel library not built yet (one nvcc per source, in
     parallel) and load them all, so no build lands inside a timed
@@ -130,6 +163,8 @@ def load_libraries() -> None:
     _lib()
     _kstep_lib()
     _sharded_lib()
+    _xy_lib()
+    _comp_sharded_lib()
 
 
 def _check_cuda(n: int, **tensors) -> None:
@@ -640,9 +675,13 @@ def _block_geometry(u, offsets, n_global, pads):
             *(int(p) for p in pads))
 
 
-def _check_block_state(u, dtypes, kernel, **tensors) -> None:
+def _require_cuda(u) -> None:
     if u.device.type != "cuda":
         raise ValueError(f"u is on {u.device}, the kernel needs CUDA")
+
+
+def _check_block_state(u, dtypes, kernel, **tensors) -> None:
+    _require_cuda(u)
     if u.dtype not in dtypes:
         raise ValueError(f"{kernel} takes a {'/'.join(map(str, dtypes))} "
                          f"state, got {u.dtype}")
@@ -753,20 +792,36 @@ def sharded_compensated_step(u, v, carry, ghosts, offsets, n_global, *,
 # neighbours come from (k, N, N) ghost windows (lo, hi) of u_prev and u.
 
 
+def _y_mask(w, nz, nl_y, y0, device):
+    """The (1, w, nz) Dirichlet mask of a block of w rows: y and z index
+    != 0 over whole rows (nl_y None), or, over a y-extended block (k ghost
+    rows, nl_y central rows, k ghost rows), the wrapped global row
+    (y0 - k + row) mod N != 0 (the TPU xy kernels' `gy % n_global`).
+    Returns (mask, the first central row, the number of central rows)."""
+    ny = w if nl_y is None else nl_y
+    yo = (w - ny) // 2
+    gy = (y0 - yo + torch.arange(w, device=device)) % nz
+    mask = (gy != 0)[:, None] & (torch.arange(nz, device=device) != 0)[None]
+    return mask[None], yo, ny
+
+
 def _kstep_chain_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
                        sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
-                       with_errors):
-    """Plain K8/K9: each field's x chain lo | block[:n_real] | hi | zero
+                       with_errors, y0=0, nl_y=None):
+    """Plain K8/K9/K10: each field's x chain lo | block[:n_real] | hi | zero
     (the TPU pad-and-mask kernel's extended array), k substeps on an onion
     that shrinks one plane per side each, each op for op K3's; outputs and
-    (k, D) error rows zero past n_real."""
-    d, ny, nz = u.shape
+    (k, D) error rows zero past n_real.  With `nl_y` (K10) the blocks are
+    y-extended by k rows per side (`_y_mask`): rows roll over the extended
+    width as the TPU kernel's do, and outputs and rows keep the central
+    nl_y rows."""
+    d, w, nz = u.shape
     f = compute_dtype(u.dtype)
     dev = u.device
 
     def chain(blk, ghosts):
         lo, hi = ghosts
-        ext = torch.zeros((d + 2 * k, ny, nz), dtype=f, device=dev)
+        ext = torch.zeros((d + 2 * k, w, nz), dtype=f, device=dev)
         ext[:k] = lo.to(f)
         ext[k:k + n_real] = blk[:n_real].to(f)
         ext[k + n_real:2 * k + n_real] = hi.to(f)
@@ -774,8 +829,7 @@ def _kstep_chain_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
 
     prev, cur = chain(u_prev, prev_ghosts), chain(u, cur_ghosts)
     fld = None if c2tau2_block is None else chain(c2tau2_block, c2_ghosts)
-    iy_, iz_ = torch.arange(ny, device=dev), torch.arange(nz, device=dev)
-    mask = ((iy_[:, None] != 0) & (iz_[None, :] != 0))[None]
+    mask, yo, ny = _y_mask(w, nz, nl_y, y0, dev)
     real = torch.arange(d, device=dev) < n_real
     ix, iy, iz = inv_h2
     dmax = rmax = None
@@ -797,7 +851,7 @@ def _kstep_chain_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
         if u.dtype != f:
             new = new.to(u.dtype).to(f)
         if with_errors:
-            diff = (new[k - s:k - s + d]
+            diff = (new[k - s:k - s + d, yo:yo + ny]
                     - sxct[s - 1].to(f)[:, None, None] * syz_f).abs()
             dmax[s - 1] = torch.where(real, diff.amax(dim=(1, 2)).float(),
                                       0.0)
@@ -805,8 +859,9 @@ def _kstep_chain_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
                 real, (diff * rsyz_f).amax(dim=(1, 2)).float(), 0.0)
         prev, cur = c, new
     keep = real[:, None, None]
-    return (torch.where(keep, prev, 0.0).to(u.dtype),
-            torch.where(keep, cur, 0.0).to(u.dtype), dmax, rmax)
+    return (torch.where(keep, prev[:, yo:yo + ny], 0.0).to(u.dtype),
+            torch.where(keep, cur[:, yo:yo + ny], 0.0).to(u.dtype), dmax,
+            rmax)
 
 
 def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
@@ -927,3 +982,345 @@ def fused_kstep_padded(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
                                         cur_ghosts, syz, rsyz, sxct, **kw)
     return _kstep_chain("kstep_padded", u_prev, u, n_real, prev_ghosts,
                         cur_ghosts, syz, rsyz, sxct, **kw)
+
+
+# K10: k fused substeps of a block of an (MX, MY, 1) mesh, y-extended by k
+# ghost rows per side, whose x neighbours come from (k, W, N) windows of the
+# x neighbours' extended blocks (W = nl_y + 2k).
+
+
+def fused_kstep_sharded_xy_plain(u_prev_ext, u_ext, prev_ghosts, cur_ghosts,
+                                 syz_c, rsyz_c, sxct, y0, n_global, *, k,
+                                 nl_y, coeff, inv_h2, c2tau2_ext=None,
+                                 c2_ghosts=None, with_errors=True):
+    """Plain K10: `_kstep_chain_plain` over the y-extended block, the mask
+    on the wrapped global row, the central nl_y rows kept."""
+    _check_xy(u_ext, k, nl_y, n_global)
+    return _kstep_chain_plain(
+        u_prev_ext, u_ext, u_ext.shape[0], prev_ghosts, cur_ghosts, syz_c,
+        rsyz_c, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
+        c2tau2_block=c2tau2_ext, c2_ghosts=c2_ghosts,
+        with_errors=with_errors, y0=int(y0), nl_y=nl_y)
+
+
+def _check_xy(u_ext, k, nl_y, n_global):
+    """The shape rules of the y-extended kernels (K10, K12), as wavetpu's."""
+    d, w, nz = u_ext.shape
+    if w != nl_y + 2 * k:
+        raise ValueError(f"extended y width {w} != nl_y + 2k = "
+                         f"{nl_y + 2 * k}")
+    if d % k:
+        raise ValueError(f"k={k} must divide the shard depth {d}")
+    if nz != n_global:
+        raise ValueError(f"the block's z extent {nz} must be the global N="
+                         f"{n_global} (z is not sharded)")
+
+
+def fused_kstep_sharded_xy(u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c,
+                           rsyz_c, sxct, y0, n_global, *, k, nl_y, coeff,
+                           inv_h2, c2tau2_ext=None, c2_ghosts=None,
+                           with_errors=True):
+    """K10 (replaces stencil_pallas.fused_kstep_sharded_xy): k fused
+    leapfrog steps of one block of an (MX, MY, 1) mesh.  `u_prev_ext` /
+    `u_ext` are the (N/MX, W, N) blocks extended in y by k ghost rows per
+    side (W = nl_y + 2k); `prev_ghosts` / `cur_ghosts` are their (k, W, N)
+    x windows (lo, hi), cut from the x neighbours' extended blocks (which
+    carries the corner cells); `syz_c` / `rsyz_c` the central (nl_y, N)
+    oracle planes, `sxct` the shard's (k, N/MX) oracle rows, `y0` the
+    global y of its first central row.  Returns the central (N/MX, nl_y, N)
+    layers (u_{n+k-1}, u_{n+k}) and (k, N/MX) rows over this shard's y
+    range (None without `with_errors`), bitwise equal to K3 on the whole
+    domain.  With `c2tau2_ext` (the field block extended alike) and its
+    window pair `c2_ghosts`, the variable-c substep runs and `coeff` is
+    ignored.  On the card f32 or bf16 state, 1 <= k <= 8."""
+    kw = dict(k=k, nl_y=nl_y, coeff=coeff, inv_h2=inv_h2,
+              c2tau2_ext=c2tau2_ext, c2_ghosts=c2_ghosts,
+              with_errors=with_errors)
+    if u_ext.device.type == "cpu":
+        return fused_kstep_sharded_xy_plain(
+            u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c, rsyz_c, sxct,
+            y0, n_global, **kw)
+    return _kstep_xy(u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c,
+                     rsyz_c, sxct, y0, n_global, **kw)
+
+
+def _kstep_xy(u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c, rsyz_c,
+              sxct, y0, n_global, *, k, nl_y, coeff, inv_h2, c2tau2_ext,
+              c2_ghosts, with_errors):
+    """Launch csrc/kstep_xy.cu's kernel (K10) after checking every
+    operand."""
+    _check_xy(u_ext, k, nl_y, n_global)
+    if not 1 <= k <= _K4_MAX_K:
+        raise ValueError(f"k={k}: K10 takes 1 <= k <= {_K4_MAX_K}")
+    y0 = int(y0)
+    if not 0 <= y0 < n_global:
+        raise ValueError(f"y0={y0} must lie in [0, {n_global})")
+    d, w, n = u_ext.shape
+    _check_block_state(u_ext, (torch.float32, torch.bfloat16), "K10",
+                       u_prev_ext=u_prev_ext)
+    dev = u_ext.device
+    window = (k, w, n)
+    _check_on_card(dev, u_ext.dtype, prev_lo=(prev_ghosts[0], window),
+                   prev_hi=(prev_ghosts[1], window),
+                   cur_lo=(cur_ghosts[0], window),
+                   cur_hi=(cur_ghosts[1], window))
+    f32 = torch.float32
+    if c2tau2_ext is not None:
+        _check_on_card(dev, f32, c2tau2_ext=(c2tau2_ext, u_ext.shape),
+                       c2_lo=(c2_ghosts[0], window),
+                       c2_hi=(c2_ghosts[1], window))
+    dmax = rmax = None
+    if with_errors:
+        _check_on_card(dev, f32, syz_c=(syz_c, (nl_y, n)),
+                       rsyz_c=(rsyz_c, (nl_y, n)), sxct=(sxct, (k, d)))
+        dmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
+        rmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
+    tx, ty, tz = kstep_tile(k, d)
+    prev_out = torch.empty((d, nl_y, n), dtype=u_ext.dtype, device=dev)
+    out = torch.empty_like(prev_out)
+    c2g = (None, None) if c2tau2_ext is None else c2_ghosts
+    with torch.cuda.device(dev):
+        _run(_xy_lib().wt_kstep_xy, u_prev_ext.data_ptr(), u_ext.data_ptr(),
+             prev_ghosts[0].data_ptr(), prev_ghosts[1].data_ptr(),
+             cur_ghosts[0].data_ptr(), cur_ghosts[1].data_ptr(),
+             prev_out.data_ptr(), out.data_ptr(), _ptr(c2tau2_ext),
+             _ptr(c2g[0]), _ptr(c2g[1]),
+             *((syz_c.data_ptr(), rsyz_c.data_ptr(), sxct.data_ptr())
+               if with_errors else (None, None, None)),
+             _ptr(dmax), _ptr(rmax), d, n, w, nl_y, y0, k, tx, ty, tz,
+             _CODE[u_ext.dtype],
+             float(coeff if c2tau2_ext is None else 0.0),
+             *(float(h) for h in inv_h2))
+    launches["kstep_sharded_xy" if c2tau2_ext is None
+             else "kstep_sharded_xy_field"] += 1
+    if with_errors:
+        # The kernel combined the rows as the bits of non-negative floats.
+        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
+    return prev_out, out, dmax, rmax
+
+
+# K11 and K12: k fused velocity-form substeps of a shard block of the
+# distributed flagship.  K11 takes an x-sharded (N/MX, N, N) block, K12 a
+# y-extended block of an (MX, MY, 1) mesh; both reach their x neighbours
+# through (k, ., N) windows of u and v (lo, hi).
+
+
+def _comp_chain_plain(u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct, *,
+                      k, coeff, inv_h2, block_x, c2tau2_block, c2_ghosts,
+                      with_errors, y0=0, nl_y=None):
+    """Plain K11/K12: K4's slab loop (`fused_kstep_comp_plain`) over the x
+    chain lo | block | hi of u and v (and of the field): per block_x slab
+    u and v onions of bx + 2k planes cut from the chain, the carry zero
+    outside the slab.  With `nl_y` (K12) the blocks are y-extended
+    (`_y_mask`): the carry is the central rows, zero on the ghost rows,
+    and outputs and rows keep the central nl_y rows."""
+    d, w, nz = u.shape
+    bx = block_x
+    f = compute_dtype(u.dtype)
+    dev = u.device
+    ix, iy, iz = inv_h2
+    mask, yo, ny = _y_mask(w, nz, nl_y, y0, dev)
+
+    def chain(blk, ghosts):
+        return torch.cat([ghosts[0].to(f), blk.to(f), ghosts[1].to(f)])
+
+    u_all, v_all = chain(u, u_ghosts), chain(v, v_ghosts)
+    f_all = None if c2tau2_block is None else chain(c2tau2_block, c2_ghosts)
+    u_out = torch.empty((d, ny, nz), dtype=u.dtype, device=dev)
+    v_out = torch.empty((d, ny, nz), dtype=v.dtype, device=dev)
+    c_out = None if carry is None else torch.empty(
+        (d, ny, nz), dtype=carry.dtype, device=dev)
+    dmax = rmax = None
+    if with_errors:
+        dmax = torch.zeros((k, d), dtype=torch.float32, device=dev)
+        rmax = torch.zeros((k, d), dtype=torch.float32, device=dev)
+        syz_f, rsyz_f = syz.to(f), rsyz.to(f)
+    for x0 in range(0, d, bx):
+        U = u_all[x0:x0 + bx + 2 * k]
+        V = v_all[x0:x0 + bx + 2 * k]
+        if carry is not None:
+            C = torch.zeros((bx + 2 * k, w, nz), dtype=f, device=dev)
+            C[k:k + bx, yo:yo + ny] = carry[x0:x0 + bx].to(f)
+        for s in range(1, k + 1):
+            uc = U[1:-1]
+            lap = (U[:-2] + U[2:] - 2.0 * uc) * ix
+            lap = lap + (
+                torch.roll(uc, 1, 1) + torch.roll(uc, -1, 1) - 2.0 * uc
+            ) * iy
+            lap = lap + (
+                torch.roll(uc, 1, 2) + torch.roll(uc, -1, 2) - 2.0 * uc
+            ) * iz
+            co = (coeff if f_all is None
+                  else f_all[x0 + s:x0 + bx + 2 * k - s])
+            dd = torch.where(mask, co * lap, 0.0)
+            vn = V[1:-1] + dd
+            yy = vn - C[1:-1] if carry is not None else vn
+            t = uc + yy
+            if carry is not None:
+                C = (t - uc) - yy
+            if with_errors:
+                ctr = t[k - s:k - s + bx, yo:yo + ny]
+                sxc = sxct[s - 1, x0:x0 + bx].to(f)
+                diff = (ctr - sxc[:, None, None] * syz_f).abs()
+                dmax[s - 1, x0:x0 + bx] = diff.amax(dim=(1, 2)).float()
+                rmax[s - 1, x0:x0 + bx] = (
+                    diff * rsyz_f).amax(dim=(1, 2)).float()
+            U, V = t, vn
+        u_out[x0:x0 + bx] = U[:, yo:yo + ny].to(u.dtype)
+        v_out[x0:x0 + bx] = V[:, yo:yo + ny].to(v.dtype)
+        if carry is not None:
+            c_out[x0:x0 + bx] = C[:, yo:yo + ny].to(carry.dtype)
+    return u_out, v_out, c_out, dmax, rmax
+
+
+def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
+                *, k, coeff, inv_h2, block_x, c2tau2_block, c2_ghosts,
+                with_errors, y0, nl_y):
+    """Launch csrc/comp_sharded.cu's kernel (K11 with nl_y None, K12 with
+    the central row count), counted under `counter`, after checking every
+    operand."""
+    d, w, n = u.shape
+    ny = w if nl_y is None else nl_y
+    if not 1 <= k <= _K4_MAX_K:
+        raise ValueError(f"k={k}: K11/K12 take 1 <= k <= {_K4_MAX_K}")
+    if not 0 <= y0 < n:
+        raise ValueError(f"y0={y0} must lie in [0, {n})")
+    _check_kstep(d, k, block_x)
+    _require_cuda(u)
+    dev = u.device
+    f32 = torch.float32
+    if u.dtype != f32 or v.dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"K11/K12 take f32 u and f32/bf16 v, got "
+                         f"{u.dtype}/{v.dtype}")
+    if carry is not None and (carry.dtype not in (f32, torch.bfloat16)
+                              or v.dtype != f32):
+        raise ValueError(f"K11/K12 take an f32/bf16 carry with an f32 v, "
+                         f"got {carry.dtype} with {v.dtype}")
+    window = (k, w, n)
+    _check_on_card(dev, f32, u=(u, u.shape), u_lo=(u_ghosts[0], window),
+                   u_hi=(u_ghosts[1], window))
+    _check_on_card(dev, v.dtype, v=(v, u.shape), v_lo=(v_ghosts[0], window),
+                   v_hi=(v_ghosts[1], window))
+    if carry is not None:
+        _check_on_card(dev, carry.dtype, carry=(carry, (d, ny, n)))
+    if c2tau2_block is not None:
+        _check_on_card(dev, f32, c2tau2_block=(c2tau2_block, u.shape),
+                       c2_lo=(c2_ghosts[0], window),
+                       c2_hi=(c2_ghosts[1], window))
+    dmax = rmax = None
+    if with_errors:
+        _check_on_card(dev, f32, syz=(syz, (ny, n)), rsyz=(rsyz, (ny, n)),
+                       sxct=(sxct, (k, d)))
+        dmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
+        rmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
+    tx, ty, tz = kstep_tile(k, block_x)
+    u_out = torch.empty((d, ny, n), dtype=f32, device=dev)
+    v_out = torch.empty((d, ny, n), dtype=v.dtype, device=dev)
+    c_out = None if carry is None else torch.empty(
+        (d, ny, n), dtype=carry.dtype, device=dev)
+    c2g = (None, None) if c2tau2_block is None else c2_ghosts
+    with torch.cuda.device(dev):
+        _run(_comp_sharded_lib().wt_kstep_comp_chain, u.data_ptr(),
+             u_ghosts[0].data_ptr(), u_ghosts[1].data_ptr(), v.data_ptr(),
+             v_ghosts[0].data_ptr(), v_ghosts[1].data_ptr(), _ptr(carry),
+             u_out.data_ptr(), v_out.data_ptr(), _ptr(c_out),
+             _ptr(c2tau2_block), _ptr(c2g[0]), _ptr(c2g[1]),
+             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
+               if with_errors else (None, None, None)),
+             _ptr(dmax), _ptr(rmax), d, n, w, ny, y0, k, block_x, tx, ty,
+             tz, _CODE[v.dtype],
+             _NONE if carry is None else _CODE[carry.dtype],
+             float(coeff if c2tau2_block is None else 0.0),
+             *(float(h) for h in inv_h2))
+    launches[counter if c2tau2_block is None else counter + "_field"] += 1
+    if with_errors:
+        # The kernel combined the rows as the bits of non-negative floats.
+        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
+    return u_out, v_out, c_out, dmax, rmax
+
+
+def fused_kstep_comp_sharded_plain(u, v, carry, u_ghosts, v_ghosts, syz,
+                                   rsyz, sxct, *, k, coeff, inv_h2, block_x,
+                                   c2tau2_block=None, c2_ghosts=None,
+                                   with_errors=True):
+    """Plain K11: `_comp_chain_plain` over whole y rows."""
+    _check_kstep(u.shape[0], k, block_x)
+    return _comp_chain_plain(
+        u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct, k=k, coeff=coeff,
+        inv_h2=inv_h2, block_x=block_x, c2tau2_block=c2tau2_block,
+        c2_ghosts=c2_ghosts, with_errors=with_errors)
+
+
+def fused_kstep_comp_sharded(u, v, carry, u_ghosts, v_ghosts, syz, rsyz,
+                             sxct, *, k, coeff, inv_h2, c2tau2_block=None,
+                             c2_ghosts=None, block_x: Optional[int] = None,
+                             with_errors=True):
+    """K11 (replaces stencil_pallas.fused_kstep_comp_sharded): k compensated
+    velocity-form steps of one x-sharded (N/MX, N, N) block, K4's update
+    with the x halos of u and v from their (k, N, N) windows `u_ghosts` /
+    `v_ghosts` = (lo, hi) of the cyclic x neighbours.  `carry=None` is the
+    carry-less increment form; the carry is zero outside each `block_x`
+    slab (default `default_block_x(N/MX, k)`, which must divide N/MX), so
+    for one block_x the result equals K4's on the whole domain.  `sxct` is
+    the shard's (k, N/MX) oracle row slice.  Returns (u', v', carry' |
+    None, dmax, rmax) with (k, N/MX) rows (None without `with_errors`).
+    With `c2tau2_block` and its window pair `c2_ghosts` (K11f) the
+    increment is v' = v + mask(c2tau2*lap(u)) and `coeff` is ignored."""
+    bx = block_x or default_block_x(u.shape[0], k)
+    kw = dict(k=k, coeff=coeff, inv_h2=inv_h2, block_x=bx,
+              c2tau2_block=c2tau2_block, c2_ghosts=c2_ghosts,
+              with_errors=with_errors)
+    if u.device.type == "cpu":
+        return fused_kstep_comp_sharded_plain(u, v, carry, u_ghosts,
+                                              v_ghosts, syz, rsyz, sxct,
+                                              **kw)
+    if u.shape[1] != u.shape[2]:
+        raise ValueError(f"the block's y and z extents must be N, got "
+                         f"{tuple(u.shape)}")
+    return _comp_chain("kstep_comp_sharded", u, v, carry, u_ghosts,
+                       v_ghosts, syz, rsyz, sxct, y0=0, nl_y=None, **kw)
+
+
+def fused_kstep_comp_sharded_xy_plain(u_ext, v_ext, carry, u_ghosts,
+                                      v_ghosts, syz_c, rsyz_c, sxct, y0,
+                                      n_global, *, k, nl_y, coeff, inv_h2,
+                                      block_x, c2tau2_ext=None,
+                                      c2_ghosts=None, with_errors=True):
+    """Plain K12: `_comp_chain_plain` over the y-extended block."""
+    _check_xy(u_ext, k, nl_y, n_global)
+    _check_kstep(u_ext.shape[0], k, block_x)
+    return _comp_chain_plain(
+        u_ext, v_ext, carry, u_ghosts, v_ghosts, syz_c, rsyz_c, sxct, k=k,
+        coeff=coeff, inv_h2=inv_h2, block_x=block_x,
+        c2tau2_block=c2tau2_ext, c2_ghosts=c2_ghosts,
+        with_errors=with_errors, y0=int(y0), nl_y=nl_y)
+
+
+def fused_kstep_comp_sharded_xy(u_ext, v_ext, carry, u_ghosts, v_ghosts,
+                                syz_c, rsyz_c, sxct, y0, n_global, *, k,
+                                nl_y, coeff, inv_h2, c2tau2_ext=None,
+                                c2_ghosts=None, block_x: Optional[int] = None,
+                                with_errors=True):
+    """K12 (replaces stencil_pallas.fused_kstep_comp_sharded_xy): K11 on a
+    block of an (MX, MY, 1) mesh.  `u_ext` / `v_ext` are the (N/MX, W, N)
+    blocks extended in y by k ghost rows per side (W = nl_y + 2k), their
+    (k, W, N) x windows cut from the x neighbours' extended blocks;
+    `carry` is the central (N/MX, nl_y, N) block (or None), zero-seeded on
+    the ghost rows as on the x halo planes, so K12 is not bitwise equal to
+    the single-device K4.  The mask tests the wrapped global row (y0 the
+    global y of the first central row).  Returns central (N/MX, nl_y, N)
+    u', v', carry' and (k, N/MX) rows over this shard's y range.  With
+    `c2tau2_ext` and `c2_ghosts` (K12f) the field's cells replace coeff."""
+    bx = block_x or default_block_x(u_ext.shape[0], k)
+    kw = dict(k=k, coeff=coeff, inv_h2=inv_h2, block_x=bx,
+              with_errors=with_errors)
+    if u_ext.device.type == "cpu":
+        return fused_kstep_comp_sharded_xy_plain(
+            u_ext, v_ext, carry, u_ghosts, v_ghosts, syz_c, rsyz_c, sxct,
+            y0, n_global, nl_y=nl_y, c2tau2_ext=c2tau2_ext,
+            c2_ghosts=c2_ghosts, **kw)
+    _check_xy(u_ext, k, nl_y, n_global)
+    return _comp_chain("kstep_comp_sharded_xy", u_ext, v_ext, carry,
+                       u_ghosts, v_ghosts, syz_c, rsyz_c, sxct,
+                       c2tau2_block=c2tau2_ext, c2_ghosts=c2_ghosts,
+                       y0=int(y0), nl_y=nl_y, **kw)

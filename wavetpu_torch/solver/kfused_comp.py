@@ -30,6 +30,19 @@ compute_errors=False (no analytic oracle).
 There is no bitwise-parity claim against the 1-step scheme (intermediate
 layers skip the storage round trip, halo carries differ); the contract is
 tolerance parity vs f64.
+
+The sharded half (`solve_kfused_comp_sharded`) is the distributed
+flagship over an (MX, MY, 1) mesh, with the k-step exchange of
+solver/sharded_kfused.py (x windows of u and v per k-block; on MY > 1 the
+blocks are first extended in y, and the windows are cut from the
+extended blocks).  MY = 1 runs K11 (`stencil_cuda.fused_kstep_comp_
+sharded`): for one block_x its op sequence is K4's, so it equals the
+single-device flagship; MY > 1 runs K12 (`fused_kstep_comp_sharded_xy`),
+whose carry is also zero on the y ghost rows (within 1e-6 of it).  The
+bootstrap is the same kernel at k=1 with coeff C/2 on zero v and carry
+(half the field with c2tau2_field), the tail k=1 launches of it; layer 1's
+errors come from per-x-plane rows (`sharded_kfused._layer_rows_local`).
+At N=512 / 1000 steps / k=4 each shard runs 253 launches.
 """
 
 from __future__ import annotations
@@ -40,10 +53,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wavetpu_torch.core.grid import (
+    ShardedArray, Topology, build_mesh, split_global,
+)
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.solver import kfused, leapfrog
+from wavetpu_torch.solver import kfused, leapfrog, sharded_kfused
 from wavetpu_torch.verify import oracle
 
 # The K4 kernel's shared-memory tile holds k <= 8 (stencil_cuda.kstep_tile).
@@ -282,3 +298,227 @@ def solve_kfused_comp(
     t2 = time.perf_counter()
     return _as_result(problem, u, v, c, abs_np, rel_np, t1 - t0, t2 - t1,
                       stop_step, nsteps)
+
+
+def _validate_sharded(problem: Problem, dtype, v_dtype, carry, k, n_x,
+                      n_y: int = 1, c2tau2_field=None,
+                      compute_errors: bool = True):
+    _validate(problem, dtype, v_dtype, carry, k, c2tau2_field,
+              compute_errors)
+    _validate_mesh(problem, k, n_x, n_y)
+
+
+def _validate_mesh(problem: Problem, k: int, n_x: int, n_y: int):
+    """The (MX, MY, 1) decomposition rules of the distributed flagship."""
+    if n_x < 1 or n_y < 1:
+        raise ValueError(
+            f"mesh axes must be >= 1 (got MX={n_x}, MY={n_y})"
+        )
+    if problem.N % n_x:
+        raise ValueError(
+            f"sharded compensated k-fusion needs N % shards == 0 "
+            f"(N={problem.N}, shards={n_x})"
+        )
+    if (problem.N // n_x) % k:
+        raise ValueError(
+            f"k={k} must divide the shard depth {problem.N // n_x}"
+        )
+    if problem.N % n_y:
+        raise ValueError(
+            f"y-sharded compensated k-fusion needs N % y-shards == 0 "
+            f"(N={problem.N}, y-shards={n_y})"
+        )
+    if problem.N // n_y < k:
+        raise ValueError(
+            f"k={k} exceeds the y shard depth {problem.N // n_y}"
+        )
+
+
+def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
+                         compute_errors, nsteps, block_x, carry_dtype,
+                         c2tau2_field=None):
+    """Set up the distributed flagship over the (MX, MY, 1) `mesh` and
+    return `run()` -> (u, v, carry | None blocks, abs, rel) with the
+    per-layer errors as host f64 arrays.  One block_x serves every launch
+    (default `default_block_x(N/MX, k)`), so the op sequence matches the
+    single-device kernel's slab partition."""
+    n_x, n_y, _ = mesh.shape
+    devices = list(mesh.devices)
+    n = problem.N
+    nl, nl_y = n // n_x, n // n_y
+    bx = block_x or stencil_cuda.default_block_x(nl, k)
+    if nl % bx or bx % k:
+        raise ValueError(f"block_x={bx} must divide the shard depth {nl} "
+                         f"and be a multiple of k={k}")
+    f = stencil_ref.compute_dtype(dtype)
+    if any(dev.type == "cuda" for dev in devices):
+        stencil_cuda.load_libraries()
+    host = torch.device("cpu")
+    sx, ct, syz, rsyz, xmask, inv_absx = kfused._oracle_parts(problem, f,
+                                                              host)
+    # The flagship's rel-metric guard (`_make_march`).
+    inv_absx = torch.where(sx.abs() > _rel_guard_tol(f), inv_absx, 0.0)
+    sxct_all = ct[:, None] * sx[None, :]                     # (T+1, N)
+    sxct_on = {dev: sxct_all.to(dev) for dev in set(devices)}
+    planes = [tuple(a[cy * nl_y:(cy + 1) * nl_y].to(dev).contiguous()
+                    for a in (syz, rsyz))
+              for dev, (_, cy, _) in zip(devices, mesh.coords)]
+    topo = Topology(N=n, mesh_shape=mesh.shape)
+    u0 = split_global(leapfrog.initial_layer0(problem, dtype, host), topo,
+                      mesh).blocks
+    packs = {kk: [None] * len(devices) for kk in (1, k)}
+    half = [None] * len(devices)
+    if c2tau2_field is not None:
+        fields = split_global(state.c2tau2_field(c2tau2_field, dtype, host),
+                              topo, mesh).blocks
+        for kk in (1, k):
+            packs[kk] = list(zip(*sharded_kfused.exchange(fields, mesh, kk)))
+        # The bootstrap's half field (wavetpu's field_pack(0.5 * fld, 1)):
+        # halving is exact, so it is the k=1 pack halved.
+        half = [(0.5 * b, (0.5 * g[0], 0.5 * g[1])) for b, g in packs[1]]
+    nblocks = (nsteps - 1) // k
+    rem = (nsteps - 1) - nblocks * k
+
+    def kcall(u, v, c, kk, layer, coeff, with_errors, fpack):
+        """kk fused layers (layer+1 .. layer+kk) of every shard."""
+        ue, ug = sharded_kfused.exchange(u, mesh, kk)
+        ve, vg = sharded_kfused.exchange(v, mesh, kk)
+        outs = []
+        for i, dev in enumerate(devices):
+            cx, cy, _ = mesh.coords[i]
+            fp = fpack[i]
+            kw = dict(k=kk, coeff=coeff, inv_h2=problem.inv_h2,
+                      c2_ghosts=None if fp is None else fp[1], block_x=bx,
+                      with_errors=with_errors)
+            sxct_k = sxct_on[dev][layer + 1:layer + 1 + kk,
+                                  cx * nl:(cx + 1) * nl].contiguous()
+            if n_y == 1:
+                outs.append(stencil_cuda.fused_kstep_comp_sharded(
+                    ue[i], ve[i], c[i], ug[i], vg[i], *planes[i], sxct_k,
+                    c2tau2_block=None if fp is None else fp[0], **kw))
+            else:
+                outs.append(stencil_cuda.fused_kstep_comp_sharded_xy(
+                    ue[i], ve[i], c[i], ug[i], vg[i], *planes[i], sxct_k,
+                    cy * nl_y, n, nl_y=nl_y,
+                    c2tau2_ext=None if fp is None else fp[0], **kw))
+        return outs
+
+    def run():
+        rows = [[torch.zeros((nsteps + 1, nl), dtype=f, device=dev)
+                 for dev in devices]
+                for _ in range(2)] if compute_errors else None
+
+        def step(state_, kk, layer, coeff, with_errors, fpack):
+            outs = kcall(*state_, kk, layer, coeff, with_errors, fpack)
+            if with_errors:
+                for i, o in enumerate(outs):
+                    rows[0][i][layer + 1:layer + 1 + kk] = o[3]
+                    rows[1][i][layer + 1:layer + 1 + kk] = o[4]
+            return tuple([o[j] for o in outs] for j in range(3))
+
+        zero_v = [torch.zeros(b.shape, dtype=v_dtype, device=b.device)
+                  for b in u0]
+        zero_c = [torch.zeros(b.shape, dtype=carry_dtype, device=b.device)
+                  if carry_on else None for b in u0]
+        # Layer 1: the same kernel at k=1, coeff C/2 on zero v and carry
+        # (the compensated half-step; half the field with a field).
+        st = step((u0, zero_v, zero_c), 1, 0, 0.5 * problem.a2tau2, False,
+                  half)
+        if compute_errors:
+            for i, dev in enumerate(devices):
+                cx = mesh.coords[i][0]
+                dr, rr = sharded_kfused._layer_rows_local(
+                    st[0][i], sxct_on[dev][1, cx * nl:(cx + 1) * nl],
+                    *planes[i], f)
+                rows[0][i][1:2] = dr
+                rows[1][i][1:2] = rr
+        layer = 1
+        for kk, count in ((k, nblocks), (1, rem)):
+            for _ in range(count):
+                st = step(st, kk, layer, problem.a2tau2, compute_errors,
+                          packs[kk])
+                layer += kk
+        if not compute_errors:
+            z = np.zeros(nsteps + 1)
+            return st + (z, z.copy())
+        dmax, rmax = (sharded_kfused.rows_max_y(rs, n_x, n_y, host)
+                      for rs in rows)
+        abs_e, rel_e = kfused._block_errors(
+            dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
+        return st + (leapfrog._host(abs_e), leapfrog._host(rel_e))
+
+    return run
+
+
+def solve_kfused_comp_sharded(
+    problem: Problem,
+    n_shards: Optional[int] = None,
+    dtype=torch.float32,
+    k: int = 4,
+    compute_errors: bool = True,
+    stop_step: Optional[int] = None,
+    block_x: Optional[int] = None,
+    devices=None,
+    v_dtype=None,
+    carry: bool = True,
+    mesh_shape=None,
+    carry_dtype=None,
+    c2tau2_field=None,
+) -> leapfrog.SolveResult:
+    """The distributed flagship: the compensated k-fused solve over an
+    (MX, MY, 1) mesh (wavetpu's mpi_new.cpp role with the compensated
+    accuracy class), timed as `leapfrog.solve`.  `n_shards` is the x-only
+    shorthand; requires MX | N, k | N/MX, MY | N, k <= N/MY.  `devices`
+    (default: every visible card) lists the mesh's devices in mesh order
+    and may repeat one.  `carry_dtype`, `v_dtype` / `carry=False` (the
+    bf16 increment mode) and `c2tau2_field` as `solve_kfused_comp`.
+    u_prev, u_cur, comp_v and comp_carry are `ShardedArray`s on the
+    Topology layout of the mesh (comp_carry None without a carry)."""
+    if devices is None:
+        leapfrog.resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(dv) for dv in devices]
+    n_x, n_y = sharded_kfused._resolve_grid(mesh_shape, n_shards, devices)
+    v_dtype = dtype if v_dtype is None else v_dtype
+    if carry and carry_dtype is not None:
+        _validate_carry_dtype(dtype, carry_dtype)
+    carry_dtype = (_default_carry_dtype(dtype) if carry_dtype is None
+                   else carry_dtype)
+    _validate_sharded(problem, dtype, v_dtype, carry, k, n_x, n_y,
+                      c2tau2_field, compute_errors)
+    if len(devices) < n_x * n_y:
+        raise ValueError(f"mesh ({n_x}, {n_y}, 1) needs {n_x * n_y} "
+                         f"devices, only {len(devices)} available")
+    nsteps = problem.timesteps if stop_step is None else stop_step
+    if not 1 <= nsteps <= problem.timesteps:
+        raise ValueError(
+            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
+        )
+    mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
+    t0 = time.perf_counter()
+    run = _make_sharded_runner(problem, mesh, dtype, v_dtype, carry, k,
+                               compute_errors, nsteps, block_x, carry_dtype,
+                               c2tau2_field)
+    sharded_kfused._sync(mesh)
+    t1 = time.perf_counter()
+    u, v, c, abs_np, rel_np = run()
+    sharded_kfused._sync(mesh)
+    t2 = time.perf_counter()
+    f = stencil_ref.compute_dtype(dtype)
+    topo = Topology(N=problem.N, mesh_shape=mesh.shape)
+
+    def sharded(blocks):
+        return ShardedArray(list(blocks), topo, mesh)
+
+    return leapfrog.SolveResult(
+        problem=problem,
+        u_prev=sharded((a.to(f) - b.to(f)).to(a.dtype)
+                       for a, b in zip(u, v)),
+        u_cur=sharded(u),
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=stop_step, final_step=nsteps,
+        comp_v=sharded(v),
+        comp_carry=sharded(c) if carry else None,
+    )
