@@ -7,20 +7,26 @@ without them or when any phase fails.  Phases:
 
  1. build    - nvcc builds every kernel source of wavetpu_torch/kernels/csrc
                (one process per source, in parallel; ptxas register /
-               shared-memory report in build.log under OUT_DIR; the cone
-               kernels' registers are printed).
+               shared-memory report in build.log under OUT_DIR; the
+               k-step kernels' registers are printed).
  2. kernels  - each CUDA kernel against its plain PyTorch version on the
                same inputs on the card: at N=128 in every mode - K1, K2,
                K5, K3 and K3f (k = 2, 4, 8; f32 and bf16; rows on and
                off), K4 and K4f (all three storage modes, k = 4 and 1,
-               K4f rows on and off, and its k=1 bootstrap form), K6/K6f
+               K4f rows on and off, and its k=1 bootstrap form; K4 runs
+               K11's pipeline over the whole state), K6/K6f
                (no ghosts, x+y, x+y+z and an uneven padded block; f32, bf16,
                f64), K7 (f32, f64), K8/K8f and K9/K9f (k = 1, 2, 4, 8; f32
                and bf16; rows on and off; K9 with pad planes), K10/K10f
                (k = 1, 2, 4, 8; f32 and bf16; rows and field on and off;
                the first and the last y shard, nl_y = k), K11/K11f and
                K12/K12f (k = 1, 2, 4, 8; K4's four storage modes; rows and
-               field on and off; K12 on both y edges and nl_y = k) - and
+               field on and off; K12 on both y edges and nl_y = k; and the
+               pipeline's stress cases: the deepest slab, bx = 64 = D,
+               and the shallowest, bx = k, two slabs of two x segments,
+               k = 1, 3 and 8 at bx = D, nl_y = k at k = 4 and 8, and
+               N = 200 on mesh 2,2,1, whose y and z extents are no
+               multiple of the y/z face) - and
                at the shapes the main-path runs launch: K1, K2, K5, K3
                (k=4, rows on), K3f (k=4, rows on and off), K4 (f32 v + bf16
                carry, k=4 and 1, rows on), K4f (the same, rows on and off,
@@ -90,8 +96,10 @@ without them or when any phase fails.  Phases:
                k-fused march; sharded_comp_221 against the 1-step
                compensated solve (bitwise, or within 2e-7); the distributed
                flagships (meshes 4,1,1 and 2,2,1, constant c and the lens)
-               against the single-device flagship: "bitwise" or max |du|,
-               within 1e-6; and at N=128 / 1000 steps the
+               against the single-device flagship: bitwise on mesh 4,1,1
+               (u and the carry), within 1e-6 on mesh 2,2,1;
+               flagship_mesh's max abs error is the flagship's, bit for
+               bit; and at N=128 / 1000 steps the
                compensated variable-c state lies nearer an f64 plain
                variable-c march than the standard one does (wavetpu's
                tests/test_kfused_varc.py contract).
@@ -101,7 +109,10 @@ without them or when any phase fails.  Phases:
                around each launch, median), the plain versions' times, and
                each kernel's bound: the bytes it must move over the card's
                memory rate vs its f32 operations over the card's f32 rate;
-               K3's and K4's times beside PERF.md's; the k-block exchange
+               K3's, K4's and K4f's times beside PERF.md's (the phase
+               fails if K4 or K4f at k=4 is more than 8% over), K11,
+               K11f, K12 and K12f at k=4 beside the replaced cone
+               kernel's (PERF.md) and at k=1; the k-block exchange
                of one field over four shards, apart (mesh 2,2,1: y
                extension and x windows; mesh 4,1,1: x windows).
 
@@ -159,12 +170,14 @@ KERNELS = {
                 what="_kstep_kernel has_field: k variable-c substeps "
                      "(k=4, f32, rows off)",
                 run="kfused_varc", bytes_per_cell=20),
-    "K4": dict(counter="kstep_comp", source=f"{CSRC}/stencil.cu",
+    "K4": dict(counter="kstep_comp", source=f"{CSRC}/comp_sharded.cu",
                replaces=f"{PALLAS}:970",
                what="_kstep_comp_kernel: k velocity-form substeps + error "
-                    "rows (f32 u/v, bf16 carry)",
+                    "rows (f32 u/v, bf16 carry; K11's pipeline over the "
+                    "whole state)",
                run="flagship", bytes_per_cell=20),
-    "K4f": dict(counter="kstep_comp_field", source=f"{CSRC}/stencil.cu",
+    "K4f": dict(counter="kstep_comp_field",
+                source=f"{CSRC}/comp_sharded.cu",
                 replaces=f"{PALLAS}:1043",
                 what="_kstep_comp_kernel has_field: k variable-c "
                      "velocity-form substeps (f32 u/v, bf16 carry, rows off)",
@@ -324,10 +337,18 @@ ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
                "sharded_uneven_411": 5e-3, "flagship_mesh": 2e-5,
                "sharded_kfused_221": 5e-3, "sharded_flagship_411": 2e-5,
                "sharded_flagship_221": 2e-5}
-# K3's and K4's phase-6 times and ptxas registers as recorded in PERF.md
-# (the cone sources are unchanged; this run shows them against it).
+# K3's, K4's and K4f's phase-6 times as recorded in PERF.md (K3's cone
+# source is unchanged, K4 and K4f ran on the cone kernel then and run on
+# K11's pipeline now; this run shows them against it, and fails if K4 or
+# K4f at k=4 is more than K4_SLACK over).
 CONE_RECORDED_MS = {"K3": 5.784064054489136, "K4": 7.525775909423828,
-                    "K4 k=1": 1.785311996936798}
+                    "K4 k=1": 1.785311996936798, "K4f": 6.1981}
+K4_SLACK = 0.08
+# The phase-6 times of the cone kernel that K11/K12's pipeline replaced,
+# as recorded in PERF.md (NVIDIA H100 80GB HBM3, 700.00 W; k=4, the
+# main-path blocks).
+PIPE_RECORDED_MS = {"K11": 2.2481, "K11f": 2.7473, "K12": 2.1770,
+                    "K12f": 2.7102}
 DEV = "cuda"
 CLI_EXTRA = []  # the CLI's default platform is the GPU
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -693,11 +714,12 @@ def check_k10(d, n, k, ny, y0, dtype, rows, field, errs, seed=100):
 
 
 def comp_call(name, d, n, k, ny, y0, mode, rows, field, seed=120,
-              bootstrap=False):
+              bootstrap=False, bx=None):
     """The kernel and the plain version of one K11 or K12 launch (name
-    "K11"/"K12", "f" for the field form) on synthetic operands; with
-    `bootstrap` the layer-1 form: k=1, coeff C/2 (half the field), zero v
-    and carry, rows off."""
+    "K11"/"K12", "f" for the field form) on synthetic operands at carry
+    slab `bx` (default `default_block_x(d, k)`); with `bootstrap` the
+    layer-1 form: k=1, coeff C/2 (half the field), zero v and carry, rows
+    off."""
     v_dt, c_dt = mode
     whole = name.startswith("K11")
     p, planes, sxct, py = plane_case(d, n, k, ny, y0, whole)
@@ -717,7 +739,8 @@ def comp_call(name, d, n, k, ny, y0, mode, rows, field, seed=120,
             fld, fg = 0.5 * fld, tuple(0.5 * g for g in fg)
     args = (u, v, c, gu, gv, *planes, sxct)
     kw = dict(k=k, coeff=coeff, inv_h2=p.inv_h2, c2_ghosts=fg,
-              block_x=stencil_cuda.default_block_x(d, k), with_errors=rows)
+              block_x=bx or stencil_cuda.default_block_x(d, k),
+              with_errors=rows)
     if whole:
         return (lambda: stencil_cuda.fused_kstep_comp_sharded(
                     *args, c2tau2_block=fld, **kw),
@@ -731,12 +754,14 @@ def comp_call(name, d, n, k, ny, y0, mode, rows, field, seed=120,
 
 
 def check_comp(name, d, n, k, ny, y0, mname, rows, field, errs,
-               bootstrap=False):
+               bootstrap=False, bx=None):
     kern, plain, _, _, _ = comp_call(name, d, n, k, ny, y0,
                                      COMP_MODES[mname], rows, field,
-                                     bootstrap=bootstrap)
+                                     bootstrap=bootstrap, bx=bx)
     name += "f" if field else ""
-    check_outputs(f"{name} D={d} N={n} k={k} nl_y={ny} y0={y0} {mname} "
+    bx = bx or stencil_cuda.default_block_x(d, k)
+    check_outputs(f"{name} D={d} N={n} k={k} nl_y={ny} y0={y0} bx={bx} "
+                  f"tile={stencil_cuda.comp_pipe_tile(k, bx)} {mname} "
                   f"rows={rows}{' bootstrap' if bootstrap else ''}", kern(),
                   plain(), errs[name])
 
@@ -769,6 +794,31 @@ def phase_xy_kernels(errs):
                     check_comp("K12", 64, n, k, 64, 64 if rows else 0,
                                mname, rows, field, errs)
             check_comp("K12", 64, n, k, k, n - k, mname, True, False, errs)
+    # The pipeline's stress cases (csrc/comp_sharded.cu), every storage
+    # mode, field and rows on and off: the deepest slab (bx = 64 = D, two
+    # x segments) and the shallowest (bx = k: one segment of k planes) at
+    # k = 4, two slabs of two segments at D = 128, k = 1, 3 and 8 at
+    # bx = D; K12 with nl_y = k; and N = 200 on mesh 2,2,1 (D = 100,
+    # ny = 100, bx = 20), whose z and y extents are no multiple of the
+    # 24 x 24 face.
+    stress = [(64, 4, 64), (64, 4, 4), (128, 4, 64), (64, 1, 64),
+              (48, 3, 48), (64, 8, 64)]
+    for mname in COMP_MODES:
+        for rows in (True, False):
+            for field in (False, True):
+                for d, k, bx in stress:
+                    check_comp("K11", d, n, k, n, 0, mname, rows, field, errs,
+                               bx=bx)
+                    check_comp("K12", d, n, k, 64, 0 if rows else 64, mname,
+                               rows, field, errs, bx=bx)
+                check_comp("K12", 64, n, 4, 4, n - 4, mname, rows, field,
+                           errs, bx=64)
+                check_comp("K12", 64, n, 8, 8, 40, mname, rows, field, errs,
+                           bx=64)
+                check_comp("K11", 100, 200, 4, 200, 0, mname, rows, field,
+                           errs)
+                check_comp("K12", 100, 200, 4, 100, 100 if rows else 0,
+                           mname, rows, field, errs)
     # Main path: k=4 blocks with rows, the k=1 tail with rows, the
     # bootstrap (k=1 without rows; the flagship's on zero v and carry with
     # half the coefficient), and the lens forms without rows.
@@ -1004,12 +1054,22 @@ def phase_sharded_contracts(api):
     return out
 
 
-def phase_flagship_contracts(api):
+def phase_flagship_contracts(api, sides):
     """The distributed flagships against the single-device flagship at
-    full width, constant c with errors and the lens: bit for bit, or
-    within 1e-6 (bitwise expected on mesh 4,1,1, where K11 runs K4's op
-    sequence at one block_x)."""
-    out = {}
+    full width, constant c with errors and the lens: bit for bit on mesh
+    4,1,1 (u and the carry: K11 runs K4's op sequence, the shard's
+    default slab being the global one), within 1e-6 on mesh 2,2,1 (K12's
+    carry is zero on the y ghost rows too).  flagship_mesh, the
+    distributed flagship on one shard through the CLI (K11), must report
+    the flagship's error bits."""
+    fm, fl = (sides[x]["max_abs_error"] for x in ("flagship_mesh",
+                                                   "flagship"))
+    print(f"  flagship_mesh max abs error {fm!r}, flagship {fl!r}")
+    if fm != fl:
+        fail(f"flagship_mesh max abs error {fm!r} is not the flagship's "
+             f"{fl!r}")
+    out = {"flagship_mesh_vs_flagship": {"max_abs_error": fm,
+                                         "flagship_max_abs_error": fl}}
     p = Problem(N=N_FULL, timesteps=STEPS)
     lens = stencil_ref.make_preset_c2tau2_field(p, LENS)
     for label, kw in (("", {}), ("_varc", dict(c2tau2_field=lens,
@@ -1029,6 +1089,9 @@ def phase_flagship_contracts(api):
             out[f"{run}_vs_flagship{label}"] = rec
             print(f"  {run} vs flagship{label}: "
                   f"{'bitwise' if bitwise else f'max|du|={d!r}'} {rec}")
+            if mesh == "411" and not bitwise:
+                fail(f"{run} is not bitwise equal to the single-device "
+                     f"flagship (max |du| {d!r})")
             if not (bitwise or d <= 1e-6):
                 fail(f"{run} is not within 1e-6 of the single-device "
                      f"flagship (max |du| {d!r})")
@@ -1169,6 +1232,16 @@ def phase_times(dev_name):
         ms = times["K4"]["ms_k1"] if name == "K4 k=1" else times[name]["ms"]
         print(f"  {name}: {ms:.4f} ms against {recorded:.4f} ms recorded "
               f"in PERF.md ({100 * (ms / recorded - 1):+.1f}%)")
+        if name in ("K4", "K4f") and ms > (1 + K4_SLACK) * recorded:
+            fail(f"{name} times {ms:.4f} ms, more than "
+                 f"{100 * K4_SLACK:.0f}% over the {recorded:.4f} ms "
+                 f"recorded in PERF.md")
+    for name, recorded in PIPE_RECORDED_MS.items():
+        ms = times[name]["ms"]
+        print(f"  {name} k=4: {ms:.4f} ms against the cone kernel's "
+              f"{recorded:.4f} ms recorded in PERF.md ({recorded / ms:.2f}x "
+              f"faster); k=1: {times[name]['ms_k1']:.4f} ms (the cone "
+              f"kernel's: not recorded)")
     return times, rate
 
 
@@ -1182,7 +1255,7 @@ def phase_times_sharded(rate):
     counts every input read once and every output written once - the
     block, its ghosts, the field and the oracle rows - against the f32
     operations per cell (K6 as K1, K7 as K2, K8/K9 as K3 per substep)."""
-    times = {}
+    times, k1_ms = {}, {}
     k6_block = K6_BLOCKS_FULL[0]
     runs = {}
     for name, field in (("K6", False), ("K6f", True)):
@@ -1262,6 +1335,12 @@ def phase_times_sharded(rate):
         runs[name] = (kern, plain,
                       nbytes(*ins) + 10 * cells + (8 * K * dd if rows else 0),
                       (23 if rows else 20) * K * cells)
+        # The k=1 launch of the same run (the tail; the bootstrap without
+        # rows), timed beside the k=4 one.
+        kern1 = comp_call(name, dd, n_, 1, nyy, yy,
+                          COMP_MODES["f32v+bf16carry"], rows, field,
+                          seed=230)[0]
+        k1_ms[name] = time_launches(kern1, 20)
     for name, (kern, plain, nb, ops) in runs.items():
         ms = time_launches(kern, 20)
         plain_ms = time_launches(plain, 3, warmup=1)
@@ -1274,6 +1353,9 @@ def phase_times_sharded(rate):
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
               f"{times[name]['bound_ms']:.4f} ms by {times[name]['bound_by']}"
               f", {nb} bytes)")
+        if name in k1_ms:
+            times[name]["ms_k1"] = k1_ms[name]
+            print(f"  {name} k=1: {k1_ms[name]:.4f} ms")
     # The k-block exchange of one field over the four shards, apart from
     # the kernels: mesh 2,2,1 (y extension by K rows, then the x windows of
     # the extended blocks) and mesh 4,1,1 (x windows only).
@@ -1295,20 +1377,20 @@ def phase_times_sharded(rate):
 
 
 def cone_registers(logs):
-    """ptxas's registers (and spill stores) of the cone kernels at their
+    """ptxas's registers (and spill stores) of the k-step kernels at their
     main-path instantiations, from the verbose build log: K3, K8/K9 and K10
-    at k=4 (f32, depth-8 tile), K4 and K11/K12 at k=4 and k=1 (f32 v, bf16
-    carry)."""
+    at k=4 (f32, depth-8 tile), and the pipeline of K4 and K11/K12 at k=4
+    (f32 v, bf16 carry, without and with a field) and k=1."""
     want = {
         "K3 k=4": "12kstep_kernelILi4ELi8EfE",
-        "K4 k=4": "17kstep_comp_kernelILi4ELi8Ef13__nv_bfloat16Lb1EE",
-        "K4 k=1": "17kstep_comp_kernelILi1ELi8Ef13__nv_bfloat16Lb1EE",
         "K8/K9 k=4": "18kstep_chain_kernelILi4ELi8EfE",
         "K10 k=4": "15kstep_xy_kernelILi4ELi8EfE",
-        "K11/K12 k=4":
-            "23kstep_comp_chain_kernelILi4ELi8Ef13__nv_bfloat16Lb1EE",
-        "K11/K12 k=1":
-            "23kstep_comp_chain_kernelILi1ELi8Ef13__nv_bfloat16Lb1EE",
+        "K4/K11/K12 k=4":
+            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0EE",
+        "K4f/K11f/K12f k=4":
+            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb1EE",
+        "K4/K11/K12 k=1":
+            "22kstep_comp_pipe_kernelILi1Ef13__nv_bfloat16Lb1ELb0EE",
     }
     found, func, spill = {}, None, None
     for line in "\n".join(logs.values()).splitlines():
@@ -1353,7 +1435,7 @@ def main() -> int:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
     registers = cone_registers(logs)
-    print(f"  built {sorted(logs)} in {build_s:.1f} s; cone kernels' "
+    print(f"  built {sorted(logs)} in {build_s:.1f} s; k-step kernels' "
           f"registers: {registers}")
     t = done("build", t0)
 
@@ -1392,7 +1474,7 @@ def main() -> int:
     print("phase 4: contracts at full width")
     accuracy = phase_contracts(api)
     accuracy.update(phase_sharded_contracts(api))
-    accuracy.update(phase_flagship_contracts(api))
+    accuracy.update(phase_flagship_contracts(api, sides))
     del api
     t = done("contracts", t)
 

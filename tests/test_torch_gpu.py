@@ -143,7 +143,9 @@ MODES = {
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("n,k,bx", [(16, 1, 8), (16, 2, 4), (16, 4, 8),
                                     (48, 4, 8), (15, 3, 15), (64, 8, 8),
-                                    (40, 5, 40), (42, 7, 14), (36, 6, 12)])
+                                    (40, 5, 40), (42, 7, 14), (36, 6, 12),
+                                    (64, 4, 32), (64, 4, 64), (96, 8, 32),
+                                    (64, 1, 32), (8, 4, 4)])
 def test_k4(cuda, n, k, bx, mode):
     v_dt, c_dt = MODES[mode]
     p = Problem(N=n, timesteps=20)
@@ -550,12 +552,21 @@ def test_k10(cuda, d, n, k, ny, y0, dtype, with_field, with_errors):
     equal(got, stencil_cuda.fused_kstep_sharded_xy_plain(*args, **kw))
 
 
-# (D, N, k, block_x) of K11 and (D, N, k, block_x, nl_y, y0) of K12.
+# (D, N, k, block_x) of K11 and (D, N, k, block_x, nl_y, y0) of K12.  The
+# pipeline's stress cases follow the first rows: deep slabs (block_x = 64,
+# = D, two slabs of two x segments), the shallowest (block_x = k), k = 1,
+# 3 and 8, y/z faces that do not divide N, and nl_y = k for K12.
 K11_CASES = [(8, 16, 1, 8), (8, 16, 2, 4), (16, 32, 4, 8), (12, 12, 3, 12),
-             (16, 64, 8, 8), (10, 40, 5, 10), (14, 42, 7, 14), (12, 36, 6, 12)]
+             (16, 64, 8, 8), (10, 40, 5, 10), (14, 42, 7, 14), (12, 36, 6, 12),
+             (64, 64, 4, 64), (128, 128, 4, 64), (16, 20, 4, 4),
+             (64, 64, 1, 64), (64, 66, 8, 64), (48, 50, 3, 48),
+             (24, 30, 2, 2)]
 K12_CASES = [(8, 16, 1, 8, 8, 8), (8, 16, 4, 8, 4, 12), (16, 32, 4, 8, 8, 0),
              (12, 24, 3, 12, 6, 18), (16, 48, 8, 8, 8, 40),
-             (10, 40, 5, 10, 10, 30), (14, 28, 7, 14, 7, 0)]
+             (10, 40, 5, 10, 10, 30), (14, 28, 7, 14, 7, 0),
+             (64, 64, 4, 64, 32, 32), (64, 64, 4, 64, 4, 60),
+             (64, 66, 8, 64, 8, 0), (48, 50, 3, 48, 25, 25),
+             (64, 64, 1, 64, 16, 48), (16, 20, 4, 4, 10, 10)]
 
 
 def comp_case(cuda, d, n, k, ny, y0, mode, with_field, whole, seed=70):
@@ -602,6 +613,29 @@ def test_k12(cuda, d, n, k, bx, ny, y0, mode, with_field, with_errors):
     assert got[0].shape == (d, ny, n)
     equal(got, stencil_cuda.fused_kstep_comp_sharded_xy_plain(*args, y0, n,
                                                               **kw))
+
+
+# (seg, ty, tz) tiles of K11/K12's pipeline beside comp_pipe_tile's: the
+# results do not depend on the tile.
+PIPE_TILES = [(64, 24, 24), (16, 10, 12), (8, 3, 5), (1, 1, 1), (4, 24, 8),
+              (32, 7, 24)]
+
+
+@pytest.mark.parametrize("tile", PIPE_TILES)
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("kernel", ["K11", "K12"])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_k11_k12_pipeline_tiles(cuda, tile, mode, kernel, with_field):
+    d, n, k, bx = 64, 64, 4, 64
+    whole = kernel == "K11"
+    ny, y0 = (n, 0) if whole else (20, 44)
+    p, args, kw, fld = comp_case(cuda, d, n, k, ny, y0, mode, with_field,
+                                 whole)
+    kw.update(block_x=bx, with_errors=True, c2tau2_block=fld,
+              y0=y0, nl_y=None if whole else ny)
+    got = stencil_cuda._comp_chain("kstep_comp_sharded", *args, tile=tile,
+                                   **kw)
+    equal(got, stencil_cuda._comp_chain_plain(*args, **kw))
 
 
 def test_k10_k12_error_rows_propagate_nan(cuda):

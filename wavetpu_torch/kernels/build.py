@@ -6,11 +6,11 @@ compiled by nvcc for Hopper and loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared
          -Xcompiler -fPIC -o <build dir>/lib<name>-<hash>.so csrc/<name>.cu
 
-No PyTorch headers are included, so a build takes about a minute (stencil.cu
-holds 64 instantiations of K4, kstep.cu 28 of K3; the two build side by
-side).  Sources share `csrc/*.cuh`, which every library's hash covers.  The
-build
-directory is `kernels/_build/` inside the checkout (git ignores it; the
+No PyTorch headers are included, so a build takes about a minute and a half
+(comp_sharded.cu holds 64 instantiations of the compensated pipeline of K4,
+K11 and K12, kstep.cu 28 of K3; the sources build side by side).  Sources
+share `csrc/*.cuh`, which every library's hash covers.  The build directory
+is `kernels/_build/` inside the checkout (git ignores it; the
 WAVETPU_TORCH_BUILD_DIR environment variable moves it).  The file name
 carries a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused.  `build_all()` starts one nvcc per source,

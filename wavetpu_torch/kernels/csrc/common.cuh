@@ -1,7 +1,7 @@
 // Pieces shared by the kernel sources of wavetpu_torch/kernels/csrc: the
 // dtype codes of the C interface, storage <-> compute conversions, index
 // wrapping, and the cone kernels' tile geometry, plane indexing, publish,
-// Laplacian and error-row protocol (K3 in kstep.cu, K4 in stencil.cu).
+// Laplacian and error-row protocol (K3 in kstep.cu, K8/K9 in sharded.cu).
 
 #pragma once
 
@@ -55,7 +55,7 @@ __device__ __forceinline__ int wrap_near(int xu, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// The cone kernels (K3 in kstep.cu, K4 in stencil.cu).
+// The cone kernels (K3 in kstep.cu, K8/K9 in sharded.cu).
 //
 // A tile of tx (x) * ty (y) * tz (z) output cells loads its cone,
 // (tx+2k)(ty+2k)(tz+2k) cells, with one thread per (y, z) column, which
@@ -64,7 +64,7 @@ __device__ __forceinline__ int wrap_near(int xu, int n) {
 // the y/z neighbours (double-buffered, one barrier per substep), then
 // updates the column inside a cone that shrinks one cell per side per
 // substep.  At most kMaxTx output planes per tile in x, and kConeThreads
-// columns (stencil_cuda._KSTEP_MAX_TX and _K4_MAX_THREADS).
+// columns (stencil_cuda._KSTEP_MAX_TX and _CONE_THREADS).
 constexpr int kMaxTx = 8;
 constexpr int kConeThreads = 640;
 

@@ -1,7 +1,7 @@
 // The cone geometry of the k-step kernels on a shard block whose planes may
 // be extended in y (K10 in kstep_xy.cu, K11/K12 in comp_sharded.cu), and
 // the x chain they read the block's x neighbours through.  csrc/common.cuh's
-// `cone_of_thread` (K3, K4, K8/K9) stays as it is; this is its counterpart
+// `cone_of_thread` (K3, K8/K9) stays as it is; this is its counterpart
 // over a (py, n) plane with a y offset.
 //
 // y geometry.  A block holds `ny` output rows of the global y range

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the wave-equation stencil: the
 // CUDA counterparts of the Pallas kernels in wavetpu/kernels/stencil_pallas.py.
-// This file holds K1 and K5 (1-step), K2 (1-step compensated) and K4 (the
-// compensated k-step, with K4f's field operand); K3 is in kstep.cu.
+// This file holds K1 and K5 (1-step) and K2 (1-step compensated); K3 is in
+// kstep.cu, and K4 (the compensated k-step) runs comp_sharded.cu's
+// pipeline over the whole domain.
 //
 // Built by wavetpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared
@@ -135,181 +136,6 @@ __global__ void comp_step_kernel(const T* __restrict__ u,
   carry_out[e.c] = (t - c) - yy;
 }
 
-// ---------------------------------------------------------------------------
-// K4: k fused velocity-form (compensated) substeps.
-// Replaces stencil_pallas._kstep_comp_kernel (entry point fused_kstep_comp).
-// Each substep is K2's update in f32: v' = v + mask(coeff*lap(u)),
-// y = v' - carry, t = u + y, carry' = (t - u) - y (carry-less: y = v').
-// u and v ride a cone that shrinks one cell per side per substep; the
-// carry's x-halo planes start at ZERO (they lie outside the block_x-aligned
-// slab the TPU kernel holds) while its y/z halo cells are loaded from
-// memory (the TPU kernel holds whole y/z planes), so for the same block_x
-// the result is the TPU kernel's.  Per substep s the kernel also emits the
-// per-x-plane error maxes of the central cells' u (csrc/common.cuh:
-// rows_reduce / rows_flush, NaN-propagating).
-// With a field (K4f, `has_field` of the TPU kernel) the Laplacian
-// coefficient of every substep is the field's cell c2tau2[x, y, z]:
-// d = mask(c2tau2*lap(u)).  The field is a run-time pointer (null: the
-// scalar coeff), read through the cache at each substep, so the 64
-// instantiations serve both.
-// Bound: bytes.  Per launch u and v are read and written once and the
-// carry read and written once (20 B/cell for f32 u/v + bf16 carry; the
-// field adds 4) however many substeps run.  Design: the cone tile of
-// csrc/common.cuh, the column's u, v and carry in registers.  The
-// redundant cone work is the price of keeping intermediate layers out of
-// device memory; streaming x through a pipeline would remove it.
-// TX is the tile depth when known at compile time (kMaxTx, the usual case:
-// every predicate on the column length folds away), 0 for a run-time tx.
-// The fixed-depth instantiation doubles the build but is the faster one;
-// kernels/tile_ab.py times the two against each other (PERF.md).
-// A k=1 tile (the flagship's tail and variable-c bootstrap) holds 30 column
-// registers, so it is held to two blocks per SM (at most 51 registers per
-// thread); left free, ptxas gives it more and one block per SM.
-template <int K, int TX, typename VT, typename CT, bool HAS_CARRY>
-__global__ void __launch_bounds__(kConeThreads, K == 1 ? 2 : 1)
-kstep_comp_kernel(const float* __restrict__ u, const VT* __restrict__ v,
-                  const CT* __restrict__ carry, float* __restrict__ u_out,
-                  VT* __restrict__ v_out, CT* __restrict__ carry_out,
-                  const float* __restrict__ c2,
-                  const float* __restrict__ syz,
-                  const float* __restrict__ rsyz,
-                  const float* __restrict__ sxct,
-                  unsigned* __restrict__ dmax, unsigned* __restrict__ rmax,
-                  int n, int bx, int tx_arg, int ty, int tz, float coeff,
-                  float ix, float iy, float iz) {
-  constexpr int kEx = (TX > 0 ? TX : kMaxTx) + 2 * K;  // register column
-  const int tx = TX > 0 ? TX : tx_arg;
-  extern __shared__ float plane[];  // [2][ex][ey * ez]
-  __shared__ RowMax emax;
-  const Cone cn = cone_of_thread(K, tx, ty, tz, n);
-  const int xb0 = (cn.x1 / bx) * bx;  // the block_x slab this tile lies in
-  const bool errors = dmax != nullptr;
-  float syz_c = 0.0f, rsyz_c = 0.0f;
-  if (errors && cn.central) {
-    syz_c = syz[cn.row];
-    rsyz_c = rsyz[cn.row];
-  }
-  rows_clear(emax, cn);
-
-  float U[kEx], V[kEx], C[kEx];
-#pragma unroll
-  for (int x = 0; x < kEx; ++x) {
-    U[x] = V[x] = C[x] = 0.0f;
-    if (cn.live && x < cn.ex) {
-      const int xu = cn.x1 - K + x;  // unwrapped x
-      const int64_t g = cone_index<K>(cn, x, n);
-      U[x] = u[g];
-      V[x] = Conv<VT>::to(v[g]);
-      if (HAS_CARRY && xu >= xb0 && xu < xb0 + bx)
-        C[x] = Conv<CT>::to(carry[g]);
-    }
-  }
-
-#pragma unroll
-  for (int s = 1; s <= K; ++s) {
-    float* pl = plane + (s & 1) * cn.ex * cn.cols;
-    publish_column(pl, U, cn);
-    __syncthreads();
-    if (errors && s > 1) rows_flush(emax, dmax, rmax, s - 1, n, cn, tx);
-    if (cn.live && cn.ly >= s && cn.ly < cn.ey - s && cn.lz >= s &&
-        cn.lz < cn.ez - s) {
-      float left = U[s - 1];
-#pragma unroll
-      for (int x = 1; x < kEx - 1; ++x) {
-        if (x >= s && x < cn.ex - s) {
-          const float c = U[x];
-          const float lap = cone_laplacian(left, U[x + 1], c, pl,
-                                           x * cn.cols + cn.tid, cn.ez, ix,
-                                           iy, iz);
-          const float co = c2 ? c2[cone_index<K>(cn, x, n)] : coeff;
-          const float d = cn.interior ? co * lap : 0.0f;
-          const float vn = V[x] + d;
-          const float yy = HAS_CARRY ? vn - C[x] : vn;
-          const float t = c + yy;
-          if (HAS_CARRY) C[x] = (t - c) - yy;
-          V[x] = vn;
-          left = c;
-          U[x] = t;
-        }
-      }
-    }
-    if (errors) rows_reduce<K>(emax, U, sxct, s, n, cn, tx, syz_c, rsyz_c);
-  }
-  if (errors) {
-    __syncthreads();
-    rows_flush(emax, dmax, rmax, K, n, cn, tx);
-  }
-  if (!cn.central) return;
-#pragma unroll
-  for (int p = 0; p < kMaxTx; ++p) {
-    if (p < tx) {
-      const int64_t g = out_index(cn, p);
-      u_out[g] = U[K + p];
-      v_out[g] = Conv<VT>::from(V[K + p]);
-      if (HAS_CARRY) carry_out[g] = Conv<CT>::from(C[K + p]);
-    }
-  }
-}
-
-template <int K, int TX, typename VT, typename CT, bool HAS_CARRY>
-int launch_kstep(const void* u, const void* v, const void* carry,
-                 void* u_out, void* v_out, void* carry_out, const void* c2,
-                 const void* syz,
-                 const void* rsyz, const void* sxct, void* dmax, void* rmax,
-                 int n, int bx, int tx, int ty, int tz, float coeff,
-                 float ix, float iy, float iz, cudaStream_t stream) {
-  auto kern = kstep_comp_kernel<K, TX, VT, CT, HAS_CARRY>;
-  const int cols = (ty + 2 * K) * (tz + 2 * K);
-  const int threads = (cols + 31) / 32 * 32;
-  if (threads > kConeThreads) return (int)cudaErrorInvalidConfiguration;
-  const size_t shmem = (size_t)2 * (tx + 2 * K) * cols * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + tz - 1) / tz, (n + ty - 1) / ty, n / tx);
-  kern<<<grid, threads, shmem, stream>>>(
-      static_cast<const float*>(u), static_cast<const VT*>(v),
-      static_cast<const CT*>(carry), static_cast<float*>(u_out),
-      static_cast<VT*>(v_out), static_cast<CT*>(carry_out),
-      static_cast<const float*>(c2), static_cast<const float*>(syz),
-      static_cast<const float*>(rsyz),
-      static_cast<const float*>(sxct), static_cast<unsigned*>(dmax),
-      static_cast<unsigned*>(rmax), n, bx, tx, ty, tz, coeff, ix, iy, iz);
-  return (int)cudaGetLastError();
-}
-
-// Storage modes of K4 (the flagship's): f32 v with a bf16 or f32 carry, or
-// no carry with an f32 or bf16 v.
-template <int K>
-int launch_kstep_mode(int v_dtype, int carry_dtype, const void* u,
-                      const void* v, const void* carry, void* u_out,
-                      void* v_out, void* carry_out, const void* c2,
-                      const void* syz,
-                      const void* rsyz, const void* sxct, void* dmax,
-                      void* rmax, int n, int bx, int tx, int ty, int tz,
-                      float coeff, float ix, float iy, float iz,
-                      cudaStream_t st) {
-#define WT_KSTEP(VT, CT, HC)                                                 \
-  return tx == kMaxTx                                                        \
-             ? launch_kstep<K, kMaxTx, VT, CT, HC>(                          \
-                   u, v, carry, u_out, v_out, carry_out, c2, syz, rsyz,      \
-                   sxct, dmax, rmax, n, bx, tx, ty, tz, coeff, ix, iy, iz,   \
-                   st)                                                       \
-             : launch_kstep<K, 0, VT, CT, HC>(                               \
-                   u, v, carry, u_out, v_out, carry_out, c2, syz, rsyz,      \
-                   sxct, dmax, rmax, n, bx, tx, ty, tz, coeff, ix, iy, iz,   \
-                   st)
-  if (v_dtype == WT_F32 && carry_dtype == WT_BF16)
-    WT_KSTEP(float, __nv_bfloat16, true);
-  if (v_dtype == WT_F32 && carry_dtype == WT_F32) WT_KSTEP(float, float, true);
-  if (v_dtype == WT_F32 && carry_dtype == WT_NONE)
-    WT_KSTEP(float, float, false);
-  if (v_dtype == WT_BF16 && carry_dtype == WT_NONE)
-    WT_KSTEP(__nv_bfloat16, float, false);
-#undef WT_KSTEP
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
@@ -378,42 +204,6 @@ int wt_comp_step(const void* u, const void* v, const void* carry,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-// u f32; (v, carry) f32/bf16, f32/f32, f32/none or bf16/none (WT_NONE and
-// null pointers for no carry).  c2 is the f32 (n, n, n) field or null.
-// dmax/rmax are (k, n) uint32 rows zeroed by the caller, or null.
-// 1 <= k <= 8; tx <= 8 divides bx, bx divides n.
-int wt_kstep_comp(const void* u, const void* v, const void* carry,
-                  void* u_out, void* v_out, void* carry_out, const void* c2,
-                  const void* syz,
-                  const void* rsyz, const void* sxct, void* dmax, void* rmax,
-                  int n, int k, int bx, int tx, int ty, int tz, int v_dtype,
-                  int carry_dtype, double coeff, double ix, double iy,
-                  double iz, void* stream) {
-  if (tx < 1 || tx > kMaxTx || bx % tx || n % bx || ty < 1 || tz < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float c = (float)coeff, fx = (float)ix, fy = (float)iy,
-              fz = (float)iz;
-#define WT_K(KK)                                                             \
-  case KK:                                                                   \
-    return launch_kstep_mode<KK>(v_dtype, carry_dtype, u, v, carry, u_out,   \
-                                 v_out, carry_out, c2, syz, rsyz, sxct,      \
-                                 dmax, rmax, n, bx, tx, ty, tz, c, fx, fy,   \
-                                 fz, st)
-  switch (k) {
-    WT_K(1);
-    WT_K(2);
-    WT_K(3);
-    WT_K(4);
-    WT_K(5);
-    WT_K(6);
-    WT_K(7);
-    WT_K(8);
-  }
-#undef WT_K
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -24,9 +24,11 @@ The sharded kernels (K6-K12) take one shard's block and the ghost planes
 that comm/halo.py (or the sharded k-fused solvers) delivered from the
 neighbour shards; K8 and K9 are one CUDA kernel (csrc/sharded.cu
 `kstep_chain_kernel`), K9 masking the planes past its real-plane count,
-and so are K11 and K12 (csrc/comp_sharded.cu `kstep_comp_chain_kernel`,
-whole y rows or a y-extended block).  K10 (csrc/kstep_xy.cu) and K12 take
-a block of an (MX, MY, 1) mesh extended in y by k ghost rows per side.
+and so are K4, K11 and K12 (csrc/comp_sharded.cu `kstep_comp_pipe_kernel`,
+an x-streaming pipeline over whole y rows or a y-extended block; K4 runs
+it over the whole domain, its x windows the domain's own wrap planes).  K10
+(csrc/kstep_xy.cu) and K12 take a block of an (MX, MY, 1) mesh extended in
+y by k ghost rows per side.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests and `--platform cpu` run); a
@@ -74,10 +76,23 @@ _NONE = -1
 # The cone kernels' tile limits (kMaxTx and kConeThreads in csrc/common.cuh):
 # at most 8 output planes in x, and one thread per (y, z) column of the
 # cone, 640 at most (the column's state lives in registers).  K3 takes
-# 2 <= k <= 8 (k = 1 is K1's job), K4 1 <= k <= 8.
+# 2 <= k <= 8 (k = 1 is K1's job), the other k-step kernels 1 <= k <= 8.
 _KSTEP_MAX_TX = 8
-_K4_MAX_THREADS = 640
-_K4_MAX_K = 8
+_CONE_THREADS = 640
+_KSTEP_MAX_K = 8
+# The carry slab's cap (`default_block_x`), and csrc/comp_sharded.cu's
+# pipeline (K4, K11/K12, `comp_pipe_tile`): one thread per column of the
+# (ty+2k)(tz+2k) halo face, at most 1024 for k <= 4 and 640 above
+# (PipeThreads: the per-stage registers grow with k); x segments of up to
+# _PIPE_SEG planes inside one slab.
+_SLAB_CAP = 32
+_PIPE_SEG = 32
+_PIPE_MAX_SEG = 64  # kPipeMaxSeg: a segment's oracle rows in shared memory
+_PIPE_FACE_Z = 32
+
+
+def pipe_max_threads(k: int) -> int:
+    return 1024 if k <= 4 else 640
 
 
 def reset_launches() -> None:
@@ -86,7 +101,7 @@ def reset_launches() -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    """csrc/stencil.cu: K1/K5, K2, K4."""
+    """csrc/stencil.cu: K1/K5, K2."""
     lib = build.load("stencil")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -96,10 +111,6 @@ def _lib() -> ctypes.CDLL:
         lib.wt_step.restype = i
         lib.wt_comp_step.argtypes = [p, p, p, p, p, p, i, i, d, d, d, d, p]
         lib.wt_comp_step.restype = i
-        lib.wt_kstep_comp.argtypes = (
-            [p] * 12 + [i] * 8 + [d] * 4 + [p]
-        )
-        lib.wt_kstep_comp.restype = i
         lib._wt_typed = True
     return lib
 
@@ -144,7 +155,7 @@ def _xy_lib() -> ctypes.CDLL:
 
 
 def _comp_sharded_lib() -> ctypes.CDLL:
-    """csrc/comp_sharded.cu: K11/K12."""
+    """csrc/comp_sharded.cu: K4, K11/K12."""
     lib = build.load("comp_sharded")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -387,9 +398,9 @@ def fused_kstep(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
             u_prev, u, syz, rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
             c2tau2_field=c2tau2_field, with_errors=with_errors,
         )
-    if not 2 <= k <= _K4_MAX_K or n % k:
-        raise ValueError(f"k={k}: the K3 kernel takes 2 <= k <= {_K4_MAX_K} "
-                         f"dividing N={n} (k=1 is K1's step)")
+    if not 2 <= k <= _KSTEP_MAX_K or n % k:
+        raise ValueError(f"k={k}: the K3 kernel takes 2 <= k <= "
+                         f"{_KSTEP_MAX_K} dividing N={n} (k=1 is K1's step)")
     _check_cuda(n, u=u, u_prev=u_prev)
     if u.dtype not in (torch.float32, torch.bfloat16) or \
             u_prev.dtype != u.dtype:
@@ -427,32 +438,57 @@ def fused_kstep(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
 
 def default_block_x(n: int, k: int) -> int:
     """The x slab whose carry halo starts at zero (the TPU kernel's block_x
-    semantics): the smallest multiple of k that is >= 8 and divides n, else
-    k.  Deeper slabs zero-seed fewer carry planes."""
+    semantics) of K4 and K11/K12: the deepest multiple of k that divides n,
+    up to `_SLAB_CAP` planes (k when k does not divide n).  Deeper slabs
+    zero-seed fewer carry planes, and the pipeline's x segments lie inside
+    one slab.  A shard's slab default_block_x(N/MX, k) equals the single-device
+    default_block_x(N, k) wherever the latter divides N/MX, so one
+    partition serves both."""
     bx = k
-    while bx < 8:
-        bx += k
-    while bx <= n:
-        if n % bx == 0:
-            return bx
-        bx += k
-    return k
+    for depth in range(k, min(n, _SLAB_CAP) + 1, k):
+        if n % depth == 0:
+            bx = depth
+    return bx
 
 
 def kstep_tile(k: int, bx: int) -> Tuple[int, int, int]:
-    """(tx, ty, tz) output tile of the cone kernels.  tx is the largest
-    divisor of bx up to 8 (K4: a tile lies in one carry slab; K3 passes
-    bx = N); tz is 32 (a warp-wide z row) or 16 where a 32-wide cone leaves
-    no room; ty is the most rows whose cone, (ty+2k)(tz+2k) columns, fits
-    640 threads."""
-    if not 1 <= k <= _K4_MAX_K:
-        raise ValueError(f"k={k}: the K4 kernel takes 1 <= k <= {_K4_MAX_K}")
+    """(tx, ty, tz) output tile of the cone kernels (K3, K8/K9, K10).  tx
+    is the largest divisor of bx up to 8 (they pass the depth of the state
+    or the block); tz is 32 (a warp-wide z row) or 16 where a 32-wide cone
+    leaves no room; ty is the most rows whose cone, (ty+2k)(tz+2k) columns,
+    fits 640 threads."""
+    if not 1 <= k <= _KSTEP_MAX_K:
+        raise ValueError(f"k={k}: the cone kernels take 1 <= k <= "
+                         f"{_KSTEP_MAX_K}")
     tx = max(d for d in range(1, _KSTEP_MAX_TX + 1) if bx % d == 0)
     for tz in (32, 16):
-        ty = _K4_MAX_THREADS // (tz + 2 * k) - 2 * k
+        ty = _CONE_THREADS // (tz + 2 * k) - 2 * k
         if ty >= 2:
             return tx, ty, tz
-    raise ValueError(f"k={k} does not fit the K4 kernel's tile")
+    raise ValueError(f"k={k} does not fit the cone kernels' tile")
+
+
+def comp_pipe_tile(k: int, bx: int) -> Tuple[int, int, int]:
+    """(seg, ty, tz) of K4 and K11/K12's x-streaming pipeline
+    (csrc/comp_sharded.cu): an x segment of seg planes, the largest divisor
+    of the carry slab bx up to _PIPE_SEG (a segment lies in one slab), and
+    a (ty, tz) y/z output face whose halo face, (ty+2k) rows of
+    _PIPE_FACE_Z = tz+2k columns (one warp per row), fills
+    `pipe_max_threads(k)` threads."""
+    if not 1 <= k <= _KSTEP_MAX_K:
+        raise ValueError(f"k={k}: the pipeline takes 1 <= k <= "
+                         f"{_KSTEP_MAX_K}")
+    seg = max(s for s in range(1, min(bx, _PIPE_SEG) + 1) if bx % s == 0)
+    ey = pipe_max_threads(k) // _PIPE_FACE_Z
+    return seg, ey - 2 * k, _PIPE_FACE_Z - 2 * k
+
+
+def comp_pipe_smem(k: int, ty: int, tz: int) -> int:
+    """Shared memory of one pipeline block (bytes): each stage's two-slot
+    ring of the halo face's u (dynamic), and the static error slots
+    [2][8][2][32] words (a slot per warp) and oracle rows [8][64]."""
+    return 2 * k * (ty + 2 * k) * (tz + 2 * k) * 4 + (2 * 8 * 2 * 32
+                                                      + 8 * 64) * 4
 
 
 def _check_kstep(n, k, bx):
@@ -544,10 +580,16 @@ def fused_kstep_comp(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
     velocity-form substeps of the (N,N,N) state.  `carry=None` is the
     carry-less increment form.  Returns (u', v', carry' | None, dmax, rmax)
     with the (k, N) f32 per-substep per-x-plane error rows (None, None
-    without `with_errors`).  `block_x` (default `default_block_x`) is the
-    carry slab depth; results equal the TPU kernel's for the same block_x.
+    without `with_errors`).  `block_x` (default `default_block_x`: the
+    deepest multiple of k dividing N, up to 32 planes) is the carry slab
+    depth; results equal the TPU kernel's for the same block_x.
     With `c2tau2_field` (f32 (N,N,N)), K4f: the increment is
     v' = v + mask(c2tau2*lap(u)) and `coeff` is ignored.
+
+    On the card K4 launches K11's kernel (`_comp_chain`, the x-streaming
+    pipeline of csrc/comp_sharded.cu) over the whole state: its x windows
+    are the state's own wrap planes, views read in place, so every slab's
+    onion is the TPU kernel's.
     """
     n = u.shape[0]
     bx = block_x or default_block_x(n, k)
@@ -570,29 +612,15 @@ def fused_kstep_comp(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
     _check_planes(n, k, syz, rsyz, sxct)
     if c2tau2_field is not None:
         _check_field(c2tau2_field, u)
-    tx, ty, tz = kstep_tile(k, bx)
-    u_out = torch.empty_like(u)
-    v_out = torch.empty_like(v)
-    c_out = None if carry is None else torch.empty_like(carry)
-    dmax = rmax = None
-    if with_errors:
-        dmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
-        rmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
 
-    with torch.cuda.device(u.device):
-        _run(_lib().wt_kstep_comp, u.data_ptr(), v.data_ptr(), _ptr(carry),
-             u_out.data_ptr(), v_out.data_ptr(), _ptr(c_out),
-             _ptr(c2tau2_field), syz.data_ptr(), rsyz.data_ptr(),
-             sxct.data_ptr(), _ptr(dmax), _ptr(rmax), n, k, bx, tx, ty, tz,
-             _CODE[v.dtype], _NONE if carry is None else _CODE[carry.dtype],
-             float(coeff if c2tau2_field is None else 0.0),
-             *(float(h) for h in inv_h2))
-    launches["kstep_comp" if c2tau2_field is None
-             else "kstep_comp_field"] += 1
-    if with_errors:
-        # The kernel combined the rows as the bits of non-negative floats.
-        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
-    return u_out, v_out, c_out, dmax, rmax
+    def wrap(t):
+        return None if t is None else (t[n - k:], t[:k])
+
+    return _comp_chain("kstep_comp", u, v, carry, wrap(u), wrap(v), syz,
+                       rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
+                       block_x=bx, c2tau2_block=c2tau2_field,
+                       c2_ghosts=wrap(c2tau2_field), with_errors=with_errors,
+                       y0=0, nl_y=None)
 
 
 # ---------------------------------------------------------------------------
@@ -870,9 +898,9 @@ def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
     """Launch csrc/sharded.cu's chain kernel (K8 or K9, counted under
     `counter`) after checking every operand."""
     d, n = u.shape[0], u.shape[1]
-    if not 1 <= k <= _K4_MAX_K:
+    if not 1 <= k <= _KSTEP_MAX_K:
         raise ValueError(f"k={k}: the sharded k-step kernels take 1 <= k <= "
-                         f"{_K4_MAX_K}")
+                         f"{_KSTEP_MAX_K}")
     if u.shape[2] != n:
         raise ValueError(f"the block's y and z extents must be N, got "
                          f"{tuple(u.shape)}")
@@ -1050,8 +1078,8 @@ def _kstep_xy(u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c, rsyz_c,
     """Launch csrc/kstep_xy.cu's kernel (K10) after checking every
     operand."""
     _check_xy(u_ext, k, nl_y, n_global)
-    if not 1 <= k <= _K4_MAX_K:
-        raise ValueError(f"k={k}: K10 takes 1 <= k <= {_K4_MAX_K}")
+    if not 1 <= k <= _KSTEP_MAX_K:
+        raise ValueError(f"k={k}: K10 takes 1 <= k <= {_KSTEP_MAX_K}")
     y0 = int(y0)
     if not 0 <= y0 < n_global:
         raise ValueError(f"y0={y0} must lie in [0, {n_global})")
@@ -1175,14 +1203,16 @@ def _comp_chain_plain(u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct, *,
 
 def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
                 *, k, coeff, inv_h2, block_x, c2tau2_block, c2_ghosts,
-                with_errors, y0, nl_y):
-    """Launch csrc/comp_sharded.cu's kernel (K11 with nl_y None, K12 with
-    the central row count), counted under `counter`, after checking every
-    operand."""
+                with_errors, y0, nl_y, tile=None):
+    """Launch csrc/comp_sharded.cu's kernel (K4 and K11 with nl_y None,
+    K12 with the central row count), counted under `counter`, after
+    checking every operand.  `tile` (seg, ty, tz) replaces
+    `comp_pipe_tile`'s (the A/B of kernels/tile_ab.py; the results do not
+    depend on it)."""
     d, w, n = u.shape
     ny = w if nl_y is None else nl_y
-    if not 1 <= k <= _K4_MAX_K:
-        raise ValueError(f"k={k}: K11/K12 take 1 <= k <= {_K4_MAX_K}")
+    if not 1 <= k <= _KSTEP_MAX_K:
+        raise ValueError(f"k={k}: K11/K12 take 1 <= k <= {_KSTEP_MAX_K}")
     if not 0 <= y0 < n:
         raise ValueError(f"y0={y0} must lie in [0, {n})")
     _check_kstep(d, k, block_x)
@@ -1213,7 +1243,11 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
                        sxct=(sxct, (k, d)))
         dmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
         rmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
-    tx, ty, tz = kstep_tile(k, block_x)
+    seg, ty, tz = tile or comp_pipe_tile(k, block_x)
+    if (block_x % seg or seg > _PIPE_MAX_SEG
+            or (ty + 2 * k) * (tz + 2 * k) > pipe_max_threads(k)):
+        raise ValueError(f"tile {(seg, ty, tz)} does not fit block_x="
+                         f"{block_x} and k={k}")
     u_out = torch.empty((d, ny, n), dtype=f32, device=dev)
     v_out = torch.empty((d, ny, n), dtype=v.dtype, device=dev)
     c_out = None if carry is None else torch.empty(
@@ -1227,7 +1261,7 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
              _ptr(c2tau2_block), _ptr(c2g[0]), _ptr(c2g[1]),
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
                if with_errors else (None, None, None)),
-             _ptr(dmax), _ptr(rmax), d, n, w, ny, y0, k, block_x, tx, ty,
+             _ptr(dmax), _ptr(rmax), d, n, w, ny, y0, k, block_x, seg, ty,
              tz, _CODE[v.dtype],
              _NONE if carry is None else _CODE[carry.dtype],
              float(coeff if c2tau2_block is None else 0.0),
@@ -1260,8 +1294,9 @@ def fused_kstep_comp_sharded(u, v, carry, u_ghosts, v_ghosts, syz, rsyz,
     with the x halos of u and v from their (k, N, N) windows `u_ghosts` /
     `v_ghosts` = (lo, hi) of the cyclic x neighbours.  `carry=None` is the
     carry-less increment form; the carry is zero outside each `block_x`
-    slab (default `default_block_x(N/MX, k)`, which must divide N/MX), so
-    for one block_x the result equals K4's on the whole domain.  `sxct` is
+    slab (default `default_block_x(N/MX, k)`, which must divide N/MX and
+    equals the single-device default wherever that divides N/MX), so for
+    one block_x the result equals K4's on the whole domain.  `sxct` is
     the shard's (k, N/MX) oracle row slice.  Returns (u', v', carry' |
     None, dmax, rmax) with (k, N/MX) rows (None without `with_errors`).
     With `c2tau2_block` and its window pair `c2_ghosts` (K11f) the

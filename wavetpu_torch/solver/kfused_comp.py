@@ -62,7 +62,7 @@ from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.solver import kfused, leapfrog, sharded_kfused
 from wavetpu_torch.verify import oracle
 
-# The K4 kernel's shared-memory tile holds k <= 8 (stencil_cuda.kstep_tile).
+# The K4 kernel's pipeline takes k <= 8 stages (stencil_cuda.comp_pipe_tile).
 MAX_K = 8
 
 
@@ -93,7 +93,7 @@ def _validate(problem: Problem, dtype, v_dtype, carry, k: int,
                          "leapfrog.solve_compensated for k=1")
     if k > MAX_K:
         raise ValueError(f"k must be <= {MAX_K} (got {k}): the K4 kernel's "
-                         "shared-memory tile holds no deeper cone")
+                         "pipeline takes no more stages")
     if problem.N % k:
         raise ValueError(f"k={k} must divide N={problem.N}")
     if c2tau2_field is not None and compute_errors:
@@ -256,7 +256,8 @@ def solve_kfused_comp(
     `leapfrog.solve`): the bootstrap and the march are timed, the kernel
     build and the oracle and field set-up are not.  `carry_dtype` defaults
     to `_default_carry_dtype` (bf16 for f32 runs); `block_x` is K4's carry
-    slab depth (default `stencil_cuda.default_block_x`).  `c2tau2_field`
+    slab depth (default `stencil_cuda.default_block_x`: the deepest
+    multiple of k dividing N, up to 32 planes).  `c2tau2_field`
     (host (N,N,N) tau^2 c^2 array or tensor) selects the variable-c march
     (K4f); pair it with compute_errors=False."""
     device = leapfrog.resolve_device(device)
@@ -340,8 +341,9 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
     """Set up the distributed flagship over the (MX, MY, 1) `mesh` and
     return `run()` -> (u, v, carry | None blocks, abs, rel) with the
     per-layer errors as host f64 arrays.  One block_x serves every launch
-    (default `default_block_x(N/MX, k)`), so the op sequence matches the
-    single-device kernel's slab partition."""
+    (default `default_block_x(N/MX, k)`, which equals the single-device
+    default `default_block_x(N, k)` wherever that divides N/MX), so the op
+    sequence matches the single-device kernel's slab partition."""
     n_x, n_y, _ = mesh.shape
     devices = list(mesh.devices)
     n = problem.N
