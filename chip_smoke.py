@@ -12,12 +12,18 @@ without them or when any phase fails.  Phases:
  2. kernels  - each CUDA kernel against its plain PyTorch version on the
                same inputs on the card: at N=128 in every mode - K1, K2,
                K5, K3 and K3f (k = 2, 4, 8; f32 and bf16; rows on and
-               off), K4 and K4f (all three storage modes, k = 4 and 1,
-               K4f rows on and off, and its k=1 bootstrap form; K4 runs
-               K11's pipeline over the whole state), K6/K6f
+               off; K3 runs K8's pipeline over the whole state), K4 and
+               K4f (all three storage modes, k = 4 and 1, K4f rows on and
+               off, and its k=1 bootstrap form; K4 runs K11's pipeline
+               over the whole state), K6/K6f
                (no ghosts, x+y, x+y+z and an uneven padded block; f32, bf16,
                f64), K7 (f32, f64), K8/K8f and K9/K9f (k = 1, 2, 4, 8; f32
-               and bf16; rows on and off; K9 with pad planes), K10/K10f
+               and bf16; rows on and off; K9 with pad planes; and the
+               standard pipeline's stress cases: K8 blocks as deep as k
+               = 1, 4, 8, of one 96-plane and of two 128-plane x
+               segments, K3 at N = 200, whose y and z extents are no
+               multiple of the y/z face and whose segments are 100
+               planes), K10/K10f
                (k = 1, 2, 4, 8; f32 and bf16; rows and field on and off;
                the first and the last y shard, nl_y = k), K11/K11f and
                K12/K12f (k = 1, 2, 4, 8; K4's four storage modes; rows and
@@ -106,15 +112,18 @@ without them or when any phase fails.  Phases:
  5. agree    - every solver at N=32 on the card against the same solver on
                the CPU (the plain versions): max |diff| <= 1e-5.
  6. times    - per-kernel times at the main-path shapes (CUDA events
-               around each launch, median), the plain versions' times, and
-               each kernel's bound: the bytes it must move over the card's
-               memory rate vs its f32 operations over the card's f32 rate;
-               K3's, K4's and K4f's times beside PERF.md's (the phase
-               fails if K4 or K4f at k=4 is more than 8% over), K11,
-               K11f, K12 and K12f at k=4 beside the replaced cone
-               kernel's (PERF.md) and at k=1; the k-block exchange
-               of one field over four shards, apart (mesh 2,2,1: y
-               extension and x windows; mesh 4,1,1: x windows).
+               around 20 launches enqueued back to back, the median of
+               three such runs), the plain versions' times (the same with
+               3 launches), and each kernel's bound: the bytes it must
+               move over the card's memory rate vs its f32 operations over
+               the card's f32 rate; the pipelines' times at k=4 (K3, K3f,
+               K8, K8f on kstep_pipe.cu; K4, K4f, K11, K11f, K12, K12f on
+               comp_sharded.cu) beside the replaced cone kernels' and
+               their own times recorded in PERF.md (the phase fails if
+               one is more than 8% over its recorded time), K4 and
+               K11-K12f also at k=1; the k-block exchange of one field
+               over four shards, apart (mesh 2,2,1: y extension and x
+               windows; mesh 4,1,1: x windows).
 
 Each phase prints its wall time.
 
@@ -160,12 +169,12 @@ KERNELS = {
                replaces=f"{PALLAS}:544",
                what="_comp_step_kernel: 1-step compensated (Kahan) update",
                run="flagship", bytes_per_cell=24),
-    "K3": dict(counter="kstep", source=f"{CSRC}/kstep.cu",
+    "K3": dict(counter="kstep", source=f"{CSRC}/kstep_pipe.cu",
                replaces=f"{PALLAS}:745",
                what="_kstep_kernel: k leapfrog substeps + error rows "
                     "(k=4, f32)",
                run="kfused", bytes_per_cell=16),
-    "K3f": dict(counter="kstep_field", source=f"{CSRC}/kstep.cu",
+    "K3f": dict(counter="kstep_field", source=f"{CSRC}/kstep_pipe.cu",
                 replaces=f"{PALLAS}:721",
                 what="_kstep_kernel has_field: k variable-c substeps "
                      "(k=4, f32, rows off)",
@@ -203,12 +212,13 @@ KERNELS = {
                what="_sharded_comp_kernel: K2's update of a shard block "
                     "(mesh 2,2,1 block)",
                run="sharded_comp_221"),
-    "K8": dict(counter="kstep_sharded", source=f"{CSRC}/sharded.cu",
+    "K8": dict(counter="kstep_sharded", source=f"{CSRC}/kstep_pipe.cu",
                replaces=f"{PALLAS}:1609",
                what="_kstep_sharded_kernel: k substeps of an x-sharded "
                     "block with ghost windows + rows (k=4, mesh 4,1,1)",
                run="sharded_kfused_411"),
-    "K8f": dict(counter="kstep_sharded_field", source=f"{CSRC}/sharded.cu",
+    "K8f": dict(counter="kstep_sharded_field",
+                source=f"{CSRC}/kstep_pipe.cu",
                 replaces=f"{PALLAS}:1593",
                 what="_kstep_sharded_kernel has_field: k variable-c "
                      "substeps (k=4, mesh 4,1,1, rows off)",
@@ -337,18 +347,21 @@ ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
                "sharded_uneven_411": 5e-3, "flagship_mesh": 2e-5,
                "sharded_kfused_221": 5e-3, "sharded_flagship_411": 2e-5,
                "sharded_flagship_221": 2e-5}
-# K3's, K4's and K4f's phase-6 times as recorded in PERF.md (K3's cone
-# source is unchanged, K4 and K4f ran on the cone kernel then and run on
-# K11's pipeline now; this run shows them against it, and fails if K4 or
-# K4f at k=4 is more than K4_SLACK over).
-CONE_RECORDED_MS = {"K3": 5.784064054489136, "K4": 7.525775909423828,
-                    "K4 k=1": 1.785311996936798, "K4f": 6.1981}
-K4_SLACK = 0.08
-# The phase-6 times of the cone kernel that K11/K12's pipeline replaced,
-# as recorded in PERF.md (NVIDIA H100 80GB HBM3, 700.00 W; k=4, the
-# main-path blocks).
-PIPE_RECORDED_MS = {"K11": 2.2481, "K11f": 2.7473, "K12": 2.1770,
-                    "K12f": 2.7102}
+# The phase-6 times of the pipelines at k=4 as recorded in PERF.md §6
+# (NVIDIA H100 80GB HBM3, 700.00 W; launches back to back): K3-K8f on
+# kstep_pipe.cu's, K4-K12f on comp_sharded.cu's.  Phase 6 fails if a
+# kernel times more than GUARD_SLACK over its recorded time.
+GUARD_MS = {"K3": 4.4214, "K3f": 4.0705, "K8": 1.1942, "K8f": 1.0910,
+            "K4": 4.5978, "K4f": 4.2447, "K11": 1.1835, "K11f": 1.0900,
+            "K12": 1.1765, "K12f": 1.0886}
+GUARD_SLACK = 0.08
+# The phase-6 times of the cone kernels that the pipelines replaced, as
+# recorded in PERF.md (same card and limit; k=4, the main-path shapes;
+# K3-K8f launched back to back, K4-K12f isolated launches), printed beside
+# this run's times.
+CONE_MS = {"K3": 5.7130, "K3f": 6.1087, "K4": 7.6665, "K4f": 6.1981,
+           "K8": 1.6131, "K8f": 2.1786, "K11": 2.2481, "K11f": 2.7473,
+           "K12": 2.1770, "K12f": 2.7102}
 DEV = "cuda"
 CLI_EXTRA = []  # the CLI's default platform is the GPU
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -462,16 +475,7 @@ def phase_kernels(errs):
                               (K, torch.float32, True, True),
                               (K, torch.float32, False, True)])
         for k, dt, rows, with_f in k3_cases:
-            _, syz, rsyz, sxct = oracle_inputs(n, k)
-            kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
-                      c2tau2_field=fld if with_f else None,
-                      with_errors=rows)
-            args = (up.to(dt), u.to(dt), syz, rsyz, sxct)
-            got = stencil_cuda.fused_kstep(*args, **kw)
-            want = stencil_cuda.fused_kstep_plain(*args, **kw)
-            name = "K3f" if with_f else "K3"
-            check_outputs(f"{name} N={n} k={k} {dt} rows={rows}", got, want,
-                          errs[name])
+            check_k3(p, up, u, fld, k, dt, rows, with_f, errs)
         v, cy = field(n, 6, 1e-3), field(n, 7, 1e-8)
         z = torch.zeros_like(u)
         for label, args in (("C", (u, v, cy, p.a2tau2)),
@@ -518,7 +522,28 @@ def phase_kernels(errs):
             want = stencil_cuda.fused_kstep_comp_plain(*args, **kw)
             check_outputs(f"K4f N={n} bootstrap {mname}", got, want,
                           errs["K4f"])
+    # K3 at N = 200: y and z extents no multiple of the pipeline's 24 x 24
+    # face, x segments of 100 planes.
+    p = Problem(N=200, timesteps=STEPS)
+    up, u, fld = field(200, 1), field(200, 2), c2_field(p, 8)
+    for k in (4, 8):
+        for rows in (True, False):
+            for with_f in (False, True):
+                check_k3(p, up, u, fld, k, torch.float32, rows, with_f, errs)
     torch.cuda.synchronize()
+
+
+def check_k3(p, up, u, fld, k, dt, rows, with_f, errs):
+    _, syz, rsyz, sxct = oracle_inputs(p.N, k)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_field=fld if with_f else None, with_errors=rows)
+    args = (up.to(dt), u.to(dt), syz, rsyz, sxct)
+    got = stencil_cuda.fused_kstep(*args, **kw)
+    want = stencil_cuda.fused_kstep_plain(*args, **kw)
+    name = "K3f" if with_f else "K3"
+    check_outputs(f"{name} N={p.N} k={k} {dt} rows={rows} "
+                  f"tile={stencil_cuda.kstep_pipe_tile(k, p.N)}", got, want,
+                  errs[name])
 
 
 def rand(shape, seed, scale=1.0, dtype=torch.float32):
@@ -661,6 +686,16 @@ def phase_sharded_kernels(errs):
                     check_chain("K9" + f, 32, 127, k, 31, dt, rows, field,
                                 errs)
     check_chain("K9", 128, 127, K, 127, torch.float32, True, False, errs)
+    # K8's pipeline (csrc/kstep_pipe.cu): blocks as deep as k (one segment
+    # of k planes), of one 96-plane and of two 128-plane segments.
+    for rows in (True, False):
+        for field in (False, True):
+            f = "f" if field else ""
+            for k in (1, 4, 8):
+                check_chain("K8" + f, k, 128, k, k, torch.float32, rows,
+                            field, errs)
+            for d, dt in ((96, torch.float32), (256, torch.bfloat16)):
+                check_chain("K8" + f, d, 128, K, d, dt, rows, field, errs)
     # The main-path shapes: sharded_kfused_411 (D=128 of 512), uneven_kfused
     # (D=512, 510 real), sharded_uneven_411 (D=128, the last 126 real).
     for i, (name, d, n, n_real) in enumerate(chain_shapes()):
@@ -1144,18 +1179,23 @@ def phase_agree():
 
 
 def time_launches(fn, reps, warmup=2):
-    """Median device time (ms) of one call, CUDA events around each."""
+    """Device time (ms) of one call: CUDA events around `reps` calls
+    enqueued back to back, divided by `reps`; the median of three such
+    runs.  Enqueued back to back, as the solvers enqueue them, the calls'
+    host work (operand checks, allocation) overlaps the device's, so the
+    time is the device's and not the host's."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -1228,21 +1268,30 @@ def phase_times(dev_name):
           f"(bound {20 * cells / rate * 1e3:.4f} ms by bytes)")
     del up, u, v, cy, cb, fld
     times.update(phase_times_sharded(rate))
-    for name, recorded in CONE_RECORDED_MS.items():
-        ms = times["K4"]["ms_k1"] if name == "K4 k=1" else times[name]["ms"]
-        print(f"  {name}: {ms:.4f} ms against {recorded:.4f} ms recorded "
-              f"in PERF.md ({100 * (ms / recorded - 1):+.1f}%)")
-        if name in ("K4", "K4f") and ms > (1 + K4_SLACK) * recorded:
-            fail(f"{name} times {ms:.4f} ms, more than "
-                 f"{100 * K4_SLACK:.0f}% over the {recorded:.4f} ms "
-                 f"recorded in PERF.md")
-    for name, recorded in PIPE_RECORDED_MS.items():
-        ms = times[name]["ms"]
-        print(f"  {name} k=4: {ms:.4f} ms against the cone kernel's "
-              f"{recorded:.4f} ms recorded in PERF.md ({recorded / ms:.2f}x "
-              f"faster); k=1: {times[name]['ms_k1']:.4f} ms (the cone "
-              f"kernel's: not recorded)")
+    guard_times(times)
     return times, rate
+
+
+def guard_times(times):
+    """Each pipeline kernel's time against its cone predecessor's, and
+    against its own recorded time: fail if it is more than GUARD_SLACK
+    over."""
+    for name, cone in CONE_MS.items():
+        ms = times[name]["ms"]
+        line = (f"  {name} k=4: {ms:.4f} ms; the cone kernel's {cone:.4f} "
+                f"ms ({cone / ms:.2f}x faster)")
+        if name in GUARD_MS:
+            line += (f"; recorded {GUARD_MS[name]:.4f} ms "
+                     f"({100 * (ms / GUARD_MS[name] - 1):+.1f}%)")
+        if "ms_k1" in times[name]:
+            line += f"; k=1: {times[name]['ms_k1']:.4f} ms"
+        print(line)
+    for name, recorded in GUARD_MS.items():
+        ms = times[name]["ms"]
+        if ms > (1 + GUARD_SLACK) * recorded:
+            fail(f"{name} times {ms:.4f} ms, more than "
+                 f"{100 * GUARD_SLACK:.0f}% over the {recorded:.4f} ms "
+                 f"recorded in PERF.md")
 
 
 def nbytes(*tensors):
@@ -1378,12 +1427,16 @@ def phase_times_sharded(rate):
 
 def cone_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
-    main-path instantiations, from the verbose build log: K3, K8/K9 and K10
-    at k=4 (f32, depth-8 tile), and the pipeline of K4 and K11/K12 at k=4
-    (f32 v, bf16 carry, without and with a field) and k=1."""
+    main-path instantiations, from the verbose build log: the pipeline of
+    K3 and K8 at k=4 (f32, without and with a field) and k=1, the cone
+    kernels K9 and K10 at k=4 (f32, depth-8 tile), and the pipeline of K4
+    and K11/K12 at k=4 (f32 v, bf16 carry, without and with a field) and
+    k=1."""
     want = {
-        "K3 k=4": "12kstep_kernelILi4ELi8EfE",
-        "K8/K9 k=4": "18kstep_chain_kernelILi4ELi8EfE",
+        "K3/K8 k=4": "17kstep_pipe_kernelILi4EfLb0EE",
+        "K3f/K8f k=4": "17kstep_pipe_kernelILi4EfLb1EE",
+        "K3/K8 k=1": "17kstep_pipe_kernelILi1EfLb0EE",
+        "K9 k=4": "18kstep_chain_kernelILi4ELi8EfE",
         "K10 k=4": "15kstep_xy_kernelILi4ELi8EfE",
         "K4/K11/K12 k=4":
             "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0EE",

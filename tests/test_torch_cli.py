@@ -155,6 +155,34 @@ def test_f32_report_and_sidecar(tmp_path, capsys):
     assert len(side["abs_errors"]) == 9
 
 
+# The sidecar carries wavetpu's keys (ROADMAP.md queue 3, F1): a reader of
+# wavetpu's sidecar finds every key in the port's.  The port's run_config
+# adds the device it ran on (`device`, `platform`).
+@pytest.mark.parametrize("extra", [[], ["--fuse-steps", "3"]],
+                         ids=["1step", "kfused"])
+def test_sidecar_keys_match_wavetpu(tmp_path, extra, capsys):
+    assert cli.main(ARGS + extra + ["--platform", "cpu", "--out-dir",
+                                    str(tmp_path / "ours")]) == 0
+    assert jcli.main(ARGS + extra + ["--platform", "cpu", "--backend",
+                                     "single", "--out-dir",
+                                     str(tmp_path / "ref")]) == 0
+    ours = json.loads(
+        (tmp_path / "ours" / "output_N15_Np1_CUDA.json").read_text())
+    ref = json.loads(
+        (tmp_path / "ref" / "output_N15_Np1_TPU.json").read_text())
+    assert set(ours) == set(ref)
+    assert set(ours["run_config"]) == set(ref["run_config"]) | {"device",
+                                                                "platform"}
+    for key in ("exchange_seconds", "loop_seconds", "phase_probe_steps"):
+        assert ours[key] is None and ref[key] is None
+    for key in ("distributed", "resumed", "supervised", "ckpt_every",
+                "supervisor_status", "backend", "scheme", "fuse_steps",
+                "mesh", "dtype", "v_dtype", "c2_field"):
+        assert ours["run_config"][key] == ref["run_config"][key], key
+    # The CPU runs the kernels' plain versions: wavetpu's roll path.
+    assert ours["run_config"]["kernel"] == "roll"
+
+
 def test_no_errors_marker(tmp_path, capsys):
     assert cli.main(["8", "1", "1", "1", "1", "1", "3", "--no-errors",
                      "--platform", "cpu", "--out-dir", str(tmp_path)]) == 0

@@ -434,6 +434,106 @@ def test_k9(cuda, d, n, k, n_real, dtype, with_field, with_errors):
     assert not got[1][n_real:].any()
 
 
+# (seg, ty, tz) tiles of K3 and K8's pipeline (csrc/kstep_pipe.cu) beside
+# kstep_pipe_tile's: segments 128 (= the depth), 64, 32, 16, 8, 4 and 1,
+# and K11/K12's faces.  The results do not depend on the tile.
+KPIPE_TILES = [(128, 24, 24), (64, 24, 24), (32, 24, 24), (16, 10, 12),
+               (8, 3, 5), (4, 24, 8), (32, 7, 24), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("tile", KPIPE_TILES)
+@pytest.mark.parametrize("kernel", ["K3", "K8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_k3_k8_pipeline_tiles(cuda, tile, kernel, dtype, with_field):
+    k = 4
+    d, n = (128, 128) if kernel == "K3" else (128, 40)
+    p, syz, rsyz, sxct, up, u, gh, fld, fg = chain_case(cuda, d, n, k, dtype,
+                                                        60)
+    if kernel == "K3":  # the whole state, its windows the wrap planes
+        gh = [*stencil_cuda.wrap_planes(up, k),
+              *stencil_cuda.wrap_planes(u, k)]
+        fg = stencil_cuda.wrap_planes(fld, k)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_block=fld if with_field else None,
+              c2_ghosts=tuple(fg) if with_field else None, with_errors=True)
+    args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct)
+    got = stencil_cuda._kstep_pipe("kstep_sharded", *args, tile=tile, **kw)
+    equal(got, stencil_cuda.fused_kstep_sharded_plain(*args, **kw))
+    if kernel == "K3":
+        kw3 = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, with_errors=True,
+                   c2tau2_field=fld if with_field else None)
+        equal(got, stencil_cuda.fused_kstep_plain(up, u, syz, rsyz, sxct,
+                                                  **kw3))
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_k8_block_as_deep_as_k(cuda, k, with_field):
+    # D = k: one segment of k planes, every plane's x neighbours k deep
+    # in the windows.
+    p, syz, rsyz, sxct, up, u, gh, fld, fg = chain_case(cuda, k, 24, k,
+                                                        torch.float32, 70)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_block=fld if with_field else None,
+              c2_ghosts=tuple(fg) if with_field else None, with_errors=True)
+    args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct)
+    assert stencil_cuda.kstep_pipe_tile(k, k)[0] == k
+    equal(stencil_cuda.fused_kstep_sharded(*args, **kw),
+          stencil_cuda.fused_kstep_sharded_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_reads_its_wrap_windows_in_place(cuda, dtype):
+    n, k = 64, 4
+    p = Problem(N=n, timesteps=20)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
+    sxct = ct[2:2 + k][:, None] * sx[None, :]
+    up = field(n, 21, dtype=dtype).to(cuda)
+    u = field(n, 22, dtype=dtype).to(cuda)
+    fld = c2_field(p, 23).to(cuda)
+    before = [t.clone() for t in (up, u, fld)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = stencil_cuda.fused_kstep(up, u, syz, rsyz, sxct, k=k,
+                                   coeff=p.a2tau2, inv_h2=p.inv_h2,
+                                   c2tau2_field=fld)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    state = u.numel() * u.element_size()
+    window = k * n * n * u.element_size()
+    # The two outputs and the rows: no window of u_prev, u or the field
+    # was copied.
+    assert 2 * state <= grown < 2 * state + window
+    for t, t0 in zip((up, u, fld), before):
+        assert torch.equal(t, t0)
+    equal(got, stencil_cuda.fused_kstep_plain(up, u, syz, rsyz, sxct, k=k,
+                                              coeff=p.a2tau2,
+                                              inv_h2=p.inv_h2,
+                                              c2tau2_field=fld))
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_k3_equals_k_k1_steps(cuda, k, dtype, with_field):
+    n = 64
+    p = Problem(N=n, timesteps=20)
+    up = field(n, 31, dtype=dtype).to(cuda)
+    u = field(n, 32, dtype=dtype).to(cuda)
+    fld = c2_field(p, 33).to(cuda) if with_field else None
+    prev, cur = up, u
+    for _ in range(k):
+        prev, cur = cur, stencil_cuda.fused_step(
+            prev, cur, inv_h2=p.inv_h2, alpha=2.0, beta=1.0,
+            coeff=p.a2tau2, c2tau2_field=fld)
+    got = stencil_cuda.fused_kstep(up, u, None, None, None, k=k,
+                                   coeff=p.a2tau2, inv_h2=p.inv_h2,
+                                   c2tau2_field=fld, with_errors=False)
+    assert torch.equal(got[0], prev) and torch.equal(got[1], cur)
+
+
 def test_sharded_kernels_never_fall_back(cuda):
     p = Problem(N=16, timesteps=10)
     u = rand((8, 16, 16), 1).to(cuda)

@@ -189,8 +189,8 @@ def _parse(argv):
     problem = Problem.from_argv(pos)
     if fuse_steps > 8:
         raise ValueError(
-            f"--fuse-steps {fuse_steps} must be <= 8 (the cone tile of the "
-            f"k-step kernels)"
+            f"--fuse-steps {fuse_steps} must be <= 8 (the k-step kernels' "
+            f"tiles)"
         )
     if fuse_steps > 1 and scheme == "compensated" and problem.N % fuse_steps:
         raise ValueError(
@@ -360,6 +360,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "dtype": str(result.u_cur.dtype).replace("torch.", ""),
             "v_dtype": flags.get("v-dtype"),
             "c2_field": flags.get("c2-field"),
+            # wavetpu's keys, with the values of a run without those
+            # features: "pallas" where the CUDA kernels run (wavetpu's
+            # kernel path), "roll" where their plain versions run.
+            "kernel": "pallas" if platform == "gpu" else "roll",
+            "distributed": False,
+            "resumed": False,
+            "supervised": False,
+            "ckpt_every": None,
+            "supervisor_status": None,
         },
     )
     print(f"grids initialized in {int(result.init_seconds * 1000)}ms")

@@ -6,8 +6,10 @@ containing init time, solve wall time and per-layer L-inf abs/rel errors
 (openmp_sol.cpp:229, mpi_new.cpp:454).  The layer-error lines are
 verbatim-compatible ("max abs and rel errors on layer n: A R") so outputs
 diff cleanly against reference and wavetpu runs.  A JSON sidecar carries
-the same data plus throughput for machines.  (wavetpu's phase-timing
-lines have no counterpart in the port yet.)
+the same data plus throughput for machines, with wavetpu's keys:
+`exchange_seconds`, `loop_seconds` and `phase_probe_steps` are null until
+the port has `--phase-timing` (wavetpu's phase-timing report lines have no
+counterpart yet).
 """
 
 from __future__ import annotations
@@ -86,6 +88,10 @@ def write_report(
         "rel_errors": (
             [float(x) for x in result.rel_errors] if errors_computed else None
         ),
+        # Not measured: the port has no --phase-timing yet.
+        "exchange_seconds": None,
+        "loop_seconds": None,
+        "phase_probe_steps": None,
         "run_config": run_config,
     }
     # Derive the sidecar from `name` (not `path`): out_dir may itself

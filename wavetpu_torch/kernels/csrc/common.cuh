@@ -1,7 +1,8 @@
 // Pieces shared by the kernel sources of wavetpu_torch/kernels/csrc: the
 // dtype codes of the C interface, storage <-> compute conversions, index
 // wrapping, and the cone kernels' tile geometry, plane indexing, publish,
-// Laplacian and error-row protocol (K3 in kstep.cu, K8/K9 in sharded.cu).
+// Laplacian and error-row protocol (K9 in sharded.cu; K10 through
+// plane.cuh, whose pipelines of K3/K8 and K4/K11/K12 share the Laplacian).
 
 #pragma once
 
@@ -55,7 +56,7 @@ __device__ __forceinline__ int wrap_near(int xu, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// The cone kernels (K3 in kstep.cu, K8/K9 in sharded.cu).
+// The cone kernels (K9 in sharded.cu, K10 in kstep_xy.cu).
 //
 // A tile of tx (x) * ty (y) * tz (z) output cells loads its cone,
 // (tx+2k)(ty+2k)(tz+2k) cells, with one thread per (y, z) column, which

@@ -12,7 +12,7 @@
 // range (the caller takes the max across the y shards).  The Dirichlet
 // mask tests the wrapped global row (csrc/plane.cuh).
 //
-// Each substep is op for op K3's (csrc/kstep.cu, itself K1's update):
+// Each substep is op for op K3's (csrc/kstep_pipe.cu, itself K1's update):
 //   new = mask((2u + coeff*lap(u)) - u_prev), a bf16 state rounded to bf16
 // and back, so the y-sharded k-fused solve equals the single-device one
 // bit for bit.  A field (f32) has its own chain of the same layout, its
@@ -21,7 +21,7 @@
 // Bound: bytes.  Per launch the extended u_prev and u and their windows
 // read once and the central two layers written once: ~16.5 B per output
 // cell for f32 at the main path's mesh-2,2,1 block (+4 with a field), plus
-// the rows.  Design: K8's (the cone tile of common.cuh, the column in
+// the rows.  Design: K9's (the cone tile of common.cuh, the column in
 // registers, y/z through shared memory) over the extended plane.
 //
 // Built by wavetpu_torch/kernels/build.py with --fmad=false.  The entry

@@ -1,8 +1,9 @@
 // The cone geometry of the k-step kernels on a shard block whose planes may
-// be extended in y (K10 in kstep_xy.cu, K11/K12 in comp_sharded.cu), and
-// the x chain they read the block's x neighbours through.  csrc/common.cuh's
-// `cone_of_thread` (K3, K8/K9) stays as it is; this is its counterpart
-// over a (py, n) plane with a y offset.
+// be extended in y (K10 in kstep_xy.cu; the pipelines of K3/K8 in
+// kstep_pipe.cu and K4/K11/K12 in comp_sharded.cu), and the x chain they
+// read the block's x neighbours through.  csrc/common.cuh's
+// `cone_of_thread` (K9) stays as it is; this is its counterpart over a
+// (py, n) plane with a y offset.
 //
 // y geometry.  A block holds `ny` output rows of the global y range
 // [y0, y0 + ny) and its planes hold `py` rows:

@@ -5,14 +5,13 @@
 //   K6  sharded_step_kernel     <- _sharded_kernel (sharded_fused_step)
 //   K7  sharded_comp_kernel     <- _sharded_comp_kernel
 //                                  (sharded_compensated_step)
-//   K8  kstep_chain_kernel      <- _kstep_sharded_kernel (fused_kstep_sharded)
 //   K9  kstep_chain_kernel      <- _kstep_padded_kernel (fused_kstep_padded)
 //
-// Built by wavetpu_torch/kernels/build.py beside stencil.cu and kstep.cu
-// (one nvcc per source, started together), with --fmad=false: each kernel
-// is op for op the single-device kernel it extends (K6 = K1/K5, K7 = K2,
-// K8/K9 = K3), so a sharded solve equals the single-device solve bit for
-// bit.  Wrappers, plain PyTorch versions and launch counters:
+// (K8, _kstep_sharded_kernel, is csrc/kstep_pipe.cu's pipeline.)  Built by
+// wavetpu_torch/kernels/build.py beside the other sources (one nvcc per
+// source, started together), with --fmad=false: each kernel is op for op
+// the single-device kernel it extends (K6 = K1/K5, K7 = K2, K9 = K3), so a
+// sharded solve equals the single-device solve bit for bit.  Wrappers, plain PyTorch versions and launch counters:
 // wavetpu_torch/kernels/stencil_cuda.py.
 //
 // Layout: one shard's block, z contiguous.  Every entry point launches on
@@ -162,31 +161,31 @@ dim3 grid_block(const Geom& g) {
 }
 
 // ---------------------------------------------------------------------------
-// K8 / K9: k leapfrog substeps of an x-sharded block (D, N, N), y and z
-// whole.  The x neighbours of the block come from k-plane ghost windows:
-// each field's x "chain" is
+// K9: k leapfrog substeps of an uneven (pad-and-mask) x-sharded block
+// (D, N, N), y and z whole.  The x neighbours of the block come from
+// k-plane ghost windows: each field's x "chain" is
 //   lo ghost (k planes) | block planes [0, n_real) | hi ghost (k planes) | 0
 // so the x-neighbour chain of every real plane is gap-free and nothing
-// wraps.  K8 (the even decomposition) passes n_real = D: its chain is the
-// single-device kernel's wrap with the neighbour shards' planes at the
-// block edges.  K9 (pad-and-mask, uneven N) passes the shard's real-plane
-// count: its planes past n_real are pad, whose outputs and error rows are
-// stored as zero - the chain is the TPU kernel's extended array
-// [lo | D planes with hi spliced at n_real | junk] read in place, so no
-// extended copy is assembled.  A field (f32) has its own chain of the same
-// layout (its ghosts exchanged once per solve by the caller).
+// wraps.  K9 passes the shard's real-plane count: its planes past n_real
+// are pad, whose outputs and error rows are stored as zero - the chain is
+// the TPU kernel's extended array [lo | D planes with hi spliced at n_real
+// | junk] read in place, so no extended copy is assembled.  (With n_real =
+// D this is K8, which csrc/kstep_pipe.cu's pipeline runs instead.)  A field
+// (f32) has its own chain of the same layout (its ghosts exchanged once per
+// solve by the caller).
 //
-// Each substep is op for op K3's (csrc/kstep.cu, itself K1's update):
+// Each substep is op for op K3's (csrc/kstep_pipe.cu, itself K1's update):
 //   new = mask((2u + coeff*lap(u)) - u_prev), a bf16 state rounded to bf16
 // and back, so a sharded k-fused solve equals the single-device one bit
-// for bit.  Error rows (k, D) per substep and x plane with K3's protocol
-// (csrc/common.cuh rows_reduce / rows_flush), restricted to real planes.
+// for bit.  Error rows (k, D) per substep and x plane with the cone
+// kernels' protocol (csrc/common.cuh rows_reduce / rows_flush), restricted
+// to real planes.
 //
 // Bound: bytes.  Per launch u_prev and u read once and the block's two
 // last layers written once, 16 B/cell for f32 (20 with a field), plus the
-// 4k ghost planes.  Design: K3's cone tile (common.cuh `Cone`, the column
-// in registers, y/z through shared memory), with the chain lookup in place
-// of K3's x wrap.
+// 4k ghost planes.  Design: a cone tile (common.cuh `Cone`, the column in
+// registers, y/z through shared memory), with the chain lookup in place of
+// an x wrap.
 
 // Where chain plane xu of a column lies: 0 lo ghost, 1 block, 2 hi ghost,
 // 3 past the hi ghost (zero); `g` is the cell's index in that array.
@@ -339,8 +338,8 @@ int launch_chain(const void* uprev, const void* u, const void* plo,
   return (int)cudaGetLastError();
 }
 
-// As K3: the tile depth fixed at compile time when it is kMaxTx, read at
-// run time otherwise.
+// The tile depth fixed at compile time when it is kMaxTx, read at run time
+// otherwise.
 template <int K, typename T>
 int launch_chain_tx(const void* uprev, const void* u, const void* plo,
                     const void* phi, const void* clo, const void* chi,
@@ -476,11 +475,11 @@ int wt_sharded_comp_step(const void* u, const void* v, const void* carry,
   return (int)cudaGetLastError();
 }
 
-// K8 (n_real = d) and K9 (n_real < d possible).  State f32 or bf16 for the
-// block (d, n, n), its (k, n, n) ghost windows and both outputs; c2 is the
-// f32 (d, n, n) field block with (k, n, n) f32 ghosts, or null; dmax/rmax
-// are (k, d) uint32 rows zeroed by the caller, or null (then syz, rsyz and
-// sxct are not read).  1 <= k <= 8; tx <= 8 divides d; 1 <= n_real <= d.
+// K9 (n_real <= d; stencil_cuda launches K8 on kstep_pipe.cu's pipeline).
+// State f32 or bf16 for the block (d, n, n), its (k, n, n) ghost windows
+// and both outputs; c2 is the f32 (d, n, n) field block with (k, n, n) f32
+// ghosts, or null; dmax/rmax are (k, d) uint32 rows zeroed by the caller,
+// or null (then syz, rsyz and sxct are not read).  1 <= k <= 8; tx <= 8 divides d; 1 <= n_real <= d.
 int wt_kstep_chain(const void* uprev, const void* u, const void* plo,
                    const void* phi, const void* clo, const void* chi,
                    void* prev_out, void* out, const void* c2,

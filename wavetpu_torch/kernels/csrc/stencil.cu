@@ -1,8 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the wave-equation stencil: the
 // CUDA counterparts of the Pallas kernels in wavetpu/kernels/stencil_pallas.py.
-// This file holds K1 and K5 (1-step) and K2 (1-step compensated); K3 is in
-// kstep.cu, and K4 (the compensated k-step) runs comp_sharded.cu's
-// pipeline over the whole domain.
+// This file holds K1 and K5 (1-step) and K2 (1-step compensated); K3 (the
+// k-step) runs kstep_pipe.cu's pipeline and K4 (the compensated k-step)
+// comp_sharded.cu's, each over the whole domain.
 //
 // Built by wavetpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared

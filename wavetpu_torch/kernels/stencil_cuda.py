@@ -1,6 +1,6 @@
-"""Wrappers of the CUDA stencil kernels (csrc/stencil.cu, csrc/kstep.cu,
-csrc/sharded.cu, csrc/kstep_xy.cu, csrc/comp_sharded.cu), each with its
-plain PyTorch version and a launch counter - the port of
+"""Wrappers of the CUDA stencil kernels (csrc/stencil.cu,
+csrc/kstep_pipe.cu, csrc/sharded.cu, csrc/kstep_xy.cu, csrc/comp_sharded.cu),
+each with its plain PyTorch version and a launch counter - the port of
 wavetpu/kernels/stencil_pallas.py's kernels.
 
 | kernel | replaces (wavetpu/kernels/stencil_pallas.py)          | wrapper            | counter            |
@@ -22,13 +22,15 @@ wavetpu/kernels/stencil_pallas.py's kernels.
 
 The sharded kernels (K6-K12) take one shard's block and the ghost planes
 that comm/halo.py (or the sharded k-fused solvers) delivered from the
-neighbour shards; K8 and K9 are one CUDA kernel (csrc/sharded.cu
-`kstep_chain_kernel`), K9 masking the planes past its real-plane count,
-and so are K4, K11 and K12 (csrc/comp_sharded.cu `kstep_comp_pipe_kernel`,
-an x-streaming pipeline over whole y rows or a y-extended block; K4 runs
-it over the whole domain, its x windows the domain's own wrap planes).  K10
-(csrc/kstep_xy.cu) and K12 take a block of an (MX, MY, 1) mesh extended in
-y by k ghost rows per side.
+neighbour shards.  K3 and K8 are one CUDA kernel (csrc/kstep_pipe.cu
+`kstep_pipe_kernel`, an x-streaming pipeline of the standard substep;
+K3 runs it over the whole domain, its x windows the domain's own wrap
+planes), and so are K4, K11 and K12 (csrc/comp_sharded.cu
+`kstep_comp_pipe_kernel`, the compensated substep's pipeline over whole y
+rows or a y-extended block, K4 over the whole domain).  K9 (csrc/sharded.cu
+`kstep_chain_kernel`, a cone tile) masks the planes past its real-plane
+count.  K10 (csrc/kstep_xy.cu) and K12 take a block of an (MX, MY, 1) mesh
+extended in y by k ghost rows per side.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests and `--platform cpu` run); a
@@ -73,21 +75,25 @@ launches: Dict[str, int] = {
 _CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _NONE = -1
 
-# The cone kernels' tile limits (kMaxTx and kConeThreads in csrc/common.cuh):
-# at most 8 output planes in x, and one thread per (y, z) column of the
-# cone, 640 at most (the column's state lives in registers).  K3 takes
-# 2 <= k <= 8 (k = 1 is K1's job), the other k-step kernels 1 <= k <= 8.
+# The cone kernels' tile limits (kMaxTx and kConeThreads in csrc/common.cuh;
+# K9, K10): at most 8 output planes in x, and one thread per (y, z) column
+# of the cone, 640 at most (the column's state lives in registers).  K3
+# takes 2 <= k <= 8 (k = 1 is K1's job), the other k-step kernels
+# 1 <= k <= 8.
 _KSTEP_MAX_TX = 8
 _CONE_THREADS = 640
 _KSTEP_MAX_K = 8
-# The carry slab's cap (`default_block_x`), and csrc/comp_sharded.cu's
-# pipeline (K4, K11/K12, `comp_pipe_tile`): one thread per column of the
-# (ty+2k)(tz+2k) halo face, at most 1024 for k <= 4 and 640 above
-# (PipeThreads: the per-stage registers grow with k); x segments of up to
-# _PIPE_SEG planes inside one slab.
+# The carry slab's cap (`default_block_x`), and the pipelines of
+# csrc/kstep_pipe.cu (K3, K8, `kstep_pipe_tile`) and csrc/comp_sharded.cu
+# (K4, K11/K12, `comp_pipe_tile`): one thread per column of the
+# (ty+2k)(tz+2k) halo face, at most 1024 for k <= 4 and 640 above (the
+# per-stage registers grow with k); x segments of up to _PIPE_SEG planes
+# inside one carry slab (K4-K12), of up to _KPIPE_SEG planes (K3, K8:
+# kernels/tile_ab.py part `kpipe`, PERF.md).
 _SLAB_CAP = 32
 _PIPE_SEG = 32
 _PIPE_MAX_SEG = 64  # kPipeMaxSeg: a segment's oracle rows in shared memory
+_KPIPE_SEG = 128  # kStdMaxSeg of csrc/kstep_pipe.cu
 _PIPE_FACE_Z = 32
 
 
@@ -115,19 +121,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _kstep_lib() -> ctypes.CDLL:
-    """csrc/kstep.cu: K3."""
-    lib = build.load("kstep")
+def _kstep_pipe_lib() -> ctypes.CDLL:
+    """csrc/kstep_pipe.cu: K3, K8."""
+    lib = build.load("kstep_pipe")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_kstep.argtypes = [p] * 10 + [i] * 6 + [d] * 4 + [p]
-        lib.wt_kstep.restype = i
+        lib.wt_kstep_pipe.argtypes = [p] * 16 + [i] * 10 + [d] * 4 + [p]
+        lib.wt_kstep_pipe.restype = i
         lib._wt_typed = True
     return lib
 
 
 def _sharded_lib() -> ctypes.CDLL:
-    """csrc/sharded.cu: K6, K7, K8/K9."""
+    """csrc/sharded.cu: K6, K7, K9."""
     lib = build.load("sharded")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -172,7 +178,7 @@ def load_libraries() -> None:
     region."""
     build.build_all()
     _lib()
-    _kstep_lib()
+    _kstep_pipe_lib()
     _sharded_lib()
     _xy_lib()
     _comp_sharded_lib()
@@ -391,7 +397,11 @@ def fused_kstep(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
     (u_{n+k-1}, u_{n+k}, dmax, rmax); dmax/rmax are the (k, N) f32
     per-substep per-x-plane error maxes (None, None without
     `with_errors`; then syz, rsyz and sxct are not read).  On the card:
-    f32 or bf16 state, 2 <= k <= 8, k | N."""
+    f32 or bf16 state, 2 <= k <= 8, k | N.
+
+    On the card K3 launches K8's kernel (`_kstep_pipe`, the x-streaming
+    pipeline of csrc/kstep_pipe.cu) over the whole state: its x windows are
+    the state's own wrap planes (`wrap_planes`), views read in place."""
     n = u.shape[0]
     if u.device.type == "cpu":
         return fused_kstep_plain(
@@ -408,28 +418,21 @@ def fused_kstep(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
                          f"{u.dtype}/{u_prev.dtype}")
     if c2tau2_field is not None:
         _check_field(c2tau2_field, u)
-    dmax = rmax = None
     if with_errors:
         _check_cuda(n, syz=syz, rsyz=rsyz, sxct=sxct)
         _check_planes(n, k, syz, rsyz, sxct)
-        dmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
-        rmax = torch.zeros((k, n), dtype=torch.int32, device=u.device)
-    tx, ty, tz = kstep_tile(k, n)
-    prev_out = torch.empty_like(u)
-    out = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        _run(_kstep_lib().wt_kstep, u_prev.data_ptr(), u.data_ptr(),
-             prev_out.data_ptr(), out.data_ptr(), _ptr(c2tau2_field),
-             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
-               if with_errors else (None, None, None)),
-             _ptr(dmax), _ptr(rmax), n, k, tx, ty, tz, _CODE[u.dtype],
-             float(coeff if c2tau2_field is None else 0.0),
-             *(float(h) for h in inv_h2))
-    launches["kstep" if c2tau2_field is None else "kstep_field"] += 1
-    if with_errors:
-        # The kernel combined the rows as the bits of non-negative floats.
-        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
-    return prev_out, out, dmax, rmax
+    return _kstep_pipe("kstep", u_prev, u, wrap_planes(u_prev, k),
+                       wrap_planes(u, k), syz, rsyz, sxct, k=k, coeff=coeff,
+                       inv_h2=inv_h2, c2tau2_block=c2tau2_field,
+                       c2_ghosts=wrap_planes(c2tau2_field, k),
+                       with_errors=with_errors)
+
+
+def wrap_planes(t, k: int):
+    """The x windows of a whole (N, ., .) state as the k-step pipelines
+    read it (K3, K4): its last and its first k planes, (t[N-k:], t[:k]),
+    views of `t` (no copy); None for None."""
+    return None if t is None else (t[t.shape[0] - k:], t[:k])
 
 
 # ---------------------------------------------------------------------------
@@ -452,9 +455,9 @@ def default_block_x(n: int, k: int) -> int:
 
 
 def kstep_tile(k: int, bx: int) -> Tuple[int, int, int]:
-    """(tx, ty, tz) output tile of the cone kernels (K3, K8/K9, K10).  tx
-    is the largest divisor of bx up to 8 (they pass the depth of the state
-    or the block); tz is 32 (a warp-wide z row) or 16 where a 32-wide cone
+    """(tx, ty, tz) output tile of the cone kernels (K9, K10).  tx is the
+    largest divisor of bx up to 8 (they pass the depth of the block); tz
+    is 32 (a warp-wide z row) or 16 where a 32-wide cone
     leaves no room; ty is the most rows whose cone, (ty+2k)(tz+2k) columns,
     fits 640 threads."""
     if not 1 <= k <= _KSTEP_MAX_K:
@@ -466,6 +469,26 @@ def kstep_tile(k: int, bx: int) -> Tuple[int, int, int]:
         if ty >= 2:
             return tx, ty, tz
     raise ValueError(f"k={k} does not fit the cone kernels' tile")
+
+
+def kstep_pipe_tile(k: int, d: int) -> Tuple[int, int, int]:
+    """(seg, ty, tz) of K3 and K8's x-streaming pipeline
+    (csrc/kstep_pipe.cu): an x segment of seg planes, the largest divisor
+    of the depth d up to _KPIPE_SEG (no slab: the standard substep's cells
+    are a function of the inputs alone), and the y/z face of
+    `comp_pipe_tile`."""
+    if d < 1:
+        raise ValueError(f"depth {d} must be positive")
+    seg = max(s for s in range(1, min(d, _KPIPE_SEG) + 1) if d % s == 0)
+    return (seg,) + comp_pipe_tile(k, seg)[1:]
+
+
+def kstep_pipe_smem(k: int, ty: int, tz: int) -> int:
+    """Shared memory of one K3/K8 pipeline block (bytes): each stage's
+    two-slot ring of the halo face's u (dynamic), and the static error
+    slots [2][8][2][32] words and oracle rows [8][128]."""
+    return 2 * k * (ty + 2 * k) * (tz + 2 * k) * 4 + (2 * 8 * 2 * 32
+                                                      + 8 * 128) * 4
 
 
 def comp_pipe_tile(k: int, bx: int) -> Tuple[int, int, int]:
@@ -613,14 +636,11 @@ def fused_kstep_comp(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
     if c2tau2_field is not None:
         _check_field(c2tau2_field, u)
 
-    def wrap(t):
-        return None if t is None else (t[n - k:], t[:k])
-
-    return _comp_chain("kstep_comp", u, v, carry, wrap(u), wrap(v), syz,
-                       rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
-                       block_x=bx, c2tau2_block=c2tau2_field,
-                       c2_ghosts=wrap(c2tau2_field), with_errors=with_errors,
-                       y0=0, nl_y=None)
+    return _comp_chain("kstep_comp", u, v, carry, wrap_planes(u, k),
+                       wrap_planes(v, k), syz, rsyz, sxct, k=k, coeff=coeff,
+                       inv_h2=inv_h2, block_x=bx, c2tau2_block=c2tau2_field,
+                       c2_ghosts=wrap_planes(c2tau2_field, k),
+                       with_errors=with_errors, y0=0, nl_y=None)
 
 
 # ---------------------------------------------------------------------------
@@ -818,6 +838,8 @@ def sharded_compensated_step(u, v, carry, ghosts, offsets, n_global, *,
 
 # K8 and K9: k fused substeps of an x-sharded block (D, N, N) whose x
 # neighbours come from (k, N, N) ghost windows (lo, hi) of u_prev and u.
+# K8 (and K3 over the whole state) launches csrc/kstep_pipe.cu's pipeline,
+# K9 csrc/sharded.cu's chain kernel, a cone tile.
 
 
 def _y_mask(w, nz, nl_y, y0, device):
@@ -892,11 +914,12 @@ def _kstep_chain_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
             rmax)
 
 
-def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
-                 rsyz, sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
-                 with_errors):
-    """Launch csrc/sharded.cu's chain kernel (K8 or K9, counted under
-    `counter`) after checking every operand."""
+def _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
+                          sxct, *, k, c2tau2_block, c2_ghosts, with_errors):
+    """Raise unless a K3/K8/K9 launch's operands are what the kernels read:
+    an f32/bf16 (D, N, N) block pair on the card, (k, N, N) windows of it,
+    an f32 field block and windows, f32 (N, N) oracle planes and (k, D)
+    rows."""
     d, n = u.shape[0], u.shape[1]
     if not 1 <= k <= _KSTEP_MAX_K:
         raise ValueError(f"k={k}: the sharded k-step kernels take 1 <= k <= "
@@ -904,7 +927,7 @@ def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
     if u.shape[2] != n:
         raise ValueError(f"the block's y and z extents must be N, got "
                          f"{tuple(u.shape)}")
-    _check_block_state(u, (torch.float32, torch.bfloat16), "K8/K9",
+    _check_block_state(u, (torch.float32, torch.bfloat16), "K3/K8/K9",
                        u_prev=u_prev)
     dev = u.device
     window = (k, n, n)
@@ -917,12 +940,69 @@ def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
         _check_on_card(dev, f32, c2tau2_block=(c2tau2_block, u.shape),
                        c2_lo=(c2_ghosts[0], window),
                        c2_hi=(c2_ghosts[1], window))
-    dmax = rmax = None
     if with_errors:
         _check_on_card(dev, f32, syz=(syz, (n, n)), rsyz=(rsyz, (n, n)),
                        sxct=(sxct, (k, d)))
-        dmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
-        rmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
+
+
+def _kstep_rows(k, d, dev, with_errors):
+    """The zeroed (k, D) error rows a k-step kernel combines into (None,
+    None without errors)."""
+    if not with_errors:
+        return None, None
+    return tuple(torch.zeros((k, d), dtype=torch.int32, device=dev)
+                 for _ in range(2))
+
+
+def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
+                sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
+                with_errors, tile=None):
+    """Launch csrc/kstep_pipe.cu's pipeline (K3 or K8, counted under
+    `counter`) after checking every operand.  `tile` (seg, ty, tz) replaces
+    `kstep_pipe_tile`'s (the A/B of kernels/tile_ab.py; the results do not
+    depend on it)."""
+    _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
+                          sxct, k=k, c2tau2_block=c2tau2_block,
+                          c2_ghosts=c2_ghosts, with_errors=with_errors)
+    d, n = u.shape[0], u.shape[1]
+    seg, ty, tz = tile or kstep_pipe_tile(k, d)
+    if (d % seg or seg > _KPIPE_SEG
+            or (ty + 2 * k) * (tz + 2 * k) > pipe_max_threads(k)):
+        raise ValueError(f"tile {(seg, ty, tz)} does not fit depth {d} and "
+                         f"k={k}")
+    dmax, rmax = _kstep_rows(k, d, u.device, with_errors)
+    prev_out = torch.empty_like(u)
+    out = torch.empty_like(u)
+    c2g = (None, None) if c2tau2_block is None else c2_ghosts
+    with torch.cuda.device(u.device):
+        _run(_kstep_pipe_lib().wt_kstep_pipe, u_prev.data_ptr(),
+             prev_ghosts[0].data_ptr(), prev_ghosts[1].data_ptr(),
+             u.data_ptr(), cur_ghosts[0].data_ptr(),
+             cur_ghosts[1].data_ptr(), prev_out.data_ptr(), out.data_ptr(),
+             _ptr(c2tau2_block), _ptr(c2g[0]), _ptr(c2g[1]),
+             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
+               if with_errors else (None, None, None)),
+             _ptr(dmax), _ptr(rmax), d, n, n, n, 0, k, seg, ty, tz,
+             _CODE[u.dtype], float(coeff if c2tau2_block is None else 0.0),
+             *(float(h) for h in inv_h2))
+    launches[counter if c2tau2_block is None else counter + "_field"] += 1
+    if with_errors:
+        # The kernel combined the rows as the bits of non-negative floats.
+        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
+    return prev_out, out, dmax, rmax
+
+
+def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
+                 rsyz, sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
+                 with_errors):
+    """Launch csrc/sharded.cu's chain kernel (K9, counted under `counter`)
+    after checking every operand."""
+    _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
+                          sxct, k=k, c2tau2_block=c2tau2_block,
+                          c2_ghosts=c2_ghosts, with_errors=with_errors)
+    d, n = u.shape[0], u.shape[1]
+    dev = u.device
+    dmax, rmax = _kstep_rows(k, d, dev, with_errors)
     tx, ty, tz = kstep_tile(k, d)
     prev_out = torch.empty_like(u)
     out = torch.empty_like(u)
@@ -966,7 +1046,8 @@ def fused_kstep_sharded(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz, sxct,
     u_{n+k}, dmax, rmax) with (k, N/MX) rows (None without `with_errors`).
     With `c2tau2_block` and its ghost pair `c2_ghosts` the variable-c
     substep runs and `coeff` is ignored.  k must divide the shard depth;
-    on the card f32 or bf16 state, 1 <= k <= 8."""
+    on the card f32 or bf16 state, 1 <= k <= 8, launched on
+    csrc/kstep_pipe.cu's pipeline (`_kstep_pipe`)."""
     if u.shape[0] % k:
         raise ValueError(f"k={k} must divide the shard depth {u.shape[0]}")
     kw = dict(k=k, coeff=coeff, inv_h2=inv_h2, c2tau2_block=c2tau2_block,
@@ -974,8 +1055,8 @@ def fused_kstep_sharded(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz, sxct,
     if u.device.type == "cpu":
         return fused_kstep_sharded_plain(u_prev, u, prev_ghosts, cur_ghosts,
                                          syz, rsyz, sxct, **kw)
-    return _kstep_chain("kstep_sharded", u_prev, u, u.shape[0], prev_ghosts,
-                        cur_ghosts, syz, rsyz, sxct, **kw)
+    return _kstep_pipe("kstep_sharded", u_prev, u, prev_ghosts, cur_ghosts,
+                       syz, rsyz, sxct, **kw)
 
 
 def fused_kstep_padded_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,

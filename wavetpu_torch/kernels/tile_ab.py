@@ -1,74 +1,41 @@
-"""A/B timing of the k-step kernels' tiles on the card.
+"""A/B timing of the k-step pipelines' tiles on the card.
 
     python -m wavetpu_torch.kernels.tile_ab [--n 512] [--reps 30]
-                                            [--parts tx,pipe]
-
-Part `tx`: csrc/kstep.cu (K3) instantiates its k-step kernel twice per
-k: with the tile depth tx fixed at compile time (tx = kMaxTx = 8, what the
-main path launches) and with tx read at run time (any other tx).  This
-script builds the source as it is (A) and a copy whose dispatch always
-takes the run-time instantiation (B), holds B's outputs bitwise against
-A's, and times both at N in the order A, B, B, A: K3 with an f32 state at
-k=4, error rows on.
+                                            [--parts pipe,kpipe]
 
 Part `pipe`: the x-streaming pipeline of K4, K11 and K12
 (csrc/comp_sharded.cu) as K11 on the main path's mesh-4,1,1 block (N/4,
 N, N), k=4, f32 u/v, a bf16 carry, rows on (and K11f rows off): its
 segment length L and its y/z face, each against the default tile
-(`comp_pipe_tile`) in the order default, other, other, default; and the
-carry slab's depth block_x (8, 16, 32, 64: L and the slab cap) for K11
-and for K4 on the whole (N, N, N) state.  Every variant's outputs are
-held bitwise against the plain version's.
+(`comp_pipe_tile`); and the carry slab's depth block_x (8, 16, 32, 64: L
+and the slab cap) for K11 and for K4 on the whole (N, N, N) state.
 
-Times: median of `reps` launches each, CUDA events.  It prints the card's
-name and power limit and one JSON line of the times.  Needs a CUDA device
-and nvcc.
+Part `kpipe`: the standard pipeline of K3 and K8 (csrc/kstep_pipe.cu) as
+K3 on the whole (N, N, N) state and K8 on a mesh-4,1,1 block (N/4, N, N),
+k=4, f32, rows on (K8f: the field, rows off): its segment length L (8,
+16, 32, 64 against the default 128) and its y/z face, each against the
+default tile (`kstep_pipe_tile`).
+
+Each comparison runs default, other, other, default; each run is the
+median of `reps` launches (CUDA events), and the printed ratio is the
+mean of the two `other` runs over the mean of the two default runs.
+Every variant's outputs are held bitwise against the plain version's.
+It prints the card's name and power limit and one JSON line of the
+times.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
 import subprocess
-import time
 
 import torch
 
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import build, stencil_cuda
 from wavetpu_torch.solver import kfused
-
-_FIXED = "return tx == kMaxTx"
-_RUNTIME = "return false"
-
-
-def _build_variants(sources) -> dict:
-    """{(source, 'A'): library of the source, (source, 'B'): its
-    run-time-tx-only copy}, every nvcc started at once."""
-    out = build.build_dir() / "tile_ab"
-    out.mkdir(parents=True, exist_ok=True)
-    paths = {}
-    for name in sources:
-        src = (build.CSRC / f"{name}.cu").read_text()
-        if src.count(_FIXED) != 1:
-            raise RuntimeError(f"csrc/{name}.cu: tile dispatch not found")
-        (out / f"{name}_runtime_tx.cu").write_text(
-            src.replace(_FIXED, _RUNTIME))
-        paths[name, "A"] = build.CSRC / f"{name}.cu"
-        paths[name, "B"] = out / f"{name}_runtime_tx.cu"
-    procs = {
-        key: subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS,
-                               "-I", str(build.CSRC), "-o",
-                               str(out / f"{key[0]}_{key[1]}.so"), str(p)])
-        for key, p in paths.items()
-    }
-    for key, p in procs.items():
-        if p.wait() != 0:
-            raise RuntimeError(f"nvcc failed for variant {key}")
-    return {key: ctypes.CDLL(str(out / f"{key[0]}_{key[1]}.so"))
-            for key in paths}
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -98,50 +65,11 @@ def _abba(label, fn_a, fn_b, reps, result) -> None:
     runs = [[name, _median_ms(fn, reps)]
             for name, fn in (("A", fn_a), ("B", fn_b), ("B", fn_b),
                              ("A", fn_a))]
-    result[label] = runs
-    print(f"{label}: median ms {runs}", flush=True)
-
-
-def _tx_part(n, reps, result) -> None:
-    t0 = time.perf_counter()
-    libs = _build_variants(("kstep",))
-    print(f"built A and B of kstep.cu in "
-          f"{time.perf_counter() - t0:.1f} s")
-    p = Problem(N=n, timesteps=1000)
-    g = torch.Generator().manual_seed(0)
-
-    def field(scale, dtype=torch.float32):
-        a = torch.randn((n, n, n), generator=g) * scale
-        a[:, 0, :] = 0.0
-        a[:, :, 0] = 0.0
-        return a.to("cuda", dtype)
-
-    u, up = field(1.0), field(1.0)
-    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, "cuda")
-
-    k = 4
-    sxct = ct[2:2 + k][:, None] * sx[None, :]
-
-    def fn():
-        return stencil_cuda.fused_kstep(up, u, syz, rsyz, sxct, k=k,
-                                        coeff=p.a2tau2, inv_h2=p.inv_h2)
-
-    def use(variant):
-        build._libs["kstep"] = libs["kstep", variant]
-
-    outs = {}
-    for variant in ("A", "B"):
-        use(variant)
-        outs[variant] = fn()
-    label = f"K3 k={k}"
-    _equal(f"{label} A vs B", outs["A"], outs["B"])
-    runs = []
-    for variant in ("A", "B", "B", "A"):
-        use(variant)
-        runs.append([variant, _median_ms(fn, reps)])
-    use("A")
-    result[label] = runs
-    print(f"{label} N={n}: A and B bitwise equal; median ms {runs}")
+    a_ms = (runs[0][1] + runs[3][1]) / 2
+    b_ms = (runs[1][1] + runs[2][1]) / 2
+    result[label] = dict(runs=runs, a_ms=a_ms, b_ms=b_ms,
+                         b_over_a=b_ms / a_ms)
+    print(f"{label}: median ms {runs}; B/A {b_ms / a_ms:.4f}", flush=True)
 
 
 def _pipe_part(n, reps, result) -> None:
@@ -220,20 +148,81 @@ def _pipe_part(n, reps, result) -> None:
         _abba(f"K4 block_x={bx} vs block_x=32", ref4, k4(bx), reps, result)
 
 
+def _kpipe_part(n, reps, result) -> None:
+    k = 4
+    build.build_all()
+    p = Problem(N=n, timesteps=1000)
+    g = torch.Generator().manual_seed(2)
+
+    def rand(shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to("cuda")
+
+    def c2(shape):
+        return p.a2tau2 * (0.5 + torch.rand(shape, generator=g)).to("cuda")
+
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, "cuda")
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2)
+    cases = {}
+    # K3: the whole state, its windows the wrap planes.
+    up, u = rand((n, n, n)), rand((n, n, n))
+    sxct = (ct[2:2 + k][:, None] * sx[None, :]).contiguous()
+    args = (up, u, stencil_cuda.wrap_planes(up, k),
+            stencil_cuda.wrap_planes(u, k), syz, rsyz, sxct)
+    cases["K3"] = ("kstep", args, dict(kw, c2tau2_block=None,
+                                       c2_ghosts=None, with_errors=True),
+                   lambda: stencil_cuda.fused_kstep_plain(
+                       up, u, syz, rsyz, sxct, **kw))
+    # K8 and K8f: a mesh-4,1,1 block and synthetic ghost windows.
+    d = n // 4
+    bp, bu = rand((d, n, n)), rand((d, n, n))
+    wins = ((rand((k, n, n)), rand((k, n, n))),
+            (rand((k, n, n)), rand((k, n, n))))
+    fld, fg = c2((d, n, n)), (c2((k, n, n)), c2((k, n, n)))
+    sxd = (ct[2:2 + k][:, None] * sx[None, :d]).contiguous()
+    args8 = (bp, bu, *wins, syz, rsyz, sxd)
+    for name, field in (("K8", False), ("K8f", True)):
+        kw8 = dict(kw, c2tau2_block=fld if field else None,
+                   c2_ghosts=fg if field else None, with_errors=not field)
+        cases[name] = ("kstep_sharded", args8, kw8,
+                       lambda kw8=kw8: stencil_cuda.fused_kstep_sharded_plain(
+                           *args8, **kw8))
+
+    def launch(name, tile=None):
+        counter, a, kwa, plain = cases[name]
+
+        def fn():
+            return stencil_cuda._kstep_pipe(counter, *a, tile=tile, **kwa)
+        _equal(f"{name} tile={tile}", fn(), plain())
+        return fn
+
+    for name in cases:
+        d_ = cases[name][1][1].shape[0]
+        base = stencil_cuda.kstep_pipe_tile(k, d_)
+        _, ty, tz = base
+        ref = launch(name)
+        for seg in (8, 16, 32, 64, 128):
+            if seg != base[0] and d_ % seg == 0:
+                _abba(f"{name} L={seg} vs L={base[0]}", ref,
+                      launch(name, (seg, ty, tz)), reps, result)
+        for face in ((16, 24), (8, 24), (24, 8), (4, 56), (12, 12)):
+            _abba(f"{name} face={face} vs face={(ty, tz)}", ref,
+                  launch(name, (base[0],) + face), reps, result)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--parts", default="tx,pipe")
+    ap.add_argument("--parts", default="pipe,kpipe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tile_ab needs a CUDA device")
     result = {}
     parts = args.parts.split(",")
-    if "tx" in parts:
-        _tx_part(args.n, args.reps, result)
     if "pipe" in parts:
         _pipe_part(args.n, args.reps, result)
+    if "kpipe" in parts:
+        _kpipe_part(args.n, args.reps, result)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -43,7 +43,7 @@ from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.solver import leapfrog
 from wavetpu_torch.verify import oracle
 
-# The K3 kernel's cone tile holds k <= 8 (stencil_cuda.kstep_tile).
+# The K3 kernel's pipeline takes k <= 8 (stencil_cuda.kstep_pipe_tile).
 MAX_K = 8
 
 

@@ -57,7 +57,7 @@ from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.solver import kfused, leapfrog
 
-MAX_K = 8  # the cone tile of K8/K9 (stencil_cuda.kstep_tile)
+MAX_K = 8  # K8's pipeline and K9's cone tile (stencil_cuda)
 
 
 def _is_even(problem: Problem, k: int, n_x: int) -> bool:
