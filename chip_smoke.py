@@ -23,7 +23,9 @@ without them or when any phase fails.  Phases:
                = 1, 4, 8, of one 96-plane and of two 128-plane x
                segments, K3 at N = 200, whose y and z extents are no
                multiple of the y/z face and whose segments are 100
-               planes), K10/K10f
+               planes, K9 with its real planes ending inside a segment,
+               on a segment boundary and below k, and on a depth of two
+               overlapping segments), K10/K10f
                (k = 1, 2, 4, 8; f32 and bf16; rows and field on and off;
                the first and the last y shard, nl_y = k), K11/K11f and
                K12/K12f (k = 1, 2, 4, 8; K4's four storage modes; rows and
@@ -117,7 +119,7 @@ without them or when any phase fails.  Phases:
                3 launches), and each kernel's bound: the bytes it must
                move over the card's memory rate vs its f32 operations over
                the card's f32 rate; the pipelines' times at k=4 (K3, K3f,
-               K8, K8f on kstep_pipe.cu; K4, K4f, K11, K11f, K12, K12f on
+               K8-K10f on kstep_pipe.cu; K4, K4f, K11, K11f, K12, K12f on
                comp_sharded.cu) beside the replaced cone kernels' and
                their own times recorded in PERF.md (the phase fails if
                one is more than 8% over its recorded time), K4 and
@@ -223,23 +225,25 @@ KERNELS = {
                 what="_kstep_sharded_kernel has_field: k variable-c "
                      "substeps (k=4, mesh 4,1,1, rows off)",
                 run="sharded_kfused_411_varc"),
-    "K9": dict(counter="kstep_padded", source=f"{CSRC}/sharded.cu",
+    "K9": dict(counter="kstep_padded", source=f"{CSRC}/kstep_pipe.cu",
                replaces=f"{PALLAS}:1782",
                what="_kstep_padded_kernel: pad-and-mask k substeps + rows "
                     "(k=4, N=510 on one shard)",
                run="uneven_kfused"),
-    "K9f": dict(counter="kstep_padded_field", source=f"{CSRC}/sharded.cu",
+    "K9f": dict(counter="kstep_padded_field",
+                source=f"{CSRC}/kstep_pipe.cu",
                 replaces=f"{PALLAS}:1782",
                 what="_kstep_padded_kernel has_field: pad-and-mask "
                      "variable-c substeps (k=4, N=510 mesh 4,1,1, rows off)",
                 run="sharded_uneven_411_varc"),
-    "K10": dict(counter="kstep_sharded_xy", source=f"{CSRC}/kstep_xy.cu",
+    "K10": dict(counter="kstep_sharded_xy",
+                source=f"{CSRC}/kstep_pipe.cu",
                 replaces=f"{PALLAS}:1972",
                 what="_kstep_sharded_xy_kernel: k substeps of a y-extended "
                      "block + rows (k=4, mesh 2,2,1)",
                 run="sharded_kfused_221"),
     "K10f": dict(counter="kstep_sharded_xy_field",
-                 source=f"{CSRC}/kstep_xy.cu", replaces=f"{PALLAS}:1593",
+                 source=f"{CSRC}/kstep_pipe.cu", replaces=f"{PALLAS}:1593",
                  what="_kstep_sharded_xy_kernel has_field: k variable-c "
                       "substeps (k=4, mesh 2,2,1, rows off)",
                  run="sharded_kfused_221_varc"),
@@ -348,19 +352,21 @@ ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
                "sharded_kfused_221": 5e-3, "sharded_flagship_411": 2e-5,
                "sharded_flagship_221": 2e-5}
 # The phase-6 times of the pipelines at k=4 as recorded in PERF.md §6
-# (NVIDIA H100 80GB HBM3, 700.00 W; launches back to back): K3-K8f on
+# (NVIDIA H100 80GB HBM3, 700.00 W; launches back to back): K3-K10f on
 # kstep_pipe.cu's, K4-K12f on comp_sharded.cu's.  Phase 6 fails if a
 # kernel times more than GUARD_SLACK over its recorded time.
 GUARD_MS = {"K3": 4.4214, "K3f": 4.0705, "K8": 1.1942, "K8f": 1.0910,
+            "K9": 4.0484, "K9f": 0.9427, "K10": 1.1937, "K10f": 1.0897,
             "K4": 4.5978, "K4f": 4.2447, "K11": 1.1835, "K11f": 1.0900,
             "K12": 1.1765, "K12f": 1.0886}
 GUARD_SLACK = 0.08
 # The phase-6 times of the cone kernels that the pipelines replaced, as
 # recorded in PERF.md (same card and limit; k=4, the main-path shapes;
-# K3-K8f launched back to back, K4-K12f isolated launches), printed beside
+# K3-K10f launched back to back, K4-K12f isolated launches), printed beside
 # this run's times.
 CONE_MS = {"K3": 5.7130, "K3f": 6.1087, "K4": 7.6665, "K4f": 6.1981,
-           "K8": 1.6131, "K8f": 2.1786, "K11": 2.2481, "K11f": 2.7473,
+           "K8": 1.6131, "K8f": 2.1786, "K9": 6.3452, "K9f": 2.1011,
+           "K10": 1.6122, "K10f": 2.1153, "K11": 2.2481, "K11f": 2.7473,
            "K12": 2.1770, "K12f": 2.7102}
 DEV = "cuda"
 CLI_EXTRA = []  # the CLI's default platform is the GPU
@@ -686,6 +692,16 @@ def phase_sharded_kernels(errs):
                     check_chain("K9" + f, 32, 127, k, 31, dt, rows, field,
                                 errs)
     check_chain("K9", 128, 127, K, 127, torch.float32, True, False, errs)
+    # K9 on the pipeline: the real planes ending inside a segment (150 of
+    # two 100-plane segments) and on a segment boundary (100), below k (3:
+    # the hi window then holds planes of two shards), and a depth of two
+    # 101-plane segments that overlap by one plane (201, 199 real).
+    for d, n_real in ((200, 150), (200, 100), (32, 3), (201, 199)):
+        for dt in (torch.float32, torch.bfloat16):
+            for rows in (True, False):
+                for field in (False, True):
+                    check_chain("K9" + ("f" if field else ""), d, 128, K,
+                                n_real, dt, rows, field, errs)
     # K8's pipeline (csrc/kstep_pipe.cu): blocks as deep as k (one segment
     # of k planes), of one 96-plane and of two 128-plane segments.
     for rows in (True, False):
@@ -1425,19 +1441,20 @@ def phase_times_sharded(rate):
     return times
 
 
-def cone_registers(logs):
+def pipe_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
-    main-path instantiations, from the verbose build log: the pipeline of
-    K3 and K8 at k=4 (f32, without and with a field) and k=1, the cone
-    kernels K9 and K10 at k=4 (f32, depth-8 tile), and the pipeline of K4
-    and K11/K12 at k=4 (f32 v, bf16 carry, without and with a field) and
-    k=1."""
+    main-path instantiations, from the verbose build log: the standard
+    pipeline of K3, K8 and K10 at k=4 (f32, without and with a field) and
+    k=1, its pad mode (K9 on a block with pad planes) alike, and the
+    compensated pipeline of K4 and K11/K12 at k=4 (f32 v,
+    bf16 carry, without and with a field) and k=1."""
     want = {
-        "K3/K8 k=4": "17kstep_pipe_kernelILi4EfLb0EE",
-        "K3f/K8f k=4": "17kstep_pipe_kernelILi4EfLb1EE",
-        "K3/K8 k=1": "17kstep_pipe_kernelILi1EfLb0EE",
-        "K9 k=4": "18kstep_chain_kernelILi4ELi8EfE",
-        "K10 k=4": "15kstep_xy_kernelILi4ELi8EfE",
+        "K3/K8/K10 k=4": "17kstep_pipe_kernelILi4EfLb0ELb0EE",
+        "K3f/K8f/K10f k=4": "17kstep_pipe_kernelILi4EfLb1ELb0EE",
+        "K3/K8/K10 k=1": "17kstep_pipe_kernelILi1EfLb0ELb0EE",
+        "K9 k=4": "17kstep_pipe_kernelILi4EfLb0ELb1EE",
+        "K9f k=4": "17kstep_pipe_kernelILi4EfLb1ELb1EE",
+        "K9 k=1": "17kstep_pipe_kernelILi1EfLb0ELb1EE",
         "K4/K11/K12 k=4":
             "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0EE",
         "K4f/K11f/K12f k=4":
@@ -1487,7 +1504,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
-    registers = cone_registers(logs)
+    registers = pipe_registers(logs)
     print(f"  built {sorted(logs)} in {build_s:.1f} s; k-step kernels' "
           f"registers: {registers}")
     t = done("build", t0)
@@ -1562,7 +1579,7 @@ def main() -> int:
         "card": card, "device": dev_name, "mem_rate_bytes_per_s": rate,
         "build_seconds": build_s,
         "phase_seconds": phase_s,
-        "cone_registers": registers,
+        "pipe_registers": registers,
         **{label: {k: side[k] for k in keys} for label, side in sides.items()},
         "launches": counts,
         "accuracy": accuracy,

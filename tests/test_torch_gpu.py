@@ -387,8 +387,8 @@ def chain_case(cuda, d, n, k, dtype, seed):
     return p, syz, rsyz, sxct, up, u, gh, fld, fg
 
 
-# (D, N, k): D = 8 and 16 take the depth-8 tile, 12, 14 and 15 a run-time
-# one.
+# (D, N, k): every k, depths of one segment (kstep_pipe_tile's seg = D),
+# N = D and N not a multiple of the 24 x 24 face.
 @pytest.mark.parametrize("d,n,k", [(16, 32, 1), (8, 16, 2), (12, 24, 3),
                                    (16, 32, 4), (15, 15, 5), (12, 36, 6),
                                    (14, 16, 7), (8, 48, 8)])
@@ -465,6 +465,92 @@ def test_k3_k8_pipeline_tiles(cuda, tile, kernel, dtype, with_field):
                    c2tau2_field=fld if with_field else None)
         equal(got, stencil_cuda.fused_kstep_plain(up, u, syz, rsyz, sxct,
                                                   **kw3))
+
+
+# (seg, ty, tz) tiles of K9 and K10 on the pipeline beside kstep_pipe_tile's
+# (128, 24, 24): segments 64 to 8, 48 (not dividing D = 128: the last
+# segment overlaps the one before), and K11/K12's faces.  K9 with its real
+# planes ending inside a segment (100) and on a segment boundary (96), N =
+# 40; K10 on the last y shard of N = 128 with 20 central rows, not a
+# multiple of ty (the face overhangs the extension).
+K9_K10_TILES = [(128, 24, 24), (64, 24, 24), (48, 24, 24), (32, 24, 24),
+                (16, 10, 12), (8, 3, 5), (64, 7, 24), (32, 24, 8)]
+
+
+@pytest.mark.parametrize("tile", K9_K10_TILES)
+@pytest.mark.parametrize("kernel", ["K9 n_real=100", "K9 n_real=96", "K10"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_k9_k10_pipeline_tiles(cuda, tile, kernel, dtype, with_field):
+    d, k = 128, 4
+    if kernel == "K10":
+        n, ny, y0 = 128, 20, 108
+        p, planes, sxct, (up, u), gh, fld, fg = xy_case(cuda, d, n, k, ny,
+                                                        y0, dtype, 110)
+        args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), *planes, sxct)
+    else:
+        n, n_real = 40, int(kernel.split("=")[1])
+        p, syz, rsyz, sxct, up, u, gh, fld, fg = chain_case(cuda, d, n, k,
+                                                            dtype, 100)
+        args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, with_errors=True,
+              c2_ghosts=tuple(fg) if with_field else None)
+    fld = fld if with_field else None
+    if kernel == "K10":
+        got = stencil_cuda._kstep_pipe("kstep_sharded_xy", *args, tile=tile,
+                                       c2tau2_block=fld, y0=y0, nl_y=ny,
+                                       **kw)
+        want = stencil_cuda.fused_kstep_sharded_xy_plain(
+            *args, y0, n, nl_y=ny, c2tau2_ext=fld, **kw)
+    else:
+        got = stencil_cuda._kstep_pipe("kstep_padded", *args, tile=tile,
+                                       c2tau2_block=fld, n_real=n_real, **kw)
+        want = stencil_cuda.fused_kstep_padded_plain(
+            up, u, n_real, *args[2:], c2tau2_block=fld, **kw)
+        assert not got[1][n_real:].any() and not got[2][:, n_real:].any()
+    equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_k9_k10_read_their_chains_in_place(cuda, kernel, with_field):
+    # The launch allocates its two outputs and the rows, nothing more: no
+    # extended chain (K9's [lo | block[:n_real] | hi | 0], K10's x windows
+    # spliced onto the extended block) is assembled.
+    d, n, k = 64, 64, 4
+    if kernel == "K9":
+        p, syz, rsyz, sxct, up, u, gh, fld, fg = chain_case(
+            cuda, d, n, k, torch.float32, 120)
+        args = (up, u, 50, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct)
+        kw = dict(c2tau2_block=fld if with_field else None,
+                  c2_ghosts=tuple(fg) if with_field else None)
+        fn, plain = (stencil_cuda.fused_kstep_padded,
+                     stencil_cuda.fused_kstep_padded_plain)
+        out_cells = d * n * n
+    else:
+        ny, y0 = 32, 32
+        p, planes, sxct, (up, u), gh, fld, fg = xy_case(
+            cuda, d, n, k, ny, y0, torch.float32, 130)
+        args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), *planes, sxct, y0, n)
+        kw = dict(nl_y=ny, c2tau2_ext=fld if with_field else None,
+                  c2_ghosts=fg if with_field else None)
+        fn, plain = (stencil_cuda.fused_kstep_sharded_xy,
+                     stencil_cuda.fused_kstep_sharded_xy_plain)
+        out_cells = d * ny * n
+    kw.update(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2)
+    before = [t.clone() for t in (up, u, *gh)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    out_bytes = 2 * out_cells * 4
+    window = k * up.shape[1] * n * 4
+    assert out_bytes <= grown < out_bytes + window
+    for t, t0 in zip((up, u, *gh), before):
+        assert torch.equal(t, t0)
+    equal(got, plain(*args, **kw))
 
 
 @pytest.mark.parametrize("k", range(1, 9))
@@ -626,8 +712,7 @@ def xy_case(cuda, d, n, k, ny, y0, dtype, seed, whole=False):
 
 
 # (D, N, k, nl_y, y0): the last shard's y0 = N - nl_y, the first's 0, and
-# nl_y = k (a ghost strip spans a whole neighbour block); D = 8 and 16 take
-# the depth-8 tile, 12, 15 and 6 a run-time one.
+# nl_y = k (a ghost strip spans a whole neighbour block); every k.
 XY_CASES = [(8, 16, 2, 8, 8), (8, 16, 4, 4, 12), (12, 24, 3, 6, 0),
             (16, 32, 1, 16, 16), (15, 15, 5, 5, 10), (6, 36, 6, 9, 27),
             (14, 16, 7, 8, 0), (8, 48, 8, 8, 40)]

@@ -300,12 +300,20 @@ class TestK4Plain:
 
     @pytest.mark.parametrize("n,k", [(512, 4), (512, 1), (16, 2), (15, 3), (64, 8)])
     def test_default_block_and_tile(self, n, k):
+        # The carry slab and the compensated pipeline's tile on it (K4),
+        # and the standard pipeline's tile on the whole depth (K3): a
+        # segment inside the slab, one thread per halo-face column, the
+        # rings in shared memory.
         bx = stencil_cuda.default_block_x(n, k)
         assert n % bx == 0 and bx % k == 0
-        tx, ty, tz = stencil_cuda.kstep_tile(k, bx)
-        assert bx % tx == 0 and tx <= 8 and ty >= 2
-        assert (ty + 2 * k) * (tz + 2 * k) <= 640  # one thread per column
-        assert 2 * (tx + 2 * k) * 640 * 4 <= 227 * 1024  # shared memory
+        seg, ty, tz = stencil_cuda.comp_pipe_tile(k, bx)
+        assert bx % seg == 0 and seg <= 32 and ty >= 1 and tz >= 1
+        assert (ty + 2 * k) * (tz + 2 * k) <= stencil_cuda.pipe_max_threads(k)
+        assert stencil_cuda.comp_pipe_smem(k, ty, tz) <= 227 * 1024
+        seg, ty, tz = stencil_cuda.kstep_pipe_tile(k, n)
+        assert seg <= min(n, 128) and -(-n // seg) == -(-n // 128)
+        assert (ty + 2 * k) * (tz + 2 * k) <= stencil_cuda.pipe_max_threads(k)
+        assert stencil_cuda.kstep_pipe_smem(k, ty, tz) <= 227 * 1024
 
     def test_invalid_block_raises(self):
         syz, rsyz, sxct = _oracle_inputs(4)

@@ -1,5 +1,5 @@
-// K3 and K8: k standard leapfrog substeps of the whole state or of one
-// x-sharded block - the hand-written Hopper (sm_90a) counterparts of
+// K3, K8, K9 and K10: k standard leapfrog substeps of the whole state or
+// of one shard block - the hand-written Hopper (sm_90a) counterparts of
 // wavetpu's Pallas kernels (wavetpu/kernels/stencil_pallas.py):
 //
 //   K3   kstep_pipe_kernel, d == n, windows = the state's own wrap planes
@@ -8,12 +8,26 @@
 //   K8   kstep_pipe_kernel, d == n / MX    <- _kstep_sharded_kernel
 //                                             (fused_kstep_sharded),
 //                                             field: _sharded_field_onion
+//   K9   kstep_pipe_kernel, n_real <= d    <- _kstep_padded_kernel
+//                                             (fused_kstep_padded),
+//                                             field: ext_c2
+//   K10  kstep_pipe_kernel, py == ny + 2k  <- _kstep_sharded_xy_kernel
+//                                             (fused_kstep_sharded_xy),
+//                                             field: _sharded_field_onion
 //
 // u_prev and u (and a field) reach their x neighbours through the chain
-// lo window | block | hi window (csrc/plane.cuh `Chain`), read in place:
-// K8's windows are the x neighbour shards' k-plane ghost windows, K3's the
-// state's own last and first k planes (views, no copy), so K3 is K8 over
-// the whole state.  y and z are whole and wrap.
+// lo window | block[:n_real] | hi window | zero, read in place
+// (`pad_chain_pos`): K8's windows are the x neighbour shards' k-plane
+// ghost windows, K3's the state's own last and first k planes (views, no
+// copy), so K3 is K8 over the whole state.  K9, the pad-and-mask block of
+// an uneven x split, owns n_real real planes: its hi window follows plane
+// n_real - 1, the chain is zero past it, and its outputs and error rows
+// are zero at the pad planes (the TPU kernel's extended array [lo | block
+// with hi spliced at n_real | junk], with no extended copy); K3, K8 and
+// K10 pass n_real = d.  The y mode is read at run time (csrc/plane.cuh
+// `plane_cone`, as comp_sharded.cu's): whole y rows that wrap (K3, K8,
+// K9), or K10's block extended by k ghost rows per y side (py == ny + 2k)
+// with central outputs and the wrapped global-row mask.
 //
 // Each substep is op for op K1's update (csrc/stencil.cu, step_kernel with
 // (alpha, beta) = (2, 1)):
@@ -31,7 +45,7 @@
 //
 // Bound: bytes.  Per launch u_prev and u (and their windows) read once and
 // (u_{n+k-1}, u_{n+k}) written once: 16 B per output cell for f32, 8 for
-// bf16, plus 4 for an f32 field.
+// bf16, plus 4 for an f32 field (K10: plus the 2k extension rows read).
 //
 // Design: the standard-scheme counterpart of comp_sharded.cu's x-streaming
 // pipeline (K4, K11, K12).  A block owns a (ty x tz) y/z output face and an
@@ -57,12 +71,13 @@
 //   * Loads: each thread loads the next plane's cells of its own column one
 //     step ahead into registers, kept as stored (a bf16 cell is widened
 //     only when stage 0 takes it).
-// Against the cone kernel it replaces (a tile of at most 8 x planes, the
-// column's u_prev and u for all 8 + 2k planes in registers, a 640-thread
-// block; the field looked up through the chain per cell and substep), at
-// k=4, L=128 (the default at N=512, stencil_cuda.kstep_pipe_tile) and a
-// 24x24 face: x loads 1.06x the output planes instead of 2x, the y/z halo
-// 1.78x instead of 2.5x, and the substeps' work ~1.3x instead of ~2.2x.
+// Against the cone kernels it replaces (K3's, K8's, K9's and K10's before:
+// a tile of at most 8 x planes, the column's u_prev and u for all 8 + 2k
+// planes in registers, a 640-thread block; the field looked up through the
+// chain per cell and substep), at k=4, L=128 (the default at N=512,
+// stencil_cuda.kstep_pipe_tile) and a 24x24 face: x loads 1.06x the output
+// planes instead of 2x, the y/z halo 1.78x instead of 2.5x, and the
+// substeps' work ~1.3x instead of ~2.2x.
 // Longer segments also shorten the pipeline's fill and drain (2k of the
 // L + 2k steps run fewer than k stages).
 //
@@ -70,14 +85,17 @@
 // the float bits into the warp's own shared slot, then after the next
 // step's barrier one warp per (substep, abs|rel) reduces the slots and adds
 // one atomicMax per block into the caller's zeroed (k, d) rows (max on the
-// bits of non-negative floats: a NaN wins).
+// bits of non-negative floats: a NaN wins); K9's pad planes add nothing,
+// so their rows stay zero.
 //
 // Built by wavetpu_torch/kernels/build.py with --fmad=false, beside the
-// other sources: 8 k x {f32, bf16} x field on/off = 32 instantiations.  The
+// other sources: 8 k x {f32, bf16} x field on/off x pad on/off = 64
+// instantiations (the pad mode is K9's with n_real < d).  The
 // entry point launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().  Wrappers, plain PyTorch
-// versions and launch counters: stencil_cuda.fused_kstep and
-// fused_kstep_sharded; the tile: stencil_cuda.kstep_pipe_tile.
+// versions and launch counters: stencil_cuda.fused_kstep,
+// fused_kstep_sharded, fused_kstep_padded and fused_kstep_sharded_xy; the
+// tile: stencil_cuda.kstep_pipe_tile.
 
 #include "plane.cuh"
 
@@ -99,6 +117,26 @@ namespace {
 // Threads per block (one per halo-face column): 1024 for k <= 4, fewer
 // above, where the per-stage registers (u x3, u_prev x2, field x2) add up
 // (stencil_cuda.pipe_max_threads).
+// Where chain plane xu (-k <= xu < d + k) of a column at plane offset `row`
+// lies in the chain lo window | block[:n_real] | hi window | zero: 0 the lo
+// window, 1 the block, 2 the hi window, 3 past it (a zero cell); `g` is the
+// cell's index in that array.  With n_real == d it is plane.cuh's
+// `chain_pos`.
+__device__ __forceinline__ int pad_chain_pos(int xu, int k, int n_real,
+                                             int64_t nn, int64_t row,
+                                             int64_t& g) {
+  if (xu < 0) {
+    g = (int64_t)(xu + k) * nn + row;
+    return 0;
+  }
+  if (xu < n_real) {
+    g = (int64_t)xu * nn + row;
+    return 1;
+  }
+  g = (int64_t)(xu - n_real) * nn + row;
+  return xu < n_real + k ? 2 : 3;
+}
+
 template <int K>
 struct StdThreads {
   static constexpr int value = K <= 4 ? 1024 : 640;
@@ -107,8 +145,13 @@ struct StdThreads {
 template <int PH>
 struct StdPhase {};
 
-// One thread's pipeline: its column, its operands and its registers.
-template <int K, typename T, bool HF>
+// One thread's pipeline: its column, its operands and its registers.  PAD
+// (K9) reads the chain through `pad_chain_pos` and zeroes the planes past
+// n_real; without it the chain is plane.cuh's `chain_pos` over the d
+// planes, so K3's, K8's and K10's instantiations carry none of it (a
+// run-time n_real costs them 4 registers at k=4 and makes the field form
+// spill).
+template <int K, typename T, bool HF, bool PAD>
 struct StdPipe {
   Chain<T> up;  // u_prev
   Chain<T> u;
@@ -119,6 +162,7 @@ struct StdPipe {
   unsigned* rmax;
   PlaneCone pc;
   int d, L;
+  int n_real;  // the block's real planes: outputs and rows past them are 0
   int reach;  // the last stage whose face holds this column (-1: padding)
   float coeff, ix, iy, iz, syz_c, rsyz_c;
   bool errors;  // error rows are wanted and this warp holds a central cell
@@ -136,7 +180,14 @@ struct StdPipe {
     const Cone& cn = pc.c;
     if (!cn.live) return;
     int64_t g;
-    const int w = chain_pos(cn.x1 - K + j, K, d, cn.nn, cn.row, g);
+    const int w =
+        PAD ? pad_chain_pos(cn.x1 - K + j, K, n_real, cn.nn, cn.row, g)
+            : chain_pos(cn.x1 - K + j, K, d, cn.nn, cn.row, g);
+    if (PAD && w == 3) {
+      nu = np = Conv<T>::from(0.0f);
+      nf = 0.0f;
+      return;
+    }
     nu = (w == 0 ? u.lo : (w == 1 ? u.blk : u.hi))[g];
     np = (w == 0 ? up.lo : (w == 1 ? up.blk : up.hi))[g];
     if (HF) nf = (w == 0 ? c2.lo : (w == 1 ? c2.blk : c2.hi))[g];
@@ -161,13 +212,15 @@ struct StdPipe {
 
   // Flush the rows reduced at step t (parity q) into dmax / rmax: warp w
   // takes (stage, abs|rel) pairs w, w + warps, ..., reduces the warps'
-  // slots and adds one atomicMax per block.  Call after a barrier that
-  // follows step t.
+  // slots and adds one atomicMax per block; a pad plane's rows stay as the
+  // caller zeroed them.  Call after a barrier that follows step t.
   __device__ __forceinline__ void flush(int q, int t) {
     const int lane = pc.c.tid & 31, warps = (blockDim.x + 31) >> 5;
     for (int pair = pc.c.tid >> 5; pair < 2 * K; pair += warps) {
       const int s = (pair >> 1) + 1, which = pair & 1, p = t - s;
-      if (p < K || p >= K + L) continue;  // uniform across the warp
+      // uniform across the warp
+      if (p < K || p >= K + L || (PAD && pc.c.x1 - K + p >= n_real))
+        continue;
       unsigned m = lane < warps ? std_wmax[q][s - 1][which][lane] : 0u;
       m = __reduce_max_sync(0xffffffffu, m);
       if (lane == 0) {
@@ -219,16 +272,18 @@ struct StdPipe {
         if (HF) F[s][r0] = F[s - 1][r1];
         if (cn.live) std_ring[(s * 2 + r0) * cn.cols + cn.tid] = o;
       } else if (cn.central) {
-        const int64_t g = (int64_t)(cn.x1 - K + p) * pc.onn + pc.orow;
-        prev_out[g] = Conv<T>::from(c);
-        out[g] = Conv<T>::from(o);
+        const int x = cn.x1 - K + p;
+        const bool real = !PAD || x < n_real;
+        const int64_t g = (int64_t)x * pc.onn + pc.orow;
+        prev_out[g] = Conv<T>::from(real ? c : 0.0f);
+        out[g] = Conv<T>::from(real ? o : 0.0f);
       }
       if (errors && p >= K && p < K + L) reduce(r0, s, p - K, o);
     }
   }
 };
 
-template <int K, typename T, bool HF>
+template <int K, typename T, bool HF, bool PAD>
 __global__ void __launch_bounds__(StdThreads<K>::value, 1)
 kstep_pipe_kernel(Chain<T> up, Chain<T> u, T* __restrict__ prev_out,
                   T* __restrict__ out, Chain<float> c2,
@@ -236,11 +291,15 @@ kstep_pipe_kernel(Chain<T> up, Chain<T> u, T* __restrict__ prev_out,
                   const float* __restrict__ rsyz,
                   const float* __restrict__ sxct,
                   unsigned* __restrict__ dmax, unsigned* __restrict__ rmax,
-                  int d, int n, int py, int ny, int y0, int seg, int ty,
-                  int tz, float coeff, float ix, float iy, float iz) {
-  StdPipe<K, T, HF> pp;
+                  int d, int n, int n_real, int py, int ny, int y0, int seg,
+                  int ty, int tz, float coeff, float ix, float iy,
+                  float iz) {
+  StdPipe<K, T, HF, PAD> pp;
   pp.L = seg;
   pp.pc = plane_cone(K, pp.L, ty, tz, n, py, ny, y0);
+  // The last segment ends at d: where seg does not divide d it starts at
+  // d - seg and remakes planes of the segment before it (the same bits).
+  pp.pc.c.x1 = min(pp.pc.c.x1, d - seg);
   const Cone& cn = pp.pc.c;
   pp.up = up;
   pp.u = u;
@@ -253,6 +312,7 @@ kstep_pipe_kernel(Chain<T> up, Chain<T> u, T* __restrict__ prev_out,
                            min(cn.lz, cn.ez - 1 - cn.lz))
                      : -1;
   pp.d = d;
+  pp.n_real = n_real;
   pp.coeff = coeff;
   pp.ix = ix;
   pp.iy = iy;
@@ -299,13 +359,13 @@ struct StdArgs {
   void *prev_out, *out;
   const void *c2, *c2lo, *c2hi, *syz, *rsyz, *sxct;
   void *dmax, *rmax;
-  int d, n, py, ny, y0, seg, ty, tz;
+  int d, n, n_real, py, ny, y0, seg, ty, tz;
   float coeff, ix, iy, iz;
 };
 
-template <int K, typename T, bool HF>
+template <int K, typename T, bool HF, bool PAD>
 int launch_std(const StdArgs& a, cudaStream_t stream) {
-  auto kern = kstep_pipe_kernel<K, T, HF>;
+  auto kern = kstep_pipe_kernel<K, T, HF, PAD>;
   const int cols = (a.ty + 2 * K) * (a.tz + 2 * K);
   const int threads = (cols + 31) / 32 * 32;
   if (threads > StdThreads<K>::value || a.seg > kStdMaxSeg)
@@ -315,7 +375,7 @@ int launch_std(const StdArgs& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.n + a.tz - 1) / a.tz, (a.ny + a.ty - 1) / a.ty,
-                  a.d / a.seg);
+                  (a.d + a.seg - 1) / a.seg);
   const Chain<T> up{static_cast<const T*>(a.uplo),
                     static_cast<const T*>(a.up),
                     static_cast<const T*>(a.uphi)};
@@ -328,20 +388,25 @@ int launch_std(const StdArgs& a, cudaStream_t stream) {
       up, u, static_cast<T*>(a.prev_out), static_cast<T*>(a.out), c2,
       static_cast<const float*>(a.syz), static_cast<const float*>(a.rsyz),
       static_cast<const float*>(a.sxct), static_cast<unsigned*>(a.dmax),
-      static_cast<unsigned*>(a.rmax), a.d, a.n, a.py, a.ny, a.y0, a.seg,
-      a.ty, a.tz, a.coeff, a.ix, a.iy, a.iz);
+      static_cast<unsigned*>(a.rmax), a.d, a.n, a.n_real, a.py, a.ny, a.y0,
+      a.seg, a.ty, a.tz, a.coeff, a.ix, a.iy, a.iz);
   return (int)cudaGetLastError();
+}
+
+template <int K, typename T>
+int launch_std_mode(const StdArgs& a, cudaStream_t st) {
+  const bool field = a.c2 != nullptr, pad = a.n_real < a.d;
+  if (pad)
+    return field ? launch_std<K, T, true, true>(a, st)
+                 : launch_std<K, T, false, true>(a, st);
+  return field ? launch_std<K, T, true, false>(a, st)
+               : launch_std<K, T, false, false>(a, st);
 }
 
 template <int K>
 int launch_std_dtype(int dtype, const StdArgs& a, cudaStream_t st) {
-  const bool field = a.c2 != nullptr;
-  if (dtype == WT_F32)
-    return field ? launch_std<K, float, true>(a, st)
-                 : launch_std<K, float, false>(a, st);
-  if (dtype == WT_BF16)
-    return field ? launch_std<K, __nv_bfloat16, true>(a, st)
-                 : launch_std<K, __nv_bfloat16, false>(a, st);
+  if (dtype == WT_F32) return launch_std_mode<K, float>(a, st);
+  if (dtype == WT_BF16) return launch_std_mode<K, __nv_bfloat16>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -349,34 +414,39 @@ int launch_std_dtype(int dtype, const StdArgs& a, cudaStream_t st) {
 
 extern "C" {
 
-// K3 and K8.  uprev and u (f32 or bf16, `dtype`): the block (d, py, n) and
-// their (k, py, n) x windows (lo: the k planes before the block, hi: the k
-// after); both outputs are the block's (d, ny, n) rows.  c2 is the f32
-// (d, py, n) field block with (k, py, n) f32 windows, or null.  dmax/rmax
-// are (k, d) uint32 rows zeroed by the caller, or null (then syz, rsyz -
-// the (ny, n) oracle planes - and sxct (k, d) are not read).  Whole y rows
-// only: py == ny == n, y0 = 0 (the arguments leave room for a y-extended
-// block, py == ny + 2k, as wt_kstep_comp_chain takes it).  1 <= k <= 8;
-// the segment length seg <= 128 divides d; (ty + 2k)(tz + 2k) columns fit
-// a block.
+// K3, K8, K9 and K10.  uprev and u (f32 or bf16, `dtype`): the block
+// (d, py, n) and their (k, py, n) x windows (lo: the k planes before the
+// block, hi: the k after its last real plane); both outputs are the
+// block's central (d, ny, n) rows.  Whole y rows (py == ny == n, y0 = 0;
+// K3, K8, K9) or the y-extended block (py == ny + 2k, 0 <= y0 < n, y0 the
+// global row of the first central row; K10).  1 <= n_real <= d planes are
+// real (K9; the others pass d): outputs and rows past them are zero.  c2
+// is the f32 (d, py, n) field block with (k, py, n) f32 windows, or null.
+// dmax/rmax are (k, d) uint32 rows zeroed by the caller, or null (then
+// syz, rsyz - the central (ny, n) oracle planes - and sxct (k, d) are not
+// read).  1 <= k <= 8; the segment length seg <= min(d, 128) (the last of
+// ceil(d / seg) segments ends at d); (ty + 2k)(tz + 2k) columns fit a
+// block.
 int wt_kstep_pipe(const void* uprev, const void* uplo, const void* uphi,
                   const void* u, const void* ulo, const void* uhi,
                   void* prev_out, void* out, const void* c2,
                   const void* c2lo, const void* c2hi, const void* syz,
                   const void* rsyz, const void* sxct, void* dmax,
-                  void* rmax, int d, int n, int py, int ny, int y0, int k,
-                  int seg, int ty, int tz, int dtype, double coeff,
-                  double ix, double iy, double iz, void* stream) {
+                  void* rmax, int d, int n, int n_real, int py, int ny,
+                  int y0, int k, int seg, int ty, int tz, int dtype,
+                  double coeff, double ix, double iy, double iz,
+                  void* stream) {
   const bool whole = py == ny && ny == n && y0 == 0;
-  if (seg < 1 || d % seg || k < 1 || k > kStdMaxK || !whole || ty < 1 ||
-      tz < 1)
+  const bool ext = py == ny + 2 * k && y0 >= 0 && y0 < n;
+  if (seg < 1 || seg > d || k < 1 || k > kStdMaxK || ny < 1 ||
+      !(whole || ext) || n_real < 1 || n_real > d || ty < 1 || tz < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const StdArgs a{uprev, uplo, uphi, u, ulo, uhi,
                   prev_out, out,
                   c2, c2lo, c2hi, syz, rsyz, sxct,
                   dmax, rmax,
-                  d, n, py, ny, y0, seg, ty, tz,
+                  d, n, n_real, py, ny, y0, seg, ty, tz,
                   (float)coeff, (float)ix, (float)iy, (float)iz};
 #define WT_K(KK) \
   case KK:       \

@@ -1,14 +1,13 @@
-// The cone geometry of the k-step kernels on a shard block whose planes may
-// be extended in y (K10 in kstep_xy.cu; the pipelines of K3/K8 in
-// kstep_pipe.cu and K4/K11/K12 in comp_sharded.cu), and the x chain they
-// read the block's x neighbours through.  csrc/common.cuh's
-// `cone_of_thread` (K9) stays as it is; this is its counterpart over a
-// (py, n) plane with a y offset.
+// The geometry of the k-step pipelines on a block whose planes may be
+// extended in y (kstep_pipe.cu: K3, K8, K9, K10; comp_sharded.cu: K4, K11,
+// K12), and the x chain they read the block's x neighbours through:
+// csrc/common.cuh's `Cone` over a (py, n) plane with a y offset.
 //
 // y geometry.  A block holds `ny` output rows of the global y range
 // [y0, y0 + ny) and its planes hold `py` rows:
 //   * py == ny: the whole y extent (ny = n, y0 = 0); the cone's rows wrap
-//     around the plane as the single-device kernels' do (K11);
+//     around the plane as the single-device kernels' do (K3, K4, K8, K9,
+//     K11);
 //   * py == ny + 2k: the y-extended block of a y-sharded mesh, k ghost rows
 //     of the y neighbours on each side of the ny central rows (K10, K12).
 //     No cone row of a central output needs a wrap there: a central row's
@@ -79,6 +78,8 @@ struct Chain {
 // Where chain plane xu (-k <= xu < d + k) of a column at plane offset
 // `row` lies: 0 the lo window, 1 the block, 2 the hi window; `g` is the
 // cell's index in that array.  Fields of one chain layout share it.
+// (kstep_pipe.cu's `pad_chain_pos` adds K9's pad: a block of n_real <= d
+// real planes, zero past its hi window.)
 __device__ __forceinline__ int chain_pos(int xu, int k, int d, int64_t nn,
                                          int64_t row, int64_t& g) {
   if (xu < 0) {
@@ -91,20 +92,6 @@ __device__ __forceinline__ int chain_pos(int xu, int k, int d, int64_t nn,
   }
   g = (int64_t)(xu - d) * nn + row;
   return 2;
-}
-
-template <typename T>
-__device__ __forceinline__ float chain_read(const Chain<T>& ch, int w,
-                                            int64_t g) {
-  return Conv<T>::to((w == 0 ? ch.lo : (w == 1 ? ch.blk : ch.hi))[g]);
-}
-
-template <typename T>
-__device__ __forceinline__ float chain_value(const Chain<T>& ch, int xu,
-                                             int k, int d, const Cone& c) {
-  int64_t g;
-  const int w = chain_pos(xu, k, d, c.nn, c.row, g);
-  return chain_read(ch, w, g);
 }
 
 }  // namespace

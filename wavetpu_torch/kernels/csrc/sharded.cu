@@ -5,13 +5,14 @@
 //   K6  sharded_step_kernel     <- _sharded_kernel (sharded_fused_step)
 //   K7  sharded_comp_kernel     <- _sharded_comp_kernel
 //                                  (sharded_compensated_step)
-//   K9  kstep_chain_kernel      <- _kstep_padded_kernel (fused_kstep_padded)
 //
-// (K8, _kstep_sharded_kernel, is csrc/kstep_pipe.cu's pipeline.)  Built by
-// wavetpu_torch/kernels/build.py beside the other sources (one nvcc per
-// source, started together), with --fmad=false: each kernel is op for op
-// the single-device kernel it extends (K6 = K1/K5, K7 = K2, K9 = K3), so a
-// sharded solve equals the single-device solve bit for bit.  Wrappers, plain PyTorch versions and launch counters:
+// (The k-step kernels of a shard block - K8, K9 and K10 - are
+// csrc/kstep_pipe.cu's pipeline; K11 and K12 are csrc/comp_sharded.cu's.)
+// Built by wavetpu_torch/kernels/build.py beside the other sources (one
+// nvcc per source, started together), with --fmad=false: each kernel is op
+// for op the single-device kernel it extends (K6 = K1/K5, K7 = K2), so a
+// sharded solve equals the single-device solve bit for bit.  Wrappers,
+// plain PyTorch versions and launch counters:
 // wavetpu_torch/kernels/stencil_cuda.py.
 //
 // Layout: one shard's block, z contiguous.  Every entry point launches on
@@ -160,229 +161,6 @@ dim3 grid_block(const Geom& g) {
               (g.by + kColThreads - 1) / kColThreads, g.bx);
 }
 
-// ---------------------------------------------------------------------------
-// K9: k leapfrog substeps of an uneven (pad-and-mask) x-sharded block
-// (D, N, N), y and z whole.  The x neighbours of the block come from
-// k-plane ghost windows: each field's x "chain" is
-//   lo ghost (k planes) | block planes [0, n_real) | hi ghost (k planes) | 0
-// so the x-neighbour chain of every real plane is gap-free and nothing
-// wraps.  K9 passes the shard's real-plane count: its planes past n_real
-// are pad, whose outputs and error rows are stored as zero - the chain is
-// the TPU kernel's extended array [lo | D planes with hi spliced at n_real
-// | junk] read in place, so no extended copy is assembled.  (With n_real =
-// D this is K8, which csrc/kstep_pipe.cu's pipeline runs instead.)  A field
-// (f32) has its own chain of the same layout (its ghosts exchanged once per
-// solve by the caller).
-//
-// Each substep is op for op K3's (csrc/kstep_pipe.cu, itself K1's update):
-//   new = mask((2u + coeff*lap(u)) - u_prev), a bf16 state rounded to bf16
-// and back, so a sharded k-fused solve equals the single-device one bit
-// for bit.  Error rows (k, D) per substep and x plane with the cone
-// kernels' protocol (csrc/common.cuh rows_reduce / rows_flush), restricted
-// to real planes.
-//
-// Bound: bytes.  Per launch u_prev and u read once and the block's two
-// last layers written once, 16 B/cell for f32 (20 with a field), plus the
-// 4k ghost planes.  Design: a cone tile (common.cuh `Cone`, the column in
-// registers, y/z through shared memory), with the chain lookup in place of
-// an x wrap.
-
-// Where chain plane xu of a column lies: 0 lo ghost, 1 block, 2 hi ghost,
-// 3 past the hi ghost (zero); `g` is the cell's index in that array.
-__device__ __forceinline__ int chain_at(int xu, int k, int n_real, int64_t nn,
-                                        int64_t row, int64_t& g) {
-  if (xu < 0) {
-    g = (int64_t)(xu + k) * nn + row;
-    return 0;
-  }
-  if (xu < n_real) {
-    g = (int64_t)xu * nn + row;
-    return 1;
-  }
-  g = (int64_t)(xu - n_real) * nn + row;
-  return xu < n_real + k ? 2 : 3;
-}
-
-template <typename T>
-__device__ __forceinline__ float chain_read(const T* __restrict__ lo,
-                                            const T* __restrict__ blk,
-                                            const T* __restrict__ hi,
-                                            int where, int64_t g) {
-  if (where == 3) return 0.0f;
-  const T* src = where == 0 ? lo : (where == 1 ? blk : hi);
-  return Conv<T>::to(src[g]);
-}
-
-template <int K, int TX, typename T>
-__global__ void __launch_bounds__(kConeThreads)
-kstep_chain_kernel(const T* __restrict__ uprev, const T* __restrict__ u,
-                   const T* __restrict__ plo, const T* __restrict__ phi,
-                   const T* __restrict__ clo, const T* __restrict__ chi,
-                   T* __restrict__ prev_out, T* __restrict__ out,
-                   const float* __restrict__ c2,
-                   const float* __restrict__ c2lo,
-                   const float* __restrict__ c2hi,
-                   const float* __restrict__ syz,
-                   const float* __restrict__ rsyz,
-                   const float* __restrict__ sxct,
-                   unsigned* __restrict__ dmax, unsigned* __restrict__ rmax,
-                   int d, int n, int n_real, int tx_arg, int ty, int tz,
-                   float coeff, float ix, float iy, float iz) {
-  constexpr int kEx = (TX > 0 ? TX : kMaxTx) + 2 * K;  // register column
-  const int tx = TX > 0 ? TX : tx_arg;
-  extern __shared__ float plane[];  // [2][ex][ey * ez]
-  __shared__ RowMax emax;
-  const Cone cn = cone_of_thread(K, tx, ty, tz, n);
-  // The tile's real output planes: stores and rows past them are zero.
-  const int tx_real = min(tx, max(n_real - cn.x1, 0));
-  const bool errors = dmax != nullptr;
-  float syz_c = 0.0f, rsyz_c = 0.0f;
-  if (errors && cn.central) {
-    syz_c = syz[cn.row];
-    rsyz_c = rsyz[cn.row];
-  }
-  rows_clear(emax, cn);
-
-  float P[kEx], U[kEx];
-#pragma unroll
-  for (int x = 0; x < kEx; ++x) {
-    P[x] = U[x] = 0.0f;
-    if (cn.live && x < cn.ex) {
-      int64_t g;
-      const int w = chain_at(cn.x1 - K + x, K, n_real, cn.nn, cn.row, g);
-      P[x] = chain_read(plo, uprev, phi, w, g);
-      U[x] = chain_read(clo, u, chi, w, g);
-    }
-  }
-
-#pragma unroll
-  for (int s = 1; s <= K; ++s) {
-    float* pl = plane + (s & 1) * cn.ex * cn.cols;
-    publish_column(pl, U, cn);
-    __syncthreads();
-    if (errors && s > 1)
-      rows_flush(emax, dmax, rmax, s - 1, d, cn, tx_real);
-    if (cn.live && cn.ly >= s && cn.ly < cn.ey - s && cn.lz >= s &&
-        cn.lz < cn.ez - s) {
-      float left = U[s - 1];
-#pragma unroll
-      for (int x = 1; x < kEx - 1; ++x) {
-        if (x >= s && x < cn.ex - s) {
-          const float c = U[x];
-          const float lap = cone_laplacian(left, U[x + 1], c, pl,
-                                           x * cn.cols + cn.tid, cn.ez, ix,
-                                           iy, iz);
-          float co = coeff;
-          if (c2) {
-            int64_t g;
-            const int w =
-                chain_at(cn.x1 - K + x, K, n_real, cn.nn, cn.row, g);
-            co = chain_read(c2lo, c2, c2hi, w, g);
-          }
-          float o = 2.0f * c + co * lap;
-          o = o - P[x];
-          o = cn.interior ? o : 0.0f;
-          o = Conv<T>::to(Conv<T>::from(o));  // the 1-step path's store
-          P[x] = c;
-          left = c;
-          U[x] = o;
-        }
-      }
-    }
-    if (errors)
-      rows_reduce<K>(emax, U, sxct, s, d, cn, tx_real, syz_c, rsyz_c);
-  }
-  if (errors) {
-    __syncthreads();
-    rows_flush(emax, dmax, rmax, K, d, cn, tx_real);
-  }
-  if (!cn.central) return;
-#pragma unroll
-  for (int p = 0; p < kMaxTx; ++p) {
-    if (p < tx) {
-      const int64_t g = out_index(cn, p);
-      const bool real = p < tx_real;
-      prev_out[g] = Conv<T>::from(real ? P[K + p] : 0.0f);
-      out[g] = Conv<T>::from(real ? U[K + p] : 0.0f);
-    }
-  }
-}
-
-template <int K, int TX, typename T>
-int launch_chain(const void* uprev, const void* u, const void* plo,
-                 const void* phi, const void* clo, const void* chi,
-                 void* prev_out, void* out, const void* c2, const void* c2lo,
-                 const void* c2hi, const void* syz, const void* rsyz,
-                 const void* sxct, void* dmax, void* rmax, int d, int n,
-                 int n_real, int tx, int ty, int tz, float coeff, float ix,
-                 float iy, float iz, cudaStream_t stream) {
-  auto kern = kstep_chain_kernel<K, TX, T>;
-  const int cols = (ty + 2 * K) * (tz + 2 * K);
-  const int threads = (cols + 31) / 32 * 32;
-  if (threads > kConeThreads) return (int)cudaErrorInvalidConfiguration;
-  const size_t shmem = (size_t)2 * (tx + 2 * K) * cols * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + tz - 1) / tz, (n + ty - 1) / ty, d / tx);
-  kern<<<grid, threads, shmem, stream>>>(
-      static_cast<const T*>(uprev), static_cast<const T*>(u),
-      static_cast<const T*>(plo), static_cast<const T*>(phi),
-      static_cast<const T*>(clo), static_cast<const T*>(chi),
-      static_cast<T*>(prev_out), static_cast<T*>(out),
-      static_cast<const float*>(c2), static_cast<const float*>(c2lo),
-      static_cast<const float*>(c2hi), static_cast<const float*>(syz),
-      static_cast<const float*>(rsyz), static_cast<const float*>(sxct),
-      static_cast<unsigned*>(dmax), static_cast<unsigned*>(rmax), d, n,
-      n_real, tx, ty, tz, coeff, ix, iy, iz);
-  return (int)cudaGetLastError();
-}
-
-// The tile depth fixed at compile time when it is kMaxTx, read at run time
-// otherwise.
-template <int K, typename T>
-int launch_chain_tx(const void* uprev, const void* u, const void* plo,
-                    const void* phi, const void* clo, const void* chi,
-                    void* prev_out, void* out, const void* c2,
-                    const void* c2lo, const void* c2hi, const void* syz,
-                    const void* rsyz, const void* sxct, void* dmax,
-                    void* rmax, int d, int n, int n_real, int tx, int ty,
-                    int tz, float coeff, float ix, float iy, float iz,
-                    cudaStream_t st) {
-  return tx == kMaxTx
-             ? launch_chain<K, kMaxTx, T>(uprev, u, plo, phi, clo, chi,
-                                          prev_out, out, c2, c2lo, c2hi, syz,
-                                          rsyz, sxct, dmax, rmax, d, n,
-                                          n_real, tx, ty, tz, coeff, ix, iy,
-                                          iz, st)
-             : launch_chain<K, 0, T>(uprev, u, plo, phi, clo, chi, prev_out,
-                                     out, c2, c2lo, c2hi, syz, rsyz, sxct,
-                                     dmax, rmax, d, n, n_real, tx, ty, tz,
-                                     coeff, ix, iy, iz, st);
-}
-
-template <int K>
-int launch_chain_dtype(int dtype, const void* uprev, const void* u,
-                       const void* plo, const void* phi, const void* clo,
-                       const void* chi, void* prev_out, void* out,
-                       const void* c2, const void* c2lo, const void* c2hi,
-                       const void* syz, const void* rsyz, const void* sxct,
-                       void* dmax, void* rmax, int d, int n, int n_real,
-                       int tx, int ty, int tz, float coeff, float ix,
-                       float iy, float iz, cudaStream_t st) {
-  if (dtype == WT_F32)
-    return launch_chain_tx<K, float>(uprev, u, plo, phi, clo, chi, prev_out,
-                                     out, c2, c2lo, c2hi, syz, rsyz, sxct,
-                                     dmax, rmax, d, n, n_real, tx, ty, tz,
-                                     coeff, ix, iy, iz, st);
-  if (dtype == WT_BF16)
-    return launch_chain_tx<K, __nv_bfloat16>(
-        uprev, u, plo, phi, clo, chi, prev_out, out, c2, c2lo, c2hi, syz,
-        rsyz, sxct, dmax, rmax, d, n, n_real, tx, ty, tz, coeff, ix, iy, iz,
-        st);
-  return (int)cudaErrorInvalidValue;
-}
-
 template <typename T>
 Halo<T> halo_of(const void* xlo, const void* xhi, const void* ylo,
                 const void* yhi, const void* zlo, const void* zhi) {
@@ -473,45 +251,6 @@ int wt_sharded_comp_step(const void* u, const void* v, const void* carry,
   }
 #undef WT_COMP
   return (int)cudaGetLastError();
-}
-
-// K9 (n_real <= d; stencil_cuda launches K8 on kstep_pipe.cu's pipeline).
-// State f32 or bf16 for the block (d, n, n), its (k, n, n) ghost windows
-// and both outputs; c2 is the f32 (d, n, n) field block with (k, n, n) f32
-// ghosts, or null; dmax/rmax are (k, d) uint32 rows zeroed by the caller,
-// or null (then syz, rsyz and sxct are not read).  1 <= k <= 8; tx <= 8 divides d; 1 <= n_real <= d.
-int wt_kstep_chain(const void* uprev, const void* u, const void* plo,
-                   const void* phi, const void* clo, const void* chi,
-                   void* prev_out, void* out, const void* c2,
-                   const void* c2lo, const void* c2hi, const void* syz,
-                   const void* rsyz, const void* sxct, void* dmax,
-                   void* rmax, int d, int n, int n_real, int k, int tx,
-                   int ty, int tz, int dtype, double coeff, double ix,
-                   double iy, double iz, void* stream) {
-  if (tx < 1 || tx > kMaxTx || d % tx || k < 1 || k > 8 || n_real < 1 ||
-      n_real > d || ty < 1 || tz < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float c = (float)coeff, fx = (float)ix, fy = (float)iy,
-              fz = (float)iz;
-#define WT_K(KK)                                                             \
-  case KK:                                                                   \
-    return launch_chain_dtype<KK>(dtype, uprev, u, plo, phi, clo, chi,       \
-                                  prev_out, out, c2, c2lo, c2hi, syz, rsyz,  \
-                                  sxct, dmax, rmax, d, n, n_real, tx, ty,    \
-                                  tz, c, fx, fy, fz, st)
-  switch (k) {
-    WT_K(1);
-    WT_K(2);
-    WT_K(3);
-    WT_K(4);
-    WT_K(5);
-    WT_K(6);
-    WT_K(7);
-    WT_K(8);
-  }
-#undef WT_K
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 """Wrappers of the CUDA stencil kernels (csrc/stencil.cu,
-csrc/kstep_pipe.cu, csrc/sharded.cu, csrc/kstep_xy.cu, csrc/comp_sharded.cu),
+csrc/kstep_pipe.cu, csrc/sharded.cu, csrc/comp_sharded.cu),
 each with its plain PyTorch version and a launch counter - the port of
 wavetpu/kernels/stencil_pallas.py's kernels.
 
@@ -22,15 +22,14 @@ wavetpu/kernels/stencil_pallas.py's kernels.
 
 The sharded kernels (K6-K12) take one shard's block and the ghost planes
 that comm/halo.py (or the sharded k-fused solvers) delivered from the
-neighbour shards.  K3 and K8 are one CUDA kernel (csrc/kstep_pipe.cu
-`kstep_pipe_kernel`, an x-streaming pipeline of the standard substep;
-K3 runs it over the whole domain, its x windows the domain's own wrap
-planes), and so are K4, K11 and K12 (csrc/comp_sharded.cu
-`kstep_comp_pipe_kernel`, the compensated substep's pipeline over whole y
-rows or a y-extended block, K4 over the whole domain).  K9 (csrc/sharded.cu
-`kstep_chain_kernel`, a cone tile) masks the planes past its real-plane
-count.  K10 (csrc/kstep_xy.cu) and K12 take a block of an (MX, MY, 1) mesh
-extended in y by k ghost rows per side.
+neighbour shards.  K3, K8, K9 and K10 are one CUDA kernel
+(csrc/kstep_pipe.cu `kstep_pipe_kernel`, an x-streaming pipeline of the
+standard substep; K3 runs it over the whole domain, its x windows the
+domain's own wrap planes; K9 masks the planes past its real-plane count),
+and so are K4, K11 and K12 (csrc/comp_sharded.cu `kstep_comp_pipe_kernel`,
+the compensated substep's pipeline, K4 over the whole domain).  K10 and
+K12 take a block of an (MX, MY, 1) mesh extended in y by k ghost rows per
+side; the others whole y rows.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests and `--platform cpu` run); a
@@ -75,21 +74,16 @@ launches: Dict[str, int] = {
 _CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _NONE = -1
 
-# The cone kernels' tile limits (kMaxTx and kConeThreads in csrc/common.cuh;
-# K9, K10): at most 8 output planes in x, and one thread per (y, z) column
-# of the cone, 640 at most (the column's state lives in registers).  K3
-# takes 2 <= k <= 8 (k = 1 is K1's job), the other k-step kernels
+# K3 takes 2 <= k <= 8 (k = 1 is K1's job), the other k-step kernels
 # 1 <= k <= 8.
-_KSTEP_MAX_TX = 8
-_CONE_THREADS = 640
 _KSTEP_MAX_K = 8
 # The carry slab's cap (`default_block_x`), and the pipelines of
-# csrc/kstep_pipe.cu (K3, K8, `kstep_pipe_tile`) and csrc/comp_sharded.cu
+# csrc/kstep_pipe.cu (K3, K8-K10, `kstep_pipe_tile`) and csrc/comp_sharded.cu
 # (K4, K11/K12, `comp_pipe_tile`): one thread per column of the
 # (ty+2k)(tz+2k) halo face, at most 1024 for k <= 4 and 640 above (the
 # per-stage registers grow with k); x segments of up to _PIPE_SEG planes
-# inside one carry slab (K4-K12), of up to _KPIPE_SEG planes (K3, K8:
-# kernels/tile_ab.py part `kpipe`, PERF.md).
+# inside one carry slab (K4, K11, K12), of up to _KPIPE_SEG planes (K3,
+# K8-K10: kernels/tile_ab.py part `kpipe`, PERF.md).
 _SLAB_CAP = 32
 _PIPE_SEG = 32
 _PIPE_MAX_SEG = 64  # kPipeMaxSeg: a segment's oracle rows in shared memory
@@ -98,6 +92,9 @@ _PIPE_FACE_Z = 32
 
 
 def pipe_max_threads(k: int) -> int:
+    """Threads of one block of either pipeline (StdThreads and PipeThreads
+    in csrc/): one per column of the (ty+2k)(tz+2k) halo face, 1024 for
+    k <= 4 and 640 above, where the per-stage registers add up."""
     return 1024 if k <= 4 else 640
 
 
@@ -122,18 +119,18 @@ def _lib() -> ctypes.CDLL:
 
 
 def _kstep_pipe_lib() -> ctypes.CDLL:
-    """csrc/kstep_pipe.cu: K3, K8."""
+    """csrc/kstep_pipe.cu: K3, K8, K9, K10."""
     lib = build.load("kstep_pipe")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_kstep_pipe.argtypes = [p] * 16 + [i] * 10 + [d] * 4 + [p]
+        lib.wt_kstep_pipe.argtypes = [p] * 16 + [i] * 11 + [d] * 4 + [p]
         lib.wt_kstep_pipe.restype = i
         lib._wt_typed = True
     return lib
 
 
 def _sharded_lib() -> ctypes.CDLL:
-    """csrc/sharded.cu: K6, K7, K9."""
+    """csrc/sharded.cu: K6, K7."""
     lib = build.load("sharded")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -143,19 +140,6 @@ def _sharded_lib() -> ctypes.CDLL:
         lib.wt_sharded_comp_step.argtypes = (
             [p] * 12 + [i] * 11 + [d] * 4 + [p])
         lib.wt_sharded_comp_step.restype = i
-        lib.wt_kstep_chain.argtypes = [p] * 16 + [i] * 8 + [d] * 4 + [p]
-        lib.wt_kstep_chain.restype = i
-        lib._wt_typed = True
-    return lib
-
-
-def _xy_lib() -> ctypes.CDLL:
-    """csrc/kstep_xy.cu: K10."""
-    lib = build.load("kstep_xy")
-    if not getattr(lib, "_wt_typed", False):
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_kstep_xy.argtypes = [p] * 16 + [i] * 10 + [d] * 4 + [p]
-        lib.wt_kstep_xy.restype = i
         lib._wt_typed = True
     return lib
 
@@ -180,7 +164,6 @@ def load_libraries() -> None:
     _lib()
     _kstep_pipe_lib()
     _sharded_lib()
-    _xy_lib()
     _comp_sharded_lib()
 
 
@@ -454,37 +437,23 @@ def default_block_x(n: int, k: int) -> int:
     return bx
 
 
-def kstep_tile(k: int, bx: int) -> Tuple[int, int, int]:
-    """(tx, ty, tz) output tile of the cone kernels (K9, K10).  tx is the
-    largest divisor of bx up to 8 (they pass the depth of the block); tz
-    is 32 (a warp-wide z row) or 16 where a 32-wide cone
-    leaves no room; ty is the most rows whose cone, (ty+2k)(tz+2k) columns,
-    fits 640 threads."""
-    if not 1 <= k <= _KSTEP_MAX_K:
-        raise ValueError(f"k={k}: the cone kernels take 1 <= k <= "
-                         f"{_KSTEP_MAX_K}")
-    tx = max(d for d in range(1, _KSTEP_MAX_TX + 1) if bx % d == 0)
-    for tz in (32, 16):
-        ty = _CONE_THREADS // (tz + 2 * k) - 2 * k
-        if ty >= 2:
-            return tx, ty, tz
-    raise ValueError(f"k={k} does not fit the cone kernels' tile")
-
-
 def kstep_pipe_tile(k: int, d: int) -> Tuple[int, int, int]:
-    """(seg, ty, tz) of K3 and K8's x-streaming pipeline
-    (csrc/kstep_pipe.cu): an x segment of seg planes, the largest divisor
-    of the depth d up to _KPIPE_SEG (no slab: the standard substep's cells
-    are a function of the inputs alone), and the y/z face of
-    `comp_pipe_tile`."""
+    """(seg, ty, tz) of K3 and K8-K10's x-streaming pipeline
+    (csrc/kstep_pipe.cu): the fewest x segments of at most _KPIPE_SEG
+    planes that cover the depth d, seg = ceil(d / ceil(d / _KPIPE_SEG))
+    planes each (no slab: the standard substep's cells are a function of
+    the inputs alone, so where seg does not divide d the last segment ends
+    at d and remakes a few planes of the one before), and the y/z face of
+    `comp_pipe_tile`.  Every depth of at most _KPIPE_SEG planes is one
+    segment; 512 is four of 128."""
     if d < 1:
         raise ValueError(f"depth {d} must be positive")
-    seg = max(s for s in range(1, min(d, _KPIPE_SEG) + 1) if d % s == 0)
+    seg = -(-d // -(-d // _KPIPE_SEG))
     return (seg,) + comp_pipe_tile(k, seg)[1:]
 
 
 def kstep_pipe_smem(k: int, ty: int, tz: int) -> int:
-    """Shared memory of one K3/K8 pipeline block (bytes): each stage's
+    """Shared memory of one K3/K8-K10 pipeline block (bytes): each stage's
     two-slot ring of the halo face's u (dynamic), and the static error
     slots [2][8][2][32] words and oracle rows [8][128]."""
     return 2 * k * (ty + 2 * k) * (tz + 2 * k) * 4 + (2 * 8 * 2 * 32
@@ -838,8 +807,8 @@ def sharded_compensated_step(u, v, carry, ghosts, offsets, n_global, *,
 
 # K8 and K9: k fused substeps of an x-sharded block (D, N, N) whose x
 # neighbours come from (k, N, N) ghost windows (lo, hi) of u_prev and u.
-# K8 (and K3 over the whole state) launches csrc/kstep_pipe.cu's pipeline,
-# K9 csrc/sharded.cu's chain kernel, a cone tile.
+# K8, K9, K10 (and K3 over the whole state) launch csrc/kstep_pipe.cu's
+# pipeline (`_kstep_pipe`).
 
 
 def _y_mask(w, nz, nl_y, y0, device):
@@ -915,22 +884,24 @@ def _kstep_chain_plain(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
 
 
 def _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
-                          sxct, *, k, c2tau2_block, c2_ghosts, with_errors):
-    """Raise unless a K3/K8/K9 launch's operands are what the kernels read:
-    an f32/bf16 (D, N, N) block pair on the card, (k, N, N) windows of it,
-    an f32 field block and windows, f32 (N, N) oracle planes and (k, D)
-    rows."""
-    d, n = u.shape[0], u.shape[1]
+                          sxct, *, k, c2tau2_block, c2_ghosts, with_errors,
+                          nl_y=None):
+    """Raise unless a K3/K8/K9/K10 launch's operands are what the pipeline
+    reads: an f32/bf16 (D, W, N) block pair on the card (W = N, or nl_y +
+    2k for K10's y-extended block, whose shape `_check_xy` has checked),
+    (k, W, N) windows of it, an f32 field block and windows, f32 (ny, N)
+    oracle planes of the central rows and (k, D) rows."""
+    d, w, n = u.shape
     if not 1 <= k <= _KSTEP_MAX_K:
-        raise ValueError(f"k={k}: the sharded k-step kernels take 1 <= k <= "
+        raise ValueError(f"k={k}: the k-step pipeline takes 1 <= k <= "
                          f"{_KSTEP_MAX_K}")
-    if u.shape[2] != n:
+    if nl_y is None and w != n:
         raise ValueError(f"the block's y and z extents must be N, got "
                          f"{tuple(u.shape)}")
-    _check_block_state(u, (torch.float32, torch.bfloat16), "K3/K8/K9",
+    _check_block_state(u, (torch.float32, torch.bfloat16), "K3/K8/K9/K10",
                        u_prev=u_prev)
     dev = u.device
-    window = (k, n, n)
+    window = (k, w, n)
     _check_on_card(dev, u.dtype, prev_lo=(prev_ghosts[0], window),
                    prev_hi=(prev_ghosts[1], window),
                    cur_lo=(cur_ghosts[0], window),
@@ -941,7 +912,8 @@ def _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
                        c2_lo=(c2_ghosts[0], window),
                        c2_hi=(c2_ghosts[1], window))
     if with_errors:
-        _check_on_card(dev, f32, syz=(syz, (n, n)), rsyz=(rsyz, (n, n)),
+        ny = w if nl_y is None else nl_y
+        _check_on_card(dev, f32, syz=(syz, (ny, n)), rsyz=(rsyz, (ny, n)),
                        sxct=(sxct, (k, d)))
 
 
@@ -956,25 +928,31 @@ def _kstep_rows(k, d, dev, with_errors):
 
 def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
                 sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
-                with_errors, tile=None):
-    """Launch csrc/kstep_pipe.cu's pipeline (K3 or K8, counted under
-    `counter`) after checking every operand.  `tile` (seg, ty, tz) replaces
-    `kstep_pipe_tile`'s (the A/B of kernels/tile_ab.py; the results do not
-    depend on it)."""
+                with_errors, n_real=None, y0=0, nl_y=None, tile=None):
+    """Launch csrc/kstep_pipe.cu's pipeline (K3, K8, K9 or K10, counted
+    under `counter`, `counter`_field with a field) after checking every
+    operand.  `n_real` (K9; default: every plane) masks the planes past
+    it; `nl_y` (K10) marks a y-extended block whose central rows start at
+    global row `y0`.  `tile` (seg, ty, tz) replaces `kstep_pipe_tile`'s
+    (the A/B of kernels/tile_ab.py; the results do not depend on it)."""
     _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
                           sxct, k=k, c2tau2_block=c2tau2_block,
-                          c2_ghosts=c2_ghosts, with_errors=with_errors)
-    d, n = u.shape[0], u.shape[1]
+                          c2_ghosts=c2_ghosts, with_errors=with_errors,
+                          nl_y=nl_y)
+    d, w, n = u.shape
+    ny = w if nl_y is None else nl_y
+    n_real = d if n_real is None else int(n_real)
     seg, ty, tz = tile or kstep_pipe_tile(k, d)
-    if (d % seg or seg > _KPIPE_SEG
+    if (not 1 <= seg <= min(d, _KPIPE_SEG)
             or (ty + 2 * k) * (tz + 2 * k) > pipe_max_threads(k)):
         raise ValueError(f"tile {(seg, ty, tz)} does not fit depth {d} and "
                          f"k={k}")
-    dmax, rmax = _kstep_rows(k, d, u.device, with_errors)
-    prev_out = torch.empty_like(u)
-    out = torch.empty_like(u)
+    dev = u.device
+    dmax, rmax = _kstep_rows(k, d, dev, with_errors)
+    prev_out = torch.empty((d, ny, n), dtype=u.dtype, device=dev)
+    out = torch.empty_like(prev_out)
     c2g = (None, None) if c2tau2_block is None else c2_ghosts
-    with torch.cuda.device(u.device):
+    with torch.cuda.device(dev):
         _run(_kstep_pipe_lib().wt_kstep_pipe, u_prev.data_ptr(),
              prev_ghosts[0].data_ptr(), prev_ghosts[1].data_ptr(),
              u.data_ptr(), cur_ghosts[0].data_ptr(),
@@ -982,41 +960,9 @@ def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
              _ptr(c2tau2_block), _ptr(c2g[0]), _ptr(c2g[1]),
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
                if with_errors else (None, None, None)),
-             _ptr(dmax), _ptr(rmax), d, n, n, n, 0, k, seg, ty, tz,
-             _CODE[u.dtype], float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2))
-    launches[counter if c2tau2_block is None else counter + "_field"] += 1
-    if with_errors:
-        # The kernel combined the rows as the bits of non-negative floats.
-        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
-    return prev_out, out, dmax, rmax
-
-
-def _kstep_chain(counter, u_prev, u, n_real, prev_ghosts, cur_ghosts, syz,
-                 rsyz, sxct, *, k, coeff, inv_h2, c2tau2_block, c2_ghosts,
-                 with_errors):
-    """Launch csrc/sharded.cu's chain kernel (K9, counted under `counter`)
-    after checking every operand."""
-    _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
-                          sxct, k=k, c2tau2_block=c2tau2_block,
-                          c2_ghosts=c2_ghosts, with_errors=with_errors)
-    d, n = u.shape[0], u.shape[1]
-    dev = u.device
-    dmax, rmax = _kstep_rows(k, d, dev, with_errors)
-    tx, ty, tz = kstep_tile(k, d)
-    prev_out = torch.empty_like(u)
-    out = torch.empty_like(u)
-    c2g = (None, None) if c2tau2_block is None else c2_ghosts
-    with torch.cuda.device(dev):
-        _run(_sharded_lib().wt_kstep_chain, u_prev.data_ptr(), u.data_ptr(),
-             prev_ghosts[0].data_ptr(), prev_ghosts[1].data_ptr(),
-             cur_ghosts[0].data_ptr(), cur_ghosts[1].data_ptr(),
-             prev_out.data_ptr(), out.data_ptr(), _ptr(c2tau2_block),
-             _ptr(c2g[0]), _ptr(c2g[1]),
-             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
-               if with_errors else (None, None, None)),
-             _ptr(dmax), _ptr(rmax), d, n, int(n_real), k, tx, ty, tz,
-             _CODE[u.dtype], float(coeff if c2tau2_block is None else 0.0),
+             _ptr(dmax), _ptr(rmax), d, n, n_real, w, ny, int(y0), k, seg,
+             ty, tz, _CODE[u.dtype],
+             float(coeff if c2tau2_block is None else 0.0),
              *(float(h) for h in inv_h2))
     launches[counter if c2tau2_block is None else counter + "_field"] += 1
     if with_errors:
@@ -1081,7 +1027,8 @@ def fused_kstep_padded(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
     (hi at n_real), so no extended copy is made.  Returns (D, N, N) blocks
     with the pad planes zero and (k, D) error rows zero at pad columns;
     `sxct` is (k, D) with zero pad columns.  k = 1 is the bootstrap and
-    the remainder tail.  On the card f32 or bf16 state, 1 <= k <= 8."""
+    the remainder tail.  On the card f32 or bf16 state, 1 <= k <= 8,
+    launched on csrc/kstep_pipe.cu's pipeline (`_kstep_pipe`)."""
     if not 1 <= n_real <= u.shape[0]:
         raise ValueError(f"n_real={n_real} must be in [1, {u.shape[0]}]")
     kw = dict(k=k, coeff=coeff, inv_h2=inv_h2, c2tau2_block=c2tau2_block,
@@ -1089,8 +1036,8 @@ def fused_kstep_padded(u_prev, u, n_real, prev_ghosts, cur_ghosts, syz, rsyz,
     if u.device.type == "cpu":
         return fused_kstep_padded_plain(u_prev, u, n_real, prev_ghosts,
                                         cur_ghosts, syz, rsyz, sxct, **kw)
-    return _kstep_chain("kstep_padded", u_prev, u, n_real, prev_ghosts,
-                        cur_ghosts, syz, rsyz, sxct, **kw)
+    return _kstep_pipe("kstep_padded", u_prev, u, prev_ghosts, cur_ghosts,
+                       syz, rsyz, sxct, n_real=n_real, **kw)
 
 
 # K10: k fused substeps of a block of an (MX, MY, 1) mesh, y-extended by k
@@ -1141,71 +1088,24 @@ def fused_kstep_sharded_xy(u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c,
     range (None without `with_errors`), bitwise equal to K3 on the whole
     domain.  With `c2tau2_ext` (the field block extended alike) and its
     window pair `c2_ghosts`, the variable-c substep runs and `coeff` is
-    ignored.  On the card f32 or bf16 state, 1 <= k <= 8."""
-    kw = dict(k=k, nl_y=nl_y, coeff=coeff, inv_h2=inv_h2,
-              c2tau2_ext=c2tau2_ext, c2_ghosts=c2_ghosts,
-              with_errors=with_errors)
+    ignored.  On the card f32 or bf16 state, 1 <= k <= 8, 0 <= y0 < N,
+    launched on csrc/kstep_pipe.cu's pipeline (`_kstep_pipe`) in its
+    y-extended mode."""
     if u_ext.device.type == "cpu":
         return fused_kstep_sharded_xy_plain(
             u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c, rsyz_c, sxct,
-            y0, n_global, **kw)
-    return _kstep_xy(u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c,
-                     rsyz_c, sxct, y0, n_global, **kw)
-
-
-def _kstep_xy(u_prev_ext, u_ext, prev_ghosts, cur_ghosts, syz_c, rsyz_c,
-              sxct, y0, n_global, *, k, nl_y, coeff, inv_h2, c2tau2_ext,
-              c2_ghosts, with_errors):
-    """Launch csrc/kstep_xy.cu's kernel (K10) after checking every
-    operand."""
+            y0, n_global, k=k, nl_y=nl_y, coeff=coeff, inv_h2=inv_h2,
+            c2tau2_ext=c2tau2_ext, c2_ghosts=c2_ghosts,
+            with_errors=with_errors)
     _check_xy(u_ext, k, nl_y, n_global)
-    if not 1 <= k <= _KSTEP_MAX_K:
-        raise ValueError(f"k={k}: K10 takes 1 <= k <= {_KSTEP_MAX_K}")
     y0 = int(y0)
     if not 0 <= y0 < n_global:
         raise ValueError(f"y0={y0} must lie in [0, {n_global})")
-    d, w, n = u_ext.shape
-    _check_block_state(u_ext, (torch.float32, torch.bfloat16), "K10",
-                       u_prev_ext=u_prev_ext)
-    dev = u_ext.device
-    window = (k, w, n)
-    _check_on_card(dev, u_ext.dtype, prev_lo=(prev_ghosts[0], window),
-                   prev_hi=(prev_ghosts[1], window),
-                   cur_lo=(cur_ghosts[0], window),
-                   cur_hi=(cur_ghosts[1], window))
-    f32 = torch.float32
-    if c2tau2_ext is not None:
-        _check_on_card(dev, f32, c2tau2_ext=(c2tau2_ext, u_ext.shape),
-                       c2_lo=(c2_ghosts[0], window),
-                       c2_hi=(c2_ghosts[1], window))
-    dmax = rmax = None
-    if with_errors:
-        _check_on_card(dev, f32, syz_c=(syz_c, (nl_y, n)),
-                       rsyz_c=(rsyz_c, (nl_y, n)), sxct=(sxct, (k, d)))
-        dmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
-        rmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
-    tx, ty, tz = kstep_tile(k, d)
-    prev_out = torch.empty((d, nl_y, n), dtype=u_ext.dtype, device=dev)
-    out = torch.empty_like(prev_out)
-    c2g = (None, None) if c2tau2_ext is None else c2_ghosts
-    with torch.cuda.device(dev):
-        _run(_xy_lib().wt_kstep_xy, u_prev_ext.data_ptr(), u_ext.data_ptr(),
-             prev_ghosts[0].data_ptr(), prev_ghosts[1].data_ptr(),
-             cur_ghosts[0].data_ptr(), cur_ghosts[1].data_ptr(),
-             prev_out.data_ptr(), out.data_ptr(), _ptr(c2tau2_ext),
-             _ptr(c2g[0]), _ptr(c2g[1]),
-             *((syz_c.data_ptr(), rsyz_c.data_ptr(), sxct.data_ptr())
-               if with_errors else (None, None, None)),
-             _ptr(dmax), _ptr(rmax), d, n, w, nl_y, y0, k, tx, ty, tz,
-             _CODE[u_ext.dtype],
-             float(coeff if c2tau2_ext is None else 0.0),
-             *(float(h) for h in inv_h2))
-    launches["kstep_sharded_xy" if c2tau2_ext is None
-             else "kstep_sharded_xy_field"] += 1
-    if with_errors:
-        # The kernel combined the rows as the bits of non-negative floats.
-        dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
-    return prev_out, out, dmax, rmax
+    return _kstep_pipe("kstep_sharded_xy", u_prev_ext, u_ext, prev_ghosts,
+                       cur_ghosts, syz_c, rsyz_c, sxct, k=k, coeff=coeff,
+                       inv_h2=inv_h2, c2tau2_block=c2tau2_ext,
+                       c2_ghosts=c2_ghosts, with_errors=with_errors, y0=y0,
+                       nl_y=nl_y)
 
 
 # K11 and K12: k fused velocity-form substeps of a shard block of the

@@ -10,11 +10,13 @@ segment length L and its y/z face, each against the default tile
 (`comp_pipe_tile`); and the carry slab's depth block_x (8, 16, 32, 64: L
 and the slab cap) for K11 and for K4 on the whole (N, N, N) state.
 
-Part `kpipe`: the standard pipeline of K3 and K8 (csrc/kstep_pipe.cu) as
-K3 on the whole (N, N, N) state and K8 on a mesh-4,1,1 block (N/4, N, N),
-k=4, f32, rows on (K8f: the field, rows off): its segment length L (8,
-16, 32, 64 against the default 128) and its y/z face, each against the
-default tile (`kstep_pipe_tile`).
+Part `kpipe`: the standard pipeline of K3 and K8-K10 (csrc/kstep_pipe.cu)
+as K3 on the whole (N, N, N) state, K8 on a mesh-4,1,1 block (N/4, N, N),
+K9 on the pad-and-mask block of N-2 on one shard (N, N-2, N-2; N-2 real
+planes) and K10 on the y-extended block of mesh 2,2,1 (N/2, N/2 + 2k, N;
+the y0 = N/2 shard), k=4, f32, rows on (K8f: the field, rows off): its
+segment length L (8, 16, 32, 64 against the default 128) and its y/z
+face, each against the default tile (`kstep_pipe_tile`).
 
 Each comparison runs default, other, other, default; each run is the
 median of `reps` launches (CUDA events), and the printed ratio is the
@@ -35,7 +37,7 @@ import torch
 
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import build, stencil_cuda
-from wavetpu_torch.solver import kfused
+from wavetpu_torch.solver import kfused, sharded_kfused
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -186,6 +188,38 @@ def _kpipe_part(n, reps, result) -> None:
         cases[name] = ("kstep_sharded", args8, kw8,
                        lambda kw8=kw8: stencil_cuda.fused_kstep_sharded_plain(
                            *args8, **kw8))
+
+    # K9: N-2 planes do not divide into k=4 blocks on one shard, so the
+    # solver pads them to the layout's depth (N, N-2, N-2 at N=512).
+    p9 = Problem(N=n - 2, timesteps=1000)
+    _, d9, r9 = sharded_kfused.uneven_layout(p9, k, 1)
+    sx9, ct9, syz9, rsyz9, _, _ = kfused._oracle_parts(p9, torch.float32,
+                                                       "cuda")
+    sxct9 = torch.zeros((k, d9), device="cuda")
+    sxct9[:, :r9] = ct9[2:2 + k][:, None] * sx9[None, :]
+    m = n - 2
+    a9 = (rand((d9, m, m)), rand((d9, m, m)),
+          (rand((k, m, m)), rand((k, m, m))),
+          (rand((k, m, m)), rand((k, m, m))), syz9, rsyz9, sxct9)
+    kw9 = dict(k=k, coeff=p9.a2tau2, inv_h2=p9.inv_h2)
+    cases["K9"] = ("kstep_padded", a9,
+                   dict(kw9, c2tau2_block=None, c2_ghosts=None,
+                        with_errors=True, n_real=r9),
+                   lambda: stencil_cuda.fused_kstep_padded_plain(
+                       a9[0], a9[1], r9, *a9[2:], **kw9))
+    # K10: the y = N/2 shard of mesh 2,2,1, extended by k rows per side.
+    dx, ny, y0 = n // 2, n // 2, n // 2
+    py = ny + 2 * k
+    a10 = (rand((dx, py, n)), rand((dx, py, n)),
+           (rand((k, py, n)), rand((k, py, n))),
+           (rand((k, py, n)), rand((k, py, n))),
+           syz[y0:y0 + ny].contiguous(), rsyz[y0:y0 + ny].contiguous(),
+           (ct[2:2 + k][:, None] * sx[None, :dx]).contiguous())
+    cases["K10"] = ("kstep_sharded_xy", a10,
+                    dict(kw, c2tau2_block=None, c2_ghosts=None,
+                         with_errors=True, y0=y0, nl_y=ny),
+                    lambda: stencil_cuda.fused_kstep_sharded_xy_plain(
+                        *a10, y0, n, nl_y=ny, **kw))
 
     def launch(name, tile=None):
         counter, a, kwa, plain = cases[name]

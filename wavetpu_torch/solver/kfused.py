@@ -92,7 +92,7 @@ def _validate(problem: Problem, k: int, c2tau2_field=None,
                          "with the 1-step kernel for k=1")
     if k > MAX_K:
         raise ValueError(f"k must be <= {MAX_K} (got {k}): the K3 kernel's "
-                         "shared-memory tile holds no deeper cone")
+                         f"pipeline holds at most {MAX_K} stages")
     if problem.N % k:
         raise ValueError(f"k={k} must divide N={problem.N}")
     if c2tau2_field is not None and compute_errors:

@@ -1,11 +1,12 @@
 """Temporally fused k-step solver over an (MX, MY, 1)-sharded mesh (torch
 port of wavetpu/solver/sharded_kfused.py, without resume and chunk runners).
 
-Composes the k-step cone kernel (solver/kfused.py) with the mesh of
+Composes the k-step kernel (solver/kfused.py) with the mesh of
 solver/sharded.py: ghosts are exchanged once per k layers - the
 reference's per-layer exchange (mpi_new.cpp:327-352) amortized k-fold (the
 same halo bytes per layer, k times fewer messages).  Three kernels,
-dispatched on the decomposition:
+dispatched on the decomposition, all three on csrc/kstep_pipe.cu's
+x-streaming pipeline:
 
  * **even, x-only** ((MX, 1, 1), MX | N and k | N/MX): K8
    (`stencil_cuda.fused_kstep_sharded`) on the (N/MX, N, N) blocks, y and
@@ -57,7 +58,7 @@ from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.solver import kfused, leapfrog
 
-MAX_K = 8  # K8's pipeline and K9's cone tile (stencil_cuda)
+MAX_K = 8  # the k-step pipeline of K8-K10 (stencil_cuda._KSTEP_MAX_K)
 
 
 def _is_even(problem: Problem, k: int, n_x: int) -> bool:
@@ -69,14 +70,16 @@ def _is_even(problem: Problem, k: int, n_x: int) -> bool:
 def uneven_layout(problem: Problem, k: int, n_x: int) -> Tuple[int, int, int]:
     """(bx, D, r) for the pad-and-mask path.
 
-    bx is the x tile depth of K9, a multiple of k up to the cone tile's 8;
-    D = bx * ceil(N / (MX * bx)) the uniform padded per-shard depth; r =
-    N - (MX-1)*D the last shard's real planes.  The deepest bx that leaves
-    r >= 1 wins (a depth-8 tile is K9's fastest).  wavetpu's chooser reads
-    the TPU's VMEM instead; since bx = k gives the smallest D, this rule
-    accepts every (N, MX, k) that wavetpu accepts, and the state does not
-    depend on (bx, D, r).  Raises when even bx = k leaves the last shard
-    empty: the mesh is too large for N at this k.
+    bx is the padding granule, a multiple of k up to 8 (wavetpu's k-step
+    block depth, which the TPU chooser caps at 8 planes); D = bx *
+    ceil(N / (MX * bx)) the uniform padded per-shard depth; r = N -
+    (MX-1)*D the last shard's real planes.  The deepest bx that leaves
+    r >= 1 wins.  wavetpu's chooser reads the TPU's VMEM instead; since
+    bx = k gives the smallest D, this rule accepts every (N, MX, k) that
+    wavetpu accepts, and the state does not depend on (bx, D, r).  K9's
+    pipeline takes any D (`stencil_cuda.kstep_pipe_tile`).  Raises when
+    even bx = k leaves the last shard empty: the mesh is too large for N
+    at this k.
     """
     n = problem.N
     best = None
@@ -105,7 +108,7 @@ def _validate(problem: Problem, k: int, n_x: int, n_y: int = 1,
         raise ValueError(f"k must be >= 2 (got {k})")
     if k > MAX_K:
         raise ValueError(f"k must be <= {MAX_K} (got {k}): the k-step "
-                         f"kernels' cone tile holds no deeper cone")
+                         f"pipeline holds at most {MAX_K} stages")
     if n_x < 1 or n_y < 1:
         raise ValueError(
             f"mesh axes must be >= 1 (got MX={n_x}, MY={n_y})"
@@ -144,7 +147,7 @@ def _assemble_errors(oracle_parts, dmax_rows, rmax_rows):
 def _layer_rows_local(u, sxct_row, syz, rsyz, f):
     """(1, D) per-x-plane abs/rel error maxes of one stored layer's block
     against its oracle slice - the bootstrap layer's counterpart of the
-    kernels' in-cone rows (wavetpu's kfused._layer_rows_local)."""
+    kernels' in-kernel rows (wavetpu's kfused._layer_rows_local)."""
     diff = (u.to(f) - sxct_row[:, None, None] * syz[None]).abs()
     d = diff.amax(dim=(1, 2))[None]
     r = (diff * rsyz[None]).amax(dim=(1, 2))[None]
