@@ -127,6 +127,29 @@ without them or when any phase fails.  Phases:
                over four shards, apart (mesh 2,2,1: y extension and x
                windows; mesh 4,1,1: x windows).
 
+ 7. measurement - the sharded API with `overlap=True` (the ghost copies on
+               side streams): mesh 2,2,1 at N=512 / 1000 steps bitwise
+               equal to phase 3's serial sharded_221 (states and error
+               vectors), mesh 2,2,2 with the lens (K6f) at 100 steps
+               bitwise equal to its serial run, each solve time beside
+               serial's; the phase-timing probes (solver/timing.py) at
+               N=512, iters=10 - 1-step mesh 2,2,1 (K6), k-fused mesh
+               2,2,1 (K10) and the flagship on mesh 4,1,1 (K11), k=4 -
+               each loop between phase 6's time per launch (rows off) x
+               the launches its 1000 steps make and that plus the time of
+               the copies they make, within 10%, each exchange >= 0; the
+               flagship through the CLI with --telemetry-dir and --profile
+               (the solve span in trace.jsonl, a heartbeat, the roofline
+               fraction in metrics.prom in (0, 1.05], the allocator peak
+               above 0 and below the card's memory, K4's kernel in the
+               profiler's operations >= 252 times, the top operations by
+               device time printed); the default CLI run under --profile
+               (its kernels by device time and the device's busy share);
+               --kernel roll against --kernel pallas
+               at N=128 / 100 steps (bitwise, API and report lines); the
+               profile subcommand over a small solve; and the nine CLI
+               runs of phase 3 within 8% of their PERF.md §5 solve times.
+
 Each phase prints its wall time.
 
 Launches made by the comparisons, contracts and timings do not count.
@@ -148,12 +171,13 @@ import numpy as np
 import torch
 
 from wavetpu_torch import cli
-from wavetpu_torch.core.grid import build_mesh
+from wavetpu_torch.core.grid import Topology, build_mesh
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
+from wavetpu_torch.obs import perf as obs_perf
 from wavetpu_torch.solver import (
-    kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
+    kfused, kfused_comp, leapfrog, sharded, sharded_kfused, timing,
 )
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
@@ -375,18 +399,6 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
 def fail(msg):
     raise RuntimeError(f"chip_smoke FAILED: {msg}")
-
-
-def mem_rate(name: str) -> float:
-    """Published HBM rate of the card (bytes/s): H100 SXM 3.35 TB/s, PCIe
-    2.0 TB/s, NVL 3.9 TB/s; H200 4.8 TB/s."""
-    if "H200" in name:
-        return 4.8e12
-    if "PCIe" in name:
-        return 2.0e12
-    if "NVL" in name:
-        return 3.9e12
-    return 3.35e12
 
 
 def smi() -> str:
@@ -1219,7 +1231,7 @@ def phase_times(dev_name):
     n = N_FULL
     p = Problem(N=n, timesteps=STEPS)
     cells = n ** 3
-    rate = mem_rate(dev_name)
+    rate = obs_perf.hbm_gbps(dev_name) * 1e9
     up, u = field(n, 1), field(n, 2)
     v, cy = field(n, 6, 1e-3), field(n, 7, 1e-8)
     fld = c2_field(p, 8)
@@ -1320,7 +1332,7 @@ def phase_times_sharded(rate):
     counts every input read once and every output written once - the
     block, its ghosts, the field and the oracle rows - against the f32
     operations per cell (K6 as K1, K7 as K2, K8/K9 as K3 per substep)."""
-    times, k1_ms = {}, {}
+    times, k1_ms, rows_off = {}, {}, {}
     k6_block = K6_BLOCKS_FULL[0]
     runs = {}
     for name, field in (("K6", False), ("K6f", True)):
@@ -1381,6 +1393,10 @@ def phase_times_sharded(rate):
         ins = [up, u, *gh] + ([*planes, sxct] if rows else []) + (
             [fld, *fg] if field else [])
         cells = d * ny * nn
+        if rows:
+            rows_off[name] = (
+                lambda a=args, k=dict(kw, with_errors=False):
+                stencil_cuda.fused_kstep_sharded_xy(*a, **k))
         runs[name] = (
             lambda a=args, k=kw: stencil_cuda.fused_kstep_sharded_xy(*a, **k),
             lambda a=args, k=kw: stencil_cuda.fused_kstep_sharded_xy_plain(
@@ -1406,6 +1422,10 @@ def phase_times_sharded(rate):
                           COMP_MODES["f32v+bf16carry"], rows, field,
                           seed=230)[0]
         k1_ms[name] = time_launches(kern1, 20)
+        if rows:
+            rows_off[name] = comp_call(name, dd, n_, K, nyy, yy,
+                                       COMP_MODES["f32v+bf16carry"], False,
+                                       field, seed=210)[0]
     for name, (kern, plain, nb, ops) in runs.items():
         ms = time_launches(kern, 20)
         plain_ms = time_launches(plain, 3, warmup=1)
@@ -1421,6 +1441,11 @@ def phase_times_sharded(rate):
         if name in k1_ms:
             times[name]["ms_k1"] = k1_ms[name]
             print(f"  {name} k=1: {k1_ms[name]:.4f} ms")
+        if name in rows_off:
+            # The same launch with rows off, as the phase-timing probes
+            # run it (phase 7).
+            times[name]["ms_rows_off"] = time_launches(rows_off[name], 20)
+            print(f"  {name} rows off: {times[name]['ms_rows_off']:.4f} ms")
     # The k-block exchange of one field over the four shards, apart from
     # the kernels: mesh 2,2,1 (y extension by K rows, then the x windows of
     # the extended blocks) and mesh 4,1,1 (x windows only).
@@ -1439,6 +1464,263 @@ def phase_times_sharded(rate):
               f"{ms:.4f} ms, {moved} bytes read and written")
         del blocks, ext, wins
     return times
+
+
+# Phase 7: the measurement slice.  The CLI runs' solve times recorded in
+# PERF.md §5 (NVIDIA H100 80GB HBM3, 700.00 W): phase 7 fails
+# if one of this run's phase-3 CLI runs is more than RUN_SLACK over, which
+# would show that record_solve, the spans or the memory sample cost
+# something per step.
+RUN_S = {"default": 3.6437261330000013, "flagship": 1.1683708649999858,
+         "kfused": 1.1246251889999996, "varc": 0.7651891879999937,
+         "kfused_varc": 1.005125410000005,
+         "flagship_varc": 1.064270434000008,
+         "uneven_kfused": 1.0255811730000062, "sharded": 3.776583205999998,
+         "flagship_mesh": 1.155902287999993}
+RUN_SLACK = 0.08
+# The phase-timing probes: (label, measure_phase_breakdown arguments, the
+# phase-6 kernel that the probe's k-blocks (steps) launch on each shard,
+# the copies of one k-block: their time's name and how many times a
+# k-block makes them).  The probes run rows off, so they are held against
+# the kernels' rows-off times where the kernel has rows.  A probe's loop
+# lies between its kernels' time and its kernels' plus its copies' time,
+# each widened by PROBE_SLACK: the small copies' time, timed alone, is
+# the host's, which the kernels' device time hides in the probe.
+PROBES = (
+    ("1step_221", dict(mesh_shape=(2, 2, 1)), "K6", "ghosts_221", 1),
+    ("kfused_221", dict(mesh_shape=(2, 2, 1), fuse_steps=K), "K10",
+     "exchange_221", 2),
+    ("flagship_411", dict(mesh_shape=(4, 1, 1), fuse_steps=K,
+                          scheme="compensated"), "K11", "exchange_411", 2),
+)
+PROBE_SLACK = 0.10
+
+
+def prom_samples(path):
+    """{sample with labels: value} of a Prometheus text file."""
+    out = {}
+    for line in open(path):
+        if line.strip() and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value.replace("+Inf", "inf"))
+    return out
+
+
+def phase_overlap(ref221, card):
+    """--overlap on the sharded API: mesh 2,2,1 at N=512 / 1000 steps
+    against phase 3's serial sharded_221 bit for bit (states and error
+    vectors), and mesh 2,2,2 with the lens (K6f) over the first 100 of the
+    1000 steps against its
+    serial run."""
+    p = Problem(N=N_FULL, timesteps=STEPS)
+    stencil_cuda.reset_launches()
+    ovl = sharded.solve_sharded(p, (2, 2, 1), devices=[DEV] * SHARDS,
+                                overlap=True)
+    torch.cuda.synchronize()
+    # K6 on every block, then on its four face planes (x and y), per step.
+    if stencil_cuda.launches["sharded_step"] != 5 * SHARDS * STEPS:
+        fail(f"overlap_221: K6 launches {stencil_cuda.launches}")
+    same = all(torch.equal(a, b) for x, y in (
+        (ovl.u_cur, ref221.u_cur), (ovl.u_prev, ref221.u_prev))
+        for a, b in zip(x.blocks, y.blocks))
+    same_e = (np.array_equal(ovl.abs_errors, ref221.abs_errors)
+              and np.array_equal(ovl.rel_errors, ref221.rel_errors))
+    print(f"  overlap_221 N={N_FULL}/{STEPS}: states bitwise={same}, "
+          f"errors bitwise={same_e}; solve {ovl.solve_seconds!r} s, serial "
+          f"{ref221.solve_seconds!r} s ({card})")
+    if not (same and same_e):
+        fail("overlap_221 is not bitwise the serial sharded_221")
+    out = {"overlap_221_solve_seconds": ovl.solve_seconds,
+           "serial_221_solve_seconds": ref221.solve_seconds}
+    del ovl
+    # The first 100 of the 1000 steps (tau as in every run; 100 steps of
+    # T = 1 would break the Courant bound).
+    p = Problem(N=N_FULL, timesteps=STEPS)
+    lens = stencil_ref.make_preset_c2tau2_field(p, LENS)
+    kw = dict(devices=[DEV] * 8, c2tau2_field=lens, compute_errors=False,
+              stop_step=100)
+    ser = sharded.solve_sharded(p, (2, 2, 2), **kw)
+    ovl = sharded.solve_sharded(p, (2, 2, 2), overlap=True, **kw)
+    same = all(torch.equal(a, b) for x, y in (
+        (ovl.u_cur, ser.u_cur), (ovl.u_prev, ser.u_prev))
+        for a, b in zip(x.blocks, y.blocks))
+    if not all(torch.isfinite(b).all() for b in ovl.u_cur.blocks):
+        fail("overlap_222_lens: non-finite state")
+    print(f"  overlap_222_lens N={N_FULL}, steps 1-100: bitwise={same}; solve "
+          f"{ovl.solve_seconds!r} s, serial {ser.solve_seconds!r} s ({card})")
+    if not same:
+        fail("overlap_222_lens is not bitwise its serial run")
+    out.update(overlap_222_lens_solve_seconds=ovl.solve_seconds,
+               serial_222_lens_solve_seconds=ser.solve_seconds)
+    return out
+
+
+def ghost_copies_ms():
+    """Device time (ms) of one step's ghost copies in the 1-step probe's
+    exchange-free variant: `sharded._self_ghosts` of the four mesh-2,2,1
+    blocks at N=512."""
+    _, shape, n, blk = K6_BLOCKS_FULL[0][:4]
+    topo = Topology(N=n, mesh_shape=shape)
+    blocks = [rand(blk, 400 + i) for i in range(SHARDS)]
+    return time_launches(
+        lambda: [sharded._self_ghosts(b, topo) for b in blocks], 20)
+
+
+def phase_probes(times, card):
+    """The phase-timing probes at N=512, iters=10: each probe's loop (its
+    exchange-free march extrapolated to 1000 steps) between phase 6's time
+    per launch (rows off) x the launches those steps make, less
+    PROBE_SLACK, and that plus the time of the copies they make, more
+    PROBE_SLACK; and a non-negative exchange."""
+    p = Problem(N=N_FULL, timesteps=STEPS)
+    copies = dict(times, ghosts_221=dict(ms=ghost_copies_ms()))
+    out = {}
+    for label, kw, kern, copy, per_block in PROBES:
+        n_dev = kw["mesh_shape"][0] * kw["mesh_shape"][1]
+        pb = timing.measure_phase_breakdown(p, devices=[DEV] * n_dev,
+                                            iters=10, **kw)
+        blocks = STEPS // kw.get("fuse_steps", 1)
+        kern_ms = times[kern].get("ms_rows_off", times[kern]["ms"])
+        copy_ms = copies[copy]["ms"]
+        lo = kern_ms * n_dev * blocks / 1e3
+        hi = lo + copy_ms * per_block * blocks / 1e3
+        print(f"  probe {label}: loop_seconds={pb.loop_seconds!r} "
+              f"exchange_seconds={pb.exchange_seconds!r} (steps "
+              f"{pb.steps_measured}); {kern} {kern_ms:.4f} ms x {n_dev} x "
+              f"{blocks} = {lo:.4f} s (ratio {pb.loop_seconds / lo:.3f}), "
+              f"+ {copy} {copy_ms:.4f} ms x {per_block} x {blocks} = "
+              f"{hi:.4f} s (ratio {pb.loop_seconds / hi:.3f}) ({card})")
+        if not (pb.exchange_seconds >= 0
+                and lo * (1 - PROBE_SLACK) <= pb.loop_seconds
+                <= hi * (1 + PROBE_SLACK)):
+            fail(f"probe {label}: loop {pb.loop_seconds} s outside "
+                 f"[{lo}, {hi}] s of {kern} and {copy} +-{PROBE_SLACK}, "
+                 f"exchange {pb.exchange_seconds}")
+        out[label] = dict(loop_seconds=pb.loop_seconds,
+                          exchange_seconds=pb.exchange_seconds,
+                          steps_measured=pb.steps_measured,
+                          kernel_ms=kern_ms, copies_ms=copy_ms,
+                          kernel_seconds=lo, kernel_and_copies_seconds=hi)
+    return out
+
+
+def phase_telemetry(card):
+    """The flagship through the CLI with --telemetry-dir and --profile:
+    the solve span, a heartbeat, the roofline gauge in (0, 1.05], the
+    allocator peak, and K4's kernel in the profiler's trace."""
+    tel = os.path.join(OUT_DIR, "telemetry")
+    prof = os.path.join(OUT_DIR, "profile")
+    argv = [str(N_FULL), "1", "1", "1", "1", "1", str(STEPS), "--scheme",
+            "compensated", "--fuse-steps", str(K), "--out-dir",
+            os.path.join(OUT_DIR, "flagship_traced"), "--telemetry-dir",
+            tel, "--profile", prof]
+    # The allocator peak of this run, not of the phases before it.
+    torch.cuda.reset_peak_memory_stats()
+    if cli.main(argv + CLI_EXTRA) != 0:
+        fail("the traced flagship run failed")
+    spans = [json.loads(line) for line in
+             open(os.path.join(tel, "trace.jsonl"))]
+    solve = [r for r in spans if r["kind"] == "cli.solve"]
+    if len(solve) != 1 or solve[0]["attrs"].get("final_step") != STEPS:
+        fail(f"trace.jsonl holds no finished solve span: {spans}")
+    if not os.path.exists(os.path.join(tel, "heartbeat.jsonl")):
+        fail("no heartbeat.jsonl")
+    prom = prom_samples(os.path.join(tel, "metrics.prom"))
+    frac = prom.get('wavetpu_solve_roofline_fraction{path="kfused_comp"}')
+    peak = prom.get('wavetpu_device_peak_bytes{context="solve"}')
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  traced flagship: solve span {solve[0]['dur_s']!r} s, "
+          f"roofline_fraction {frac!r} (model "
+          f"{solve[0]['attrs'].get('model_gbps')!r} GB/s of "
+          f"{obs_perf.peak_gbps()} GB/s), allocator peak {peak!r} B of "
+          f"{total} B ({card})")
+    if frac is None or not 0 < frac <= 1.05:
+        fail(f"roofline fraction {frac}")
+    if peak is None or not 0 < peak < total:
+        fail(f"allocator peak {peak}")
+    ops = json.load(open(os.path.join(prof, obs_perf.OPS_FILENAME)))
+    k4 = sum(o["count"] for o in ops
+             if "kstep_comp_pipe_kernel" in o["name"])
+    print(f"  profiler trace: K4 (kstep_comp_pipe_kernel) x{k4}; top "
+          f"operations by device time ({card}):")
+    print(obs_perf.format_ops(ops, 12))
+    if k4 < NB + REM:
+        fail(f"the profiler trace shows K4 x{k4}, not >= {NB + REM}")
+    return {"flagship_roofline_fraction": frac,
+            "flagship_peak_bytes": peak, "profiled_k4_launches": k4,
+            "top_device_ops": ops[:12]}
+
+
+def phase_trace_default(card):
+    """The reference's default CLI solve (N=512 / 1000 steps, errors on)
+    under --profile: where its device time goes, kernel by kernel, and the
+    device's busy share over the traced window."""
+    prof = os.path.join(OUT_DIR, "profile_default")
+    argv = [str(N_FULL), "1", "1", "1", "1", "1", str(STEPS), "--out-dir",
+            os.path.join(OUT_DIR, "default_traced"), "--profile", prof]
+    if cli.main(argv + CLI_EXTRA) != 0:
+        fail("the traced default run failed")
+    tk = obs_perf.trace_kernels(os.path.join(prof, obs_perf.TRACE_FILENAME))
+    top = sorted(tk["kernels"].items(), key=lambda kv: -kv[1]["ms"])
+    print(f"  traced default: {tk['kernel_ms']:.1f} ms of kernels in a "
+          f"{tk['span_ms']:.1f} ms window, device busy {tk['busy']:.3f} "
+          f"({card}); kernels by device time:")
+    for name, row in top[:12]:
+        print(f"    {row['ms']:10.3f} ms  x{row['count']:<5d} "
+              f"{name[:90]}")
+    k1 = sum(r["count"] for n, r in top if "step_kernel" in n
+             and "comp" not in n and "sharded" not in n)
+    if k1 != STEPS:
+        fail(f"the default run's trace shows K1 x{k1}, not x{STEPS}")
+    return {"default_trace": {"kernel_ms": tk["kernel_ms"],
+                              "span_ms": tk["span_ms"], "busy": tk["busy"],
+                              "kernels": dict(top[:12])}}
+
+
+def phase_kernel_choice(card):
+    """--kernel roll against --kernel pallas at N=128 / 100 steps: the
+    same states bit for bit (API) and the same report layer lines (CLI);
+    then the profile subcommand over a small solve."""
+    p = Problem(N=128, timesteps=100)
+    roll = leapfrog.solve(p, device=DEV, kernel="roll")
+    pallas = leapfrog.solve(p, device=DEV, kernel="pallas")
+    same = (torch.equal(roll.u_cur, pallas.u_cur)
+            and torch.equal(roll.u_prev, pallas.u_prev)
+            and np.array_equal(roll.abs_errors, pallas.abs_errors))
+    lines = {}
+    for kernel in ("roll", "pallas"):
+        out = os.path.join(OUT_DIR, f"kernel_{kernel}")
+        if cli.main(["128", "1", "1", "1", "1", "1", "100", "--kernel",
+                     kernel, "--out-dir", out]) != 0:
+            fail(f"--kernel {kernel} failed")
+        with open(os.path.join(out, "output_N128_Np1_CUDA.txt")) as f:
+            lines[kernel] = [ln for ln in f if ln.startswith("max abs")]
+    print(f"  --kernel roll == pallas at N=128/100: states bitwise={same}, "
+          f"report lines equal={lines['roll'] == lines['pallas']}; solve "
+          f"roll {roll.solve_seconds!r} s, pallas {pallas.solve_seconds!r} "
+          f"s ({card})")
+    if not same or lines["roll"] != lines["pallas"]:
+        fail("--kernel roll differs from --kernel pallas")
+    prof = os.path.join(OUT_DIR, "profile_subcommand")
+    if cli.main(["profile", "--out", prof, "64", "1", "1", "1", "1", "1",
+                 "20", "--out-dir", prof]) != 0:
+        fail("the profile subcommand failed")
+    if not os.path.exists(os.path.join(prof, obs_perf.TRACE_FILENAME)):
+        fail("the profile subcommand wrote no trace")
+    return {"roll_solve_seconds": roll.solve_seconds,
+            "pallas_solve_seconds": pallas.solve_seconds}
+
+
+def guard_runs(sides, card):
+    """The nine phase-3 CLI runs against their PERF.md §5 solve times."""
+    for label, recorded in RUN_S.items():
+        got = sides[label]["solve_seconds"]
+        print(f"  {label}: solve {got!r} s, recorded {recorded:.4f} s "
+              f"({100 * (got / recorded - 1):+.1f}%) ({card})")
+        if got > (1 + RUN_SLACK) * recorded:
+            fail(f"{label} solves in {got} s, more than "
+                 f"{100 * RUN_SLACK:.0f}% over the {recorded} s recorded "
+                 f"in PERF.md")
 
 
 def pipe_registers(logs):
@@ -1541,6 +1823,7 @@ def main() -> int:
                  f"{std['max_abs_error']}")
     t = done("runs", t)
 
+    ref221 = api["sharded_221"]  # phase 7's serial reference
     print("phase 4: contracts at full width")
     accuracy = phase_contracts(api)
     accuracy.update(phase_sharded_contracts(api))
@@ -1554,7 +1837,17 @@ def main() -> int:
 
     print(f"phase 6: times at the main-path shapes ({card})")
     times, rate = phase_times(dev_name)
-    done("times", t)
+    t = done("times", t)
+
+    print(f"phase 7: measurement ({card})")
+    measured = phase_overlap(ref221, card)
+    del ref221
+    measured["probes"] = phase_probes(times, card)
+    measured.update(phase_telemetry(card))
+    measured.update(phase_trace_default(card))
+    measured.update(phase_kernel_choice(card))
+    guard_runs(sides, card)
+    done("measurement", t)
     rows = []
     for name, meta in KERNELS.items():
         row = {
@@ -1585,6 +1878,7 @@ def main() -> int:
         "accuracy": accuracy,
         "kernels": rows,
         "times": times,
+        "measurement": measured,
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

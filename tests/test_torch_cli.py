@@ -8,6 +8,7 @@ order moves in the first digit (wavetpu's own kernels disagree on it).
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -288,10 +289,8 @@ def test_uneven_kfused_f64_layer_lines_byte_identical(tmp_path, extra,
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--overlap"], "item 10, step 3"),
-    (["--phase-timing"], "item 10, step 4"),
     (["--distributed"], "item 10, step 5"),
-], ids=["overlap", "phase-timing", "distributed"])
+], ids=["distributed"])
 def test_sharded_paths_not_ported_name_their_item(argv, needle, capsys):
     assert cli.main(["16", "1", "1", "1", "1"] + argv
                     + ["--platform", "cpu"]) == 2
@@ -380,3 +379,134 @@ def test_mesh_usage_errors_exit_2(argv, needle, capsys):
                     + ["--platform", "cpu"]) == 2
     assert needle in capsys.readouterr().err
 
+
+
+# --phase-timing, --overlap and --kernel (ROADMAP.md queue 1 items 10
+# steps 3-4 and 4).
+
+PHASE_LINE = re.compile(r"^total ICI exchange time: \d+ms\n"
+                        r"total loop time: \d+ms\n"
+                        r"\(phase times probe-extrapolated from (\d+) "
+                        r"steps\)\n$")
+
+
+def report_tail(path, n_layers=13):
+    """The report's lines after the layer lines (the phase lines)."""
+    lines = open(path).readlines()
+    return "".join(lines[2 + n_layers:])
+
+
+@pytest.mark.parametrize("extra", [["--mesh", "3,1,1"], []],
+                         ids=["mesh", "single"])
+def test_phase_timing_report_matches_wavetpu(tmp_path, extra, capsys):
+    """The 1-step march with --phase-timing at odd N, f64: layer lines
+    byte-identical to wavetpu's, and the same phase lines and probe
+    label (the times are each package's own)."""
+    flags = ["--phase-timing", "--dtype", "f64", "--platform", "cpu"]
+    assert cli.main(ARGS + extra + flags + [
+        "--out-dir", str(tmp_path / "ours")]) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"total ICI exchange time: \d+ms\ntotal loop time: "
+                     r"\d+ms\n", out)
+    ref_extra = extra + ["--kernel", "pallas"] if extra else [
+        "--backend", "single"]
+    assert jcli.main(ARGS + ref_extra + flags + [
+        "--out-dir", str(tmp_path / "ref")]) == 0
+    n = 3 if extra else 1
+    ours = tmp_path / "ours" / f"output_N15_Np{n}_CUDA.txt"
+    ref = tmp_path / "ref" / f"output_N15_Np{n}_TPU.txt"
+    assert layer_lines(ours) == layer_lines(ref)
+    tail, ref_tail = report_tail(ours), report_tail(ref)
+    assert PHASE_LINE.match(tail) and PHASE_LINE.match(ref_tail)
+    assert tail.splitlines()[-1] == ref_tail.splitlines()[-1]
+    side = json.loads(ours.with_suffix(".json").read_text())
+    assert side["loop_seconds"] > 0 and side["exchange_seconds"] >= 0
+    assert side["phase_probe_steps"] == 10
+
+
+@pytest.mark.parametrize("argv,steps", [
+    (["--fuse-steps", "3"], 30),
+    (["--fuse-steps", "5", "--mesh", "1,3,1"], 50),
+    (["--fuse-steps", "5", "--mesh", "3,1,1", "--scheme", "compensated"],
+     50),
+], ids=["kfused", "kfused-y-mesh", "flagship-mesh"])
+def test_phase_timing_kfused_probe_label_and_sidecar(tmp_path, argv, steps,
+                                                     capsys):
+    assert cli.main(ARGS + argv + ["--phase-timing", "--platform", "cpu",
+                                   "--out-dir", str(tmp_path)]) == 0
+    capsys.readouterr()
+    name = [f for f in os.listdir(tmp_path) if f.endswith(".txt")][0]
+    m = PHASE_LINE.match(report_tail(tmp_path / name))
+    assert m and int(m.group(1)) == steps
+    side = json.loads((tmp_path / name).with_suffix(".json").read_text())
+    assert side["phase_probe_steps"] == steps
+    assert side["loop_seconds"] > 0 and side["exchange_seconds"] >= 0
+    assert side["run_config"]["kernel"] == "roll"
+
+
+@pytest.mark.parametrize("mesh", ["3,1,1", "1,5,1"])
+def test_overlap_report_matches_wavetpu_and_serial(tmp_path, mesh, capsys):
+    """--overlap at odd N (even splits), f64: layer lines byte-identical
+    to wavetpu's overlap run and to the port's serial run."""
+    flags = ["--mesh", mesh, "--dtype", "f64", "--platform", "cpu"]
+    assert cli.main(ARGS + flags + ["--overlap", "--out-dir",
+                                    str(tmp_path / "ovl")]) == 0
+    assert cli.main(ARGS + flags + ["--out-dir", str(tmp_path / "ser")]) == 0
+    assert jcli.main(ARGS + flags + ["--overlap", "--kernel", "pallas",
+                                     "--out-dir", str(tmp_path / "ref")]) == 0
+    n = 3 if mesh == "3,1,1" else 5
+    ovl = layer_lines(tmp_path / "ovl" / f"output_N15_Np{n}_CUDA.txt")
+    assert len(ovl) == 13
+    assert ovl == layer_lines(tmp_path / "ser" / f"output_N15_Np{n}_CUDA.txt")
+    assert ovl == layer_lines(tmp_path / "ref" / f"output_N15_Np{n}_TPU.txt")
+
+
+@pytest.mark.parametrize("extra", [[], ["--kernel", "roll"],
+                                   ["--kernel", "auto"],
+                                   ["--kernel", "roll", "--mesh", "3,1,1"],
+                                   ["--kernel", "roll", "--scheme",
+                                    "compensated"]],
+                         ids=["default", "roll", "auto", "roll-mesh",
+                              "roll-compensated"])
+def test_kernel_roll_on_the_cpu(tmp_path, extra, capsys):
+    assert cli.main(ARGS + extra + ["--platform", "cpu", "--out-dir",
+                                    str(tmp_path)]) == 0
+    assert "kernel: roll" in capsys.readouterr().out
+    (side,) = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    assert json.loads((tmp_path / side).read_text())[
+        "run_config"]["kernel"] == "roll"
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--kernel", "pallas", "--platform", "cpu"], "need the card"),
+    (["--kernel", "cuda", "--platform", "cpu"], "--kernel must be"),
+], ids=["pallas-on-cpu", "bogus"])
+def test_kernel_usage_errors(argv, needle, capsys):
+    assert cli.main(["8", "1", "1", "1", "1"] + argv) == 2
+    assert needle in capsys.readouterr().err
+
+
+# wavetpu's flag-combination rules (wavetpu/cli.py:354-375, 641-643,
+# 718-731): both CLIs refuse each combination with the same message.
+@pytest.mark.parametrize("argv,needle", [
+    (["--fuse-steps", "2", "--kernel", "roll"],
+     "--fuse-steps needs the pallas kernel"),
+    (["--fuse-steps", "2", "--overlap"], "not --fuse-steps"),
+    (["--backend", "single", "--overlap"], "applies to the sharded backend"),
+    (["--c2-field", "constant", "--phase-timing"],
+     "probe times the constant-c step"),
+    (["--scheme", "compensated", "--phase-timing"],
+     "the 1-step scheme has none"),
+    (["--scheme", "compensated", "--overlap", "--mesh", "2,1,1"],
+     "--overlap is not available for the compensated scheme"),
+    (["--fuse-steps", "3", "--phase-timing"],
+     "covers even decompositions"),
+], ids=["kfused-roll", "kfused-overlap", "single-overlap",
+        "field-phase-timing", "comp-phase-timing", "comp-overlap",
+        "uneven-phase-timing"])
+def test_flag_combinations_refused_as_wavetpu(argv, needle, capsys):
+    base = ["8", "1", "1", "1", "1", "1", "3", "--platform", "cpu"]
+    assert cli.main(base + argv) == 2
+    assert needle in capsys.readouterr().err
+    assert jcli.main(base + argv) == 2
+    assert needle in capsys.readouterr().err

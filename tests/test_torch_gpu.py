@@ -935,3 +935,119 @@ def test_mesh_larger_than_the_cards_exits_2(cuda, capsys):
     assert cli.main(["16", "1", "1", "1", "1", "--mesh",
                      f"{n_cards + 1},1,1"]) == 2
     assert "visible" in capsys.readouterr().err
+
+
+# The measurement slice: --overlap (side streams), the phase-timing
+# probes, the allocator read, and the profiler's view of the kernels.
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, 1), (2, 2, 2), (4, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_overlap_equals_serial_on_one_card(cuda, mesh, dtype, with_field):
+    p = Problem(N=32, timesteps=12)
+    kw = {}
+    if with_field:
+        kw = dict(c2tau2_field=stencil_ref.make_preset_c2tau2_field(
+            p, "gaussian-lens"), compute_errors=False)
+    devs = [cuda] * (mesh[0] * mesh[1] * mesh[2])
+    ser = sharded.solve_sharded(p, mesh, devs, dtype=dtype, **kw)
+    stencil_cuda.reset_launches()
+    ovl = sharded.solve_sharded(p, mesh, devs, dtype=dtype, overlap=True,
+                                **kw)
+    # One K6 launch per block and one per face plane of each multi-shard
+    # axis (blocks of 16 or more planes: two faces per axis) per step.
+    counter = "sharded_step_field" if with_field else "sharded_step"
+    faces = 2 * sum(m > 1 for m in mesh)
+    assert stencil_cuda.launches[counter] == \
+        len(devs) * p.timesteps * (1 + faces)
+    for a, b in ((ser.u_cur, ovl.u_cur), (ser.u_prev, ovl.u_prev)):
+        assert torch.equal(a.assemble(cuda), b.assemble(cuda))
+    assert np.array_equal(ser.abs_errors, ovl.abs_errors)
+    assert np.array_equal(ser.rel_errors, ovl.rel_errors)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, 1), (2, 2, 2), (4, 1, 1)])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_overlap_equals_serial_across_cards(cuda, mesh, with_field):
+    """The shards dealt round the visible cards: every ghost copy between
+    cards goes on its sender's and receiver's side streams."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    p = Problem(N=32, timesteps=12)
+    kw = {}
+    if with_field:
+        kw = dict(c2tau2_field=stencil_ref.make_preset_c2tau2_field(
+            p, "gaussian-lens"), compute_errors=False)
+    devs = [torch.device("cuda", i % n_cards)
+            for i in range(mesh[0] * mesh[1] * mesh[2])]
+    ser = sharded.solve_sharded(p, mesh, devs, **kw)
+    ovl = sharded.solve_sharded(p, mesh, devs, overlap=True, **kw)
+    for a, b in ((ser.u_cur, ovl.u_cur), (ser.u_prev, ovl.u_prev)):
+        assert torch.equal(a.assemble(cuda), b.assemble(cuda))
+    assert np.array_equal(ser.abs_errors, ovl.abs_errors)
+    assert np.array_equal(ser.rel_errors, ovl.rel_errors)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh_shape=(2, 2, 1)),
+    dict(mesh_shape=(2, 2, 1), overlap=True),
+    dict(mesh_shape=(1, 1, 1), kernel="roll"),
+    dict(mesh_shape=(4, 1, 1), fuse_steps=4),
+    dict(mesh_shape=(2, 2, 1), fuse_steps=4),
+    dict(mesh_shape=(4, 1, 1), fuse_steps=4, scheme="compensated"),
+    dict(mesh_shape=(2, 2, 1), fuse_steps=4, scheme="compensated"),
+], ids=["1step", "overlap", "roll", "kfused", "kfused-xy", "flagship",
+        "flagship-xy"])
+def test_phase_probes_time_the_card(cuda, kw):
+    from wavetpu_torch.solver import timing
+
+    n = kw["mesh_shape"][0] * kw["mesh_shape"][1]
+    pb = timing.measure_phase_breakdown(
+        Problem(N=64, timesteps=40), devices=[cuda] * n, iters=3,
+        repeats=2, **kw)
+    assert np.isfinite(pb.loop_seconds) and pb.loop_seconds > 0
+    assert np.isfinite(pb.exchange_seconds) and pb.exchange_seconds >= 0
+
+
+def test_kernel_roll_equals_pallas_on_the_card(cuda, tmp_path, capsys):
+    for kernel in ("roll", "pallas"):
+        assert cli.main(["32", "1", "1", "1", "1", "1", "20", "--kernel",
+                         kernel, "--out-dir", str(tmp_path / kernel)]) == 0
+    capsys.readouterr()
+    p = Problem(N=32, timesteps=20)
+    a = leapfrog.solve(p, device=cuda, kernel="roll")
+    stencil_cuda.reset_launches()
+    b = leapfrog.solve(p, device=cuda)
+    assert stencil_cuda.launches["step"] == 20
+    assert torch.equal(a.u_cur, b.u_cur) and torch.equal(a.u_prev, b.u_prev)
+    assert np.array_equal(a.abs_errors, b.abs_errors)
+
+
+def test_memory_snapshot_reads_the_card(cuda):
+    from wavetpu_torch.obs import perf
+
+    perf.set_memory_stats_provider(None)
+    keep = torch.empty(1 << 20, device=cuda)
+    snap = perf.memory_snapshot()
+    assert snap is not None and snap["bytes_in_use"] >= keep.numel() * 4
+    assert snap["peak_bytes"] >= snap["bytes_in_use"]
+    assert snap["peak_bytes"] < torch.cuda.get_device_properties(
+        cuda).total_memory
+
+
+def test_profiler_sees_the_kernels(cuda, tmp_path):
+    from wavetpu_torch.obs import perf
+
+    p = Problem(N=32, timesteps=9)
+    leapfrog.solve(p, device=cuda)  # build and first launches
+    with torch.profiler.profile(
+            activities=perf.profiler_activities()) as prof:
+        kfused_comp.solve_kfused_comp(p, k=4, device=cuda)
+    ops = perf.export_profile(prof, str(tmp_path))
+    names = {o["name"]: o for o in perf.top_device_ops(prof, 1000)}
+    k4 = [o for n, o in names.items() if "kstep_comp_pipe_kernel" in n]
+    assert sum(o["count"] for o in k4) == 2  # 2 blocks at k=4, 0 tail
+    assert all(o["device_ms"] > 0 for o in k4)
+    assert ops and (tmp_path / perf.TRACE_FILENAME).exists()

@@ -38,8 +38,18 @@ for name in names:
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# The modules of the measurement slice, each of which must be among those
+# imported (they copy wavetpu's jax-free obs modules and progkey).
+MEASUREMENT_MODULES = (
+    "wavetpu_torch.progkey", "wavetpu_torch.solver.timing",
+    "wavetpu_torch.obs.registry", "wavetpu_torch.obs.tracing",
+    "wavetpu_torch.obs.metrics", "wavetpu_torch.obs.perf",
+    "wavetpu_torch.obs.ledger", "wavetpu_torch.obs.accuracy",
+    "wavetpu_torch.obs.telemetry", "wavetpu_torch.obs.report",
+)
 
 
 def test_port_imports_neither_jax_nor_wavetpu():
@@ -50,5 +60,8 @@ def test_port_imports_neither_jax_nor_wavetpu():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # Every module of the slice was imported (package + 20 modules).
-    assert int(proc.stdout.split()[-1]) >= 17
+    names = proc.stdout.split()
+    # Every module of the port was imported (package + 30 modules).
+    assert len(names) >= 31
+    for name in MEASUREMENT_MODULES:
+        assert name in names

@@ -54,6 +54,37 @@ Flags:
                                     --fuse-steps K with K not dividing N
                                     also runs K9, on a (1,1,1) mesh.
 
+  --kernel {auto,roll,pallas}       pallas runs the CUDA kernels, roll their
+                                    plain PyTorch versions on the same
+                                    device; auto = pallas on gpu, roll on
+                                    cpu.  --fuse-steps needs pallas (auto);
+                                    pallas needs the card
+  --overlap                         the 1-step sharded march with the ghost
+                                    copies on a side CUDA stream of each
+                                    card beside the bulk update (even
+                                    splits, standard scheme; bit for bit
+                                    the serial march)
+  --phase-timing                    measure the loop vs exchange split with
+                                    probe marches of the production step
+                                    (solver/timing.py) and add wavetpu's
+                                    "total ICI exchange time" / "total loop
+                                    time" lines to the report; covers the
+                                    1-step standard step and both k-fused
+                                    marches on even decompositions
+  --profile DIR                     run the solve under torch.profiler and
+                                    write a Chrome trace (DIR/trace.json)
+                                    and its top operations
+                                    (DIR/device_ops.json)
+  --telemetry-dir DIR               spans into DIR/trace.jsonl, registry
+                                    snapshots into DIR/heartbeat.jsonl and
+                                    DIR/metrics.prom, and the compile and
+                                    accuracy ledgers (obs/)
+
+Subcommands: `trace-report [TRACE.jsonl ...] [--dir DIR ...]` (obs/
+report.py), `ledger-report TELEMETRY_DIR [--json]` (obs/ledger.py),
+`plan-report TELEMETRY_DIR [--json]` (obs/accuracy.py) and `profile --out
+DIR ARGS...` (obs/perf.py: one full command line under torch.profiler).
+
 wavetpu's other flags and subcommands are not ported yet: each exits 2
 and names the ROADMAP.md item that brings it.  Exit codes: 0 complete,
 2 usage error.
@@ -70,13 +101,8 @@ from wavetpu_torch.core.problem import Problem
 # wavetpu flags (and subcommands) the port does not take yet, with the
 # ROADMAP.md item that will bring each.
 _NOT_PORTED = {
-    "overlap": "queue 1 item 10, step 3 (--overlap: the exchange on a "
-               "second stream)",
     "distributed": "queue 1 item 10, step 5 (--distributed: one process "
                    "per card)",
-    "phase-timing": "queue 1 item 10, step 4 (solver/timing.py)",
-    "kernel": "queue 1 item 4 (kernel selection; the port picks the CUDA "
-              "kernels on the GPU and their plain versions on the CPU)",
     "stop-step": "queue 1 item 8 (checkpoint I/O)",
     "save-state": "queue 1 item 8 (checkpoint I/O)",
     "resume": "queue 1 item 8 (checkpoint I/O)",
@@ -86,8 +112,6 @@ _NOT_PORTED = {
     "max-amp": "queue 1 item 9 (supervision)",
     "no-watchdog": "queue 1 item 9 (supervision)",
     "debug-nans": "queue 1 item 9 (supervision's health checks)",
-    "profile": "queue 1 item 7 (perf + metrics)",
-    "telemetry-dir": "queue 1 item 7 (perf + metrics)",
     "program-cache-dir": "queue 1 item 12 (serving)",
 }
 _NOT_PORTED_SUBCOMMANDS = {
@@ -96,13 +120,10 @@ _NOT_PORTED_SUBCOMMANDS = {
     "fleet": "queue 1 item 12 (serving)",
     "warmup": "queue 1 item 12 (serving)",
     "loadgen": "queue 1 item 12 (serving)",
-    "trace-report": "queue 1 item 7 (perf + metrics)",
-    "ledger-report": "queue 1 item 7 (perf + metrics)",
-    "plan-report": "queue 1 item 7 (perf + metrics)",
-    "profile": "queue 1 item 7 (perf + metrics)",
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
-           "out-dir", "platform", "c2-field", "backend", "mesh")
+           "out-dir", "platform", "c2-field", "backend", "mesh", "kernel",
+           "overlap", "phase-timing", "profile", "telemetry-dir")
 _VALUELESS = ("no-errors", "overlap", "distributed", "debug-nans",
               "no-watchdog", "phase-timing")
 _USAGE = (
@@ -111,8 +132,18 @@ _USAGE = (
     "[--dtype f32|f64|bf16] [--v-dtype f32|bf16] "
     "[--c2-field PRESET|FILE.npy] [--no-errors] [--out-dir DIR] "
     "[--platform gpu|cpu] [--backend auto|single|sharded] "
-    "[--mesh MX,MY,MZ] | --version"
+    "[--mesh MX,MY,MZ] [--kernel auto|roll|pallas] [--overlap] "
+    "[--phase-timing] [--profile DIR] [--telemetry-dir DIR] | "
+    "trace-report [...] | ledger-report DIR [...] | plan-report DIR [...] "
+    "| profile --out DIR ARGS... | --version"
 )
+# The subcommands: (module, its entry point).
+_SUBCOMMANDS = {
+    "trace-report": ("wavetpu_torch.obs.report", "main"),
+    "ledger-report": ("wavetpu_torch.obs.ledger", "main"),
+    "plan-report": ("wavetpu_torch.obs.accuracy", "main"),
+    "profile": ("wavetpu_torch.obs.perf", "profile_main"),
+}
 
 
 class _NotPorted(ValueError):
@@ -165,6 +196,36 @@ def _parse(argv):
             "onion: add --fuse-steps K (the 1-step compensated kernel "
             "carries a scalar coefficient)"
         )
+    kernel = flags.get("kernel", "auto")
+    if kernel not in ("auto", "roll", "pallas"):
+        raise ValueError(f"--kernel must be auto|roll|pallas, got {kernel}")
+    if kernel == "pallas" and platform == "cpu":
+        raise ValueError(
+            "--kernel pallas runs the CUDA kernels, which need the card; "
+            "--platform cpu runs their plain versions (--kernel roll)")
+    if fuse_steps > 1:
+        if kernel == "roll":
+            raise ValueError("--fuse-steps needs the pallas kernel")
+        if "overlap" in flags:
+            raise ValueError(
+                "--overlap applies to the 1-step sharded backend, not "
+                "--fuse-steps (whose exchange is amortized over k layers)")
+    if "c2-field" in flags and "phase-timing" in flags:
+        raise ValueError(
+            "--phase-timing's probe times the constant-c step; drop it for "
+            "--c2-field runs")
+    if flags.get("backend") == "single" and "overlap" in flags:
+        raise ValueError("--overlap applies to the sharded backend")
+    if scheme == "compensated":
+        bad = None
+        if "overlap" in flags:
+            bad = "--overlap"
+        elif "phase-timing" in flags and fuse_steps < 2:
+            bad = ("--phase-timing (the compensated probe covers "
+                   "--fuse-steps K programs; the 1-step scheme has none)")
+        if bad:
+            raise ValueError(
+                f"{bad} is not available for the compensated scheme")
     v_dtype = flags.get("v-dtype")
     if v_dtype is not None and v_dtype not in ("f32", "bf16"):
         raise ValueError(f"--v-dtype must be f32|bf16, got {v_dtype}")
@@ -232,6 +293,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"error: `{argv[0]}` is not ported yet: ROADMAP.md "
               f"{_NOT_PORTED_SUBCOMMANDS[argv[0]]}", file=sys.stderr)
         return 2
+    if argv and argv[0] in _SUBCOMMANDS:
+        import importlib
+
+        module, entry = _SUBCOMMANDS[argv[0]]
+        return getattr(importlib.import_module(module), entry)(argv[1:])
     if "--version" in argv:
         from wavetpu_torch import __version__
 
@@ -262,10 +328,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
 
     from wavetpu_torch.io import report
-    from wavetpu_torch.solver import (
-        kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
-    )
+    from wavetpu_torch.obs import ledger, tracing
+    from wavetpu_torch.progkey import resolve_kernel
 
+    kernel = resolve_kernel(flags.get("kernel", "auto"), platform)
+    overlap = "overlap" in flags
     # Courant printout before solving (openmp_sol.cpp:214).
     print(f"C = {problem.courant:.6g}")
     compute_errors = "no-errors" not in flags
@@ -283,6 +350,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
     print(f"device: {device_name}")
+    print(f"kernel: {kernel}")
     print(f"scheme: {scheme}")
     if fuse_steps > 1:
         print(f"fuse-steps: {fuse_steps}")
@@ -292,93 +360,247 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         flags.get("dtype"), torch.float32)
     v_bf16 = flags.get("v-dtype") == "bf16"
 
+    telemetry = None
+    if "telemetry-dir" in flags:
+        # Spans to DIR/trace.jsonl, heartbeat registry snapshots and the
+        # ledgers (obs/telemetry.py); spans open record_function ranges,
+        # so with --profile the application structure lands in the trace.
+        from wavetpu_torch.obs import telemetry as obs_telemetry
+
+        telemetry = obs_telemetry.start(flags["telemetry-dir"])
+        print(f"telemetry: {flags['telemetry-dir']}")
+    prof = None
+    if "profile" in flags:
+        from wavetpu_torch.obs import perf as obs_perf
+
+        prof = torch.profiler.profile(
+            activities=obs_perf.profiler_activities())
+        prof.__enter__()
+    solve_span = tracing.begin_span(
+        "cli.solve", backend=backend, scheme=scheme, kernel=kernel,
+        fuse_steps=fuse_steps, n=problem.N, timesteps=problem.timesteps,
+        supervised=False, resumed=False,
+    )
+    compiled = _compile_counts()
+    try:
+        result = _solve(problem, scheme, fuse_steps, backend, shape,
+                        devices, device, dtype, compute_errors, c2_field,
+                        v_bf16, kernel, overlap)
+        span_extra = {}
+        if solve_span is not None:
+            span_extra = _roofline_attrs(_perf_path(backend, scheme,
+                                                    fuse_steps))
+        tracing.end_span(
+            solve_span, final_step=result.final_step,
+            gcells_per_s=round(result.gcells_per_second, 3), **span_extra,
+        )
+        if ledger.enabled():
+            _record_compile(ledger, problem, scheme, fuse_steps, kernel,
+                            result, c2_field is not None, compute_errors,
+                            shape if backend == "sharded" else None,
+                            compiled, _compile_counts())
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            ops = obs_perf.export_profile(prof, flags["profile"])
+            prof = None
+            print(f"profile trace: {flags['profile']}")
+            print(obs_perf.format_ops(ops))
+
+        exchange_seconds = loop_seconds = probe_steps = None
+        if "phase-timing" in flags:
+            from wavetpu_torch.solver import timing
+
+            # The probe times the mesh the solve ran on.
+            pb = timing.measure_phase_breakdown(
+                problem,
+                mesh_shape=shape if backend == "sharded" else (1, 1, 1),
+                devices=devices if backend == "sharded" else [device],
+                dtype=dtype, kernel=kernel, overlap=overlap,
+                fuse_steps=fuse_steps, scheme=scheme,
+                v_dtype=torch.bfloat16 if v_bf16 else None,
+            )
+            exchange_seconds = pb.exchange_seconds
+            loop_seconds = pb.loop_seconds
+            probe_steps = pb.steps_measured
+
+        sharded_run = backend == "sharded"
+        path = report.write_report(
+            result,
+            out_dir=flags.get("out-dir", "."),
+            n_procs=shape[0] * shape[1] * shape[2] if sharded_run else 1,
+            errors_computed=compute_errors,
+            exchange_seconds=exchange_seconds,
+            loop_seconds=loop_seconds,
+            probe_steps=probe_steps,
+            run_config={
+                "device": device_name,
+                "platform": platform,
+                "backend": backend,
+                "mesh": list(shape) if sharded_run else None,
+                "scheme": scheme,
+                "fuse_steps": fuse_steps,
+                "dtype": str(result.u_cur.dtype).replace("torch.", ""),
+                "v_dtype": flags.get("v-dtype"),
+                "c2_field": flags.get("c2-field"),
+                # "pallas" where the CUDA kernels ran (wavetpu's kernel
+                # path), "roll" where their plain versions ran.
+                "kernel": kernel,
+                # wavetpu's keys, with the values of a run without those
+                # features.
+                "distributed": False,
+                "resumed": False,
+                "supervised": False,
+                "ckpt_every": None,
+                "supervisor_status": None,
+            },
+        )
+        print(f"grids initialized in {int(result.init_seconds * 1000)}ms")
+        print(f"numerical solution calculated in "
+              f"{int(result.solve_seconds * 1000)}ms")
+        if exchange_seconds is not None:
+            print(f"total ICI exchange time: "
+                  f"{int(exchange_seconds * 1000)}ms")
+            print(f"total loop time: {int(loop_seconds * 1000)}ms")
+        if compute_errors:
+            print(f"max abs error: {result.abs_errors.max():.6g}")
+        print(f"throughput: {result.gcells_per_second:.3f} Gcell-updates/s")
+        print(f"report: {path}")
+    except BaseException:
+        # A crash mid-run still closes the open cli.solve span, the
+        # profiler and the final heartbeat, and leaves no tracer bound to
+        # this run's files for the next in-process call (span end and
+        # telemetry.stop() are idempotent).
+        tracing.end_span(solve_span, aborted=True)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        raise
+    finally:
+        if telemetry is not None:
+            telemetry.stop()
+    return 0
+
+
+def _solve(problem, scheme, fuse_steps, backend, shape, devices, device,
+           dtype, compute_errors, c2_field, v_bf16, kernel, overlap):
+    """The solver call of the run's path."""
+    import torch
+
+    from wavetpu_torch.solver import (
+        kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
+    )
+
     if backend == "sharded" and fuse_steps > 1 and scheme == "compensated":
         # The distributed flagship (wavetpu/cli.py:951-986).
-        result = kfused_comp.solve_kfused_comp_sharded(
+        return kfused_comp.solve_kfused_comp_sharded(
             problem, mesh_shape=shape, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors, devices=devices,
             v_dtype=torch.bfloat16 if v_bf16 else None, carry=not v_bf16,
             c2tau2_field=c2_field,
         )
-    elif backend == "sharded" and fuse_steps > 1:
-        result = sharded_kfused.solve_sharded_kfused(
+    if backend == "sharded" and fuse_steps > 1:
+        return sharded_kfused.solve_sharded_kfused(
             problem, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors, devices=devices,
             mesh_shape=shape, c2tau2_field=c2_field,
         )
-    elif backend == "sharded":
-        result = sharded.solve_sharded(
+    if backend == "sharded":
+        return sharded.solve_sharded(
             problem, shape, devices, dtype=dtype,
             compute_errors=compute_errors, c2tau2_field=c2_field,
-            scheme=scheme,
+            scheme=scheme, kernel=kernel, overlap=overlap,
         )
-    elif scheme == "compensated" and fuse_steps > 1:
-        result = kfused_comp.solve_kfused_comp(
+    if scheme == "compensated" and fuse_steps > 1:
+        return kfused_comp.solve_kfused_comp(
             problem, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors,
             v_dtype=torch.bfloat16 if v_bf16 else None, carry=not v_bf16,
             c2tau2_field=c2_field, device=device,
         )
-    elif scheme == "compensated":
-        result = leapfrog.solve_compensated(
+    if scheme == "compensated":
+        return leapfrog.solve_compensated(
             problem, dtype=dtype, compute_errors=compute_errors,
-            device=device,
+            device=device, kernel=kernel,
         )
-    elif fuse_steps > 1 and problem.N % fuse_steps:
+    if fuse_steps > 1 and problem.N % fuse_steps:
         # K does not divide N: wavetpu's pad-and-mask march (K9) on a
         # (1, 1, 1) mesh (wavetpu/cli.py:1201-1213).
-        result = sharded_kfused.solve_sharded_kfused(
+        return sharded_kfused.solve_sharded_kfused(
             problem, n_shards=1, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors, devices=[device],
             c2tau2_field=c2_field,
         )
-    elif fuse_steps > 1:
-        result = kfused.solve_kfused(
+    if fuse_steps > 1:
+        return kfused.solve_kfused(
             problem, dtype=dtype, k=fuse_steps,
             compute_errors=compute_errors, c2tau2_field=c2_field,
             device=device,
         )
-    else:
-        result = leapfrog.solve(
-            problem, dtype=dtype, compute_errors=compute_errors,
-            c2tau2_field=c2_field, device=device,
-        )
-
-    sharded_run = backend == "sharded"
-    path = report.write_report(
-        result,
-        out_dir=flags.get("out-dir", "."),
-        n_procs=shape[0] * shape[1] * shape[2] if sharded_run else 1,
-        errors_computed=compute_errors,
-        run_config={
-            "device": device_name,
-            "platform": platform,
-            "backend": backend,
-            "mesh": list(shape) if sharded_run else None,
-            "scheme": scheme,
-            "fuse_steps": fuse_steps,
-            "dtype": str(result.u_cur.dtype).replace("torch.", ""),
-            "v_dtype": flags.get("v-dtype"),
-            "c2_field": flags.get("c2-field"),
-            # wavetpu's keys, with the values of a run without those
-            # features: "pallas" where the CUDA kernels run (wavetpu's
-            # kernel path), "roll" where their plain versions run.
-            "kernel": "pallas" if platform == "gpu" else "roll",
-            "distributed": False,
-            "resumed": False,
-            "supervised": False,
-            "ckpt_every": None,
-            "supervisor_status": None,
-        },
+    return leapfrog.solve(
+        problem, dtype=dtype, compute_errors=compute_errors,
+        c2tau2_field=c2_field, device=device, kernel=kernel,
     )
-    print(f"grids initialized in {int(result.init_seconds * 1000)}ms")
-    print(f"numerical solution calculated in "
-          f"{int(result.solve_seconds * 1000)}ms")
-    if compute_errors:
-        print(f"max abs error: {result.abs_errors.max():.6g}")
-    print(f"throughput: {result.gcells_per_second:.3f} Gcell-updates/s")
-    print(f"report: {path}")
-    return 0
+
+
+def _perf_path(backend: str, scheme: str, fuse_steps: int) -> str:
+    """The path label `record_solve` stamped for this run."""
+    if backend == "sharded":
+        if fuse_steps > 1:
+            return ("kfused_comp_sharded" if scheme == "compensated"
+                    else "sharded_kfused")
+        return "sharded"
+    if fuse_steps > 1:
+        return "kfused_comp" if scheme == "compensated" else "kfused"
+    return "compensated" if scheme == "compensated" else "leapfrog"
+
+
+def _roofline_attrs(path: str) -> dict:
+    """The roofline gauges record_solve just stamped under `path` (one
+    computation, read back), for the cli.solve span."""
+    try:
+        from wavetpu_torch.obs.registry import get_registry
+
+        reg = get_registry()
+        gbps = reg.gauge("wavetpu_solve_model_gbps", "",
+                         ("path",)).value(path=path)
+        if not gbps:
+            return {}
+        return {"model_gbps": gbps, "roofline_fraction": reg.gauge(
+            "wavetpu_solve_roofline_fraction", "", ("path",)).value(
+                path=path)}
+    except Exception:
+        return {}  # the X-ray must never fail a finished solve
+
+
+def _compile_counts() -> dict:
+    """What the process has paid for its kernels so far: nvcc runs and
+    seconds, library loads (from the build directory) and their seconds,
+    and the first launches of template instantiations."""
+    from wavetpu_torch.kernels import build, stencil_cuda
+
+    return dict(build.stats,
+                first_launch_seconds=stencil_cuda.first_launch_seconds)
+
+
+def _record_compile(ledger, problem, scheme, fuse_steps, kernel, result,
+                    with_field, compute_errors, mesh, before, after):
+    """One compile-ledger line for the solve: its batch=1 key, the seconds
+    it paid for builds, loads and first launches, and where the libraries
+    came from ("fresh": nvcc ran, "disk": loaded from the build directory;
+    no source when nothing was loaded)."""
+    d = {k: after[k] - before[k] for k in after}
+    seconds = (d["nvcc_seconds"] + d["load_seconds"]
+               + d["first_launch_seconds"])
+    source = ("fresh" if d["nvcc_runs"] else
+              "disk" if d["disk_loads"] else None)
+    dtype = {"float32": "f32", "float64": "f64", "bfloat16": "bf16"}.get(
+        str(result.u_cur.dtype).replace("torch.", ""), "f32")
+    try:
+        ledger.record_compile(ledger.solo_key(
+            problem, scheme, "kfused" if fuse_steps > 1 else kernel,
+            fuse_steps, dtype, with_field, compute_errors, mesh=mesh,
+        ), seconds, source=source)
+    except Exception:
+        pass  # ledger bookkeeping must never fail the run
 
 
 def _placement(problem: Problem, flags, fuse_steps: int, platform: str,
@@ -424,6 +646,17 @@ def _placement(problem: Problem, flags, fuse_steps: int, platform: str,
         elif backend == "sharded":
             kfused_comp._validate_mesh(problem, fuse_steps, shape[0],
                                        shape[1])
+        if ("phase-timing" in flags
+                and not sharded_kfused._is_even(problem, fuse_steps,
+                                                shape[0])):
+            raise ValueError(
+                "--phase-timing's k-fused probe covers even decompositions "
+                "(k | N/MX); drop it for uneven N")
+    if "overlap" in flags and backend == "sharded" and any(
+            n % m for m in shape):
+        raise ValueError(
+            f"overlap mode requires N divisible by every mesh dim "
+            f"(N={n}, mesh={tuple(shape)})")
     if backend == "single":
         return backend, shape, None
     from wavetpu_torch.core.grid import Topology

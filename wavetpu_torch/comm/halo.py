@@ -26,7 +26,7 @@ A mesh dim of 1 takes the local wrap with no copy (the block's own planes).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,9 +36,25 @@ from wavetpu_torch.kernels import stencil_ref
 Ghosts = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
 
 
-def send(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+def send(t: torch.Tensor, device: torch.device,
+         streams: Optional[Tuple[torch.cuda.Stream, torch.cuda.Stream]] = None
+         ) -> torch.Tensor:
     """`t` copied onto `device` as a new contiguous tensor (a ppermute's
-    delivery): always a copy, never a view of the sender's block."""
+    delivery): always a copy, never a view of the sender's block.
+
+    `streams`, the (sender's, receiver's) pair of CUDA streams, puts the
+    copy on them instead of the two cards' current streams.  A copy
+    between cards runs on the sender's current stream behind a two-way
+    barrier with the receiver's current stream, so with both streams
+    made current here the copy is queued on the sender's stream, after
+    the receiver's stream has caught up, and the receiver's stream waits
+    for it; the result is allocated on the receiver's stream, and the
+    sender's plane is marked in use by the sender's stream."""
+    if streams is not None:
+        with torch.cuda.stream(streams[0]), torch.cuda.stream(streams[1]):
+            out = send(t, device)
+        t.record_stream(streams[0])
+        return out
     out = torch.empty(t.shape, dtype=t.dtype, device=device)
     out.copy_(t, non_blocking=True)
     return out
@@ -49,14 +65,18 @@ def _plane(u: torch.Tensor, axis: int, p: int) -> torch.Tensor:
 
 
 def collect_ghosts(blocks: Sequence[torch.Tensor], topo: Topology,
-                   mesh: Mesh) -> List[Ghosts]:
+                   mesh: Mesh,
+                   streams: Optional[Sequence[torch.cuda.Stream]] = None
+                   ) -> List[Ghosts]:
     """Exchange the 6 face ghost planes of every shard; no placement.
 
     Returns, per shard in mesh order, ((xlo, xhi), (ylo, yhi), (zlo, zhi)):
     `lo` is the -1 neighbour of the shard's plane 0 along that axis, `hi`
     the +1 neighbour of its last *real* plane.  On a mesh dim of 1 they are
     views of the block's own wrap planes (no pad exists there); otherwise
-    copies received from the cyclic neighbour shard.
+    copies received from the cyclic neighbour shard.  `streams` (one
+    CUDA stream per shard, in mesh order) puts each copy on its sender's
+    and receiver's streams (`send`).
     """
     out = []
     for i, coord in enumerate(mesh.coords):
@@ -76,9 +96,13 @@ def collect_ghosts(blocks: Sequence[torch.Tensor], topo: Topology,
             # Forward: the lower neighbour's last real plane.
             last = (coord[axis] - 1) % m == m - 1
             p = topo.r_last[axis] - 1 if last else b - 1
-            ghost_lo = send(_plane(blocks[lo_i], axis, p), dst)
+            ghost_lo = send(_plane(blocks[lo_i], axis, p), dst,
+                            None if streams is None
+                            else (streams[lo_i], streams[i]))
             # Backward: the upper neighbour's first plane.
-            ghost_hi = send(_plane(blocks[hi_i], axis, 0), dst)
+            ghost_hi = send(_plane(blocks[hi_i], axis, 0), dst,
+                            None if streams is None
+                            else (streams[hi_i], streams[i]))
             ghosts.append((ghost_lo, ghost_hi))
         out.append(tuple(ghosts))
     return out

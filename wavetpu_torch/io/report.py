@@ -6,10 +6,12 @@ containing init time, solve wall time and per-layer L-inf abs/rel errors
 (openmp_sol.cpp:229, mpi_new.cpp:454).  The layer-error lines are
 verbatim-compatible ("max abs and rel errors on layer n: A R") so outputs
 diff cleanly against reference and wavetpu runs.  A JSON sidecar carries
-the same data plus throughput for machines, with wavetpu's keys:
-`exchange_seconds`, `loop_seconds` and `phase_probe_steps` are null until
-the port has `--phase-timing` (wavetpu's phase-timing report lines have no
-counterpart yet).
+the same data plus throughput for machines, with wavetpu's keys.  A
+`--phase-timing` run adds wavetpu's "total ICI exchange time" / "total
+loop time" lines and the probe label (the sidecar's `exchange_seconds`,
+`loop_seconds` and `phase_probe_steps`; null without it).  The line
+keeps wavetpu's wording, so reports diff cleanly; here the exchange is
+the ghost copies between shards (solver/timing.py).
 """
 
 from __future__ import annotations
@@ -35,7 +37,13 @@ def report_filename(N: int, n_procs: int = 1) -> str:
     return f"output_N{N}_Np{n_procs}_{VARIANT}.txt"
 
 
-def format_report(result: SolveResult, errors_computed: bool = True) -> str:
+def format_report(
+    result: SolveResult,
+    exchange_seconds: Optional[float] = None,
+    loop_seconds: Optional[float] = None,
+    errors_computed: bool = True,
+    probe_steps: Optional[int] = None,
+) -> str:
     """Render the text report body (reference line layout).  A --no-errors
     run gets an explicit marker instead of all-zero errors that would read
     as a perfect run."""
@@ -50,6 +58,21 @@ def format_report(result: SolveResult, errors_computed: bool = True) -> str:
             )
     else:
         lines.append("errors not computed (run without --no-errors to verify)")
+    if exchange_seconds is not None:
+        lines.append(
+            f"total ICI exchange time: {int(exchange_seconds * 1000)}ms"
+        )
+    if loop_seconds is not None:
+        lines.append(f"total loop time: {int(loop_seconds * 1000)}ms")
+    if probe_steps is not None and (
+        exchange_seconds is not None or loop_seconds is not None
+    ):
+        # Unlike the reference's per-step host timers (mpi_new.cpp:
+        # 200-240), these come from probe marches of the production step
+        # extrapolated to the full solve length.
+        lines.append(
+            f"(phase times probe-extrapolated from {probe_steps} steps)"
+        )
     return "\n".join(lines) + "\n"
 
 
@@ -59,6 +82,9 @@ def write_report(
     n_procs: int = 1,
     errors_computed: bool = True,
     run_config: Optional[dict] = None,
+    exchange_seconds: Optional[float] = None,
+    loop_seconds: Optional[float] = None,
+    probe_steps: Optional[int] = None,
 ) -> str:
     """Write the text report + JSON sidecar; returns the text-file path.
     `run_config` records how the run was produced (device, scheme,
@@ -68,7 +94,8 @@ def write_report(
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, name)
     with open(path, "w") as f:
-        f.write(format_report(result, errors_computed))
+        f.write(format_report(result, exchange_seconds, loop_seconds,
+                              errors_computed, probe_steps))
     side = {
         "problem": dataclasses.asdict(p),
         "courant": p.courant,
@@ -88,10 +115,9 @@ def write_report(
         "rel_errors": (
             [float(x) for x in result.rel_errors] if errors_computed else None
         ),
-        # Not measured: the port has no --phase-timing yet.
-        "exchange_seconds": None,
-        "loop_seconds": None,
-        "phase_probe_steps": None,
+        "exchange_seconds": exchange_seconds,
+        "loop_seconds": loop_seconds,
+        "phase_probe_steps": probe_steps,
         "run_config": run_config,
     }
     # Derive the sidecar from `name` (not `path`): out_dir may itself

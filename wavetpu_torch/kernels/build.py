@@ -19,6 +19,11 @@ all at once, and waits for them together.
 
 Nothing here runs at import: the first kernel launch (or an explicit
 `build_all()`) builds.  A missing nvcc or a failed build raises.
+
+`stats` counts what the process paid for its kernels: nvcc runs and their
+wall seconds, and libraries loaded (`disk_loads` of them found already
+built in the build directory) with the load's wall seconds - the compile
+ledger's record of a solve (obs/ledger.py).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -40,6 +46,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+stats = {"nvcc_runs": 0, "nvcc_seconds": 0.0, "loads": 0, "disk_loads": 0,
+         "load_seconds": 0.0}
 
 
 def build_dir() -> Path:
@@ -111,8 +119,14 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
     shared-memory / spill report.  Returns {name: compiler output}."""
     extra = ("-Xptxas", "-v") if verbose else ()
     with _lock:
+        t0 = time.perf_counter()
         started = {n: _start(n, extra) for n in sources()}
-        return {n: _finish(n, s) for n, s in started.items()}
+        logs = {n: _finish(n, s) for n, s in started.items()}
+        runs = sum(s is not None for s in started.values())
+        if runs:
+            stats["nvcc_runs"] += runs
+            stats["nvcc_seconds"] += time.perf_counter() - t0
+        return logs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -120,7 +134,17 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            _finish(name, _start(name))
+            t0 = time.perf_counter()
+            started = _start(name)
+            _finish(name, started)
+            t1 = time.perf_counter()
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
+            if started is None:
+                stats["disk_loads"] += 1
+            else:
+                stats["nvcc_runs"] += 1
+                stats["nvcc_seconds"] += t1 - t0
+            stats["loads"] += 1
+            stats["load_seconds"] += time.perf_counter() - t1
         return lib

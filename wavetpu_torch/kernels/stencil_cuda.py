@@ -33,7 +33,10 @@ side; the others whole y rows.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests and `--platform cpu` run); a
-CUDA tensor launches the kernel or raises - there is no fallback.  Each
+CUDA tensor launches the kernel or raises - there is no fallback.  A
+solver that is asked for the plain versions on the card (`--kernel roll`)
+calls them by name (`make_step_fn(kernel=)`, `make_compensated_step_fn`,
+`solver.sharded._make_local_step`), never through a wrapper.  Each
 wrapper adds one to `launches[<counter>]` right after its kernel launched,
 and nowhere else, so a run can show that it went through the kernels (a
 field launch counts under its own name, so a run shows the field path
@@ -49,6 +52,7 @@ yardsticks of speed.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -96,6 +100,12 @@ def pipe_max_threads(k: int) -> int:
     in csrc/): one per column of the (ty+2k)(tz+2k) halo face, 1024 for
     k <= 4 and 640 above, where the per-stage registers add up."""
     return 1024 if k <= 4 else 640
+
+
+# The template instantiations launched so far in this process, and the
+# host seconds their first launches took (`_run`).
+_launched: set = set()
+first_launch_seconds = 0.0
 
 
 def reset_launches() -> None:
@@ -186,12 +196,22 @@ def _check_cuda(n: int, **tensors) -> None:
                              f"expected {(n, n, n)}")
 
 
-def _run(fn, *args) -> None:
+def _run(fn, *args, inst: tuple) -> None:
     """Call a C entry point on the current stream; raise on a CUDA error
     (a refused launch never runs, and synchronize would not report it).
     Every library returns cudaError_t codes; stencil's wt_error_string
-    names them."""
+    names them.  `inst` names the template instantiation the call
+    launches (its launch counter and template parameters): the host wall
+    time of its first launch in the process - the CUDA runtime loads the
+    instantiation there - is added to `first_launch_seconds` (the compile
+    ledger's share of the solve that paid it; no synchronisation)."""
+    global first_launch_seconds
+    first = inst not in _launched
+    t0 = time.perf_counter() if first else 0.0
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if first:
+        _launched.add(inst)
+        first_launch_seconds += time.perf_counter() - t0
     if err != 0:
         msg = _lib().wt_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
@@ -257,7 +277,9 @@ def fused_step(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff=None,
         _run(_lib().wt_step, u_prev.data_ptr(), u.data_ptr(),
              out.data_ptr(), _ptr(c2tau2_field), n, _CODE[u.dtype],
              float(alpha), float(beta), float(coeff),
-             *(float(h) for h in inv_h2), int(beta != 0))
+             *(float(h) for h in inv_h2), int(beta != 0),
+             inst=("step" if c2tau2_field is None else "var_step", u.dtype,
+                   beta != 0))
     launches["step" if c2tau2_field is None else "var_step"] += 1
     return out
 
@@ -274,19 +296,50 @@ def taylor_half_step(u0, problem: Problem):
                       coeff=0.5 * problem.a2tau2)
 
 
-def make_step_fn(c2tau2_field=None):
+def check_kernel(kernel: str) -> None:
+    """`kernel` selects what a solver launches: "pallas" the CUDA kernels
+    (wavetpu's Pallas kernels' counterparts), "roll" their plain PyTorch
+    versions on the same device (the CLI's --kernel)."""
+    if kernel not in ("pallas", "roll"):
+        raise ValueError(f"kernel must be 'pallas' or 'roll', got {kernel!r}")
+
+
+def make_step_fn(c2tau2_field=None, kernel: str = "pallas"):
     """A `(u_prev, u, problem) -> u_next` step for `leapfrog.solve(step_fn=)`
     (stencil_pallas.make_step_fn :2166): K1 for constant speed, K5 over
     `c2tau2_field` (a device tensor in the compute dtype, placed once by
-    the caller) for variable speed."""
-    if c2tau2_field is None:
+    the caller) for variable speed; with kernel="roll" their plain
+    versions."""
+    check_kernel(kernel)
+    if c2tau2_field is None and kernel == "pallas":
         return leapfrog_step
+    fn = fused_step if kernel == "pallas" else fused_step_plain
 
-    def var_step(u_prev, u, problem: Problem):
-        return fused_step(u_prev, u, inv_h2=problem.inv_h2,
-                          c2tau2_field=c2tau2_field)
+    def step(u_prev, u, problem: Problem):
+        if c2tau2_field is not None:
+            return fn(u_prev, u, inv_h2=problem.inv_h2,
+                      c2tau2_field=c2tau2_field)
+        return fn(u_prev, u, inv_h2=problem.inv_h2, alpha=2.0, beta=1.0,
+                  coeff=problem.a2tau2)
 
-    return var_step
+    return step
+
+
+def make_compensated_step_fn(kernel: str = "pallas"):
+    """A `(u, v, carry, problem, coeff) -> (u', v', carry')` step for
+    `leapfrog.solve_compensated(comp_step_fn=)`
+    (stencil_pallas.make_compensated_step_fn): K2, or with kernel="roll"
+    its plain version."""
+    check_kernel(kernel)
+    if kernel == "pallas":
+        return compensated_step
+
+    def step(u, v, carry, problem: Problem, coeff=None):
+        return compensated_step_plain(
+            u, v, carry, inv_h2=problem.inv_h2,
+            coeff=problem.a2tau2 if coeff is None else coeff)
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +380,7 @@ def compensated_step(u, v, carry, problem: Problem, coeff=None):
         _run(_lib().wt_comp_step, u.data_ptr(), v.data_ptr(),
              carry.data_ptr(), *(o.data_ptr() for o in outs), n,
              _CODE[u.dtype], float(coeff),
-             *(float(h) for h in problem.inv_h2))
+             *(float(h) for h in problem.inv_h2), inst=("comp_step", u.dtype))
     launches["comp_step"] += 1
     return outs
 
@@ -755,7 +808,9 @@ def sharded_fused_step(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
              *_block_geometry(u, offsets, n_global, pads), _CODE[u.dtype],
              float(alpha), float(beta),
              float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2), int(beta != 0))
+             *(float(h) for h in inv_h2), int(beta != 0),
+             inst=("sharded_step", u.dtype, c2tau2_block is not None,
+                   beta != 0))
     launches["sharded_step" if c2tau2_block is None
              else "sharded_step_field"] += 1
     return out
@@ -800,7 +855,8 @@ def sharded_compensated_step(u, v, carry, ghosts, offsets, n_global, *,
         _run(_sharded_lib().wt_sharded_comp_step, u.data_ptr(),
              v.data_ptr(), carry.data_ptr(), *(o.data_ptr() for o in outs),
              *ghost_ptrs, *_block_geometry(u, offsets, n_global, pads),
-             _CODE[u.dtype], float(coeff), *(float(h) for h in inv_h2))
+             _CODE[u.dtype], float(coeff), *(float(h) for h in inv_h2),
+             inst=("sharded_comp_step", u.dtype))
     launches["sharded_comp_step"] += 1
     return outs
 
@@ -963,7 +1019,9 @@ def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
              _ptr(dmax), _ptr(rmax), d, n, n_real, w, ny, int(y0), k, seg,
              ty, tz, _CODE[u.dtype],
              float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2))
+             *(float(h) for h in inv_h2),
+             inst=("kstep_pipe", k, u.dtype, c2tau2_block is not None,
+                   n_real < d))
     launches[counter if c2tau2_block is None else counter + "_field"] += 1
     if with_errors:
         # The kernel combined the rows as the bits of non-negative floats.
@@ -1246,7 +1304,10 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
              tz, _CODE[v.dtype],
              _NONE if carry is None else _CODE[carry.dtype],
              float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2))
+             *(float(h) for h in inv_h2),
+             inst=("kstep_comp_pipe", k, v.dtype,
+                   None if carry is None else carry.dtype,
+                   c2tau2_block is not None))
     launches[counter if c2tau2_block is None else counter + "_field"] += 1
     if with_errors:
         # The kernel combined the rows as the bits of non-negative floats.

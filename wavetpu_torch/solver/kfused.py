@@ -40,6 +40,7 @@ import torch
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
+from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.solver import leapfrog
 from wavetpu_torch.verify import oracle
 
@@ -222,10 +223,13 @@ def solve_kfused(
     abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
     leapfrog._sync(device)
     t2 = time.perf_counter()
-    return leapfrog.SolveResult(
+    result = leapfrog.SolveResult(
         problem=problem, u_prev=u_prev, u_cur=u_cur,
         abs_errors=abs_np, rel_errors=rel_np,
         init_seconds=t1 - t0, solve_seconds=t2 - t1,
         steps_computed=stop_step,
         final_step=problem.timesteps if stop_step is None else stop_step,
     )
+    obs_metrics.record_solve(result, "kfused", k=k,
+                             with_field=c2tau2_field is not None)
+    return result

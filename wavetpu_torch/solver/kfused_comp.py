@@ -58,6 +58,7 @@ from wavetpu_torch.core.grid import (
 )
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
+from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.solver import kfused, leapfrog, sharded_kfused
 from wavetpu_torch.verify import oracle
@@ -297,8 +298,14 @@ def solve_kfused_comp(
     rel_np = rel_all.cpu().numpy().astype(np.float64)
     leapfrog._sync(device)
     t2 = time.perf_counter()
-    return _as_result(problem, u, v, c, abs_np, rel_np, t1 - t0, t2 - t1,
-                      stop_step, nsteps)
+    result = _as_result(problem, u, v, c, abs_np, rel_np, t1 - t0, t2 - t1,
+                        stop_step, nsteps)
+    obs_metrics.record_solve(
+        result, "kfused_comp", scheme="compensated", k=k,
+        v_itemsize=v_dtype.itemsize, carry=carry,
+        carry_itemsize=carry_dtype.itemsize if carry else None,
+        with_field=c2tau2_field is not None)
+    return result
 
 
 def _validate_sharded(problem: Problem, dtype, v_dtype, carry, k, n_x,
@@ -513,7 +520,7 @@ def solve_kfused_comp_sharded(
     def sharded(blocks):
         return ShardedArray(list(blocks), topo, mesh)
 
-    return leapfrog.SolveResult(
+    result = leapfrog.SolveResult(
         problem=problem,
         u_prev=sharded((a.to(f) - b.to(f)).to(a.dtype)
                        for a, b in zip(u, v)),
@@ -524,3 +531,11 @@ def solve_kfused_comp_sharded(
         comp_v=sharded(v),
         comp_carry=sharded(c) if carry else None,
     )
+    obs_metrics.record_solve(
+        result, "kfused_comp_sharded", scheme="compensated", k=k,
+        v_itemsize=v_dtype.itemsize, carry=carry,
+        carry_itemsize=carry_dtype.itemsize if carry else None,
+        with_field=c2tau2_field is not None,
+        block=(problem.N // n_x, problem.N // n_y, problem.N),
+        mesh_shape=(n_x, n_y, 1), rows=compute_errors)
+    return result

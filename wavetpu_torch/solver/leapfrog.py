@@ -26,6 +26,7 @@ import torch
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
+from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.verify import oracle
 
 
@@ -77,11 +78,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prepare_kernels(device: torch.device) -> None:
+def prepare_kernels(device: torch.device, kernel: str = "pallas") -> None:
     """Build and load every CUDA kernel library before any timed region (a
-    no-op on the CPU): the nvcc build counts as set-up, never as solve
-    time."""
-    if device.type == "cuda":
+    no-op on the CPU, and where the plain versions run): the nvcc build
+    counts as set-up, never as solve time."""
+    if device.type == "cuda" and kernel == "pallas":
         stencil_cuda.load_libraries()
 
 
@@ -169,6 +170,7 @@ def solve(
     stop_step: Optional[int] = None,
     device=None,
     c2tau2_field=None,
+    kernel: str = "pallas",
 ) -> SolveResult:
     """The standard leapfrog solve with the reference's two timing phases:
     `init_seconds` covers the kernel build/load and the state set-up (layer
@@ -184,6 +186,7 @@ def solve(
     in the compute dtype, during set-up and K5 steps over it
     (`stencil_cuda.make_step_fn`); it takes no `step_fn` and needs
     compute_errors=False (no analytic oracle for variable c).
+    `kernel="roll"` steps with K1's (K5's) plain version on the device.
     """
     if c2tau2_field is not None and (compute_errors or step_fn is not None):
         raise ValueError(
@@ -191,17 +194,18 @@ def solve(
             "compute_errors=False and no step_fn with c2tau2_field"
         )
     device = resolve_device(device)
-    step = stencil_cuda.leapfrog_step if step_fn is None else step_fn
+    step = stencil_cuda.make_step_fn(None, kernel) if step_fn is None \
+        else step_fn
     nsteps = problem.timesteps if stop_step is None else stop_step
     if not 1 <= nsteps <= problem.timesteps:
         raise ValueError(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
         )
     t0 = time.perf_counter()
-    prepare_kernels(device)
+    prepare_kernels(device, kernel)
     if c2tau2_field is not None:
         step = stencil_cuda.make_step_fn(
-            state.c2tau2_field(c2tau2_field, dtype, device))
+            state.c2tau2_field(c2tau2_field, dtype, device), kernel)
     errors = _error_fn(problem, dtype, device)
     u0 = initial_layer0(problem, dtype, device)
     abs_all = _zeros(nsteps + 1, dtype, device)
@@ -219,13 +223,16 @@ def solve(
     abs_np, rel_np = _host(abs_all), _host(rel_all)
     _sync(device)
     t2 = time.perf_counter()
-    return SolveResult(
+    result = SolveResult(
         problem=problem, u_prev=u_prev, u_cur=u_cur,
         abs_errors=abs_np, rel_errors=rel_np,
         init_seconds=t1 - t0, solve_seconds=t2 - t1,
         steps_computed=stop_step,
         final_step=nsteps,
     )
+    obs_metrics.record_solve(result, "leapfrog",
+                             with_field=c2tau2_field is not None)
+    return result
 
 
 def resume(
@@ -281,11 +288,13 @@ def solve_compensated(
     compute_errors: bool = True,
     stop_step: Optional[int] = None,
     device=None,
+    kernel: str = "pallas",
 ) -> SolveResult:
     """The 1-step compensated (Kahan) solve: layer 1 is the same step with
     v = carry = 0 and coeff = a2tau2/2; `comp_step_fn(u, v, carry, problem,
-    coeff)` defaults to K2 (`stencil_cuda.compensated_step`).  bf16 state is
-    refused (its representation error dwarfs what compensation recovers).
+    coeff)` defaults to K2 (`stencil_cuda.compensated_step`; its plain
+    version with kernel="roll").  bf16 state is refused (its
+    representation error dwarfs what compensation recovers).
     """
     if dtype == torch.bfloat16:
         raise ValueError(
@@ -293,15 +302,15 @@ def solve_compensated(
             "error dominates anything the compensation recovers)"
         )
     device = resolve_device(device)
-    step = (stencil_cuda.compensated_step if comp_step_fn is None
-            else comp_step_fn)
+    step = (stencil_cuda.make_compensated_step_fn(kernel)
+            if comp_step_fn is None else comp_step_fn)
     nsteps = problem.timesteps if stop_step is None else stop_step
     if not 1 <= nsteps <= problem.timesteps:
         raise ValueError(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
         )
     t0 = time.perf_counter()
-    prepare_kernels(device)
+    prepare_kernels(device, kernel)
     errors = _error_fn(problem, dtype, device)
     u0 = initial_layer0(problem, dtype, device)
     zero = torch.zeros_like(u0)
@@ -320,10 +329,12 @@ def solve_compensated(
     abs_np, rel_np = _host(abs_all), _host(rel_all)
     _sync(device)
     t2 = time.perf_counter()
-    return SolveResult(
+    result = SolveResult(
         problem=problem, u_prev=u - v, u_cur=u,
         abs_errors=abs_np, rel_errors=rel_np,
         init_seconds=t1 - t0, solve_seconds=t2 - t1,
         steps_computed=stop_step, final_step=nsteps,
         comp_v=v, comp_carry=c,
     )
+    obs_metrics.record_solve(result, "compensated", scheme="compensated")
+    return result

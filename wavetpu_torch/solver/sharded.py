@@ -28,9 +28,13 @@ the single-device step, so the sharded solve equals `leapfrog.solve` (and
 the compensated one `leapfrog.solve_compensated`) bit for bit, errors
 included.
 
-Not ported here: the overlap mode (ROADMAP.md queue 1 item 10), the
-shifted-phase bootstrap (with ensembles, item 11) and the resume / chunk
-runners (items 8, 9).
+Overlap mode (`overlap=True`, the standard scheme on an even split): the
+ghost copies run on side streams beside the bulk update and the face
+planes are then recomputed from the real ghosts (`_make_local_step`), bit
+for bit the serial step.
+
+Not ported here: the shifted-phase bootstrap (with ensembles, ROADMAP.md
+queue 1 item 11) and the resume / chunk runners (items 8, 9).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from wavetpu_torch.core.grid import (
 )
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
+from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.solver import leapfrog
 from wavetpu_torch.verify import oracle
 
@@ -151,38 +156,177 @@ class _Shard:
                                    self.spatial * self.ct[n])
 
 
-def _local_steps(problem: Problem, topo: Topology, mesh: Mesh, shards):
-    """The per-step functions over all shards: `step(prev, cur, fields)`
-    (K6) and `comp_step(u, v, carry, coeff)` (K7), each exchanging the
-    ghosts of the current layer first (serial: exchange, then update)."""
+def _self_ghosts(u: torch.Tensor, topo: Topology,
+                 stream=None) -> halo.Ghosts:
+    """The block's own cyclic wrap planes, shaped like `collect_ghosts`'
+    output: copies on every axis whose mesh dim is > 1 (where the exchange
+    copies a neighbour's plane of the same size), views elsewhere (as the
+    exchange takes them).  Fed to K6 they make the shard exactly periodic
+    by itself: the phase-timing probe's exchange-free step (solver/
+    timing.py), the same copies and kernel as the real step; `stream`
+    puts the copies on that CUDA stream (`halo.send`)."""
+    ghosts = []
+    for axis in range(3):
+        b = u.shape[axis]
+        lo, hi = u.narrow(axis, b - 1, 1), u.narrow(axis, 0, 1)
+        if topo.mesh_shape[axis] > 1:
+            pair = None if stream is None else (stream, stream)
+            lo, hi = (halo.send(lo, u.device, pair),
+                      halo.send(hi, u.device, pair))
+        ghosts.append((lo, hi))
+    return tuple(ghosts)
+
+
+def _face_block(u, ghosts, axis: int, q: int, mesh_shape):
+    """Face plane `q` of `axis` as a one-plane block with its own ghosts
+    (the port's counterpart of wavetpu's `_face_ext` slab): along `axis`
+    the neighbouring planes - the exchanged ghost where the plane is the
+    block's edge, the block's own plane otherwise - and across it the
+    transverse ghosts restricted to the plane.  K6 on it updates the face
+    plane exactly as K6 on the whole block with those ghosts would, edges
+    and corners included.  Ghosts are copied contiguous where K6 reads
+    them (axes whose mesh dim is > 1).  Even shard splits only."""
+    b = u.shape[axis]
+    lo = ghosts[axis][0] if q == 0 else u.narrow(axis, q - 1, 1)
+    hi = ghosts[axis][1] if q == b - 1 else u.narrow(axis, q + 1, 1)
+    out = []
+    for a in range(3):
+        pair = (lo, hi) if a == axis else tuple(
+            g.narrow(axis, q, 1) for g in ghosts[a])
+        if mesh_shape[a] > 1:
+            pair = tuple(g.contiguous() for g in pair)
+        out.append(pair)
+    return u.narrow(axis, q, 1).contiguous(), tuple(out)
+
+
+def _make_local_step(problem: Problem, topo: Topology, mesh: Mesh,
+                     offsets, kernel: str = "pallas", overlap: bool = False,
+                     exchange: bool = True):
+    """The step over all shards, `step(prev, cur, fields)` -> next blocks:
+    K6 (K6f with a field block) on every shard, or its plain version with
+    kernel="roll".
+
+    Serial: exchange the ghosts of `cur`, then update.  `exchange=False`
+    puts each block's own wrap planes (`_self_ghosts`) in place of the
+    exchanged ghosts - the same copies and kernel, but wrong at shard
+    boundaries on every axis whose mesh dim is > 1; it exists only for the
+    phase-timing probe (solver/timing.py).
+
+    Overlap (even splits only): the ghost copies run on side streams, one
+    per card, each copy on its sender's and its receiver's side stream,
+    while the main streams update every block as if it were periodic by
+    itself (K6 reading its own wrap planes); each main stream then waits
+    for its card's side stream and recomputes the face planes of every
+    axis whose mesh dim is > 1 from the real ghosts - K6 again, on each
+    face plane as a one-plane block (`_face_block`), so every cell takes
+    K6's operation order and the result equals the serial step bit for
+    bit.  Each face costs one more K6 launch and a few plane copies.  The
+    overlap has been measured with every shard on one card only.  On the
+    CPU the same work runs in order."""
+    stencil_cuda.check_kernel(kernel)
     n = problem.N
+    uneven = any(r != b for r, b in zip(topo.r_last, topo.block))
+    if overlap and uneven:
+        raise ValueError(
+            "overlap mode requires N divisible by every mesh dim "
+            f"(N={n}, mesh={topo.mesh_shape})"
+        )
+    k6 = (stencil_cuda.sharded_fused_step if kernel == "pallas"
+          else stencil_cuda.sharded_fused_step_plain)
+    kw = dict(inv_h2=problem.inv_h2, alpha=2.0, beta=1.0)
+    multi_axes = [a for a in range(3) if topo.mesh_shape[a] > 1]
+
+    def update(p, u, g, off, fld, mesh_shape, r_last):
+        return k6(p, u, g, off, n, mesh_shape=mesh_shape, r_last=r_last,
+                  coeff=None if fld is not None else problem.a2tau2,
+                  c2tau2_block=fld, **kw)
+
+    def ghosts_of(cur, streams=None):
+        if exchange:
+            return halo.collect_ghosts(cur, topo, mesh, streams)
+        return [_self_ghosts(u, topo, None if streams is None
+                             else streams[i]) for i, u in enumerate(cur)]
+
+    def step_serial(prev, cur, fields):
+        ghosts = ghosts_of(cur)
+        u_in = halo.absorb_hi_ghosts(cur, ghosts, topo, mesh)
+        return [update(p, u, g, off, fld, topo.mesh_shape, topo.r_last)
+                for p, u, g, off, fld in zip(prev, u_in, ghosts, offsets,
+                                             fields)]
+
+    cards = sorted({d for d in mesh.devices if d.type == "cuda"}, key=str)
+    side = {d: torch.cuda.Stream(d) for d in cards} if overlap else {}
+
+    def gather_ghosts(cur):
+        """Every shard's ghosts, each copy on its sender's and receiver's
+        side streams (`halo.send`), which first wait for the work that
+        made `cur`."""
+        if not cards:
+            return ghosts_of(cur)
+        for d in cards:
+            side[d].wait_stream(torch.cuda.current_stream(d))
+        return ghosts_of(cur, [side[d] for d in mesh.devices])
+
+    def join(ghosts):
+        """The main streams wait for the ghost copies; the copies' memory
+        is marked in use by them (the caching allocator would otherwise
+        hand it out once the side stream is done with it)."""
+        for d in cards:
+            torch.cuda.current_stream(d).wait_stream(side[d])
+        for g, dev in zip(ghosts, mesh.devices):
+            if dev.type == "cuda":
+                for axis in multi_axes:
+                    for t in g[axis]:
+                        t.record_stream(torch.cuda.current_stream(dev))
+
+    def patch(bulk, p, u, g, off, fld):
+        """Recompute the face planes of the multi-shard axes with the real
+        ghosts: K6 (its plain version with kernel="roll") on each face
+        plane as a one-plane block (`_face_block`)."""
+        for axis in multi_axes:
+            for q in sorted({0, topo.block[axis] - 1}):
+                fu, fg = _face_block(u, g, axis, q, topo.mesh_shape)
+                face_off = list(off)
+                face_off[axis] += q
+                fld_q = (None if fld is None
+                         else fld.narrow(axis, q, 1).contiguous())
+                bulk.narrow(axis, q, 1).copy_(update(
+                    p.narrow(axis, q, 1).contiguous(), fu, fg, face_off,
+                    fld_q, topo.mesh_shape, None))
+        return bulk
+
+    def step_overlap(prev, cur, fields):
+        ghosts = gather_ghosts(cur)
+        bulk = [update(p, u, None, off, fld, (1, 1, 1), None)
+                for p, u, off, fld in zip(prev, cur, offsets, fields)]
+        if not multi_axes:
+            return bulk
+        join(ghosts)
+        return [patch(*a) for a in zip(bulk, prev, cur, ghosts, offsets,
+                                        fields)]
+
+    return step_overlap if overlap else step_serial
+
+
+def _make_local_comp_step(problem: Problem, topo: Topology, mesh: Mesh,
+                          offsets, kernel: str = "pallas"):
+    """The compensated step over all shards, `comp_step(u, v, carry,
+    coeff)` -> (u', v', carry') lists: K7 on every shard (its plain version
+    with kernel="roll"), after the exchange of u's ghosts."""
+    stencil_cuda.check_kernel(kernel)
+    k7 = (stencil_cuda.sharded_compensated_step if kernel == "pallas"
+          else stencil_cuda.sharded_compensated_step_plain)
     kw = dict(inv_h2=problem.inv_h2, mesh_shape=topo.mesh_shape,
               r_last=topo.r_last)
 
-    def exchange(cur):
-        ghosts = halo.collect_ghosts(cur, topo, mesh)
-        return ghosts, halo.absorb_hi_ghosts(cur, ghosts, topo, mesh)
-
-    def step(prev, cur, fields):
-        ghosts, u_in = exchange(cur)
-        return [
-            stencil_cuda.sharded_fused_step(
-                p, u, g, sh.offsets, n, alpha=2.0, beta=1.0,
-                coeff=None if fld is not None else problem.a2tau2,
-                c2tau2_block=fld, **kw)
-            for p, u, g, sh, fld in zip(prev, u_in, ghosts, shards, fields)
-        ]
-
     def comp_step(u, v, carry, coeff):
-        ghosts, u_in = exchange(u)
-        outs = [
-            stencil_cuda.sharded_compensated_step(
-                a, b, c, g, sh.offsets, n, coeff=coeff, **kw)
-            for a, b, c, g, sh in zip(u_in, v, carry, ghosts, shards)
-        ]
+        ghosts = halo.collect_ghosts(u, topo, mesh)
+        u_in = halo.absorb_hi_ghosts(u, ghosts, topo, mesh)
+        outs = [k7(a, b, c, g, off, problem.N, coeff=coeff, **kw)
+                for a, b, c, g, off in zip(u_in, v, carry, ghosts, offsets)]
         return tuple(list(x) for x in zip(*outs))
 
-    return step, comp_step
+    return comp_step
 
 
 def _resolve_mesh(problem: Problem, mesh_shape, devices):
@@ -225,16 +369,24 @@ def make_sharded_solver(
     c2tau2_field=None,
     stop_step: Optional[int] = None,
     scheme: str = "standard",
+    kernel: str = "pallas",
+    overlap: bool = False,
 ):
     """Set up the sharded solve - kernels built and loaded, every shard's
     factors, masks and field block on its device - and return `run()` ->
     (u_prev, u_cur, abs_per_shard, rel_per_shard, v, carry): lists of
     blocks in mesh order, the per-shard (nsteps+1,) error vectors, and for
-    the compensated scheme the increment and Kahan carry (else None)."""
+    the compensated scheme the increment and Kahan carry (else None).
+    `kernel="roll"` runs the kernels' plain versions on the same devices;
+    `overlap` runs the standard step's exchange beside the bulk update
+    (`_make_local_step`)."""
     if scheme not in ("standard", "compensated"):
         raise ValueError(
             f"scheme must be 'standard' or 'compensated', got {scheme!r}")
     compensated = scheme == "compensated"
+    if compensated and overlap:
+        raise ValueError("overlap mode is not available for the "
+                         "compensated scheme yet")
     if compensated and c2tau2_field is not None:
         raise ValueError(
             "compensated scheme does not support a variable-c field yet")
@@ -251,7 +403,7 @@ def make_sharded_solver(
         raise ValueError(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}")
     f = stencil_ref.compute_dtype(dtype)
-    if any(d.type == "cuda" for d in mesh.devices):
+    if kernel == "pallas" and any(d.type == "cuda" for d in mesh.devices):
         stencil_cuda.load_libraries()
     factors = _padded_factors(problem, topo)
     masks = _masks(problem, topo)
@@ -259,7 +411,13 @@ def make_sharded_solver(
     shards = [_Shard(problem, topo, coord, dev, f, factors, masks, ct)
               for coord, dev in zip(mesh.coords, mesh.devices)]
     fields = _field_blocks(c2tau2_field, topo, mesh, f)
-    step, comp_step = _local_steps(problem, topo, mesh, shards)
+    offsets = [sh.offsets for sh in shards]
+    if compensated:
+        comp_step = _make_local_comp_step(problem, topo, mesh, offsets,
+                                          kernel)
+    else:
+        step = _make_local_step(problem, topo, mesh, offsets, kernel,
+                                overlap)
     u0 = [sh.layer0(dtype) for sh in shards]
 
     def run():
@@ -312,6 +470,8 @@ def solve_sharded(
     c2tau2_field=None,
     stop_step: Optional[int] = None,
     scheme: str = "standard",
+    kernel: str = "pallas",
+    overlap: bool = False,
 ) -> leapfrog.SolveResult:
     """The sharded solve with the reference's timing phases (as
     `leapfrog.solve`): `init_seconds` covers the kernel build and the
@@ -323,6 +483,9 @@ def solve_sharded(
     on the CPU, `["cuda"] * 4` four on one card.  `mesh_shape` defaults to
     a near-cubic factorization of their count.  `c2tau2_field` is an
     (N, N, N) host tau^2 c^2 array (pair it with compute_errors=False).
+    `kernel="roll"` runs the kernels' plain versions; `overlap=True` (the
+    standard scheme on an even split) exchanges the ghosts on a side
+    stream beside the bulk update, bit for bit the serial result.
     The result's u_prev / u_cur (and comp_v / comp_carry) are
     `ShardedArray`s in wavetpu's padded layout; its errors are the
     cross-shard maxima.
@@ -330,7 +493,8 @@ def solve_sharded(
     t0 = time.perf_counter()
     topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
     run = make_sharded_solver(problem, topo, mesh, dtype, compute_errors,
-                              c2tau2_field, stop_step, scheme)
+                              c2tau2_field, stop_step, scheme, kernel,
+                              overlap)
     _sync(mesh)
     t1 = time.perf_counter()
     u_prev, u_cur, abs_s, rel_s, v, c = run()
@@ -341,7 +505,7 @@ def solve_sharded(
     def sharded(blocks):
         return None if blocks is None else ShardedArray(blocks, topo, mesh)
 
-    return leapfrog.SolveResult(
+    result = leapfrog.SolveResult(
         problem=problem, u_prev=sharded(u_prev), u_cur=sharded(u_cur),
         abs_errors=abs_np, rel_errors=rel_np,
         init_seconds=t1 - t0, solve_seconds=t2 - t1,
@@ -349,6 +513,12 @@ def solve_sharded(
         final_step=problem.timesteps if stop_step is None else stop_step,
         comp_v=sharded(v), comp_carry=sharded(c),
     )
+    obs_metrics.record_solve(
+        result, "sharded", scheme=scheme,
+        with_field=c2tau2_field is not None, block=topo.block,
+        mesh_shape=topo.mesh_shape,
+    )
+    return result
 
 
 def _sync(mesh: Mesh) -> None:

@@ -56,6 +56,7 @@ from wavetpu_torch.core.grid import (
 )
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
+from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.solver import kfused, leapfrog
 
 MAX_K = 8  # the k-step pipeline of K8-K10 (stencil_cuda._KSTEP_MAX_K)
@@ -444,14 +445,14 @@ def solve_sharded_kfused(
         )
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
     t0 = time.perf_counter()
-    run, _, counts = _make_runner(problem, mesh, dtype, k, compute_errors,
+    run, d, counts = _make_runner(problem, mesh, dtype, k, compute_errors,
                                   nsteps, c2tau2_field)
     _sync(mesh)
     t1 = time.perf_counter()
     u_prev, u_cur, abs_np, rel_np = run()
     _sync(mesh)
     t2 = time.perf_counter()
-    return leapfrog.SolveResult(
+    result = leapfrog.SolveResult(
         problem=problem,
         u_prev=_to_topology_layout(u_prev, counts, problem, mesh),
         u_cur=_to_topology_layout(u_cur, counts, problem, mesh),
@@ -460,6 +461,11 @@ def solve_sharded_kfused(
         steps_computed=stop_step,
         final_step=problem.timesteps if stop_step is None else stop_step,
     )
+    obs_metrics.record_solve(
+        result, "sharded_kfused", k=k, with_field=c2tau2_field is not None,
+        block=(d, problem.N // n_y, problem.N), mesh_shape=(n_x, n_y, 1),
+        rows=compute_errors)
+    return result
 
 
 def _sync(mesh) -> None:
