@@ -149,6 +149,34 @@ without them or when any phase fails.  Phases:
                at N=128 / 100 steps (bitwise, API and report lines); the
                profile subcommand over a small solve; and the nine CLI
                runs of phase 3 within 8% of their PERF.md §5 solve times.
+ 8. resilience - checkpoints and supervision at N=512 / 1000 steps, f32
+               (the flagship with its bf16 carry), in a temporary
+               directory deleted at the end: the C++ writer is built and
+               native, and its .wts file of one shard is byte for byte
+               the Python writer's; stop and resume through the CLI
+               (`--stop-step S --save-state CK`, then `--resume CK`) on
+               default (K1, S = 500), kfused (K3) and flagship (K4), S = 501
+               for these two, on their block grid (off it the flagship's
+               k-blocks shift, and the standard march's layers around the
+               stop take full-field errors, within 1e-6 of the rows'), and
+               through the API on sharded_221 (K6), sharded_kfused_221
+               (K10) and sharded_flagship_221 (K12) with four shards on
+               the card, each from a shard directory: final state and both
+               error vectors bit-equal to phase 3's uninterrupted run, and
+               the two runs' launches adding up to its launches; the
+               flagship supervised in a fresh process (`--ckpt-every 250`,
+               chunks of 248 layers): bit-equal, one rotation entry per
+               chunk boundary (249, 497, 745, 993, 1000), the newest two
+               kept, `latest` on the newest, no library built or loaded
+               after the first chunk (chunk spans, compile ledger);
+               `WAVETPU_FAULT=preempt:500` exits 3 printing `resumable
+               checkpoint:`, `--resume D --ckpt-every 250` exits 0
+               bit-equal; `WAVETPU_FAULT=nan:300` exits 4 with step 249
+               the last good entry, and with `--retries 1` exits 0
+               bit-equal.  Prints save and load seconds, bytes and GB/s of
+               each checkpoint kind, the supervised run's solve seconds and
+               overhead against the unsupervised flagship's, and the phase's
+               wall time, beside the card's name and power limit.
 
 Each phase prints its wall time.
 
@@ -159,12 +187,16 @@ The last lines are the card's name and power limit (nvidia-smi), one JSON
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -173,7 +205,7 @@ import torch
 from wavetpu_torch import cli
 from wavetpu_torch.core.grid import Topology, build_mesh
 from wavetpu_torch.core.problem import Problem
-from wavetpu_torch.io import state
+from wavetpu_torch.io import checkpoint, nativeio, state
 from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
 from wavetpu_torch.obs import perf as obs_perf
 from wavetpu_torch.solver import (
@@ -1723,6 +1755,390 @@ def guard_runs(sides, card):
                  f"in PERF.md")
 
 
+# Phase 8: the resilience slice.  The stop layers of the stop-and-resume
+# runs, the supervised chunking and the fault drills' layers.  The
+# single-device k-fused stops lie on the block grid (1 + 125k): elsewhere
+# the flagship's k-blocks shift (its state is then not the uninterrupted
+# one bit for bit), and the standard k-fused march's state stays bitwise
+# but the layers around the stop take their errors from the full-field
+# pass instead of the kernel's rows (within 1e-6, not bit for bit).
+STOP = {"default": 500, "kfused": 501, "flagship": 501,
+        "sharded_221": 500, "sharded_kfused_221": 500,
+        "sharded_flagship_221": 501}
+CKPT_EVERY, PREEMPT_AT, NAN_AT = 250, 500, 300
+SUP_STEPS = [249, 497, 745, 993, 1000]   # chunk_length(250, 4) = 248
+
+
+def host_state(res):
+    """A result's state on the host (padded global arrays for sharded
+    results) and its error vectors: phase 8's reference."""
+    def h(a):
+        if a is None:
+            return None
+        return a.assemble("cpu") if hasattr(a, "blocks") else a.cpu()
+
+    return dict(u_prev=h(res.u_prev), u_cur=h(res.u_cur), v=h(res.comp_v),
+                carry=h(res.comp_carry), abs=np.asarray(res.abs_errors),
+                rel=np.asarray(res.rel_errors))
+
+
+def same_bits(label, got: dict, want: dict, errors_from=None):
+    """Fail unless the states (and, from layer `errors_from` on, the error
+    vectors) are bit-equal."""
+    for key in ("u_prev", "u_cur", "v", "carry"):
+        a, b = got.get(key), want.get(key)
+        if a is None or b is None:
+            continue
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            d = (a.double() - b.double()).abs().max().item()
+            fail(f"{label}: {key} is not bit-equal (max |d| {d!r})")
+    if errors_from is not None:
+        for key in ("abs", "rel"):
+            if not np.array_equal(got[key][errors_from:],
+                                  want[key][errors_from:]):
+                fail(f"{label}: {key} errors are not bit-equal")
+    print(f"  {label}: bit-equal")
+
+
+def timed(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def io_line(kind, op, nbytes, seconds, card):
+    print(f"  checkpoint {kind} {op}: {seconds!r} s, {nbytes} bytes, "
+          f"{nbytes / seconds / 1e9!r} GB/s ({card})")
+    return {"seconds": seconds, "bytes": nbytes,
+            "gb_per_s": nbytes / seconds / 1e9}
+
+
+def dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def cli_quiet(argv):
+    """cli.main with its standard output captured; returns (rc, out)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def entry_state(path):
+    """A rotation entry's (.npz) state on the host."""
+    _, u_prev, u_cur, step = checkpoint.load_checkpoint(path)
+    out = dict(u_prev=u_prev, u_cur=u_cur)
+    aux = checkpoint.load_checkpoint_aux(path)
+    if aux is not None:
+        out.update(v=aux[0], carry=aux[1])
+    return out, step
+
+
+def load_single(path):
+    """A single-file checkpoint's fields loaded onto the card."""
+    fields = list(checkpoint.load_checkpoint(path)[1:3])
+    fields += list(checkpoint.load_checkpoint_aux(path) or ())
+    return [t.to(DEV) for t in fields]
+
+
+def side_errors(side):
+    return dict(abs=np.asarray(side["abs_errors"]),
+                rel=np.asarray(side["rel_errors"]))
+
+
+def phase_resilience(sides, counts, refs, card):
+    """Phase 8 (see the module docstring)."""
+    out = {"io": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        out.update(_resilience(sides, counts, refs, card, tmp, out["io"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _resilience(sides, counts, refs, card, tmp, io_rec):
+    out = {}
+    p = Problem(N=N_FULL, timesteps=STEPS)
+    base = [str(N_FULL), "1", "1", "1", "1", "1", str(STEPS)]
+    # -- the native writer ------------------------------------------------
+    if not nativeio.native_available():
+        fail("the C++ checkpoint writer did not build")
+    blk = state.to_tensor(np.random.default_rng(8).standard_normal(
+        (N_FULL // 2, N_FULL // 2, N_FULL)).astype(np.float32), "cpu")
+    fields = {"u_prev": (blk.numpy(), "float32"),
+              "u_cur": ((blk * 2).numpy(), "float32")}
+    nat, py = os.path.join(tmp, "native.wts"), os.path.join(tmp, "py.wts")
+    nativeio.write_container_sync(nat, fields, {"step": 7})
+    lib = nativeio._lib
+    nativeio._lib = None
+    try:
+        nativeio.write_container_sync(py, fields, {"step": 7})
+    finally:
+        nativeio._lib = lib
+    with open(nat, "rb") as a, open(py, "rb") as b:
+        if a.read() != b.read():
+            fail("the native .wts file differs from the Python writer's")
+    print(f"  native writer: {nativeio.lib_path()}; one shard "
+          f"({os.path.getsize(nat)} bytes) byte-identical to the Python "
+          f"writer's")
+    os.remove(nat)
+    os.remove(py)
+
+    # -- stop and resume through the CLI ---------------------------------
+    for label in ("default", "kfused", "flagship"):
+        flags = RUNS[label][1]
+        stop = STOP[label]
+        ck = os.path.join(tmp, f"{label}_ck")
+        fin = os.path.join(tmp, f"{label}_final")
+        stencil_cuda.reset_launches()
+        rc1, _ = cli_quiet(base + flags + CLI_EXTRA + [
+            "--stop-step", str(stop), "--save-state", ck, "--out-dir",
+            os.path.join(OUT_DIR, f"resil_{label}_stop")])
+        extra = ["--fuse-steps", str(K)] if "--fuse-steps" in flags else []
+        rc2, _ = cli_quiet(["--resume", ck + ".npz"] + extra + CLI_EXTRA + [
+            "--save-state", fin, "--out-dir",
+            os.path.join(OUT_DIR, f"resil_{label}_resume")])
+        torch.cuda.synchronize()
+        launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+        if (rc1, rc2) != (0, 0):
+            fail(f"{label} stop/resume exit codes {rc1}, {rc2}")
+        want = {c: n for c, n in counts[label].items() if n}
+        print(f"  {label}: --stop-step {stop} + --resume launches "
+              f"{launched}")
+        if launched != want:
+            fail(f"{label}: stop + resume launched {launched}, the "
+                 f"uninterrupted run {want}")
+        got, step = entry_state(fin + ".npz")
+        name = f"output_N{N_FULL}_Np1_CUDA.json"
+        with open(os.path.join(OUT_DIR, f"resil_{label}_stop", name)) as f:
+            head = side_errors(json.load(f))
+        with open(os.path.join(OUT_DIR, f"resil_{label}_resume",
+                               name)) as f:
+            tail = side_errors(json.load(f))
+        for key in ("abs", "rel"):
+            got[key] = np.concatenate([head[key][:stop + 1],
+                                       tail[key][stop + 1:]])
+        same_bits(f"{label} stop {stop} + resume", got, refs[label], 0)
+        if label in ("default", "flagship"):
+            # The single-file checkpoint's save and load through the API.
+            res = leapfrog.SolveResult(
+                problem=p, u_prev=got["u_prev"].to(DEV),
+                u_cur=got["u_cur"].to(DEV), abs_errors=None,
+                rel_errors=None, final_step=STEPS,
+                comp_v=None if got.get("v") is None else got["v"].to(DEV),
+                comp_carry=(None if got.get("carry") is None
+                            else got["carry"].to(DEV)))
+            kind = "single_" + label
+            path, s_save = timed(checkpoint.save_checkpoint,
+                                 os.path.join(tmp, kind), res)
+            nb = os.path.getsize(path)
+            _, s_load = timed(load_single, path)
+            io_rec[kind] = {"save": io_line(kind, "save", nb, s_save, card),
+                            "load": io_line(kind, "load", nb, s_load, card)}
+            os.remove(path)
+            del res
+        for f_ in (ck + ".npz", fin + ".npz"):
+            os.remove(f_)
+
+    # -- stop and resume through the API, four shards on the card --------
+    devs = [DEV] * SHARDS
+    for label in ("sharded_221", "sharded_kfused_221",
+                  "sharded_flagship_221"):
+        stop = STOP[label]
+        stencil_cuda.reset_launches()
+        if label == "sharded_221":
+            half = sharded.solve_sharded(p, (2, 2, 1), devs, stop_step=stop)
+        elif label == "sharded_kfused_221":
+            half = sharded_kfused.solve_sharded_kfused(
+                p, k=K, mesh_shape=(2, 2, 1), devices=devs, stop_step=stop)
+        else:
+            half = kfused_comp.solve_kfused_comp_sharded(
+                p, k=K, mesh_shape=(2, 2, 1), devices=devs, stop_step=stop)
+        d = os.path.join(tmp, label)
+        _, s_save = timed(checkpoint.save_sharded_checkpoint, d, half)
+        head = host_state(half)
+        del half
+        loaded, s_load = timed(checkpoint.load_sharded_checkpoint, d, devs)
+        nb = dir_bytes(d)
+        io_rec[label] = {"save": io_line(label, "save", nb, s_save, card),
+                         "load": io_line(label, "load", nb, s_load, card)}
+        _, u_prev, u_cur, step, mesh, scheme, aux = loaded
+        if step != stop or mesh != (2, 2, 1):
+            fail(f"{label}: loaded step {step} mesh {mesh}")
+        if label == "sharded_221":
+            res = sharded.resume_sharded(p, u_prev, u_cur, step, mesh, devs)
+        elif label == "sharded_kfused_221":
+            res = sharded_kfused.resume_sharded_kfused(
+                p, u_prev, u_cur, step, k=K, mesh_shape=mesh, devices=devs)
+        else:
+            res = kfused_comp.resume_kfused_comp_sharded(
+                p, u_cur, *aux, step, k=K, mesh_shape=mesh, devices=devs)
+        torch.cuda.synchronize()
+        launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+        want = {c: n for c, n in counts[label].items() if n}
+        print(f"  {label}: stop {stop} + resume launches {launched}")
+        if launched != want:
+            fail(f"{label}: stop + resume launched {launched}, the "
+                 f"uninterrupted run {want}")
+        got = host_state(res)
+        del res, loaded, u_prev, u_cur, aux
+        for key in ("abs", "rel"):
+            got[key] = np.concatenate([head[key][:stop + 1],
+                                       got[key][stop + 1:]])
+        same_bits(f"{label} stop {stop} + resume", got, refs[label], 0)
+        shutil.rmtree(d)
+
+    flag_ref = dict(refs["flagship"], **side_errors(sides["flagship"]))
+    flags = RUNS["flagship"][1]
+    # -- the supervised flagship in a fresh process ----------------------
+    rot = os.path.join(tmp, "rot")
+    tel = os.path.join(OUT_DIR, "resil_supervised_telemetry")
+    shutil.rmtree(tel, ignore_errors=True)
+    sup_out = os.path.join(OUT_DIR, "resil_supervised")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavetpu_torch"] + base + flags + CLI_EXTRA + [
+            "--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", rot,
+            "--telemetry-dir", tel, "--out-dir", sup_out],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"supervised flagship exit {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("supervisor:")]
+    print(f"  supervised flagship (fresh process, {wall:.1f} s wall): "
+          f"{line}")
+    if f"{len(SUP_STEPS)} checkpoint(s)" not in proc.stdout:
+        fail(f"supervised flagship: {line}")
+    entries = sorted(e for e in os.listdir(rot) if e.startswith("step-"))
+    newest = [f"step-{s_:08d}.npz" for s_ in SUP_STEPS[-2:]]
+    with open(os.path.join(rot, "latest")) as f:
+        latest = f.read().strip()
+    if entries != newest or latest != newest[-1]:
+        fail(f"rotation holds {entries}, latest {latest}")
+    spans = [json.loads(ln) for ln in open(os.path.join(tel, "trace.jsonl"))]
+    spans = [r for r in spans if r.get("type") == "span"]
+    ck_steps = [r["attrs"]["step"] for r in spans
+                if r["kind"] == "supervisor.checkpoint"]
+    chunks = [r["attrs"] for r in spans if r["kind"] == "supervisor.chunk"]
+    if ck_steps != SUP_STEPS:
+        fail(f"checkpoints at {ck_steps}, expected {SUP_STEPS}")
+    later = [(c["start"], c["nvcc_runs"], c["loads"]) for c in chunks[1:]]
+    if any(n or ld for _, n, ld in later):
+        fail(f"a library was built or loaded after the first chunk: {later}")
+    first_launch = [(c["start"], c["length"], c["first_launch_seconds"])
+                    for c in chunks]
+    led_path = os.path.join(tel, "compile_ledger.jsonl")
+    ledger_lines = ([json.loads(ln) for ln in open(led_path)]
+                    if os.path.exists(led_path) else [])
+    print(f"  chunks (start, length, first-launch s): {first_launch}; "
+          f"first chunk: nvcc {chunks[0]['nvcc_runs']}, loads "
+          f"{chunks[0]['loads']}; compile-ledger records: "
+          f"{len(ledger_lines)}")
+    if len(ledger_lines) != 1:
+        fail(f"the compile ledger holds {len(ledger_lines)} records, "
+             f"expected the first chunk's one")
+    overhead = sum(r["dur_s"] for r in spans if r["kind"] in (
+        "supervisor.checkpoint", "supervisor.health"))
+    with open(os.path.join(sup_out, f"output_N{N_FULL}_Np1_CUDA.json")) as f:
+        side = json.load(f)
+    got, step = entry_state(os.path.join(rot, latest))
+    got.update(side_errors(side))
+    same_bits("supervised flagship vs unsupervised", got, flag_ref, 0)
+    unsup = sides["flagship"]["solve_seconds"]
+    print(f"  supervised flagship: solve {side['solve_seconds']!r} s "
+          f"(unsupervised {unsup!r} s), overhead_seconds {overhead!r} "
+          f"(checkpoints + health checks, {len(SUP_STEPS)} saves) ({card})")
+    out["supervised"] = {
+        "solve_seconds": side["solve_seconds"],
+        "unsupervised_solve_seconds": unsup, "overhead_seconds": overhead,
+        "wall_seconds": wall, "checkpoint_steps": ck_steps,
+        "first_launch_seconds": first_launch,
+        "ledger_records": len(ledger_lines)}
+    shutil.rmtree(rot)
+
+    # -- preempt and resume, watchdog and retry (in this process) --------
+    def drill(fault, argv):
+        if fault:
+            os.environ["WAVETPU_FAULT"] = fault
+        try:
+            return cli_quiet(argv)
+        finally:
+            os.environ.pop("WAVETPU_FAULT", None)
+
+    rot = os.path.join(tmp, "preempt")
+    sup_flags = ["--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", rot]
+    stencil_cuda.reset_launches()
+    rc, text = drill(f"preempt:{PREEMPT_AT}", base + flags + CLI_EXTRA + sup_flags + [
+        "--out-dir", os.path.join(OUT_DIR, "resil_preempt")])
+    if rc != 3 or "resumable checkpoint:" not in text:
+        fail(f"preempt:{PREEMPT_AT} exit {rc}: {text[-500:]}")
+    print(f"  preempt:{PREEMPT_AT}: exit 3, "
+          f"{[ln for ln in text.splitlines() if 'resumable' in ln]}")
+    rc, text = drill(None, ["--resume", rot] + sup_flags[:2] + CLI_EXTRA + [
+        "--fuse-steps", str(K), "--out-dir",
+        os.path.join(OUT_DIR, "resil_preempt_resume")])
+    launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+    if rc != 0:
+        fail(f"--resume after the preemption exit {rc}")
+    if launched != {c: n for c, n in counts["flagship"].items() if n}:
+        fail(f"preempt + resume launched {launched}")
+    got, step = entry_state(resolve(rot))
+    same_bits("preempt + --resume flagship", got, flag_ref)
+    shutil.rmtree(rot)
+    rot = os.path.join(tmp, "nan")
+    sup_flags = ["--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", rot]
+    rc, text = drill(f"nan:{NAN_AT}", base + flags + CLI_EXTRA + sup_flags
+                     + ["--out-dir", os.path.join(OUT_DIR, "resil_nan")])
+    last_good = os.path.basename(resolve(rot))
+    print(f"  nan:{NAN_AT}: exit {rc}, last good entry {last_good}")
+    if rc != 4 or last_good != "step-00000249.npz" or \
+            "last good step 249" not in text:
+        fail(f"nan:{NAN_AT}: exit {rc}, latest {last_good}")
+    shutil.rmtree(rot)
+    rc, text = drill(f"nan:{NAN_AT}", base + flags + CLI_EXTRA + sup_flags
+                     + ["--retries", "1", "--out-dir",
+                        os.path.join(OUT_DIR, "resil_retry")])
+    if rc != 0 or "1 retry" not in text:
+        fail(f"nan:{NAN_AT} with --retries 1: exit {rc}")
+    got, _ = entry_state(resolve(rot))
+    with open(os.path.join(OUT_DIR, "resil_retry",
+                           f"output_N{N_FULL}_Np1_CUDA.json")) as f:
+        got.update(side_errors(json.load(f)))
+    same_bits("nan + --retries 1 flagship", got, flag_ref, 0)
+    shutil.rmtree(rot)
+    return out
+
+
+def resolve(root):
+    from wavetpu_torch.run import supervisor
+
+    path = supervisor.resolve_latest(root)
+    if path is None:
+        fail(f"{root} holds no checkpoint")
+    return path
+
+
+def single_refs():
+    """The uninterrupted single-device runs of phase 8's stop-and-resume
+    paths, through the API (the CLI's solver calls), on the host."""
+    p = Problem(N=N_FULL, timesteps=STEPS)
+    refs = {}
+    for label, solve in (("default", lambda: leapfrog.solve(p, device=DEV)),
+                         ("kfused", lambda: kfused.solve_kfused(
+                             p, k=K, device=DEV)),
+                         ("flagship", lambda: kfused_comp.solve_kfused_comp(
+                             p, k=K, device=DEV))):
+        refs[label] = host_state(solve())
+    return refs
+
+
 def pipe_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
     main-path instantiations, from the verbose build log: the standard
@@ -1824,6 +2240,8 @@ def main() -> int:
     t = done("runs", t)
 
     ref221 = api["sharded_221"]  # phase 7's serial reference
+    refs = {label: host_state(api[label]) for label in (
+        "sharded_221", "sharded_kfused_221", "sharded_flagship_221")}
     print("phase 4: contracts at full width")
     accuracy = phase_contracts(api)
     accuracy.update(phase_sharded_contracts(api))
@@ -1847,7 +2265,17 @@ def main() -> int:
     measured.update(phase_trace_default(card))
     measured.update(phase_kernel_choice(card))
     guard_runs(sides, card)
-    done("measurement", t)
+    t = done("measurement", t)
+
+    print(f"phase 8: resilience ({card})")
+    refs.update(single_refs())
+    for label in ("default", "kfused", "flagship"):
+        # The CLI runs' error vectors are phase 3's own.
+        refs[label].update(side_errors(sides[label]))
+    measured["resilience"] = phase_resilience(sides, counts, refs, card)
+    del refs
+    done("resilience", t)
+    print(f"  phase 8 wall: {phase_s['resilience']!r} s ({card})")
     rows = []
     for name, meta in KERNELS.items():
         row = {

@@ -159,14 +159,31 @@ def test_f32_report_and_sidecar(tmp_path, capsys):
 # The sidecar carries wavetpu's keys (ROADMAP.md queue 3, F1): a reader of
 # wavetpu's sidecar finds every key in the port's.  The port's run_config
 # adds the device it ran on (`device`, `platform`).
-@pytest.mark.parametrize("extra", [[], ["--fuse-steps", "3"]],
-                         ids=["1step", "kfused"])
+# A resumed run and a supervised run carry the features' values, held
+# against wavetpu's for the same command lines.
+@pytest.mark.parametrize("extra", [[], ["--fuse-steps", "3"], "resumed",
+                                   "supervised"],
+                         ids=["1step", "kfused", "resumed", "supervised"])
 def test_sidecar_keys_match_wavetpu(tmp_path, extra, capsys):
-    assert cli.main(ARGS + extra + ["--platform", "cpu", "--out-dir",
-                                    str(tmp_path / "ours")]) == 0
-    assert jcli.main(ARGS + extra + ["--platform", "cpu", "--backend",
-                                     "single", "--out-dir",
-                                     str(tmp_path / "ref")]) == 0
+    tail = ["--platform", "cpu"]
+    ours_argv, ref_argv = ARGS + tail, ARGS + tail + ["--backend", "single"]
+    if extra == "resumed":
+        for main, argv, ck in ((cli.main, ours_argv, "ck_ours"),
+                               (jcli.main, ref_argv, "ck_ref")):
+            assert main(argv + ["--stop-step", "5", "--save-state",
+                                str(tmp_path / ck), "--out-dir",
+                                str(tmp_path / "half")]) == 0
+        ours_argv = ["--resume", str(tmp_path / "ck_ours.npz")] + tail
+        ref_argv = ["--resume", str(tmp_path / "ck_ref.npz")] + tail
+    elif extra == "supervised":
+        ours_argv = ours_argv + ["--ckpt-every", "4", "--ckpt-dir",
+                                 str(tmp_path / "rot_ours")]
+        ref_argv = ref_argv + ["--ckpt-every", "4", "--ckpt-dir",
+                               str(tmp_path / "rot_ref")]
+    else:
+        ours_argv, ref_argv = ours_argv + extra, ref_argv + extra
+    assert cli.main(ours_argv + ["--out-dir", str(tmp_path / "ours")]) == 0
+    assert jcli.main(ref_argv + ["--out-dir", str(tmp_path / "ref")]) == 0
     ours = json.loads(
         (tmp_path / "ours" / "output_N15_Np1_CUDA.json").read_text())
     ref = json.loads(
@@ -182,6 +199,14 @@ def test_sidecar_keys_match_wavetpu(tmp_path, extra, capsys):
         assert ours["run_config"][key] == ref["run_config"][key], key
     # The CPU runs the kernels' plain versions: wavetpu's roll path.
     assert ours["run_config"]["kernel"] == "roll"
+    cfg = ours["run_config"]
+    assert cfg["resumed"] is (extra == "resumed")
+    assert cfg["supervised"] is (extra == "supervised")
+    assert cfg["ckpt_every"] == (4 if extra == "supervised" else None)
+    assert cfg["supervisor_status"] == ("complete" if extra == "supervised"
+                                        else None)
+    np.testing.assert_allclose(ours["abs_errors"], ref["abs_errors"],
+                               rtol=0, atol=1e-6)
 
 
 def test_no_errors_marker(tmp_path, capsys):
@@ -203,10 +228,11 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["8", "1", "1", "1", "1", "--ckpt-every", "2"], "queue 1 item 9"),
-    (["8", "1", "1", "1", "1", "--resume", "x.npz"], "queue 1 item 8"),
+    (["8", "1", "1", "1", "1", "--program-cache-dir", "d"],
+     "queue 1 item 12"),
+    (["router"], "queue 1 item 12"),
     (["serve"], "queue 1 item 12"),
-], ids=["ckpt-every", "resume", "serve"])
+], ids=["program-cache-dir", "router", "serve"])
 def test_unported_flags_name_their_roadmap_item(argv, needle, capsys):
     assert cli.main(argv + ["--platform", "cpu"]) == 2
     err = capsys.readouterr().err
@@ -510,3 +536,219 @@ def test_flag_combinations_refused_as_wavetpu(argv, needle, capsys):
     assert needle in capsys.readouterr().err
     assert jcli.main(base + argv) == 2
     assert needle in capsys.readouterr().err
+
+
+# Checkpoints and supervision (ROADMAP.md queue 1 items 8 and 9).
+
+def sidecar(d, n=15, procs=1):
+    return json.loads((d / f"output_N{n}_Np{procs}_CUDA.json").read_text())
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--fuse-steps", "3"],
+    ["--scheme", "compensated"],
+    ["--scheme", "compensated", "--fuse-steps", "3"],
+    ["--fuse-steps", "4"],
+    ["--dtype", "bf16"],
+    ["--c2-field", "gaussian-lens", "--fuse-steps", "3"],
+    ["--mesh", "2,2,1"],
+    ["--mesh", "2,2,1", "--scheme", "compensated"],
+    ["--mesh", "3,1,1", "--fuse-steps", "3"],
+    ["--mesh", "1,3,1", "--fuse-steps", "3", "--scheme", "compensated"],
+], ids=["default", "kfused", "compensated", "flagship", "uneven", "bf16",
+        "kfused-varc", "sharded", "sharded-compensated", "K8", "K12"])
+def test_stop_save_resume_equals_the_uninterrupted_run(tmp_path, extra,
+                                                       capsys):
+    """--stop-step S --save-state CK, then --resume CK, gives the report of
+    the uninterrupted run layer for layer (flagship stops on its block
+    grid: 7 = 1 + 2k)."""
+    run = ARGS + extra + ["--platform", "cpu"]
+    stop = "7" if "--fuse-steps" in extra else "6"
+    procs = 1
+    if "--mesh" in extra:
+        m = extra[extra.index("--mesh") + 1].split(",")
+        procs = int(m[0]) * int(m[1]) * int(m[2])
+    assert cli.main(run + ["--out-dir", str(tmp_path / "full"),
+                           "--save-state", str(tmp_path / "full_ck")]) == 0
+    ck = str(tmp_path / "ck")
+    assert cli.main(run + ["--stop-step", stop, "--save-state", ck,
+                           "--out-dir", str(tmp_path / "half")]) == 0
+    out = capsys.readouterr().out
+    sharded = procs > 1
+    ck_path = ck if sharded else ck + ".npz"
+    assert f"checkpoint: {ck_path}" in out
+    assert os.path.isdir(ck) == sharded
+    half = sidecar(tmp_path / "half", procs=procs)
+    assert half["abs_errors"] is None or \
+        len(half["abs_errors"]) == int(stop) + 1
+    resume = ["--resume", ck_path, "--platform", "cpu"]
+    for flag in ("--fuse-steps", "--c2-field"):
+        if flag in extra:
+            resume += [flag, extra[extra.index(flag) + 1]]
+    assert cli.main(resume + ["--out-dir", str(tmp_path / "res"),
+                              "--save-state", str(tmp_path / "res_ck")]) == 0
+    # The final states, bit for bit (saved by --save-state).
+    from wavetpu_torch.io import checkpoint
+
+    if sharded:
+        a = checkpoint.load_sharded_checkpoint(str(tmp_path / "full_ck"),
+                                               ["cpu"] * procs)
+        b = checkpoint.load_sharded_checkpoint(str(tmp_path / "res_ck"),
+                                               ["cpu"] * procs)
+        assert torch.equal(a[2].assemble("cpu"), b[2].assemble("cpu"))
+        assert a[3] == b[3] == 12
+    else:
+        a = checkpoint.load_checkpoint(str(tmp_path / "full_ck.npz"))
+        b = checkpoint.load_checkpoint(str(tmp_path / "res_ck.npz"))
+        assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        assert a[3] == b[3] == 12
+    full = sidecar(tmp_path / "full", procs=procs)
+    res = sidecar(tmp_path / "res", procs=procs)
+    s = int(stop) + 1
+    if full["errors_computed"]:
+        assert res["abs_errors"][s:] == full["abs_errors"][s:]
+        assert res["rel_errors"][s:] == full["rel_errors"][s:]
+    for key in ("scheme", "dtype", "mesh", "backend", "fuse_steps"):
+        assert res["run_config"][key] == full["run_config"][key], key
+    assert res["run_config"]["resumed"] is True
+
+
+def test_supervised_exit_codes_and_resume(tmp_path, capsys, monkeypatch):
+    """WAVETPU_FAULT drills through the CLI: preempt -> exit 3 with the
+    resumable path; --resume of the rotation root -> exit 0 on the
+    uninterrupted errors; NaN -> exit 4 with the last good step; NaN with
+    --retries 1 -> exit 0; an unstable config trips the watchdog alone."""
+    from wavetpu_torch.run import faults
+
+    base = ["16", "1", "1", "1", "1", "1", "10", "--platform", "cpu"]
+    assert cli.main(base + ["--out-dir", str(tmp_path / "full")]) == 0
+    rot = str(tmp_path / "rot")
+    monkeypatch.setenv(faults.ENV_FAULT, "preempt:5")
+    assert cli.main(base + ["--ckpt-every", "3", "--ckpt-dir", rot,
+                            "--out-dir", str(tmp_path / "pre")]) == 3
+    out = capsys.readouterr().out
+    assert "preempted: checkpointed at step 7" in out
+    assert f"resumable checkpoint: {rot}/step-00000007.npz" in out
+    monkeypatch.delenv(faults.ENV_FAULT)
+    assert cli.main(["--resume", rot, "--ckpt-every", "3", "--platform",
+                     "cpu", "--out-dir", str(tmp_path / "res")]) == 0
+    full = sidecar(tmp_path / "full", n=16)
+    res = sidecar(tmp_path / "res", n=16)
+    assert res["abs_errors"][8:] == full["abs_errors"][8:]
+    assert res["run_config"]["supervisor_status"] == "complete"
+    monkeypatch.setenv(faults.ENV_FAULT, "nan:5")
+    assert cli.main(base + ["--ckpt-every", "3", "--ckpt-dir",
+                            str(tmp_path / "wd"), "--out-dir",
+                            str(tmp_path / "wd_out")]) == 4
+    out = capsys.readouterr().out
+    assert "watchdog: numerical-health trip (guarded amax inf); last good " \
+           "step 4" in out
+    assert "resumable checkpoint:" in out
+    wd = sidecar(tmp_path / "wd_out", n=16)
+    assert wd["run_config"]["supervisor_status"] == "watchdog"
+    assert cli.main(base + ["--ckpt-every", "3", "--ckpt-dir",
+                            str(tmp_path / "rt"), "--retries", "1",
+                            "--out-dir", str(tmp_path / "rt_out")]) == 0
+    assert sidecar(tmp_path / "rt_out", n=16)["abs_errors"] == \
+        full["abs_errors"]
+    monkeypatch.delenv(faults.ENV_FAULT)
+    capsys.readouterr()
+    assert cli.main(["16", "1", "1", "1", "1", "10", "10", "--platform",
+                     "cpu", "--ckpt-every", "4", "--ckpt-dir",
+                     str(tmp_path / "unstable"), "--out-dir",
+                     str(tmp_path)]) == 4
+    assert "watchdog: numerical-health trip" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--ckpt-every", "3", "--stop-step", "5", "--ckpt-dir", "r"],
+     "exclusive with --stop-step"),
+    (["--retries", "2"], "requires --ckpt-every"),
+    (["--max-amp", "5"], "requires --ckpt-every"),
+    (["--no-watchdog"], "requires --ckpt-every"),
+    (["--ckpt-dir", "r"], "requires --ckpt-every"),
+    (["--ckpt-every", "0", "--ckpt-dir", "r"], "must be >= 1"),
+    (["--ckpt-every", "3"], "needs --ckpt-dir"),
+    (["--ckpt-every", "3", "--ckpt-dir", "r", "--retries", "-1"],
+     "must be >= 0"),
+    (["--ckpt-every", "3", "--ckpt-dir", "r", "--max-amp", "0"],
+     "must be > 0"),
+    (["--ckpt-every", "3", "--ckpt-dir", "r", "--debug-nans"],
+     "--debug-nans"),
+    (["--stop-step", "0"], "--stop-step must be in [1, 12]"),
+    (["--stop-step", "13"], "--stop-step must be in [1, 12]"),
+    (["--resume", "x.npz", "--stop-step", "3"], "exclusive"),
+], ids=["ckpt-stop", "retries", "max-amp", "no-watchdog", "ckpt-dir",
+        "ckpt-every-0", "no-dir", "retries-neg", "max-amp-0", "debug-nans",
+        "stop-0", "stop-past", "resume-stop"])
+def test_resilience_flag_contradictions_exit_2(tmp_path, argv, needle,
+                                               capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(ARGS + ["--platform", "cpu"] + argv) == 2
+    assert needle in capsys.readouterr().err
+
+
+def test_resume_contradictions_and_torn_checkpoints_exit_2(tmp_path,
+                                                           capsys):
+    from wavetpu_torch.run import faults
+
+    run = ARGS + ["--platform", "cpu"]
+    ck = str(tmp_path / "ck")
+    assert cli.main(run + ["--stop-step", "4", "--save-state", ck,
+                           "--out-dir", str(tmp_path)]) == 0
+    sck = str(tmp_path / "sck")
+    assert cli.main(run + ["--mesh", "2,2,1", "--stop-step", "4",
+                           "--save-state", sck, "--out-dir",
+                           str(tmp_path)]) == 0
+    capsys.readouterr()
+    cases = [
+        (["--resume", ck + ".npz", "--scheme", "compensated"],
+         "saved with scheme standard"),
+        (["--resume", ck + ".npz", "--mesh", "2,1,1"], "single-device .npz"),
+        (["--resume", ck + ".npz", "--backend", "sharded"],
+         "single-device .npz"),
+        (["--resume", sck, "--backend", "single"], "per-shard directory"),
+        (["--resume", sck, "--mesh", "2,1,1"], "contradicts the checkpoint"),
+        (["--resume", str(tmp_path / "empty")], "cannot load checkpoint"),
+    ]
+    os.makedirs(tmp_path / "empty")
+    os.makedirs(tmp_path / "rot")
+    open(tmp_path / "rot" / "latest", "w").write("step-00000009.npz\n")
+    cases.append((["--resume", str(tmp_path / "rot")],
+                  "holds no resumable checkpoint"))
+    for argv, needle in cases:
+        assert cli.main(argv + ["--platform", "cpu"]) == 2, argv
+        assert needle in capsys.readouterr().err, argv
+    # A .npz torn by a preemption mid-save, and a shard with a flipped
+    # byte: clean exits 2, never a traceback.
+    faults.truncate_tail(ck + ".npz", drop_bytes=256)
+    assert cli.main(["--resume", ck + ".npz", "--platform", "cpu"]) == 2
+    assert "cannot load checkpoint" in capsys.readouterr().err
+    shard = sorted(f for f in os.listdir(sck) if f.endswith(".wts"))[0]
+    faults.flip_byte(os.path.join(sck, shard))
+    assert cli.main(["--resume", sck, "--platform", "cpu"]) == 2
+    assert "CRC mismatch" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [[], ["--fuse-steps", "4"],
+                                   ["--scheme", "compensated",
+                                    "--fuse-steps", "4"],
+                                   ["--mesh", "2,2,1"]],
+                         ids=["1step", "kfused", "flagship", "sharded"])
+def test_debug_nans(tmp_path, extra, capsys):
+    """--debug-nans checks each launch's output: the same report as the
+    unchecked run, and a run that overflows stops naming the layers."""
+    run = ["16", "1", "1", "1", "1", "1", "11", "--platform", "cpu"] + extra
+    procs = 4 if "--mesh" in extra else 1
+    assert cli.main(run + ["--out-dir", str(tmp_path / "plain")]) == 0
+    assert cli.main(run + ["--debug-nans", "--out-dir",
+                           str(tmp_path / "checked")]) == 0
+    plain = sidecar(tmp_path / "plain", n=16, procs=procs)
+    checked = sidecar(tmp_path / "checked", n=16, procs=procs)
+    assert plain["abs_errors"] == checked["abs_errors"]
+    with pytest.raises(FloatingPointError, match="non-finite value "
+                                                 "appeared in layers"):
+        cli.main(["16", "1", "1", "1", "1", "100", "100", "--platform",
+                  "cpu", "--debug-nans", "--out-dir", str(tmp_path)]
+                 + extra)

@@ -11,6 +11,8 @@ bitwise: the kernels are built with --fmad=false and round every multiply
 and add separately, as the plain versions' PyTorch ops do.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1051,3 +1053,96 @@ def test_profiler_sees_the_kernels(cuda, tmp_path):
     assert sum(o["count"] for o in k4) == 2  # 2 blocks at k=4, 0 tail
     assert all(o["device_ms"] > 0 for o in k4)
     assert ops and (tmp_path / perf.TRACE_FILENAME).exists()
+
+
+# Checkpoints and supervision on the card (ROADMAP.md queue 1 items 8, 9):
+# the resumed and the supervised chunked marches on the card equal the
+# uninterrupted march on the card bit for bit, and the same marches on the
+# CPU (the plain versions) within 1e-5.
+
+RESILIENCE_PATHS = {
+    "K1": dict(),
+    "K3": dict(fuse_steps=4),
+    "K4": dict(scheme="compensated", fuse_steps=4),
+    "K6": dict(backend="sharded", mesh_shape=(2, 2, 1)),
+    "K10": dict(backend="sharded", fuse_steps=4, mesh_shape=(2, 2, 1)),
+    "K12": dict(backend="sharded", scheme="compensated", fuse_steps=4,
+                mesh_shape=(2, 2, 1)),
+}
+
+
+def _fundamental(a):
+    return (a.fundamental("cpu") if hasattr(a, "blocks") else a).cpu()
+
+
+@pytest.mark.parametrize("path", list(RESILIENCE_PATHS))
+def test_resume_and_supervised_on_the_card(cuda, tmp_path, path):
+    from wavetpu_torch.io import checkpoint
+    from wavetpu_torch.run import faults
+    from wavetpu_torch.run import supervisor as sup
+
+    p = Problem(N=32, timesteps=30)
+    kw = RESILIENCE_PATHS[path]
+    n_dev = 4 if kw.get("backend") == "sharded" else 1
+    results = {}
+    for dev in ("cuda", "cpu"):
+        spec = sup.PathSpec(devices=(dev,) * n_dev,
+                            kernel="pallas" if dev == "cuda" else "roll",
+                            **kw)
+        opts = sup.SupervisorOptions(
+            ckpt_every=8, ckpt_dir=str(tmp_path / f"{dev}-rot"),
+            chunk_hook=faults.preempt_at_step(13))
+        pre = sup.supervise(p, spec, opts)
+        assert pre.status == "preempted" and pre.final_step == 17
+        state, step = sup._Path(p, spec).load(pre.checkpoint_path)
+        opts = sup.SupervisorOptions(ckpt_every=8,
+                                     ckpt_dir=str(tmp_path / f"{dev}-rot"))
+        resumed = sup.supervise(p, spec, opts, state=state, start_step=step)
+        plain = sup.supervise(p, spec, sup.SupervisorOptions(
+            ckpt_every=10**6, ckpt_dir=str(tmp_path / f"{dev}-one")))
+        assert plain.checkpoints_written == 1     # one chunk: unsupervised
+        for r in (resumed, plain):
+            assert r.status == "complete"
+        assert torch.equal(_fundamental(resumed.result.u_cur),
+                           _fundamental(plain.result.u_cur))
+        np.testing.assert_array_equal(resumed.result.abs_errors[18:],
+                                      plain.result.abs_errors[18:])
+        results[dev] = plain.result
+        if kw.get("backend") != "sharded":
+            assert os.path.exists(checkpoint.save_checkpoint(
+                str(tmp_path / f"{dev}.npz"), plain.result))
+    d = (_fundamental(results["cuda"].u_cur).double()
+         - _fundamental(results["cpu"].u_cur).double()).abs().max().item()
+    assert d <= 1e-5, d
+
+
+def test_health_guard_on_the_card_equals_the_cpu(cuda):
+    from wavetpu_torch.core.grid import Topology, build_mesh, split_global
+    from wavetpu_torch.run import health
+
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        a = field(24, 7, dtype=dt)
+        for poison in (None, float("nan"), float("inf"), -float("inf")):
+            b = a.clone()
+            if poison is not None:
+                b[3, 4, 5] = poison
+            assert health.guarded_amax(b.to(cuda)) == health.guarded_amax(b)
+    topo = Topology(N=24, mesh_shape=(2, 2, 1))
+    g = torch.zeros(topo.padded)
+    g[13, 2, 3] = -5.5
+    on_card = split_global(g, topo, build_mesh((2, 2, 1), ["cuda"] * 4))
+    assert health.guarded_amax(on_card) == 5.5
+
+
+def test_checkpoint_writer_is_native_and_loads_onto_the_card(cuda, tmp_path):
+    from wavetpu_torch.io import checkpoint, nativeio
+
+    assert nativeio.native_available()
+    p = Problem(N=32, timesteps=8)
+    res = sharded.solve_sharded(p, (2, 2, 1), ["cuda"] * 4, stop_step=4)
+    d = str(tmp_path / "ck")
+    checkpoint.save_sharded_checkpoint(d, res)
+    _, _, u_cur, step, _, _, _ = checkpoint.load_sharded_checkpoint(
+        d, ["cuda"] * 4)
+    assert step == 4 and all(b.device.type == "cuda" for b in u_cur.blocks)
+    assert torch.equal(u_cur.assemble("cpu"), res.u_cur.assemble("cpu"))

@@ -79,6 +79,46 @@ Flags:
                                     snapshots into DIR/heartbeat.jsonl and
                                     DIR/metrics.prom, and the compile and
                                     accuracy ledgers (obs/)
+  --stop-step S                     halt after layer S; pairs with
+                                    --save-state for preemptible runs
+  --save-state PATH                 write the final state as a checkpoint:
+                                    one .npz (single backend) or a per-shard
+                                    directory of WTS1 files (sharded backend;
+                                    io/checkpoint.py, wavetpu's format)
+  --resume PATH                     continue a checkpointed run to its
+                                    timesteps (positionals then unneeded;
+                                    scheme, dtype and mesh come from the
+                                    checkpoint): a .npz resumes on the
+                                    single backend, a shard directory on the
+                                    sharded one, a rotation root (what
+                                    --ckpt-dir keeps) through its `latest`
+                                    pointer
+  --ckpt-every S                    supervised solve (run/supervisor.py):
+                                    chunks of ~S layers (snapped to the
+                                    --fuse-steps block, so the layers stay
+                                    bitwise the unsupervised run's), each
+                                    boundary checkpointed into a fresh
+                                    rotation entry under --ckpt-dir with an
+                                    atomic `latest` pointer and keep-last-2
+                                    GC; SIGTERM/SIGINT finish the chunk,
+                                    save and exit 3; each chunk is health-
+                                    checked (run/health.py), a NaN or
+                                    amplitude blowup halts with the last-good
+                                    checkpoint (exit 4)
+  --ckpt-dir DIR                    the rotation root of --ckpt-every (the
+                                    --resume rotation root by default)
+  --retries N                       reload the last-good checkpoint after a
+                                    watchdog trip and re-run the chunk, up
+                                    to N times, before halting
+  --max-amp X                       watchdog amplitude bound (default 1e3)
+  --no-watchdog                     supervised run without health checks
+  --debug-nans                      check each launch's output (each step,
+                                    or each k-block) for a non-finite value
+                                    and stop with the layers named - a check
+                                    at launch granularity, where wavetpu's
+                                    jax_debug_nans traps the first op; not
+                                    with --ckpt-every (its watchdog checks
+                                    each chunk)
 
 Subcommands: `trace-report [TRACE.jsonl ...] [--dir DIR ...]` (obs/
 report.py), `ledger-report TELEMETRY_DIR [--json]` (obs/ledger.py),
@@ -87,7 +127,9 @@ DIR ARGS...` (obs/perf.py: one full command line under torch.profiler).
 
 wavetpu's other flags and subcommands are not ported yet: each exits 2
 and names the ROADMAP.md item that brings it.  Exit codes: 0 complete,
-2 usage error.
+2 usage or checkpoint-load error, 3 preempted with a resumable checkpoint
+(requeue with --resume), 4 watchdog halt with the last-good checkpoint;
+a supervised run that exits 3 or 4 prints `resumable checkpoint: PATH`.
 """
 
 from __future__ import annotations
@@ -103,15 +145,6 @@ from wavetpu_torch.core.problem import Problem
 _NOT_PORTED = {
     "distributed": "queue 1 item 10, step 5 (--distributed: one process "
                    "per card)",
-    "stop-step": "queue 1 item 8 (checkpoint I/O)",
-    "save-state": "queue 1 item 8 (checkpoint I/O)",
-    "resume": "queue 1 item 8 (checkpoint I/O)",
-    "ckpt-every": "queue 1 item 9 (supervision)",
-    "ckpt-dir": "queue 1 item 9 (supervision)",
-    "retries": "queue 1 item 9 (supervision)",
-    "max-amp": "queue 1 item 9 (supervision)",
-    "no-watchdog": "queue 1 item 9 (supervision)",
-    "debug-nans": "queue 1 item 9 (supervision's health checks)",
     "program-cache-dir": "queue 1 item 12 (serving)",
 }
 _NOT_PORTED_SUBCOMMANDS = {
@@ -123,7 +156,9 @@ _NOT_PORTED_SUBCOMMANDS = {
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
            "out-dir", "platform", "c2-field", "backend", "mesh", "kernel",
-           "overlap", "phase-timing", "profile", "telemetry-dir")
+           "overlap", "phase-timing", "profile", "telemetry-dir",
+           "stop-step", "save-state", "resume", "ckpt-every", "ckpt-dir",
+           "retries", "max-amp", "no-watchdog", "debug-nans")
 _VALUELESS = ("no-errors", "overlap", "distributed", "debug-nans",
               "no-watchdog", "phase-timing")
 _USAGE = (
@@ -133,7 +168,10 @@ _USAGE = (
     "[--c2-field PRESET|FILE.npy] [--no-errors] [--out-dir DIR] "
     "[--platform gpu|cpu] [--backend auto|single|sharded] "
     "[--mesh MX,MY,MZ] [--kernel auto|roll|pallas] [--overlap] "
-    "[--phase-timing] [--profile DIR] [--telemetry-dir DIR] | "
+    "[--phase-timing] [--profile DIR] [--telemetry-dir DIR] "
+    "[--stop-step S] [--save-state PATH] [--resume PATH] "
+    "[--ckpt-every S] [--ckpt-dir DIR] [--retries N] [--max-amp X] "
+    "[--no-watchdog] [--debug-nans] | "
     "trace-report [...] | ledger-report DIR [...] | plan-report DIR [...] "
     "| profile --out DIR ARGS... | --version"
 )
@@ -165,8 +203,11 @@ def _parse_mesh(flags):
 
 
 def _parse(argv):
-    """Validate argv; returns (problem, flags, scheme, fuse_steps, platform,
-    mesh).  Raises ValueError (usage) or _NotPorted."""
+    """Validate argv's flags; returns (positionals, flags, fuse_steps,
+    platform, mesh, supervision) - supervision the (ckpt_every, retries,
+    max_amp) of --ckpt-every, else None.  The checks that depend on the
+    problem or the scheme, which a resumed run takes from its checkpoint,
+    are `_check_run`'s.  Raises ValueError (usage) or _NotPorted."""
     pos, flags = split_flags(argv, _PORTED + tuple(_NOT_PORTED), _VALUELESS)
     for name, item in _NOT_PORTED.items():
         if name in flags:
@@ -178,24 +219,12 @@ def _parse(argv):
         raise ValueError(f"--platform must be gpu|cpu, got {platform}")
     if flags.get("dtype") == "f64" and platform != "cpu":
         raise ValueError("--dtype f64 runs only on the CPU (--platform cpu)")
-    scheme = flags.get("scheme", "standard")
-    if scheme not in ("standard", "compensated"):
-        raise ValueError(f"--scheme must be standard|compensated, got {scheme}")
+    if flags.get("scheme", "standard") not in ("standard", "compensated"):
+        raise ValueError(f"--scheme must be standard|compensated, got "
+                         f"{flags['scheme']}")
     fuse_steps = int(flags.get("fuse-steps", "1"))
     if fuse_steps < 1:
         raise ValueError(f"--fuse-steps must be >= 1, got {fuse_steps}")
-    if scheme == "compensated" and flags.get("dtype") == "bf16":
-        raise ValueError(
-            "--dtype bf16 is not available for the compensated scheme "
-            "(it requires an f32/f64 carrier; for a bf16 increment stream "
-            "use --v-dtype bf16)"
-        )
-    if "c2-field" in flags and scheme == "compensated" and fuse_steps < 2:
-        raise ValueError(
-            "--c2-field with the compensated scheme rides the velocity-form "
-            "onion: add --fuse-steps K (the 1-step compensated kernel "
-            "carries a scalar coefficient)"
-        )
     kernel = flags.get("kernel", "auto")
     if kernel not in ("auto", "roll", "pallas"):
         raise ValueError(f"--kernel must be auto|roll|pallas, got {kernel}")
@@ -216,24 +245,9 @@ def _parse(argv):
             "--c2-field runs")
     if flags.get("backend") == "single" and "overlap" in flags:
         raise ValueError("--overlap applies to the sharded backend")
-    if scheme == "compensated":
-        bad = None
-        if "overlap" in flags:
-            bad = "--overlap"
-        elif "phase-timing" in flags and fuse_steps < 2:
-            bad = ("--phase-timing (the compensated probe covers "
-                   "--fuse-steps K programs; the 1-step scheme has none)")
-        if bad:
-            raise ValueError(
-                f"{bad} is not available for the compensated scheme")
     v_dtype = flags.get("v-dtype")
     if v_dtype is not None and v_dtype not in ("f32", "bf16"):
         raise ValueError(f"--v-dtype must be f32|bf16, got {v_dtype}")
-    if v_dtype == "bf16" and (scheme != "compensated" or fuse_steps < 2):
-        raise ValueError(
-            "--v-dtype bf16 is the increment-form bf16 mode: it requires "
-            "--scheme compensated --fuse-steps K"
-        )
     backend = flags.get("backend", "auto")
     if backend not in ("auto", "single", "sharded"):
         raise ValueError(f"--backend must be auto|single|sharded, got "
@@ -241,24 +255,145 @@ def _parse(argv):
     mesh = _parse_mesh(flags)
     if backend == "single" and mesh is not None:
         raise ValueError("--mesh contradicts --backend single")
-    sharded = mesh is not None or backend == "sharded"
     if fuse_steps > 1 and mesh is not None and mesh[2] != 1:
         raise ValueError(
             f"--fuse-steps supports (MX,MY,1) meshes (MX, MY >= 1, MZ = 1); "
             f"got {flags['mesh']}"
         )
-    problem = Problem.from_argv(pos)
     if fuse_steps > 8:
         raise ValueError(
             f"--fuse-steps {fuse_steps} must be <= 8 (the k-step kernels' "
             f"tiles)"
         )
-    if fuse_steps > 1 and scheme == "compensated" and problem.N % fuse_steps:
+    supervision = None
+    if "ckpt-every" in flags:
+        ckpt_every = int(flags["ckpt-every"])
+        if ckpt_every < 1:
+            raise ValueError(f"--ckpt-every must be >= 1, got {ckpt_every}")
+        if "stop-step" in flags:
+            raise ValueError(
+                "--ckpt-every supervises the run to completion; it is "
+                "exclusive with --stop-step (preempt a supervised run with "
+                "SIGTERM instead)")
+        if "debug-nans" in flags:
+            raise ValueError(
+                "--debug-nans checks an unsupervised march launch by launch; "
+                "a supervised run has its watchdog (--max-amp, "
+                "--no-watchdog)")
+        retries = int(flags.get("retries", "0"))
+        if retries < 0:
+            raise ValueError(f"--retries must be >= 0, got {retries}")
+        max_amp = float(flags["max-amp"]) if "max-amp" in flags else None
+        if max_amp is not None and not max_amp > 0:
+            raise ValueError(f"--max-amp must be > 0, got {max_amp}")
+        supervision = (ckpt_every, retries, max_amp)
+    else:
+        for dep in ("ckpt-dir", "retries", "max-amp", "no-watchdog"):
+            if dep in flags:
+                raise ValueError(f"--{dep} requires --ckpt-every S (the "
+                                 f"supervised-solve mode)")
+    if "resume" in flags and "stop-step" in flags:
+        raise ValueError("--resume and --stop-step are exclusive")
+    if "stop-step" in flags:
+        int(flags["stop-step"])
+    return pos, flags, fuse_steps, platform, mesh, supervision
+
+
+def _check_run(problem: Problem, flags, scheme: str, fuse_steps: int):
+    """The flag checks that depend on the problem and on the scheme - run
+    after a resumed run has taken both from its checkpoint, so they also
+    cover e.g. `--resume comp_ck --phase-timing`.  Raises ValueError."""
+    if scheme == "compensated":
+        bad = None
+        if flags.get("dtype") == "bf16":
+            bad = ("--dtype bf16 (it requires an f32/f64 carrier; for a "
+                   "bf16 increment stream use --v-dtype bf16)")
+        elif "overlap" in flags:
+            bad = "--overlap"
+        elif "phase-timing" in flags and fuse_steps < 2:
+            bad = ("--phase-timing (the compensated probe covers "
+                   "--fuse-steps K programs; the 1-step scheme has none)")
+        elif "c2-field" in flags and fuse_steps < 2:
+            bad = ("--c2-field without --fuse-steps K (the 1-step "
+                   "compensated kernels carry a scalar coefficient; the "
+                   "field rides the velocity-form march)")
+        elif fuse_steps > 1 and problem.N % fuse_steps:
+            bad = (f"--fuse-steps {fuse_steps} (it must divide N="
+                   f"{problem.N} for the compensated k-fused march)")
+        if bad:
+            raise ValueError(
+                f"{bad} is not available for the compensated scheme")
+    if flags.get("v-dtype") == "bf16" and (scheme != "compensated"
+                                           or fuse_steps < 2):
         raise ValueError(
-            f"--fuse-steps {fuse_steps} must divide N={problem.N} for the "
-            f"compensated k-fused march"
+            "--v-dtype bf16 is the increment-form bf16 mode: it requires "
+            "--scheme compensated --fuse-steps K"
         )
-    return problem, flags, scheme, fuse_steps, platform, mesh
+    if "stop-step" in flags:
+        stop = int(flags["stop-step"])
+        if not 1 <= stop <= problem.timesteps:
+            raise ValueError(f"--stop-step must be in [1, "
+                             f"{problem.timesteps}], got {stop}")
+
+
+class _CheckpointError(Exception):
+    """A checkpoint --resume cannot use: exit 2 with its message."""
+
+
+def _load_resume(flags, fuse_steps: int, mesh):
+    """Resolve and read --resume's checkpoint - a .npz, a per-shard
+    directory, or a rotation root through its `latest` pointer - before
+    anything runs.  Returns a dict: path, rotation root (or None),
+    problem, scheme, start step, `sharded`, and for a shard directory its
+    mesh and state dtype name, for a .npz its (u_prev, u_cur) and the
+    compensated (v, carry) (CPU tensors).  Raises _CheckpointError."""
+    import os
+
+    from wavetpu_torch.io import checkpoint
+    from wavetpu_torch.run import supervisor
+
+    path, root = flags["resume"], None
+    if supervisor.looks_like_rotation_root(path):
+        root = path
+        path = supervisor.resolve_latest(root)
+        if path is None:
+            raise _CheckpointError(f"{root} holds no resumable checkpoint")
+    out = dict(path=path, root=root, sharded=os.path.isdir(path))
+    try:
+        if out["sharded"]:
+            if flags.get("backend") == "single":
+                raise _CheckpointError(
+                    "checkpoint is a per-shard directory; --backend single "
+                    "cannot resume it")
+            problem, start, ck_mesh, dtype_name, scheme = (
+                checkpoint.load_sharded_meta(path))
+            if mesh is not None and tuple(mesh) != ck_mesh:
+                raise _CheckpointError(
+                    f"--mesh contradicts the checkpoint's mesh {ck_mesh}")
+            if fuse_steps > 1 and ck_mesh[2] != 1:
+                raise _CheckpointError(
+                    f"--fuse-steps supports (MX,MY,1) meshes; the "
+                    f"checkpoint was saved on {ck_mesh}")
+            out.update(mesh=ck_mesh, dtype_name=dtype_name)
+        else:
+            if flags.get("backend") == "sharded" or mesh is not None:
+                raise _CheckpointError(
+                    "checkpoint is a single-device .npz; --backend sharded/"
+                    "--mesh cannot resume it")
+            problem, u_prev, u_cur, start = checkpoint.load_checkpoint(path)
+            scheme = checkpoint.checkpoint_scheme(path)
+            aux = (checkpoint.load_checkpoint_aux(path)
+                   if scheme == "compensated" else None)
+            out.update(state=(u_prev, u_cur), aux=aux,
+                       dtype_name=checkpoint.dtype_name(u_cur.dtype))
+    except _CheckpointError:
+        raise
+    except Exception as e:
+        # OSError, KeyError, ValueError, zipfile.BadZipFile (a .npz torn by
+        # a mid-save preemption - the case --resume exists for), ...
+        raise _CheckpointError(f"cannot load checkpoint: {e}") from e
+    out.update(problem=problem, scheme=scheme, start=start)
+    return out
 
 
 def _c2_field(spec: str, problem: Problem):
@@ -304,14 +439,47 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"wavetpu_torch {__version__}")
         return 0
     try:
-        problem, flags, scheme, fuse_steps, platform, mesh = _parse(argv)
+        pos, flags, fuse_steps, platform, mesh, supervision = _parse(argv)
+        resume = None
+        if "resume" in flags:
+            resume = _load_resume(flags, fuse_steps, mesh)
+            problem = resume["problem"]
+            # A checkpoint resumes under the scheme it was saved with.
+            if "scheme" in flags and flags["scheme"] != resume["scheme"]:
+                raise _CheckpointError(
+                    f"checkpoint was saved with scheme {resume['scheme']}; "
+                    f"--scheme {flags['scheme']} cannot resume it")
+            scheme = resume["scheme"]
+            if resume["sharded"]:
+                mesh = resume["mesh"]
+            else:
+                flags["backend"] = "single"
+            if "dtype" not in flags and resume["dtype_name"] == "float64" \
+                    and platform != "cpu":
+                raise ValueError("the checkpoint holds an f64 state, which "
+                                 "runs only on the CPU (--platform cpu)")
+        else:
+            problem = Problem.from_argv(pos)
+            scheme = flags.get("scheme", "standard")
+        _check_run(problem, flags, scheme, fuse_steps)
     except _NotPorted as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except _CheckpointError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         print(_USAGE, file=sys.stderr)
         return 2
+    supervised = supervision is not None
+    ckpt_dir = None
+    if supervised:
+        ckpt_dir = flags.get("ckpt-dir") or (resume or {}).get("root")
+        if not ckpt_dir:
+            print("error: --ckpt-every needs --ckpt-dir DIR (or --resume of "
+                  "an existing rotation root)", file=sys.stderr)
+            return 2
 
     import torch
 
@@ -322,7 +490,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     device = torch.device("cuda" if platform == "gpu" else "cpu")
     try:
         backend, shape, devices = _placement(problem, flags, fuse_steps,
-                                             platform, mesh)
+                                             platform, mesh, scheme)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -356,9 +524,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"fuse-steps: {fuse_steps}")
     if backend == "sharded":
         print(f"mesh: {shape[0]},{shape[1]},{shape[2]}")
+    from wavetpu_torch.io import checkpoint
+
     dtype = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
         flags.get("dtype"), torch.float32)
-    v_bf16 = flags.get("v-dtype") == "bf16"
+    if resume is not None and "dtype" not in flags:
+        # A resumed run keeps the checkpoint's dtype: a cast would break
+        # the bitwise-equal resume.
+        dtype = checkpoint.torch_dtype(resume["dtype_name"])
+    stop_step = int(flags["stop-step"]) if "stop-step" in flags else None
+
+    run = _Run(problem, scheme, fuse_steps, backend, shape, devices, device,
+               dtype, compute_errors, c2_field, kernel, overlap, flags)
+    if resume is not None:
+        try:
+            run.take_checkpoint(resume)
+        except _CheckpointError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
 
     telemetry = None
     if "telemetry-dir" in flags:
@@ -379,13 +562,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     solve_span = tracing.begin_span(
         "cli.solve", backend=backend, scheme=scheme, kernel=kernel,
         fuse_steps=fuse_steps, n=problem.N, timesteps=problem.timesteps,
-        supervised=False, resumed=False,
+        supervised=supervised, resumed=resume is not None,
     )
     compiled = _compile_counts()
+    sup_out = None
     try:
-        result = _solve(problem, scheme, fuse_steps, backend, shape,
-                        devices, device, dtype, compute_errors, c2_field,
-                        v_bf16, kernel, overlap)
+        if supervised:
+            sup_out = run.supervise(supervision, ckpt_dir,
+                                    "no-watchdog" not in flags)
+            result = sup_out.result
+            print(f"supervisor: {sup_out.status}; "
+                  f"{sup_out.checkpoints_written} checkpoint(s), "
+                  f"{sup_out.retries_used} retr"
+                  f"{'y' if sup_out.retries_used == 1 else 'ies'}, "
+                  f"overhead {sup_out.overhead_seconds * 1000:.0f}ms")
+        elif "debug-nans" in flags:
+            result = run.checked(stop_step)
+        elif resume is not None:
+            result = run.resume()
+        else:
+            result = _solve(problem, scheme, fuse_steps, backend, shape,
+                            devices, device, dtype, compute_errors, c2_field,
+                            flags.get("v-dtype") == "bf16", kernel, overlap,
+                            stop_step)
         span_extra = {}
         if solve_span is not None:
             span_extra = _roofline_attrs(_perf_path(backend, scheme,
@@ -394,11 +593,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             solve_span, final_step=result.final_step,
             gcells_per_s=round(result.gcells_per_second, 3), **span_extra,
         )
-        if ledger.enabled():
+        if ledger.enabled() and not supervised:
+            # A supervised run's chunks record their own compiles
+            # (run/supervisor.py).
             _record_compile(ledger, problem, scheme, fuse_steps, kernel,
                             result, c2_field is not None, compute_errors,
                             shape if backend == "sharded" else None,
                             compiled, _compile_counts())
+        if "save-state" in flags:
+            if backend == "sharded":
+                ck_path = checkpoint.save_sharded_checkpoint(
+                    flags["save-state"], result)
+            else:
+                ck_path = checkpoint.save_checkpoint(flags["save-state"],
+                                                     result)
+            print(f"checkpoint: {ck_path}")
         if prof is not None:
             prof.__exit__(None, None, None)
             ops = obs_perf.export_profile(prof, flags["profile"])
@@ -417,7 +626,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 devices=devices if backend == "sharded" else [device],
                 dtype=dtype, kernel=kernel, overlap=overlap,
                 fuse_steps=fuse_steps, scheme=scheme,
-                v_dtype=torch.bfloat16 if v_bf16 else None,
+                v_dtype=(torch.bfloat16 if flags.get("v-dtype") == "bf16"
+                         else None),
             )
             exchange_seconds = pb.exchange_seconds
             loop_seconds = pb.loop_seconds
@@ -439,19 +649,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 "mesh": list(shape) if sharded_run else None,
                 "scheme": scheme,
                 "fuse_steps": fuse_steps,
+                # The state's dtype (a resumed run inherits the
+                # checkpoint's).
                 "dtype": str(result.u_cur.dtype).replace("torch.", ""),
                 "v_dtype": flags.get("v-dtype"),
                 "c2_field": flags.get("c2-field"),
                 # "pallas" where the CUDA kernels ran (wavetpu's kernel
                 # path), "roll" where their plain versions ran.
                 "kernel": kernel,
-                # wavetpu's keys, with the values of a run without those
-                # features.
+                # --distributed is not ported (ROADMAP.md queue 1 item 10
+                # step 5).
                 "distributed": False,
-                "resumed": False,
-                "supervised": False,
-                "ckpt_every": None,
-                "supervisor_status": None,
+                "resumed": resume is not None,
+                "supervised": supervised,
+                "ckpt_every": supervision[0] if supervised else None,
+                "supervisor_status": (sup_out.status if sup_out is not None
+                                      else None),
             },
         )
         print(f"grids initialized in {int(result.init_seconds * 1000)}ms")
@@ -465,6 +678,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"max abs error: {result.abs_errors.max():.6g}")
         print(f"throughput: {result.gcells_per_second:.3f} Gcell-updates/s")
         print(f"report: {path}")
+        if sup_out is not None and sup_out.status != "complete":
+            # The orchestration contract: 3 = requeue with --resume, 4 =
+            # page an operator, and the resumable path in the output.
+            if sup_out.status == "preempted":
+                print(f"preempted: checkpointed at step "
+                      f"{sup_out.final_step}")
+            else:
+                print(f"watchdog: numerical-health trip (guarded amax "
+                      f"{sup_out.amax_last:g}); last good step "
+                      f"{sup_out.final_step}")
+            if sup_out.checkpoint_path:
+                print(f"resumable checkpoint: {sup_out.checkpoint_path}")
+            return sup_out.exit_code
     except BaseException:
         # A crash mid-run still closes the open cli.solve span, the
         # profiler and the final heartbeat, and leaves no tracer bound to
@@ -481,7 +707,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def _solve(problem, scheme, fuse_steps, backend, shape, devices, device,
-           dtype, compute_errors, c2_field, v_bf16, kernel, overlap):
+           dtype, compute_errors, c2_field, v_bf16, kernel, overlap,
+           stop_step=None):
     """The solver call of the run's path."""
     import torch
 
@@ -489,56 +716,167 @@ def _solve(problem, scheme, fuse_steps, backend, shape, devices, device,
         kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
     )
 
+    common = dict(dtype=dtype, compute_errors=compute_errors,
+                  stop_step=stop_step)
     if backend == "sharded" and fuse_steps > 1 and scheme == "compensated":
         # The distributed flagship (wavetpu/cli.py:951-986).
         return kfused_comp.solve_kfused_comp_sharded(
-            problem, mesh_shape=shape, dtype=dtype, k=fuse_steps,
-            compute_errors=compute_errors, devices=devices,
+            problem, mesh_shape=shape, k=fuse_steps, devices=devices,
             v_dtype=torch.bfloat16 if v_bf16 else None, carry=not v_bf16,
-            c2tau2_field=c2_field,
-        )
+            c2tau2_field=c2_field, **common)
     if backend == "sharded" and fuse_steps > 1:
         return sharded_kfused.solve_sharded_kfused(
-            problem, dtype=dtype, k=fuse_steps,
-            compute_errors=compute_errors, devices=devices,
-            mesh_shape=shape, c2tau2_field=c2_field,
-        )
+            problem, k=fuse_steps, devices=devices, mesh_shape=shape,
+            c2tau2_field=c2_field, **common)
     if backend == "sharded":
         return sharded.solve_sharded(
-            problem, shape, devices, dtype=dtype,
-            compute_errors=compute_errors, c2tau2_field=c2_field,
-            scheme=scheme, kernel=kernel, overlap=overlap,
-        )
+            problem, shape, devices, c2tau2_field=c2_field, scheme=scheme,
+            kernel=kernel, overlap=overlap, **common)
     if scheme == "compensated" and fuse_steps > 1:
         return kfused_comp.solve_kfused_comp(
-            problem, dtype=dtype, k=fuse_steps,
-            compute_errors=compute_errors,
+            problem, k=fuse_steps,
             v_dtype=torch.bfloat16 if v_bf16 else None, carry=not v_bf16,
-            c2tau2_field=c2_field, device=device,
-        )
+            c2tau2_field=c2_field, device=device, **common)
     if scheme == "compensated":
-        return leapfrog.solve_compensated(
-            problem, dtype=dtype, compute_errors=compute_errors,
-            device=device, kernel=kernel,
-        )
+        return leapfrog.solve_compensated(problem, device=device,
+                                          kernel=kernel, **common)
     if fuse_steps > 1 and problem.N % fuse_steps:
         # K does not divide N: wavetpu's pad-and-mask march (K9) on a
         # (1, 1, 1) mesh (wavetpu/cli.py:1201-1213).
         return sharded_kfused.solve_sharded_kfused(
-            problem, n_shards=1, dtype=dtype, k=fuse_steps,
-            compute_errors=compute_errors, devices=[device],
-            c2tau2_field=c2_field,
-        )
+            problem, n_shards=1, k=fuse_steps, devices=[device],
+            c2tau2_field=c2_field, **common)
     if fuse_steps > 1:
-        return kfused.solve_kfused(
-            problem, dtype=dtype, k=fuse_steps,
-            compute_errors=compute_errors, c2tau2_field=c2_field,
-            device=device,
+        return kfused.solve_kfused(problem, k=fuse_steps,
+                                   c2tau2_field=c2_field, device=device,
+                                   **common)
+    return leapfrog.solve(problem, c2tau2_field=c2_field, device=device,
+                          kernel=kernel, **common)
+
+
+class _Run:
+    """The resumed, supervised and --debug-nans forms of a run's path: a
+    checkpoint's state taken in, and the resume entry points, the
+    supervisor and its launch-by-launch check dispatched on the path."""
+
+    def __init__(self, problem, scheme, fuse_steps, backend, shape, devices,
+                 device, dtype, compute_errors, c2_field, kernel, overlap,
+                 flags):
+        self.problem, self.scheme, self.k = problem, scheme, fuse_steps
+        self.backend, self.shape = backend, shape
+        self.devices = devices if backend == "sharded" else [device]
+        self.device, self.dtype = device, dtype
+        self.compute_errors, self.c2_field = compute_errors, c2_field
+        self.kernel, self.overlap, self.flags = kernel, overlap, flags
+        self.state = self.start = None
+        self.v_bf16 = flags.get("v-dtype") == "bf16"
+
+    def take_checkpoint(self, resume: dict) -> None:
+        """The checkpoint's state: a shard directory is loaded onto the
+        mesh's devices; a .npz was read by `_load_resume`.  A bf16
+        increment stream beside a non-bf16 carrier marks the carry-less
+        increment form (k-fused only): its stored zero carry is dropped and
+        the sidecar records `v_dtype` bf16."""
+        import torch
+
+        from wavetpu_torch.io import checkpoint
+
+        self.start = resume["start"]
+        if resume["sharded"]:
+            try:
+                _, u_prev, u_cur, _, _, _, aux = (
+                    checkpoint.load_sharded_checkpoint(resume["path"],
+                                                       self.devices))
+            except Exception as e:
+                # A missing or truncated shard, a step/meta mismatch from a
+                # mid-save preemption: the same clean exit as a torn .npz.
+                raise _CheckpointError(f"cannot load checkpoint: {e}") from e
+        else:
+            (u_prev, u_cur), aux = resume["state"], resume["aux"]
+        if self.scheme != "compensated":
+            self.state = (u_prev, u_cur)
+            return
+        v, carry = aux
+        if (self.k > 1 and v.dtype == torch.bfloat16
+                and self.dtype != torch.bfloat16):
+            self.flags["v-dtype"] = "bf16"
+            self.v_bf16 = True
+            carry = None
+        self.state = (u_cur, v, carry)
+
+    def spec(self):
+        import torch
+
+        from wavetpu_torch.run import supervisor
+
+        return supervisor.PathSpec(
+            backend=self.backend, scheme=self.scheme, fuse_steps=self.k,
+            kernel=self.kernel, dtype=self.dtype,
+            v_dtype=torch.bfloat16 if self.v_bf16 else None,
+            carry=not self.v_bf16,
+            mesh_shape=self.shape if self.backend == "sharded" else None,
+            c2tau2_field=self.c2_field, compute_errors=self.compute_errors,
+            overlap=self.overlap, devices=tuple(self.devices))
+
+    def supervise(self, supervision, ckpt_dir: str, watchdog: bool):
+        from wavetpu_torch.run import supervisor
+
+        ckpt_every, retries, max_amp = supervision
+        return supervisor.supervise(
+            self.problem, self.spec(),
+            supervisor.SupervisorOptions(
+                ckpt_every=ckpt_every, ckpt_dir=ckpt_dir, retries=retries,
+                watchdog=watchdog, max_amp=max_amp),
+            state=self.state, start_step=self.start)
+
+    def checked(self, stop_step):
+        from wavetpu_torch.run import supervisor
+
+        return supervisor.checked_march(self.problem, self.spec(), stop_step,
+                                        state=self.state,
+                                        start_step=self.start)
+
+    def resume(self):
+        """The resume entry point of the path (wavetpu/cli.py:951-1150)."""
+        from wavetpu_torch.solver import (
+            kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
         )
-    return leapfrog.solve(
-        problem, dtype=dtype, compute_errors=compute_errors,
-        c2tau2_field=c2_field, device=device, kernel=kernel,
-    )
+
+        p, st, start = self.problem, self.state, self.start
+        common = dict(dtype=self.dtype, compute_errors=self.compute_errors)
+        if self.backend == "sharded":
+            kw = dict(mesh_shape=self.shape, devices=self.devices,
+                      c2tau2_field=self.c2_field, **common)
+            if self.k > 1 and self.scheme == "compensated":
+                return kfused_comp.resume_kfused_comp_sharded(
+                    p, *st, start, k=self.k, **kw)
+            if self.k > 1:
+                return sharded_kfused.resume_sharded_kfused(
+                    p, *st, start, k=self.k, **kw)
+            if self.scheme == "compensated":
+                u, v, c = st
+                return sharded.resume_sharded(
+                    p, None, u, start, kernel=self.kernel,
+                    scheme="compensated", comp_v=v, comp_carry=c, **kw)
+            return sharded.resume_sharded(p, *st, start, kernel=self.kernel,
+                                          overlap=self.overlap, **kw)
+        kw = dict(device=self.device, **common)
+        if self.k > 1 and self.scheme == "compensated":
+            return kfused_comp.resume_kfused_comp(
+                p, *st, start, k=self.k, c2tau2_field=self.c2_field, **kw)
+        if self.scheme == "compensated":
+            return leapfrog.resume_compensated(p, *st, start,
+                                               kernel=self.kernel, **kw)
+        if self.k > 1 and p.N % self.k:
+            # The pad-and-mask march on a (1, 1, 1) mesh, as the solve.
+            return sharded_kfused.resume_sharded_kfused(
+                p, *st, start, n_shards=1, k=self.k, devices=self.devices,
+                c2tau2_field=self.c2_field, **common)
+        if self.k > 1:
+            return kfused.resume_kfused(p, *st, start, k=self.k,
+                                        c2tau2_field=self.c2_field, **kw)
+        return leapfrog.resume(p, *st, start, c2tau2_field=self.c2_field,
+                               kernel=self.kernel, **kw)
 
 
 def _perf_path(backend: str, scheme: str, fuse_steps: int) -> str:
@@ -604,7 +942,7 @@ def _record_compile(ledger, problem, scheme, fuse_steps, kernel, result,
 
 
 def _placement(problem: Problem, flags, fuse_steps: int, platform: str,
-               mesh):
+               mesh, scheme: str = "standard"):
     """(backend, mesh shape, devices) of the run (wavetpu/cli.py:587-658).
 
     The platform's devices are the visible cards on gpu and the CPU (one
@@ -640,7 +978,7 @@ def _placement(problem: Problem, flags, fuse_steps: int, platform: str,
         # built (a pad-and-mask layout must exist where K9 runs).
         from wavetpu_torch.solver import kfused_comp, sharded_kfused
 
-        if flags.get("scheme") != "compensated":
+        if scheme != "compensated":
             sharded_kfused._validate(problem, fuse_steps, shape[0],
                                      shape[1])
         elif backend == "sharded":

@@ -17,6 +17,13 @@ direction.  A variable-c field crosses the same way after wavetpu's
 A JAX bf16 array becomes an `ml_dtypes.bfloat16` numpy array, which
 `torch.from_numpy` refuses; its bits go through `uint16` instead and are
 reinterpreted as `torch.bfloat16` - exact, no rounding - and back.
+
+Resumed and chunked marches take their state through `as_tensor` (one
+array, any of these forms) and, on a mesh, `to_blocks`: a checkpoint's
+arrays (u_prev, u_cur, comp_v, comp_carry, a bf16 carry included) - as
+ShardedArrays from io/checkpoint.py, or wavetpu's padded global arrays -
+become the blocks a sharded march takes; `assemble_sharded` and
+io/checkpoint.py's shard files take them back.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 
 from wavetpu_torch.core.grid import (
-    ShardedArray, Topology, build_mesh, split_global,
+    ShardedArray, Topology, build_mesh, pad_global, split_global,
 )
 from wavetpu_torch.kernels.stencil_ref import compute_dtype
 from wavetpu_torch.solver import leapfrog
@@ -98,3 +105,31 @@ def assemble_sharded(u: ShardedArray) -> np.ndarray:
     """The port's shard blocks back as wavetpu's padded global numpy
     array (`split_sharded`'s inverse)."""
     return to_numpy(u.assemble("cpu"))
+
+
+def as_tensor(a):
+    """A state array as the port holds it: a tensor or a ShardedArray
+    stays as it is; a numpy array (ml_dtypes bf16 or float) becomes a CPU
+    tensor of the same dtype."""
+    if isinstance(a, (torch.Tensor, ShardedArray)):
+        return a
+    return to_tensor(a, "cpu")
+
+
+def to_blocks(a, topo: Topology, mesh, dtype=None):
+    """One state array as the mesh's blocks (block i on mesh.devices[i], in
+    `dtype`, default its own): a ShardedArray of the same topology is
+    moved block by block; a tensor or numpy array of the padded global
+    shape (wavetpu's sharded arrays) - or of the (N, N, N) fundamental
+    domain, zero-padded - is cut with `split_global`."""
+    if isinstance(a, ShardedArray):
+        if a.topo != topo:
+            raise ValueError(f"state on mesh {a.topo.mesh_shape} "
+                             f"(N={a.topo.N}) given to mesh "
+                             f"{topo.mesh_shape} (N={topo.N})")
+        return [b.to(device=dev, dtype=dtype or b.dtype).contiguous()
+                for b, dev in zip(a.blocks, mesh.devices)]
+    t = as_tensor(a)
+    if tuple(t.shape) == (topo.N,) * 3 and topo.padded != tuple(t.shape):
+        t = pad_global(t, topo)
+    return split_global(t, topo, mesh, dtype).blocks

@@ -25,8 +25,10 @@ timed region; every k-block then runs K3's field operand and the
 bootstrap and tail run K5.  There is no analytic oracle for variable c,
 so a field requires compute_errors=False.
 
-`resume_kfused` and `make_chunk_runner` come with checkpoints and
-supervision (ROADMAP.md queue 1 items 8 and 9).
+`resume_kfused` re-enters the march at a checkpoint's layer and
+`make_chunk_runner` marches a supervised run's fixed-length chunks
+(run/supervisor.py); both run `_make_march`'s march, so their layers are
+the uninterrupted march's bit for bit.
 """
 
 from __future__ import annotations
@@ -108,8 +110,8 @@ def _make_march(problem, dtype, k, compute_errors, nsteps, device,
     """Shared march: k-fused blocks + a 1-step remainder tail.
 
     Returns `(march, step1, errors)`; `march(u_prev, u_cur, start, abs_all,
-    rel_all)` -> (u_prev, u_cur) covers layers start+1..nsteps and writes
-    their errors into the device vectors.  `c2tau2_field` is a device
+    rel_all, stop=nsteps)` -> (u_prev, u_cur) covers layers start+1..stop
+    and writes their errors into the device vectors.  `c2tau2_field` is a device
     tensor in the compute dtype (or None).
     """
     f = stencil_ref.compute_dtype(dtype)
@@ -134,8 +136,8 @@ def _make_march(problem, dtype, k, compute_errors, nsteps, device,
                                             inv_absx)
         return up, uc, None, None
 
-    def march(u_prev, u_cur, start, abs_all, rel_all):
-        nblocks = (nsteps - start) // k
+    def march(u_prev, u_cur, start, abs_all, rel_all, stop=nsteps):
+        nblocks = (stop - start) // k
         layer = start
         for _ in range(nblocks):
             u_prev, u_cur, a, r = kblock(u_prev, u_cur, layer)
@@ -145,7 +147,7 @@ def _make_march(problem, dtype, k, compute_errors, nsteps, device,
             layer += k
         # The remainder: the 1-step kernel with full-field errors.
         return leapfrog._march(problem, step1, errors, compute_errors,
-                               u_prev, u_cur, layer, nsteps, abs_all,
+                               u_prev, u_cur, layer, stop, abs_all,
                                rel_all)
 
     return march, step1, errors
@@ -233,3 +235,95 @@ def solve_kfused(
     obs_metrics.record_solve(result, "kfused", k=k,
                              with_field=c2tau2_field is not None)
     return result
+
+
+def _setup(problem, dtype, k, compute_errors, c2tau2_field, device):
+    """Kernels loaded, the field placed once and the march built, for the
+    resumed and chunked marches (run to `problem.timesteps` at most)."""
+    _validate(problem, k, c2tau2_field, compute_errors)
+    leapfrog.prepare_kernels(device)
+    field = None
+    if c2tau2_field is not None:
+        field = state.c2tau2_field(c2tau2_field, dtype, device)
+    march, _, _ = _make_march(problem, dtype, k, compute_errors,
+                              problem.timesteps, device, field)
+    return march
+
+
+def resume_kfused(
+    problem: Problem,
+    u_prev,
+    u_cur,
+    start_step: int,
+    dtype=torch.float32,
+    k: int = 4,
+    compute_errors: bool = True,
+    c2tau2_field=None,
+    device=None,
+) -> leapfrog.SolveResult:
+    """Re-enter the k-fused march at layer `start_step` from (u_prev,
+    u_cur) (tensors, or numpy arrays as a wavetpu result or a checkpoint
+    holds them): (T - start_step)//k K3 blocks, then the 1-step tail.  The
+    layers equal the uninterrupted march's bit for bit (each K3 substep is
+    K1's update), whatever block grid the stop left; the error vectors
+    are zero up to start_step.  A variable-c checkpoint resumes under the
+    re-passed `c2tau2_field` (checkpoints store state, not the field)."""
+    device = leapfrog.resolve_device(device)
+    nsteps = problem.timesteps
+    leapfrog._check_start(start_step, nsteps)
+    t0 = time.perf_counter()
+    march = _setup(problem, dtype, k, compute_errors, c2tau2_field, device)
+    f = stencil_ref.compute_dtype(dtype)
+    u_p = leapfrog._state_in(u_prev, dtype, device)
+    u_c = leapfrog._state_in(u_cur, dtype, device)
+    abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+    rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+    leapfrog._sync(device)
+    t1 = time.perf_counter()
+    u_p, u_c = march(u_p, u_c, start_step, abs_all, rel_all)
+    abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
+    leapfrog._sync(device)
+    t2 = time.perf_counter()
+    result = leapfrog.SolveResult(
+        problem=problem, u_prev=u_p, u_cur=u_c,
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=nsteps - start_step, final_step=nsteps,
+    )
+    obs_metrics.record_solve(result, "kfused", k=k,
+                             with_field=c2tau2_field is not None)
+    return result
+
+
+def make_chunk_runner(
+    problem: Problem,
+    dtype=torch.float32,
+    length: int = 4,
+    k: int = 4,
+    compute_errors: bool = True,
+    c2tau2_field=None,
+    device=None,
+):
+    """Fixed-length k-fused re-entry for supervised solves, built once per
+    configuration (kernels loaded, oracle planes and field on the device):
+    `runner(u_prev, u_cur, start)` -> (u_prev, u_cur, abs, rel) marches
+    layers start+1..start+length - length//k K3 blocks, then the 1-step
+    tail - with the chunk's errors as host f64 arrays."""
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length}")
+    device = leapfrog.resolve_device(device)
+    march = _setup(problem, dtype, k, compute_errors, c2tau2_field, device)
+    f = stencil_ref.compute_dtype(dtype)
+    nsteps = problem.timesteps
+
+    def run(u_prev, u_cur, start: int):
+        stop = leapfrog._chunk_stop(start, length, nsteps)
+        abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+        rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+        u_p, u_c = march(leapfrog._state_in(u_prev, dtype, device),
+                         leapfrog._state_in(u_cur, dtype, device), start,
+                         abs_all, rel_all, stop)
+        return (u_p, u_c, leapfrog._host(abs_all[start + 1:stop + 1]),
+                leapfrog._host(rel_all[start + 1:stop + 1]))
+
+    return run

@@ -87,6 +87,20 @@ def _validate_carry_dtype(dtype, carry_dtype):
         )
 
 
+def _normalize_carry(carry, dtype):
+    """Resume-side carry normalization: keep a valid stored carry dtype
+    (the state dtype, or bf16 for an f32 state - bf16-carry checkpoints
+    resume bitwise) and cast anything else to the state dtype (e.g. an f64
+    carry resumed as f32).  Takes a tensor or a ShardedArray."""
+    cd = carry.dtype
+    if cd == dtype or (cd == torch.bfloat16 and dtype == torch.float32):
+        return carry
+    if isinstance(carry, ShardedArray):
+        return ShardedArray([b.to(dtype) for b in carry.blocks], carry.topo,
+                            carry.mesh)
+    return carry.to(dtype)
+
+
 def _validate(problem: Problem, dtype, v_dtype, carry, k: int,
               c2tau2_field=None, compute_errors: bool = True):
     if k < 2:
@@ -142,9 +156,9 @@ def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
                 c2tau2_field=None):
     """Shared march: k-fused blocks + a k=1 tail through the SAME kernel.
 
-    Returns `march(u, v, carry, start, abs_all, rel_all)` -> (u, v, carry)
-    covering layers start+1..nsteps and writing their errors into the
-    device vectors.  `c2tau2_field` (a device tensor in the compute dtype,
+    Returns `march(u, v, carry, start, abs_all, rel_all, stop=nsteps)` ->
+    (u, v, carry) covering layers start+1..stop and writing their errors
+    into the device vectors.  `c2tau2_field` (a device tensor in the compute dtype,
     or None) rides every launch.
     """
     f = stencil_ref.compute_dtype(dtype)
@@ -176,9 +190,9 @@ def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
             )
         return u2, v2, c2, None, None
 
-    def march(u, v, carry, start, abs_all, rel_all):
-        nblocks = (nsteps - start) // k
-        rem = (nsteps - start) - nblocks * k
+    def march(u, v, carry, start, abs_all, rel_all, stop=nsteps):
+        nblocks = (stop - start) // k
+        rem = (stop - start) - nblocks * k
         layer = start
         for kk, count, bxo in ((k, nblocks, block_x), (1, rem, None)):
             for _ in range(count):
@@ -346,8 +360,12 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
                          compute_errors, nsteps, block_x, carry_dtype,
                          c2tau2_field=None):
     """Set up the distributed flagship over the (MX, MY, 1) `mesh` and
-    return `run()` -> (u, v, carry | None blocks, abs, rel) with the
-    per-layer errors as host f64 arrays.  One block_x serves every launch
+    return `(run, chunk)`: `run()` -> (u, v, carry | None blocks, abs, rel)
+    marches from layer 0 to nsteps with the per-layer errors as host f64
+    arrays of nsteps+1 entries; `chunk(u, v, carry, start, stop)` (lists
+    of blocks) marches layers start+1..stop - the resumed and chunked
+    marches, on the uninterrupted march's block grid from an aligned
+    start - and returns their errors alone.  One block_x serves every launch
     (default `default_block_x(N/MX, k)`, which equals the single-device
     default `default_block_x(N, k)` wherever that divides N/MX), so the op
     sequence matches the single-device kernel's slab partition."""
@@ -385,8 +403,6 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
         # The bootstrap's half field (wavetpu's field_pack(0.5 * fld, 1)):
         # halving is exact, so it is the k=1 pack halved.
         half = [(0.5 * b, (0.5 * g[0], 0.5 * g[1])) for b, g in packs[1]]
-    nblocks = (nsteps - 1) // k
-    rem = (nsteps - 1) - nblocks * k
 
     def kcall(u, v, c, kk, layer, coeff, with_errors, fpack):
         """kk fused layers (layer+1 .. layer+kk) of every shard."""
@@ -412,19 +428,43 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
                     c2tau2_ext=None if fp is None else fp[0], **kw))
         return outs
 
-    def run():
-        rows = [[torch.zeros((nsteps + 1, nl), dtype=f, device=dev)
+    def new_rows():
+        return [[torch.zeros((nsteps + 1, nl), dtype=f, device=dev)
                  for dev in devices]
                 for _ in range(2)] if compute_errors else None
 
-        def step(state_, kk, layer, coeff, with_errors, fpack):
-            outs = kcall(*state_, kk, layer, coeff, with_errors, fpack)
-            if with_errors:
-                for i, o in enumerate(outs):
-                    rows[0][i][layer + 1:layer + 1 + kk] = o[3]
-                    rows[1][i][layer + 1:layer + 1 + kk] = o[4]
-            return tuple([o[j] for o in outs] for j in range(3))
+    def step(state_, kk, layer, coeff, with_errors, fpack, rows):
+        outs = kcall(*state_, kk, layer, coeff, with_errors, fpack)
+        if with_errors:
+            for i, o in enumerate(outs):
+                rows[0][i][layer + 1:layer + 1 + kk] = o[3]
+                rows[1][i][layer + 1:layer + 1 + kk] = o[4]
+        return tuple([o[j] for o in outs] for j in range(3))
 
+    def advance(st, start, stop, rows):
+        """Layers start+1..stop: (stop-start)//k blocks, then k=1 tail
+        launches of the same kernel."""
+        nblocks = (stop - start) // k
+        layer = start
+        for kk, count in ((k, nblocks), (1, stop - start - nblocks * k)):
+            for _ in range(count):
+                st = step(st, kk, layer, problem.a2tau2, compute_errors,
+                          packs[kk], rows)
+                layer += kk
+        return st
+
+    def errors_of(rows):
+        if not compute_errors:
+            z = np.zeros(nsteps + 1)
+            return z, z.copy()
+        dmax, rmax = (sharded_kfused.rows_max_y(rs, n_x, n_y, host)
+                      for rs in rows)
+        abs_e, rel_e = kfused._block_errors(
+            dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
+        return leapfrog._host(abs_e), leapfrog._host(rel_e)
+
+    def run():
+        rows = new_rows()
         zero_v = [torch.zeros(b.shape, dtype=v_dtype, device=b.device)
                   for b in u0]
         zero_c = [torch.zeros(b.shape, dtype=carry_dtype, device=b.device)
@@ -432,7 +472,7 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
         # Layer 1: the same kernel at k=1, coeff C/2 on zero v and carry
         # (the compensated half-step; half the field with a field).
         st = step((u0, zero_v, zero_c), 1, 0, 0.5 * problem.a2tau2, False,
-                  half)
+                  half, rows)
         if compute_errors:
             for i, dev in enumerate(devices):
                 cx = mesh.coords[i][0]
@@ -441,22 +481,17 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
                     *planes[i], f)
                 rows[0][i][1:2] = dr
                 rows[1][i][1:2] = rr
-        layer = 1
-        for kk, count in ((k, nblocks), (1, rem)):
-            for _ in range(count):
-                st = step(st, kk, layer, problem.a2tau2, compute_errors,
-                          packs[kk])
-                layer += kk
-        if not compute_errors:
-            z = np.zeros(nsteps + 1)
-            return st + (z, z.copy())
-        dmax, rmax = (sharded_kfused.rows_max_y(rs, n_x, n_y, host)
-                      for rs in rows)
-        abs_e, rel_e = kfused._block_errors(
-            dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
-        return st + (leapfrog._host(abs_e), leapfrog._host(rel_e))
+        st = advance(st, 1, nsteps, rows)
+        return st + errors_of(rows)
 
-    return run
+    def chunk(u, v, c, start, stop):
+        rows = new_rows()
+        st = advance((u, v, c if carry_on else [None] * len(u)), start,
+                     stop, rows)
+        abs_e, rel_e = errors_of(rows)
+        return st + (abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1])
+
+    return run, chunk
 
 
 def solve_kfused_comp_sharded(
@@ -483,11 +518,7 @@ def solve_kfused_comp_sharded(
     bf16 increment mode) and `c2tau2_field` as `solve_kfused_comp`.
     u_prev, u_cur, comp_v and comp_carry are `ShardedArray`s on the
     Topology layout of the mesh (comp_carry None without a carry)."""
-    if devices is None:
-        leapfrog.resolve_device(None)
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devices = [torch.device(dv) for dv in devices]
+    devices = leapfrog.resolve_devices(devices)
     n_x, n_y = sharded_kfused._resolve_grid(mesh_shape, n_shards, devices)
     v_dtype = dtype if v_dtype is None else v_dtype
     if carry and carry_dtype is not None:
@@ -506,9 +537,9 @@ def solve_kfused_comp_sharded(
         )
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
     t0 = time.perf_counter()
-    run = _make_sharded_runner(problem, mesh, dtype, v_dtype, carry, k,
-                               compute_errors, nsteps, block_x, carry_dtype,
-                               c2tau2_field)
+    run, _ = _make_sharded_runner(problem, mesh, dtype, v_dtype, carry, k,
+                                  compute_errors, nsteps, block_x,
+                                  carry_dtype, c2tau2_field)
     sharded_kfused._sync(mesh)
     t1 = time.perf_counter()
     u, v, c, abs_np, rel_np = run()
@@ -539,3 +570,262 @@ def solve_kfused_comp_sharded(
         block=(problem.N // n_x, problem.N // n_y, problem.N),
         mesh_shape=(n_x, n_y, 1), rows=compute_errors)
     return result
+
+
+def _resume_state(u_cur, v, carry, dtype, v_dtype):
+    """(u, v, carry | None) of an injected flagship state as tensors (or
+    ShardedArrays): u in the state dtype, v in `v_dtype` (default: its
+    stored dtype), the carry normalized (`_normalize_carry`)."""
+    u = state.as_tensor(u_cur)
+    vv = state.as_tensor(v)
+    v_dtype = vv.dtype if v_dtype is None else v_dtype
+    c = None if carry is None else _normalize_carry(state.as_tensor(carry),
+                                                    dtype)
+    return u, vv, c, v_dtype
+
+
+def resume_kfused_comp(
+    problem: Problem,
+    u_cur,
+    v,
+    carry,
+    start_step: int,
+    dtype=torch.float32,
+    k: int = 4,
+    compute_errors: bool = True,
+    block_x: Optional[int] = None,
+    v_dtype=None,
+    c2tau2_field=None,
+    device=None,
+) -> leapfrog.SolveResult:
+    """Re-enter the flagship march at layer `start_step` from a
+    compensated checkpoint's (u_cur, v, carry); `carry=None` resumes the
+    carry-less increment form.  The march is the uninterrupted one's from
+    that layer: on a block-aligned start ((start_step - 1) % k == 0) with
+    the same `block_x` the resumed layers are bitwise the uninterrupted
+    run's; elsewhere the block grid shifts and they agree to the scheme's
+    tolerance.  A bf16 stored carry stays bf16 for an f32 state; `v_dtype`
+    defaults to the stored v's dtype.  A variable-c checkpoint resumes
+    under the re-passed `c2tau2_field`."""
+    device = leapfrog.resolve_device(device)
+    nsteps = problem.timesteps
+    leapfrog._check_start(start_step, nsteps)
+    u, vv, c, v_dtype = _resume_state(u_cur, v, carry, dtype, v_dtype)
+    _validate(problem, dtype, v_dtype, c is not None, k, c2tau2_field,
+              compute_errors)
+    f = stencil_ref.compute_dtype(dtype)
+    t0 = time.perf_counter()
+    leapfrog.prepare_kernels(device)
+    field = None
+    if c2tau2_field is not None:
+        field = state.c2tau2_field(c2tau2_field, dtype, device)
+    march = _make_march(problem, dtype, k, compute_errors, block_x, nsteps,
+                        device, field)
+    u = u.to(device=device, dtype=dtype).contiguous()
+    vv = vv.to(device=device, dtype=v_dtype).contiguous()
+    c = None if c is None else c.to(device).contiguous()
+    abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+    rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+    leapfrog._sync(device)
+    t1 = time.perf_counter()
+    u, vv, c = march(u, vv, c, start_step, abs_all, rel_all)
+    abs_np = leapfrog._host(abs_all)
+    rel_np = leapfrog._host(rel_all)
+    leapfrog._sync(device)
+    t2 = time.perf_counter()
+    result = _as_result(problem, u, vv, c, abs_np, rel_np, t1 - t0,
+                        t2 - t1, nsteps - start_step, nsteps)
+    obs_metrics.record_solve(
+        result, "kfused_comp", scheme="compensated", k=k,
+        v_itemsize=v_dtype.itemsize, carry=c is not None,
+        carry_itemsize=c.dtype.itemsize if c is not None else None,
+        with_field=c2tau2_field is not None)
+    return result
+
+
+def make_chunk_runner(
+    problem: Problem,
+    dtype=torch.float32,
+    length: int = 4,
+    k: int = 4,
+    compute_errors: bool = True,
+    block_x: Optional[int] = None,
+    v_dtype=None,
+    carry: bool = True,
+    c2tau2_field=None,
+    device=None,
+):
+    """Fixed-length flagship re-entry for supervised solves, built once per
+    configuration (kernels loaded, oracle planes and field on the device):
+    `runner(u, v, carry, start)` -> (u, v, carry, abs, rel) marches layers
+    start+1..start+length (carry None for the carry-less increment form).
+    On block-aligned starts with length a multiple of k - the supervisor's
+    chunks - the op sequence is the uninterrupted march's, so supervision
+    keeps the flagship's exact trajectory."""
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length}")
+    device = leapfrog.resolve_device(device)
+    v_dtype = dtype if v_dtype is None else v_dtype
+    _validate(problem, dtype, v_dtype, carry, k, c2tau2_field,
+              compute_errors)
+    f = stencil_ref.compute_dtype(dtype)
+    nsteps = problem.timesteps
+    leapfrog.prepare_kernels(device)
+    field = None
+    if c2tau2_field is not None:
+        field = state.c2tau2_field(c2tau2_field, dtype, device)
+    march = _make_march(problem, dtype, k, compute_errors, block_x, nsteps,
+                        device, field)
+
+    def run(u_cur, v, carry_, start: int):
+        stop = leapfrog._chunk_stop(start, length, nsteps)
+        u, vv, c, _ = _resume_state(u_cur, v, carry_ if carry else None,
+                                    dtype, v_dtype)
+        abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+        rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+        u, vv, c = march(u.to(device=device, dtype=dtype).contiguous(),
+                         vv.to(device=device, dtype=v_dtype).contiguous(),
+                         None if c is None else c.to(device).contiguous(),
+                         start, abs_all, rel_all, stop)
+        return (u, vv, c, leapfrog._host(abs_all[start + 1:stop + 1]),
+                leapfrog._host(rel_all[start + 1:stop + 1]))
+
+    return run
+
+
+def _sharded_setup(problem, n_x, n_y, devices, dtype, v_dtype, carry_on, k,
+                   compute_errors, block_x, carry_dtype, c2tau2_field):
+    """(mesh, topo, chunk) of the distributed flagship's resumed and chunked
+    marches over the first MX*MY `devices`."""
+    _validate_sharded(problem, dtype, v_dtype, carry_on, k, n_x, n_y,
+                      c2tau2_field, compute_errors)
+    if len(devices) < n_x * n_y:
+        raise ValueError(f"mesh ({n_x}, {n_y}, 1) needs {n_x * n_y} "
+                         f"devices, only {len(devices)} available")
+    mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
+    _, chunk = _make_sharded_runner(
+        problem, mesh, dtype, v_dtype, carry_on, k, compute_errors,
+        problem.timesteps, block_x,
+        carry_dtype if carry_dtype is not None else dtype, c2tau2_field)
+    return mesh, Topology(N=problem.N, mesh_shape=mesh.shape), chunk
+
+
+def _sharded_state(topo, mesh, u, v, c, dtype, v_dtype):
+    """An injected (u, v, carry) - ShardedArrays, or wavetpu's padded
+    global arrays - as block lists on the mesh (the carry keeps its
+    normalized dtype)."""
+    return (state.to_blocks(u, topo, mesh, dtype),
+            state.to_blocks(v, topo, mesh, v_dtype),
+            None if c is None else state.to_blocks(c, topo, mesh))
+
+
+def resume_kfused_comp_sharded(
+    problem: Problem,
+    u_cur,
+    v,
+    carry,
+    start_step: int,
+    n_shards: Optional[int] = None,
+    dtype=torch.float32,
+    k: int = 4,
+    compute_errors: bool = True,
+    block_x: Optional[int] = None,
+    devices=None,
+    v_dtype=None,
+    mesh_shape=None,
+    c2tau2_field=None,
+) -> leapfrog.SolveResult:
+    """Re-enter the distributed flagship at layer `start_step` from a
+    sharded compensated checkpoint's (u_cur, v, carry) - ShardedArrays or
+    padded global arrays (carry=None: the increment form) - on the
+    (MX, MY, 1) mesh over `devices` (default: every visible card)."""
+    devices = leapfrog.resolve_devices(devices)
+    n_x, n_y = sharded_kfused._resolve_grid(mesh_shape, n_shards, devices)
+    nsteps = problem.timesteps
+    leapfrog._check_start(start_step, nsteps)
+    u, vv, c, v_dtype = _resume_state(u_cur, v, carry, dtype, v_dtype)
+    t0 = time.perf_counter()
+    mesh, topo, chunk = _sharded_setup(
+        problem, n_x, n_y, devices, dtype, v_dtype, c is not None, k,
+        compute_errors, block_x, None if c is None else c.dtype,
+        c2tau2_field)
+    st = _sharded_state(topo, mesh, u, vv, c, dtype, v_dtype)
+    sharded_kfused._sync(mesh)
+    t1 = time.perf_counter()
+    u, vv, c, abs_t, rel_t = chunk(*st, start_step, nsteps)
+    sharded_kfused._sync(mesh)
+    t2 = time.perf_counter()
+    head = np.zeros(start_step + 1)
+    f = stencil_ref.compute_dtype(dtype)
+
+    def sharded(blocks):
+        return None if blocks is None or blocks[0] is None else \
+            ShardedArray(list(blocks), topo, mesh)
+
+    result = leapfrog.SolveResult(
+        problem=problem,
+        u_prev=sharded([(a.to(f) - b.to(f)).to(a.dtype)
+                        for a, b in zip(u, vv)]),
+        u_cur=sharded(u),
+        abs_errors=np.concatenate([head, abs_t]),
+        rel_errors=np.concatenate([head, rel_t]),
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=nsteps - start_step, final_step=nsteps,
+        comp_v=sharded(vv), comp_carry=sharded(c),
+    )
+    obs_metrics.record_solve(
+        result, "kfused_comp_sharded", scheme="compensated", k=k,
+        v_itemsize=v_dtype.itemsize, carry=c is not None,
+        carry_itemsize=c[0].dtype.itemsize if c is not None else None,
+        with_field=c2tau2_field is not None,
+        block=(problem.N // n_x, problem.N // n_y, problem.N),
+        mesh_shape=(n_x, n_y, 1), rows=compute_errors)
+    return result
+
+
+def make_sharded_chunk_runner(
+    problem: Problem,
+    mesh_shape,
+    devices,
+    dtype=torch.float32,
+    length: int = 4,
+    k: int = 4,
+    compute_errors: bool = True,
+    block_x: Optional[int] = None,
+    v_dtype=None,
+    carry: bool = True,
+    carry_dtype=None,
+    c2tau2_field=None,
+):
+    """The sharded counterpart of `make_chunk_runner` over an (MX, MY, 1)
+    mesh of `devices`: `runner(u, v, carry, start)` -> (u, v, carry,
+    abs, rel) with the state as ShardedArrays on the Topology layout (or
+    padded global arrays) and the result as ShardedArrays - the
+    supervised chunk of the distributed flagship."""
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length}")
+    devices = [torch.device(dv) for dv in devices]
+    n_x, n_y = sharded_kfused._resolve_grid(mesh_shape, None, devices)
+    v_dtype = dtype if v_dtype is None else v_dtype
+    if carry:
+        carry_dtype = (_default_carry_dtype(dtype) if carry_dtype is None
+                       else carry_dtype)
+        _validate_carry_dtype(dtype, carry_dtype)
+    mesh, topo, chunk = _sharded_setup(
+        problem, n_x, n_y, devices, dtype, v_dtype, carry, k,
+        compute_errors, block_x, carry_dtype if carry else None,
+        c2tau2_field)
+    nsteps = problem.timesteps
+
+    def run(u_cur, v, carry_, start: int):
+        stop = leapfrog._chunk_stop(start, length, nsteps)
+        u, vv, c, _ = _resume_state(u_cur, v, carry_ if carry else None,
+                                    dtype, v_dtype)
+        u, vv, c, abs_t, rel_t = chunk(
+            *_sharded_state(topo, mesh, u, vv, c, dtype, v_dtype), start,
+            stop)
+        return (ShardedArray(u, topo, mesh), ShardedArray(vv, topo, mesh),
+                None if c[0] is None else ShardedArray(c, topo, mesh),
+                abs_t, rel_t)
+
+    return run

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +71,16 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def resolve_devices(devices=None) -> List[torch.device]:
+    """The devices of a mesh: as given (a device may repeat), or every
+    visible card - raising without one, as `resolve_device`."""
+    if devices is None:
+        resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    return [torch.device(d) for d in devices]
 
 
 def _sync(device: torch.device) -> None:
@@ -235,6 +245,42 @@ def solve(
     return result
 
 
+def _state_in(a, dtype, device) -> torch.Tensor:
+    """An injected state array (tensor, or numpy as a wavetpu SolveResult
+    or a checkpoint holds it, bf16 included) on `device` in `dtype`."""
+    t = a if isinstance(a, torch.Tensor) else state.to_tensor(a, "cpu")
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def _check_start(start_step: int, nsteps: int) -> None:
+    if not 1 <= start_step <= nsteps:
+        raise ValueError(
+            f"start_step must be in [1, {nsteps}], got {start_step}"
+        )
+
+
+def _chunk_stop(start: int, length: int, nsteps: int) -> int:
+    """The last layer of a chunk of `length` layers after layer `start`,
+    checked against the march's layers."""
+    _check_start(start, nsteps)
+    if start + length > nsteps:
+        raise ValueError(f"chunk {start}+{length} passes the last layer "
+                         f"{nsteps}")
+    return start + length
+
+
+def _standard_step(step_fn, c2tau2_field, dtype, device, kernel):
+    """The 1-step function of a resumed or chunked standard march: K1, K5
+    over `c2tau2_field` (placed once, in the compute dtype), or the
+    caller's `step_fn`."""
+    if step_fn is not None:
+        return step_fn
+    field = None
+    if c2tau2_field is not None:
+        field = state.c2tau2_field(c2tau2_field, dtype, device)
+    return stencil_cuda.make_step_fn(field, kernel)
+
+
 def resume(
     problem: Problem,
     u_prev,
@@ -244,26 +290,33 @@ def resume(
     step_fn: Optional[Callable] = None,
     compute_errors: bool = True,
     device=None,
+    c2tau2_field=None,
+    kernel: str = "pallas",
 ) -> SolveResult:
     """Re-enter the standard march at layer `start_step` and run to the end.
 
     `u_prev` / `u_cur` (tensors, or numpy arrays e.g. from a wavetpu
-    SolveResult - see io/state.py) are layers start_step-1 / start_step.
-    The error vectors cover layers start_step+1..timesteps; earlier entries
-    are zero (they belong to the run that produced the state).
+    SolveResult or a checkpoint - see io/state.py) are layers
+    start_step-1 / start_step.  The step is K1 (K5 over `c2tau2_field`,
+    which needs compute_errors=False; the plain versions with
+    kernel="roll") unless `step_fn` is given.  The error vectors cover
+    layers start_step+1..timesteps; earlier entries are zero (they belong
+    to the run that produced the state).
     """
-    device = resolve_device(device)
-    step = stencil_cuda.leapfrog_step if step_fn is None else step_fn
-    nsteps = problem.timesteps
-    if not 1 <= start_step <= nsteps:
+    if c2tau2_field is not None and compute_errors:
         raise ValueError(
-            f"start_step must be in [1, {nsteps}], got {start_step}"
+            "variable-c runs have no analytic oracle; pass "
+            "compute_errors=False with c2tau2_field"
         )
+    device = resolve_device(device)
+    nsteps = problem.timesteps
+    _check_start(start_step, nsteps)
     t0 = time.perf_counter()
-    prepare_kernels(device)
+    prepare_kernels(device, kernel)
+    step = _standard_step(step_fn, c2tau2_field, dtype, device, kernel)
     errors = _error_fn(problem, dtype, device)
-    u_p = torch.as_tensor(u_prev).to(device=device, dtype=dtype)
-    u_c = torch.as_tensor(u_cur).to(device=device, dtype=dtype)
+    u_p = _state_in(u_prev, dtype, device)
+    u_c = _state_in(u_cur, dtype, device)
     abs_all = _zeros(nsteps + 1, dtype, device)
     rel_all = _zeros(nsteps + 1, dtype, device)
     _sync(device)
@@ -273,12 +326,61 @@ def resume(
     abs_np, rel_np = _host(abs_all), _host(rel_all)
     _sync(device)
     t2 = time.perf_counter()
-    return SolveResult(
+    result = SolveResult(
         problem=problem, u_prev=u_p, u_cur=u_c,
         abs_errors=abs_np, rel_errors=rel_np,
         init_seconds=t1 - t0, solve_seconds=t2 - t1,
         steps_computed=nsteps - start_step, final_step=nsteps,
     )
+    obs_metrics.record_solve(result, "leapfrog",
+                             with_field=c2tau2_field is not None)
+    return result
+
+
+def make_chunk_runner(
+    problem: Problem,
+    dtype=torch.float32,
+    length: int = 1,
+    step_fn: Optional[Callable] = None,
+    compute_errors: bool = True,
+    device=None,
+    c2tau2_field=None,
+    kernel: str = "pallas",
+):
+    """Fixed-length re-entry of the standard march for supervised solves
+    (run/supervisor.py), built once per configuration: the kernels built
+    and loaded, the oracle tables and the field on the device.
+
+    Returns `runner(u_prev, u_cur, start)` -> (u_prev, u_cur, abs, rel):
+    layers start+1..start+length from the state at layer `start`, given
+    when the runner runs, with the chunk's per-layer errors as host f64
+    arrays of `length` entries.  The march is `resume`'s (`_march`), so
+    chunked layers are bitwise the uninterrupted march's."""
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length}")
+    if c2tau2_field is not None and compute_errors:
+        raise ValueError(
+            "variable-c runs have no analytic oracle; pass "
+            "compute_errors=False with c2tau2_field"
+        )
+    device = resolve_device(device)
+    prepare_kernels(device, kernel)
+    step = _standard_step(step_fn, c2tau2_field, dtype, device, kernel)
+    errors = _error_fn(problem, dtype, device)
+    nsteps = problem.timesteps
+
+    def run(u_prev, u_cur, start: int):
+        stop = _chunk_stop(start, length, nsteps)
+        abs_all = _zeros(nsteps + 1, dtype, device)
+        rel_all = _zeros(nsteps + 1, dtype, device)
+        u_p, u_c = _march(problem, step, errors, compute_errors,
+                          _state_in(u_prev, dtype, device),
+                          _state_in(u_cur, dtype, device), start, stop,
+                          abs_all, rel_all)
+        return (u_p, u_c, _host(abs_all[start + 1:stop + 1]),
+                _host(rel_all[start + 1:stop + 1]))
+
+    return run
 
 
 def solve_compensated(
@@ -322,10 +424,8 @@ def solve_compensated(
     u, v, c = step(u0, zero, zero, problem, 0.5 * problem.a2tau2)
     if compute_errors:
         abs_all[1], rel_all[1] = errors(u, 1)
-    for n in range(2, nsteps + 1):
-        u, v, c = step(u, v, c, problem, None)
-        if compute_errors:
-            abs_all[n], rel_all[n] = errors(u, n)
+    u, v, c = _comp_march(problem, step, errors, compute_errors, u, v, c,
+                          1, nsteps, abs_all, rel_all)
     abs_np, rel_np = _host(abs_all), _host(rel_all)
     _sync(device)
     t2 = time.perf_counter()
@@ -338,3 +438,108 @@ def solve_compensated(
     )
     obs_metrics.record_solve(result, "compensated", scheme="compensated")
     return result
+
+
+def _comp_march(problem, step, errors, compute_errors, u, v, c, start, stop,
+                abs_all, rel_all):
+    """March the 1-step compensated scheme over layers start+1..stop from
+    (u, v, carry) at layer start.  Shared by solve_compensated's march,
+    resume_compensated and the chunk runner, so their op sequences are one
+    another's."""
+    for n in range(start + 1, stop + 1):
+        u, v, c = step(u, v, c, problem, None)
+        if compute_errors:
+            abs_all[n], rel_all[n] = errors(u, n)
+    return u, v, c
+
+
+def _comp_state_in(u_cur, v, carry, dtype, device):
+    """(u, v, carry) of an injected compensated state in the state dtype:
+    the 1-step scheme carries v and the carry in it (wavetpu's
+    unconditional cast)."""
+    if dtype == torch.bfloat16:
+        raise ValueError("compensated scheme requires f32/f64 state")
+    return tuple(_state_in(a, dtype, device) for a in (u_cur, v, carry))
+
+
+def resume_compensated(
+    problem: Problem,
+    u_cur,
+    v,
+    carry,
+    start_step: int,
+    dtype=torch.float32,
+    comp_step_fn: Optional[Callable] = None,
+    compute_errors: bool = True,
+    device=None,
+    kernel: str = "pallas",
+) -> SolveResult:
+    """Re-enter the 1-step compensated march at layer `start_step` from
+    the full compensated state a checkpoint stores (u_cur, the increment
+    v and the Kahan carry); the per-step op sequence equals an
+    uninterrupted run's, so the final state is bitwise equal.  The step is
+    K2 (its plain version with kernel="roll") unless `comp_step_fn` is
+    given."""
+    device = resolve_device(device)
+    nsteps = problem.timesteps
+    _check_start(start_step, nsteps)
+    step = (stencil_cuda.make_compensated_step_fn(kernel)
+            if comp_step_fn is None else comp_step_fn)
+    t0 = time.perf_counter()
+    prepare_kernels(device, kernel)
+    errors = _error_fn(problem, dtype, device)
+    u, vv, c = _comp_state_in(u_cur, v, carry, dtype, device)
+    abs_all = _zeros(nsteps + 1, dtype, device)
+    rel_all = _zeros(nsteps + 1, dtype, device)
+    _sync(device)
+    t1 = time.perf_counter()
+    u, vv, c = _comp_march(problem, step, errors, compute_errors, u, vv, c,
+                           start_step, nsteps, abs_all, rel_all)
+    abs_np, rel_np = _host(abs_all), _host(rel_all)
+    _sync(device)
+    t2 = time.perf_counter()
+    result = SolveResult(
+        problem=problem, u_prev=u - vv, u_cur=u,
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=nsteps - start_step, final_step=nsteps,
+        comp_v=vv, comp_carry=c,
+    )
+    obs_metrics.record_solve(result, "compensated", scheme="compensated")
+    return result
+
+
+def make_comp_chunk_runner(
+    problem: Problem,
+    dtype=torch.float32,
+    length: int = 1,
+    comp_step_fn: Optional[Callable] = None,
+    compute_errors: bool = True,
+    device=None,
+    kernel: str = "pallas",
+):
+    """The compensated counterpart of `make_chunk_runner`:
+    `runner(u, v, carry, start)` -> (u, v, carry, abs, rel) marches
+    `length` layers from the compensated state at layer `start` through
+    `resume_compensated`'s march."""
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length}")
+    device = resolve_device(device)
+    step = (stencil_cuda.make_compensated_step_fn(kernel)
+            if comp_step_fn is None else comp_step_fn)
+    prepare_kernels(device, kernel)
+    errors = _error_fn(problem, dtype, device)
+    nsteps = problem.timesteps
+
+    def run(u_cur, v, carry, start: int):
+        stop = _chunk_stop(start, length, nsteps)
+        abs_all = _zeros(nsteps + 1, dtype, device)
+        rel_all = _zeros(nsteps + 1, dtype, device)
+        u, vv, c = _comp_march(problem, step, errors, compute_errors,
+                               *_comp_state_in(u_cur, v, carry, dtype,
+                                               device),
+                               start, stop, abs_all, rel_all)
+        return (u, vv, c, _host(abs_all[start + 1:stop + 1]),
+                _host(rel_all[start + 1:stop + 1]))
+
+    return run

@@ -33,8 +33,10 @@ ghost copies run on side streams beside the bulk update and the face
 planes are then recomputed from the real ghosts (`_make_local_step`), bit
 for bit the serial step.
 
-Not ported here: the shifted-phase bootstrap (with ensembles, ROADMAP.md
-queue 1 item 11) and the resume / chunk runners (items 8, 9).
+`resume_sharded` re-enters the march at a checkpoint's layer and
+`make_sharded_chunk_runner` marches a supervised run's fixed-length chunks
+(run/supervisor.py), both through `_make_march`'s march.  Not ported here:
+the shifted-phase bootstrap (with ensembles, ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from wavetpu_torch.core.grid import (
     split_global,
 )
 from wavetpu_torch.core.problem import Problem
+from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.solver import leapfrog
@@ -332,11 +335,7 @@ def _make_local_comp_step(problem: Problem, topo: Topology, mesh: Mesh,
 def _resolve_mesh(problem: Problem, mesh_shape, devices):
     """(topo, mesh): `devices=None` is every visible card (raises without
     one), `mesh_shape=None` a near-cubic factorization of their count."""
-    if devices is None:
-        leapfrog.resolve_device(None)
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
+    devices = leapfrog.resolve_devices(devices)
     if mesh_shape is None:
         mesh_shape = choose_mesh_shape(len(devices))
     topo = Topology(N=problem.N, mesh_shape=tuple(mesh_shape))
@@ -360,26 +359,17 @@ def _field_blocks(c2tau2_field, topo: Topology, mesh: Mesh, f_dtype):
                         dtype=f_dtype).blocks
 
 
-def make_sharded_solver(
-    problem: Problem,
-    topo: Topology,
-    mesh: Mesh,
-    dtype=torch.float32,
-    compute_errors: bool = True,
-    c2tau2_field=None,
-    stop_step: Optional[int] = None,
-    scheme: str = "standard",
-    kernel: str = "pallas",
-    overlap: bool = False,
-):
-    """Set up the sharded solve - kernels built and loaded, every shard's
-    factors, masks and field block on its device - and return `run()` ->
-    (u_prev, u_cur, abs_per_shard, rel_per_shard, v, carry): lists of
-    blocks in mesh order, the per-shard (nsteps+1,) error vectors, and for
-    the compensated scheme the increment and Kahan carry (else None).
-    `kernel="roll"` runs the kernels' plain versions on the same devices;
-    `overlap` runs the standard step's exchange beside the bulk update
-    (`_make_local_step`)."""
+def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
+                compute_errors: bool, c2tau2_field, scheme: str, kernel: str,
+                overlap: bool):
+    """Set up the sharded march - kernels built and loaded, every shard's
+    factors, masks and field block on its device - and return `(u0,
+    bootstrap, advance, vectors)`: layer 0's blocks; `bootstrap(u0,
+    abs_s, rel_s)` -> the state at layer 1; `advance(st, start, stop,
+    abs_s, rel_s)` -> the state at layer stop, marching layers
+    start+1..stop; `vectors(n)` -> per-shard zero error vectors of n
+    entries.  The state is (u_prev, u_cur) block lists, or (u, v, carry)
+    for the compensated scheme; the error vectors are indexed by layer."""
     if scheme not in ("standard", "compensated"):
         raise ValueError(
             f"scheme must be 'standard' or 'compensated', got {scheme!r}")
@@ -398,10 +388,6 @@ def make_sharded_solver(
         raise ValueError(
             "variable-c runs have no analytic oracle; pass "
             "compute_errors=False with c2tau2_field")
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}")
     f = stencil_ref.compute_dtype(dtype)
     if kernel == "pallas" and any(d.type == "cuda" for d in mesh.devices):
         stencil_cuda.load_libraries()
@@ -420,37 +406,79 @@ def make_sharded_solver(
                                 overlap)
     u0 = [sh.layer0(dtype) for sh in shards]
 
-    def run():
-        abs_s = [torch.zeros(nsteps + 1, dtype=f, device=sh.device)
-                 for sh in shards]
-        rel_s = [torch.zeros(nsteps + 1, dtype=f, device=sh.device)
-                 for sh in shards]
+    def vectors(n):
+        return [torch.zeros(n, dtype=f, device=sh.device) for sh in shards]
 
-        def record(layer, n):
-            if compute_errors:
-                for sh, u, a, r in zip(shards, layer, abs_s, rel_s):
-                    a[n], r[n] = sh.errors(u, n)
+    def record(layer, n, abs_s, rel_s):
+        if compute_errors:
+            for sh, u, a, r in zip(shards, layer, abs_s, rel_s):
+                a[n], r[n] = sh.errors(u, n)
 
+    def bootstrap(u0, abs_s, rel_s):
         if compensated:
             # Layer 1 is the same step with v = carry = 0 and half the
             # coefficient: the Taylor half-step (sharded.py:429-435).
             zero = [torch.zeros_like(u) for u in u0]
-            u, v, c = comp_step(u0, zero, zero, 0.5 * problem.a2tau2)
-            record(u, 1)
-            for n in range(2, nsteps + 1):
-                u, v, c = comp_step(u, v, c, problem.a2tau2)
-                record(u, n)
-            return [a - b for a, b in zip(u, v)], u, abs_s, rel_s, v, c
+            st = comp_step(u0, zero, zero, 0.5 * problem.a2tau2)
+            record(st[0], 1, abs_s, rel_s)
+            return st
         # Layer 1 derived from the step: u1 = (u0 + step(u0, u0))/2 in the
         # compute dtype, as leapfrog.solve.
         s0 = step(u0, u0, fields)
-        prev = u0
         cur = [(0.5 * (a.to(f) + b.to(f))).to(dtype) for a, b in zip(u0, s0)]
-        record(cur, 1)
-        for n in range(2, nsteps + 1):
+        record(cur, 1, abs_s, rel_s)
+        return u0, cur
+
+    def advance(st, start, stop, abs_s, rel_s):
+        if compensated:
+            u, v, c = st
+            for n in range(start + 1, stop + 1):
+                u, v, c = comp_step(u, v, c, problem.a2tau2)
+                record(u, n, abs_s, rel_s)
+            return u, v, c
+        prev, cur = st
+        for n in range(start + 1, stop + 1):
             prev, cur = cur, step(prev, cur, fields)
-            record(cur, n)
-        return prev, cur, abs_s, rel_s, None, None
+            record(cur, n, abs_s, rel_s)
+        return prev, cur
+
+    return u0, bootstrap, advance, vectors
+
+
+def make_sharded_solver(
+    problem: Problem,
+    topo: Topology,
+    mesh: Mesh,
+    dtype=torch.float32,
+    compute_errors: bool = True,
+    c2tau2_field=None,
+    stop_step: Optional[int] = None,
+    scheme: str = "standard",
+    kernel: str = "pallas",
+    overlap: bool = False,
+):
+    """Set up the sharded solve (`_make_march`) and return `run()` ->
+    (u_prev, u_cur, abs_per_shard, rel_per_shard, v, carry): lists of
+    blocks in mesh order, the per-shard (nsteps+1,) error vectors, and for
+    the compensated scheme the increment and Kahan carry (else None).
+    `kernel="roll"` runs the kernels' plain versions on the same devices;
+    `overlap` runs the standard step's exchange beside the bulk update
+    (`_make_local_step`)."""
+    nsteps = problem.timesteps if stop_step is None else stop_step
+    if not 1 <= nsteps <= problem.timesteps:
+        raise ValueError(
+            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}")
+    u0, bootstrap, advance, vectors = _make_march(
+        problem, topo, mesh, dtype, compute_errors, c2tau2_field, scheme,
+        kernel, overlap)
+
+    def run():
+        abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
+        st = advance(bootstrap(u0, abs_s, rel_s), 1, nsteps, abs_s, rel_s)
+        if scheme == "compensated":
+            u, v, c = st
+            return [a - b for a, b in zip(u, v)], u, abs_s, rel_s, v, c
+        return st + (abs_s, rel_s, None, None)
 
     return run
 
@@ -533,3 +561,131 @@ def gather_fundamental(u: ShardedArray, problem: Problem) -> torch.Tensor:
     if u.topo.N != problem.N:
         raise ValueError(f"field is for N={u.topo.N}, not {problem.N}")
     return u.fundamental("cpu")
+
+
+def _state_blocks(topo, mesh, dtype, scheme, u_prev, u_cur, comp_v,
+                  comp_carry):
+    """An injected sharded state (ShardedArrays, or wavetpu's padded
+    global arrays) as the march's block lists in `dtype`: (u_prev, u_cur),
+    or (u, v, carry) for the compensated scheme."""
+    if scheme == "compensated":
+        if comp_v is None or comp_carry is None:
+            raise ValueError("a compensated resume needs comp_v and "
+                             "comp_carry")
+        return tuple(state.to_blocks(a, topo, mesh, dtype)
+                     for a in (u_cur, comp_v, comp_carry))
+    return tuple(state.to_blocks(a, topo, mesh, dtype)
+                 for a in (u_prev, u_cur))
+
+
+def _as_sharded(st, scheme, topo, mesh):
+    """(u_prev, u_cur, v, carry) ShardedArrays of a march's state."""
+    def sh(blocks):
+        return None if blocks is None else ShardedArray(list(blocks), topo,
+                                                        mesh)
+
+    if scheme == "compensated":
+        u, v, c = st
+        return sh([a - b for a, b in zip(u, v)]), sh(u), sh(v), sh(c)
+    return sh(st[0]), sh(st[1]), None, None
+
+
+def resume_sharded(
+    problem: Problem,
+    u_prev,
+    u_cur,
+    start_step: int,
+    mesh_shape: Optional[Tuple[int, int, int]] = None,
+    devices: Optional[Sequence] = None,
+    dtype=torch.float32,
+    kernel: str = "pallas",
+    overlap: bool = False,
+    compute_errors: bool = True,
+    scheme: str = "standard",
+    comp_v=None,
+    comp_carry=None,
+    c2tau2_field=None,
+) -> leapfrog.SolveResult:
+    """Re-enter the sharded 1-step march at layer `start_step` from a
+    sharded checkpoint's state - ShardedArrays (io/checkpoint.py's load)
+    or wavetpu's padded global arrays - on `mesh_shape` over `devices`
+    (default: every visible card); the compensated scheme resumes from
+    (u_cur, comp_v, comp_carry).  Each step is the uninterrupted march's,
+    so the resumed state is bitwise equal; the error vectors are zero up
+    to start_step.  A variable-c checkpoint resumes under the re-passed
+    `c2tau2_field`."""
+    nsteps = problem.timesteps
+    leapfrog._check_start(start_step, nsteps)
+    t0 = time.perf_counter()
+    topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
+    _, _, advance, vectors = _make_march(
+        problem, topo, mesh, dtype, compute_errors, c2tau2_field, scheme,
+        kernel, overlap)
+    st = _state_blocks(topo, mesh, dtype, scheme, u_prev, u_cur, comp_v,
+                       comp_carry)
+    abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
+    _sync(mesh)
+    t1 = time.perf_counter()
+    st = advance(st, start_step, nsteps, abs_s, rel_s)
+    abs_np, rel_np = _reduce(abs_s), _reduce(rel_s)
+    _sync(mesh)
+    t2 = time.perf_counter()
+    u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
+    result = leapfrog.SolveResult(
+        problem=problem, u_prev=u_p, u_cur=u_c,
+        abs_errors=abs_np, rel_errors=rel_np,
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=nsteps - start_step, final_step=nsteps,
+        comp_v=v, comp_carry=c,
+    )
+    obs_metrics.record_solve(
+        result, "sharded", scheme=scheme,
+        with_field=c2tau2_field is not None, block=topo.block,
+        mesh_shape=topo.mesh_shape,
+    )
+    return result
+
+
+def make_sharded_chunk_runner(
+    problem: Problem,
+    mesh_shape: Tuple[int, int, int],
+    devices: Sequence,
+    length: int,
+    dtype=torch.float32,
+    compute_errors: bool = True,
+    kernel: str = "pallas",
+    overlap: bool = False,
+    c2tau2_field=None,
+    scheme: str = "standard",
+):
+    """Fixed-length re-entry of the sharded 1-step march for supervised
+    solves, built once per configuration (kernels loaded, every shard's
+    factors and field block on its device): `runner(*state, start)` ->
+    (*state, abs, rel) marches layers start+1..start+length, the state
+    (u_prev, u_cur) - or (u, v, carry) compensated - as ShardedArrays on
+    `mesh_shape` over `devices` (or padded global arrays), the errors as
+    the chunk's host f64 cross-shard maxima."""
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length}")
+    topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
+    _, _, advance, vectors = _make_march(
+        problem, topo, mesh, dtype, compute_errors, c2tau2_field, scheme,
+        kernel, overlap)
+    nsteps = problem.timesteps
+
+    def run(*args):
+        *arrays, start = args
+        stop = leapfrog._chunk_stop(start, length, nsteps)
+        if scheme == "compensated":
+            st = _state_blocks(topo, mesh, dtype, scheme, None, *arrays)
+        else:
+            st = _state_blocks(topo, mesh, dtype, scheme, *arrays, None,
+                               None)
+        abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
+        st = advance(st, start, stop, abs_s, rel_s)
+        u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
+        out = (u_c, v, c) if scheme == "compensated" else (u_p, u_c)
+        return out + (_reduce(abs_s)[start + 1:stop + 1],
+                      _reduce(rel_s)[start + 1:stop + 1])
+
+    return run

@@ -1,5 +1,5 @@
 """Temporally fused k-step solver over an (MX, MY, 1)-sharded mesh (torch
-port of wavetpu/solver/sharded_kfused.py, without resume and chunk runners).
+port of wavetpu/solver/sharded_kfused.py).
 
 Composes the k-step kernel (solver/kfused.py) with the mesh of
 solver/sharded.py: ghosts are exchanged once per k layers - the
@@ -40,6 +40,13 @@ solve bit for bit (K8 and K10 against `kfused.solve_kfused`, K9 against
 `leapfrog.solve`); the errors equal the full-field errors within 1e-6
 (the rows multiply the oracle as ct*sx*syz, the full-field pass as
 sx*sy*sz*ct).
+
+`resume_sharded_kfused` and `make_chunk_runner` re-enter the march at a
+given layer from state on the Topology layout (a sharded checkpoint's, or
+wavetpu's padded global arrays); on the pad-and-mask path they convert it
+to the D-deep padded blocks K9 marches and back
+(`_from_topology_layout`, `_to_topology_layout`), as wavetpu's
+supervisor does per chunk.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from wavetpu_torch.core.grid import (
     ShardedArray, Topology, build_mesh, pad_global, split_global,
 )
 from wavetpu_torch.core.problem import Problem
+from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.solver import kfused, leapfrog
@@ -238,9 +246,12 @@ def rows_max_y(rows: Sequence[torch.Tensor], n_x: int, n_y: int,
 def _make_runner(problem: Problem, mesh, dtype, k: int,
                  compute_errors: bool, nsteps: int, c2tau2_field=None):
     """Set up the march over the (MX, MY, 1) `mesh` and return
-    `(run, d, counts)`: `run()` -> (u_prev blocks, u_cur blocks, abs, rel)
-    with the per-layer errors as host f64 arrays; d is the blocks' x depth
-    and counts their real planes (x-only meshes)."""
+    `(run, chunk, d, counts)`: `run()` -> (u_prev blocks, u_cur blocks,
+    abs, rel) marches from layer 0 to nsteps with the per-layer errors as
+    host f64 arrays; `chunk(u_prev, u_cur, start, stop)` (block lists in
+    the march's layout) marches layers start+1..stop and returns their
+    errors alone; d is the blocks' x depth and counts their real planes
+    (x-only meshes)."""
     n_x, n_y, _ = mesh.shape
     devices = list(mesh.devices)
     n = problem.N
@@ -304,9 +315,6 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
         return list(zip(*exchange(fields, mesh, kk, counts)))
 
     fpacks = {kk: field_pack(kk) for kk in (1, k)}
-    start = 1
-    nblocks = (nsteps - start) // k
-    rem = (nsteps - start) - nblocks * k
 
     def kcall(prev, cur, kk, layer, with_errors):
         """kk fused layers (layer+1 .. layer+kk) of every shard."""
@@ -332,22 +340,46 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
                     c2tau2_ext=None if fp is None else fp[0], **kw))
         return outs
 
-    def run():
-        rows = [[torch.zeros((nsteps + 1, d), dtype=f, device=dev)
+    def new_rows():
+        return [[torch.zeros((nsteps + 1, d), dtype=f, device=dev)
                  for dev in devices]
                 for _ in range(2)] if compute_errors else None
 
-        def record(outs, layer, kk):
-            if compute_errors:
-                for i, o in enumerate(outs):
-                    rows[0][i][layer + 1:layer + 1 + kk] = o[2]
-                    rows[1][i][layer + 1:layer + 1 + kk] = o[3]
+    def record(rows, outs, layer, kk):
+        if compute_errors:
+            for i, o in enumerate(outs):
+                rows[0][i][layer + 1:layer + 1 + kk] = o[2]
+                rows[1][i][layer + 1:layer + 1 + kk] = o[3]
 
+    def advance(prev, cur, start, stop, rows):
+        """Layers start+1..stop: (stop-start)//k blocks, then k=1 tail
+        launches of the same kernel."""
+        nblocks = (stop - start) // k
+        layer = start
+        for kk, count in ((k, nblocks), (1, stop - start - nblocks * k)):
+            for _ in range(count):
+                outs = kcall(prev, cur, kk, layer, compute_errors)
+                record(rows, outs, layer, kk)
+                prev, cur = [o[0] for o in outs], [o[1] for o in outs]
+                layer += kk
+        return prev, cur
+
+    def errors_of(rows):
+        """The cross-shard assembly (wavetpu's pmax over y and rows
+        out_spec P(None, "x")), read back once."""
+        if not compute_errors:
+            z = np.zeros(nsteps + 1)
+            return z, z.copy()
+        dmax, rmax = (rows_max_y(rs, n_x, n_y, host) for rs in rows)
+        abs_e, rel_e = _assemble_errors(parts, dmax, rmax)
+        return leapfrog._host(abs_e), leapfrog._host(rel_e)
+
+    def run():
+        rows = new_rows()
         # kcall returns (layer n+k-1, layer n+k, ...): with u_prev = u = u0
         # at k = 1 the second output is u0 + C*lap(u0) (the field's cell
         # in place of C), so layer 1 needs no half coefficient.
         s0 = [o[1] for o in kcall(u0, u0, 1, 0, False)]
-        prev = u0
         cur = [(0.5 * (a.to(f) + b.to(f))).to(dtype) for a, b in zip(u0, s0)]
         if compute_errors:
             for i, dev in enumerate(devices):
@@ -357,27 +389,16 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
                     *planes[i], f)
                 rows[0][i][1:2] = dr
                 rows[1][i][1:2] = rr
-        layer = start
-        for _ in range(nblocks):
-            outs = kcall(prev, cur, k, layer, compute_errors)
-            record(outs, layer, k)
-            prev, cur = [o[0] for o in outs], [o[1] for o in outs]
-            layer += k
-        for _ in range(rem):
-            outs = kcall(prev, cur, 1, layer, compute_errors)
-            record(outs, layer, 1)
-            prev, cur = [o[0] for o in outs], [o[1] for o in outs]
-            layer += 1
-        if not compute_errors:
-            z = np.zeros(nsteps + 1)
-            return prev, cur, z, z.copy()
-        # The cross-shard assembly (wavetpu's pmax over y and rows out_spec
-        # P(None, "x")), read back once.
-        dmax, rmax = (rows_max_y(rs, n_x, n_y, host) for rs in rows)
-        abs_e, rel_e = _assemble_errors(parts, dmax, rmax)
-        return prev, cur, leapfrog._host(abs_e), leapfrog._host(rel_e)
+        prev, cur = advance(u0, cur, 1, nsteps, rows)
+        return (prev, cur) + errors_of(rows)
 
-    return run, d, counts
+    def chunk(prev, cur, start, stop):
+        rows = new_rows()
+        prev, cur = advance(prev, cur, start, stop, rows)
+        abs_e, rel_e = errors_of(rows)
+        return prev, cur, abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1]
+
+    return run, chunk, d, counts
 
 
 def _to_topology_layout(blocks, counts, problem: Problem, mesh):
@@ -428,11 +449,7 @@ def solve_sharded_kfused(
     c^2) threads variable c through the march (pair it with
     compute_errors=False).  u_prev / u_cur are `ShardedArray`s on the
     Topology layout of the mesh."""
-    if devices is None:
-        leapfrog.resolve_device(None)
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devices = [torch.device(dv) for dv in devices]
+    devices = leapfrog.resolve_devices(devices)
     n_x, n_y = _resolve_grid(mesh_shape, n_shards, devices)
     _validate(problem, k, n_x, n_y, c2tau2_field, compute_errors)
     if len(devices) < n_x * n_y:
@@ -445,7 +462,7 @@ def solve_sharded_kfused(
         )
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
     t0 = time.perf_counter()
-    run, d, counts = _make_runner(problem, mesh, dtype, k, compute_errors,
+    run, _, d, counts = _make_runner(problem, mesh, dtype, k, compute_errors,
                                   nsteps, c2tau2_field)
     _sync(mesh)
     t1 = time.perf_counter()
@@ -472,3 +489,124 @@ def _sync(mesh) -> None:
     for dev in sorted({dv for dv in mesh.devices if dv.type == "cuda"},
                       key=str):
         torch.cuda.synchronize(dev)
+
+
+def _from_topology_layout(a, counts, d, problem: Problem, mesh, dtype):
+    """State on the Topology layout (a ShardedArray, or wavetpu's padded
+    global array) as the blocks the march takes: the Topology blocks on
+    an even decomposition; on the pad-and-mask path the fundamental domain
+    zero-padded to MX*D planes and cut into D-deep blocks (the inverse of
+    `_to_topology_layout`)."""
+    topo = Topology(N=problem.N, mesh_shape=mesh.shape)
+    if topo.block[0] == d:
+        return state.to_blocks(a, topo, mesh, dtype)
+    n = problem.N
+    if isinstance(a, ShardedArray):
+        real = a.fundamental("cpu")
+    else:
+        real = state.as_tensor(a)[:n, :n, :n].cpu()
+    full = torch.zeros((len(counts) * d, n, n), dtype=dtype)
+    full[:n] = real.to(dtype)
+    return _split_x(full, d, mesh.devices)
+
+
+def _grid_setup(problem, n_shards, devices, mesh_shape, k, compute_errors,
+                c2tau2_field):
+    """(devices, n_x, n_y) of a resumed or chunked march: `devices`
+    default to every visible card."""
+    devices = leapfrog.resolve_devices(devices)
+    n_x, n_y = _resolve_grid(mesh_shape, n_shards, devices)
+    _validate(problem, k, n_x, n_y, c2tau2_field, compute_errors)
+    if len(devices) < n_x * n_y:
+        raise ValueError(f"mesh ({n_x}, {n_y}, 1) needs {n_x * n_y} "
+                         f"devices, only {len(devices)} available")
+    return devices, n_x, n_y
+
+
+def resume_sharded_kfused(
+    problem: Problem,
+    u_prev,
+    u_cur,
+    start_step: int,
+    n_shards: Optional[int] = None,
+    dtype=torch.float32,
+    k: int = 4,
+    compute_errors: bool = True,
+    devices: Optional[Sequence] = None,
+    mesh_shape: Optional[Tuple[int, int, int]] = None,
+    c2tau2_field=None,
+) -> leapfrog.SolveResult:
+    """Re-enter the sharded k-fused march at layer `start_step` from
+    (u_prev, u_cur) on the Topology layout of the mesh - ShardedArrays (a
+    sharded checkpoint's) or wavetpu's padded global arrays; `n_shards=1`
+    is the single-device pad-and-mask route.  Each substep is K1's update,
+    so the resumed state equals the uninterrupted one bit for bit; the
+    error vectors are zero up to start_step."""
+    devices, n_x, n_y = _grid_setup(problem, n_shards, devices, mesh_shape,
+                                    k, compute_errors, c2tau2_field)
+    nsteps = problem.timesteps
+    leapfrog._check_start(start_step, nsteps)
+    mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
+    t0 = time.perf_counter()
+    _, chunk, d, counts = _make_runner(problem, mesh, dtype, k,
+                                       compute_errors, nsteps, c2tau2_field)
+    prev, cur = (_from_topology_layout(a, counts, d, problem, mesh, dtype)
+                 for a in (u_prev, u_cur))
+    _sync(mesh)
+    t1 = time.perf_counter()
+    prev, cur, abs_t, rel_t = chunk(prev, cur, start_step, nsteps)
+    _sync(mesh)
+    t2 = time.perf_counter()
+    head = np.zeros(start_step + 1)
+    result = leapfrog.SolveResult(
+        problem=problem,
+        u_prev=_to_topology_layout(prev, counts, problem, mesh),
+        u_cur=_to_topology_layout(cur, counts, problem, mesh),
+        abs_errors=np.concatenate([head, abs_t]),
+        rel_errors=np.concatenate([head, rel_t]),
+        init_seconds=t1 - t0, solve_seconds=t2 - t1,
+        steps_computed=nsteps - start_step, final_step=nsteps,
+    )
+    obs_metrics.record_solve(
+        result, "sharded_kfused", k=k, with_field=c2tau2_field is not None,
+        block=(d, problem.N // n_y, problem.N), mesh_shape=(n_x, n_y, 1),
+        rows=compute_errors)
+    return result
+
+
+def make_chunk_runner(
+    problem: Problem,
+    length: int,
+    n_shards: Optional[int] = None,
+    dtype=torch.float32,
+    k: int = 4,
+    compute_errors: bool = True,
+    devices: Optional[Sequence] = None,
+    mesh_shape: Optional[Tuple[int, int, int]] = None,
+    c2tau2_field=None,
+):
+    """Fixed-length re-entry of the sharded k-fused march for supervised
+    solves, built once per configuration (kernels loaded, oracle rows and
+    field packs on the devices): `runner(u_prev, u_cur, start)` ->
+    (u_prev, u_cur, abs, rel) marches layers start+1..start+length, the
+    state as ShardedArrays on the Topology layout (converted to and from
+    the pad-and-mask layout where K9 marches), the errors as the chunk's
+    host f64 arrays."""
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length}")
+    devices, n_x, n_y = _grid_setup(problem, n_shards, devices, mesh_shape,
+                                    k, compute_errors, c2tau2_field)
+    nsteps = problem.timesteps
+    mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
+    _, chunk, d, counts = _make_runner(problem, mesh, dtype, k,
+                                       compute_errors, nsteps, c2tau2_field)
+
+    def run(u_prev, u_cur, start: int):
+        stop = leapfrog._chunk_stop(start, length, nsteps)
+        prev, cur = (_from_topology_layout(a, counts, d, problem, mesh, dtype)
+                     for a in (u_prev, u_cur))
+        prev, cur, abs_t, rel_t = chunk(prev, cur, start, stop)
+        return (_to_topology_layout(prev, counts, problem, mesh),
+                _to_topology_layout(cur, counts, problem, mesh), abs_t, rel_t)
+
+    return run

@@ -245,11 +245,7 @@ def measure_phase_breakdown(
     with `fuse_steps > 1` probes the distributed flagship, including the
     carry-less bf16-increment mode via `v_dtype=torch.bfloat16` (the
     1-step compensated scheme has no probe)."""
-    if devices is None:
-        leapfrog.resolve_device(None)
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
+    devices = leapfrog.resolve_devices(devices)
     if mesh_shape is None:
         mesh_shape = choose_mesh_shape(len(devices))
     mesh_shape = tuple(mesh_shape)
