@@ -168,15 +168,27 @@ without them or when any phase fails.  Phases:
                chunks of 248 layers): bit-equal, one rotation entry per
                chunk boundary (249, 497, 745, 993, 1000), the newest two
                kept, `latest` on the newest, no library built or loaded
-               after the first chunk (chunk spans, compile ledger);
-               `WAVETPU_FAULT=preempt:500` exits 3 printing `resumable
-               checkpoint:`, `--resume D --ckpt-every 250` exits 0
-               bit-equal; `WAVETPU_FAULT=nan:300` exits 4 with step 249
-               the last good entry, and with `--retries 1` exits 0
-               bit-equal.  Prints save and load seconds, bytes and GB/s of
-               each checkpoint kind, the supervised run's solve seconds and
-               overhead against the unsupervised flagship's, and the phase's
-               wall time, beside the card's name and power limit.
+               after the first chunk (chunk spans, compile ledger), each
+               chunk's solve seconds beside its share of the unsupervised
+               run's, its solve seconds beside those of the unsupervised
+               flagship in a fresh process too; the supervisor's flagship chunk calls in this
+               process, no saves, uninterrupted, back to back and with the
+               card idle 1.5 s between chunks (where the supervised run's
+               extra solve seconds go); uneven_kfused (K9, N=510)
+               supervised with `--ckpt-every 250` through the CLI,
+               bit-equal with phase 3's launches;
+               `WAVETPU_FAULT=preempt:500` exits 3 at step 745 printing
+               `resumable checkpoint:`, `--resume D --ckpt-every 250`
+               exits 0 bit-equal (the errors joined at 745);
+               `WAVETPU_FAULT=nan:300` exits 4 with step 249 the last good
+               entry, and with `--retries 1` exits 0 bit-equal.  Prints
+               save and load seconds, bytes and GB/s of each checkpoint
+               kind, the parts of a shard directory's save and load
+               (copies to pinned and pageable memory, CRC32, WTS1 write +
+               fsync, verified read, copy to the card), the supervised
+               runs' solve seconds and overhead against the unsupervised
+               ones, and the phase's wall time, beside the card's name and
+               power limit.
 
 Each phase prints its wall time.
 
@@ -1849,6 +1861,40 @@ def side_errors(side):
                 rel=np.asarray(side["rel_errors"]))
 
 
+def save_parts(res, tmp, card):
+    """Where a shard directory's save and load seconds go: the parts of
+    save_sharded_checkpoint / load_sharded_checkpoint timed one by one on
+    a sharded result's state (both fields, every block)."""
+    blocks = [b for f in (res.u_prev, res.u_cur) for b in f.blocks]
+    nb = nbytes(*blocks)
+    out = {}
+
+    def part(name, fn):
+        r, s_ = timed(fn)
+        out[name] = {"seconds": s_, "gb_per_s": nb / s_ / 1e9}
+        print(f"  shard save/load part {name}: {s_!r} s, "
+              f"{nb / s_ / 1e9!r} GB/s ({card})")
+        return r
+
+    part("d2h_pinned", lambda: [checkpoint._host(b) for b in blocks])
+    host = part("d2h_pageable", lambda: [b.cpu() for b in blocks])
+    arrays = [h.numpy() for h in host]
+    part("crc32", lambda: [nativeio.crc32(a) for a in arrays])
+    d = os.path.join(tmp, "parts")
+    os.makedirs(d)
+    files = [os.path.join(d, f"{i}.wts") for i in range(len(arrays) // 2)]
+    part("write_fsync", lambda: [nativeio.write_container_sync(
+        f_, {"u_prev": (a, "float32"), "u_cur": (b, "float32")}, {"step": 1})
+        for f_, a, b in zip(files, arrays, arrays[len(files):])])
+    read = part("read_verified", lambda: [nativeio.read_container(f_)
+                                          for f_ in files])
+    payload = [torch.from_numpy(r[0][key][0]) for r in read
+               for key in ("u_prev", "u_cur")]
+    part("h2d", lambda: [t.to(DEV) for t in payload])
+    shutil.rmtree(d)
+    return out
+
+
 def phase_resilience(sides, counts, refs, card):
     """Phase 8 (see the module docstring)."""
     out = {"io": {}}
@@ -1958,6 +2004,8 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
         else:
             half = kfused_comp.solve_kfused_comp_sharded(
                 p, k=K, mesh_shape=(2, 2, 1), devices=devs, stop_step=stop)
+        if label == "sharded_221":
+            io_rec["shard_parts"] = save_parts(half, tmp, card)
         d = os.path.join(tmp, label)
         _, s_save = timed(checkpoint.save_sharded_checkpoint, d, half)
         head = host_state(half)
@@ -1994,7 +2042,21 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
 
     flag_ref = dict(refs["flagship"], **side_errors(sides["flagship"]))
     flags = RUNS["flagship"][1]
-    # -- the supervised flagship in a fresh process ----------------------
+    # -- the unsupervised and the supervised flagship, each in a fresh
+    # process (a process's first solve pays for what phase 3's warm runs
+    # no longer do) ---------------------------------------------------
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    fresh_out = os.path.join(OUT_DIR, "resil_unsupervised_fresh")
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavetpu_torch"] + base + flags + CLI_EXTRA
+        + ["--out-dir", fresh_out],
+        cwd=cwd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"fresh unsupervised flagship exit {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    with open(os.path.join(fresh_out,
+                           f"output_N{N_FULL}_Np1_CUDA.json")) as f:
+        fresh = json.load(f)["solve_seconds"]
     rot = os.path.join(tmp, "rot")
     tel = os.path.join(OUT_DIR, "resil_supervised_telemetry")
     shutil.rmtree(tel, ignore_errors=True)
@@ -2004,8 +2066,7 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
         [sys.executable, "-m", "wavetpu_torch"] + base + flags + CLI_EXTRA + [
             "--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", rot,
             "--telemetry-dir", tel, "--out-dir", sup_out],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
+        cwd=cwd, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         fail(f"supervised flagship exit {proc.returncode}: "
@@ -2053,15 +2114,28 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
     same_bits("supervised flagship vs unsupervised", got, flag_ref, 0)
     unsup = sides["flagship"]["solve_seconds"]
     print(f"  supervised flagship: solve {side['solve_seconds']!r} s "
-          f"(unsupervised {unsup!r} s), overhead_seconds {overhead!r} "
-          f"(checkpoints + health checks, {len(SUP_STEPS)} saves) ({card})")
+          f"(unsupervised {unsup!r} s, in a fresh process {fresh!r} s), "
+          f"overhead_seconds {overhead!r} (checkpoints + health checks, "
+          f"{len(SUP_STEPS)} saves) ({card})")
+    # Each chunk's solve seconds beside its share of the unsupervised
+    # march's (layers / STEPS of it).
+    per_chunk = [(c["start"], c["length"], c["solve_seconds"],
+                  c["solve_seconds"] - unsup * c["length"] / STEPS)
+                 for c in chunks]
+    print(f"  supervised flagship chunks (start, length, solve s, over its "
+          f"share of the unsupervised run s): {per_chunk} ({card})")
     out["supervised"] = {
         "solve_seconds": side["solve_seconds"],
-        "unsupervised_solve_seconds": unsup, "overhead_seconds": overhead,
+        "unsupervised_solve_seconds": unsup,
+        "fresh_unsupervised_solve_seconds": fresh,
+        "overhead_seconds": overhead,
         "wall_seconds": wall, "checkpoint_steps": ck_steps,
-        "first_launch_seconds": first_launch,
+        "first_launch_seconds": first_launch, "chunks": per_chunk,
         "ledger_records": len(ledger_lines)}
     shutil.rmtree(rot)
+    out["reentry"] = reentry_split(p, card)
+    out["supervised_uneven"] = supervised_uneven(sides, counts, refs, card,
+                                                 tmp)
 
     # -- preempt and resume, watchdog and retry (in this process) --------
     def drill(fault, argv):
@@ -2077,7 +2151,9 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
     stencil_cuda.reset_launches()
     rc, text = drill(f"preempt:{PREEMPT_AT}", base + flags + CLI_EXTRA + sup_flags + [
         "--out-dir", os.path.join(OUT_DIR, "resil_preempt")])
-    if rc != 3 or "resumable checkpoint:" not in text:
+    last = SUP_STEPS[2]      # the chunk boundary after the signal
+    if rc != 3 or "resumable checkpoint:" not in text or \
+            f"checkpointed at step {last}" not in text:
         fail(f"preempt:{PREEMPT_AT} exit {rc}: {text[-500:]}")
     print(f"  preempt:{PREEMPT_AT}: exit 3, "
           f"{[ln for ln in text.splitlines() if 'resumable' in ln]}")
@@ -2090,7 +2166,17 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
     if launched != {c: n for c, n in counts["flagship"].items() if n}:
         fail(f"preempt + resume launched {launched}")
     got, step = entry_state(resolve(rot))
-    same_bits("preempt + --resume flagship", got, flag_ref)
+    # The preempted run's errors up to its last checkpoint, the resumed
+    # run's after it (the CLI's stop/resume contract).
+    name = f"output_N{N_FULL}_Np1_CUDA.json"
+    with open(os.path.join(OUT_DIR, "resil_preempt", name)) as f:
+        head = side_errors(json.load(f))
+    with open(os.path.join(OUT_DIR, "resil_preempt_resume", name)) as f:
+        tail = side_errors(json.load(f))
+    for key in ("abs", "rel"):
+        got[key] = np.concatenate([head[key][:last + 1],
+                                   tail[key][last + 1:]])
+    same_bits("preempt + --resume flagship", got, flag_ref, 0)
     shutil.rmtree(rot)
     rot = os.path.join(tmp, "nan")
     sup_flags = ["--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", rot]
@@ -2116,6 +2202,81 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
     return out
 
 
+def reentry_split(p, card, gap=1.5):
+    """Where a supervised flagship's extra solve seconds go: the
+    supervisor's own chunk calls (`supervisor._Path`, as `supervise` makes
+    them, no saves) timed uninterrupted (one chunk of STEPS layers), back
+    to back, with the card idle for `gap` s between chunks (about one
+    save's time), and uninterrupted again.  Each chunk's seconds end at its
+    error read-back."""
+    from wavetpu_torch.run import supervisor as sup
+
+    spec = sup.PathSpec(scheme="compensated", fuse_steps=K, devices=(DEV,))
+    length = sup.chunk_length(CKPT_EVERY, K)
+    runs = {}
+    for name, wait in (("uninterrupted", None), ("back_to_back", 0.0),
+                       ("idle_gaps", gap), ("uninterrupted_again", None)):
+        path = sup._Path(p, spec)
+        if wait is None:
+            state, _, _, _, s_ = path.first(STEPS)
+            runs[name] = [s_]
+        else:
+            state, _, _, _, s_ = path.first(1 + length)
+            runs[name], cur = [s_], 1 + length
+            while cur < STEPS:
+                time.sleep(wait)
+                n = min(length, STEPS - cur)
+                state, _, _, s_, _ = path.chunk(state, cur, n)
+                runs[name].append(s_)
+                cur += n
+        if name == "uninterrupted":
+            ref = state[0]
+        elif not torch.equal(state[0], ref):
+            fail(f"the flagship's {name} run left another state")
+        del state, path
+    base = min(runs["uninterrupted"] + runs["uninterrupted_again"])
+    out = {}
+    for name, ts in runs.items():
+        out[name] = {"chunks": ts, "solve_seconds": sum(ts),
+                     "over_uninterrupted": sum(ts) - base}
+        print(f"  flagship chunk calls, {name}: {ts} s, sum {sum(ts)!r} s, "
+              f"{sum(ts) - base!r} s over the faster uninterrupted run "
+              f"({card})")
+    return out
+
+
+def supervised_uneven(sides, counts, refs, card, tmp):
+    """The K9 route (N=510, --fuse-steps 4) supervised with --ckpt-every
+    250: bit-equal to phase 3's uneven_kfused run, its launches, and its
+    solve seconds beside that run's (the chunk runner re-cuts the state
+    between the Topology and the pad-and-mask layouts on the card)."""
+    label = "uneven_kfused"
+    rot = os.path.join(tmp, "uneven")
+    out_dir = os.path.join(OUT_DIR, "resil_supervised_uneven")
+    stencil_cuda.reset_launches()
+    rc, text = cli_quiet(
+        [str(N_ODD), "1", "1", "1", "1", "1", str(STEPS)] + RUNS[label][1]
+        + CLI_EXTRA + ["--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", rot,
+                       "--out-dir", out_dir])
+    torch.cuda.synchronize()
+    launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+    if rc != 0:
+        fail(f"supervised {label} exit {rc}: {text[-500:]}")
+    if launched != {c: n for c, n in counts[label].items() if n}:
+        fail(f"supervised {label} launched {launched}")
+    with open(os.path.join(out_dir, f"output_N{N_ODD}_Np1_CUDA.json")) as f:
+        side = json.load(f)
+    got, _ = entry_state(resolve(rot))
+    got.update(side_errors(side))
+    same_bits(f"supervised {label} vs unsupervised", got, refs[label], 0)
+    unsup = sides[label]["solve_seconds"]
+    print(f"  supervised {label}: solve {side['solve_seconds']!r} s "
+          f"(unsupervised {unsup!r} s), launches {launched} ({card})")
+    shutil.rmtree(rot)
+    return {"solve_seconds": side["solve_seconds"],
+            "unsupervised_solve_seconds": unsup}
+
+
 def resolve(root):
     from wavetpu_torch.run import supervisor
 
@@ -2134,7 +2295,11 @@ def single_refs():
                          ("kfused", lambda: kfused.solve_kfused(
                              p, k=K, device=DEV)),
                          ("flagship", lambda: kfused_comp.solve_kfused_comp(
-                             p, k=K, device=DEV))):
+                             p, k=K, device=DEV)),
+                         ("uneven_kfused",
+                          lambda: sharded_kfused.solve_sharded_kfused(
+                              Problem(N=N_ODD, timesteps=STEPS), n_shards=1,
+                              k=K, devices=[DEV]))):
         refs[label] = host_state(solve())
     return refs
 
@@ -2269,7 +2434,7 @@ def main() -> int:
 
     print(f"phase 8: resilience ({card})")
     refs.update(single_refs())
-    for label in ("default", "kfused", "flagship"):
+    for label in ("default", "kfused", "flagship", "uneven_kfused"):
         # The CLI runs' error vectors are phase 3's own.
         refs[label].update(side_errors(sides[label]))
     measured["resilience"] = phase_resilience(sides, counts, refs, card)

@@ -1116,6 +1116,38 @@ def test_resume_and_supervised_on_the_card(cuda, tmp_path, path):
     assert d <= 1e-5, d
 
 
+@pytest.mark.parametrize("n,n_shards", [(30, 1), (26, 4)])
+def test_uneven_chunk_runner_keeps_the_state_on_the_card(cuda, monkeypatch,
+                                                         n, n_shards):
+    """The K9 route's chunk runner re-cuts the Topology layout into the
+    pad-and-mask blocks and back on the card (no state passes through the
+    host), and its chunks equal the uninterrupted march bit for bit."""
+    from wavetpu_torch.core.grid import ShardedArray
+
+    p = Problem(N=n, timesteps=17)       # K9's pad and mask: D != N / MX
+    kw = dict(n_shards=n_shards, k=4, devices=["cuda"] * n_shards)
+    whole = sharded_kfused.solve_sharded_kfused(p, **kw)
+    half = sharded_kfused.solve_sharded_kfused(p, stop_step=9, **kw)
+    seen = []
+    assemble = ShardedArray.assemble
+
+    def spy(self, device=None):
+        seen.append(torch.device(device or self.blocks[0].device))
+        return assemble(self, device)
+
+    monkeypatch.setattr(ShardedArray, "assemble", spy)
+    run = sharded_kfused.make_chunk_runner(p, 4, **kw)
+    prev, cur, start = half.u_prev, half.u_cur, 9
+    while start < p.timesteps:
+        prev, cur, _, _ = run(prev, cur, start)
+        start += 4
+    assert seen and all(dv.type == "cuda" for dv in seen), seen
+    assert all(b.device.type == "cuda" for b in prev.blocks + cur.blocks)
+    monkeypatch.undo()
+    for got, want in ((prev, whole.u_prev), (cur, whole.u_cur)):
+        assert torch.equal(got.assemble("cpu"), want.assemble("cpu"))
+
+
 def test_health_guard_on_the_card_equals_the_cpu(cuda):
     from wavetpu_torch.core.grid import Topology, build_mesh, split_global
     from wavetpu_torch.run import health

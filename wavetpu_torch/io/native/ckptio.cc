@@ -16,7 +16,6 @@
 //                      &crc)            rename tmp -> final, return the
 //                                       CRC32 of the whole stream
 //   ckpt_writer_abort(w)                drop the queue, unlink the temp
-//   ckpt_crc32(buf, len, seed)          standalone CRC32 (load-side verify)
 //
 // A single background thread per writer consumes the queue, so the Python
 // caller overlaps the device->host copy of the next shard with the disk
@@ -131,10 +130,6 @@ struct Writer {
 }  // namespace
 
 extern "C" {
-
-uint64_t ckpt_crc32(const void* buf, uint64_t len, uint64_t seed) {
-  return crc32_update((uint32_t)seed, (const uint8_t*)buf, (size_t)len);
-}
 
 void* ckpt_writer_open(const char* tmp_path) {
   int fd = ::open(tmp_path, O_WRONLY | O_CREAT | O_TRUNC, 0644);

@@ -98,10 +98,6 @@ def _load_native():
         lib.ckpt_writer_finish.restype = ctypes.c_int
         lib.ckpt_writer_abort.argtypes = [ctypes.c_void_p]
         lib.ckpt_writer_abort.restype = ctypes.c_int
-        lib.ckpt_crc32.argtypes = [
-            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64
-        ]
-        lib.ckpt_crc32.restype = ctypes.c_uint64
         _lib = lib
     except Exception as e:  # missing g++, sandboxed fs, bad toolchain, ...
         print(f"wavetpu_torch: native ckpt IO unavailable ({e}); "
@@ -115,15 +111,9 @@ def native_available() -> bool:
 
 
 def crc32(data, seed: int = 0) -> int:
-    """zlib-compatible CRC32 (native slice-by-8 when available)."""
-    lib = _load_native()
-    mv = memoryview(data).cast("B")
-    if lib is None or len(mv) == 0:
-        return zlib.crc32(mv, seed) & 0xFFFFFFFF
-    arr = np.frombuffer(mv, dtype=np.uint8)  # raw address, no copy
-    return int(lib.ckpt_crc32(
-        arr.ctypes.data_as(ctypes.c_void_p), len(mv), seed
-    )) & 0xFFFFFFFF
+    """zlib's CRC32 of a buffer (it releases the GIL on large buffers, so
+    a save's CRC pass overlaps the writer thread)."""
+    return zlib.crc32(memoryview(data).cast("B"), seed) & 0xFFFFFFFF
 
 
 class AsyncFileWriter:

@@ -501,12 +501,13 @@ def _from_topology_layout(a, counts, d, problem: Problem, mesh, dtype):
     if topo.block[0] == d:
         return state.to_blocks(a, topo, mesh, dtype)
     n = problem.N
+    dev = mesh.devices[0]
     if isinstance(a, ShardedArray):
-        real = a.fundamental("cpu")
+        real = a.fundamental(dev)
     else:
-        real = state.as_tensor(a)[:n, :n, :n].cpu()
-    full = torch.zeros((len(counts) * d, n, n), dtype=dtype)
-    full[:n] = real.to(dtype)
+        real = state.as_tensor(a)[:n, :n, :n].to(dev)
+    full = torch.zeros((len(counts) * d, n, n), dtype=dtype, device=dev)
+    full[:n] = real
     return _split_x(full, d, mesh.devices)
 
 
