@@ -189,6 +189,30 @@ without them or when any phase fails.  Phases:
                runs' solve seconds and overhead against the unsupervised
                ones, and the phase's wall time, beside the card's name and
                power limit.
+ 9. ensembles  - the ensemble slice (wavetpu_torch/ensemble): each lane
+               mode (K1, K5, K2, K3, K3f, K4, K6 over a batch of lanes)
+               bitwise against its plain version and, lane by lane,
+               against the solo kernel, at N=128 on 3 and 2 lanes and at
+               its run's N on 3; its time on 8 lanes beside 8 solo
+               launches, the plain version and 8 x the solo bound; five
+               main-path runs through `solve_ensemble` /
+               `solve_ensemble_sharded`, each with the counters zeroed
+               just before and read just after (exact counts, the same
+               for any B): the flagship ensemble at N=512/1000 (B=8:
+               phases 2 pi, 1.0-1.4, 1.6 stopping at 501, one padding
+               lane; K2 lanes x1, K4 lanes x252), the pallas ensemble at
+               N=512/1000 (B=4; K1 lanes x1000), the k-fused ensemble
+               (N=256/1000, B=4; K3 lanes x249, K1 lanes x4), the lens
+               field batch (N=256/1000, errors off, B=3; K3f lanes x249,
+               K5 lanes x4) and the sharded ensemble on mesh 2,2,1 with
+               the four shards on the card (N=256/200, B=4; K6 lanes
+               x800), every run batched (no fallback), its held lanes
+               (the reference phase, a shifted phase, the early stop)
+               bit-equal to solo port solves, states and error vectors
+               from layer 0; and the aggregate Gcell/s at B = 1, 2, 4, 8
+               (pallas and flagship at N=256/100, the flagship at
+               N=512/1000 for B = 1 and 8) with speedup_vs_batch1, beside
+               the card's name and power limit.
 
 Each phase prints its wall time.
 
@@ -217,6 +241,8 @@ import torch
 from wavetpu_torch import cli
 from wavetpu_torch.core.grid import Topology, build_mesh
 from wavetpu_torch.core.problem import Problem
+from wavetpu_torch.ensemble import batched as ensemble
+from wavetpu_torch.ensemble import sharded as ensemble_sharded
 from wavetpu_torch.io import checkpoint, nativeio, state
 from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
 from wavetpu_torch.obs import perf as obs_perf
@@ -338,6 +364,51 @@ KERNELS = {
                       "velocity-form substeps (k=4, mesh 2,2,1, rows off)",
                  run="sharded_flagship_221_varc"),
 }
+# The lane modes (the ensembles' batch axis, phase 9): the solo row each
+# batches (its bound per lane), and the phase-9 run that launches it.
+LANE_KERNELS = {
+    "K1 lanes": dict(counter="step_lanes", solo="K1",
+                     source=f"{CSRC}/stencil.cu", replaces=f"{PALLAS}:130",
+                     what="K1's lane mode: B leapfrog steps in one launch "
+                          "(pallas ensemble, N=512, B=8)",
+                     run="ens_pallas", bytes_per_cell=12, ops=19),
+    "K5 lanes": dict(counter="var_step_lanes", solo="K5",
+                     source=f"{CSRC}/stencil.cu", replaces=f"{PALLAS}:147",
+                     what="K5's lane mode: B variable-c steps, per-lane "
+                          "fields (lens batch, N=256, B=8)",
+                     run="ens_kfused_lens", bytes_per_cell=16, ops=19),
+    "K2 lanes": dict(counter="comp_step_lanes", solo="K2",
+                     source=f"{CSRC}/stencil.cu", replaces=f"{PALLAS}:544",
+                     what="K2's lane mode: B Kahan steps (the flagship "
+                          "ensemble's bootstrap, N=512, B=8)",
+                     run="ens_flagship", bytes_per_cell=24, ops=20),
+    "K3 lanes": dict(counter="kstep_lanes", solo="K3",
+                     source=f"{CSRC}/kstep_pipe.cu",
+                     replaces=f"{PALLAS}:745",
+                     what="K3's lane mode: k substeps of B states + per-lane "
+                          "rows (kfused ensemble, k=4, N=256, B=8)",
+                     run="ens_kfused", bytes_per_cell=16, ops=22 * 4),
+    "K3f lanes": dict(counter="kstep_field_lanes", solo="K3f",
+                      source=f"{CSRC}/kstep_pipe.cu",
+                      replaces=f"{PALLAS}:721",
+                      what="K3f's lane mode: k variable-c substeps, per-lane "
+                           "fields (lens batch, k=4, N=256, B=8, rows off)",
+                      run="ens_kfused_lens", bytes_per_cell=20, ops=19 * 4),
+    "K4 lanes": dict(counter="kstep_comp_lanes", solo="K4",
+                     source=f"{CSRC}/comp_sharded.cu",
+                     replaces=f"{PALLAS}:970",
+                     what="K4's lane mode: k velocity-form substeps of B "
+                          "states + per-lane rows (flagship ensemble, k=4, "
+                          "N=512, B=8)",
+                     run="ens_flagship", bytes_per_cell=20, ops=23 * 4),
+    "K6 lanes": dict(counter="sharded_step_lanes", solo="K6",
+                     source=f"{CSRC}/sharded.cu", replaces=f"{PALLAS}:316",
+                     what="K6's lane mode: B shard blocks with (B, face) "
+                          "ghosts (sharded ensemble, mesh 2,2,1 block, "
+                          "N=256, B=8)",
+                     run="ens_sharded_221", ops=19),
+}
+KERNELS.update(LANE_KERNELS)
 N_FULL, N_ODD, STEPS, K = 512, 510, 1000, 4
 LENS = "gaussian-lens"
 NB, REM = (STEPS - 1) // K, (STEPS - 1) % K
@@ -2304,26 +2375,388 @@ def single_refs():
     return refs
 
 
+# Phase 9: the ensemble slice (wavetpu_torch/ensemble).  The main-path runs
+# through the entry points a user calls (`solve_ensemble`,
+# `solve_ensemble_sharded`): label -> (N, steps, the call's arguments,
+# the lanes, the launch count of every counter that must move - all
+# others stay 0 - and the lanes held bitwise against solo port solves).
+# The lanes: the reference phase, shifted phases and an early stop on the
+# k-block grid (1 + 125k), padded with `padding_lane()`s to B (pad_to);
+# launch counts do not depend on B (every layer or k-block is one lane
+# launch over the live lanes).
+L = ensemble.LaneSpec
+ENS_SHARDED_STEPS = 200
+
+
+def ens_lanes(label, p):
+    if label == "ens_flagship":
+        return ([L()] + [L(phase=1.0 + 0.1 * i) for i in range(5)]
+                + [L(phase=1.6, stop_step=501)])
+    if label == "ens_kfused_lens":
+        lens = stencil_ref.make_preset_c2tau2_field(p, LENS)
+        return [L(c2tau2_field=lens), L(c2tau2_field=0.8 * lens),
+                L(stop_step=501)]
+    stop = ENS_SHARDED_STEPS // 2 if label == "ens_sharded_221" else 501
+    return [L(), L(phase=1.0), L(phase=1.3, stop_step=stop)]
+
+
+ENS_RUNS = {
+    "ens_flagship": (N_FULL, STEPS, dict(scheme="compensated", path="kfused",
+                                         k=K, pad_to=8),
+                     {"comp_step_lanes": 1, "kstep_comp_lanes": NB + REM},
+                     (0, 1, 6)),
+    "ens_pallas": (N_FULL, STEPS, dict(path="pallas", pad_to=4),
+                   {"step_lanes": STEPS}, (0, 1, 2)),
+    "ens_kfused": (N_FULL // 2, STEPS, dict(path="kfused", k=K, pad_to=4),
+                   {"kstep_lanes": NB, "step_lanes": 1 + REM}, (0, 1, 2)),
+    "ens_kfused_lens": (N_FULL // 2, STEPS, dict(path="kfused", k=K,
+                                                 compute_errors=False),
+                        {"kstep_field_lanes": NB, "var_step_lanes": 1 + REM},
+                        (0, 2)),
+    "ens_sharded_221": (N_FULL // 2, ENS_SHARDED_STEPS,
+                        dict(mesh=(2, 2, 1), kernel="pallas", pad_to=4),
+                        {"sharded_step_lanes": SHARDS * ENS_SHARDED_STEPS},
+                        (0, 1, 2)),
+}
+
+
+def solo_lane(p, kw, lane):
+    """The solo port solve of one lane on its ensemble's path (launches
+    made here do not count: the counters were read before)."""
+    common = dict(stop_step=lane.stop(p), phase=lane.phase,
+                  compute_errors=kw.get("compute_errors", True))
+    if "mesh" in kw:
+        return sharded.solve_sharded(p, kw["mesh"], devices=[DEV] * SHARDS,
+                                     **common)
+    if kw.get("scheme") == "compensated":
+        return kfused_comp.solve_kfused_comp(p, k=K, device=DEV, **common)
+    if kw["path"] == "kfused":
+        return kfused.solve_kfused(p, k=K, device=DEV,
+                                   c2tau2_field=lane.c2tau2_field, **common)
+    return leapfrog.solve(p, device=DEV, **common)
+
+
+def run_ensemble(label):
+    """One phase-9 main-path run with the counters zeroed just before and
+    read just after; every counter must equal ENS_RUNS[label]'s count, the
+    batch must have run batched (no fallback), and the lanes named there
+    must equal their solo port solves bit for bit (states and error vectors
+    from layer 0).  Returns (summary dict, launches)."""
+    n, steps, kw, want, held = ENS_RUNS[label]
+    p = Problem(N=n, timesteps=steps)
+    lanes = ens_lanes(label, p)
+    stencil_cuda.reset_launches()
+    if "mesh" in kw:
+        res = ensemble_sharded.solve_ensemble_sharded(
+            p, lanes, kw["mesh"], kernel=kw["kernel"], pad_to=kw["pad_to"],
+            devices=[DEV] * SHARDS)
+    else:
+        res = ensemble.solve_ensemble(p, lanes, **kw)
+    torch.cuda.synchronize()
+    counts = dict(stencil_cuda.launches)
+    expected = {c: want.get(c, 0) for c in counts}
+    if counts != expected:
+        fail(f"{label}: launches {counts}, expected {expected}")
+    if not res.batched or res.fallback_reason is not None:
+        fail(f"{label}: not batched ({res.fallback_reason})")
+    errs = [r.abs_errors.max() for r in res.results]
+    side = {"batch": res.batch_size, "lanes": res.n_lanes,
+            "solve_seconds": res.solve_seconds,
+            "aggregate_gcells_per_second": res.aggregate_gcells_per_second,
+            "max_abs_error": (float(max(errs))
+                              if kw.get("compute_errors", True) else None)}
+    bound = ERROR_CLASS["flagship" if kw.get("scheme") else "default"]
+    if side["max_abs_error"] is not None and not side["max_abs_error"] < \
+            bound:
+        fail(f"{label}: max abs error {side['max_abs_error']}")
+    print(f"  {label}: B={res.batch_size} ({res.n_lanes} real) launches="
+          f"{ {c: v for c, v in counts.items() if v} } solve "
+          f"{res.solve_seconds!r} s, aggregate "
+          f"{res.aggregate_gcells_per_second!r} Gcell/s, max abs error "
+          f"{side['max_abs_error']!r}")
+    for i in held:
+        same_bits(f"{label} lane {i} (phase {lanes[i].phase:.3f}, stop "
+                  f"{lanes[i].stop(p)}) == solo",
+                  host_state(res.results[i]),
+                  host_state(solo_lane(p, kw, lanes[i])), errors_from=0)
+    return side, counts
+
+
+def lane_cases(n, lanes, names):
+    """{name: (lane call, plain call, solo call on lane i, bytes moved,
+    f32 operations)} of the named lane modes on `lanes` lanes of (n, n, n)
+    (K6's on the mesh-2,2,1 block of n, x and y ghosts as (B, face)
+    planes), f32, k=4 with rows on for K3/K4 (off for K3f, as the lens
+    batch launches it).  Operands are made on first use, so a call holds
+    only what its kernels read."""
+    p = Problem(N=n, timesteps=STEPS)
+    made = {}
+
+    def t(key):
+        if key not in made:
+            seed = {"up": 1, "u": 20, "v": 40, "cy": 60}.get(key)
+            if key == "cb":
+                made[key] = t("cy").to(torch.bfloat16)
+            elif key == "fld":
+                made[key] = torch.stack([c2_field(p, 80 + i)
+                                         for i in range(lanes)])
+            elif key == "sxct":
+                sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(
+                    p, torch.float32, DEV)
+                made.update(syz=syz, rsyz=rsyz)
+                made[key] = torch.stack([ct[2 + i: 2 + i + K, None]
+                                         * sx[None, :]
+                                         for i in range(lanes)])
+            else:
+                scale = {"v": 1e-3, "cy": 1e-8}.get(key, 1.0)
+                made[key] = torch.stack([rand((n, n, n), seed + i, scale)
+                                         for i in range(lanes)])
+        return made[key]
+
+    def rows():
+        return t("sxct"), made["syz"], made["rsyz"]
+
+    kw1 = dict(inv_h2=p.inv_h2, alpha=2.0, beta=1.0, coeff=p.a2tau2)
+    kw5 = dict(inv_h2=p.inv_h2)
+    kw4 = dict(k=K, coeff=p.a2tau2, inv_h2=p.inv_h2)
+    kw3f = dict(kw4, with_errors=False)
+    sc = stencil_cuda
+    h = n // 2
+    off = (h, 0, 0)
+    kb = dict(inv_h2=p.inv_h2, mesh_shape=(2, 2, 1), coeff=p.a2tau2)
+
+    def block(key):
+        return t(key)[:, :h, :h].contiguous()
+
+    def ghosts():
+        if "g" not in made:
+            g = []
+            for axis in range(3):
+                face = [h, h, n]
+                face[axis] = 1
+                g.append(tuple(
+                    torch.stack([rand(face, 100 + 10 * axis + 2 * i + j)
+                                 for i in range(lanes)]) for j in range(2)))
+            made.update(g=g, bu=block("up"), bc=block("u"))
+        return made["g"], made["bu"], made["bc"]
+
+    def solo_ghosts(i):
+        return [tuple(x[i] for x in a) for a in ghosts()[0]]
+
+    def k6(fn):
+        g, bu, bc = ghosts()
+        return fn(bu, bc, g, off, n, **kb)
+
+    cases = {
+        "K1 lanes": (lambda: sc.fused_step_lanes(t("up"), t("u"), **kw1),
+                     lambda: sc.fused_step_lanes_plain(t("up"), t("u"),
+                                                       **kw1),
+                     lambda i: sc.fused_step(t("up")[i], t("u")[i], **kw1)),
+        "K5 lanes": (lambda: sc.fused_step_lanes(
+                         t("up"), t("u"), c2tau2_field=t("fld"), **kw5),
+                     lambda: sc.fused_step_lanes_plain(
+                         t("up"), t("u"), c2tau2_field=t("fld"), **kw5),
+                     lambda i: sc.fused_step(t("up")[i], t("u")[i],
+                                             c2tau2_field=t("fld")[i],
+                                             **kw5)),
+        "K2 lanes": (lambda: sc.compensated_step_lanes(t("u"), t("v"),
+                                                       t("cy"), p),
+                     lambda: sc.compensated_step_lanes_plain(
+                         t("u"), t("v"), t("cy"), inv_h2=p.inv_h2,
+                         coeff=p.a2tau2),
+                     lambda i: sc.compensated_step(t("u")[i], t("v")[i],
+                                                   t("cy")[i], p)),
+        "K3 lanes": (lambda: sc.fused_kstep_lanes(
+                         t("up"), t("u"), *rows()[1:], rows()[0], **kw4),
+                     lambda: sc.fused_kstep_lanes_plain(
+                         t("up"), t("u"), *rows()[1:], rows()[0], **kw4),
+                     lambda i: sc.fused_kstep(t("up")[i], t("u")[i],
+                                              *rows()[1:], rows()[0][i],
+                                              **kw4)),
+        "K3f lanes": (lambda: sc.fused_kstep_lanes(
+                          t("up"), t("u"), None, None, None,
+                          c2tau2_field=t("fld"), **kw3f),
+                      lambda: sc.fused_kstep_lanes_plain(
+                          t("up"), t("u"), None, None, None,
+                          c2tau2_field=t("fld"), **kw3f),
+                      lambda i: sc.fused_kstep(
+                          t("up")[i], t("u")[i], None, None, None,
+                          c2tau2_field=t("fld")[i], **kw3f)),
+        "K4 lanes": (lambda: sc.fused_kstep_comp_lanes(
+                         t("u"), t("v"), t("cb"), *rows()[1:], rows()[0],
+                         **kw4),
+                     lambda: sc.fused_kstep_comp_lanes_plain(
+                         t("u"), t("v"), t("cb"), *rows()[1:], rows()[0],
+                         block_x=sc.default_block_x(n, K), **kw4),
+                     lambda i: sc.fused_kstep_comp(
+                         t("u")[i], t("v")[i], t("cb")[i], *rows()[1:],
+                         rows()[0][i], **kw4)),
+        "K6 lanes": (lambda: k6(sc.sharded_fused_step_lanes),
+                     lambda: k6(sc.sharded_fused_step_lanes_plain),
+                     lambda i: sc.sharded_fused_step(
+                         ghosts()[1][i], ghosts()[2][i], solo_ghosts(i), off,
+                         n, **kb)),
+    }
+    out = {}
+    cells = lanes * n ** 3
+    for name in names:
+        meta = LANE_KERNELS[name]
+        if name == "K6 lanes":
+            g, _, bc = ghosts()
+            nb = 3 * nbytes(bc) + nbytes(*(x for a in g[:2] for x in a))
+            ops = meta["ops"] * bc.numel()
+        else:
+            nb, ops = meta["bytes_per_cell"] * cells, meta["ops"] * cells
+        out[name] = cases[name] + (nb, ops)
+    return out
+
+
+# The shapes each lane mode is checked and timed at: the main-path run's
+# N (per lane) and B=8.
+LANE_SHAPES = ((N_FULL, ("K1 lanes", "K2 lanes", "K4 lanes")),
+               (N_FULL // 2, ("K5 lanes", "K3 lanes", "K3f lanes",
+                              "K6 lanes")))
+
+
+def phase_lane_kernels(errs, rate):
+    """Each lane mode against its plain version (the solo plain version
+    lane by lane) and, lane by lane, against the solo kernel - bitwise -
+    at N=128 on B=3 and B=2 lanes and at its main-path run's N (512 for K1,
+    K2, K4; 256 for the rest) on B=3; then timed there on B=8: CUDA events
+    around 10 launches back to back, against 8 solo launches back to back
+    and the plain version; bound = the bytes and f32 operations of the 8
+    lanes (8 x the solo row's)."""
+    names = list(LANE_KERNELS)
+    for n, lanes, subset in [(128, 3, names), (128, 2, names)] + [
+            (n, 3, sub) for n, sub in LANE_SHAPES]:
+        for name, (fn, plain, solo, _, _) in lane_cases(n, lanes,
+                                                        subset).items():
+            got = _as_list(fn())
+            check_outputs(f"{name} N={n} B={lanes}", got, _as_list(plain()),
+                          errs[name])
+            check_outputs(f"{name} N={n} B={lanes} lane by lane", got,
+                          _stack_solo(solo, lanes), errs[name])
+            del got
+        torch.cuda.empty_cache()
+    times = {}
+    for n, subset in LANE_SHAPES:
+        for name, (fn, plain, solo, nb, ops) in lane_cases(
+                n, 8, subset).items():
+            ms = time_launches(fn, 10)
+            solo_ms = time_launches(lambda: [solo(i) for i in range(8)], 10)
+            plain_ms = time_launches(plain, 1, warmup=1)
+            byte_ms = nb / rate * 1e3
+            op_ms = ops / F32_OPS_PER_S * 1e3
+            times[name] = dict(ms=ms, plain_ms=plain_ms, solo_x8_ms=solo_ms,
+                               bound_ms=max(byte_ms, op_ms),
+                               bound_by="bytes" if byte_ms >= op_ms
+                               else "operations")
+            print(f"  {name} N={n} B=8: {ms:.4f} ms; 8 solo launches "
+                  f"{solo_ms:.4f} ms ({solo_ms / ms:.3f}x); plain "
+                  f"{plain_ms:.3f} ms; bound {times[name]['bound_ms']:.4f} "
+                  f"ms by {times[name]['bound_by']}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return times
+
+
+def _as_list(out):
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def _stack_solo(solo, lanes):
+    outs = [_as_list(solo(i)) for i in range(lanes)]
+    return [None if o[0] is None else torch.stack(o) for o in zip(*outs)]
+
+
+# Aggregate throughput: bench.py's serving shape (N=256, 100 steps, f32,
+# errors on; bench.py:454-470) at B = 1, 2, 4, 8 on the pallas and
+# flagship paths, and the flagship at N=512/1000 for B = 1 and 8.  Every
+# lane marches the full run (phases 2*pi, 1.1, 1.2, ...).
+THROUGHPUT = (
+    ("pallas", N_FULL // 2, 100, dict(path="pallas"), (1, 2, 4, 8)),
+    ("flagship", N_FULL // 2, 100, dict(scheme="compensated", path="kfused",
+                                        k=K), (1, 2, 4, 8)),
+    ("flagship", N_FULL, STEPS, dict(scheme="compensated", path="kfused",
+                                     k=K), (1, 8)),
+)
+
+
+def phase_throughput(card):
+    out = {}
+    for label, n, steps, kw, sizes in THROUGHPUT:
+        p = Problem(N=n, timesteps=steps)
+        row = {}
+        for b in sizes:
+            lanes = [L(phase=oracle_phase(i)) for i in range(b)]
+            solver = ensemble.EnsembleSolver(p, b, **kw)
+            if n < N_FULL:  # warm the allocator at this shape first
+                ensemble.solve_ensemble(p, lanes, solver=solver, **kw)
+            res = ensemble.solve_ensemble(p, lanes, solver=solver, **kw)
+            if not res.batched or res.fallback_reason is not None:
+                fail(f"throughput {label} B={b}: not batched")
+            row[b] = dict(solve_seconds=res.solve_seconds,
+                          aggregate_gcells_per_second=(
+                              res.aggregate_gcells_per_second))
+            del res, solver
+        base = row[1]["aggregate_gcells_per_second"]
+        for b in sizes:
+            row[b]["speedup_vs_batch1"] = (
+                row[b]["aggregate_gcells_per_second"] / base)
+            print(f"  throughput {label} N={n}/{steps} B={b}: aggregate "
+                  f"{row[b]['aggregate_gcells_per_second']!r} Gcell/s, "
+                  f"solve {row[b]['solve_seconds']!r} s, speedup_vs_batch1 "
+                  f"{row[b]['speedup_vs_batch1']!r} ({card})")
+        out[f"{label}_N{n}_{steps}"] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def oracle_phase(i):
+    return ensemble.LaneSpec().phase if i == 0 else 1.0 + 0.1 * i
+
+
+def phase_ensemble(errs, rate, card):
+    """Phase 9: the lane modes against their plain versions and timed, the
+    five main-path ensemble runs (counted, lanes held bitwise against solo
+    solves), and the aggregate throughput table."""
+    torch.cuda.empty_cache()
+    times = phase_lane_kernels(errs, rate)
+    sides, counts = {}, {}
+    for label in ENS_RUNS:
+        sides[label], counts[label] = run_ensemble(label)
+        torch.cuda.empty_cache()
+    throughput = phase_throughput(card)
+    return times, sides, counts, throughput
+
+
 def pipe_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
     main-path instantiations, from the verbose build log: the standard
     pipeline of K3, K8 and K10 at k=4 (f32, without and with a field) and
-    k=1, its pad mode (K9 on a block with pad planes) alike, and the
-    compensated pipeline of K4 and K11/K12 at k=4 (f32 v,
-    bf16 carry, without and with a field) and k=1."""
+    k=1, its pad mode (K9 on a block with pad planes) alike, its lane mode
+    (K3, K3f) at k=4, and the compensated pipeline of K4 and K11/K12 at
+    k=4 (f32 v, bf16 carry, without and with a field) and k=1, and its
+    lane mode (K4) at k=4 and 1."""
     want = {
-        "K3/K8/K10 k=4": "17kstep_pipe_kernelILi4EfLb0ELb0EE",
-        "K3f/K8f/K10f k=4": "17kstep_pipe_kernelILi4EfLb1ELb0EE",
-        "K3/K8/K10 k=1": "17kstep_pipe_kernelILi1EfLb0ELb0EE",
-        "K9 k=4": "17kstep_pipe_kernelILi4EfLb0ELb1EE",
-        "K9f k=4": "17kstep_pipe_kernelILi4EfLb1ELb1EE",
-        "K9 k=1": "17kstep_pipe_kernelILi1EfLb0ELb1EE",
+        "K3/K8/K10 k=4": "17kstep_pipe_kernelILi4EfLb0ELb0ELb0EE",
+        "K3f/K8f/K10f k=4": "17kstep_pipe_kernelILi4EfLb1ELb0ELb0EE",
+        "K3/K8/K10 k=1": "17kstep_pipe_kernelILi1EfLb0ELb0ELb0EE",
+        "K9 k=4": "17kstep_pipe_kernelILi4EfLb0ELb1ELb0EE",
+        "K9f k=4": "17kstep_pipe_kernelILi4EfLb1ELb1ELb0EE",
+        "K9 k=1": "17kstep_pipe_kernelILi1EfLb0ELb1ELb0EE",
+        "K3 lanes k=4": "17kstep_pipe_kernelILi4EfLb0ELb0ELb1EE",
+        "K3f lanes k=4": "17kstep_pipe_kernelILi4EfLb1ELb0ELb1EE",
         "K4/K11/K12 k=4":
-            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0EE",
+            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0ELb0EE",
         "K4f/K11f/K12f k=4":
-            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb1EE",
+            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb1ELb0EE",
         "K4/K11/K12 k=1":
-            "22kstep_comp_pipe_kernelILi1Ef13__nv_bfloat16Lb1ELb0EE",
+            "22kstep_comp_pipe_kernelILi1Ef13__nv_bfloat16Lb1ELb0ELb0EE",
+        "K4 lanes k=4":
+            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0ELb1EE",
+        "K4 lanes k=1":
+            "22kstep_comp_pipe_kernelILi1Ef13__nv_bfloat16Lb1ELb0ELb1EE",
     }
     found, func, spill = {}, None, None
     for line in "\n".join(logs.values()).splitlines():
@@ -2439,8 +2872,17 @@ def main() -> int:
         refs[label].update(side_errors(sides[label]))
     measured["resilience"] = phase_resilience(sides, counts, refs, card)
     del refs
-    done("resilience", t)
+    t = done("resilience", t)
     print(f"  phase 8 wall: {phase_s['resilience']!r} s ({card})")
+
+    print(f"phase 9: ensembles ({card})")
+    lane_times, ens_sides, ens_counts, throughput = phase_ensemble(
+        errs, rate, card)
+    times.update(lane_times)
+    counts.update(ens_counts)
+    measured["ensemble"] = dict(runs=ens_sides, throughput=throughput)
+    done("ensemble", t)
+    print(f"  phase 9 wall: {phase_s['ensemble']!r} s ({card})")
     rows = []
     for name, meta in KERNELS.items():
         row = {
@@ -2456,8 +2898,9 @@ def main() -> int:
             "bound_by": times[name]["bound_by"],
             "library_ms": None,
         }
-        if "ms_k1" in times[name]:
-            row["ms_k1"] = times[name]["ms_k1"]
+        for extra in ("ms_k1", "solo_x8_ms"):
+            if extra in times[name]:
+                row[extra] = times[name][extra]
         rows.append(row)
     keys = ("max_abs_error", "gcells_per_second", "solve_seconds",
             "init_seconds")

@@ -1178,3 +1178,265 @@ def test_checkpoint_writer_is_native_and_loads_onto_the_card(cuda, tmp_path):
         d, ["cuda"] * 4)
     assert step == 4 and all(b.device.type == "cuda" for b in u_cur.blocks)
     assert torch.equal(u_cur.assemble("cpu"), res.u_cur.assemble("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The lane modes (the ensembles' batch axis): each against its plain version
+# (the solo plain version lane by lane) and, lane by lane, against the solo
+# kernel on that lane's state - bitwise; over the whole batch and over a
+# live prefix (a contiguous view of its first lanes).
+
+LANES = 3
+
+
+def batch(n, seed, lanes=LANES, scale=1.0, dtype=torch.float32):
+    return torch.stack([field(n, seed + i, scale, dtype)
+                        for i in range(lanes)])
+
+
+def lane_fields(p, seed, lanes=LANES):
+    return torch.stack([c2_field(p, seed + i) for i in range(lanes)])
+
+
+def per_lane(solo, *batches, live):
+    """The solo launch on each of the first `live` lanes, stacked output
+    by output."""
+    outs = [solo(*(None if b is None else b[i] for b in batches))
+            for i in range(live)]
+    if isinstance(outs[0], torch.Tensor):
+        return [torch.stack(outs)]
+    return [None if o[0] is None else torch.stack(o) for o in zip(*outs)]
+
+
+@pytest.mark.parametrize("n", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["K1", "K5"])
+@pytest.mark.parametrize("live", [LANES, 2])
+def test_k1_k5_lanes(cuda, n, dtype, with_field, live):
+    p = Problem(N=n, timesteps=10)
+    up = batch(n, 1, dtype=dtype).to(cuda)[:live]
+    u = batch(n, 11, dtype=dtype).to(cuda)[:live]
+    f = stencil_ref.compute_dtype(dtype)
+    fld = lane_fields(p, 21).to(cuda, f)[:live] if with_field else None
+    kw = dict(inv_h2=p.inv_h2, alpha=2.0, beta=1.0, coeff=p.a2tau2)
+    name = "var_step_lanes" if with_field else "step_lanes"
+    before = dict(stencil_cuda.launches)
+    got = stencil_cuda.fused_step_lanes(up, u, c2tau2_field=fld, **kw)
+    assert stencil_cuda.launches[name] == before[name] + 1
+    equal([got], [stencil_cuda.fused_step_lanes_plain(
+        up, u, c2tau2_field=fld, **kw)])
+    equal([got], per_lane(lambda a, b, c: stencil_cuda.fused_step(
+        a, b, c2tau2_field=c, **kw), up, u, fld, live=live))
+
+
+@pytest.mark.parametrize("n", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("live", [LANES, 1])
+def test_k2_lanes(cuda, n, dtype, live):
+    p = Problem(N=n, timesteps=10)
+    u, v, c = (batch(n, s, scale=w, dtype=dtype).to(cuda)[:live]
+               for s, w in ((3, 1.0), (13, 1e-3), (23, 1e-8)))
+    z = torch.zeros_like(u)
+    for args in ((u, v, c, None), (u, z, z, 0.5 * p.a2tau2)):
+        before = stencil_cuda.launches["comp_step_lanes"]
+        got = stencil_cuda.compensated_step_lanes(*args[:3], p, args[3])
+        assert stencil_cuda.launches["comp_step_lanes"] == before + 1
+        co = p.a2tau2 if args[3] is None else args[3]
+        equal(got, stencil_cuda.compensated_step_lanes_plain(
+            *args[:3], inv_h2=p.inv_h2, coeff=co))
+        equal(got, per_lane(lambda a, b, cc: stencil_cuda.compensated_step(
+            a, b, cc, p, co), *args[:3], live=live))
+
+
+def lane_sxct(n, k, lanes=LANES):
+    """Per-lane (k, N) oracle rows: lane i's time factors from phase i."""
+    p = Problem(N=n, timesteps=20)
+    rows = []
+    for i in range(lanes):
+        sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(
+            p, torch.float32, "cpu", 0.3 * i + 1.0)
+        rows.append(ct[2:2 + k, None] * sx[None, :])
+    return syz, rsyz, torch.stack(rows)
+
+
+@pytest.mark.parametrize("n,k", [(32, 2), (32, 4), (128, 4), (64, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_field", [False, True], ids=["K3", "K3f"])
+@pytest.mark.parametrize("with_errors", [True, False])
+@pytest.mark.parametrize("live", [LANES, 2])
+def test_k3_lanes(cuda, n, k, dtype, with_field, with_errors, live):
+    p = Problem(N=n, timesteps=20)
+    up = batch(n, 1, dtype=dtype).to(cuda)[:live]
+    u = batch(n, 11, dtype=dtype).to(cuda)[:live]
+    fld = lane_fields(p, 21).to(cuda)[:live] if with_field else None
+    syz, rsyz, sxct = (t.to(cuda) for t in lane_sxct(n, k))
+    sxct = sxct[:live]
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, with_errors=with_errors)
+    name = "kstep_field_lanes" if with_field else "kstep_lanes"
+    before = stencil_cuda.launches[name]
+    got = stencil_cuda.fused_kstep_lanes(up, u, syz, rsyz, sxct,
+                                         c2tau2_field=fld, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    equal(got, stencil_cuda.fused_kstep_lanes_plain(
+        up, u, syz, rsyz, sxct, c2tau2_field=fld, **kw))
+    equal(got, per_lane(lambda a, b, s, c: stencil_cuda.fused_kstep(
+        a, b, syz, rsyz, s, c2tau2_field=c, **kw), up, u, sxct, fld,
+        live=live))
+
+
+@pytest.mark.parametrize("n,k", [(32, 4), (128, 4), (128, 1), (64, 8),
+                                 (48, 3)])
+@pytest.mark.parametrize("with_errors", [True, False])
+@pytest.mark.parametrize("live", [LANES, 2])
+def test_k4_lanes(cuda, n, k, with_errors, live):
+    """The flagship's storage (f32 u and v, bf16 carry): the compensated
+    ensemble's only form, the lane mode's only instantiation."""
+    p = Problem(N=n, timesteps=20)
+    u = batch(n, 3).to(cuda)[:live]
+    v = batch(n, 13, scale=1e-3).to(cuda)[:live]
+    c = batch(n, 23, scale=1e-8).to(cuda, torch.bfloat16)[:live]
+    syz, rsyz, sxct = (t.to(cuda) for t in lane_sxct(n, k))
+    sxct = sxct[:live]
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, with_errors=with_errors,
+              block_x=stencil_cuda.default_block_x(n, k))
+    before = stencil_cuda.launches["kstep_comp_lanes"]
+    got = stencil_cuda.fused_kstep_comp_lanes(u, v, c, syz, rsyz, sxct,
+                                              **kw)
+    assert stencil_cuda.launches["kstep_comp_lanes"] == before + 1
+    equal(got, stencil_cuda.fused_kstep_comp_lanes_plain(
+        u, v, c, syz, rsyz, sxct, **kw))
+    equal(got, per_lane(lambda a, b, cc, s: stencil_cuda.fused_kstep_comp(
+        a, b, cc, syz, rsyz, s, **kw), u, v, c, sxct, live=live))
+
+
+def lane_ghosts(shape, seed, dtype, cuda, lanes=LANES):
+    """(lanes, face) ghosts: lane i's are ghosts_of(shape, seed + 10 i)."""
+    per = [ghosts_of(shape, seed + 10 * i, dtype, cuda) for i in range(lanes)]
+    return [tuple(torch.stack([per[i][a][j] for i in range(lanes)])
+                  for j in range(2)) for a in range(3)]
+
+
+@pytest.mark.parametrize("mesh,n,shape,r_last,offsets", K6_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_k6_lanes(cuda, mesh, n, shape, r_last, offsets, dtype):
+    p = Problem(N=n, timesteps=10)
+    up = torch.stack([rand(shape, 1 + i, dtype) for i in range(LANES)])
+    u = torch.stack([rand(shape, 11 + i, dtype) for i in range(LANES)])
+    up, u = up.to(cuda), u.to(cuda)
+    g = lane_ghosts(shape, 3, dtype, cuda)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=mesh, r_last=r_last,
+              coeff=p.a2tau2)
+    for live in (LANES, 2):
+        gl = [tuple(x[:live].contiguous() for x in a) for a in g]
+        before = stencil_cuda.launches["sharded_step_lanes"]
+        got = stencil_cuda.sharded_fused_step_lanes(up[:live], u[:live], gl,
+                                                    offsets, n, **kw)
+        assert stencil_cuda.launches["sharded_step_lanes"] == before + 1
+        equal([got], [stencil_cuda.sharded_fused_step_lanes_plain(
+            up[:live], u[:live], gl, offsets, n, **kw)])
+        equal([got], [torch.stack([stencil_cuda.sharded_fused_step(
+            up[i], u[i], [tuple(x[i] for x in a) for a in g], offsets, n,
+            **kw) for i in range(live)])])
+
+
+def test_lane_modes_refuse_what_they_do_not_take(cuda):
+    """lanes x N x planes past the grid's z extent, and a K4 storage other
+    than the flagship's, raise before any launch."""
+    u = torch.zeros((2, 8, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="grid"):
+        stencil_cuda._lanes_of("K1/K5 lanes", u, 40000)
+    assert stencil_cuda._lanes_of("K1/K5 lanes", u, 8) == 2
+    p = Problem(N=8, timesteps=10)
+    syz, rsyz, sxct = (t.to(cuda) for t in lane_sxct(8, 4, 2))
+    before = dict(stencil_cuda.launches)
+    for v_dt, c_dt in ((torch.float32, torch.float32),
+                       (torch.bfloat16, None)):
+        c = None if c_dt is None else torch.zeros_like(u, dtype=c_dt)
+        with pytest.raises(ValueError, match="bf16 carry"):
+            stencil_cuda.fused_kstep_comp_lanes(
+                u, u.to(v_dt), c, syz, rsyz, sxct, k=4, coeff=p.a2tau2,
+                inv_h2=p.inv_h2)
+    assert stencil_cuda.launches == before
+
+
+@pytest.mark.parametrize("scheme,path", [
+    ("standard", "roll"), ("standard", "pallas"), ("standard", "kfused"),
+    ("compensated", "roll"), ("compensated", "pallas"),
+    ("compensated", "kfused")])
+def test_ensemble_lanes_equal_solo_on_card(cuda, scheme, path):
+    """Every lane of a batched march on the card equals the solo port
+    solve of that lane, states and error vectors; one lane launch per
+    layer or k-block."""
+    from wavetpu_torch.ensemble import batched
+    p = Problem(N=32, timesteps=17)
+    lanes = [batched.LaneSpec(), batched.LaneSpec(phase=1.0),
+             batched.LaneSpec(phase=0.5, stop_step=9)]
+    stencil_cuda.reset_launches()
+    res = batched.solve_ensemble(p, lanes, scheme=scheme, path=path,
+                                 pad_to=4)
+    counts = dict(stencil_cuda.launches)
+    assert res.batched and res.fallback_reason is None
+    solo_launches = {k: v for k, v in counts.items()
+                     if not k.endswith("_lanes")}
+    assert not any(solo_launches.values()), solo_launches
+    if path == "kfused":
+        name = ("kstep_comp_lanes" if scheme == "compensated"
+                else "kstep_lanes")
+        assert counts[name] == 4  # (17 - 1) / 4 blocks
+    for lane, got in zip(lanes, res.results):
+        kw = dict(stop_step=lane.stop(p), phase=lane.phase)
+        kernel = "roll" if path == "roll" else "pallas"
+        if scheme == "compensated" and path == "kfused":
+            want = kfused_comp.solve_kfused_comp(p, k=4, **kw)
+        elif scheme == "compensated":
+            want = leapfrog.solve_compensated(p, kernel=kernel, **kw)
+        elif path == "kfused":
+            want = kfused.solve_kfused(p, k=4, **kw)
+        else:
+            want = leapfrog.solve(p, kernel=kernel, **kw)
+        assert torch.equal(got.u_cur, want.u_cur)
+        assert torch.equal(got.u_prev, want.u_prev)
+        assert np.array_equal(got.abs_errors, want.abs_errors)
+        assert np.array_equal(got.rel_errors, want.rel_errors)
+
+
+@pytest.mark.parametrize("path", ["pallas", "kfused"])
+def test_field_ensemble_lanes_equal_solo_on_card(cuda, path):
+    from wavetpu_torch.ensemble import batched
+    p = Problem(N=32, timesteps=13)
+    lens = stencil_ref.make_preset_c2tau2_field(p, "gaussian-lens")
+    lanes = [batched.LaneSpec(c2tau2_field=lens),
+             batched.LaneSpec(stop_step=5)]
+    res = batched.solve_ensemble(p, lanes, path=path, compute_errors=False)
+    for lane, got in zip(batched.fill_fields(p, lanes), res.results):
+        kw = dict(stop_step=lane.stop(p), compute_errors=False,
+                  c2tau2_field=lane.c2tau2_field)
+        want = (kfused.solve_kfused(p, k=4, **kw) if path == "kfused"
+                else leapfrog.solve(p, **kw))
+        assert torch.equal(got.u_cur, want.u_cur)
+        assert torch.equal(got.u_prev, want.u_prev)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, 1), (2, 1, 1), (4, 1, 1)])
+def test_sharded_ensemble_lanes_equal_solo_on_card(cuda, mesh):
+    from wavetpu_torch.ensemble import batched, sharded as esh
+    p = Problem(N=30, timesteps=9)
+    lanes = [batched.LaneSpec(), batched.LaneSpec(phase=1.0),
+             batched.LaneSpec(phase=0.5, stop_step=5)]
+    stencil_cuda.reset_launches()
+    res = esh.solve_ensemble_sharded(p, lanes, mesh, kernel="pallas",
+                                     devices=["cuda"] * 4, pad_to=4)
+    n_shards = mesh[0] * mesh[1] * mesh[2]
+    # Bootstrap + 8 layers, one lane launch per shard each.
+    assert stencil_cuda.launches["sharded_step_lanes"] == 9 * n_shards
+    for lane, got in zip(lanes, res.results):
+        want = sharded.solve_sharded(p, mesh, devices=["cuda"] * 4,
+                                     stop_step=lane.stop(p),
+                                     phase=lane.phase)
+        assert torch.equal(got.u_cur.fundamental(), want.u_cur.fundamental())
+        assert torch.equal(got.u_prev.fundamental(),
+                           want.u_prev.fundamental())
+        assert np.array_equal(got.abs_errors, want.abs_errors)
+        assert np.array_equal(got.rel_errors, want.rel_errors)

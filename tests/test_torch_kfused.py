@@ -237,3 +237,31 @@ class TestSolveKfused:
         ref = jref.taylor_half_step(jnp.asarray(u0.numpy()),
                                     JProblem(N=15, timesteps=1))
         assert np.max(np.abs(r.u_cur.numpy() - np.asarray(ref))) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# The shifted phase: the analytic layer-1 start of the k-fused march,
+# against wavetpu's `phase=` solve (rel errors at odd N only:
+# tests/test_torch_solver.py's note).
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("phase", [1.0, 0.5])
+def test_shifted_phase_matches_wavetpu(dtype, tol, phase):
+    p, jp = Problem(N=12, timesteps=11), JProblem(N=12, timesteps=11)
+    ours = kfused.solve_kfused(p, dtype, k=4, device="cpu", phase=phase)
+    ref = jkfused.solve_kfused(jp, JDT[dtype], k=4, interpret=True,
+                               phase=phase)
+    assert np.max(np.abs(as64(ours.u_cur) - as64(ref.u_cur))) <= tol
+    assert np.max(np.abs(as64(ours.u_prev) - as64(ref.u_prev))) <= tol
+    np.testing.assert_allclose(ours.abs_errors, np.asarray(ref.abs_errors),
+                               rtol=0, atol=tol)
+
+
+def test_shifted_phase_equals_one_step_solve_bitwise():
+    p = Problem(N=12, timesteps=11)
+    fused = kfused.solve_kfused(p, k=4, device="cpu", phase=1.0)
+    one = leapfrog.solve(p, device="cpu", phase=1.0)
+    assert torch.equal(fused.u_cur, one.u_cur)
+    assert torch.equal(fused.u_prev, one.u_prev)

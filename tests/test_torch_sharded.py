@@ -394,3 +394,26 @@ def test_default_devices_are_the_cards():
         pytest.skip("a CUDA device is present: the default mesh uses it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sharded.solve_sharded(Problem(N=8, timesteps=4), (1, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# The shifted phase (the sharded ensemble's lane identity): the analytic
+# layer-1 start on every shard, against wavetpu's `phase=` solve and
+# bitwise the port's single-device solve.
+
+
+@pytest.mark.parametrize("n,mesh", [(15, (2, 2, 1)), (13, (4, 1, 1)),
+                                    (16, (2, 2, 2))])
+def test_solve_sharded_shifted_phase_matches_wavetpu(n, mesh):
+    ours = _ours(Problem(N=n, timesteps=10), mesh, phase=1.0, stop_step=7)
+    ref = _ref(n, 10, mesh, phase=1.0, stop_step=7)
+    np.testing.assert_allclose(state.assemble_sharded(ours.u_cur),
+                               np.asarray(ref.u_cur), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ours.abs_errors, ref.abs_errors, rtol=0,
+                               atol=1e-12)
+    one = leapfrog.solve(Problem(N=n, timesteps=10), dtype=torch.float64,
+                         device="cpu", phase=1.0, stop_step=7)
+    assert torch.equal(ours.u_cur.fundamental(), one.u_cur)
+    assert torch.equal(ours.u_prev.fundamental(), one.u_prev)
+    assert np.array_equal(ours.abs_errors, one.abs_errors)
+    assert np.array_equal(ours.rel_errors, one.rel_errors)

@@ -228,3 +228,68 @@ def test_cpu_solves_launch_no_kernel():
     leapfrog.solve(Problem(**CASE), device="cpu")
     kfused_comp.solve_kfused_comp(Problem(**FLAG), device="cpu")
     assert all(v == 0 for v in stencil_cuda.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# The shifted phase (the ensembles' lane identity): the analytic layer-1
+# start, against wavetpu's `phase=` solves.  rel errors are held at odd N
+# only: at even N the x = N/2 plane holds sin(pi) ~ 1e-16, and the rel
+# error there is a ratio of rounding noise (ROADMAP.md queue 3).
+
+PHASED = dict(CASE, N=15)
+
+
+@pytest.mark.parametrize("dt,jdt,tol", DT)
+@pytest.mark.parametrize("phase", [1.0, 0.5])
+def test_shifted_phase_matches_wavetpu(dt, jdt, tol, phase, jstep):
+    ours = leapfrog.solve(Problem(**PHASED), dtype=dt, device="cpu",
+                          phase=phase, stop_step=7)
+    ref = jlf.solve(JProblem(**PHASED), dtype=jdt, step_fn=jstep,
+                    phase=phase, stop_step=7)
+    assert maxdiff(ours.u_cur, ref.u_cur) <= tol
+    assert maxdiff(ours.u_prev, ref.u_prev) <= tol
+    np.testing.assert_allclose(ours.abs_errors, ref.abs_errors, rtol=0,
+                               atol=tol)
+    np.testing.assert_allclose(ours.rel_errors, ref.rel_errors,
+                               rtol=1e-3 if dt == torch.float32 else 1e-9,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dt,jdt,tol", DT)
+def test_shifted_phase_compensated_matches_wavetpu(dt, jdt, tol):
+    ours = leapfrog.solve_compensated(Problem(**PHASED), dtype=dt,
+                                      device="cpu", phase=1.0)
+    ref = jlf.solve_compensated(
+        JProblem(**PHASED), dtype=jdt, phase=1.0,
+        comp_step_fn=jpallas.make_compensated_step_fn(interpret=True))
+    for a, b in ((ours.u_cur, ref.u_cur), (ours.u_prev, ref.u_prev),
+                 (ours.comp_v, ref.comp_v), (ours.comp_carry, ref.comp_carry)):
+        assert maxdiff(a, b) <= tol
+    np.testing.assert_allclose(ours.abs_errors, ref.abs_errors, rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dt,jdt,tol", DT)
+def test_shifted_phase_flagship_matches_wavetpu(dt, jdt, tol):
+    ours = kfused_comp.solve_kfused_comp(Problem(**FLAG), dtype=dt, k=4,
+                                         block_x=8, device="cpu", phase=1.0)
+    ref = jkfc.solve_kfused_comp(JProblem(**FLAG), dtype=jdt, k=4,
+                                 block_x=8, interpret=True, phase=1.0)
+    for a, b in ((ours.u_cur, ref.u_cur), (ours.u_prev, ref.u_prev),
+                 (ours.comp_v, ref.comp_v), (ours.comp_carry, ref.comp_carry)):
+        assert maxdiff(a, b) <= tol
+    np.testing.assert_allclose(ours.abs_errors, ref.abs_errors, rtol=0,
+                               atol=tol)
+    np.testing.assert_allclose(ours.rel_errors, ref.rel_errors,
+                               rtol=1e-3 if dt == torch.float32 else 1e-9,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dt,jdt,tol", DT)
+@pytest.mark.parametrize("n", [0, 1])
+def test_analytic_layers_match_wavetpu(dt, jdt, tol, n):
+    p, jp = Problem(**CASE), JProblem(**CASE)
+    assert maxdiff(leapfrog.analytic_layer(p, dt, "cpu", 0.5, n),
+                   jlf.analytic_layer(jp, jdt, 0.5, n)) <= tol
+    assert maxdiff(leapfrog.analytic_increment_layer1(p, dt, "cpu", 0.5),
+                   jlf.analytic_increment_layer1(jp, jdt, 0.5)) <= tol

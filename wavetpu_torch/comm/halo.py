@@ -22,6 +22,10 @@ dim; the last shard owns r_last real planes):
    plane r_last (`absorb_hi_ghosts`, what the sharded kernels read).
 
 A mesh dim of 1 takes the local wrap with no copy (the block's own planes).
+
+A batch of lanes (the sharded ensemble: every block (B, bx, by, bz), lane
+first) passes `lanes=True`: each ghost is then (B, face), one copy per face
+for every lane.
 """
 
 from __future__ import annotations
@@ -66,8 +70,8 @@ def _plane(u: torch.Tensor, axis: int, p: int) -> torch.Tensor:
 
 def collect_ghosts(blocks: Sequence[torch.Tensor], topo: Topology,
                    mesh: Mesh,
-                   streams: Optional[Sequence[torch.cuda.Stream]] = None
-                   ) -> List[Ghosts]:
+                   streams: Optional[Sequence[torch.cuda.Stream]] = None,
+                   lanes: bool = False) -> List[Ghosts]:
     """Exchange the 6 face ghost planes of every shard; no placement.
 
     Returns, per shard in mesh order, ((xlo, xhi), (ylo, yhi), (zlo, zhi)):
@@ -76,8 +80,10 @@ def collect_ghosts(blocks: Sequence[torch.Tensor], topo: Topology,
     views of the block's own wrap planes (no pad exists there); otherwise
     copies received from the cyclic neighbour shard.  `streams` (one
     CUDA stream per shard, in mesh order) puts each copy on its sender's
-    and receiver's streams (`send`).
+    and receiver's streams (`send`).  `lanes`: every block is a (B,) +
+    block batch, and each ghost the (B, face) planes of all its lanes.
     """
+    lead = int(lanes)
     out = []
     for i, coord in enumerate(mesh.coords):
         dst = mesh.devices[i]
@@ -86,7 +92,8 @@ def collect_ghosts(blocks: Sequence[torch.Tensor], topo: Topology,
             m, b = topo.mesh_shape[axis], topo.block[axis]
             u = blocks[i]
             if m == 1:
-                ghosts.append((_plane(u, axis, b - 1), _plane(u, axis, 0)))
+                ghosts.append((_plane(u, axis + lead, b - 1),
+                               _plane(u, axis + lead, 0)))
                 continue
             lo_c = list(coord)
             lo_c[axis] -= 1
@@ -96,11 +103,11 @@ def collect_ghosts(blocks: Sequence[torch.Tensor], topo: Topology,
             # Forward: the lower neighbour's last real plane.
             last = (coord[axis] - 1) % m == m - 1
             p = topo.r_last[axis] - 1 if last else b - 1
-            ghost_lo = send(_plane(blocks[lo_i], axis, p), dst,
+            ghost_lo = send(_plane(blocks[lo_i], axis + lead, p), dst,
                             None if streams is None
                             else (streams[lo_i], streams[i]))
             # Backward: the upper neighbour's first plane.
-            ghost_hi = send(_plane(blocks[hi_i], axis, 0), dst,
+            ghost_hi = send(_plane(blocks[hi_i], axis + lead, 0), dst,
                             None if streams is None
                             else (streams[hi_i], streams[i]))
             ghosts.append((ghost_lo, ghost_hi))
@@ -153,7 +160,7 @@ def place_ghosts(u: torch.Tensor, ghosts: Ghosts, topo: Topology,
 
 def absorb_hi_ghosts(blocks: Sequence[torch.Tensor],
                      ghosts: Sequence[Ghosts], topo: Topology,
-                     mesh: Mesh) -> List[torch.Tensor]:
+                     mesh: Mesh, lanes: bool = False) -> List[torch.Tensor]:
     """Every shard's block with, on the last shard of each unevenly sharded
     axis, the `hi` ghost written into its first pad plane (plane r_last).
 
@@ -163,7 +170,7 @@ def absorb_hi_ghosts(blocks: Sequence[torch.Tensor],
     block is a copy (the state itself keeps its zero pad: the previous
     layer is read at its pad cells only by masked outputs); every other
     block is returned as it is.  Even axes are untouched (their hi ghost
-    rides the kernel's ghost operand)."""
+    rides the kernel's ghost operand).  `lanes` as `collect_ghosts`."""
     out = list(blocks)
     for i, coord in enumerate(mesh.coords):
         for axis in range(3):
@@ -172,5 +179,5 @@ def absorb_hi_ghosts(blocks: Sequence[torch.Tensor],
                 continue
             if out[i] is blocks[i]:
                 out[i] = blocks[i].clone()
-            _plane(out[i], axis, r).copy_(ghosts[i][axis][1])
+            _plane(out[i], axis + int(lanes), r).copy_(ghosts[i][axis][1])
     return out

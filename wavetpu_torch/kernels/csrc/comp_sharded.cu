@@ -85,8 +85,21 @@
 // as common.cuh's protocol: a NaN wins).  Slots instead of common.cuh's
 // shared atomics: 32 warps updating one word per stage and step serialise.
 //
+// Lane mode (K4 only: the ensemble's batch axis, wavetpu's vmap of
+// fused_kstep_comp in ensemble/batched.py): `lanes` whole states side by
+// side, u, v, the carry and every output lane-major with one lane stride
+// (the windows are views of the same batch), and per-lane oracle
+// rows sxct and error rows (lanes, k, d).  Block z is lane * segments +
+// segment, so a lane's blocks run the solo launch's op sequence on that
+// lane, slab by slab: each lane equals the solo launch bit for bit.  The
+// lane's offset is folded into the column's cell offsets once, before the
+// pipeline.  The lane mode takes the flagship's storage (f32 u and v, a
+// bf16 carry) without a field, the compensated ensemble's only form.
+//
 // Built by wavetpu_torch/kernels/build.py with --fmad=false, beside the
-// other sources: 8 k x 4 storage modes x field on/off = 64 instantiations.
+// other sources: 8 k x 4 storage modes x field on/off = 64 instantiations,
+// and 8 of the lane mode (its own instantiations, so the solo ones carry
+// none of it).
 // The entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().  Wrappers, plain PyTorch
 // versions and launch counters: stencil_cuda.fused_kstep_comp,
@@ -255,7 +268,7 @@ struct CompPipe {
   }
 };
 
-template <int K, typename VT, typename CT, bool HC, bool HF>
+template <int K, typename VT, typename CT, bool HC, bool HF, bool LANES>
 __global__ void __launch_bounds__(PipeThreads<K>::value, 1)
 kstep_comp_pipe_kernel(Chain<float> u, Chain<VT> v,
                        const CT* __restrict__ carry,
@@ -267,10 +280,26 @@ kstep_comp_pipe_kernel(Chain<float> u, Chain<VT> v,
                        unsigned* __restrict__ dmax,
                        unsigned* __restrict__ rmax, int d, int n, int py,
                        int ny, int y0, int bx, int seg, int ty, int tz,
-                       float coeff, float ix, float iy, float iz) {
+                       float coeff, float ix, float iy, float iz,
+                       int64_t lane_stride) {
+  // LANES (K4's lane mode): block z = lane * segments + segment.  The
+  // lane's rows lie K * d on; its cells lane_stride on in every state
+  // array, an offset folded into the column's cell offsets below (not
+  // into the array pointers, which then stay kernel parameters).  The
+  // solo instantiations compile without any of it.
+  int xs = blockIdx.z, lane = 0;
+  if (LANES) {
+    const int nseg = d / seg;
+    lane = xs / nseg;
+    xs -= lane * nseg;
+    if (dmax) {
+      const int64_t ro = (int64_t)lane * K * d;
+      sxct += ro, dmax += ro, rmax += ro;
+    }
+  }
   CompPipe<K, VT, CT, HC, HF> pp;
   pp.L = seg;
-  pp.pc = plane_cone(K, pp.L, ty, tz, n, py, ny, y0);
+  pp.pc = plane_cone(K, pp.L, ty, tz, n, py, ny, y0, xs);
   const Cone& cn = pp.pc.c;
   pp.u = u;
   pp.v = v;
@@ -303,6 +332,10 @@ kstep_comp_pipe_kernel(Chain<float> u, Chain<VT> v,
       pipe_sx[i / pp.L][i % pp.L] =
           sxct[(int64_t)(i / pp.L) * d + cn.x1 + i % pp.L];
   }
+  if (LANES) {
+    pp.pc.c.row += lane * lane_stride;
+    pp.pc.orow += lane * lane_stride;
+  }
   pp.nu = pp.nf = 0.0f;
   pp.nv = Conv<VT>::from(0.0f);
   pp.nc = Conv<CT>::from(0.0f);
@@ -333,11 +366,13 @@ struct Args {
   void *dmax, *rmax;
   int d, n, py, ny, y0, bx, seg, ty, tz;
   float coeff, ix, iy, iz;
+  int lanes;
+  int64_t lane_stride;
 };
 
-template <int K, typename VT, typename CT, bool HC, bool HF>
+template <int K, typename VT, typename CT, bool HC, bool HF, bool LANES>
 int launch_pipe(const Args& a, cudaStream_t stream) {
-  auto kern = kstep_comp_pipe_kernel<K, VT, CT, HC, HF>;
+  auto kern = kstep_comp_pipe_kernel<K, VT, CT, HC, HF, LANES>;
   const int cols = (a.ty + 2 * K) * (a.tz + 2 * K);
   const int threads = (cols + 31) / 32 * 32;
   if (threads > PipeThreads<K>::value || a.seg > kPipeMaxSeg)
@@ -347,7 +382,7 @@ int launch_pipe(const Args& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.n + a.tz - 1) / a.tz, (a.ny + a.ty - 1) / a.ty,
-                  a.d / a.seg);
+                  a.d / a.seg * a.lanes);
   const Chain<float> u{static_cast<const float*>(a.ulo),
                        static_cast<const float*>(a.u),
                        static_cast<const float*>(a.uhi)};
@@ -363,18 +398,24 @@ int launch_pipe(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.syz), static_cast<const float*>(a.rsyz),
       static_cast<const float*>(a.sxct), static_cast<unsigned*>(a.dmax),
       static_cast<unsigned*>(a.rmax), a.d, a.n, a.py, a.ny, a.y0, a.bx,
-      a.seg, a.ty, a.tz, a.coeff, a.ix, a.iy, a.iz);
+      a.seg, a.ty, a.tz, a.coeff, a.ix, a.iy, a.iz, a.lane_stride);
   return (int)cudaGetLastError();
 }
 
-// K4's storage modes, each with and without a field.
+// K4's storage modes, each with and without a field; the lane mode in
+// the flagship's storage (f32 v, bf16 carry), without a field.
 template <int K>
 int launch_comp_mode(int v_dtype, int carry_dtype, const Args& a,
                      cudaStream_t st) {
   const bool field = a.c2 != nullptr;
-#define WT_COMP(VT, CT, HC)                                 \
-  return field ? launch_pipe<K, VT, CT, HC, true>(a, st) \
-               : launch_pipe<K, VT, CT, HC, false>(a, st)
+  if (a.lanes > 1)
+    return v_dtype == WT_F32 && carry_dtype == WT_BF16 && !field
+               ? launch_pipe<K, float, __nv_bfloat16, true, false, true>(
+                     a, st)
+               : (int)cudaErrorInvalidValue;
+#define WT_COMP(VT, CT, HC)                                         \
+  return field ? launch_pipe<K, VT, CT, HC, true, false>(a, st) \
+               : launch_pipe<K, VT, CT, HC, false, false>(a, st)
   if (v_dtype == WT_F32 && carry_dtype == WT_BF16)
     WT_COMP(float, __nv_bfloat16, true);
   if (v_dtype == WT_F32 && carry_dtype == WT_F32) WT_COMP(float, float, true);
@@ -398,7 +439,10 @@ extern "C" {
 // by the caller, or null (then syz, rsyz - the central (ny, n) oracle
 // planes - and sxct (k, d) are not read).  1 <= k <= 8; the segment length
 // seg <= 64 divides bx, bx divides d; (ty + 2k)(tz + 2k) columns fit a
-// block.
+// block.  `lanes` > 1 is K4's lane mode (whole y rows, f32 v, a bf16
+// carry, no field): u, v, the carry, their windows and the outputs hold
+// `lanes` lanes `lane_stride` elements apart, sxct and the rows (lanes, k,
+// d).
 int wt_kstep_comp_chain(const void* u, const void* ulo, const void* uhi,
                         const void* v, const void* vlo, const void* vhi,
                         const void* carry, void* u_out, void* v_out,
@@ -408,11 +452,13 @@ int wt_kstep_comp_chain(const void* u, const void* ulo, const void* uhi,
                         int n, int py, int ny, int y0, int k, int bx,
                         int seg, int ty, int tz, int v_dtype,
                         int carry_dtype, double coeff, double ix, double iy,
-                        double iz, void* stream) {
+                        double iz, int lanes, int64_t lane_stride,
+                        void* stream) {
   const bool whole = py == ny && ny == n && y0 == 0;
   const bool ext = py == ny + 2 * k && y0 >= 0 && y0 < n;
   if (seg < 1 || bx < 1 || bx % seg || d % bx || k < 1 || k > 8 ||
-      ny < 1 || !(whole || ext) || ty < 1 || tz < 1)
+      ny < 1 || !(whole || ext) || ty < 1 || tz < 1 || lanes < 1 ||
+      (lanes > 1 && !whole) || (int64_t)(d / seg) * lanes > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{u, ulo, uhi, v, vlo, vhi, carry,
@@ -420,7 +466,8 @@ int wt_kstep_comp_chain(const void* u, const void* ulo, const void* uhi,
                c2, c2lo, c2hi, syz, rsyz, sxct,
                dmax, rmax,
                d, n, py, ny, y0, bx, seg, ty, tz,
-               (float)coeff, (float)ix, (float)iy, (float)iz};
+               (float)coeff, (float)ix, (float)iy, (float)iz,
+               lanes, lane_stride};
 #define WT_K(KK) \
   case KK:       \
     return launch_comp_mode<KK>(v_dtype, carry_dtype, a, st)

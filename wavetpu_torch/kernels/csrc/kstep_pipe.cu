@@ -88,9 +88,21 @@
 // bits of non-negative floats: a NaN wins); K9's pad planes add nothing,
 // so their rows stay zero.
 //
+// Lane mode (K3 and K3f only: the ensemble's batch axis, wavetpu's vmap
+// of fused_kstep in ensemble/batched.py): `lanes` whole states side by
+// side, every chain array, output and field lane-major with one lane
+// stride (the windows are views of the same batch), and per-lane oracle
+// rows sxct and error rows (lanes, k, d).  Block z is lane * segments +
+// segment, so a lane's blocks run the solo launch's op sequence on that
+// lane: each lane equals the solo launch bit for bit.  The lane's offset
+// is folded into the column's cell offsets once, before the pipeline, in
+// instantiations of their own (the solo ones compile as before).
+//
 // Built by wavetpu_torch/kernels/build.py with --fmad=false, beside the
-// other sources: 8 k x {f32, bf16} x field on/off x pad on/off = 64
-// instantiations (the pad mode is K9's with n_real < d).  The
+// other sources: 8 k x {f32, bf16} x field on/off x {solo, pad, lanes} =
+// 96 instantiations (the pad mode is K9's with n_real < d; the lane mode
+// K3's with lanes > 1, a compile-time mode, so the solo kernels carry
+// none of it).  The
 // entry point launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().  Wrappers, plain PyTorch
 // versions and launch counters: stencil_cuda.fused_kstep,
@@ -283,7 +295,7 @@ struct StdPipe {
   }
 };
 
-template <int K, typename T, bool HF, bool PAD>
+template <int K, typename T, bool HF, bool PAD, bool LANES>
 __global__ void __launch_bounds__(StdThreads<K>::value, 1)
 kstep_pipe_kernel(Chain<T> up, Chain<T> u, T* __restrict__ prev_out,
                   T* __restrict__ out, Chain<float> c2,
@@ -293,10 +305,25 @@ kstep_pipe_kernel(Chain<T> up, Chain<T> u, T* __restrict__ prev_out,
                   unsigned* __restrict__ dmax, unsigned* __restrict__ rmax,
                   int d, int n, int n_real, int py, int ny, int y0, int seg,
                   int ty, int tz, float coeff, float ix, float iy,
-                  float iz) {
+                  float iz, int64_t lane_stride) {
+  // LANES (K3's lane mode): block z = lane * segments + segment.  The
+  // lane's rows lie K * d on; its cells lane_stride on in every state
+  // array, an offset folded into the column's cell offsets below (not
+  // into the array pointers, which then stay kernel parameters).  The
+  // solo instantiations compile without any of it.
+  int xs = blockIdx.z, lane = 0;
+  if (LANES) {
+    const int nseg = (d + seg - 1) / seg;
+    lane = xs / nseg;
+    xs -= lane * nseg;
+    if (dmax) {
+      const int64_t ro = (int64_t)lane * K * d;
+      sxct += ro, dmax += ro, rmax += ro;
+    }
+  }
   StdPipe<K, T, HF, PAD> pp;
   pp.L = seg;
-  pp.pc = plane_cone(K, pp.L, ty, tz, n, py, ny, y0);
+  pp.pc = plane_cone(K, pp.L, ty, tz, n, py, ny, y0, xs);
   // The last segment ends at d: where seg does not divide d it starts at
   // d - seg and remakes planes of the segment before it (the same bits).
   pp.pc.c.x1 = min(pp.pc.c.x1, d - seg);
@@ -333,6 +360,10 @@ kstep_pipe_kernel(Chain<T> up, Chain<T> u, T* __restrict__ prev_out,
     for (int i = cn.tid; i < 2 * kStdMaxK * 2 * 32; i += blockDim.x)
       (&std_wmax[0][0][0][0])[i] = 0u;
   }
+  if (LANES) {
+    pp.pc.c.row += lane * lane_stride;
+    pp.pc.orow += lane * lane_stride;
+  }
   pp.nu = pp.np = Conv<T>::from(0.0f);
   pp.nf = 0.0f;
 #pragma unroll
@@ -361,11 +392,13 @@ struct StdArgs {
   void *dmax, *rmax;
   int d, n, n_real, py, ny, y0, seg, ty, tz;
   float coeff, ix, iy, iz;
+  int lanes;
+  int64_t lane_stride;
 };
 
-template <int K, typename T, bool HF, bool PAD>
+template <int K, typename T, bool HF, bool PAD, bool LANES>
 int launch_std(const StdArgs& a, cudaStream_t stream) {
-  auto kern = kstep_pipe_kernel<K, T, HF, PAD>;
+  auto kern = kstep_pipe_kernel<K, T, HF, PAD, LANES>;
   const int cols = (a.ty + 2 * K) * (a.tz + 2 * K);
   const int threads = (cols + 31) / 32 * 32;
   if (threads > StdThreads<K>::value || a.seg > kStdMaxSeg)
@@ -375,7 +408,7 @@ int launch_std(const StdArgs& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.n + a.tz - 1) / a.tz, (a.ny + a.ty - 1) / a.ty,
-                  (a.d + a.seg - 1) / a.seg);
+                  (a.d + a.seg - 1) / a.seg * a.lanes);
   const Chain<T> up{static_cast<const T*>(a.uplo),
                     static_cast<const T*>(a.up),
                     static_cast<const T*>(a.uphi)};
@@ -389,18 +422,21 @@ int launch_std(const StdArgs& a, cudaStream_t stream) {
       static_cast<const float*>(a.syz), static_cast<const float*>(a.rsyz),
       static_cast<const float*>(a.sxct), static_cast<unsigned*>(a.dmax),
       static_cast<unsigned*>(a.rmax), a.d, a.n, a.n_real, a.py, a.ny, a.y0,
-      a.seg, a.ty, a.tz, a.coeff, a.ix, a.iy, a.iz);
+      a.seg, a.ty, a.tz, a.coeff, a.ix, a.iy, a.iz, a.lane_stride);
   return (int)cudaGetLastError();
 }
 
 template <int K, typename T>
 int launch_std_mode(const StdArgs& a, cudaStream_t st) {
   const bool field = a.c2 != nullptr, pad = a.n_real < a.d;
+  if (a.lanes > 1)
+    return field ? launch_std<K, T, true, false, true>(a, st)
+                 : launch_std<K, T, false, false, true>(a, st);
   if (pad)
-    return field ? launch_std<K, T, true, true>(a, st)
-                 : launch_std<K, T, false, true>(a, st);
-  return field ? launch_std<K, T, true, false>(a, st)
-               : launch_std<K, T, false, false>(a, st);
+    return field ? launch_std<K, T, true, true, false>(a, st)
+                 : launch_std<K, T, false, true, false>(a, st);
+  return field ? launch_std<K, T, true, false, false>(a, st)
+               : launch_std<K, T, false, false, false>(a, st);
 }
 
 template <int K>
@@ -426,7 +462,9 @@ extern "C" {
 // syz, rsyz - the central (ny, n) oracle planes - and sxct (k, d) are not
 // read).  1 <= k <= 8; the segment length seg <= min(d, 128) (the last of
 // ceil(d / seg) segments ends at d); (ty + 2k)(tz + 2k) columns fit a
-// block.
+// block.  `lanes` > 1 is K3's lane mode (whole y rows, no pad): every
+// state, window, output and field array holds `lanes` lanes `lane_stride`
+// elements apart, sxct and the rows (lanes, k, d).
 int wt_kstep_pipe(const void* uprev, const void* uplo, const void* uphi,
                   const void* u, const void* ulo, const void* uhi,
                   void* prev_out, void* out, const void* c2,
@@ -434,12 +472,14 @@ int wt_kstep_pipe(const void* uprev, const void* uplo, const void* uphi,
                   const void* rsyz, const void* sxct, void* dmax,
                   void* rmax, int d, int n, int n_real, int py, int ny,
                   int y0, int k, int seg, int ty, int tz, int dtype,
-                  double coeff, double ix, double iy, double iz,
-                  void* stream) {
+                  double coeff, double ix, double iy, double iz, int lanes,
+                  int64_t lane_stride, void* stream) {
   const bool whole = py == ny && ny == n && y0 == 0;
   const bool ext = py == ny + 2 * k && y0 >= 0 && y0 < n;
   if (seg < 1 || seg > d || k < 1 || k > kStdMaxK || ny < 1 ||
-      !(whole || ext) || n_real < 1 || n_real > d || ty < 1 || tz < 1)
+      !(whole || ext) || n_real < 1 || n_real > d || ty < 1 || tz < 1 ||
+      lanes < 1 || (lanes > 1 && !(whole && n_real == d)) ||
+      (int64_t)((d + seg - 1) / seg) * lanes > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const StdArgs a{uprev, uplo, uphi, u, ulo, uhi,
@@ -447,7 +487,8 @@ int wt_kstep_pipe(const void* uprev, const void* uplo, const void* uphi,
                   c2, c2lo, c2hi, syz, rsyz, sxct,
                   dmax, rmax,
                   d, n, n_real, py, ny, y0, seg, ty, tz,
-                  (float)coeff, (float)ix, (float)iy, (float)iz};
+                  (float)coeff, (float)ix, (float)iy, (float)iz,
+                  lanes, lane_stride};
 #define WT_K(KK) \
   case KK:       \
     return launch_std_dtype<KK>(dtype, a, st)

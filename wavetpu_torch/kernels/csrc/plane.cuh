@@ -35,9 +35,11 @@ struct PlaneCone {
   bool orow_ok;  // its row is an output row (a central row of the block)
 };
 
+// `xs` is the block's x segment (block z, or its segment within a lane in
+// the pipelines' lane mode).
 __device__ __forceinline__ PlaneCone plane_cone(int k, int tx, int ty, int tz,
-                                                int n, int py, int ny,
-                                                int y0) {
+                                                int n, int py, int ny, int y0,
+                                                int xs) {
   PlaneCone p;
   Cone& c = p.c;
   c.ex = tx + 2 * k;
@@ -48,7 +50,7 @@ __device__ __forceinline__ PlaneCone plane_cone(int k, int tx, int ty, int tz,
   c.live = c.tid < c.cols;
   c.lz = c.live ? c.tid % c.ez : 0;
   c.ly = c.live ? c.tid / c.ez : 0;
-  c.x1 = blockIdx.z * tx;
+  c.x1 = xs * tx;
   const int y1 = blockIdx.y * ty, z1 = blockIdx.x * tz;
   const int yo = y1 - k + c.ly;  // the column's row among the output rows
   const int gz = wrap(z1 - k + c.lz, n);

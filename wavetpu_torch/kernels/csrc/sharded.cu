@@ -15,9 +15,15 @@
 // plain PyTorch versions and launch counters:
 // wavetpu_torch/kernels/stencil_cuda.py.
 //
-// Layout: one shard's block, z contiguous.  Every entry point launches on
-// the caller's stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError().
+// Layout: one shard's block, z contiguous.  K6's lane mode (the sharded
+// ensemble's batch axis, wavetpu's vmap inside ensemble/sharded.py's
+// shard_map) takes `lanes` blocks side by side, (lanes, bx, by, bz), and
+// each ghost as (lanes, face) - one copy per face for every lane
+// (comm/halo.collect_ghosts with lanes); block z is lane * bx + x, and a
+// lane's cells run the solo kernel's op sequence (constant speed only; a
+// compile-time mode, so the solo kernels carry none of it).  Every entry
+// point launches on the caller's stream, allocates nothing, does not
+// synchronise, and returns cudaGetLastError().
 
 #include "common.cuh"
 
@@ -104,7 +110,7 @@ constexpr int kRowThreads = 32, kColThreads = 8;  // 1-step block: (z, y)
 // K6: out = alpha*u + coeff*lap(u) - beta*u_prev (beta term only if
 // use_beta), or with FIELD the block's field cell in place of coeff and
 // (alpha, beta) = (2, 1): K1's and K5's body, masked by in_domain.
-template <typename T, bool FIELD>
+template <typename T, bool FIELD, bool LANES>
 __global__ void sharded_step_kernel(const T* __restrict__ uprev,
                                     const T* __restrict__ u,
                                     T* __restrict__ out,
@@ -119,8 +125,22 @@ __global__ void sharded_step_kernel(const T* __restrict__ uprev,
   using F = typename Conv<T>::F;
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int x = blockIdx.z;
+  int x = blockIdx.z;
   if (z >= g.bz || y >= g.by) return;
+  if (LANES) {  // block z = lane * bx + x; offsets into the lane's block
+    const int lane = blockIdx.z / g.bx;
+    x = blockIdx.z - lane * g.bx;
+    const int64_t blk = (int64_t)lane * g.bx * g.by * g.bz;
+    uprev += blk;
+    u += blk;
+    out += blk;
+    const int64_t fx = (int64_t)lane * g.by * g.bz,
+                  fy = (int64_t)lane * g.bx * g.bz,
+                  fz = (int64_t)lane * g.bx * g.by;
+    if (h.xlo) h.xlo += fx, h.xhi += fx;
+    if (h.ylo) h.ylo += fy, h.yhi += fy;
+    if (h.zlo) h.zlo += fz, h.zhi += fz;
+  }
   const int64_t e = ((int64_t)x * g.by + y) * g.bz + z;
   const F c = Conv<T>::to(u[e]);
   const F lap = ghost_laplacian<T, F>(u, h, g, x, y, z, e, c, ix, iy, iz);
@@ -156,9 +176,9 @@ __global__ void sharded_comp_kernel(const T* __restrict__ u,
   carry_out[e] = (t - c) - yy;
 }
 
-dim3 grid_block(const Geom& g) {
+dim3 grid_block(const Geom& g, int lanes) {
   return dim3((g.bz + kRowThreads - 1) / kRowThreads,
-              (g.by + kColThreads - 1) / kColThreads, g.bx);
+              (g.by + kColThreads - 1) / kColThreads, g.bx * lanes);
 }
 
 template <typename T>
@@ -176,32 +196,36 @@ extern "C" {
 // K6 with a null c2; with c2 (the block's field in the compute dtype: f64
 // for an f64 state, else f32) the variable-speed body, launched with
 // (alpha, beta) = (2, 1).  Ghost pointers are null on axes whose mesh dim
-// is 1; pad flags are 1 on axes that carry pad planes.
+// is 1; pad flags are 1 on axes that carry pad planes.  `lanes` > 1 is
+// the lane mode (constant speed: c2 null): `lanes` blocks and ghosts side
+// by side, in instantiations of their own.
 int wt_sharded_step(const void* uprev, const void* u, void* out,
                     const void* c2, const void* xlo, const void* xhi,
                     const void* ylo, const void* yhi, const void* zlo,
                     const void* zhi, int bx, int by, int bz, int ox, int oy,
                     int oz, int n, int padx, int pady, int padz, int dtype,
                     double alpha, double beta, double coeff, double ix,
-                    double iy, double iz, int use_beta, void* stream) {
-  if (bx < 1 || by < 1 || bz < 1) return (int)cudaErrorInvalidValue;
+                    double iy, double iz, int use_beta, int lanes,
+                    void* stream) {
+  if (bx < 1 || by < 1 || bz < 1 || lanes < 1 ||
+      (int64_t)bx * lanes > 65535 || (lanes > 1 && c2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geom g{bx, by, bz, ox, oy, oz, n, padx, pady, padz};
-  const dim3 grid = grid_block(g), block(kRowThreads, kColThreads);
+  const dim3 grid = grid_block(g, lanes), block(kRowThreads, kColThreads);
+#define WT_STEP_L(T, F, FIELD, LANES)                                        \
+  sharded_step_kernel<T, FIELD, LANES><<<grid, block, 0, st>>>(              \
+      static_cast<const T*>(uprev), static_cast<const T*>(u),                \
+      static_cast<T*>(out), static_cast<const F*>(c2),                       \
+      halo_of<T>(xlo, xhi, ylo, yhi, zlo, zhi), g, (F)alpha, (F)beta,        \
+      (F)coeff, (F)ix, (F)iy, (F)iz, use_beta)
 #define WT_STEP(T, F)                                                        \
-  {                                                                          \
-    const Halo<T> h = halo_of<T>(xlo, xhi, ylo, yhi, zlo, zhi);              \
-    if (c2)                                                                  \
-      sharded_step_kernel<T, true><<<grid, block, 0, st>>>(                  \
-          static_cast<const T*>(uprev), static_cast<const T*>(u),            \
-          static_cast<T*>(out), static_cast<const F*>(c2), h, g, (F)alpha,   \
-          (F)beta, (F)coeff, (F)ix, (F)iy, (F)iz, use_beta);                 \
-    else                                                                     \
-      sharded_step_kernel<T, false><<<grid, block, 0, st>>>(                 \
-          static_cast<const T*>(uprev), static_cast<const T*>(u),            \
-          static_cast<T*>(out), nullptr, h, g, (F)alpha, (F)beta, (F)coeff,  \
-          (F)ix, (F)iy, (F)iz, use_beta);                                    \
-  }
+  if (lanes > 1)                                                             \
+    WT_STEP_L(T, F, false, true);                                            \
+  else if (c2)                                                               \
+    WT_STEP_L(T, F, true, false);                                            \
+  else                                                                       \
+    WT_STEP_L(T, F, false, false)
   switch (dtype) {
     case WT_F32:
       WT_STEP(float, float);
@@ -216,6 +240,7 @@ int wt_sharded_step(const void* uprev, const void* u, void* out,
       return (int)cudaErrorInvalidValue;
   }
 #undef WT_STEP
+#undef WT_STEP_L
   return (int)cudaGetLastError();
 }
 
@@ -231,7 +256,7 @@ int wt_sharded_comp_step(const void* u, const void* v, const void* carry,
   if (bx < 1 || by < 1 || bz < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geom g{bx, by, bz, ox, oy, oz, n, padx, pady, padz};
-  const dim3 grid = grid_block(g), block(kRowThreads, kColThreads);
+  const dim3 grid = grid_block(g, 1), block(kRowThreads, kColThreads);
 #define WT_COMP(T)                                                           \
   sharded_comp_kernel<T><<<grid, block, 0, st>>>(                            \
       static_cast<const T*>(u), static_cast<const T*>(v),                    \

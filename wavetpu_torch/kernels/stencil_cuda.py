@@ -20,6 +20,15 @@ wavetpu/kernels/stencil_pallas.py's kernels.
 | K11    | `_kstep_comp_sharded_kernel` :1163 via `fused_kstep_comp_sharded` :1264 | `fused_kstep_comp_sharded` | `kstep_comp_sharded` (`kstep_comp_sharded_field`) |
 | K12    | `_kstep_comp_sharded_xy_kernel` :1369 via `fused_kstep_comp_sharded_xy` :1478 | `fused_kstep_comp_sharded_xy` | `kstep_comp_sharded_xy` (`kstep_comp_sharded_xy_field`) |
 
+Lane modes (the ensembles' batch axis, wavetpu's `jax.vmap` of the same
+Pallas bodies in ensemble/batched.py and ensemble/sharded.py; one launch
+of the solo kernel over B lanes): K1 `fused_step_lanes` (`step_lanes`),
+K5 `fused_step_lanes(c2tau2_field=)` (`var_step_lanes`), K2
+`compensated_step_lanes` (`comp_step_lanes`), K3 `fused_kstep_lanes`
+(`kstep_lanes`), K3f `fused_kstep_lanes(c2tau2_field=)`
+(`kstep_field_lanes`), K4 `fused_kstep_comp_lanes` (`kstep_comp_lanes`),
+K6 `sharded_fused_step_lanes` (`sharded_step_lanes`).
+
 The sharded kernels (K6-K12) take one shard's block and the ghost planes
 that comm/halo.py (or the sharded k-fused solvers) delivered from the
 neighbour shards.  K3, K8, K9 and K10 are one CUDA kernel
@@ -72,6 +81,10 @@ launches: Dict[str, int] = {
     "kstep_sharded_xy": 0, "kstep_sharded_xy_field": 0,
     "kstep_comp_sharded": 0, "kstep_comp_sharded_field": 0,
     "kstep_comp_sharded_xy": 0, "kstep_comp_sharded_xy_field": 0,
+    # The lane modes (the ensembles' batch axis; see the end of the file).
+    "step_lanes": 0, "var_step_lanes": 0, "comp_step_lanes": 0,
+    "kstep_lanes": 0, "kstep_field_lanes": 0, "kstep_comp_lanes": 0,
+    "sharded_step_lanes": 0,
 }
 
 # dtype codes of csrc/stencil.cu.
@@ -120,9 +133,9 @@ def _lib() -> ctypes.CDLL:
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.wt_error_string.argtypes = [i]
         lib.wt_error_string.restype = ctypes.c_char_p
-        lib.wt_step.argtypes = [p, p, p, p, i, i, d, d, d, d, d, d, i, p]
+        lib.wt_step.argtypes = [p, p, p, p, i, i, d, d, d, d, d, d, i, i, p]
         lib.wt_step.restype = i
-        lib.wt_comp_step.argtypes = [p, p, p, p, p, p, i, i, d, d, d, d, p]
+        lib.wt_comp_step.argtypes = [p, p, p, p, p, p, i, i, d, d, d, d, i, p]
         lib.wt_comp_step.restype = i
         lib._wt_typed = True
     return lib
@@ -133,7 +146,8 @@ def _kstep_pipe_lib() -> ctypes.CDLL:
     lib = build.load("kstep_pipe")
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_kstep_pipe.argtypes = [p] * 16 + [i] * 11 + [d] * 4 + [p]
+        lib.wt_kstep_pipe.argtypes = (
+            [p] * 16 + [i] * 11 + [d] * 4 + [i, ctypes.c_int64, p])
         lib.wt_kstep_pipe.restype = i
         lib._wt_typed = True
     return lib
@@ -145,7 +159,7 @@ def _sharded_lib() -> ctypes.CDLL:
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.wt_sharded_step.argtypes = (
-            [p] * 10 + [i] * 11 + [d] * 6 + [i, p])
+            [p] * 10 + [i] * 11 + [d] * 6 + [i, i, p])
         lib.wt_sharded_step.restype = i
         lib.wt_sharded_comp_step.argtypes = (
             [p] * 12 + [i] * 11 + [d] * 4 + [p])
@@ -160,7 +174,7 @@ def _comp_sharded_lib() -> ctypes.CDLL:
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.wt_kstep_comp_chain.argtypes = (
-            [p] * 18 + [i] * 12 + [d] * 4 + [p])
+            [p] * 18 + [i] * 12 + [d] * 4 + [i, ctypes.c_int64, p])
         lib.wt_kstep_comp_chain.restype = i
         lib._wt_typed = True
     return lib
@@ -277,7 +291,7 @@ def fused_step(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff=None,
         _run(_lib().wt_step, u_prev.data_ptr(), u.data_ptr(),
              out.data_ptr(), _ptr(c2tau2_field), n, _CODE[u.dtype],
              float(alpha), float(beta), float(coeff),
-             *(float(h) for h in inv_h2), int(beta != 0),
+             *(float(h) for h in inv_h2), int(beta != 0), 1,
              inst=("step" if c2tau2_field is None else "var_step", u.dtype,
                    beta != 0))
     launches["step" if c2tau2_field is None else "var_step"] += 1
@@ -380,7 +394,8 @@ def compensated_step(u, v, carry, problem: Problem, coeff=None):
         _run(_lib().wt_comp_step, u.data_ptr(), v.data_ptr(),
              carry.data_ptr(), *(o.data_ptr() for o in outs), n,
              _CODE[u.dtype], float(coeff),
-             *(float(h) for h in problem.inv_h2), inst=("comp_step", u.dtype))
+             *(float(h) for h in problem.inv_h2), 1,
+             inst=("comp_step", u.dtype))
     launches["comp_step"] += 1
     return outs
 
@@ -808,7 +823,7 @@ def sharded_fused_step(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
              *_block_geometry(u, offsets, n_global, pads), _CODE[u.dtype],
              float(alpha), float(beta),
              float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2), int(beta != 0),
+             *(float(h) for h in inv_h2), int(beta != 0), 1,
              inst=("sharded_step", u.dtype, c2tau2_block is not None,
                    beta != 0))
     launches["sharded_step" if c2tau2_block is None
@@ -1019,7 +1034,7 @@ def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
              _ptr(dmax), _ptr(rmax), d, n, n_real, w, ny, int(y0), k, seg,
              ty, tz, _CODE[u.dtype],
              float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2),
+             *(float(h) for h in inv_h2), 1, 0,
              inst=("kstep_pipe", k, u.dtype, c2tau2_block is not None,
                    n_real < d))
     launches[counter if c2tau2_block is None else counter + "_field"] += 1
@@ -1304,7 +1319,7 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
              tz, _CODE[v.dtype],
              _NONE if carry is None else _CODE[carry.dtype],
              float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2),
+             *(float(h) for h in inv_h2), 1, 0,
              inst=("kstep_comp_pipe", k, v.dtype,
                    None if carry is None else carry.dtype,
                    c2tau2_block is not None))
@@ -1401,3 +1416,334 @@ def fused_kstep_comp_sharded_xy(u_ext, v_ext, carry, u_ghosts, v_ghosts,
                        u_ghosts, v_ghosts, syz_c, rsyz_c, sxct,
                        c2tau2_block=c2tau2_ext, c2_ghosts=c2_ghosts,
                        y0=int(y0), nl_y=nl_y, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Lane modes: the ensemble's batch axis (wavetpu's `jax.vmap` of K1/K5, K2,
+# K3/K3f and K4 in ensemble/batched.py, and of K6 inside
+# ensemble/sharded.py's shard_map).  A lane mode takes B states side by
+# side, (B, N, N, N) contiguous (a shard's (B, bx, by, bz) for K6), and is
+# ONE launch of the solo kernel with the lane index taken from the grid
+# (csrc/*.cu "Lane mode"): every lane's cells run the solo kernel's op
+# sequence, so lane i equals the solo launch on lane i's state bit for bit.
+# Per-lane operands ride the batch axis: K5/K3f's field (B, N, N, N), K3/K4's
+# sxct and error rows (B, k, N).  The plain version is the solo plain
+# version applied lane by lane.  A caller passes a batch's live prefix
+# (`u[:n]`, a contiguous view) to launch over those lanes only.  The Pallas
+# bodies batched (wavetpu/kernels/stencil_pallas.py): K1 `_step_kernel`
+# :130, K5 `_var_step_kernel` :147, K2 `_comp_step_kernel` :544, K3/K3f
+# `_kstep_kernel` :745 (`_field_onion` :721), K4 `_kstep_comp_kernel` :970,
+# K6 `_sharded_kernel` :316.
+
+
+def _lanes_of(name, u, z_planes) -> int:
+    """The lane count of a (B, ...) batch, checked against the grid's z
+    extent: B * z_planes blocks (x planes or x segments) must fit 65535."""
+    b = u.shape[0]
+    if u.dim() != 4 or b < 1:
+        raise ValueError(f"{name} takes a (B, ...) batch, got "
+                         f"{tuple(u.shape)}")
+    if b * z_planes > 65535:
+        raise ValueError(
+            f"{name}: {b} lanes x {z_planes} x blocks exceed the grid's z "
+            f"extent (65535); split the batch")
+    return b
+
+
+def _check_lane_batch(n, **tensors) -> None:
+    """Raise unless every given tensor is a contiguous (B, n, n, n) CUDA
+    tensor on one device with the first one's lane count."""
+    dev = lanes = None
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device.type != "cuda" or (dev is not None and t.device != dev):
+            raise ValueError(f"{name} is on {t.device}, the kernel needs "
+                             f"{dev or 'CUDA'}")
+        dev = t.device
+        lanes = t.shape[0] if lanes is None else lanes
+        if not t.is_contiguous() or tuple(t.shape) != (lanes, n, n, n):
+            raise ValueError(f"{name} must be a contiguous {(lanes, n, n, n)}"
+                             f" batch, got {tuple(t.shape)}")
+
+
+def _lane_field(field, i):
+    return None if field is None else field[i]
+
+
+def fused_step_lanes_plain(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0,
+                           coeff=None, c2tau2_field=None):
+    """Plain K1/K5 lane mode: `fused_step_plain` lane by lane."""
+    return torch.stack([
+        fused_step_plain(u_prev[i], u[i], inv_h2=inv_h2, alpha=alpha,
+                         beta=beta, coeff=coeff,
+                         c2tau2_field=_lane_field(c2tau2_field, i))
+        for i in range(u.shape[0])])
+
+
+def fused_step_lanes(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff=None,
+                     c2tau2_field=None):
+    """K1 lane mode (K5's with a (B, N, N, N) field in the compute dtype,
+    which then replaces alpha/beta/coeff): (B, N, N, N) -> (B, N, N, N),
+    one launch of `fused_step`'s kernel over every lane."""
+    if u.device.type == "cpu":
+        return fused_step_lanes_plain(u_prev, u, inv_h2=inv_h2, alpha=alpha,
+                                      beta=beta, coeff=coeff,
+                                      c2tau2_field=c2tau2_field)
+    n = u.shape[-1]
+    lanes = _lanes_of("K1/K5 lanes", u, n)
+    _check_lane_batch(n, u=u, u_prev=u_prev, c2tau2_field=c2tau2_field)
+    if u.dtype not in _CODE or u_prev.dtype != u.dtype:
+        raise ValueError(f"K1/K5 take f32/f64/bf16 state, got "
+                         f"{u.dtype}/{u_prev.dtype}")
+    if c2tau2_field is not None:
+        if c2tau2_field.dtype != compute_dtype(u.dtype):
+            raise ValueError(f"c2tau2_field must be "
+                             f"{compute_dtype(u.dtype)}")
+        alpha, beta, coeff = 2.0, 1.0, 0.0
+    out = torch.empty_like(u)
+    name = "step_lanes" if c2tau2_field is None else "var_step_lanes"
+    with torch.cuda.device(u.device):
+        _run(_lib().wt_step, u_prev.data_ptr(), u.data_ptr(),
+             out.data_ptr(), _ptr(c2tau2_field), n, _CODE[u.dtype],
+             float(alpha), float(beta), float(coeff),
+             *(float(h) for h in inv_h2), int(beta != 0), lanes,
+             inst=(name, u.dtype, beta != 0))
+    launches[name] += 1
+    return out
+
+
+def compensated_step_lanes_plain(u, v, carry, *, inv_h2, coeff):
+    """Plain K2 lane mode: `compensated_step_plain` lane by lane."""
+    return _stack_lanes([
+        compensated_step_plain(u[i], v[i], carry[i], inv_h2=inv_h2,
+                               coeff=coeff) for i in range(u.shape[0])])
+
+
+def compensated_step_lanes(u, v, carry, problem: Problem, coeff=None):
+    """K2 lane mode: (B, N, N, N) u, v and carry of one dtype -> (u', v',
+    carry'), one launch of `compensated_step`'s kernel over every lane."""
+    coeff = problem.a2tau2 if coeff is None else coeff
+    if u.device.type == "cpu":
+        return compensated_step_lanes_plain(u, v, carry,
+                                            inv_h2=problem.inv_h2,
+                                            coeff=coeff)
+    n = u.shape[-1]
+    lanes = _lanes_of("K2 lanes", u, n)
+    _check_lane_batch(n, u=u, v=v, carry=carry)
+    if u.dtype not in (torch.float32, torch.float64) or not (
+        v.dtype == carry.dtype == u.dtype
+    ):
+        raise ValueError("K2 takes f32 or f64 u, v and carry of one dtype")
+    outs = tuple(torch.empty_like(u) for _ in range(3))
+    with torch.cuda.device(u.device):
+        _run(_lib().wt_comp_step, u.data_ptr(), v.data_ptr(),
+             carry.data_ptr(), *(o.data_ptr() for o in outs), n,
+             _CODE[u.dtype], float(coeff),
+             *(float(h) for h in problem.inv_h2), lanes,
+             inst=("comp_step_lanes", u.dtype))
+    launches["comp_step_lanes"] += 1
+    return outs
+
+
+def _stack_lanes(outs):
+    """Per-lane output tuples stacked output by output (an output that is
+    None - rows off, no carry - stays None)."""
+    return tuple(None if o[0] is None else torch.stack(o)
+                 for o in zip(*outs))
+
+
+def fused_kstep_lanes_plain(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
+                            c2tau2_field=None, with_errors=True):
+    """Plain K3/K3f lane mode: `fused_kstep_plain` lane by lane, with lane
+    i's sxct row block (sxct[i], (k, N)) and field."""
+    return _stack_lanes([
+        fused_kstep_plain(u_prev[i], u[i], syz, rsyz,
+                          None if sxct is None else sxct[i], k=k,
+                          coeff=coeff, inv_h2=inv_h2,
+                          c2tau2_field=_lane_field(c2tau2_field, i),
+                          with_errors=with_errors)
+        for i in range(u.shape[0])])
+
+
+def _window_ptrs(t, k):
+    """(lo, blk, hi) pointers of a (B, N, ., .) batch's x chain in lane 0:
+    the last k planes, the state, the first k planes (the other lanes one
+    lane stride on, in the kernel)."""
+    n = t.shape[1]
+    return (t[0, n - k:].data_ptr(), t.data_ptr(), t.data_ptr())
+
+
+def fused_kstep_lanes(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
+                      c2tau2_field=None, with_errors=True):
+    """K3 lane mode (K3f's with a (B, N, N, N) f32 field): k fused leapfrog
+    substeps of every lane of a (B, N, N, N) f32/bf16 batch in one launch
+    of `fused_kstep`'s pipeline, each lane's x windows its own wrap planes.
+    sxct is (B, k, N) f32 (per-lane time factors); returns (u_{n+k-1},
+    u_{n+k}, dmax, rmax) with (B, k, N) rows (None without errors)."""
+    if u.device.type == "cpu":
+        return fused_kstep_lanes_plain(
+            u_prev, u, syz, rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
+            c2tau2_field=c2tau2_field, with_errors=with_errors)
+    n = u.shape[-1]
+    if not 2 <= k <= _KSTEP_MAX_K or n % k:
+        raise ValueError(f"k={k}: the K3 kernel takes 2 <= k <= "
+                         f"{_KSTEP_MAX_K} dividing N={n}")
+    seg, ty, tz = kstep_pipe_tile(k, n)
+    lanes = _lanes_of("K3 lanes", u, -(-n // seg))
+    _check_lane_batch(n, u=u, u_prev=u_prev, c2tau2_field=c2tau2_field)
+    if u.dtype not in (torch.float32, torch.bfloat16) or \
+            u_prev.dtype != u.dtype:
+        raise ValueError(f"K3 takes an f32 or bf16 state, got "
+                         f"{u.dtype}/{u_prev.dtype}")
+    dev, f32 = u.device, torch.float32
+    if c2tau2_field is not None and c2tau2_field.dtype != f32:
+        raise ValueError("the K3f lane field must be f32")
+    dmax = rmax = None
+    if with_errors:
+        _check_on_card(dev, f32, syz=(syz, (n, n)), rsyz=(rsyz, (n, n)),
+                       sxct=(sxct, (lanes, k, n)))
+        dmax, rmax = (torch.zeros((lanes, k, n), dtype=torch.int32,
+                                  device=dev) for _ in range(2))
+    prev_out, out = torch.empty_like(u), torch.empty_like(u)
+    c2 = ((None, None, None) if c2tau2_field is None
+          else _window_ptrs(c2tau2_field, k))
+    up, uc = _window_ptrs(u_prev, k), _window_ptrs(u, k)
+    name = "kstep_lanes" if c2tau2_field is None else "kstep_field_lanes"
+    with torch.cuda.device(dev):
+        _run(_kstep_pipe_lib().wt_kstep_pipe, up[1], up[0], up[2], uc[1],
+             uc[0], uc[2], prev_out.data_ptr(), out.data_ptr(), c2[1],
+             c2[0], c2[2],
+             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
+               if with_errors else (None, None, None)),
+             _ptr(dmax), _ptr(rmax), n, n, n, n, n, 0, k, seg, ty, tz,
+             _CODE[u.dtype], float(coeff if c2tau2_field is None else 0.0),
+             *(float(h) for h in inv_h2), lanes, n ** 3,
+             inst=(name, k, u.dtype))
+    launches[name] += 1
+    if with_errors:
+        dmax, rmax = dmax.view(f32), rmax.view(f32)
+    return prev_out, out, dmax, rmax
+
+
+def fused_kstep_comp_lanes_plain(u, v, carry, syz, rsyz, sxct, *, k, coeff,
+                                 inv_h2, block_x, with_errors=True):
+    """Plain K4 lane mode: `fused_kstep_comp_plain` lane by lane, with lane
+    i's sxct row block."""
+    return _stack_lanes([
+        fused_kstep_comp_plain(u[i], v[i], _lane_field(carry, i), syz, rsyz,
+                               None if sxct is None else sxct[i], k=k,
+                               coeff=coeff, inv_h2=inv_h2, block_x=block_x,
+                               with_errors=with_errors)
+        for i in range(u.shape[0])])
+
+
+def fused_kstep_comp_lanes(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
+                           block_x: Optional[int] = None, with_errors=True):
+    """K4 lane mode: k compensated velocity-form substeps of every lane of
+    a (B, N, N, N) batch in one launch of `fused_kstep_comp`'s pipeline,
+    each lane's x windows its own wrap planes, slab by slab as the solo
+    launch (`block_x` as `fused_kstep_comp`).  On the card it takes the
+    flagship's storage, the compensated ensemble's only one: f32 u and v, a
+    bf16 carry (the plain version takes every storage mode K4 takes).
+    sxct is (B, k, N) f32; returns (u', v', carry', dmax, rmax) with
+    (B, k, N) rows (None without errors)."""
+    n = u.shape[-1]
+    bx = block_x or default_block_x(n, k)
+    if u.device.type == "cpu":
+        return fused_kstep_comp_lanes_plain(
+            u, v, carry, syz, rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
+            block_x=bx, with_errors=with_errors)
+    _check_kstep(n, k, bx)
+    if not 1 <= k <= _KSTEP_MAX_K:
+        raise ValueError(f"k={k}: K4 takes 1 <= k <= {_KSTEP_MAX_K}")
+    seg, ty, tz = comp_pipe_tile(k, bx)
+    lanes = _lanes_of("K4 lanes", u, n // seg)
+    _check_lane_batch(n, u=u, v=v, carry=carry)
+    f32 = torch.float32
+    if u.dtype != f32 or v.dtype != f32 or carry is None or \
+            carry.dtype != torch.bfloat16:
+        raise ValueError(
+            f"K4's lane mode takes f32 u and v with a bf16 carry, got "
+            f"{u.dtype}/{v.dtype}/{None if carry is None else carry.dtype}")
+    dev = u.device
+    dmax = rmax = None
+    if with_errors:
+        _check_on_card(dev, f32, syz=(syz, (n, n)), rsyz=(rsyz, (n, n)),
+                       sxct=(sxct, (lanes, k, n)))
+        dmax, rmax = (torch.zeros((lanes, k, n), dtype=torch.int32,
+                                  device=dev) for _ in range(2))
+    u_out, v_out, c_out = (torch.empty_like(t) for t in (u, v, carry))
+    uc, vc = _window_ptrs(u, k), _window_ptrs(v, k)
+    with torch.cuda.device(dev):
+        _run(_comp_sharded_lib().wt_kstep_comp_chain, uc[1], uc[0], uc[2],
+             vc[1], vc[0], vc[2], carry.data_ptr(), u_out.data_ptr(),
+             v_out.data_ptr(), c_out.data_ptr(), None, None, None,
+             *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
+               if with_errors else (None, None, None)),
+             _ptr(dmax), _ptr(rmax), n, n, n, n, 0, k, bx, seg, ty, tz,
+             _CODE[v.dtype], _CODE[carry.dtype], float(coeff),
+             *(float(h) for h in inv_h2), lanes, n ** 3,
+             inst=("kstep_comp_lanes", k))
+    launches["kstep_comp_lanes"] += 1
+    if with_errors:
+        dmax, rmax = dmax.view(f32), rmax.view(f32)
+    return u_out, v_out, c_out, dmax, rmax
+
+
+def _lane_ghosts(ghosts, i):
+    return tuple((lo[i], hi[i]) for lo, hi in ghosts)
+
+
+def sharded_fused_step_lanes_plain(u_prev, u, ghosts, offsets, n_global, *,
+                                   inv_h2, mesh_shape, r_last=None,
+                                   alpha=2.0, beta=1.0, coeff=None):
+    """Plain K6 lane mode: `sharded_fused_step_plain` lane by lane, lane
+    i's ghosts the i-th planes of the (B, face) ghosts."""
+    return torch.stack([
+        sharded_fused_step_plain(u_prev[i], u[i], _lane_ghosts(ghosts, i),
+                                 offsets, n_global, inv_h2=inv_h2,
+                                 mesh_shape=mesh_shape, r_last=r_last,
+                                 alpha=alpha, beta=beta, coeff=coeff)
+        for i in range(u.shape[0])])
+
+
+def sharded_fused_step_lanes(u_prev, u, ghosts, offsets, n_global, *,
+                             inv_h2, mesh_shape, r_last=None, alpha=2.0,
+                             beta=1.0, coeff=None):
+    """K6 lane mode: one update of B shard blocks (B, bx, by, bz) in one
+    launch of `sharded_fused_step`'s kernel, each lane with its ghosts -
+    the (B, face) planes comm/halo.collect_ghosts delivers for a batch
+    (one copy per face for every lane).  Constant speed: the sharded
+    ensemble takes no field."""
+    if u.device.type == "cpu":
+        return sharded_fused_step_lanes_plain(
+            u_prev, u, ghosts, offsets, n_global, inv_h2=inv_h2,
+            mesh_shape=mesh_shape, r_last=r_last, alpha=alpha, beta=beta,
+            coeff=coeff)
+    block = tuple(u.shape[1:])
+    lanes = _lanes_of("K6 lanes", u, block[0])
+    _check_block_state(u, tuple(_CODE), "K6 lanes", u_prev=u_prev)
+    need, pads = _need_pads(block, mesh_shape, r_last)
+    ptrs = []
+    for axis in range(3):
+        if not need[axis]:
+            ptrs += [None, None]
+            continue
+        face = [lanes, *block]
+        face[axis + 1] = 1
+        lo, hi = ghosts[axis]
+        _check_on_card(u.device, u.dtype, **{f"ghost {axis} lo": (lo, face),
+                                             f"ghost {axis} hi": (hi, face)})
+        ptrs += [lo.data_ptr(), hi.data_ptr()]
+    out = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        _run(_sharded_lib().wt_sharded_step, u_prev.data_ptr(),
+             u.data_ptr(), out.data_ptr(), None, *ptrs, *block,
+             *(int(o) for o in offsets), int(n_global),
+             *(int(p) for p in pads), _CODE[u.dtype], float(alpha),
+             float(beta), float(coeff), *(float(h) for h in inv_h2),
+             int(beta != 0), lanes,
+             inst=("sharded_step_lanes", u.dtype, beta != 0))
+    launches["sharded_step_lanes"] += 1
+    return out

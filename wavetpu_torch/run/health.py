@@ -32,12 +32,16 @@ from typing import Iterable, Optional
 DEFAULT_AMP_BOUND = 1e3
 
 
-def _device_amax(t):
+def _guarded_abs(t):
+    """|t| in f32 with every non-finite value +inf."""
     import torch
 
     x = t.abs().to(torch.float32)
-    x = torch.where(torch.isfinite(x), x, torch.full_like(x, float("inf")))
-    return x.amax()
+    return torch.where(torch.isfinite(x), x, torch.full_like(x, float("inf")))
+
+
+def _device_amax(t):
+    return _guarded_abs(t).amax()
 
 
 def guarded_amax(array) -> float:
@@ -48,6 +52,17 @@ def guarded_amax(array) -> float:
     if blocks is None:
         return float(_device_amax(array).item())
     return max(float(_device_amax(b).item()) for b in blocks)
+
+
+def guarded_amax_per_lane(array):
+    """Per-lane guarded amax over a leading batch axis (B, ...): one
+    reduction on the batch's device, B scalars to the host as a numpy (B,)
+    float64 array - `guarded_amax` applied lane by lane, without B separate
+    reductions (the ensemble engine's per-batch watchdog)."""
+    import numpy as np
+
+    x = _guarded_abs(array).reshape(array.shape[0], -1).amax(dim=1)
+    return x.cpu().numpy().astype(np.float64)
 
 
 def state_amax(arrays: Iterable) -> float:

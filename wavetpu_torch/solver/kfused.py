@@ -5,7 +5,8 @@ The march runs (nsteps-1)//k blocks of k leapfrog layers, each one launch
 of K3 (`stencil_cuda.fused_kstep`), which keeps the intermediate layers out
 of device memory and writes only the block's last two; a remainder of
 fewer than k layers runs the 1-step kernel (K1).  Layer 1 is derived from
-the 1-step kernel exactly as `leapfrog.solve` derives it.  At N=512 /
+the 1-step kernel exactly as `leapfrog.solve` derives it (the analytic
+layer 1 for a shifted `phase`, as there).  At N=512 /
 1000 steps / k=4: 249 K3 launches and 4 K1 launches (bootstrap + 3 tail).
 
 Each K3 substep is op for op K1's update, so k-fused layers are bitwise
@@ -76,11 +77,11 @@ def _oracle_parts(problem: Problem, f_dtype, device,
 
 
 def _block_errors(dmax, rmax, ctk, xmask, inv_absx):
-    """(k,) abs / rel layer errors from the kernel's (k, N) plane maxes."""
-    abs_e = torch.where(xmask[None, :], dmax, 0.0).amax(dim=1)
-    rel_e = torch.where(
-        xmask[None, :], rmax * inv_absx[None, :], 0.0
-    ).amax(dim=1)
+    """(k,) abs / rel layer errors from the kernel's (k, N) plane maxes (or
+    (B, k) from a lane batch's (B, k, N) rows and (B, k) time factors:
+    the same elementwise ops and exact maxima, lane by lane)."""
+    abs_e = torch.where(xmask, dmax, 0.0).amax(dim=-1)
+    rel_e = torch.where(xmask, rmax * inv_absx, 0.0).amax(dim=-1)
     ictk = ctk.abs()
     rel_e = torch.where(
         ictk != 0, rel_e / torch.where(ictk == 0, 1.0, ictk), 0.0
@@ -106,17 +107,19 @@ def _validate(problem: Problem, k: int, c2tau2_field=None,
 
 
 def _make_march(problem, dtype, k, compute_errors, nsteps, device,
-                c2tau2_field=None):
+                c2tau2_field=None, phase: float = oracle.TWO_PI):
     """Shared march: k-fused blocks + a 1-step remainder tail.
 
     Returns `(march, step1, errors)`; `march(u_prev, u_cur, start, abs_all,
     rel_all, stop=nsteps)` -> (u_prev, u_cur) covers layers start+1..stop
     and writes their errors into the device vectors.  `c2tau2_field` is a device
-    tensor in the compute dtype (or None).
+    tensor in the compute dtype (or None); `phase` the analytic solution's
+    time phase.
     """
     f = stencil_ref.compute_dtype(dtype)
-    sx, ct, syz, rsyz, xmask, inv_absx = _oracle_parts(problem, f, device)
-    errors = leapfrog._error_fn(problem, dtype, device)
+    sx, ct, syz, rsyz, xmask, inv_absx = _oracle_parts(problem, f, device,
+                                                       phase)
+    errors = leapfrog._error_fn(problem, dtype, device, phase)
     step1 = stencil_cuda.make_step_fn(c2tau2_field)
     # The kernel takes f32 oracle planes; the plain version (CPU) takes them
     # in the compute dtype, as the TPU kernel does.
@@ -161,6 +164,7 @@ def make_kfused_solver(
     stop_step: Optional[int] = None,
     c2tau2_field=None,
     device=None,
+    phase: float = oracle.TWO_PI,
 ):
     """Set up the k-fused solve - kernels built and loaded, the oracle
     planes and the field (once, in the compute dtype) on the device, layer
@@ -168,12 +172,14 @@ def make_kfused_solver(
     per-layer error vectors on the device.
 
     Layers 0/1 bootstrap as `leapfrog.solve` with the 1-step kernel (K1,
-    K5 with a field); then (nsteps-1)//k K3 blocks; a remainder of
-    (nsteps-1) % k layers runs the 1-step kernel.  Requires 2 <= k <= 8,
-    k | N; a field requires compute_errors=False.
+    K5 with a field; the analytic layer 1 for a shifted `phase`); then
+    (nsteps-1)//k K3 blocks; a remainder of (nsteps-1) % k layers runs the
+    1-step kernel.  Requires 2 <= k <= 8, k | N; a field requires
+    compute_errors=False and the reference phase.
     """
     device = leapfrog.resolve_device(device)
     _validate(problem, k, c2tau2_field, compute_errors)
+    analytic = leapfrog.check_phase(phase, c2tau2_field)
     nsteps = problem.timesteps if stop_step is None else stop_step
     if not 1 <= nsteps <= problem.timesteps:
         raise ValueError(
@@ -185,13 +191,15 @@ def make_kfused_solver(
     if c2tau2_field is not None:
         field = state.c2tau2_field(c2tau2_field, dtype, device)
     march, step1, errors = _make_march(problem, dtype, k, compute_errors,
-                                       nsteps, device, field)
-    u0 = leapfrog.initial_layer0(problem, dtype, device)
+                                       nsteps, device, field, phase)
+    u0 = leapfrog.initial_layer0(problem, dtype, device, phase)
 
     def run():
         abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
         rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-        u1 = (0.5 * (u0.to(f) + step1(u0, u0, problem).to(f))).to(dtype)
+        u1 = (leapfrog.analytic_layer(problem, dtype, device, phase, 1)
+              if analytic else leapfrog.step_layer1(u0, step1, problem,
+                                                    dtype))
         if compute_errors:
             abs_all[1], rel_all[1] = errors(u1, 1)
         u_prev, u_cur = march(u0, u1, 1, abs_all, rel_all)
@@ -208,17 +216,19 @@ def solve_kfused(
     stop_step: Optional[int] = None,
     c2tau2_field=None,
     device=None,
+    phase: float = oracle.TWO_PI,
 ) -> leapfrog.SolveResult:
     """The k-fused solve with the reference's timing phases (as
     `leapfrog.solve`): `init_seconds` covers the kernel build/load and the
     set-up, `solve_seconds` the bootstrap, the march and the read-back of
     the error vectors.  `c2tau2_field` (host (N,N,N) tau^2 c^2 array,
     `stencil_ref.make_c2tau2_field`, or a tensor) selects the variable-c
-    march; pair it with compute_errors=False."""
+    march; pair it with compute_errors=False.  `phase` as
+    `leapfrog.solve`'s."""
     device = leapfrog.resolve_device(device)
     t0 = time.perf_counter()
     run = make_kfused_solver(problem, dtype, k, compute_errors, stop_step,
-                             c2tau2_field, device)
+                             c2tau2_field, device, phase)
     leapfrog._sync(device)
     t1 = time.perf_counter()
     u_prev, u_cur, abs_all, rel_all = run()

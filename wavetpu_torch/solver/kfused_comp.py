@@ -136,24 +136,48 @@ def _rel_guard_tol(f):
     return 512 * torch.finfo(f).eps
 
 
-def _error_fn_guarded(problem: Problem, dtype, device):
-    """Layer-error fn with the representation-zero sx planes excluded, so
-    the bootstrap layer's metric matches the in-kernel layers'."""
+def lane_error_fn_guarded(problem: Problem, dtype, device):
+    """(u, ct) -> (abs_e, rel_e) with the representation-zero sx planes
+    excluded, so the bootstrap layer's metric matches the in-kernel
+    layers'; the time factor `ct` (0-d, compute dtype) is a runtime
+    argument, as `leapfrog.lane_error_fn`'s."""
     f_dtype = stencil_ref.compute_dtype(dtype)
     sx, sy, sz = oracle.spatial_factors(problem, f_dtype, device)
-    ct_table = oracle.time_factor_table(problem, f_dtype, device)
     mask = torch.as_tensor(oracle.interior_masks_1d(problem.N), device=device)
     mask_x = mask & (sx.abs() > _rel_guard_tol(f_dtype))
 
-    def errors(u, n):
-        f = oracle.analytic_field(sx, sy, sz, ct_table[n])
+    def errors(u, ct):
+        f = oracle.analytic_field(sx, sy, sz, ct)
         return oracle.layer_errors(u.to(f_dtype), f, mask_x, mask, mask)
 
     return errors
 
 
+def _error_fn_guarded(problem: Problem, dtype, device,
+                      phase: float = oracle.TWO_PI):
+    """(u, n) -> the guarded errors of layer n (`lane_error_fn_guarded`
+    over the phase's time-factor table)."""
+    errors = lane_error_fn_guarded(problem, dtype, device)
+    ct_table = oracle.time_factor_table(
+        problem, stencil_ref.compute_dtype(dtype), device, phase)
+    return lambda u, n: errors(u, ct_table[n])
+
+
+def oracle_parts_guarded(problem: Problem, f, device,
+                         phase: float = oracle.TWO_PI):
+    """`kfused._oracle_parts` with the rel-metric guard: representation-
+    level zeros of the periodic x factor (sin at the domain midpoint
+    evaluates to ~1.2e-16, not 0, and 1/|sx| would amplify the
+    velocity-form onion's ~2e-9 asymmetry into garbage) drop out of
+    inv_absx.  Abs errors are untouched."""
+    sx, ct, syz, rsyz, xmask, inv_absx = kfused._oracle_parts(
+        problem, f, device, phase)
+    inv_absx = torch.where(sx.abs() > _rel_guard_tol(f), inv_absx, 0.0)
+    return sx, ct, syz, rsyz, xmask, inv_absx
+
+
 def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
-                c2tau2_field=None):
+                c2tau2_field=None, phase: float = oracle.TWO_PI):
     """Shared march: k-fused blocks + a k=1 tail through the SAME kernel.
 
     Returns `march(u, v, carry, start, abs_all, rel_all, stop=nsteps)` ->
@@ -162,14 +186,8 @@ def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
     or None) rides every launch.
     """
     f = stencil_ref.compute_dtype(dtype)
-    sx, ct, syz, rsyz, xmask, inv_absx = kfused._oracle_parts(
-        problem, f, device
-    )
-    # Rel-metric guard: exclude representation-level zeros of the periodic
-    # x factor (sin at the domain midpoint evaluates to ~1.2e-16, not 0,
-    # and 1/|sx| would amplify the velocity-form onion's ~2e-9 asymmetry
-    # into garbage).  Abs errors are untouched.
-    inv_absx = torch.where(sx.abs() > _rel_guard_tol(f), inv_absx, 0.0)
+    sx, ct, syz, rsyz, xmask, inv_absx = oracle_parts_guarded(
+        problem, f, device, phase)
     # The kernel takes f32 oracle planes; the plain version (CPU) takes them
     # in the compute dtype, as the TPU kernel does.
     kern_dtype = torch.float32 if device.type == "cuda" else f
@@ -207,14 +225,23 @@ def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
 
 
 def _bootstrap(problem, dtype, v_dtype, carry_on, carry_dtype, device,
-               field=None):
+               field=None, phase: float = oracle.TWO_PI):
     """Layers 0/1: analytic init + K2's half-step u1 = u0 + (C/2)lap(u0)
     with v = carry = 0 in the state dtype, then v cast to `v_dtype` and the
     carry to `carry_dtype` (reference bootstrap: openmp_sol.cpp:123-145).
     With a `field` the half-step coefficient is tau^2 c^2(x)/2 and K4f at
     k=1 runs it (the same Kahan sequence, the field as the Laplacian
     coefficient), with zero v and carry in their storage dtypes and no
-    error rows."""
+    error rows.  A shifted `phase` (constant speed) takes the exact
+    analytic two-level start instead: u1 analytic, v1
+    `leapfrog.analytic_increment_layer1` in `v_dtype`, a zero carry."""
+    if leapfrog.check_phase(phase, field):
+        u1 = leapfrog.analytic_layer(problem, dtype, device, phase, 1)
+        v1 = leapfrog.analytic_increment_layer1(problem, v_dtype, device,
+                                                phase)
+        c1 = (torch.zeros(u1.shape, dtype=carry_dtype, device=device)
+              if carry_on else None)
+        return u1, v1, c1
     u0 = leapfrog.initial_layer0(problem, dtype, device)
     if field is None:
         zero = torch.zeros_like(u0)
@@ -266,6 +293,7 @@ def solve_kfused_comp(
     carry_dtype=None,
     c2tau2_field=None,
     device=None,
+    phase: float = oracle.TWO_PI,
 ) -> leapfrog.SolveResult:
     """The compensated k-fused solve with the reference's timing phases (as
     `leapfrog.solve`): the bootstrap and the march are timed, the kernel
@@ -274,8 +302,10 @@ def solve_kfused_comp(
     slab depth (default `stencil_cuda.default_block_x`: the deepest
     multiple of k dividing N, up to 32 planes).  `c2tau2_field`
     (host (N,N,N) tau^2 c^2 array or tensor) selects the variable-c march
-    (K4f); pair it with compute_errors=False."""
+    (K4f); pair it with compute_errors=False.  `phase` as
+    `leapfrog.solve`'s (the analytic start of `_bootstrap`)."""
     device = leapfrog.resolve_device(device)
+    leapfrog.check_phase(phase, c2tau2_field)
     v_dtype = dtype if v_dtype is None else v_dtype
     carry_dtype = (
         _default_carry_dtype(dtype) if carry_dtype is None else carry_dtype
@@ -292,19 +322,19 @@ def solve_kfused_comp(
     f = stencil_ref.compute_dtype(dtype)
     t0 = time.perf_counter()
     leapfrog.prepare_kernels(device)
-    errors = _error_fn_guarded(problem, dtype, device)
+    errors = _error_fn_guarded(problem, dtype, device, phase)
     field = None
     if c2tau2_field is not None:
         field = state.c2tau2_field(c2tau2_field, dtype, device)
     march = _make_march(problem, dtype, k, compute_errors, block_x, nsteps,
-                        device, field)
+                        device, field, phase)
     abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
     rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
     leapfrog._sync(device)
     t1 = time.perf_counter()
 
     u1, v1, c1 = _bootstrap(problem, dtype, v_dtype, carry, carry_dtype,
-                            device, field)
+                            device, field, phase)
     if compute_errors:
         abs_all[1], rel_all[1] = errors(u1, 1)
     u, v, c = march(u1, v1, c1, 1, abs_all, rel_all)
@@ -381,10 +411,8 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
     if any(dev.type == "cuda" for dev in devices):
         stencil_cuda.load_libraries()
     host = torch.device("cpu")
-    sx, ct, syz, rsyz, xmask, inv_absx = kfused._oracle_parts(problem, f,
+    sx, ct, syz, rsyz, xmask, inv_absx = oracle_parts_guarded(problem, f,
                                                               host)
-    # The flagship's rel-metric guard (`_make_march`).
-    inv_absx = torch.where(sx.abs() > _rel_guard_tol(f), inv_absx, 0.0)
     sxct_all = ct[:, None] * sx[None, :]                     # (T+1, N)
     sxct_on = {dev: sxct_all.to(dev) for dev in set(devices)}
     planes = [tuple(a[cy * nl_y:(cy + 1) * nl_y].to(dev).contiguous()

@@ -33,10 +33,13 @@ ghost copies run on side streams beside the bulk update and the face
 planes are then recomputed from the real ghosts (`_make_local_step`), bit
 for bit the serial step.
 
+A shifted `phase` (the standard scheme, constant speed: the lane identity
+of ensemble/sharded.py's batches) starts from the exact analytic layer 1,
+as `leapfrog.solve`.
+
 `resume_sharded` re-enters the march at a checkpoint's layer and
 `make_sharded_chunk_runner` marches a supervised run's fixed-length chunks
-(run/supervisor.py), both through `_make_march`'s march.  Not ported here:
-the shifted-phase bootstrap (with ensembles, ROADMAP.md queue 1 item 11).
+(run/supervisor.py), both through `_make_march`'s march.
 """
 
 from __future__ import annotations
@@ -142,21 +145,31 @@ class _Shard:
                             * fz[None, None, bz])
         self.ct = ct.to(device)
 
-    def layer0(self, dtype):
-        """Layer 0 of the block: the analytic solution, zero off the bc
-        cells (leapfrog.initial_layer0's bits on the real cells)."""
+    def analytic(self, ct, dtype):
+        """The block of the analytic solution at time factor `ct` (0-d, on
+        the shard's device), zero off the bc cells: layer 0 at ct(0)
+        (leapfrog.initial_layer0's bits on the real cells), a shifted
+        phase's layer 1 at ct(1) (leapfrog.analytic_layer's)."""
         fx, fy, fz = self.factors
-        u = oracle.analytic_field(fx, fy, fz, self.ct[0])
+        u = oracle.analytic_field(fx, fy, fz, ct)
         return torch.where(self.bc, u, 0.0).to(dtype)
 
-    def errors(self, u, n):
-        """(abs, rel) of layer n over the block's error interior, 0-d
-        tensors on the shard's device (zeros for a block with none)."""
+    def layer0(self, dtype):
+        return self.analytic(self.ct[0], dtype)
+
+    def errors_at(self, u, ct):
+        """(abs, rel) of block `u` against the analytic field at time factor
+        `ct` over the block's error interior, 0-d tensors on the shard's
+        device (zeros for a block with none)."""
         if self.box is None:
             z = torch.zeros((), dtype=self.ct.dtype, device=self.device)
             return z, z
         return oracle.layer_errors(u[self.box].to(self.ct.dtype),
-                                   self.spatial * self.ct[n])
+                                   self.spatial * ct)
+
+    def errors(self, u, n):
+        """(abs, rel) of layer n (`errors_at` ct(n))."""
+        return self.errors_at(u, self.ct[n])
 
 
 def _self_ghosts(u: torch.Tensor, topo: Topology,
@@ -361,7 +374,7 @@ def _field_blocks(c2tau2_field, topo: Topology, mesh: Mesh, f_dtype):
 
 def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
                 compute_errors: bool, c2tau2_field, scheme: str, kernel: str,
-                overlap: bool):
+                overlap: bool, phase: float = oracle.TWO_PI):
     """Set up the sharded march - kernels built and loaded, every shard's
     factors, masks and field block on its device - and return `(u0,
     bootstrap, advance, vectors)`: layer 0's blocks; `bootstrap(u0,
@@ -369,11 +382,19 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
     abs_s, rel_s)` -> the state at layer stop, marching layers
     start+1..stop; `vectors(n)` -> per-shard zero error vectors of n
     entries.  The state is (u_prev, u_cur) block lists, or (u, v, carry)
-    for the compensated scheme; the error vectors are indexed by layer."""
+    for the compensated scheme; the error vectors are indexed by layer.
+    A shifted `phase` bootstraps layer 1 from the analytic solution
+    (standard scheme, constant speed)."""
     if scheme not in ("standard", "compensated"):
         raise ValueError(
             f"scheme must be 'standard' or 'compensated', got {scheme!r}")
     compensated = scheme == "compensated"
+    analytic = leapfrog.check_phase(phase, c2tau2_field)
+    if analytic and compensated:
+        raise ValueError(
+            "the sharded compensated scheme serves the reference phase "
+            "only (use the single-device compensated solvers for "
+            "shifted-phase lanes)")
     if compensated and overlap:
         raise ValueError("overlap mode is not available for the "
                          "compensated scheme yet")
@@ -393,7 +414,7 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
         stencil_cuda.load_libraries()
     factors = _padded_factors(problem, topo)
     masks = _masks(problem, topo)
-    ct = oracle.time_factor_table(problem, f)
+    ct = oracle.time_factor_table(problem, f, phase=phase)
     shards = [_Shard(problem, topo, coord, dev, f, factors, masks, ct)
               for coord, dev in zip(mesh.coords, mesh.devices)]
     fields = _field_blocks(c2tau2_field, topo, mesh, f)
@@ -422,6 +443,10 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
             st = comp_step(u0, zero, zero, 0.5 * problem.a2tau2)
             record(st[0], 1, abs_s, rel_s)
             return st
+        if analytic:
+            cur = [sh.analytic(sh.ct[1], dtype) for sh in shards]
+            record(cur, 1, abs_s, rel_s)
+            return u0, cur
         # Layer 1 derived from the step: u1 = (u0 + step(u0, u0))/2 in the
         # compute dtype, as leapfrog.solve.
         s0 = step(u0, u0, fields)
@@ -456,6 +481,7 @@ def make_sharded_solver(
     scheme: str = "standard",
     kernel: str = "pallas",
     overlap: bool = False,
+    phase: float = oracle.TWO_PI,
 ):
     """Set up the sharded solve (`_make_march`) and return `run()` ->
     (u_prev, u_cur, abs_per_shard, rel_per_shard, v, carry): lists of
@@ -470,7 +496,7 @@ def make_sharded_solver(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}")
     u0, bootstrap, advance, vectors = _make_march(
         problem, topo, mesh, dtype, compute_errors, c2tau2_field, scheme,
-        kernel, overlap)
+        kernel, overlap, phase)
 
     def run():
         abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
@@ -500,6 +526,7 @@ def solve_sharded(
     scheme: str = "standard",
     kernel: str = "pallas",
     overlap: bool = False,
+    phase: float = oracle.TWO_PI,
 ) -> leapfrog.SolveResult:
     """The sharded solve with the reference's timing phases (as
     `leapfrog.solve`): `init_seconds` covers the kernel build and the
@@ -514,6 +541,7 @@ def solve_sharded(
     `kernel="roll"` runs the kernels' plain versions; `overlap=True` (the
     standard scheme on an even split) exchanges the ghosts on a side
     stream beside the bulk update, bit for bit the serial result.
+    `phase` (standard scheme, constant speed) as `leapfrog.solve`'s.
     The result's u_prev / u_cur (and comp_v / comp_carry) are
     `ShardedArray`s in wavetpu's padded layout; its errors are the
     cross-shard maxima.
@@ -522,7 +550,7 @@ def solve_sharded(
     topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
     run = make_sharded_solver(problem, topo, mesh, dtype, compute_errors,
                               c2tau2_field, stop_step, scheme, kernel,
-                              overlap)
+                              overlap, phase)
     _sync(mesh)
     t1 = time.perf_counter()
     u_prev, u_cur, abs_s, rel_s, v, c = run()
