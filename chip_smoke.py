@@ -213,6 +213,32 @@ without them or when any phase fails.  Phases:
                (pallas and flagship at N=256/100, the flagship at
                N=512/1000 for B = 1 and 8) with speedup_vs_batch1, beside
                the card's name and power limit.
+10. serve      - the serving replica (wavetpu_torch/serve): `build_server`
+               in this process on the card, driven over HTTP, the launch
+               counters zeroed just before each run and read just after:
+               three concurrent flagship requests at N=512/1000 (phases
+               2 pi, 1.0, and 1.6 stopping at 501) coalesce into one batch
+               (occupancy 3, bucket 4; K2 lanes x1, K4 lanes x252), their
+               error vectors bit-equal to phase 9's ens_flagship lanes, the
+               2 pi answer's max abs error phase 3's flagship's bits, each
+               report_text byte for byte the port's report of the lane,
+               and the allocator's peak printed; two mesh-2,2,1 requests
+               at N=256/200 (K6 lanes x800), two `fuse_steps` 4 requests at
+               N=256/1000 (K3 lanes x249, K1 lanes x4) and a lens pair
+               (K3f lanes x249, K5 lanes x4), each batched and, where it
+               has errors, bit-equal to `solve_ensemble(_sharded)` of the
+               same lanes; a Courant-unstable field beside a stable one in
+               one batch answers [200, 422]; /healthz's memory fields from
+               the card, /metrics JSON against its Prometheus text,
+               Server-Timing's components against its total (the gap
+               held to 10% + 10 ms beside the request's parse, timed in
+               its handler thread: a c2-field body builds its preset
+               there, before the queue wait), no fallback;
+               and bench.py's serving rows (N=256/100, errors on, 2B
+               requests through a warmed replica of max_batch B = 1, 2, 4,
+               8; pallas and flagship): aggregate Gcell/s by the batches'
+               solve seconds and by wall, p50/p95 latency and
+               speedup_vs_batch1 beside phase 9's solve_ensemble rows.
 
 Each phase prints its wall time.
 
@@ -2479,6 +2505,9 @@ def run_ensemble(label):
                   f"{lanes[i].stop(p)}) == solo",
                   host_state(res.results[i]),
                   host_state(solo_lane(p, kw, lanes[i])), errors_from=0)
+    # The held lanes' error vectors: phase 10's reference.
+    side["lane_errors"] = {i: (res.results[i].abs_errors,
+                               res.results[i].rel_errors) for i in held}
     return side, counts
 
 
@@ -2727,7 +2756,421 @@ def phase_ensemble(errs, rate, card):
         sides[label], counts[label] = run_ensemble(label)
         torch.cuda.empty_cache()
     throughput = phase_throughput(card)
-    return times, sides, counts, throughput
+    lane_errors = {label: side.pop("lane_errors")
+                   for label, side in sides.items()}
+    return times, sides, counts, throughput, lane_errors
+
+
+# Phase 10: the serving replica (wavetpu_torch/serve) in this process on
+# the card, over HTTP.  Each run: the bodies sent concurrently (one batch),
+# the launch count of every counter that must move (all others stay 0),
+# and the phase-9 run and lanes its answers are bit-equal to (None: held
+# against a `solve_ensemble` of the same lanes here).
+SERVE_N = N_FULL // 2
+FLAGSHIP_BODY = dict(N=N_FULL, T=1.0, timesteps=STEPS, scheme="compensated",
+                     fuse_steps=K)
+SERVE_RUNS = {
+    "serve_flagship": (
+        [dict(FLAGSHIP_BODY), dict(FLAGSHIP_BODY, phase=1.0),
+         dict(FLAGSHIP_BODY, phase=1.6, steps=501)],
+        {"comp_step_lanes": 1, "kstep_comp_lanes": NB + REM},
+        ("ens_flagship", (0, 1, 6))),
+    "serve_sharded_221": (
+        [dict(N=SERVE_N, timesteps=ENS_SHARDED_STEPS, mesh=[2, 2, 1]),
+         dict(N=SERVE_N, timesteps=ENS_SHARDED_STEPS, mesh=[2, 2, 1],
+              phase=1.0)],
+        {"sharded_step_lanes": SHARDS * ENS_SHARDED_STEPS}, None),
+    "serve_kfused": (
+        [dict(N=SERVE_N, timesteps=STEPS, fuse_steps=K),
+         dict(N=SERVE_N, timesteps=STEPS, fuse_steps=K, phase=1.0,
+              steps=501)],
+        {"kstep_lanes": NB, "step_lanes": 1 + REM}, None),
+    "serve_kfused_lens": (
+        [dict(N=SERVE_N, timesteps=STEPS, fuse_steps=K, c2_field=LENS),
+         dict(N=SERVE_N, timesteps=STEPS, fuse_steps=K, c2_field=LENS,
+              steps=501)],
+        {"kstep_field_lanes": NB, "var_step_lanes": 1 + REM}, None),
+}
+# The watchdog pair (tests/test_serve.py:1437-1462): C = 0.55 is stable
+# under c^2 = a^2, but the two-layer preset doubles c^2 in half the domain.
+POISON_BODIES = [dict(N=8, T=26.0, timesteps=60, c2_field="constant"),
+                 dict(N=8, T=26.0, timesteps=60, c2_field="two-layer")]
+# bench.py's serving rows (bench.py:454-560): N=256/100 f32 errors on, 2B
+# requests through a replica capped at max_batch B, program warmed first.
+SERVE_ROWS = (("pallas", {}, "pallas_N256_100"),
+              ("flagship", dict(scheme="compensated", fuse_steps=K),
+               "flagship_N256_100"))
+
+
+def serve_post(base, body, timeout=900):
+    """POST /solve -> (status, payload, headers); never raises on 4xx/5xx."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + "/solve", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def serve_get(base, path, accept=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, headers={"Accept": accept} if accept else {})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        text = r.read().decode()
+    return text if accept else json.loads(text)
+
+
+def serve_concurrent(base, bodies):
+    """Send the bodies at once (one thread each); returns [(status,
+    payload, headers, client seconds)] in body order."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def go(i):
+        t0 = time.perf_counter()
+        code, payload, headers = serve_post(base, bodies[i])
+        out[i] = (code, payload, headers, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    if any(o is None for o in out):
+        fail("a /solve request did not return")
+    return out
+
+
+def start_replica(**kw):
+    import threading
+
+    from wavetpu_torch.serve.api import build_server
+
+    httpd, state = build_server(host="127.0.0.1", port=0, device=DEV, **kw)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, state, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_replica(httpd, state):
+    httpd.shutdown()
+    state.batcher.close(timeout=60.0)
+    httpd.server_close()
+
+
+def server_timing(header):
+    parts = {}
+    for item in (header or "").split(","):
+        name, _, rest = item.strip().partition(";")
+        if rest.startswith("dur="):
+            parts[name] = float(rest[4:]) / 1e3
+    return parts
+
+
+def serve_lane(body):
+    return ensemble.LaneSpec(
+        phase=float(body.get("phase", ensemble.LaneSpec().phase)),
+        stop_step=body.get("steps"))
+
+
+def serve_reference(label, bodies, lane_errors):
+    """The error vectors each body's answer must equal bit for bit: phase
+    9's lanes, or a `solve_ensemble` / `solve_ensemble_sharded` of the
+    same lanes (errors off for the lens pair: None)."""
+    ref = SERVE_RUNS[label][2]
+    if ref is not None:
+        run, held = ref
+        return [lane_errors[run][i] for i in held]
+    b0 = bodies[0]
+    if b0.get("c2_field"):
+        return [None] * len(bodies)
+    p = Problem(N=b0["N"], timesteps=b0["timesteps"])
+    lanes = [serve_lane(b) for b in bodies]
+    if "mesh" in b0:
+        res = ensemble_sharded.solve_ensemble_sharded(
+            p, lanes, tuple(b0["mesh"]), kernel="pallas",
+            devices=[DEV] * SHARDS)
+    else:
+        res = ensemble.solve_ensemble(p, lanes, path="kfused", k=K,
+                                      device=DEV)
+    out = [(r.abs_errors, r.rel_errors) for r in res.results]
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_run(base, label, lane_errors, card):
+    """One phase-10 run: the bodies concurrently, counters zeroed just
+    before and read just after; one batched batch of every body, the
+    exact counts, 200s, each answer's errors bit-equal to its reference.
+    Returns (counts, answers, summary)."""
+    from wavetpu_torch.io import report
+    from wavetpu_torch.solver.leapfrog import SolveResult
+
+    bodies, want, _ = SERVE_RUNS[label]
+    stencil_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    answers = serve_concurrent(base, bodies)
+    torch.cuda.synchronize()
+    counts = dict(stencil_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    expected = {c: want.get(c, 0) for c in counts}
+    if counts != expected:
+        fail(f"{label}: launches {counts}, expected {expected}")
+    for i, (code, payload, headers, wall) in enumerate(answers):
+        if code != 200:
+            fail(f"{label} request {i}: {code} {payload}")
+        b = payload["batch"]
+        if not (b["batched"] and b["occupancy"] == len(bodies)
+                and b["batch_size"] == (4 if len(bodies) == 3 else 2)
+                and b["fallback_reason"] is None):
+            fail(f"{label} request {i}: batch {b}")
+    for i, ref in enumerate(serve_reference(label, bodies, lane_errors)):
+        rep = answers[i][1]["report"]
+        if ref is None:
+            if rep["errors_computed"]:
+                fail(f"{label} request {i}: a field request with errors")
+            continue
+        if not (np.array_equal(rep["abs_errors"], ref[0])
+                and np.array_equal(rep["rel_errors"], ref[1])):
+            fail(f"{label} request {i}: errors differ from its reference")
+        # The report text, byte for byte: the lane's errors with the
+        # response's own timings.
+        shown = SolveResult(
+            problem=Problem(N=bodies[i]["N"], T=1.0,
+                            timesteps=bodies[i]["timesteps"]),
+            u_prev=None, u_cur=None, abs_errors=np.asarray(ref[0]),
+            rel_errors=np.asarray(ref[1]),
+            init_seconds=rep["init_seconds"],
+            solve_seconds=rep["solve_seconds"],
+            steps_computed=rep["final_step"], final_step=rep["final_step"])
+        if answers[i][1]["report_text"] != report.format_report(shown):
+            fail(f"{label} request {i}: report_text differs")
+    b = answers[0][1]["batch"]
+    timing = answers[0][1]["batch"]["timing"]
+    summary = dict(
+        batch_solve_seconds=answers[0][1]["report"]["solve_seconds"],
+        aggregate_gcells_per_s=b["aggregate_gcells_per_s"],
+        request_seconds=[a[3] for a in answers], compile_s=timing[
+            "compile_s"], warm=b["warm"], peak_bytes=peak)
+    print(f"  {label}: occupancy {b['occupancy']} in bucket "
+          f"{b['batch_size']}, launches "
+          f"{ {c: v for c, v in counts.items() if v} }, batch solve "
+          f"{summary['batch_solve_seconds']!r} s, aggregate "
+          f"{b['aggregate_gcells_per_s']!r} Gcell/s, requests "
+          f"{summary['request_seconds']!r} s, compile {timing['compile_s']!r}"
+          f" s (warm {b['warm']}), allocator peak {peak} B ({card})")
+    return counts, answers, summary
+
+
+def body_key(body):
+    return json.dumps(body, sort_keys=True)
+
+
+def time_parses(walls):
+    """Wrap the replica's `parse_solve_request` so each body's parse wall,
+    as its handler thread pays it (a c2-field body builds its preset
+    there, before the queue wait begins), lands in `walls` under the
+    body.  Returns the function to put back."""
+    from wavetpu_torch.serve import api
+
+    parse = api.parse_solve_request
+
+    def timed(body, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return parse(body, *args, **kwargs)
+        finally:
+            walls[body_key(body)] = time.perf_counter() - t0
+
+    api.parse_solve_request = timed
+    return parse
+
+
+def parse_walls(walls, bodies):
+    """The bodies' recorded parse walls, taken out of `walls`."""
+    missing = [b for b in bodies if body_key(b) not in walls]
+    if missing:
+        fail(f"no parse wall recorded for {missing}")
+    return [walls.pop(body_key(b)) for b in bodies]
+
+
+def serve_contract(base, answers):
+    """/healthz's memory fields from the card, /metrics JSON against its
+    Prometheus text, Server-Timing's components against its total, and no
+    fallback.  `answers`: [(the bodies sent together, their answers,
+    their parse walls)].  Server-Timing's queue + compile + execute must
+    be the total within 10% + 10 ms (tests/test_serve.py's bound); the
+    total also holds the body's parse, which the handler pays before the
+    queue wait begins (a c2-field body builds its preset there), so an
+    answer may exceed that bound by its own parse wall, measured in the
+    handler thread as it runs."""
+    health = serve_get(base, "/healthz")
+    for key in ("memory_bytes_in_use", "memory_peak_bytes"):
+        if not (isinstance(health[key], int) and health[key] > 0):
+            fail(f"/healthz {key} = {health[key]!r}")
+    if health["backend"] != "gpu" or not health["ready"]:
+        fail(f"/healthz {health}")
+    snap = serve_get(base, "/metrics")
+    samples = prom_text_samples(serve_get(base, "/metrics", "text/plain"))
+    occ_sum = samples["wavetpu_serve_batch_occupancy_sum"]
+    occ_n = samples["wavetpu_serve_batch_occupancy_count"]
+    agg = (samples["wavetpu_serve_cells_total"]
+           / samples["wavetpu_serve_solve_seconds_total"] / 1e9)
+    if not (samples["wavetpu_serve_requests_total"]
+            == snap["requests_total"]
+            and occ_n == snap["batches_total"]
+            and abs(occ_sum / occ_n - snap["batch_occupancy_mean"]) < 1e-9
+            and abs(agg - snap["aggregate_gcells_per_s"]) <= 5e-5):
+        fail(f"/metrics JSON {snap} and Prometheus {samples} disagree")
+    if snap["fallback_batches"] or snap["program_cache"]["fallbacks"]:
+        fail(f"fallbacks: {snap['fallback_batches']} "
+             f"{snap['program_cache']['fallbacks']}")
+    gaps = []
+    for bodies, got, parsed in answers:
+        for body, (code, payload, headers, wall), parse in zip(
+                bodies, got, parsed):
+            st = server_timing(headers.get("Server-Timing"))
+            gap = st["total"] - (st["queue"] + st["compile"]
+                                 + st["execute"])
+            if not (-0.1 * st["total"] - 0.010 <= gap
+                    <= 0.1 * st["total"] + 0.010 + parse) or \
+                    st["total"] > wall + 0.010:
+                fail(f"Server-Timing {st} (client {wall} s, parse "
+                     f"{parse} s)")
+            if body.get("c2_field"):
+                gaps.append((body["N"], gap, parse))
+    print(f"  Server-Timing: queue + compile + execute within 10% + 10 ms "
+          f"of total beside each request's parse; the field requests' gap "
+          f"beside their parse (N, gap s, parse s): {gaps}")
+    print(f"  contract: /healthz memory {health['memory_bytes_in_use']} B "
+          f"in use, peak {health['memory_peak_bytes']} B; /metrics "
+          f"requests {snap['requests_total']}, batches "
+          f"{snap['batches_total']}, occupancy mean "
+          f"{snap['batch_occupancy_mean']!r}, aggregate "
+          f"{snap['aggregate_gcells_per_s']!r} Gcell/s (JSON = Prometheus),"
+          f" fallbacks 0, Server-Timing sums within 10% of its total")
+    return dict(requests=snap["requests_total"],
+                batches=snap["batches_total"],
+                aggregate_gcells_per_s=snap["aggregate_gcells_per_s"],
+                memory_peak_bytes=health["memory_peak_bytes"])
+
+
+def prom_text_samples(text):
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def serve_rows(throughput, card):
+    """bench.py's serving rows through a replica on the card: for B = 1,
+    2, 4, 8 a replica of bucket B and max_batch B, its program warmed,
+    2B concurrent requests; aggregate Gcell/s from /metrics (the batches'
+    solve seconds, bench.py's) and from the requests' wall, p50/p95
+    latency, speedup_vs_batch1, beside phase 9's solve_ensemble row."""
+    out = {}
+    for label, extra, ref in SERVE_ROWS:
+        row = {}
+        p = Problem(N=SERVE_N, timesteps=100)
+        for b in (1, 2, 4, 8):
+            httpd, state, base = start_replica(bucket_sizes=(b,),
+                                               max_batch=b, max_wait=0.25)
+            try:
+                path = "kfused" if extra else "pallas"
+                if not state.engine.warmup(
+                        p, scheme=extra.get("scheme", "standard"),
+                        path=path, k=K, batches=[b]):
+                    fail(f"serve row {label} B={b}: warmup fell back")
+                bodies = [dict(N=SERVE_N, timesteps=100,
+                               phase=oracle_phase(i), **extra)
+                          for i in range(2 * b)]
+                t0 = time.perf_counter()
+                answers = serve_concurrent(base, bodies)
+                wall = time.perf_counter() - t0
+                if any(a[0] != 200 or not a[1]["batch"]["batched"]
+                       for a in answers):
+                    fail(f"serve row {label} B={b}: {answers[0][1]}")
+                snap = serve_get(base, "/metrics")
+            finally:
+                stop_replica(httpd, state)
+            lat = sorted(a[3] for a in answers)
+
+            def pct(q):
+                return lat[min(len(lat) - 1,
+                               int(round(q * (len(lat) - 1))))]
+
+            row[b] = dict(
+                aggregate_gcells_per_s=snap["aggregate_gcells_per_s"],
+                wall_gcells_per_s=(p.cells_per_step * 100 * 2 * b / wall
+                                   / 1e9),
+                latency_p50_s=pct(0.50), latency_p95_s=pct(0.95),
+                occupancy_max=snap["batch_occupancy_max"],
+                solve_ensemble_gcells_per_s=throughput[ref][b][
+                    "aggregate_gcells_per_second"])
+        base1 = row[1]["aggregate_gcells_per_s"]
+        for b, r in row.items():
+            r["speedup_vs_batch1"] = r["aggregate_gcells_per_s"] / base1
+            print(f"  serve row {label} N={SERVE_N}/100 B={b}: aggregate "
+                  f"{r['aggregate_gcells_per_s']!r} Gcell/s (by wall "
+                  f"{r['wall_gcells_per_s']!r}), p50 "
+                  f"{r['latency_p50_s']!r} s, p95 {r['latency_p95_s']!r} s,"
+                  f" speedup_vs_batch1 {r['speedup_vs_batch1']!r}, occupancy"
+                  f" max {r['occupancy_max']}; solve_ensemble "
+                  f"{r['solve_ensemble_gcells_per_s']!r} Gcell/s ({card})")
+        out[label] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(card, lane_errors, throughput, flagship_err):
+    """Phase 10: the replica in this process on the card, over HTTP - the
+    flagship at full width and the other lane modes with exact counts,
+    held bit-equal; the watchdog pair; the HTTP contract; the serving
+    rows.  Returns (launches per run, measurements)."""
+    from wavetpu_torch.serve import api
+
+    torch.cuda.empty_cache()
+    counts, measured, answers, walls = {}, {}, [], {}
+    parse = time_parses(walls)
+    httpd, state, base = start_replica(max_wait=1.0)
+    try:
+        for label in SERVE_RUNS:
+            counts[label], got, measured[label] = serve_run(
+                base, label, lane_errors, card)
+            bodies = SERVE_RUNS[label][0]
+            answers.append((bodies, got, parse_walls(walls, bodies)))
+            torch.cuda.empty_cache()
+        err = answers[0][1][0][1]["report"]["max_abs_error"]
+        if err != flagship_err:
+            fail(f"serve_flagship 2 pi max abs error {err!r} is not phase "
+                 f"3's flagship's {flagship_err!r}")
+        codes = serve_concurrent(base, POISON_BODIES)
+        if [c[0] for c in codes] != [200, 422] or \
+                "amax" not in codes[1][1]["error"] or \
+                codes[0][1]["batch"]["occupancy"] != 2:
+            fail(f"watchdog pair: "
+                 f"{[(c[0], c[1].get('error')) for c in codes]}")
+        print(f"  watchdog pair: [200, 422] in one batch, the 422 "
+              f"{codes[1][1]['error']!r}")
+        measured["contract"] = serve_contract(
+            base, answers + [(POISON_BODIES, codes,
+                              parse_walls(walls, POISON_BODIES))])
+    finally:
+        stop_replica(httpd, state)
+        api.parse_solve_request = parse
+    measured["rows"] = serve_rows(throughput, card)
+    return counts, measured
 
 
 def pipe_registers(logs):
@@ -2876,13 +3319,21 @@ def main() -> int:
     print(f"  phase 8 wall: {phase_s['resilience']!r} s ({card})")
 
     print(f"phase 9: ensembles ({card})")
-    lane_times, ens_sides, ens_counts, throughput = phase_ensemble(
-        errs, rate, card)
+    lane_times, ens_sides, ens_counts, throughput, lane_errors = \
+        phase_ensemble(errs, rate, card)
     times.update(lane_times)
     counts.update(ens_counts)
     measured["ensemble"] = dict(runs=ens_sides, throughput=throughput)
-    done("ensemble", t)
+    t = done("ensemble", t)
     print(f"  phase 9 wall: {phase_s['ensemble']!r} s ({card})")
+
+    print(f"phase 10: the serving replica ({card})")
+    serve_counts, measured["serve"] = phase_serve(
+        card, lane_errors, throughput, sides["flagship"]["max_abs_error"])
+    del lane_errors
+    counts.update(serve_counts)
+    done("serve", t)
+    print(f"  phase 10 wall: {phase_s['serve']!r} s ({card})")
     rows = []
     for name, meta in KERNELS.items():
         row = {

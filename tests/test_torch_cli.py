@@ -229,10 +229,13 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,needle", [
     (["8", "1", "1", "1", "1", "--program-cache-dir", "d"],
-     "queue 1 item 12"),
-    (["router"], "queue 1 item 12"),
-    (["serve"], "queue 1 item 12"),
-], ids=["program-cache-dir", "router", "serve"])
+     "queue 1 item 12b"),
+    (["router"], "queue 1 item 12c"),
+    (["warmup"], "queue 1 item 12b"),
+    (["serve", "--chunk-threshold", "64"], "queue 1 item 12b"),
+    (["serve", "--record-trace", "t.jsonl"], "queue 1 item 12c"),
+], ids=["program-cache-dir", "router", "warmup", "serve-chunk-threshold",
+        "serve-record-trace"])
 def test_unported_flags_name_their_roadmap_item(argv, needle, capsys):
     assert cli.main(argv + ["--platform", "cpu"]) == 2
     err = capsys.readouterr().err
@@ -674,8 +677,7 @@ def test_supervised_exit_codes_and_resume(tmp_path, capsys, monkeypatch):
      "must be >= 0"),
     (["--ckpt-every", "3", "--ckpt-dir", "r", "--max-amp", "0"],
      "must be > 0"),
-    (["--ckpt-every", "3", "--ckpt-dir", "r", "--debug-nans"],
-     "--debug-nans"),
+    (["--ckpt-every", "3", "--debug-nans"], "needs --ckpt-dir"),
     (["--stop-step", "0"], "--stop-step must be in [1, 12]"),
     (["--stop-step", "13"], "--stop-step must be in [1, 12]"),
     (["--resume", "x.npz", "--stop-step", "3"], "exclusive"),
@@ -752,3 +754,88 @@ def test_debug_nans(tmp_path, extra, capsys):
         cli.main(["16", "1", "1", "1", "1", "100", "100", "--platform",
                   "cpu", "--debug-nans", "--out-dir", str(tmp_path)]
                  + extra)
+
+
+# --debug-nans under --ckpt-every: every supervised chunk marches launch by
+# launch, each launch's output checked.
+
+
+@pytest.mark.parametrize("extra", [[], ["--fuse-steps", "4"],
+                                   ["--scheme", "compensated",
+                                    "--fuse-steps", "4"],
+                                   ["--mesh", "2,2,1"]],
+                         ids=["1step", "kfused", "flagship", "sharded"])
+def test_supervised_debug_nans_bit_equal_to_the_march(tmp_path, extra,
+                                                      capsys):
+    run = ["16", "1", "1", "1", "1", "1", "20", "--platform", "cpu"] + extra
+    procs = 4 if "--mesh" in extra else 1
+    assert cli.main(run + ["--out-dir", str(tmp_path / "plain")]) == 0
+    assert cli.main(run + ["--ckpt-every", "5", "--ckpt-dir",
+                           str(tmp_path / "rot"), "--debug-nans",
+                           "--out-dir", str(tmp_path / "sup")]) == 0
+    assert "supervisor: complete" in capsys.readouterr().out
+    plain = sidecar(tmp_path / "plain", n=16, procs=procs)
+    sup = sidecar(tmp_path / "sup", n=16, procs=procs)
+    assert sup["abs_errors"] == plain["abs_errors"]
+    assert sup["rel_errors"] == plain["rel_errors"]
+    assert (tmp_path / "plain" / f"output_N16_Np{procs}_CUDA.txt"
+            ).read_text().split("max abs and rel")[1:] == \
+        (tmp_path / "sup" / f"output_N16_Np{procs}_CUDA.txt"
+         ).read_text().split("max abs and rel")[1:]
+
+
+def test_supervised_debug_nans_drill_names_the_chunk(tmp_path, monkeypatch):
+    """WAVETPU_FAULT=nan:8 under --ckpt-every 5 --debug-nans: the chunk of
+    layers 7..11 holds layer 8; the poison lands at its boundary and the
+    run raises there, naming those layers, before layer 11's checkpoint."""
+    from wavetpu_torch.run import faults
+
+    monkeypatch.setenv(faults.ENV_FAULT, "nan:8")
+    rot = tmp_path / "rot"
+    with pytest.raises(FloatingPointError,
+                       match=r"layers 7\.\.11 \(the supervised chunk"):
+        cli.main(["16", "1", "1", "1", "1", "1", "20", "--platform", "cpu",
+                  "--ckpt-every", "5", "--ckpt-dir", str(rot),
+                  "--debug-nans", "--out-dir", str(tmp_path)])
+    assert (rot / "latest").read_text().strip() == "step-00000006.npz"
+
+
+def test_supervised_debug_nans_names_launch_and_chunk(tmp_path):
+    """A run that overflows inside a supervised chunk stops at the launch
+    that made the first non-finite value, naming it and its chunk."""
+    with pytest.raises(FloatingPointError,
+                       match=r"the launch that computed layer \d+, in the "
+                             r"supervised chunk of layers \d+\.\.\d+\)"):
+        cli.main(["16", "1", "1", "1", "1", "100", "100", "--platform",
+                  "cpu", "--ckpt-every", "50", "--ckpt-dir",
+                  str(tmp_path / "rot"), "--no-watchdog", "--debug-nans",
+                  "--out-dir", str(tmp_path)])
+
+
+def test_supervised_debug_nans_as_wavetpu(tmp_path, monkeypatch, capsys):
+    """wavetpu on the same argv: it accepts the pair, exits 0 on the clean
+    run, and its NaN drill raises FloatingPointError at the same chunk
+    boundary (jax_debug_nans traps the injection itself), leaving the same
+    rotation entry latest."""
+    import jax
+
+    from wavetpu_torch.run import faults
+
+    run = ["16", "1", "1", "1", "1", "1", "20", "--platform", "cpu",
+           "--ckpt-every", "5", "--debug-nans"]
+    try:
+        assert jcli.main(run + ["--backend", "single", "--ckpt-dir",
+                                str(tmp_path / "j"), "--out-dir",
+                                str(tmp_path / "jo")]) == 0
+        assert cli.main(run + ["--ckpt-dir", str(tmp_path / "t"),
+                               "--out-dir", str(tmp_path / "to")]) == 0
+        monkeypatch.setenv(faults.ENV_FAULT, "nan:8")
+        for main, d, extra in ((jcli.main, "jd", ["--backend", "single"]),
+                               (cli.main, "td", [])):
+            with pytest.raises(FloatingPointError):
+                main(run + extra + ["--ckpt-dir", str(tmp_path / d),
+                                    "--out-dir", str(tmp_path / "x")])
+            assert (tmp_path / d / "latest").read_text().strip() == \
+                "step-00000006.npz"
+    finally:
+        jax.config.update("jax_debug_nans", False)

@@ -1440,3 +1440,58 @@ def test_sharded_ensemble_lanes_equal_solo_on_card(cuda, mesh):
                            want.u_prev.fundamental())
         assert np.array_equal(got.abs_errors, want.abs_errors)
         assert np.array_equal(got.rel_errors, want.rel_errors)
+
+
+# ---- the serving replica on the card ----
+
+
+@pytest.mark.parametrize("body", [
+    {"N": 64, "timesteps": 40, "scheme": "compensated", "fuse_steps": 4},
+    {"N": 64, "timesteps": 40},
+], ids=["flagship", "pallas"])
+def test_replica_batch_equals_solve_ensemble_on_card(cuda, body):
+    """Two concurrent /solve requests through `build_server` on the card
+    coalesce into one batch (kernel auto -> the lane modes); each answer's
+    error vectors are bit for bit its lane of `solve_ensemble`."""
+    import json
+    import threading
+    import urllib.request
+
+    from wavetpu_torch.ensemble import batched as eb
+    from wavetpu_torch.serve.api import build_server
+
+    httpd, state = build_server(port=0, max_wait=0.5, device=cuda)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = [dict(body, phase=1.0), dict(body, steps=25)]
+    out = [None, None]
+
+    def post(i):
+        req = urllib.request.Request(
+            base + "/solve", data=json.dumps(bodies[i]).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out[i] = json.loads(r.read())
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+    finally:
+        httpd.shutdown()
+        state.batcher.close()
+        httpd.server_close()
+    assert all(o["batch"]["occupancy"] == 2 and o["batch"]["batched"]
+               for o in out)
+    kw = (dict(scheme="compensated", path="kfused", k=4)
+          if "scheme" in body else dict(path="pallas"))
+    p = Problem(N=64, timesteps=40)
+    ens = eb.solve_ensemble(
+        p, [eb.LaneSpec(phase=1.0), eb.LaneSpec(stop_step=25)],
+        pad_to=2, **kw)
+    for res, ref in zip(out, ens.results):
+        assert np.array_equal(res["report"]["abs_errors"], ref.abs_errors)
+        assert np.array_equal(res["report"]["rel_errors"], ref.rel_errors)

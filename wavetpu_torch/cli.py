@@ -116,11 +116,13 @@ Flags:
                                     or each k-block) for a non-finite value
                                     and stop with the layers named - a check
                                     at launch granularity, where wavetpu's
-                                    jax_debug_nans traps the first op; not
-                                    with --ckpt-every (its watchdog checks
-                                    each chunk)
+                                    jax_debug_nans traps the first op; with
+                                    --ckpt-every each chunk marches launch
+                                    by launch
 
-Subcommands: `trace-report [TRACE.jsonl ...] [--dir DIR ...]` (obs/
+Subcommands: `serve [...]` (serve/api.py: the serving replica, answering
+/solve through the kernels' lane modes; `serve --version`),
+`trace-report [TRACE.jsonl ...] [--dir DIR ...] [--request ID]` (obs/
 report.py), `ledger-report TELEMETRY_DIR [--json]` (obs/ledger.py),
 `plan-report TELEMETRY_DIR [--json]` (obs/accuracy.py) and `profile --out
 DIR ARGS...` (obs/perf.py: one full command line under torch.profiler).
@@ -142,17 +144,19 @@ from wavetpu_torch.core.problem import Problem
 
 # wavetpu flags (and subcommands) the port does not take yet, with the
 # ROADMAP.md item that will bring each.
+_ITEM_12B = ("queue 1 item 12b (program cache, preemptible long solves, "
+             "result cache, shadow solves)")
+_ITEM_12C = "queue 1 item 12c (router, fleet, load generator)"
 _NOT_PORTED = {
     "distributed": "queue 1 item 10, step 5 (--distributed: one process "
                    "per card)",
-    "program-cache-dir": "queue 1 item 12 (serving)",
+    "program-cache-dir": _ITEM_12B,
 }
 _NOT_PORTED_SUBCOMMANDS = {
-    "serve": "queue 1 item 12 (serving)",
-    "router": "queue 1 item 12 (serving)",
-    "fleet": "queue 1 item 12 (serving)",
-    "warmup": "queue 1 item 12 (serving)",
-    "loadgen": "queue 1 item 12 (serving)",
+    "router": _ITEM_12C,
+    "fleet": _ITEM_12C,
+    "warmup": _ITEM_12B,
+    "loadgen": _ITEM_12C,
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
            "out-dir", "platform", "c2-field", "backend", "mesh", "kernel",
@@ -171,12 +175,13 @@ _USAGE = (
     "[--phase-timing] [--profile DIR] [--telemetry-dir DIR] "
     "[--stop-step S] [--save-state PATH] [--resume PATH] "
     "[--ckpt-every S] [--ckpt-dir DIR] [--retries N] [--max-amp X] "
-    "[--no-watchdog] [--debug-nans] | "
+    "[--no-watchdog] [--debug-nans] | serve [...] | "
     "trace-report [...] | ledger-report DIR [...] | plan-report DIR [...] "
     "| profile --out DIR ARGS... | --version"
 )
 # The subcommands: (module, its entry point).
 _SUBCOMMANDS = {
+    "serve": ("wavetpu_torch.serve.api", "main"),
     "trace-report": ("wavetpu_torch.obs.report", "main"),
     "ledger-report": ("wavetpu_torch.obs.ledger", "main"),
     "plan-report": ("wavetpu_torch.obs.accuracy", "main"),
@@ -275,11 +280,6 @@ def _parse(argv):
                 "--ckpt-every supervises the run to completion; it is "
                 "exclusive with --stop-step (preempt a supervised run with "
                 "SIGTERM instead)")
-        if "debug-nans" in flags:
-            raise ValueError(
-                "--debug-nans checks an unsupervised march launch by launch; "
-                "a supervised run has its watchdog (--max-amp, "
-                "--no-watchdog)")
         retries = int(flags.get("retries", "0"))
         if retries < 0:
             raise ValueError(f"--retries must be >= 0, got {retries}")
@@ -569,7 +569,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     try:
         if supervised:
             sup_out = run.supervise(supervision, ckpt_dir,
-                                    "no-watchdog" not in flags)
+                                    "no-watchdog" not in flags,
+                                    "debug-nans" in flags)
             result = sup_out.result
             print(f"supervisor: {sup_out.status}; "
                   f"{sup_out.checkpoints_written} checkpoint(s), "
@@ -818,7 +819,8 @@ class _Run:
             c2tau2_field=self.c2_field, compute_errors=self.compute_errors,
             overlap=self.overlap, devices=tuple(self.devices))
 
-    def supervise(self, supervision, ckpt_dir: str, watchdog: bool):
+    def supervise(self, supervision, ckpt_dir: str, watchdog: bool,
+                  debug_nans: bool):
         from wavetpu_torch.run import supervisor
 
         ckpt_every, retries, max_amp = supervision
@@ -826,7 +828,7 @@ class _Run:
             self.problem, self.spec(),
             supervisor.SupervisorOptions(
                 ckpt_every=ckpt_every, ckpt_dir=ckpt_dir, retries=retries,
-                watchdog=watchdog, max_amp=max_amp),
+                watchdog=watchdog, max_amp=max_amp, debug_nans=debug_nans),
             state=self.state, start_step=self.start)
 
     def checked(self, stop_step):

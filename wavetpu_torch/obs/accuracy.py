@@ -271,6 +271,37 @@ def observe_solve(result, path: str, *, scheme: str, k: int,
     )
 
 
+def observe_serve_batch(result, verdicts, *, scheme: str, k: int,
+                        dtype: str, registry) -> None:
+    """Per-lane accuracy recording off the serve engine's watchdog
+    reduction: each HEALTHY lane that computed oracle errors records
+    one ledger line + metric stamp for the plan that served it (the
+    batch's actual `result.path`, so a lane-loop fallback is labeled
+    as what ran).  Tripped lanes are excluded - their error fields are
+    poison, and their 422 already tells the story.  Caller guards
+    exceptions (the X-ray must never fail the batch)."""
+    plan = None
+    for r, verdict in zip(result.results, verdicts):
+        if verdict is not None:
+            continue
+        errs = getattr(r, "abs_errors", None)
+        if errs is None:
+            continue
+        max_err = float(max(float(e) for e in errs))
+        if max_err <= 0.0:
+            continue  # all-zero = the errors-off sentinel, not a verdict
+        if plan is None:
+            plan = make_plan(scheme, result.path, k, dtype_name(dtype))
+        record_error_metrics(registry, plan, max_err)
+        problem = r.problem
+        steps = getattr(r, "steps_computed", None) or problem.timesteps
+        record_accuracy(
+            plan, problem.N, problem.timesteps, max_err,
+            float(result.solve_seconds or 0.0),
+            float(problem.cells_per_step) * steps,
+        )
+
+
 def resolve_accuracy_path(path: str) -> str:
     """Accept a telemetry DIR (the common case) or the ledger file."""
     if os.path.isdir(path):

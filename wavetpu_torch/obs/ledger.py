@@ -59,6 +59,33 @@ from wavetpu_torch.progkey import canonical_key, normalize_key
 LEDGER_FILENAME = "compile_ledger.jsonl"
 
 
+# ------------------------------------------------- request context
+#
+# The serving replica's scheduler worker binds the batch leader's tenant
+# label here (THREAD-local: the worker thread, not the HTTP handler that
+# knew the tenant, pays the compile) so every ledger line a solve records
+# carries `tenant` without threading it through the engine's call chain.
+
+_request_ctx = threading.local()
+
+
+def set_request_context(tenant: Optional[str] = None) -> None:
+    """Bind per-request attribution for ledger lines recorded on THIS
+    thread until `clear_request_context`.  None values are dropped."""
+    ctx = {}
+    if tenant:
+        ctx["tenant"] = str(tenant)
+    _request_ctx.fields = ctx
+
+
+def clear_request_context() -> None:
+    _request_ctx.fields = {}
+
+
+def request_context() -> dict:
+    return dict(getattr(_request_ctx, "fields", None) or {})
+
+
 def solo_key(problem, scheme: str, path: str, k: int, dtype: str,
              with_field: bool, compute_errors: bool,
              mesh=None) -> dict:
@@ -120,6 +147,9 @@ class CompileLedger:
                 rec["source"] = str(source)
             if fresh_compile_s is not None:
                 rec["fresh_compile_s"] = round(float(fresh_compile_s), 6)
+            # Serving attribution: whatever request context the recording
+            # thread bound (the tenant); absent outside the serve path.
+            rec.update(request_context())
             try:
                 if not self._f.closed:
                     self._f.write(json.dumps(rec) + "\n")

@@ -210,6 +210,10 @@ class SupervisorOptions:
     keep: int = 2
     handle_signals: bool = True
     chunk_hook: Optional[Callable] = None  # fault port (run/faults.py)
+    # --debug-nans: every chunk marches launch by launch, each launch's
+    # output checked (`_march_checked`); a non-finite value raises
+    # FloatingPointError naming its layers and the chunk's.
+    debug_nans: bool = False
 
 
 @dataclasses.dataclass
@@ -700,18 +704,29 @@ def supervise(problem, spec: PathSpec, opts: SupervisorOptions,
                     chunk_span = tracing.begin_span(
                         "supervisor.chunk", start=0, end=b, length=b,
                         first=True)
-                    state, a, r, i_s, s_s = path.first(b)
-                    abs_full[: b + 1] = a
-                    rel_full[: b + 1] = r
+                    if opts.debug_nans:
+                        state, i_s, s_s, _ = _march_checked(
+                            path, None, 0, b, abs_full, rel_full,
+                            chunk=True)
+                    else:
+                        state, a, r, i_s, s_s = path.first(b)
+                        abs_full[: b + 1] = a
+                        rel_full[: b + 1] = r
                     cur = b
                 elif cur < T:
                     length = min(L, T - cur)
                     chunk_span = tracing.begin_span(
                         "supervisor.chunk", start=cur, end=cur + length,
                         length=length, first=False)
-                    state, a, r, s_s, i_s = path.chunk(state, cur, length)
-                    abs_full[cur + 1: cur + length + 1] = a
-                    rel_full[cur + 1: cur + length + 1] = r
+                    if opts.debug_nans:
+                        state, i_s, s_s, _ = _march_checked(
+                            path, state, cur, cur + length, abs_full,
+                            rel_full, chunk=True)
+                    else:
+                        state, a, r, s_s, i_s = path.chunk(state, cur,
+                                                           length)
+                        abs_full[cur + 1: cur + length + 1] = a
+                        rel_full[cur + 1: cur + length + 1] = r
                     cur += length
                 else:
                     # Injected state already at the target layer: no
@@ -739,6 +754,12 @@ def supervise(problem, spec: PathSpec, opts: SupervisorOptions,
                 # ---- chunk-boundary bookkeeping at layer `cur` ----
                 if hook is not None:
                     state = hook(state, cur)
+                    if opts.debug_nans and chunk_ran:
+                        # A fault injected at the boundary belongs to the
+                        # chunk that ends here (wavetpu's jax_debug_nans
+                        # traps the injection itself).
+                        _check_finite(path, state, cur - length + 1, cur,
+                                      "the supervised chunk's end state")
                 t0 = time.perf_counter()
                 ok = True
                 if opts.watchdog:
@@ -811,34 +832,36 @@ def supervise(problem, spec: PathSpec, opts: SupervisorOptions,
     )
 
 
-def checked_march(problem, spec: PathSpec, stop_step: Optional[int] = None,
-                  state=None, start_step: Optional[int] = None):
-    """The CLI's --debug-nans: the march - from layer 0, or from an
-    injected state at `start_step` - to `stop_step` (default: the last
-    layer) in launch-sized chunks (one k-block, or one step), each checked
-    with the health guard; a non-finite value raises FloatingPointError
-    naming the chunk's layers.  The chunks run the production march on
-    its block grid (`_Path`), so the result is bitwise the unchecked
-    run's.  wavetpu's jax_debug_nans traps the first NaN-producing op
-    instead; a launch is the finest grain the port can see."""
-    import numpy as np
-
+def _check_finite(path: _Path, state, first: int, last: int,
+                  where: Optional[str] = None) -> None:
+    """--debug-nans: raise FloatingPointError naming layers first..last
+    when the state holds a non-finite value (the health guard's +inf)."""
     from wavetpu_torch.run import health
 
-    path = _Path(problem, spec)
-    stop = problem.timesteps if stop_step is None else stop_step
+    if health.state_amax(path.health_arrays(state)) == float("inf"):
+        where = where or f"the launch that computed layer {last}"
+        raise FloatingPointError(
+            f"--debug-nans: a non-finite value appeared in layers "
+            f"{first}..{last} ({where})")
+
+
+def _march_checked(path: _Path, state, cur: int, stop: int, abs_full,
+                   rel_full, chunk: bool = False):
+    """March layers cur+1..stop - from layer 0 when `state` is None - in
+    launch-sized chunks (one k-block, or one step) on the production
+    march's block grid, each checked by `_check_finite`; the error
+    vectors are filled in place.  Returns (state, init_s, solve_s,
+    marched).  A non-finite value raises FloatingPointError naming the
+    launch's layers and, for a supervised `chunk`, the chunk's."""
     step = max(1, path.k)
-    abs_full = np.zeros((stop + 1,), dtype=np.float64)
-    rel_full = np.zeros((stop + 1,), dtype=np.float64)
+    first_layer = cur + 1
     init_s = solve_s = 0.0
     marched = 0
 
-    def check(state, first: int, last: int):
-        amax = health.state_amax(path.health_arrays(state))
-        if amax == float("inf"):
-            raise FloatingPointError(
-                f"--debug-nans: a non-finite value appeared in layers "
-                f"{first}..{last} (the launch that computed layer {last})")
+    def check(state, first, last):
+        where = (f"the launch that computed layer {last}, in the supervised "
+                 f"chunk of layers {first_layer}..{stop}" if chunk else None)
+        _check_finite(path, state, first, last, where)
 
     if state is None:
         cur = min(stop, 1 + step)
@@ -846,8 +869,6 @@ def checked_march(problem, spec: PathSpec, stop_step: Optional[int] = None,
         abs_full[: cur + 1], rel_full[: cur + 1] = a, r
         marched = cur
         check(state, 1, cur)
-    else:
-        state, cur = path.prepare(state), start_step
     while cur < stop:
         length = min(step, stop - cur)
         state, a, r, s_s, i_s = path.chunk(state, cur, length)
@@ -858,5 +879,27 @@ def checked_march(problem, spec: PathSpec, stop_step: Optional[int] = None,
         marched += length
         check(state, cur + 1, cur + length)
         cur += length
-    return path.to_result(state, abs_full, rel_full, cur, init_s, solve_s,
-                          marched)
+    return state, init_s, solve_s, marched
+
+
+def checked_march(problem, spec: PathSpec, stop_step: Optional[int] = None,
+                  state=None, start_step: Optional[int] = None):
+    """The CLI's unsupervised --debug-nans: the march - from layer 0, or
+    from an injected state at `start_step` - to `stop_step` (default: the
+    last layer) through `_march_checked`, so the result is bitwise the
+    unchecked run's.  wavetpu's jax_debug_nans traps the first
+    NaN-producing op instead; a launch is the finest grain the port can
+    see."""
+    import numpy as np
+
+    path = _Path(problem, spec)
+    stop = problem.timesteps if stop_step is None else stop_step
+    abs_full = np.zeros((stop + 1,), dtype=np.float64)
+    rel_full = np.zeros((stop + 1,), dtype=np.float64)
+    cur = 0
+    if state is not None:
+        state, cur = path.prepare(state), start_step
+    state, init_s, solve_s, marched = _march_checked(
+        path, state, cur, stop, abs_full, rel_full)
+    return path.to_result(state, abs_full, rel_full, max(cur, stop), init_s,
+                          solve_s, marched)
