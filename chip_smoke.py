@@ -107,7 +107,10 @@ without them or when any phase fails.  Phases:
                against the single-device flagship: bitwise on mesh 4,1,1
                (u and the carry), within 1e-6 on mesh 2,2,1;
                flagship_mesh's max abs error is the flagship's, bit for
-               bit; and at N=128 / 1000 steps the
+               bit; C1: sharded_flagship_221 against the flagship at
+               2000 and 4000 steps (tau kept, T = 2 and 4), max |du| and
+               the error vectors' max distance beside the 1000-step pair;
+               and at N=128 / 1000 steps the
                compensated variable-c state lies nearer an f64 plain
                variable-c march than the standard one does (wavetpu's
                tests/test_kfused_varc.py contract).
@@ -194,7 +197,9 @@ without them or when any phase fails.  Phases:
                bitwise against its plain version and, lane by lane,
                against the solo kernel, at N=128 on 3 and 2 lanes and at
                its run's N on 3; its time on 8 lanes beside 8 solo
-               launches, the plain version and 8 x the solo bound; five
+               launches, the plain version and 8 x the solo bound (K6's
+               lane mode also on the mesh-2,2,1 block of N=512, the main
+               path's block, beside its N=256 row); five
                main-path runs through `solve_ensemble` /
                `solve_ensemble_sharded`, each with the counters zeroed
                just before and read just after (exact counts, the same
@@ -239,6 +244,37 @@ without them or when any phase fails.  Phases:
                8; pallas and flagship): aggregate Gcell/s by the batches'
                solve seconds and by wall, p50/p95 latency and
                speedup_vs_batch1 beside phase 9's solve_ensemble rows.
+11. warm state - serving's warm state and long solves, counters zeroed
+               just before each counted run and read just after:
+               a. cold start: the port's `ledger-report
+               --emit-warmup-manifest` writes a manifest of four keys
+               (N=512/1000 pallas and kfused k=4 at b=1, the flagship at
+               b=4, N=256/100 pallas at b=8); `python -m wavetpu_torch
+               warmup` fills a fresh `--program-cache-dir` from phase 1's
+               build directory; a replica process with a new, empty
+               build directory and that cache answers each key with zero
+               nvcc runs (its shutdown line, /metrics: 0 misses and 4
+               disk hits, its compile ledger: source disk), each answer
+               bit-equal to phase 3's default and kfused runs, phase 9's
+               flagship lanes and `solve_ensemble`; a cold replica (empty
+               build directory, no cache) pays one nvcc run; both arms'
+               time to first solve, the adopt walls, the first launches;
+               b. chunked long solves (`--chunk-threshold 500
+               --chunk-steps 200`): pallas N=512/1000 K1 x1000 and kfused
+               K3 x249 + K1 x4, each in 5 chunks, bit-equal to phase 3;
+               six N=256/100 requests sent while the long pallas march
+               runs are all answered before it ends, their p95 beside a
+               monolithic replica's, the walls side by side;
+               c. a deadline of 1500 ms answers 504 with a resume_token;
+               a second replica sharing `--solve-state-dir` resumes it
+               to the uninterrupted answer, K1 launches of the halves
+               summing to 1000; a byte-flipped token file answers 422;
+               d. `--result-cache`: a repeated N=256/100 request answers
+               byte-identical and no counter moves;
+               e. `--shadow-sample-rate 1.0`: an N=256/100 kfused answer
+               equals a shadow-less replica's, its twin runs K2's lane
+               mode x100 (never the plain versions), the divergence
+               lands in the accuracy ledger (source "shadow").
 
 Each phase prints its wall time.
 
@@ -2686,7 +2722,33 @@ def phase_lane_kernels(errs, rate):
                   f"ms by {times[name]['bound_by']}")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    times["K6 lanes"].update(k6_lanes_main_block(errs, rate))
     return times
+
+
+def k6_lanes_main_block(errs, rate):
+    """K6's lane mode at the main path's block: B=8 lanes on the
+    mesh-2,2,1 block of N=512 (~3.2 GB of state), held against its plain
+    version and timed beside eight solo launches; bound = 8 x K6's."""
+    (fn, plain, solo, nb, ops), = lane_cases(N_FULL, 8,
+                                              ["K6 lanes"]).values()
+    check_outputs(f"K6 lanes N={N_FULL} B=8", _as_list(fn()),
+                  _as_list(plain()), errs["K6 lanes"])
+    ms = time_launches(fn, 10)
+    solo_ms = time_launches(lambda: [solo(i) for i in range(8)], 10)
+    plain_ms = time_launches(plain, 1, warmup=1)
+    byte_ms, op_ms = nb / rate * 1e3, ops / F32_OPS_PER_S * 1e3
+    out = dict(ms_N512=ms, solo_x8_ms_N512=solo_ms, plain_ms_N512=plain_ms,
+               bound_ms_N512=max(byte_ms, op_ms),
+               bound_by_N512="bytes" if byte_ms >= op_ms else "operations")
+    print(f"  K6 lanes N={N_FULL} B=8 (mesh-2,2,1 block): {ms:.4f} ms; 8 "
+          f"solo launches {solo_ms:.4f} ms ({solo_ms / ms:.3f}x); plain "
+          f"{plain_ms:.3f} ms; bound {out['bound_ms_N512']:.4f} ms by "
+          f"{out['bound_by_N512']} ({out['bound_ms_N512'] / ms:.3f} of "
+          f"it reached)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _as_list(out):
@@ -3173,6 +3235,571 @@ def phase_serve(card, lane_errors, throughput, flagship_err):
     return counts, measured
 
 
+# C1 (ROADMAP.md queue 3): K12's distance from the single-device flagship
+# as the march lengthens.  tau stays 1e-3 (T grows with the steps), so the
+# runs march the same scheme further; 1000 steps is phase 4's pair.
+C1_STEPS = (2000, 4000)
+
+
+def phase_c1(accuracy):
+    """sharded_flagship_221 (K12) against the flagship (K4) at N=512 for
+    2000 and 4000 steps: max |du| and the error vectors' max distance,
+    beside phase 4's 1000-step pair."""
+    rec = accuracy["sharded_flagship_221_vs_flagship"]
+    out = {STEPS: dict(max_abs_du=rec["max_abs_du"],
+                       max_abs_d_abs_errors=rec["max_abs_d_abs_errors"])}
+    for steps in C1_STEPS:
+        p = Problem(N=N_FULL, T=steps / STEPS, timesteps=steps)
+        single = kfused_comp.solve_kfused_comp(p, k=K, device=DEV)
+        res = kfused_comp.solve_kfused_comp_sharded(
+            p, mesh_shape=(2, 2, 1), k=K, devices=[DEV] * SHARDS)
+        du = (res.u_cur.fundamental(DEV) - single.u_cur).abs().max().item()
+        de = float(np.max(np.abs(res.abs_errors - single.abs_errors)))
+        out[steps] = dict(max_abs_du=du, max_abs_d_abs_errors=de,
+                          flagship_max_abs_error=float(
+                              single.abs_errors.max()))
+        del single, res
+        torch.cuda.empty_cache()
+    for steps, r in out.items():
+        print(f"  C1: sharded_flagship_221 vs flagship at {steps} steps: "
+              f"max|du| {r['max_abs_du']!r}, max|d abs_errors| "
+              f"{r['max_abs_d_abs_errors']!r}")
+    return out
+
+
+# Phase 11: serving's warm state and long solves (serve/progcache.py,
+# serve/preempt.py, serve/resultcache.py, serve/shadow.py) through the
+# replica at full width: N=512/1000 and bench.py's serving shape N=256/100.
+LONG_BODY = dict(N=N_FULL, T=1.0, timesteps=STEPS)
+SHORT_BODY = dict(N=SERVE_N, T=1.0, timesteps=100)
+CHUNK_THRESHOLD, CHUNK_STEPS = 500, 200
+N_CHUNKS = -(-(STEPS - 1) // CHUNK_STEPS)
+# The deadline of the request that the second replica resumes: a few
+# chunks into the march.
+RESUME_DEADLINE_MS = 1500
+# The warmup manifest's keys (ledger-report's shape): the N=512/1000 f32
+# standard key with these fields changed.
+WARM_KEYS = (dict(path="pallas"), dict(path="kfused", k=K),
+             dict(scheme="compensated", path="kfused", k=K, batch=4),
+             dict(N=SERVE_N, timesteps=100, path="pallas", batch=8))
+
+
+def warm_key(over):
+    key = dict(N=N_FULL, Lx=1.0, Ly=1.0, Lz=1.0, T=1.0, timesteps=STEPS,
+               scheme="standard", path="pallas", k=1, dtype="f32",
+               with_field=False, compute_errors=True, batch=1, mesh=None)
+    key.update(over)
+    return key
+
+
+def short_bodies(n):
+    return [dict(SHORT_BODY, phase=oracle_phase(i)) for i in range(n)]
+
+
+def serve_post_raw(base, body, headers=None, timeout=900):
+    """POST /solve -> (status, raw body bytes, headers)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + "/solve", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def same_errors(label, payload, want):
+    """A /solve answer's error vectors bit-equal to (abs, rel)."""
+    rep = payload["report"]
+    if not (np.array_equal(rep["abs_errors"], want[0])
+            and np.array_equal(rep["rel_errors"], want[1])):
+        fail(f"{label}: error vectors differ from the reference")
+
+
+def phase3_errors(sides, label):
+    e = side_errors(sides[label])
+    return e["abs"], e["rel"]
+
+
+def counted(label, want, fn):
+    """Run fn() with the counters zeroed just before and read just after;
+    every counter must equal want's (0 when not listed)."""
+    stencil_cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(stencil_cuda.launches)
+    expected = {c: want.get(c, 0) for c in got}
+    if got != expected:
+        fail(f"{label}: launches {got}, expected {expected}")
+    return out, {c: v for c, v in got.items() if v}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def replica_process(tmp, name, flags, build_dir):
+    """`python -m wavetpu_torch serve` in its own process with its own
+    build directory and telemetry; returns (process, base URL, spawn
+    time, log path) once /healthz answers."""
+    port = free_port()
+    log_path = os.path.join(tmp, f"{name}.log")
+    env = dict(os.environ, WAVETPU_TORCH_BUILD_DIR=build_dir)
+    t_spawn = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "wavetpu_torch", "serve", "--port",
+             str(port), "--max-wait-ms", "200", "--telemetry-dir",
+             os.path.join(tmp, f"tel_{name}")] + flags + CLI_EXTRA,
+            env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 300
+    while True:
+        if proc.poll() is not None:
+            fail(f"replica {name} exited {proc.returncode}: "
+                 f"{open(log_path).read()[-2000:]}")
+        try:
+            serve_get(base, "/healthz")
+            return proc, base, t_spawn, log_path
+        except OSError:
+            if time.monotonic() > deadline:
+                proc.kill()
+                fail(f"replica {name} never answered /healthz")
+            time.sleep(0.1)
+
+
+def stop_process(proc, log_path):
+    """SIGTERM (drain), wait, and the replica's log."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    with open(log_path) as f:
+        return f.read()
+
+
+def kernel_stats(log):
+    """The replica's shutdown line: nvcc runs, their seconds, disk loads
+    and first-launch seconds."""
+    m = re.search(r"kernel libraries: (\d+) nvcc run\(s\) \(([\d.]+) s\), "
+                  r"(\d+) disk load\(s\), (\d+) load\(s\); first launches "
+                  r"([\d.]+) s", log)
+    if m is None:
+        fail(f"no kernel-library line in the replica's log: {log[-2000:]}")
+    return dict(nvcc_runs=int(m.group(1)), nvcc_s=float(m.group(2)),
+                disk_loads=int(m.group(3)), loads=int(m.group(4)),
+                first_launch_s=float(m.group(5)))
+
+
+def phase_cold_start(card, sides, lane_errors):
+    """11a (bench.py's _cold_start_row at the port's scale): `warmup`
+    fills a fresh --program-cache-dir from a ledger-report manifest with
+    phase 1's libraries; a replica with an empty build directory and that
+    cache answers every manifest key with zero nvcc runs (its shutdown
+    line, /metrics and its compile ledger: source disk), each answer
+    bit-equal to phases 3, 9 and 10; a cold replica (empty build
+    directory, no cache) pays nvcc once.  Time to first solve of both."""
+    from wavetpu_torch.obs import ledger
+
+    tmp = tempfile.mkdtemp(prefix="wt-coldstart-")
+    procs = []
+    try:
+        lp = os.path.join(tmp, "compile_ledger.jsonl")
+        led = ledger.CompileLedger(lp)
+        for over in WARM_KEYS:
+            led.record(warm_key(over), 0.0, ts=1.0, pid=1)
+        led.close()
+        mp = os.path.join(tmp, "manifest.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            if ledger.main([lp, "--emit-warmup-manifest", mp]) != 0:
+                fail("ledger-report --emit-warmup-manifest failed")
+        cache = os.path.join(tmp, "pc")
+        t0 = time.perf_counter()
+        warm = subprocess.run(
+            [sys.executable, "-m", "wavetpu_torch", "warmup", "--manifest",
+             mp, "--program-cache-dir", cache] + CLI_EXTRA,
+            env=dict(os.environ,
+                     WAVETPU_TORCH_BUILD_DIR=str(build.build_dir())),
+            capture_output=True, text=True, timeout=600)
+        warmup_s = time.perf_counter() - t0
+        if warm.returncode != 0 or \
+                f"{len(WARM_KEYS)} compiled" not in warm.stdout:
+            fail(f"warmup: rc {warm.returncode} {warm.stdout} "
+                 f"{warm.stderr}")
+        cache_bytes = dir_bytes(cache)
+        print(f"  warmup: {len(WARM_KEYS)} keys into {cache_bytes} B of "
+              f"cache in {warmup_s!r} s (subprocess wall)")
+
+        # The adopting replica: a new, empty build directory.
+        proc, base, t_spawn, log = replica_process(
+            tmp, "adopt", ["--program-cache-dir", cache],
+            os.path.join(tmp, "build_adopt"))
+        procs.append((proc, log))
+        ready_s = time.perf_counter() - t_spawn
+        code, first, _ = serve_post(base, LONG_BODY)
+        ttfs_adopt = time.perf_counter() - t_spawn
+        if code != 200:
+            fail(f"adopting replica: {code} {first}")
+        same_errors("adopted pallas N=512", first,
+                    phase3_errors(sides, "default"))
+        code, kf, _ = serve_post(base, dict(LONG_BODY, fuse_steps=K))
+        if code != 200:
+            fail(f"adopting replica kfused: {code} {kf}")
+        same_errors("adopted kfused N=512", kf,
+                    phase3_errors(sides, "kfused"))
+        bodies = SERVE_RUNS["serve_flagship"][0]
+        flag = serve_concurrent(base, bodies)
+        for i, ref in enumerate(serve_reference("serve_flagship", bodies,
+                                                lane_errors)):
+            if flag[i][0] != 200 or flag[i][1]["batch"]["batch_size"] != 4:
+                fail(f"adopted flagship {i}: {flag[i][0]} {flag[i][1]}")
+            same_errors(f"adopted flagship {i}", flag[i][1], ref)
+        shorts = serve_concurrent(base, short_bodies(8))
+        if any(a[0] != 200 or a[1]["batch"]["batch_size"] != 8
+               for a in shorts):
+            fail(f"adopted N=256 batch: {[a[0] for a in shorts]}")
+        metrics = serve_get(base, "/metrics")["program_cache"]
+        log_text = stop_process(proc, log)
+        procs.pop()
+        stats = kernel_stats(log_text)
+        lines = ledger.load_ledger(os.path.join(tmp, "tel_adopt",
+                                                ledger.LEDGER_FILENAME))
+        sources = [line.get("source") for line in lines]
+        if not (stats["nvcc_runs"] == 0 and metrics["misses"] == 0
+                and metrics["disk_hits"] == len(WARM_KEYS)
+                and sources == ["disk"] * len(WARM_KEYS)):
+            fail(f"adopting replica: nvcc runs {stats['nvcc_runs']}, "
+                 f"misses {metrics['misses']}, disk hits "
+                 f"{metrics['disk_hits']}, ledger sources {sources}")
+        adopt_s = {f"{ln['key']['path']} b={ln['key']['batch']} "
+                   f"N={ln['key']['N']}": ln["compile_s"] for ln in lines}
+        # Phase 3/9/10's references for the N=256 batch: solve_ensemble
+        # of the same lanes here.
+        p = Problem(N=SHORT_BODY["N"], timesteps=SHORT_BODY["timesteps"])
+        ens = ensemble.solve_ensemble(
+            p, [serve_lane(b) for b in short_bodies(8)], path="pallas",
+            device=DEV)
+        for i, r in enumerate(ens.results):
+            same_errors(f"adopted N=256 lane {i}", shorts[i][1],
+                        (r.abs_errors, r.rel_errors))
+        del ens
+
+        # The cold arm: an empty build directory and no cache.
+        proc, base, t_spawn, log = replica_process(
+            tmp, "cold", [], os.path.join(tmp, "build_cold"))
+        procs.append((proc, log))
+        cold_ready_s = time.perf_counter() - t_spawn
+        code, cold, _ = serve_post(base, LONG_BODY)
+        ttfs_cold = time.perf_counter() - t_spawn
+        if code != 200:
+            fail(f"cold replica: {code} {cold}")
+        same_errors("cold pallas N=512", cold,
+                    phase3_errors(sides, "default"))
+        cold_stats = kernel_stats(stop_process(proc, log))
+        procs.pop()
+        if cold_stats["nvcc_runs"] != 1:
+            fail(f"cold replica: {cold_stats['nvcc_runs']} nvcc runs, "
+                 f"expected 1 (stencil.cu)")
+        out = dict(
+            warmup_s=warmup_s, cache_bytes=cache_bytes,
+            ttfs_adopt_s=ttfs_adopt, ttfs_cold_s=ttfs_cold,
+            ready_adopt_s=ready_s, ready_cold_s=cold_ready_s,
+            adopt_compile_s=adopt_s, adopt=stats, cold=cold_stats,
+            first_compile_s_adopt=first["batch"]["timing"]["compile_s"],
+            first_compile_s_cold=cold["batch"]["timing"]["compile_s"])
+        print(f"  time to first solve (N=512/1000 pallas, spawn to "
+              f"answer): adopted {ttfs_adopt!r} s (ready {ready_s!r} s; "
+              f"its compile {out['first_compile_s_adopt']!r} s), cold "
+              f"{ttfs_cold!r} s (ready {cold_ready_s!r} s; nvcc "
+              f"{cold_stats['nvcc_s']!r} s, compile "
+              f"{out['first_compile_s_cold']!r} s) ({card})")
+        print(f"  adopt walls per key {adopt_s}; first launches: adopted "
+              f"replica {stats['first_launch_s']!r} s over its keys, cold "
+              f"{cold_stats['first_launch_s']!r} s; nvcc runs 0 and "
+              f"{cold_stats['nvcc_runs']} ({card})")
+        return out
+    finally:
+        for proc, log in procs:
+            stop_process(proc, log)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def interleaved(base, state, chunked):
+    """The long pallas march with six N=256/100 requests submitted at once
+    while it runs: (long wall, short latencies, every short answered
+    before the long)."""
+    import threading
+
+    before = state.metrics.snapshot()["chunks_total"]
+    out = {}
+
+    def long_one():
+        t = time.perf_counter()
+        out["long"] = serve_post(base, LONG_BODY)
+        out["long_wall"] = time.perf_counter() - t
+        out["long_done"] = time.perf_counter()
+
+    th = threading.Thread(target=long_one)
+    th.start()
+    # Wait for the march to be running: its first chunk done (chunked),
+    # or its batch formed (monolithic: the queue empty again).
+    t_start = time.monotonic()
+    while time.monotonic() < t_start + 60:
+        snap = state.metrics.snapshot()
+        if chunked and snap["chunks_total"] > before:
+            break
+        if not chunked and snap["queue_depth"] == 0 and \
+                time.monotonic() > t_start + 0.1:
+            break
+        time.sleep(0.005)
+    shorts = serve_concurrent(base, short_bodies(6))
+    done = time.perf_counter()
+    th.join(900)
+    if out["long"][0] != 200 or any(a[0] != 200 for a in shorts):
+        fail(f"interleaved run (chunked {chunked}): "
+             f"{out['long'][0]} {[a[0] for a in shorts]}")
+    lat = sorted(a[3] for a in shorts)
+    return out["long_wall"], lat, done < out["long_done"]
+
+
+def phase_long_solves(card, sides):
+    """11b-c (bench.py's _preemptible_row at N=512/1000): chunked pallas
+    and kfused marches with exact counts, bit-equal to phase 3; six
+    N=256/100 requests answered while the long march runs, their p95
+    beside a monolithic replica's; a deadline that expires mid-march
+    answers 504 with a token, which a second replica sharing the state
+    directory resumes to the uninterrupted answer (K1 launches of the two
+    halves summing to 1000); a byte-flipped token file answers 422."""
+    tmp = tempfile.mkdtemp(prefix="wt-state-")
+    chunked_kw = dict(max_wait=0.01, chunk_threshold=CHUNK_THRESHOLD,
+                      chunk_steps=CHUNK_STEPS, solve_state_dir=tmp)
+    replicas = []
+    try:
+        replicas.append(start_replica(**chunked_kw))
+        replicas.append(start_replica(max_wait=0.01))
+        (_, cstate, cbase), (_, mstate, mbase) = replicas
+        out, counts = {}, {}
+        for label, body, want, ref in (
+                ("chunked_pallas", LONG_BODY, {"step": STEPS}, "default"),
+                ("chunked_kfused", dict(LONG_BODY, fuse_steps=K),
+                 {"kstep": NB, "step": 1 + REM}, "kfused")):
+            t0 = time.perf_counter()
+            (code, payload, _), counts[label] = counted(
+                label, want, lambda b=body: serve_post(cbase, b))
+            wall = time.perf_counter() - t0
+            b = payload.get("batch", {})
+            if code != 200 or not b.get("chunked") or \
+                    b.get("chunks") != N_CHUNKS:
+                fail(f"{label}: {code} {b}")
+            same_errors(label, payload, phase3_errors(sides, ref))
+            out[label] = dict(wall_s=wall, launches=counts[label],
+                              timing=b["timing"])
+            print(f"  {label}: {N_CHUNKS} chunks of {b['chunk_len']}, "
+                  f"launches {counts[label]}, wall {wall!r} s, solve "
+                  f"{b['timing']['execute_s']!r} s, bit-equal to phase 3 "
+                  f"({card})")
+        for base in (cbase, mbase):  # the shorts' program, warm
+            serve_concurrent(base, short_bodies(6))
+        t0 = time.perf_counter()
+        code, mono, _ = serve_post(mbase, LONG_BODY)
+        mono_wall = time.perf_counter() - t0
+        if code != 200 or mono["batch"].get("chunked"):
+            fail(f"monolithic long: {code}")
+        same_errors("monolithic long", mono, phase3_errors(sides,
+                                                           "default"))
+        c_long, c_lat, c_before = interleaved(cbase, cstate, True)
+        m_long, m_lat, _ = interleaved(mbase, mstate, False)
+        if not c_before:
+            fail("a short request was answered after the chunked march")
+        p95 = {arm: lat[min(len(lat) - 1, int(0.95 * len(lat)))]
+               for arm, lat in (("chunked", c_lat), ("monolithic", m_lat))}
+        out["interleave"] = dict(
+            short_latencies_s=dict(chunked=c_lat, monolithic=m_lat),
+            short_p95_s=p95, long_wall_s=dict(chunked=c_long,
+                                              monolithic=m_long),
+            long_alone_wall_s=dict(chunked=out["chunked_pallas"]["wall_s"],
+                                   monolithic=mono_wall))
+        print(f"  six N=256/100 requests behind the N=512/1000 march: p95 "
+              f"{p95['chunked']!r} s chunked vs {p95['monolithic']!r} s "
+              f"monolithic, all answered before the chunked march ended; "
+              f"long wall alone {out['chunked_pallas']['wall_s']!r} s "
+              f"chunked vs {mono_wall!r} s monolithic (with the shorts "
+              f"{c_long!r} vs {m_long!r} s) ({card})")
+
+        # 11c: resume across replicas.
+        replicas.append(start_replica(**chunked_kw))
+        rbase = replicas[-1][2]
+        stencil_cuda.reset_launches()
+        t0 = time.perf_counter()
+        code, cut, _ = serve_post(cbase, dict(
+            LONG_BODY, deadline_ms=RESUME_DEADLINE_MS))
+        cut_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        first_half = {c: v for c, v in stencil_cuda.launches.items() if v}
+        token = cut.get("resume_token")
+        if code != 504 or token is None:
+            fail(f"deadline mid-march: {code} {cut}")
+        stencil_cuda.reset_launches()
+        t0 = time.perf_counter()
+        code, resumed, _ = serve_post(rbase, dict(LONG_BODY,
+                                                  resume_token=token))
+        resume_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        second_half = {c: v for c, v in stencil_cuda.launches.items() if v}
+        step = resumed.get("batch", {}).get("resumed_from")
+        if code != 200 or not step:
+            fail(f"resume on the second replica: {code} {resumed}")
+        if not (first_half == {"step": step}
+                and second_half == {"step": STEPS - step}):
+            fail(f"resume launches {first_half} + {second_half}, expected "
+                 f"K1 x{step} + x{STEPS - step}")
+        same_errors("resumed", resumed, phase3_errors(sides, "default"))
+        path = os.path.join(tmp, f"st-{token}.npz")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        code, bad, _ = serve_post(rbase, dict(LONG_BODY,
+                                              resume_token=token))
+        if code != 422:
+            fail(f"byte-flipped token: {code} {bad}")
+        out["resume"] = dict(step=step, first_half=first_half,
+                             second_half=second_half, cut_wall_s=cut_wall,
+                             resume_wall_s=resume_wall,
+                             token_bytes=os.path.getsize(path),
+                             resumed_timing=resumed["batch"]["timing"])
+        print(f"  deadline {RESUME_DEADLINE_MS} ms: 504 with a token at "
+              f"step {step} after {cut_wall!r} s; the second replica "
+              f"resumed it in {resume_wall!r} s, K1 x{step} + "
+              f"x{STEPS - step}, "
+              f"bit-equal to phase 3; token file "
+              f"{out['resume']['token_bytes']} B; flipped byte -> 422 "
+              f"({card})")
+        return out, counts
+    finally:
+        for httpd, state, _ in replicas:
+            stop_replica(httpd, state)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_result_cache_and_shadow(card):
+    """11d-e: with --result-cache a repeated N=256/100 request answers
+    byte-identical and no launch counter moves; with --shadow-sample-rate
+    1.0 an N=256/100 kfused request's answer equals a shadow-less
+    replica's, its twin runs K2's lane mode (counted exactly: the
+    reference plan, compensated k=1 f32, through `pallas` on the card)
+    and the divergence reaches the accuracy ledger (source "shadow")."""
+    from wavetpu_torch.obs import accuracy as obs_accuracy
+    from wavetpu_torch.obs import telemetry
+
+    out = {}
+    httpd, state, base = start_replica(max_wait=0.01, result_cache=True)
+    try:
+        code, fresh, h1 = serve_post_raw(base, SHORT_BODY)
+        (code2, hit, h2), moved = counted(
+            "result-cache hit", {}, lambda: serve_post_raw(base, SHORT_BODY))
+        if not (code == code2 == 200 and hit == fresh
+                and h2.get("X-Wavetpu-Cache") == "hit"
+                and h1.get("X-Wavetpu-Cache", "").startswith("store;fp=")):
+            fail(f"result cache: {code} {code2} {h1.get('X-Wavetpu-Cache')}"
+                 f" {h2.get('X-Wavetpu-Cache')} equal={hit == fresh}")
+        out["result_cache"] = dict(bytes=len(fresh), store=h1.get(
+            "X-Wavetpu-Cache"), hit_server_timing=h2.get("Server-Timing"))
+        print(f"  result cache: the repeat is byte-identical ({len(fresh)} "
+              f"B, {h1.get('X-Wavetpu-Cache')}), no launch between "
+              f"({h2.get('Server-Timing')})")
+    finally:
+        stop_replica(httpd, state)
+
+    body = dict(SHORT_BODY, fuse_steps=K)
+    tmp = tempfile.mkdtemp(prefix="wt-shadow-")
+    replicas = []
+    try:
+        replicas.append(start_replica(max_wait=0.01, shadow_sample_rate=1.0))
+        replicas.append(start_replica(max_wait=0.01))
+        (_, sstate, sbase), (_, _, pbase) = replicas
+        for base in (sbase, pbase):  # warm both tiers
+            serve_post(base, dict(body, phase=1.0))
+        sstate.shadow.wait_idle(300)
+        deadline = time.monotonic() + 60
+        while sstate.shadow.snapshot()["solves"] < 1 and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        tel = telemetry.start(tmp, registry=sstate.metrics.registry)
+        try:
+            def primary_and_twin():
+                answer = serve_post(sbase, body)
+                t_end = time.monotonic() + 300
+                while sstate.shadow.snapshot()["solves"] < 2 and \
+                        time.monotonic() < t_end:
+                    time.sleep(0.01)
+                sstate.shadow.wait_idle(300)
+                return answer
+
+            steps = SHORT_BODY["timesteps"]
+            (code, shadowed, _), moved = counted(
+                "shadowed kfused N=256/100",
+                {"kstep_lanes": (steps - 1) // K,
+                 "step_lanes": 1 + (steps - 1) % K,
+                 "comp_step_lanes": steps}, primary_and_twin)
+        finally:
+            tel.stop()
+        code2, plain, _ = serve_post(pbase, body)
+        if code != 200 or code2 != 200:
+            fail(f"shadow: {code} {code2}")
+        keys = ("abs_errors", "rel_errors", "max_abs_error", "final_step")
+        if {k: shadowed["report"][k] for k in keys} != \
+                {k: plain["report"][k] for k in keys} or \
+                set(shadowed) != set(plain):
+            fail("the shadowed answer differs from the shadow-less one")
+        recs = obs_accuracy.load_accuracy_ledger(
+            os.path.join(tmp, obs_accuracy.ACCURACY_FILENAME))
+        lines = [r for r in recs if r["source"] == "shadow"]
+        snap = sstate.shadow.snapshot()
+        if len(lines) != 1 or snap["failures"]:
+            fail(f"shadow ledger lines {lines}, sampler {snap}")
+        out["shadow"] = dict(launches=moved, divergence=lines[0][
+            "max_abs_err"], plan=lines[0]["plan"], sampler=snap)
+        print(f"  shadow: primary equal to a shadow-less replica's; "
+              f"launches {moved} (the twin: K2 lanes x{steps}); "
+              f"divergence "
+              f"{lines[0]['max_abs_err']!r} ledgered for "
+              f"{lines[0]['plan']} ({card})")
+    finally:
+        for httpd, state, _ in replicas:
+            stop_replica(httpd, state)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_warm_state(card, sides, lane_errors):
+    """Phase 11: 11a cold start through the disk tier, 11b-c chunked long
+    solves and resume across replicas, 11d-e the result cache and shadow
+    sampling.  Returns (launches per counted run, measurements)."""
+    torch.cuda.empty_cache()
+    measured = {"cold_start": phase_cold_start(card, sides, lane_errors)}
+    torch.cuda.empty_cache()
+    long_solves, counts = phase_long_solves(card, sides)
+    measured["long_solves"] = long_solves
+    torch.cuda.empty_cache()
+    measured.update(phase_result_cache_and_shadow(card))
+    counts["shadow_kfused_N256"] = measured["shadow"]["launches"]
+    return counts, measured
+
+
 def pipe_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
     main-path instantiations, from the verbose build log: the standard
@@ -3288,6 +3915,7 @@ def main() -> int:
     accuracy.update(phase_sharded_contracts(api))
     accuracy.update(phase_flagship_contracts(api, sides))
     del api
+    accuracy["c1"] = phase_c1(accuracy)
     t = done("contracts", t)
 
     print("phase 5: card vs CPU at N=32")
@@ -3330,10 +3958,17 @@ def main() -> int:
     print(f"phase 10: the serving replica ({card})")
     serve_counts, measured["serve"] = phase_serve(
         card, lane_errors, throughput, sides["flagship"]["max_abs_error"])
-    del lane_errors
     counts.update(serve_counts)
-    done("serve", t)
+    t = done("serve", t)
     print(f"  phase 10 wall: {phase_s['serve']!r} s ({card})")
+
+    print(f"phase 11: serving's warm state and long solves ({card})")
+    warm_counts, measured["warm_state"] = phase_warm_state(
+        card, sides, lane_errors)
+    del lane_errors
+    counts.update(warm_counts)
+    done("warm_state", t)
+    print(f"  phase 11 wall: {phase_s['warm_state']!r} s ({card})")
     rows = []
     for name, meta in KERNELS.items():
         row = {
@@ -3349,7 +3984,8 @@ def main() -> int:
             "bound_by": times[name]["bound_by"],
             "library_ms": None,
         }
-        for extra in ("ms_k1", "solo_x8_ms"):
+        for extra in ("ms_k1", "solo_x8_ms", "ms_N512", "solo_x8_ms_N512",
+                      "plain_ms_N512", "bound_ms_N512", "bound_by_N512"):
             if extra in times[name]:
                 row[extra] = times[name][extra]
         rows.append(row)

@@ -228,13 +228,13 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["8", "1", "1", "1", "1", "--program-cache-dir", "d"],
-     "queue 1 item 12b"),
+    (["8", "1", "1", "1", "1", "--distributed"],
+     "queue 1 item 10, step 5"),
     (["router"], "queue 1 item 12c"),
-    (["warmup"], "queue 1 item 12b"),
-    (["serve", "--chunk-threshold", "64"], "queue 1 item 12b"),
+    (["loadgen"], "queue 1 item 12c"),
+    (["fleet"], "queue 1 item 12c"),
     (["serve", "--record-trace", "t.jsonl"], "queue 1 item 12c"),
-], ids=["program-cache-dir", "router", "warmup", "serve-chunk-threshold",
+], ids=["distributed", "router", "loadgen", "fleet",
         "serve-record-trace"])
 def test_unported_flags_name_their_roadmap_item(argv, needle, capsys):
     assert cli.main(argv + ["--platform", "cpu"]) == 2

@@ -1495,3 +1495,84 @@ def test_replica_batch_equals_solve_ensemble_on_card(cuda, body):
     for res, ref in zip(out, ens.results):
         assert np.array_equal(res["report"]["abs_errors"], ref.abs_errors)
         assert np.array_equal(res["report"]["rel_errors"], ref.rel_errors)
+
+
+# ---- serving's warm state and long solves on the card ----
+
+
+@pytest.mark.parametrize("path,k", [("pallas", 1), ("kfused", 4)])
+def test_chunked_march_equals_monolithic_on_card(cuda, path, k):
+    """A chunked long solve (bootstrap to layer 1, then chunks on the
+    k-block grid) on the card: K1 (K3 + K1) launches add up to the
+    monolithic march's and the answer is bit for bit the monolithic serve
+    answer."""
+    from wavetpu_torch.ensemble import batched as eb
+    from wavetpu_torch.serve.engine import ServeEngine
+    from wavetpu_torch.serve.scheduler import DynamicBatcher, SolveRequest
+
+    p = Problem(N=64, timesteps=41)
+    eng = ServeEngine(bucket_sizes=(1,), device=cuda)
+    eng.keep_final_state = True
+    b = DynamicBatcher(eng, max_wait=0.01, chunk_threshold=8,
+                       chunk_steps=12)
+    try:
+        req = SolveRequest(problem=p, lane=eb.LaneSpec(), path=path, k=k)
+        b.submit(req).result(600)  # builds every runner
+        stencil_cuda.reset_launches()
+        res, health, info = b.submit(req).result(600)
+        counts = dict(stencil_cuda.launches)
+    finally:
+        b.close()
+    assert health is None and info["chunked"] and info["chunks"] == 4
+    # The bootstrap's K1, then 40 layers: 40 K1, or 10 K3 blocks.
+    want = {"step": 41} if path == "pallas" else {"kstep": 10, "step": 1}
+    assert {name: n for name, n in counts.items() if n} == want
+    mono, mono_health = eng.solve(p, [eb.LaneSpec()], path=path, k=k)
+    assert mono_health == [None]
+    assert torch.equal(res.u_cur, mono.results[0].u_cur)
+    assert np.array_equal(res.abs_errors, mono.results[0].abs_errors)
+
+
+ADOPT_SCRIPT = r"""
+import json, sys
+from wavetpu_torch.core.problem import Problem
+from wavetpu_torch.ensemble import batched as eb
+from wavetpu_torch.kernels import build
+from wavetpu_torch.serve.engine import ServeEngine
+
+eng = ServeEngine(bucket_sizes=(1,), device="cuda",
+                  program_cache_dir=sys.argv[1])
+res, health = eng.solve(Problem(N=32, timesteps=12), [eb.LaneSpec()],
+                        path="pallas")
+print(json.dumps({"health": health, "disk_hits": eng.disk_hits,
+                  "misses": eng.misses, "nvcc_runs": build.stats["nvcc_runs"],
+                  "disk_loads": build.stats["disk_loads"],
+                  "abs": res.results[0].abs_errors.tolist()}))
+"""
+
+
+def test_adopt_into_an_empty_build_dir_runs_no_nvcc(cuda, tmp_path):
+    """A subprocess with a new, empty build directory adopts the pallas
+    key's library from the program cache: zero nvcc runs, a disk load,
+    and the answer of the process that built it."""
+    import json
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pc = str(tmp_path / "pc")
+    outs = []
+    for name in ("built", "adopted"):
+        env = dict(os.environ, PYTHONPATH=root,
+                   WAVETPU_TORCH_BUILD_DIR=str(tmp_path / name))
+        proc = subprocess.run([sys.executable, "-c", ADOPT_SCRIPT, pc],
+                              cwd=root, env=env, capture_output=True,
+                              text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr
+        outs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    built, adopted = outs
+    assert built["misses"] == 1 and built["nvcc_runs"] >= 1
+    assert adopted["health"] == [None]
+    assert adopted["disk_hits"] == 1 and adopted["misses"] == 0
+    assert adopted["nvcc_runs"] == 0 and adopted["disk_loads"] >= 1
+    assert adopted["abs"] == built["abs"]

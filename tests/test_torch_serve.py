@@ -778,9 +778,15 @@ class TestParse:
         assert req.path == "kfused" and req.k == 4
 
     def test_resume_token_names_item_12b(self):
-        with pytest.raises(ValueError, match="queue 1 item 12b"):
-            parse_solve_request({"N": 8, "resume_token": "ab" * 32},
-                                default_kernel="roll")
+        """(Item 12b is ported.) A 64-hex token rides on the request for
+        the state store to verify; anything else is a 400 at parse."""
+        req = parse_solve_request({"N": 8, "resume_token": "ab" * 32},
+                                  default_kernel="roll")
+        assert req.resume_token == "ab" * 32
+        for bad in ("zz", "AB" * 32, 7):
+            with pytest.raises(ValueError, match="64-char"):
+                parse_solve_request({"N": 8, "resume_token": bad},
+                                    default_kernel="roll")
 
     def test_program_key_shape(self):
         p = Problem(N=8, timesteps=3)

@@ -681,39 +681,78 @@ class TestTenant:
 
 
 class TestNotPortedYet:
-    """ROADMAP.md queue 1 items 12b (program cache, preemptible long
-    solves, result cache, shadow solves) and 12c (router, fleet, load
-    generator traces): refused by name, never half-served."""
+    """ROADMAP.md queue 1 item 12c (router, fleet, load generator traces):
+    `--record-trace` is refused by name, never half-served; the item-12b
+    flags and a body's `resume_token` are served."""
 
-    def test_resume_token_400_names_item_12b(self, server):
-        base, _ = server
-        code, body = _post(base, {"N": 8, "timesteps": 3,
-                                  "resume_token": "0" * 64})
-        assert code == 400
-        assert "queue 1 item 12b" in body["error"]
+    def test_resume_token_400_names_item_12b(self, tmp_path):
+        """(Item 12b is ported: the test now holds the token contract.) A
+        valid token resumes - the answer bit-equal to an uninterrupted
+        march - and a forged or unknown one answers 422, a malformed one
+        400."""
+        httpd, state, base = _serve(
+            max_wait=0.01, chunk_threshold=10, chunk_steps=4,
+            solve_state_dir=str(tmp_path / "state"))
+        try:
+            body = {"N": 8, "timesteps": 1601}
+            # The uninterrupted march first: it also warms the chunk
+            # runner, so the deadline below expires between chunks.
+            code, whole = _post(base, body)
+            assert code == 200 and not whole["batch"]["resumed_from"]
+            code, first = _post(base, dict(body, deadline_ms=200))
+            assert code == 504 and len(first["resume_token"]) == 64
+            code, resumed = _post(
+                base, dict(body, resume_token=first["resume_token"]))
+            assert code == 200
+            assert resumed["batch"]["resumed_from"] > 1
+            assert resumed["report"]["abs_errors"] == \
+                whole["report"]["abs_errors"]
+            assert _post(base, dict(body, resume_token="0" * 64))[0] == 422
+            token_file = state.batcher.state_store.path_for(
+                first["resume_token"])
+            with open(token_file, "r+b") as f:
+                f.seek(100)
+                byte = f.read(1)
+                f.seek(100)
+                f.write(bytes([byte[0] ^ 0xFF]))
+            code, forged = _post(
+                base, dict(body, resume_token=first["resume_token"]))
+            assert code == 422 and "content verification" in \
+                forged["error"]
+            assert _post(base, dict(body, resume_token="zz"))[0] == 400
+        finally:
+            _stop(httpd, state)
 
     @pytest.mark.parametrize("flag,item", [
-        (["--program-cache-dir", "d"], "12b"),
-        (["--program-cache-max-bytes", "9"], "12b"),
-        (["--warmup-manifest", "m.json"], "12b"),
-        (["--chunk-threshold", "64"], "12b"),
-        (["--chunk-steps", "8"], "12b"),
-        (["--solve-state-dir", "s"], "12b"),
-        (["--solve-state-ttl-s", "5"], "12b"),
-        (["--result-cache"], "12b"),
-        (["--result-cache-max-bytes", "9"], "12b"),
-        (["--result-cache-ttl-s", "5"], "12b"),
-        (["--shadow-sample-rate", "0.5"], "12b"),
-        (["--shadow-deadline-s", "5"], "12b"),
-        (["--record-trace", "t.jsonl"], "12c"),
+        (["--program-cache-dir", "d"], "12c"),
+        (["--program-cache-max-bytes", "9"], "12c"),
+        (["--warmup-manifest", "m.json"], "12c"),
+        (["--chunk-threshold", "64"], "12c"),
+        (["--chunk-steps", "8"], "12c"),
+        (["--solve-state-dir", "s"], "12c"),
+        (["--solve-state-ttl-s", "5"], "12c"),
+        (["--result-cache"], "12c"),
+        (["--result-cache-max-bytes", "9"], "12c"),
+        (["--result-cache-ttl-s", "5"], "12c"),
+        (["--shadow-sample-rate", "0.5"], "12c"),
+        (["--shadow-deadline-s", "5"], "12c"),
+        ([], "12c"),
     ])
     def test_serve_flags_exit_2_naming_their_item(self, flag, item,
                                                    capsys):
-        from wavetpu_torch.serve.api import main
+        """Each item-12b flag parses and is no longer refused; beside
+        `--record-trace` the replica still exits 2 naming item 12c."""
+        from wavetpu_torch.serve import api as api_mod
 
-        assert main(flag + ["--platform", "cpu", "--port", "0"]) == 2
+        if flag:
+            assert api_mod._split_flags(flag)
+            assert flag[0][2:] not in api_mod._NOT_PORTED
+        assert api_mod.main(flag + ["--record-trace", "t.jsonl",
+                                    "--platform", "cpu", "--port",
+                                    "0"]) == 2
         err = capsys.readouterr().err
         assert "not ported yet" in err and f"queue 1 item {item}" in err
+        assert "--record-trace" in err
 
 
 class TestCLI:

@@ -276,3 +276,204 @@ def test_healthz_and_metrics_views_agree(replicas):
         return set(types)
 
     assert names(tbase) == names(jbase)
+
+
+# ---- the item-12b flags set on both replicas ----
+
+
+@pytest.fixture(scope="module")
+def replicas_12b(tmp_path_factory):
+    """wavetpu's replica and the port's with every item-12b flag set:
+    the disk tier, chunked long solves with a state directory, the result
+    cache and shadow sampling (wavetpu's on the CPU, roll)."""
+    d = tmp_path_factory.mktemp("r12b")
+    kw = dict(chunk_threshold=64, chunk_steps=1, result_cache=True,
+              shadow_sample_rate=1.0, default_kernel="roll")
+    j = _start(japi.build_server, program_cache_dir=str(d / "jpc"),
+               solve_state_dir=str(d / "js"), **kw)
+    t = _start(api.build_server, device="cpu",
+               program_cache_dir=str(d / "tpc"),
+               solve_state_dir=str(d / "ts"), **kw)
+    yield j, t
+    for httpd, state, _ in (j, t):
+        httpd.shutdown()
+        state.batcher.close()
+        httpd.server_close()
+
+
+def _wait_shadows(state, n, timeout=300.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        snap = state.shadow.snapshot()
+        if snap["solves"] + snap["failures"] >= n:
+            assert state.shadow.wait_idle(timeout)
+            return
+        time.sleep(0.05)
+    raise AssertionError("shadow never resolved")
+
+
+def test_12b_metrics_views_agree(replicas_12b):
+    """With the 12b flags set, after the same traffic (a short solve
+    twice - a store and a hit - and its shadow, and a chunked march): the
+    /metrics and /healthz JSON key sets, the program-cache, result-cache
+    and shadow blocks' keys and the Prometheus metric names are equal."""
+    (jh, js, jbase), (th, ts, tbase) = replicas_12b
+    for base, state in ((jbase, js), (tbase, ts)):
+        for body in (BODIES["standard"], BODIES["standard"],
+                     {"N": 8, "timesteps": 65}):
+            assert _post(base, body)[0] == 200
+        _wait_shadows(state, 1)
+    jm, tm = _get(jbase, "/metrics"), _get(tbase, "/metrics")
+    assert set(tm) == set(jm)
+    for block in ("program_cache", "result_cache", "shadow", "breaker"):
+        assert set(tm[block]) == set(jm[block]), block
+    assert set(tm["program_cache"]["progcache"]) == \
+        set(jm["program_cache"]["progcache"])
+    assert tm["chunks_total"] == jm["chunks_total"] == 64
+    assert tm["result_cache"]["events"]["hit"] == \
+        jm["result_cache"]["events"]["hit"] == 1
+    assert set(_get(tbase, "/healthz")) == set(_get(jbase, "/healthz"))
+
+    def names(base):
+        _, types = parse_prometheus(_get(base, "/metrics", "text/plain"))
+        return set(types)
+
+    assert names(tbase) == names(jbase)
+
+
+def test_12b_deadline_504_payload_with_token_agrees(replicas_12b):
+    """A deadline that expires mid-march: 504 on both, the same payload
+    keys with `resume_token`; each token resumes on its own replica to
+    the uninterrupted answer."""
+    (_, jstate, jbase), (_, tstate, tbase) = replicas_12b
+    body = {"N": 8, "timesteps": 793}
+    keys = []
+    for base, state in ((jbase, jstate), (tbase, tstate)):
+        # Warms every chunk program; `steps` keeps this answer's
+        # result-cache key apart from the cut request's.
+        seen = state.shadow.snapshot()
+        code, whole = _post(base, dict(body, steps=793))
+        assert code == 200 and whole["batch"]["chunked"] is True
+        # Its shadow twin marches first, so the cut below finds the
+        # worker free.
+        _wait_shadows(state, seen["solves"] + seen["failures"] + 1)
+        code, cut = _post(base, dict(body, deadline_ms=60))
+        assert code == 504, cut
+        keys.append(set(cut))
+        code, resumed = _post(base, dict(body,
+                                         resume_token=cut["resume_token"]))
+        assert code == 200
+        assert resumed["report"]["abs_errors"] == \
+            whole["report"]["abs_errors"]
+    assert keys[0] == keys[1] == {"status", "error", "deadline_ms",
+                                  "resume_token"}
+
+
+def test_12b_drain_503_payload_with_token_agrees(tmp_path):
+    """A drain mid-march checkpoints it: 503 on both replicas with the
+    same payload keys, `resume_token` among them."""
+    import time
+
+    keys = []
+    for build, kw in ((japi.build_server, {}),
+                      (api.build_server, {"device": "cpu"})):
+        plan_mod = (__import__("wavetpu.run.faults", fromlist=["x"])
+                    if build is japi.build_server else
+                    __import__("wavetpu_torch.run.faults", fromlist=["x"]))
+        plan = plan_mod.parse_serve_spec(
+            "serve-slow-batch:seconds=0.3,timesteps=33")
+        httpd, state, base = _start(
+            build, chunk_threshold=10, chunk_steps=4, fault_plan=plan,
+            default_kernel="roll",
+            solve_state_dir=str(tmp_path / build.__module__), **kw)
+        out = {}
+        th = threading.Thread(target=lambda: out.update(
+            r=_post(base, {"N": 8, "timesteps": 33})))
+        th.start()
+        deadline = time.monotonic() + 120
+        while (state.metrics.snapshot()["chunks_total"] == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        state.batcher.close(timeout=60.0, drain=True)
+        th.join(120)
+        httpd.shutdown()
+        httpd.server_close()
+        code, payload = out["r"]
+        assert code == 503, payload
+        keys.append(set(payload))
+    assert keys[0] == keys[1] == {"status", "error", "retriable",
+                                  "resume_token"}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_12b_warmup_manifest_readiness_agrees(tmp_path):
+    """`serve --warmup-manifest`: both replicas (each its own process)
+    warm the manifest's keys in the background and turn /healthz ready
+    once they are warm, with the same /healthz keys."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from wavetpu_torch.obs import ledger
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lp = str(tmp_path / "compile_ledger.jsonl")
+    led = ledger.CompileLedger(lp)
+    for n in (8, 12):
+        led.record(dict(N=n, Lx=1.0, Ly=1.0, Lz=1.0, T=1.0, timesteps=4,
+                        scheme="standard", path="roll", k=1, dtype="f32",
+                        with_field=False, compute_errors=True, batch=1,
+                        mesh=None), 1.0, ts=1.0, pid=1)
+    led.close()
+    mp = str(tmp_path / "m.json")
+    assert ledger.main([lp, "--emit-warmup-manifest", mp]) == 0
+    env = dict(os.environ, PYTHONPATH=root, JAX_PLATFORMS="cpu")
+    procs, bases = [], []
+    for cmd in ([sys.executable, "-m", "wavetpu.serve.api",
+                 "--kernel", "roll"],
+                [sys.executable, "-m", "wavetpu_torch", "serve",
+                 "--platform", "cpu"]):
+        port = _free_port()
+        procs.append(subprocess.Popen(
+            cmd + ["--port", str(port), "--warmup-manifest", mp,
+                   "--program-cache-dir", str(tmp_path / f"pc{port}")],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+        bases.append(f"http://127.0.0.1:{port}")
+    try:
+        views = []
+        for base in bases:
+            deadline = time.monotonic() + 240
+            view = None
+            while time.monotonic() < deadline:
+                try:
+                    view = _get(base, "/healthz")
+                    if view["ready"]:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            assert view is not None and view["ready"] is True, view
+            views.append(view)
+        assert set(views[0]) == set(views[1])
+        for base in bases:
+            warm = _get(base, "/metrics")["program_cache"]["warm_keys"]
+            assert len(warm["memory"]) == 2
+    finally:
+        outs = []
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+            outs.append(proc.communicate(timeout=120)[0])
+    for out in outs:
+        assert "manifest warmup: 2 warmed, 0 skipped, 0 failed" in out, out

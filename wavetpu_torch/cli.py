@@ -112,6 +112,10 @@ Flags:
                                     to N times, before halting
   --max-amp X                       watchdog amplitude bound (default 1e3)
   --no-watchdog                     supervised run without health checks
+  --program-cache-dir DIR           adopt the solve's built kernel
+                                    libraries from DIR before it runs (no
+                                    nvcc), and store them there after a
+                                    fresh build (serve/progcache.py)
   --debug-nans                      check each launch's output (each step,
                                     or each k-block) for a non-finite value
                                     and stop with the layers named - a check
@@ -121,9 +125,12 @@ Flags:
                                     by launch
 
 Subcommands: `serve [...]` (serve/api.py: the serving replica, answering
-/solve through the kernels' lane modes; `serve --version`),
-`trace-report [TRACE.jsonl ...] [--dir DIR ...] [--request ID]` (obs/
-report.py), `ledger-report TELEMETRY_DIR [--json]` (obs/ledger.py),
+/solve through the kernels' lane modes; `serve --version`), `warmup
+--manifest M.json [--program-cache-dir DIR] [--program-cache-max-bytes B]
+[--platform gpu|cpu]` (serve/progcache.py: fill a program cache from a
+manifest), `trace-report [TRACE.jsonl ...] [--dir DIR ...] [--request
+ID]` (obs/report.py), `ledger-report TELEMETRY_DIR [--json]
+[--emit-warmup-manifest OUT.json]` (obs/ledger.py),
 `plan-report TELEMETRY_DIR [--json]` (obs/accuracy.py) and `profile --out
 DIR ARGS...` (obs/perf.py: one full command line under torch.profiler).
 
@@ -144,25 +151,22 @@ from wavetpu_torch.core.problem import Problem
 
 # wavetpu flags (and subcommands) the port does not take yet, with the
 # ROADMAP.md item that will bring each.
-_ITEM_12B = ("queue 1 item 12b (program cache, preemptible long solves, "
-             "result cache, shadow solves)")
 _ITEM_12C = "queue 1 item 12c (router, fleet, load generator)"
 _NOT_PORTED = {
     "distributed": "queue 1 item 10, step 5 (--distributed: one process "
                    "per card)",
-    "program-cache-dir": _ITEM_12B,
 }
 _NOT_PORTED_SUBCOMMANDS = {
     "router": _ITEM_12C,
     "fleet": _ITEM_12C,
-    "warmup": _ITEM_12B,
     "loadgen": _ITEM_12C,
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
            "out-dir", "platform", "c2-field", "backend", "mesh", "kernel",
            "overlap", "phase-timing", "profile", "telemetry-dir",
            "stop-step", "save-state", "resume", "ckpt-every", "ckpt-dir",
-           "retries", "max-amp", "no-watchdog", "debug-nans")
+           "retries", "max-amp", "no-watchdog", "debug-nans",
+           "program-cache-dir")
 _VALUELESS = ("no-errors", "overlap", "distributed", "debug-nans",
               "no-watchdog", "phase-timing")
 _USAGE = (
@@ -175,13 +179,15 @@ _USAGE = (
     "[--phase-timing] [--profile DIR] [--telemetry-dir DIR] "
     "[--stop-step S] [--save-state PATH] [--resume PATH] "
     "[--ckpt-every S] [--ckpt-dir DIR] [--retries N] [--max-amp X] "
-    "[--no-watchdog] [--debug-nans] | serve [...] | "
+    "[--no-watchdog] [--debug-nans] [--program-cache-dir DIR] | "
+    "serve [...] | warmup --manifest M.json [...] | "
     "trace-report [...] | ledger-report DIR [...] | plan-report DIR [...] "
     "| profile --out DIR ARGS... | --version"
 )
 # The subcommands: (module, its entry point).
 _SUBCOMMANDS = {
     "serve": ("wavetpu_torch.serve.api", "main"),
+    "warmup": ("wavetpu_torch.serve.progcache", "main"),
     "trace-report": ("wavetpu_torch.obs.report", "main"),
     "ledger-report": ("wavetpu_torch.obs.ledger", "main"),
     "plan-report": ("wavetpu_torch.obs.accuracy", "main"),
@@ -565,8 +571,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         supervised=supervised, resumed=resume is not None,
     )
     compiled = _compile_counts()
+    pcache = None
     sup_out = None
     try:
+        if "program-cache-dir" in flags:
+            pcache = _ProgramCacheRun(
+                flags["program-cache-dir"], device, kernel, problem, scheme,
+                fuse_steps, dtype, c2_field is not None, compute_errors,
+                shape if backend == "sharded" else None)
         if supervised:
             sup_out = run.supervise(supervision, ckpt_dir,
                                     "no-watchdog" not in flags,
@@ -600,7 +612,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             _record_compile(ledger, problem, scheme, fuse_steps, kernel,
                             result, c2_field is not None, compute_errors,
                             shape if backend == "sharded" else None,
-                            compiled, _compile_counts())
+                            compiled, _compile_counts(),
+                            fresh_compile_s=(None if pcache is None
+                                             else pcache.fresh_compile_s))
+        if pcache is not None:
+            pcache.store(compiled, _compile_counts())
         if "save-state" in flags:
             if backend == "sharded":
                 ck_path = checkpoint.save_sharded_checkpoint(
@@ -922,11 +938,13 @@ def _compile_counts() -> dict:
 
 
 def _record_compile(ledger, problem, scheme, fuse_steps, kernel, result,
-                    with_field, compute_errors, mesh, before, after):
+                    with_field, compute_errors, mesh, before, after,
+                    fresh_compile_s=None):
     """One compile-ledger line for the solve: its batch=1 key, the seconds
     it paid for builds, loads and first launches, and where the libraries
-    came from ("fresh": nvcc ran, "disk": loaded from the build directory;
-    no source when nothing was loaded)."""
+    came from ("fresh": nvcc ran, "disk": loaded from the build directory
+    or adopted from --program-cache-dir, whose entry names the fresh build
+    it replaced, `fresh_compile_s`; no source when nothing was loaded)."""
     d = {k: after[k] - before[k] for k in after}
     seconds = (d["nvcc_seconds"] + d["load_seconds"]
                + d["first_launch_seconds"])
@@ -935,12 +953,70 @@ def _record_compile(ledger, problem, scheme, fuse_steps, kernel, result,
     dtype = {"float32": "f32", "float64": "f64", "bfloat16": "bf16"}.get(
         str(result.u_cur.dtype).replace("torch.", ""), "f32")
     try:
+        extra = {}
+        if source == "disk" and fresh_compile_s is not None:
+            extra["fresh_compile_s"] = fresh_compile_s
         ledger.record_compile(ledger.solo_key(
             problem, scheme, "kfused" if fuse_steps > 1 else kernel,
             fuse_steps, dtype, with_field, compute_errors, mesh=mesh,
-        ), seconds, source=source)
+        ), seconds, source=source, **extra)
     except Exception:
         pass  # ledger bookkeeping must never fail the run
+
+
+class _ProgramCacheRun:
+    """--program-cache-dir on a CLI solve: before it runs, adopt the
+    kernel libraries its build loads (every library on the card with the
+    CUDA kernels, none for the plain versions) from the entry of its
+    batch=1 key; after a solve that built them, store them.  A missing or
+    refused entry is counted and the solve builds as usual (nvcc) - never
+    the plain versions."""
+
+    def __init__(self, directory, device, kernel, problem, scheme,
+                 fuse_steps, dtype, with_field, compute_errors, mesh):
+        from wavetpu_torch.kernels import stencil_cuda
+        from wavetpu_torch.obs import accuracy, ledger
+        from wavetpu_torch.serve import progcache
+
+        self.cache = progcache.ProgramCache(directory, device=device)
+        self.key = ledger.solo_key(
+            problem, scheme, "kfused" if fuse_steps > 1 else kernel,
+            fuse_steps, accuracy.dtype_name(dtype), with_field,
+            compute_errors, mesh=mesh)
+        self.need = (tuple(stencil_cuda._LOADERS)
+                     if device.type == "cuda" and kernel == "pallas"
+                     else ())
+        self.fresh_compile_s = None
+        self.adopted = False
+        entry = self.cache.load(self.key)
+        if entry is not None:
+            payload, header = entry
+            try:
+                progcache.adopt_libraries(payload, self.need)
+                self.adopted = True
+                fresh = header.get("compile_s")
+                if isinstance(fresh, (int, float)):
+                    self.fresh_compile_s = fresh
+            except progcache.FingerprintMismatch:
+                self.cache.count("fingerprint_mismatch")
+            except Exception:
+                self.cache.count("corrupt")
+        print(f"program cache: {directory} ["
+              f"{'adopted' if self.adopted else 'miss'}: "
+              f"{', '.join(self.need) or 'no kernel library'}]")
+
+    def store(self, before: dict, after: dict) -> None:
+        """Store the solve's libraries (built now or found in the build
+        directory) unless they came from the cache, crediting the entry
+        with what this solve paid for them."""
+        from wavetpu_torch.serve import progcache
+
+        if self.adopted:
+            return
+        seconds = sum(after[k] - before[k] for k in (
+            "nvcc_seconds", "load_seconds", "first_launch_seconds"))
+        self.cache.put(self.key, progcache.library_payload(self.need),
+                       seconds)
 
 
 def _placement(problem: Problem, flags, fuse_steps: int, platform: str,

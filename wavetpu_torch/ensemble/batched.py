@@ -414,17 +414,46 @@ class EnsembleSolver:
             fields=fields,
         )
 
+    @property
+    def libraries(self) -> Tuple[str, ...]:
+        """The kernel libraries this program launches (none on the CPU,
+        where the plain versions run)."""
+        if self.device.type != "cuda":
+            return ()
+        return stencil_cuda.libraries_for(self.path, self.scheme, self.k)
+
     def compile(self) -> float:
-        """Build and load the kernels (the serve engine's warm-up);
-        idempotent.  Returns the wall seconds (0.0 on a warm hit)."""
+        """Build and load the kernel libraries this program launches (the
+        serve engine's warm-up); idempotent.  Returns the wall seconds (0.0
+        on a warm hit)."""
         if self._compiled:
             return 0.0
         t0 = time.perf_counter()
-        leapfrog.prepare_kernels(self.device,
-                                 "roll" if self.path == "roll" else "pallas")
+        if self.libraries:
+            stencil_cuda.load_libraries(self.libraries)
         self._compiled = True
         self.compile_seconds = time.perf_counter() - t0
         return self.compile_seconds
+
+    def executable_payload(self):
+        """The persistent program cache's entry (serve/progcache.py): the
+        built libraries this program launches; None before `compile`."""
+        from wavetpu_torch.serve import progcache
+
+        return (progcache.library_payload(self.libraries)
+                if self._compiled else None)
+
+    def adopt_executable(self, payload) -> float:
+        """Install and load this program's libraries from a cache entry
+        (checked, placed atomically in the build directory, loaded as a
+        disk load); returns the wall seconds.  Raises on a payload that
+        does not check out - the caller counts it and builds fresh."""
+        from wavetpu_torch.serve import progcache
+
+        t0 = time.perf_counter()
+        progcache.adopt_libraries(payload, self.libraries)
+        self.compile()
+        return time.perf_counter() - t0
 
     def run(self, lanes: Sequence[LaneSpec]):
         """March the batch; returns (outputs, init_seconds, solve_seconds)

@@ -140,17 +140,42 @@ class ShardedEnsembleSolver:
         return order, stops[order], taylor, [on[sh.device]
                                              for sh in self.shards]
 
+    @property
+    def libraries(self) -> Tuple[str, ...]:
+        """The kernel libraries this program launches: K6's lane mode
+        (sharded.cu) on the card, none for the plain versions."""
+        if self.kernel != "pallas" or not any(
+                d.type == "cuda" for d in self.mesh.devices):
+            return ()
+        return stencil_cuda.libraries_for("pallas", mesh=self.mesh_shape)
+
     def compile(self) -> float:
         """Build and load the kernels; idempotent (0.0 on a warm hit)."""
         if self._compiled:
             return 0.0
         t0 = time.perf_counter()
-        if self.kernel == "pallas" and any(
-                d.type == "cuda" for d in self.mesh.devices):
-            stencil_cuda.load_libraries()
+        if self.libraries:
+            stencil_cuda.load_libraries(self.libraries)
         self._compiled = True
         self.compile_seconds = time.perf_counter() - t0
         return self.compile_seconds
+
+    def executable_payload(self):
+        """The program cache's entry (`batched.EnsembleSolver`'s twin)."""
+        from wavetpu_torch.serve import progcache
+
+        return (progcache.library_payload(self.libraries)
+                if self._compiled else None)
+
+    def adopt_executable(self, payload) -> float:
+        """Adopt this program's libraries from a cache entry
+        (`batched.EnsembleSolver.adopt_executable`'s twin)."""
+        from wavetpu_torch.serve import progcache
+
+        t0 = time.perf_counter()
+        progcache.adopt_libraries(payload, self.libraries)
+        self.compile()
+        return time.perf_counter() - t0
 
     def _step(self):
         """The lane step over all shards, `step(prev, cur)` -> the next

@@ -24,6 +24,11 @@ Nothing here runs at import: the first kernel launch (or an explicit
 wall seconds, and libraries loaded (`disk_loads` of them found already
 built in the build directory) with the load's wall seconds - the compile
 ledger's record of a solve (obs/ledger.py).
+
+`install()` is the persistent program cache's way in (serve/progcache.py):
+it places a library's bytes, checked against their sha256 and the name
+this process would build them under, atomically in the build directory,
+where the next `load` finds it and counts a disk load, not an nvcc run.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = [
@@ -74,7 +79,9 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where csrc/<name>.cu's library is built: the name carries a hash of
+    the source, every csrc/*.cuh and the flags."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
@@ -86,7 +93,7 @@ def _lib_path(name: str) -> Path:
 def _start(name: str, extra_flags=()):
     """Start nvcc for one source; returns (process, tmp path, final path),
     or None when the library is already built."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -113,14 +120,17 @@ def _finish(name: str, started) -> str:
     return log
 
 
-def build_all(verbose: bool = False) -> Dict[str, str]:
-    """Build every csrc/*.cu that is not built yet, one nvcc per source, all
-    started together.  With `verbose` nvcc also prints ptxas's register /
-    shared-memory / spill report.  Returns {name: compiler output}."""
+def build_all(verbose: bool = False,
+              names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Build every csrc/*.cu (or each of `names`) that is not built yet,
+    one nvcc per source, all started together.  With `verbose` nvcc also
+    prints ptxas's register / shared-memory / spill report.  Returns
+    {name: compiler output}."""
     extra = ("-Xptxas", "-v") if verbose else ()
     with _lock:
         t0 = time.perf_counter()
-        started = {n: _start(n, extra) for n in sources()}
+        started = {n: _start(n, extra)
+                   for n in (sources() if names is None else names)}
         logs = {n: _finish(n, s) for n, s in started.items()}
         runs = sum(s is not None for s in started.values())
         if runs:
@@ -138,7 +148,7 @@ def load(name: str) -> ctypes.CDLL:
             started = _start(name)
             _finish(name, started)
             t1 = time.perf_counter()
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             _libs[name] = lib
             if started is None:
                 stats["disk_loads"] += 1
@@ -148,3 +158,30 @@ def load(name: str) -> ctypes.CDLL:
             stats["loads"] += 1
             stats["load_seconds"] += time.perf_counter() - t1
         return lib
+
+
+def install(name: str, file_name: str, data: bytes, sha256: str) -> str:
+    """Place a built library of csrc/<name>.cu from elsewhere (the program
+    cache) in the build directory, so `load` finds it: the bytes must hash
+    to `sha256` and `file_name` must be the name this process builds the
+    library under (the same sources and flags), else ValueError.  Returns
+    "memory" (already loaded here: kept), "present" (the build directory
+    holds it already) or "written" (placed atomically, tmp + rename)."""
+    if hashlib.sha256(data).hexdigest() != sha256:
+        raise ValueError(f"library {name}: bytes do not hash to their "
+                         f"recorded sha256")
+    out = lib_path(name)
+    if file_name != out.name:
+        raise ValueError(f"library {name}: built as {file_name}, this "
+                         f"checkout builds {out.name} (sources or flags "
+                         f"differ)")
+    with _lock:
+        if name in _libs:
+            return "memory"
+        if out.exists():
+            return "present"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
+        tmp.write_bytes(data)
+        os.replace(tmp, out)
+        return "written"

@@ -180,15 +180,42 @@ def _comp_sharded_lib() -> ctypes.CDLL:
     return lib
 
 
-def load_libraries() -> None:
-    """Build every kernel library not built yet (one nvcc per source, in
-    parallel) and load them all, so no build lands inside a timed
-    region."""
-    build.build_all()
-    _lib()
-    _kstep_pipe_lib()
-    _sharded_lib()
-    _comp_sharded_lib()
+_LOADERS = {"stencil": _lib, "kstep_pipe": _kstep_pipe_lib,
+            "sharded": _sharded_lib, "comp_sharded": _comp_sharded_lib}
+
+
+def load_libraries(names=None) -> None:
+    """Build every kernel library of `names` (default: all) not built yet
+    (one nvcc per source, in parallel) and load them, so no build lands
+    inside a timed region."""
+    names = tuple(_LOADERS) if names is None else tuple(names)
+    build.build_all(names=names)
+    for name in names:
+        _LOADERS[name]()
+
+
+def libraries_for(path: str, scheme: str = "standard", k: int = 1,
+                  mesh=None) -> Tuple[str, ...]:
+    """The kernel libraries a serve program of this identity launches
+    (ensemble/batched.py, ensemble/sharded.py): "roll" runs the plain
+    versions and builds none; a mesh K6's lane mode (sharded.cu); 1-step
+    pallas K1/K5 or K2 (stencil.cu); kfused K3/K3f and the K1/K5 bootstrap
+    (kstep_pipe.cu, stencil.cu) or, compensated, K4 and the K2 bootstrap
+    (comp_sharded.cu, stencil.cu)."""
+    if path == "roll":
+        return ()
+    if mesh is not None:
+        return ("sharded",)
+    if path == "kfused" and k > 1:
+        return (("comp_sharded" if scheme == "compensated"
+                 else "kstep_pipe"), "stencil")
+    return ("stencil",)
+
+
+def launched_instantiations() -> list:
+    """The template instantiations launched so far in this process
+    (`_run`'s `inst` tuples), sorted."""
+    return sorted(_launched, key=repr)
 
 
 def _check_cuda(n: int, **tensors) -> None:

@@ -223,16 +223,28 @@ def record_accuracy(plan: dict, n: int, timesteps: int,
                    source=source)
 
 
-def record_error_metrics(registry, plan: dict, max_abs_err: float) -> None:
+def record_error_metrics(registry, plan: dict, max_abs_err: float,
+                         shadow: bool = False) -> None:
     """Stamp one measured error into `registry` (gauge + log-bucketed
-    histogram, labeled by the plan's path/scheme/dtype)."""
+    histogram, labeled by the plan's path/scheme/dtype).  Shadow
+    divergences (serve/shadow.py) get their own gauge so the oracle
+    signal and the production-divergence signal never overwrite each
+    other."""
     labels = dict(path=plan["path"], scheme=plan["scheme"],
                   dtype=plan["dtype"])
-    registry.gauge(
-        "wavetpu_solve_max_abs_err",
-        "max abs error vs the analytic oracle, most recent solve",
-        ("path", "scheme", "dtype"),
-    ).set(float(max_abs_err), **labels)
+    if shadow:
+        registry.gauge(
+            "wavetpu_shadow_divergence",
+            "L-inf divergence of the served plan vs its reference "
+            "twin, most recent shadow solve",
+            ("path", "scheme", "dtype"),
+        ).set(float(max_abs_err), **labels)
+    else:
+        registry.gauge(
+            "wavetpu_solve_max_abs_err",
+            "max abs error vs the analytic oracle, most recent solve",
+            ("path", "scheme", "dtype"),
+        ).set(float(max_abs_err), **labels)
     registry.histogram(
         "wavetpu_solve_abs_err",
         "per-plan measured-error distribution (log-decade buckets)",

@@ -58,6 +58,8 @@ from wavetpu_torch.progkey import canonical_key, normalize_key
 
 LEDGER_FILENAME = "compile_ledger.jsonl"
 
+MANIFEST_FLAG = "wavetpu_warmup_manifest"
+
 
 # ------------------------------------------------- request context
 #
@@ -353,6 +355,22 @@ def aggregate(records: Sequence[dict]) -> dict:
     }
 
 
+def warmup_manifest(records: Sequence[dict]) -> dict:
+    """The distinct key set, in the shape `warmup --manifest` and `serve
+    --warmup-manifest` consume (wavetpu's, key for key); every entry
+    round-trips through `progkey.program_key_from_dict`."""
+    seen: Dict[str, dict] = {}
+    for rec in records:
+        seen.setdefault(canonical_key(rec["key"]),
+                        normalize_key(rec["key"]))
+    return {
+        MANIFEST_FLAG: True,
+        "version": 1,
+        "generated_unix": round(time.time(), 3),
+        "keys": [seen[c] for c in sorted(seen)],
+    }
+
+
 def _key_label(key: dict) -> str:
     mesh = key.get("mesh")
     return (
@@ -411,7 +429,7 @@ def format_report(agg: dict) -> str:
 
 _USAGE = (
     "usage: wavetpu-torch ledger-report TELEMETRY_DIR|LEDGER.jsonl "
-    "[--json]"
+    "[--json] [--emit-warmup-manifest OUT.json]"
 )
 
 
@@ -419,10 +437,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     path = None
     as_json = False
+    manifest_out = None
+    it = iter(argv)
     try:
-        for a in argv:
+        for a in it:
             if a == "--json":
                 as_json = True
+            elif a == "--emit-warmup-manifest":
+                manifest_out = next(it)
+            elif a.startswith("--emit-warmup-manifest="):
+                manifest_out = a.split("=", 1)[1]
             elif a.startswith("--"):
                 raise ValueError(f"unknown flag {a}")
             elif path is None:
@@ -431,7 +455,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 raise ValueError(f"unexpected positional {a!r}")
         if path is None:
             raise ValueError("missing telemetry dir / ledger path")
-    except ValueError as e:
+    except (ValueError, StopIteration) as e:
         print(f"error: {e}", file=sys.stderr)
         print(_USAGE, file=sys.stderr)
         return 2
@@ -463,6 +487,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     f"replaces the analytic cells pricing in "
                     f"fleet/quota.py"
                 )
+    if manifest_out is not None:
+        manifest = warmup_manifest(records)
+        with open(manifest_out, "w", encoding="utf-8") as f:
+            json.dump(manifest, f, indent=1, sort_keys=True)
+        print(f"warmup manifest ({len(manifest['keys'])} key(s)): "
+              f"{manifest_out}")
     return 0
 
 

@@ -27,12 +27,13 @@ at their seams - `serve-compile-fail` (the program build raises
 per-lane watchdog 422s it), `serve-slow-batch:seconds=S` (the worker
 sleeps before the batch), `serve-worker-crash` (the scheduler worker
 raises mid-batch: its supervisor restarts it) and `serve-conn-drop` (the
-handler closes the socket unanswered).  The kinds whose seams belong to
-the program cache, the preemptible long solves, the result cache and the
-shadow sampler (`progcache-*`, `chunk-crash`, `handoff-corrupt`,
-`resultcache-*`, `shadow-fail`; ROADMAP.md queue 1 item 12b) and the
-router tier's (`router-*`, `store-*`; item 12c) parse now and
-fire once their seams exist.  Selectors (`n`, `timesteps`, `scheme`,
+handler closes the socket unanswered); the program cache's
+(`progcache-truncate`, `progcache-fingerprint`: serve/progcache.py), the
+preemptible long solves' (`chunk-crash`, `handoff-corrupt`: the
+scheduler), the result cache's (`resultcache-*`) and the shadow
+sampler's (`shadow-fail`).  The router tier's kinds (`router-*`,
+`store-*`; ROADMAP.md queue 1 item 12c) parse now and fire once their
+seams exist.  Selectors (`n`, `timesteps`, `scheme`,
 `path`, `k`, `dtype`) match the batch's program identity; every firing is
 counted as `wavetpu_serve_fault_injections_total{kind=}`.  The run side
 ignores the serving and router specs.

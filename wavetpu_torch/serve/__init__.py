@@ -6,8 +6,10 @@ identity incl. the batch-size bucket) and applies the per-lane
 numerical-health watchdog; `scheduler.py` coalesces concurrent requests
 into batches (shape bucketing + max-batch/max-wait dynamic batching);
 `api.py` is the stdlib-HTTP JSON front end (`python -m wavetpu_torch
-serve` / `wavetpu-torch-serve`).  wavetpu's docs/serving.md sets the
-endpoint contract.
+serve` / `wavetpu-torch-serve`).  `progcache.py` keeps the built kernel
+libraries across restarts, `preempt.py` the chunked long solves' runners
+and resume tokens, `resultcache.py` repeated answers and `shadow.py` the
+reference twins.  wavetpu's docs/serving.md sets the endpoint contract.
 """
 
 from wavetpu_torch.progkey import ProgramKey

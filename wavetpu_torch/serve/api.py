@@ -69,9 +69,8 @@ standard scheme only), mesh ([MX, MY, MZ] - route through the sharded x
 batched composition over that device mesh, its shards on the visible
 cards, repeated as needed; standard scheme, no fuse_steps/c2_field).
 kernel auto resolves to pallas (the CUDA kernels) on the card and to roll
-(their plain versions) with --platform cpu.  A `resume_token` is refused
-with 400: the preemptible long solves come with ROADMAP.md queue 1 item
-12b.
+(their plain versions) with --platform cpu.  resume_token (64 hex) resumes
+a checkpointed long solve (below).
 
 A request whose lane trips the numerical-health watchdog (NaN/Inf or
 amplitude blowup - e.g. a Courant-unstable config) gets HTTP 422 with the
@@ -86,11 +85,27 @@ thread discipline as any Python inference server in front of an
 accelerator.  The replica runs on the CUDA device unless `--platform
 cpu` is given; without a card and without it, `serve` exits 2.
 
-Not ported yet, each exiting 2 with the ROADMAP.md item that brings it:
---program-cache-dir, --program-cache-max-bytes, --warmup-manifest,
---chunk-threshold, --chunk-steps, --solve-state-dir, --solve-state-ttl-s,
---result-cache*, --shadow-* (queue 1 item 12b) and --record-trace (item
-12c, with the load generator's traces).
+Warm state and long solves:
+ * `--program-cache-dir DIR [--program-cache-max-bytes B]`: the disk tier
+   of built kernel libraries under the engine's LRU (serve/progcache.py);
+   `--warmup-manifest M.json` builds or adopts every key a `ledger-report
+   --emit-warmup-manifest` manifest names before /healthz says ready.
+ * `--chunk-threshold T [--chunk-steps S]`: solves of T or more timesteps
+   march in chunks of S layers (snapped to the k-block grid), one chunk
+   per worker pass, interleaved with short batches (serve/preempt.py).
+   With `--solve-state-dir DIR [--solve-state-ttl-s S]` a deadline that
+   expires mid-march answers 504 and a drain 503, each with a
+   `resume_token` that any replica sharing DIR resumes (a forged or
+   corrupt token answers 422).
+ * `--result-cache [--result-cache-max-bytes B] [--result-cache-ttl-s S]`:
+   byte-identical replay of deterministic full-solve answers
+   (serve/resultcache.py; `Cache-Control: no-cache` bypasses).
+ * `--shadow-sample-rate P [--shadow-deadline-s S]`: a sampled fraction
+   of answers is re-solved off the hot path with the reference plan and
+   the divergence ledgered (serve/shadow.py).
+
+Not ported yet, exiting 2 with the ROADMAP.md item that brings it:
+--record-trace (queue 1 item 12c, with the load generator's traces).
 """
 
 from __future__ import annotations
@@ -105,7 +120,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence, Tuple
 
 from wavetpu_torch import progkey
-from wavetpu_torch.cli import _ITEM_12B, _ITEM_12C
+from wavetpu_torch.cli import _ITEM_12C
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.obs import tracing
 
@@ -117,23 +132,22 @@ _USAGE = (
     "[--kernel auto|roll|pallas] "
     "[--no-errors] [--max-amp X] [--no-watchdog] [--no-server-timing] "
     "[--breaker-threshold K] [--breaker-cooldown-s S] [--no-breaker] "
-    "[--warmup N,TIMESTEPS[,K]] "
+    "[--warmup N,TIMESTEPS[,K]] [--warmup-manifest MANIFEST.json] "
+    "[--program-cache-dir DIR] [--program-cache-max-bytes B] "
+    "[--chunk-threshold T] [--chunk-steps S] "
+    "[--solve-state-dir DIR] [--solve-state-ttl-s S] "
     "[--brownout-thresholds P1,P2,P3] [--no-brownout] "
     "[--proxy-token SECRET] [--tenant-inflight-cap N] "
+    "[--result-cache] [--result-cache-max-bytes B] "
+    "[--result-cache-ttl-s S] "
+    "[--shadow-sample-rate P] [--shadow-deadline-s S] "
     "[--platform gpu|cpu] "
     "[--telemetry-dir DIR] [--version]"
 )
 
 # wavetpu's serve flags the port does not take yet, with the ROADMAP.md
 # item that brings each.
-_NOT_PORTED = {
-    **{flag: _ITEM_12B for flag in (
-        "program-cache-dir", "program-cache-max-bytes", "warmup-manifest",
-        "chunk-threshold", "chunk-steps", "solve-state-dir",
-        "solve-state-ttl-s", "result-cache", "result-cache-max-bytes",
-        "result-cache-ttl-s", "shadow-sample-rate", "shadow-deadline-s")},
-    "record-trace": _ITEM_12C,
-}
+_NOT_PORTED = {"record-trace": _ITEM_12C}
 
 _KNOWN = (
     "host", "port", "max-batch", "max-wait-ms", "bucket-sizes",
@@ -190,10 +204,6 @@ def parse_solve_request(body: dict, default_kernel: str = "auto",
     from wavetpu_torch.ensemble.batched import LaneSpec
     from wavetpu_torch.serve.scheduler import SolveRequest
 
-    if isinstance(body, dict) and body.get("resume_token") is not None:
-        raise ValueError(
-            "resume_token is not ported yet: ROADMAP.md queue 1 item 12b "
-            "(preemptible long solves)")
     ident = progkey.identity_from_body(
         body, default_kernel, platform=platform
     )
@@ -224,6 +234,16 @@ def parse_solve_request(body: dict, default_kernel: str = "auto",
         _validate(problem, [lane], ident.path,
                   ident.k if ident.path == "kfused" else 2,
                   compute_errors=False, scheme=ident.scheme)
+    resume_token = body.get("resume_token")
+    if resume_token is not None:
+        # Format-only gate here (400 for plain junk); the state store
+        # re-verifies content hash + identity at load time (422).
+        from wavetpu_torch.serve.preempt import SolveStateStore
+
+        if not SolveStateStore.valid_token(resume_token):
+            raise ValueError(
+                "resume_token must be a 64-char lowercase hex string"
+            )
     # QoS class: JSON `priority` field (the X-Priority header, when
     # trusted, wins - _handle_solve applies it after this).  Unknown
     # values clamp to the default class rather than 400 - priority is a
@@ -233,7 +253,7 @@ def parse_solve_request(body: dict, default_kernel: str = "auto",
     return SolveRequest(
         problem=problem, lane=lane, scheme=ident.scheme, path=ident.path,
         k=ident.k, dtype_name=ident.dtype,
-        mesh_shape=mesh,
+        mesh_shape=mesh, resume_token=resume_token,
         priority=normalize_priority(body.get("priority")),
     )
 
@@ -337,7 +357,8 @@ class ServerState:
 
     `max_body_bytes` / `max_lane_cells` are the pre-scheduling request
     size limits (413 / 422); `server_timing=False` suppresses the
-    Server-Timing response header (ops escape hatch)."""
+    Server-Timing response header (ops escape hatch); `result_cache` and
+    `shadow` are the result tier and the shadow sampler (None = off)."""
 
     def __init__(self, engine, batcher, metrics, default_kernel: str,
                  request_timeout: float = 600.0,
@@ -345,7 +366,10 @@ class ServerState:
                  max_lane_cells: Optional[int] = None,
                  server_timing: bool = True,
                  fault_plan=None, proxy_token: Optional[str] = None,
-                 tenant_inflight_cap: Optional[int] = None):
+                 tenant_inflight_cap: Optional[int] = None,
+                 result_cache=None,
+                 result_cache_fp_tag: Optional[str] = None,
+                 shadow=None):
         self.engine = engine
         self.batcher = batcher
         self.metrics = metrics
@@ -370,6 +394,17 @@ class ServerState:
         self.tenant_inflight_cap = tenant_inflight_cap
         self._tenant_inflight: dict = {}
         self._tenant_lock = threading.Lock()
+        # Content-addressed result cache (serve/resultcache.py; None =
+        # off, the default).  `result_cache_fp_tag` is the short
+        # environment-fingerprint hash stamped on store responses
+        # (`X-Wavetpu-Cache: store;fp=TAG`) so a router's edge tier can
+        # flush across fleet upgrades.
+        self.result_cache = result_cache
+        self.result_cache_fp_tag = result_cache_fp_tag
+        # Shadow-solve sampler (serve/shadow.py; None = off): a sampled
+        # fraction of eligible answers is re-solved off the hot path with
+        # the reference plan and the divergence ledgered.
+        self.shadow = shadow
         self.started = time.time()
         self.draining = False
         # Readiness: `warming` is True while the background --warmup
@@ -540,6 +575,10 @@ class _Handler(BaseHTTPRequestHandler):
             snap = self.state.metrics.snapshot()
             snap["program_cache"] = self.state.engine.cache_stats()
             snap["breaker"] = self.state.engine.breaker_stats()
+            if self.state.result_cache is not None:
+                snap["result_cache"] = self.state.result_cache.snapshot()
+            if self.state.shadow is not None:
+                snap["shadow"] = self.state.shadow.snapshot()
             self._send(200, snap)
         else:
             self._send(404, {"status": "error", "error": "not found"})
@@ -610,6 +649,11 @@ class _Handler(BaseHTTPRequestHandler):
             )
         code = None
         headers: dict = {}
+        # Shadow-solve sampling: _handle_solve stashes (request,
+        # lane_result) for an eligible 200 here; the offer happens AFTER
+        # _send below, so the primary answer is on the wire before any
+        # shadow work exists.
+        self._shadow_offer = None
         # Per-tenant in-flight accounting: _handle_solve records the
         # slot it took here; releasing in THIS finally covers every
         # return path (including handler exceptions).
@@ -629,10 +673,19 @@ class _Handler(BaseHTTPRequestHandler):
         if echo_tp:
             headers.setdefault("traceparent", echo_tp)
         self._send(code, payload, headers)
+        offer = self._shadow_offer
+        if offer is not None and self.state.shadow is not None:
+            req, lane_result = offer
+            self.state.shadow.offer(
+                req, lane_result, rid,
+                trace_context=getattr(self, "_trace_context", None),
+            )
 
     def _handle_solve(self, rid) -> Tuple[int, dict, dict]:
         from wavetpu_torch.serve.resilience import (
             DeadlineExceededError,
+            InvalidStateTokenError,
+            PreemptedError,
             QuarantinedError,
             ShedError,
             WorkerCrashError,
@@ -761,12 +814,56 @@ class _Handler(BaseHTTPRequestHandler):
             }, {"Retry-After": format_retry_after(
                 st.metrics.retry_after_s(queue_depth)
             )}
+        # Content-addressed result cache (serve/resultcache.py), probed
+        # BEFORE the batcher: a hit answers without a queue slot or a
+        # march.  Eligibility is conservative - deterministic full solves
+        # only, never a resume-token request; `Cache-Control: no-cache`
+        # opts this request out of the lookup (counted bypass) while its
+        # fresh answer still refreshes the entry.
+        cache_key = None
+        if st.result_cache is not None and \
+                progkey.result_cache_eligible(body):
+            try:
+                cache_key = progkey.result_key(
+                    body, st.default_kernel, platform=st.backend
+                )
+            except ValueError:
+                cache_key = None
+        if cache_key is not None:
+            cc = (self.headers.get("Cache-Control") or "").lower()
+            if "no-cache" in cc:
+                st.result_cache.note_bypass()
+            else:
+                hit = st.result_cache.get(
+                    cache_key,
+                    n=req.problem.N, timesteps=req.problem.timesteps,
+                    scheme=req.scheme, path=req.path, k=req.k,
+                    dtype=req.dtype_name,
+                )
+                if hit is not None:
+                    payload_bytes, _orig_timing = hit
+                    st.release_tenant_slot(req.tenant)
+                    self._tenant_slot = None
+                    headers = {"X-Wavetpu-Cache": "hit"}
+                    if st.server_timing:
+                        headers["Server-Timing"] = (
+                            f"cache;desc=hit, total;dur="
+                            f"{(time.monotonic() - t0) * 1e3:.3f}"
+                        )
+                    st.metrics.observe_response(True)
+                    return 200, payload_bytes, headers
         self._tenant_slot = req.tenant
         try:
             fut = st.batcher.submit(
                 req, request_id=rid, deadline=deadline,
                 trace_context=getattr(self, "_trace_context", None),
+                coalesce_key=cache_key,
             )
+        except InvalidStateTokenError as e:
+            # A resume_token on a request that cannot march chunked, or
+            # on a replica without --solve-state-dir: a client error.
+            st.metrics.observe_response(False)
+            return 422, {"status": "error", "error": str(e)}, {}
         except QueueFullError as e:
             # Bounded-queue backpressure: shed load NOW instead of
             # stacking latency the client will time out on anyway,
@@ -805,16 +902,24 @@ class _Handler(BaseHTTPRequestHandler):
         # small grace for a result racing in), so "no future ever hangs
         # past its deadline" holds even when the scheduler is wedged
         # mid-batch.  Without a budget the historical request_timeout
-        # stands.
+        # stands.  A chunked long solve with a state store is the
+        # exception: the scheduler answers its expired deadline at the
+        # next chunk boundary with a resume token (one chunk plus the
+        # checkpoint after the budget), and the wait holds out for it.
         wait_s = st.request_timeout
-        if deadline is not None:
+        if deadline is not None and not getattr(
+                fut, "wavetpu_awaits_token", False):
             wait_s = min(
                 wait_s, max(0.0, deadline - time.monotonic()) + 0.050
             )
         try:
             lane_result, lane_error, batch_info = fut.result(wait_s)
         except DeadlineExceededError as e:
-            # The scheduler dropped it in queue: 504 with attribution.
+            # The scheduler dropped it (in queue, or mid-march between
+            # chunks): 504 with attribution.  A chunked long solve's
+            # expiry additionally carries `resume_token` - the
+            # checkpointed march, resubmittable with a fresh budget on
+            # any replica sharing --solve-state-dir.
             st.metrics.observe_response(False)
             payload = {
                 "status": "error", "error": str(e),
@@ -822,7 +927,28 @@ class _Handler(BaseHTTPRequestHandler):
             }
             if e.queue_s is not None:
                 payload["queue_ms"] = round(e.queue_s * 1e3, 3)
+            if getattr(e, "resume_token", None) is not None:
+                payload["resume_token"] = e.resume_token
             return 504, payload, {}
+        except PreemptedError as e:
+            # A draining replica checkpointed the march: retriable 503
+            # whose body carries the resume token (a router or client
+            # re-injects it on the retry, which lands on a successor and
+            # continues from the last chunk).
+            st.metrics.observe_response(False)
+            payload = {
+                "status": "error", "error": str(e), "retriable": True,
+            }
+            if e.resume_token is not None:
+                payload["resume_token"] = e.resume_token
+            return 503, payload, {
+                "Retry-After": str(max(1, int(e.retry_after_s + 0.5))),
+            }
+        except InvalidStateTokenError as e:
+            # Client error, never retriable, never a traceback: bad
+            # format, corrupt/expired checkpoint, identity mismatch.
+            st.metrics.observe_response(False)
+            return 422, {"status": "error", "error": str(e)}, {}
         except QuarantinedError as e:
             # Circuit-broken program key: shed with the remaining
             # cooldown as the Retry-After hint.
@@ -888,8 +1014,28 @@ class _Handler(BaseHTTPRequestHandler):
             st.engine.compute_errors and req.lane.c2tau2_field is None
         )
         st.metrics.observe_response(True)
-        return 200, _ok_payload(lane_result, batch_info,
-                                errors_computed), headers
+        if st.shadow is not None and not getattr(req, "shadow", False):
+            # Offered after the response is sent (do_POST); the sampler
+            # does its own eligibility/rate/busy checks there.
+            self._shadow_offer = (req, lane_result)
+        payload = _ok_payload(lane_result, batch_info, errors_computed)
+        if cache_key is None:
+            return 200, payload, headers
+        # Serialize ONCE: the stored entry and this response are the
+        # same bytes, so a later hit is byte-identical by construction.
+        body_bytes = json.dumps(payload).encode()
+        if getattr(fut, "wavetpu_coalesced", False):
+            # A singleflight rider - the primary's answer fanned out to
+            # this request; the primary stores, this one just says so.
+            headers["X-Wavetpu-Cache"] = "coalesced"
+        elif batch_info.get("batched") and \
+                batch_info.get("fallback_reason") is None:
+            if st.result_cache.put(cache_key, body_bytes,
+                                   headers.get("Server-Timing")):
+                headers["X-Wavetpu-Cache"] = (
+                    f"store;fp={st.result_cache_fp_tag or 'none'}"
+                )
+        return 200, body_bytes, headers
 
 
 def build_server(
@@ -916,6 +1062,17 @@ def build_server(
     brownout_thresholds: Sequence[float] = (0.5, 2.0, 8.0),
     proxy_token: Optional[str] = None,
     tenant_inflight_cap: Optional[int] = None,
+    program_cache_dir: Optional[str] = None,
+    program_cache_max_bytes: Optional[int] = None,
+    chunk_threshold: Optional[int] = None,
+    chunk_steps: int = 32,
+    solve_state_dir: Optional[str] = None,
+    solve_state_ttl_s: float = 3600.0,
+    result_cache: bool = False,
+    result_cache_max_bytes: Optional[int] = None,
+    result_cache_ttl_s: Optional[float] = None,
+    shadow_sample_rate: float = 0.0,
+    shadow_deadline_s: float = 120.0,
 ) -> Tuple[ThreadingHTTPServer, ServerState]:
     """Assemble engine + batcher + HTTP server on `device` (default: the
     CUDA device, raising without one; "cpu" runs the kernels' plain
@@ -935,7 +1092,20 @@ def build_server(
     configure the adaptive overload ladder; `proxy_token` gates
     tenant/priority headers to router-stamped requests only, and
     `tenant_inflight_cap` bounds any one tenant's concurrent in-flight
-    solves at this replica."""
+    solves at this replica.  `program_cache_dir` adds the persistent disk
+    tier of built kernel libraries under the engine's LRU
+    (serve/progcache.py).  `chunk_threshold` routes solves with that many
+    timesteps or more through the preemptible chunked march
+    (serve/preempt.py; None = monolithic only); `solve_state_dir` enables
+    mid-flight checkpoints + resume tokens (shared across replicas =
+    cross-replica handoff), GC'd after `solve_state_ttl_s`.
+    `result_cache` turns on the content-addressed result tier
+    (serve/resultcache.py), bounded by `result_cache_max_bytes` /
+    `result_cache_ttl_s` and invalidated on environment-fingerprint
+    drift.  `shadow_sample_rate` (default 0 = off) re-solves that
+    fraction of eligible answers off the hot path with the reference
+    plan and ledgers the divergence (serve/shadow.py);
+    `shadow_deadline_s` caps each twin's scheduler budget."""
     from wavetpu_torch.obs.registry import MetricsRegistry
     from wavetpu_torch.run import faults
     from wavetpu_torch.serve.engine import ServeEngine
@@ -952,8 +1122,16 @@ def build_server(
         watchdog=watchdog, max_amp=max_amp, registry=registry,
         breaker_threshold=breaker_threshold,
         breaker_cooldown_s=breaker_cooldown_s, fault_plan=fault_plan,
+        program_cache_dir=program_cache_dir,
+        program_cache_max_bytes=program_cache_max_bytes,
     )
     metrics = ServeMetrics(registry=registry)
+    state_store = None
+    if solve_state_dir is not None:
+        from wavetpu_torch.serve.preempt import SolveStateStore
+
+        state_store = SolveStateStore(solve_state_dir,
+                                      ttl_s=solve_state_ttl_s)
     bo = (
         BrownoutController(thresholds=tuple(brownout_thresholds))
         if brownout else None
@@ -961,31 +1139,76 @@ def build_server(
     batcher = DynamicBatcher(
         engine, metrics=metrics, max_batch=max_batch, max_wait=max_wait,
         length_bucket_steps=length_bucket_steps, max_queue=max_queue,
-        fault_plan=fault_plan, brownout=bo,
+        fault_plan=fault_plan, chunk_threshold=chunk_threshold,
+        chunk_steps=chunk_steps, state_store=state_store, brownout=bo,
     )
+    rcache = None
+    rcache_fp_tag = None
+    if result_cache:
+        from wavetpu_torch.serve import progcache as _progcache
+        from wavetpu_torch.serve import resultcache as _resultcache
+
+        # The environment identity entries are valid under (a torch,
+        # CUDA or kernel-source change invalidates), computed HERE so
+        # resultcache.py itself stays torch-free.
+        try:
+            fp = _progcache.env_fingerprint(engine.device)
+        except Exception:
+            fp = None
+        rcache = _resultcache.ResultCache(
+            max_bytes=(result_cache_max_bytes
+                       or _resultcache.DEFAULT_MAX_BYTES),
+            ttl_s=result_cache_ttl_s or _resultcache.DEFAULT_TTL_S,
+            fingerprint=fp, registry=registry, fault_plan=fault_plan,
+        )
+        rcache_fp_tag = _progcache.fingerprint_tag(fp)
+    shadow = None
+    if shadow_sample_rate > 0.0:
+        from wavetpu_torch.serve.shadow import ShadowSampler
+
+        shadow = ShadowSampler(
+            batcher, registry, shadow_sample_rate,
+            fault_plan=fault_plan, deadline_s=shadow_deadline_s,
+            reference_path=("pallas" if engine.platform == "gpu"
+                            else "roll"),
+        )
+        engine.keep_final_state = True
     httpd = ThreadingHTTPServer((host, port), _Handler)
     httpd.wavetpu_state = ServerState(
         engine, batcher, metrics, default_kernel,
         max_body_bytes=max_body_bytes, max_lane_cells=max_lane_cells,
         server_timing=server_timing, fault_plan=fault_plan,
         proxy_token=proxy_token, tenant_inflight_cap=tenant_inflight_cap,
+        result_cache=rcache, result_cache_fp_tag=rcache_fp_tag,
+        shadow=shadow,
     )
     return httpd, httpd.wavetpu_state
 
 
-def _warm(state: ServerState, parts: Sequence[int]) -> None:
-    """--warmup N,TIMESTEPS[,K] in the background: build the tier's
+def _warm(state: ServerState, parts: Optional[Sequence[int]],
+          manifest: Optional[dict] = None) -> None:
+    """--warmup N,TIMESTEPS[,K] and --warmup-manifest in the background,
+    on ONE thread, while /healthz says `warming`: build the tier's
     solvers for every bucket (kfused at K > 1, else the replica's auto
-    kernel) while /healthz says `warming`.  Builds only - the scheduler's
-    worker stays the only thread that launches kernels.  A failure is
-    recorded (/healthz `warmup_error`) and the replica keeps serving."""
+    kernel), then build or disk-adopt every key the manifest names
+    (through the engine, so adoptions land in the LRU too).  Builds only -
+    the scheduler's worker stays the only thread that launches kernels.
+    A failure is recorded (/healthz `warmup_error`) and the replica keeps
+    serving."""
     try:
-        wp = Problem(N=parts[0], timesteps=parts[1])
-        k = parts[2] if len(parts) == 3 else 1
-        path = "kfused" if k > 1 else progkey.resolve_kernel(
-            "auto", state.backend)
-        warmed = state.engine.warmup(wp, path=path, k=max(k, 2))
-        print(f"warmed buckets {warmed} for N={wp.N} path={path}")
+        if parts is not None:
+            wp = Problem(N=parts[0], timesteps=parts[1])
+            k = parts[2] if len(parts) == 3 else 1
+            path = "kfused" if k > 1 else progkey.resolve_kernel(
+                "auto", state.backend)
+            warmed = state.engine.warmup(wp, path=path, k=max(k, 2))
+            print(f"warmed buckets {warmed} for N={wp.N} path={path}")
+        if manifest is not None:
+            done, skipped, failed = state.engine.warm_manifest(manifest)
+            print(f"manifest warmup: {done} warmed, {skipped} skipped, "
+                  f"{failed} failed", flush=True)
+            if failed:
+                state.warmup_error = f"{failed} manifest key(s) failed"
     except Exception as e:
         state.warmup_error = str(e)
         print(f"warmup failed: {e}", file=sys.stderr)
@@ -1069,6 +1292,40 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             int(flags["tenant-inflight-cap"])
             if "tenant-inflight-cap" in flags else None
         )
+        warmup_manifest = None
+        if "warmup-manifest" in flags:
+            # Parsed at flag time (a typo'd path or a non-manifest JSON
+            # is a usage error, not a silent forever-unready replica).
+            from wavetpu_torch.serve import progcache as _progcache
+
+            warmup_manifest = _progcache.load_manifest(
+                flags["warmup-manifest"]
+            )
+        program_cache_max_bytes = (
+            int(flags["program-cache-max-bytes"])
+            if "program-cache-max-bytes" in flags else None
+        )
+        chunk_threshold = (
+            int(flags["chunk-threshold"])
+            if "chunk-threshold" in flags else None
+        )
+        chunk_steps = int(flags.get("chunk-steps", "32"))
+        solve_state_ttl_s = float(flags.get("solve-state-ttl-s", "3600"))
+        result_cache_max_bytes = (
+            int(flags["result-cache-max-bytes"])
+            if "result-cache-max-bytes" in flags else None
+        )
+        result_cache_ttl_s = (
+            float(flags["result-cache-ttl-s"])
+            if "result-cache-ttl-s" in flags else None
+        )
+        shadow_sample_rate = float(flags.get("shadow-sample-rate", "0"))
+        if not 0.0 <= shadow_sample_rate <= 1.0:
+            raise ValueError(
+                "--shadow-sample-rate must be in [0, 1], got "
+                f"{shadow_sample_rate}"
+            )
+        shadow_deadline_s = float(flags.get("shadow-deadline-s", "120"))
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         print(_USAGE, file=sys.stderr)
@@ -1098,7 +1355,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         brownout_thresholds=brownout_thresholds,
         proxy_token=flags.get("proxy-token"),
         tenant_inflight_cap=tenant_inflight_cap,
+        program_cache_dir=flags.get("program-cache-dir"),
+        program_cache_max_bytes=program_cache_max_bytes,
+        chunk_threshold=chunk_threshold, chunk_steps=chunk_steps,
+        solve_state_dir=flags.get("solve-state-dir"),
+        solve_state_ttl_s=solve_state_ttl_s,
+        result_cache="result-cache" in flags,
+        result_cache_max_bytes=result_cache_max_bytes,
+        result_cache_ttl_s=result_cache_ttl_s,
+        shadow_sample_rate=shadow_sample_rate,
+        shadow_deadline_s=shadow_deadline_s,
     )
+    if state.engine.progcache is not None:
+        pc = state.engine.progcache
+        print(f"program cache: {pc.directory} [built kernel libraries, "
+              f"fingerprint {pc._fp_hash}]")
+    if state.shadow is not None:
+        print(f"shadow sampling: rate={state.shadow.rate} "
+              f"deadline_s={state.shadow.deadline_s}")
     telemetry = None
     serving = False
     try:
@@ -1111,12 +1385,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 flags["telemetry-dir"], registry=state.metrics.registry
             )
             print(f"telemetry: {flags['telemetry-dir']}")
-        if warmup_parts is not None:
+        if warmup_parts is not None or warmup_manifest is not None:
             # Warm in the BACKGROUND so /healthz answers `ready: false`
-            # while the build runs (the load balancer's routing signal).
+            # while the builds run (the load balancer's routing signal);
+            # --warmup and --warmup-manifest share one thread, so
+            # readiness flips once both are done.
             state.warming = True
             threading.Thread(
-                target=_warm, args=(state, warmup_parts),
+                target=_warm, args=(state, warmup_parts, warmup_manifest),
                 name="wavetpu-warmup", daemon=True,
             ).start()
 
@@ -1153,6 +1429,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         httpd.server_close()
         if telemetry is not None:
             telemetry.stop()
+    from wavetpu_torch.kernels import build, stencil_cuda
+
+    print(f"kernel libraries: {build.stats['nvcc_runs']} nvcc run(s) "
+          f"({build.stats['nvcc_seconds']:.3f} s), "
+          f"{build.stats['disk_loads']} disk load(s), "
+          f"{build.stats['loads']} load(s); first launches "
+          f"{stencil_cuda.first_launch_seconds:.3f} s")
     print("wavetpu_torch serve: shut down cleanly (drained)")
     return 0
 

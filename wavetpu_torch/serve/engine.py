@@ -44,14 +44,25 @@ after K consecutive build/execute failures (batch bucket excluded), so a
 poisoned tier sheds fast `QuarantinedError`s (HTTP 503 + Retry-After)
 while other tiers keep serving.  `run/faults.py`'s serve plan injects
 `compile-fail` (before the build) and `execute-nan` (after the solve,
-proving the watchdog catches it) at this layer.  The persistent program
-cache (`--program-cache-dir`) and the chunk runners of preemptible long
-solves come with ROADMAP.md queue 1 item 12b.
+proving the watchdog catches it) at this layer.
+
+The persistent disk tier (`--program-cache-dir`, serve/progcache.py) sits
+under the LRU: memory -> disk adopt -> fresh build.  A disk entry holds
+the kernel libraries a key launches; adopting it places them in the build
+directory and loads them (no nvcc), and a program so adopted is a
+`disk_hit` with a `source: disk` compile-ledger line.  An entry that does
+not check out is a counted miss and the fresh build runs - never the
+plain versions.  The chunk runners of preemptible long solves
+(serve/preempt.py, `chunk_runner`) live in the same LRU under
+`path@chunk{L}` keys; their march state is the scheduler's, held on the
+card between rounds.  With `keep_final_state` (the shadow sampler's
+need) each lane keeps its own copy of its final layer after the release.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from collections import OrderedDict
@@ -62,6 +73,7 @@ import torch
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.ensemble import batched as ensemble
 from wavetpu_torch.ensemble import sharded as ens_sharded
+from wavetpu_torch.kernels import stencil_cuda
 from wavetpu_torch.obs import accuracy
 from wavetpu_torch.obs import ledger as compile_ledger
 from wavetpu_torch.obs import perf, tracing
@@ -94,6 +106,8 @@ class ServeEngine:
         breaker_threshold: Optional[int] = 3,
         breaker_cooldown_s: float = 30.0,
         fault_plan: Optional[faults.ServeFaultPlan] = None,
+        program_cache_dir: Optional[str] = None,
+        program_cache_max_bytes: Optional[int] = None,
     ):
         from wavetpu_torch.solver import leapfrog
 
@@ -150,6 +164,21 @@ class ServeEngine:
         )
         if self.fault_plan is not None:
             self.fault_plan.bind_registry(self.registry)
+        # Persistent disk tier (serve/progcache.py): None without
+        # --program-cache-dir - every use is a None check.  A bad
+        # directory raises HERE (operator config error at startup).
+        self.progcache = None
+        if program_cache_dir:
+            from wavetpu_torch.serve import progcache as progcache_mod
+
+            self.progcache = progcache_mod.ProgramCache(
+                program_cache_dir, max_bytes=program_cache_max_bytes,
+                registry=self.registry, fault_plan=self.fault_plan,
+                device=self.device,
+            )
+        # Shadow sampling compares final layers after the primary answer:
+        # with this set, each lane keeps its own copy of u_cur.
+        self.keep_final_state = False
 
     # Cache hit/miss/eviction counts live in the registry counter - the
     # single source of truth for the JSON and Prometheus /metrics views.
@@ -165,6 +194,10 @@ class ServeEngine:
     @property
     def evictions(self) -> int:
         return int(self._c_cache.value(event="eviction"))
+
+    @property
+    def disk_hits(self) -> int:
+        return int(self._c_cache.value(event="disk_hit"))
 
     @property
     def max_batch(self) -> int:
@@ -267,13 +300,75 @@ class ServeEngine:
                 self._programs.move_to_end(key)
                 self._c_cache.inc(event="hit")
                 return prog, "memory", 0.0
+
+        def _build():
+            dtype = self._dtype(dtype_name)
+            if mesh is not None:
+                return ens_sharded.ShardedEnsembleSolver(
+                    problem, batch, mesh, dtype=dtype, kernel=path,
+                    compute_errors=compute_errors,
+                    devices=self.mesh_devices(mesh),
+                )
+            return ensemble.EnsembleSolver(
+                problem, batch, dtype=dtype, path=path, k=k,
+                compute_errors=compute_errors, block_x=self.block_x,
+                with_field=with_field, scheme=scheme, device=self.device,
+            )
+
+        return self._acquire(
+            key, _build, lambda prog: prog.compile(), problem, scheme,
+            path, dtype_name, batch, mesh)
+
+    def _acquire(self, key: ProgramKey, build, first_build, problem,
+                 scheme: str, path: str, dtype_name: str, batch: int,
+                 mesh):
+        """The disk tier and the fresh build of an LRU miss ->
+        (prog, source, compile_seconds).  Disk: adopt a persisted entry
+        (a valid one counts `disk_hit` only - `miss` stays exactly the
+        fresh-build count); any disk problem is a counted miss that falls
+        through to the fresh build, which stores its libraries for the
+        next process."""
+        key_dict = key_from_program_key(key)
+        if self.progcache is not None:
+            entry = self.progcache.load(key_dict)
+            if entry is not None:
+                payload, header = entry
+                from wavetpu_torch.serve import progcache as progcache_mod
+
+                t0 = time.perf_counter()
+                try:
+                    prog = build()
+                    prog.adopt_executable(payload)
+                except progcache_mod.FingerprintMismatch:
+                    self.progcache.count("fingerprint_mismatch")
+                    prog = None
+                except Exception:
+                    # A checksum-valid entry whose libraries do not check
+                    # out: counted, then the fresh path below builds.
+                    self.progcache.count("corrupt")
+                    prog = None
+                if prog is not None:
+                    load_s = time.perf_counter() - t0
+                    self._c_cache.inc(event="disk_hit")
+                    fresh_s = header.get("compile_s")
+                    if not isinstance(fresh_s, (int, float)):
+                        fresh_s = None
+                    if fresh_s is not None:
+                        self.progcache.credit_saved(fresh_s, load_s)
+                    compile_ledger.record_compile(
+                        key_dict, load_s, source="disk",
+                        fresh_compile_s=fresh_s,
+                    )
+                    self._cache_insert(key, prog)
+                    return prog, "disk", load_s
         self._c_cache.inc(event="miss")
         # Chaos seam: an injected build failure lands exactly where a real
         # nvcc or load error would - after the miss is counted, before any
         # build work.
         if self.fault_plan is not None and self.fault_plan.fire(
             "compile-fail", n=problem.N, timesteps=problem.timesteps,
-            scheme=scheme, path=path, k=key.k, dtype=dtype_name,
+            scheme=scheme, path=path.partition("@")[0], k=key.k,
+            dtype=dtype_name,
         ):
             raise faults.InjectedFault(
                 f"injected compile failure ({scheme}:{path} "
@@ -287,36 +382,33 @@ class ServeEngine:
             "serve.compile", scheme=scheme, path=path, batch=batch,
             n=problem.N, mesh=None if mesh is None else list(mesh),
         ):
-            dtype = self._dtype(dtype_name)
-            if mesh is not None:
-                prog = ens_sharded.ShardedEnsembleSolver(
-                    problem, batch, mesh, dtype=dtype, kernel=path,
-                    compute_errors=compute_errors,
-                    devices=self.mesh_devices(mesh),
-                )
-            else:
-                prog = ensemble.EnsembleSolver(
-                    problem, batch, dtype=dtype, path=path, k=k,
-                    compute_errors=compute_errors, block_x=self.block_x,
-                    with_field=with_field, scheme=scheme,
-                    device=self.device,
-                )
-            prog.compile()
+            prog = build()
+            first_build(prog)
         compile_seconds = time.perf_counter() - t0
         self._h_compile.observe(compile_seconds)
         # Compile-cost ledger (obs/ledger.py): one line per build, keyed
         # by the full ProgramKey; a no-op without --telemetry-dir.
-        compile_ledger.record_compile(
-            key_from_program_key(key), compile_seconds,
-            source="fresh",
-        )
+        compile_ledger.record_compile(key_dict, compile_seconds,
+                                      source="fresh")
+        # Persist for the next process (guarded: a full disk must never
+        # fail the request that just built).
+        if self.progcache is not None:
+            try:
+                payload = prog.executable_payload()
+                if payload is not None:
+                    self.progcache.put(key_dict, payload, compile_seconds)
+            except Exception:
+                self.progcache.count("store_error")
+        self._cache_insert(key, prog)
+        return prog, "fresh", compile_seconds
+
+    def _cache_insert(self, key: ProgramKey, prog) -> None:
         with self._lock:
             self._programs[key] = prog
             self._programs.move_to_end(key)
             while len(self._programs) > self.max_programs:
                 self._programs.popitem(last=False)
                 self._c_cache.inc(event="eviction")
-        return prog, "fresh", compile_seconds
 
     def warmup(
         self, problem: Problem, scheme: str = "standard",
@@ -336,6 +428,99 @@ class ServeEngine:
                 warmed.append(b)
         return warmed
 
+    def warm_manifest(self, manifest: dict) -> Tuple[int, int, int]:
+        """`serve --warmup-manifest`: build or adopt every key a
+        ledger-report manifest names through the LRU (launching
+        nothing); returns (warmed, skipped, failed).  A key the device
+        cannot hold is skipped (`progcache.cannot_hold`); a `path@chunkL`
+        key warms the chunk-runner tier."""
+        from wavetpu_torch import progkey
+        from wavetpu_torch.serve import progcache as progcache_mod
+
+        done = skipped = failed = 0
+        for raw in manifest.get("keys", ()):
+            try:
+                pk = progkey.program_key_from_dict(raw)
+                if progcache_mod.cannot_hold(pk, self.device) is not None:
+                    skipped += 1
+                    continue
+                mp = Problem(N=pk.N, Np=1, Lx=pk.Lx, Ly=pk.Ly, Lz=pk.Lz,
+                             T=pk.T, timesteps=pk.timesteps)
+                if "@chunk" in pk.path:
+                    base, _, clen = pk.path.partition("@chunk")
+                    self.chunk_runner(mp, pk.scheme, base, pk.k, pk.dtype,
+                                      int(clen))
+                    done += 1
+                elif self.program(mp, pk.scheme, pk.path, pk.k, pk.dtype,
+                                  pk.with_field, pk.batch,
+                                  pk.mesh) is not None:
+                    done += 1
+                else:
+                    skipped += 1
+            except Exception as e:
+                failed += 1
+                print(f"manifest warmup key failed: {e}", file=sys.stderr)
+        return done, skipped, failed
+
+    # ---- chunked long solves (serve/preempt.py) ----
+
+    @staticmethod
+    def chunk_program_key(problem: Problem, scheme: str, path: str,
+                          k: int, dtype_name: str, compute_errors: bool,
+                          chunk_len: int) -> ProgramKey:
+        """The chunk-program identity: the full-march ProgramKey at
+        batch=1 with the chunk geometry folded into the path string
+        (`pallas@chunk200`).  `timesteps` stays the TOTAL march length,
+        and the suffix keeps chunked and monolithic programs apart in the
+        LRU, the ledger and the program cache."""
+        base = ProgramKey.for_batch(
+            problem, scheme, path, k, dtype_name, False,
+            compute_errors, 1, None,
+        )
+        # for_batch normalizes k to 1 off the kfused path, so the suffix
+        # rides in AFTER derivation.
+        return base._replace(path=f"{path}@chunk{chunk_len}")
+
+    def chunk_runner(
+        self, problem: Problem, scheme: str, path: str, k: int,
+        dtype_name: str, chunk_steps: int,
+    ):
+        """The cached ChunkRunner (bootstrap + fixed-length chunk
+        runners) for a long solve's tier - (runner, source,
+        compile_seconds) with the memory -> disk -> fresh discipline and
+        attribution of `_program`, in the same LRU.  The circuit breaker
+        is NOT consulted: the chunked path has its own failure handling
+        (per-chunk watchdog 422s, crash re-enqueue,
+        checkpoint-and-preempt), none of which may quarantine the
+        tier."""
+        from wavetpu_torch.run import supervisor
+        from wavetpu_torch.serve import preempt
+
+        fuse = int(k) if path == "kfused" else 1
+        chunk_len = supervisor.chunk_length(int(chunk_steps), fuse)
+        key = self.chunk_program_key(
+            problem, scheme, path, k, dtype_name, self.compute_errors,
+            chunk_len,
+        )
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is not None:
+                self._programs.move_to_end(key)
+                self._c_cache.inc(event="hit")
+                return prog, "memory", 0.0
+
+        def _build():
+            return preempt.ChunkRunner(
+                problem, scheme, path, fuse, self._dtype(dtype_name),
+                dtype_name, self.compute_errors, chunk_steps=chunk_len,
+                device=self.device, block_x=self.block_x,
+            )
+
+        with self._device_scope():
+            return self._acquire(
+                key, _build, lambda prog: prog.prime(), problem, scheme,
+                key.path, dtype_name, 1, None)
+
     def breaker_key(self, problem: Problem, scheme: str, path: str,
                     k: int, dtype_name: str, with_field: bool,
                     mesh: Optional[Tuple[int, int, int]] = None
@@ -354,8 +539,7 @@ class ServeEngine:
         return {"enabled": True, **self.breaker.snapshot()}
 
     def cache_stats(self) -> dict:
-        """The JSON /metrics `program_cache` block (wavetpu's keys; the
-        disk tier of item 12b reports disabled)."""
+        """The JSON /metrics `program_cache` block (wavetpu's keys)."""
         with self._lock:
             return {
                 "programs": len(self._programs),
@@ -370,10 +554,17 @@ class ServeEngine:
                         key_from_program_key(k)
                         for k in self._programs
                     ],
-                    "disk": [],
+                    "disk": (
+                        self.progcache.entry_keys()
+                        if self.progcache is not None else []
+                    ),
                 },
                 "fallbacks": dict(self.fallbacks),
-                "progcache": {"enabled": False},
+                "progcache": (
+                    self.progcache.stats()
+                    if self.progcache is not None
+                    else {"enabled": False}
+                ),
                 # Every capability verdict asked for (single-device +
                 # sharded): a replica serving lane loops is visible here.
                 "vmap_probes": (
@@ -429,6 +620,7 @@ class ServeEngine:
         dtype_name: str = "f32",
         mesh: Optional[Tuple[int, int, int]] = None,
         timing: Optional[dict] = None,
+        feed_breaker: bool = True,
     ) -> Tuple[ensemble.EnsembleResult, List[Optional[str]]]:
         """Pad to the bucket, run the cached solver (or the recorded
         fallback), watchdog each lane, release the batch's states;
@@ -436,8 +628,10 @@ class ServeEngine:
         SolveResult keeps its error vectors and timings, its u_prev /
         u_cur are None.  `timing`, when a dict is passed, is filled with
         `compile_seconds` (this call's cache-miss build, 0.0 warm) and
-        `warm` ("true"/"false"/"fallback") for the Server-Timing
-        header."""
+        `warm` ("true"/"false"/"disk"/"fallback") for the Server-Timing
+        header.  `feed_breaker=False` (a batch of only shadow lanes,
+        serve/shadow.py) neither consults nor feeds the circuit
+        breaker."""
         lanes = list(lanes)
         with_field = any(lane.c2tau2_field is not None for lane in lanes)
         compute_errors = self.compute_errors and not with_field
@@ -446,7 +640,7 @@ class ServeEngine:
         # HTTP 503 + Retry-After) before any build or device work.  Per-
         # lane watchdog trips are CLIENT errors and never feed it.
         bkey = None
-        if self.breaker is not None:
+        if self.breaker is not None and feed_breaker:
             bkey = self.breaker_key(
                 problem, scheme, path, k, dtype_name, with_field, mesh
             )
@@ -459,7 +653,8 @@ class ServeEngine:
                 )
                 warm = prog is not None and source == "memory"
                 warm_label = ("fallback" if prog is None
-                              else "true" if warm else "false")
+                              else "true" if warm
+                              else "disk" if source == "disk" else "false")
                 if timing is not None:
                     timing["compile_seconds"] = compile_seconds
                     timing["warm"] = warm_label
@@ -467,9 +662,17 @@ class ServeEngine:
                     "serve.execute", scheme=scheme, path=path,
                     occupancy=len(lanes), bucket=bucket, warm=warm,
                 ) as sp:
+                    fl0 = stencil_cuda.first_launch_seconds
                     result = self._execute(
                         problem, lanes, scheme, path, k, dtype_name, mesh,
                         compute_errors, bucket, prog)
+                    if timing is not None:
+                        # CUDA loads a template instantiation at its
+                        # first launch: that host time is the program's
+                        # compile, not its march (only this thread
+                        # launches, so the difference is this batch's).
+                        timing["compile_seconds"] += (
+                            stencil_cuda.first_launch_seconds - fl0)
                     sp["batched"] = result.batched
                     self._record_roofline(sp, problem, result, scheme, k,
                                           dtype_name, with_field)
@@ -495,7 +698,7 @@ class ServeEngine:
         ):
             _poison_states(result)
         verdicts = self.lane_health(result)
-        _release_states(result)
+        _release_states(result, keep_u_cur=self.keep_final_state)
         # Accuracy observatory: every HEALTHY lane that computed oracle
         # errors appends one accuracy-ledger line (obs/accuracy.py).
         # Guarded: the X-ray must never fail the batch it measures.
@@ -576,10 +779,19 @@ def _poison_states(result: ensemble.EnsembleResult) -> None:
                                  r.u_cur.topo, r.u_cur.mesh))
 
 
-def _release_states(result: ensemble.EnsembleResult) -> None:
+def _release_states(result: ensemble.EnsembleResult,
+                    keep_u_cur: bool = False) -> None:
     """Drop every reference the result holds to the batch's states, so
-    the card's memory is free for the next batch."""
+    the card's memory is free for the next batch; `keep_u_cur` keeps a
+    copy of each lane's final layer of its own (never a view that would
+    hold the whole batch)."""
     result.u_prev_batch = result.u_cur_batch = None
     for r in result.results:
-        r.u_prev = r.u_cur = None
+        kept = None
+        if keep_u_cur and r.u_cur is not None:
+            u = r.u_cur
+            kept = (u.fundamental(u.blocks[0].device)
+                    if hasattr(u, "blocks") else u.clone())
+        r.u_prev = None
+        r.u_cur = kept
         r.comp_v = r.comp_carry = None

@@ -18,9 +18,8 @@ client can tell "retry me" from "your fault" from "too late":
    failures); `retry_after_s` is the remaining cooldown.
  * `PreemptedError`         -> HTTP 503 + `Retry-After` + resume_token.
    A chunked long solve was checkpointed mid-march (drain/roll); the
-   token resumes it on any replica sharing `--solve-state-dir`.  (The
-   chunked long solves come with ROADMAP.md queue 1 item 12b; the type
-   is here so the client and the HTTP layer speak the whole contract.)
+   token resumes it on any replica sharing `--solve-state-dir`
+   (serve/preempt.py).
  * `InvalidStateTokenError` -> HTTP 422.  A `resume_token` failed
    verification (bad format, missing/corrupt/expired file, or identity
    mismatch with the request) - the client's fault, never retriable.

@@ -25,7 +25,8 @@ stash is one deque PER CLASS, drained by weighted deficit round-robin
 class its weight, serves the largest deficit (ties go to the higher
 static class), and debits the winner the round's total credit - so an
 eligible interactive request takes the NEXT pass ahead of a lower-class
-class's next turn, while the deficit counter
+chunked march's next chunk slot (the one-chunk-per-pass machinery makes
+preemption a dequeue-ordering decision), while the deficit counter
 guarantees best_effort is served within ~sum(weights)/1 passes however
 hard interactive floods (the starvation bound tests/test_qos.py pins).
 With a single backlogged class the deficits stay zeroed and scheduling
@@ -33,9 +34,8 @@ is exactly the historical FIFO - the QoS-off fast path.
 
 `BrownoutController` is the adaptive overload ladder: when measured
 queue-wait p95 crosses its rung thresholds the batcher sheds
-best_effort admissions first, then batch (its top rung defers new
-chunked-march starts, which come with ROADMAP.md queue 1 item 12b) - and
-de-escalates only after a hysteresis-gated cooldown so the
+best_effort admissions first, then batch, then defers NEW chunked-march
+starts - and de-escalates only after a hysteresis-gated cooldown so the
 ladder never flaps.  Shed responses are 503 + a MEASURED Retry-After
 (`ServeMetrics.retry_after_s`, the queue-drain estimate that also
 replaced the hardcoded queue-full/draining constants).
@@ -52,9 +52,11 @@ waits, request ids) into the structured trace when `--telemetry-dir`
 is on.
 
 The worker thread is the only thread that launches kernels: the engine
-it drives passes its device explicitly.  The preemptible chunked long
-solves (wavetpu's `_ChunkProgress`, `_chunk_round`) come with ROADMAP.md
-queue 1 item 12b; every request here marches as one batched solve.
+it drives passes its device explicitly.  A chunked long solve's march
+state (serve/preempt.py) stays on the card between its rounds; it is
+freed when the request's future resolves (completion, a resume token, a
+watchdog trip, a failure), and `chunk_state_bytes` says how much of the
+allocator's live bytes (/healthz `memory_bytes_in_use`) the marches hold.
 """
 
 from __future__ import annotations
@@ -73,9 +75,11 @@ from wavetpu_torch.obs import ledger as compile_ledger
 from wavetpu_torch.obs import tracing
 from wavetpu_torch.obs.registry import MetricsRegistry
 from wavetpu_torch.obs.report import percentile_nearest_rank
-from wavetpu_torch.run import faults
+from wavetpu_torch.run import faults, health
 from wavetpu_torch.serve.resilience import (
     DeadlineExceededError,
+    InvalidStateTokenError,
+    PreemptedError,
     ShedError,
     WorkerCrashError,
 )
@@ -122,6 +126,11 @@ class SolveRequest:
     k: int = 1
     dtype_name: str = "f32"
     mesh_shape: Optional[Tuple[int, int, int]] = None
+    # Preemptible long solves: continue a previously-checkpointed march
+    # (serve/preempt.py state token).  NOT part of bucket_key - a
+    # resumed solve never batches anyway (chunked items get unique
+    # keys).
+    resume_token: Optional[str] = None
     # Tenant label the router stamped (X-Wavetpu-Tenant); rides into
     # spans, per-tenant counters, and ledger lines.  Never part of the
     # program identity.
@@ -131,6 +140,12 @@ class SolveRequest:
     # the brownout shed order - never the program identity, so classes
     # still coalesce into one batch when their keys match.
     priority: str = DEFAULT_PRIORITY
+    # Shadow-solve sampling (serve/shadow.py): True marks the off-hot-
+    # path reference twin of a sampled production request.  Never part
+    # of the program identity - a shadow coalesces into a production
+    # batch of the same key (a free ride) - but a batch of ONLY
+    # shadows runs with the circuit breaker bypassed.
+    shadow: bool = False
 
     def bucket_key(self) -> Tuple:
         """Everything the compiled program identity depends on; only
@@ -241,9 +256,7 @@ class ServeMetrics:
             "scheduler-worker crashes absorbed by the supervisor "
             "(in-flight futures failed retriable, worker restarted)",
         )
-        # Preemptible long solves (ROADMAP.md queue 1 item 12b): their
-        # metrics are registered, and read 0, so the replica's /metrics
-        # names are wavetpu's.
+        # Preemptible long solves (serve/preempt.py).
         self._chunks = r.counter(
             "wavetpu_serve_chunks_total",
             "chunks marched by preemptible long solves",
@@ -357,6 +370,21 @@ class ServeMetrics:
     def observe_worker_restart(self) -> None:
         self._worker_restarts.inc()
 
+    def observe_chunk(self) -> None:
+        self._chunks.inc()
+
+    def observe_chunk_march_started(self) -> None:
+        self._inflight_chunks.inc()
+
+    def observe_chunk_march_ended(self) -> None:
+        self._inflight_chunks.dec()
+
+    def observe_preempted(self, reason: str) -> None:
+        self._preempted.inc(reason=reason)
+
+    def observe_resume(self, source: str) -> None:
+        self._resumes.inc(source=source)
+
     def observe_tenant(self, tenant: Optional[str]) -> None:
         if tenant:
             self._tenant_requests.inc(tenant=tenant)
@@ -375,6 +403,9 @@ class ServeMetrics:
 
     def observe_brownout_rung(self, rung: int) -> None:
         self._brownout_rung.set(rung)
+
+    def observe_chunk_start_deferred(self) -> None:
+        self._chunk_deferred.inc()
 
     def observe_tenant_inflight_rejected(self, tenant: str) -> None:
         self._tenant_inflight_rejected.inc(tenant=tenant)
@@ -531,10 +562,52 @@ class _Item:
     # an already-expired item at batch formation (HTTP 504) instead of
     # marching work nobody is waiting for.
     deadline: Optional[float] = None
+    # Preemptible long solves: True routes the item through the chunked
+    # march (never batched - its key is unique); `chunk` holds the
+    # march's in-memory progress once the first round initialized it
+    # (worker-crash recovery resumes from it instead of failing the
+    # request).
+    chunked: bool = False
+    chunk: Optional["_ChunkProgress"] = None
     # Fleet trace context the HTTP layer adopted/minted for this
     # request: (32-hex trace id, 16-hex serve.request wire id), None
-    # untraced.
+    # untraced.  Chunk spans stamp the trace id, and checkpoints
+    # persist it so a resume on another replica links back.
     trace_context: Optional[Tuple[str, str]] = None
+
+
+class _ChunkProgress:
+    """In-memory march state of one chunked long solve between rounds
+    (the item carries it across the scheduler's interleaving and across
+    worker-crash restarts)."""
+
+    __slots__ = (
+        "runner", "state", "step", "abs", "rel", "chunks_done",
+        "wait_s", "compile_s", "execute_s", "warm", "resumed_from",
+        "origin_trace",
+    )
+
+    def __init__(self, runner, warm: str, compile_s: float,
+                 wait_s: float):
+        import numpy as np
+
+        self.runner = runner
+        self.state = None
+        self.step = 0
+        t = runner.problem.timesteps
+        self.abs = np.zeros(t + 1, dtype=np.float64)
+        self.rel = np.zeros(t + 1, dtype=np.float64)
+        self.chunks_done = 0
+        self.wait_s = wait_s
+        self.compile_s = compile_s
+        self.execute_s = 0.0
+        self.warm = warm
+        self.resumed_from: Optional[int] = None
+        # [trace_id, span_w3c_id] of the ORIGINATING request: minted on
+        # the first march, carried through checkpoints, so the chunk
+        # spans of a solve resumed on another replica (or under a fresh
+        # client trace) still link back to where the march began.
+        self.origin_trace: Optional[List[str]] = None
 
 
 class BrownoutController:
@@ -710,6 +783,9 @@ class DynamicBatcher:
                  length_bucket_steps: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  fault_plan: Optional[faults.ServeFaultPlan] = None,
+                 chunk_threshold: Optional[int] = None,
+                 chunk_steps: int = 32,
+                 state_store=None,
                  brownout: Optional[BrownoutController] = None):
         self.engine = engine
         self.metrics = metrics if metrics is not None else ServeMetrics()
@@ -734,8 +810,27 @@ class DynamicBatcher:
             )
         if max_queue is not None and max_queue < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue}")
+        if chunk_threshold is not None and chunk_threshold < 2:
+            raise ValueError(
+                f"chunk_threshold must be >= 2, got {chunk_threshold}"
+            )
+        if chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
         self.max_wait = max_wait
         self.length_bucket_steps = length_bucket_steps
+        # Preemptible long solves: requests with timesteps >= threshold
+        # (None = feature off) march through cached chunk programs
+        # (serve/preempt.py), interleaved with ordinary batches, and
+        # checkpoint to `state_store` (a SolveStateStore; None = no
+        # cross-replica handoff, deadline 504s carry no token).
+        self.chunk_threshold = chunk_threshold
+        self.chunk_steps = chunk_steps
+        self.state_store = state_store
+        self._chunk_seq = 0
+        # id(item) -> item of every chunked march holding state on the
+        # card (`chunk_state_bytes`); an entry leaves when its future
+        # resolves.
+        self._marches: Dict[int, _Item] = {}
         # Bounded-queue backpressure: submit() raises QueueFullError
         # (HTTP 429) once this many requests are submitted-but-not-yet-
         # executing.  None = unbounded (the historical behavior).
@@ -749,7 +844,7 @@ class DynamicBatcher:
         self._pending = {c: deque() for c in PRIORITY_CLASSES}
         self._deficit = {c: 0.0 for c in PRIORITY_CLASSES}
         # Adaptive overload shedding (None = ladder off: submit never
-        # sheds).
+        # sheds, chunk starts never defer).
         self.brownout = brownout
         # Guards _pending: the worker mutates it between batches and
         # close() sweeps it after the join timeout - which can expire
@@ -792,6 +887,53 @@ class DynamicBatcher:
     def _item_key(self, request: SolveRequest) -> Tuple:
         return request.bucket_key() + (self.length_bucket(request),)
 
+    def chunk_eligible(self, request: SolveRequest) -> bool:
+        """Whether this request CAN march chunked: the single-backend
+        standard-scheme tiers the supervisor's chunk runners cover, at
+        default phase, full stop, no per-lane field.  Compensated,
+        sharded, shifted-phase, partial-stop, and variable-c requests
+        run monolithic (documented contract, docs/robustness.md)."""
+        from wavetpu_torch.verify import oracle
+
+        r = request
+        return (
+            self.chunk_threshold is not None
+            and hasattr(self.engine, "chunk_runner")
+            and r.mesh_shape is None
+            and r.scheme == "standard"
+            and r.path in ("roll", "pallas", "kfused")
+            and r.lane.c2tau2_field is None
+            and r.lane.phase == oracle.TWO_PI
+            and r.lane.stop(r.problem) == r.problem.timesteps
+            and (r.path != "kfused" or r.problem.N % max(1, r.k) == 0)
+        )
+
+    def _chunk_mode(self, request: SolveRequest) -> bool:
+        """Route through the chunked march?  Long requests past the
+        threshold, plus ANY resume (the token's march is already
+        chunked).  A resume_token on a request that cannot march
+        chunked - or on a replica without the feature - is a client
+        error, rejected synchronously (422)."""
+        eligible = self.chunk_eligible(request)
+        if request.resume_token is not None:
+            if not eligible:
+                raise InvalidStateTokenError(
+                    "resume_token requires a chunk-eligible request "
+                    "(standard scheme, roll/pallas/kfused path, default "
+                    "phase, full stop, no c2_field) on a replica with "
+                    "--chunk-threshold set"
+                )
+            if self.state_store is None:
+                raise InvalidStateTokenError(
+                    "this replica has no --solve-state-dir; it cannot "
+                    "resume a checkpointed solve"
+                )
+            return True
+        return (
+            eligible
+            and request.problem.timesteps >= self.chunk_threshold
+        )
+
     def _dec_depth(self, n: int) -> None:
         # Gauge set INSIDE _plock: a set outside could interleave with a
         # concurrent submit and leave a stale depth on an idle server.
@@ -808,7 +950,9 @@ class DynamicBatcher:
         """`deadline` is an absolute `time.monotonic()` bound (None =
         unbounded, the historical behavior): the worker drops the item
         with `DeadlineExceededError` if it is still queued past it.
-        `trace_context` is the serving span's (trace id, wire span id).
+        `trace_context` is the serving span's (trace id, wire span id):
+        chunk spans stamp the trace id and checkpoints carry it so
+        resumed marches link back to the originating request.
         `coalesce_key` (the request's content-addressed result key)
         opts this submit into singleflight: if an identical solve is
         already in flight its answer fans out to this caller too (the
@@ -865,11 +1009,28 @@ class DynamicBatcher:
                     ),
                     rung=rung,
                 )
+        chunked = self._chunk_mode(request)
+        if chunked:
+            # A unique key: chunked items never coalesce with (or get
+            # taken as batchmates of) anything - the worker marches them
+            # one chunk per pass, interleaved with ordinary batches.
+            with self._plock:
+                self._chunk_seq += 1
+                key: Tuple = ("__chunk__", self._chunk_seq)
+        else:
+            key = self._item_key(request)
         item = _Item(
-            request, Future(), self._item_key(request),
+            request, Future(), key,
             request_id=request_id, enqueued=time.monotonic(),
-            deadline=deadline, trace_context=trace_context,
+            deadline=deadline, chunked=chunked,
+            trace_context=trace_context,
         )
+        if chunked and self.state_store is not None:
+            # The march answers an expired deadline with a resume token
+            # at its next chunk boundary (after the checkpoint is
+            # written): the HTTP layer waits for that answer instead of
+            # cutting the wait at the deadline.
+            item.future.wavetpu_awaits_token = True
         # Closed-check + enqueue are ATOMIC against close() (which
         # flips _closed under this same lock): a submit that passes the
         # check has its item IN the queue before close()'s final sweep
@@ -888,9 +1049,9 @@ class DynamicBatcher:
             self._depth += 1
             self.metrics.observe_queue_depth(self._depth)
             self._q.put(item)
-            if coalesce_key is not None:
+            if coalesce_key is not None and not chunked:
                 self._singleflight[coalesce_key] = item
-        if coalesce_key is not None:
+        if coalesce_key is not None and not chunked:
             # Attached OUTSIDE _plock; fires in whatever thread resolves
             # the primary (always lock-free at that point, see __init__).
             item.future.add_done_callback(
@@ -981,12 +1142,34 @@ class DynamicBatcher:
 
     def _crash_cleanup(self, exc: BaseException) -> None:
         items, self._inflight = self._inflight, []
+        requeue: List[_Item] = []
         for item in items:
-            if not item.future.done():
+            if item.future.done():
+                continue
+            if (
+                item.chunk is not None
+                and not (self._closed and not self._drain)
+            ):
+                # A chunked long solve keeps its in-memory march state
+                # on the item: re-enqueue at the FRONT and resume from
+                # the last completed chunk after the worker restart -
+                # the client sees nothing (zero-visible-errors half of
+                # the serve-chunk-crash drill).
+                requeue.append(item)
+            else:
                 item.future.set_exception(WorkerCrashError(
                     f"scheduler worker crashed mid-batch ({exc!r}); "
                     f"worker restarted - retry the request"
                 ))
+        if requeue:
+            with self._plock:
+                for item in reversed(requeue):
+                    # Front of the item's CLASS queue: the march
+                    # resumes at its own class's next turn, not ahead
+                    # of higher classes.
+                    self._pending[self._class_of(item)].appendleft(item)
+            for _ in requeue:
+                self.metrics.observe_resume("crash")
         self.metrics.observe_worker_restart()
 
     @staticmethod
@@ -1080,9 +1263,11 @@ class DynamicBatcher:
                 self._drain_queue()
                 if self._pending_empty():
                     return
-            # Intake first so the pick sees EVERY arrival: an
-            # interactive request that arrived while a batch ran is in
-            # its class queue before the next pick.
+            # Intake first so the pick sees EVERY arrival: this is the
+            # strict rule - an interactive request that arrived while a
+            # lower-class chunk marched is in its class queue before
+            # the next pick, and the pick serves it ahead of the
+            # march's next chunk slot.
             self._drain_queue()
             with self._plock:
                 first = self._pick_locked()
@@ -1097,6 +1282,47 @@ class DynamicBatcher:
                 with self._plock:
                     self._stash_locked(item)
                     first = self._pick_locked()
+            if first.chunked:
+                # Brownout top rung: defer STARTING new marches (keep
+                # the item queued at the back of its class) while
+                # in-flight marches keep draining.  Never during a
+                # drain - flushing queued work is the whole point then.
+                if (
+                    first.chunk is None
+                    and self.brownout is not None
+                    and not (self._closed and self._drain)
+                    and self.brownout.update() >= 3
+                ):
+                    self.metrics.observe_chunk_start_deferred()
+                    with self._plock:
+                        self._stash_locked(first)
+                    # Block briefly on the queue so a stash holding
+                    # only deferred starts does not spin the worker
+                    # hot; fresh arrivals wake it immediately.
+                    try:
+                        nxt = self._q.get(timeout=0.05)
+                    except queue.Empty:
+                        continue
+                    if nxt is not None:
+                        with self._plock:
+                            self._stash_locked(nxt)
+                    continue
+                # One chunk per pass: the march yields the worker back
+                # between chunks so short/high-priority traffic
+                # interleaves instead of queueing behind a monolithic
+                # long solve.
+                self.metrics.observe_scheduled(self._class_of(first))
+                self._inflight = [first]
+                finished = self._chunk_round(first)
+                self._inflight = []
+                if not finished:
+                    # Fresh arrivals (still in the queue) go ahead of
+                    # the long solve's next chunk; the item itself goes
+                    # to the back of its class's stash.
+                    self._drain_queue()
+                    with self._plock:
+                        self._stash_locked(first)
+                continue
             batch = [first]
             batch += self._take_pending(
                 first.key, self.max_batch - len(batch)
@@ -1192,6 +1418,14 @@ class DynamicBatcher:
             tenant=req0.tenant,
         )
         timing: dict = {}
+        # A batch of ONLY shadow-solve lanes (serve/shadow.py) must
+        # never feed the circuit breaker; one production lane in the
+        # batch restores the normal contract.  The kwarg is passed only
+        # in the shadow-only case so engine stand-ins with the plain
+        # production signature keep working.
+        solve_kw: dict = {}
+        if all(item.request.shadow for item in batch):
+            solve_kw["feed_breaker"] = False
         # Tenant attribution is thread-local (the worker thread, not the
         # handler thread, pays the builds): any ledger line the engine
         # records during this solve carries the batch leader's tenant.
@@ -1202,7 +1436,7 @@ class DynamicBatcher:
                 [item.request.lane for item in batch],
                 scheme=req0.scheme, path=req0.path, k=req0.k,
                 dtype_name=req0.dtype_name, mesh=req0.mesh_shape,
-                timing=timing,
+                timing=timing, **solve_kw,
             )
         except Exception as e:
             tracing.end_span(span, error=str(e))
@@ -1270,3 +1504,344 @@ class DynamicBatcher:
                 item.future.set_result(
                     (result.results[i], lane_health[i], info)
                 )
+
+    # ---- chunked long solves (serve/preempt.py) ----
+
+    def _checkpoint(self, item: _Item) -> Optional[str]:
+        """Persist the item's march state -> resume token, or None when
+        there is nothing to save or no --solve-state-dir.  Guarded: a
+        full disk downgrades the preemption to a token-less abort, it
+        never turns into a 500."""
+        cp = item.chunk
+        if cp is None or cp.state is None or self.state_store is None:
+            return None
+        try:
+            return self.state_store.put(
+                cp.runner.identity,
+                cp.state,
+                cp.step, cp.abs, cp.rel,
+                origin_trace=cp.origin_trace,
+                priority=item.request.priority,
+            )
+        except Exception:
+            return None
+
+    def _chunk_init(self, item: _Item) -> bool:
+        """First round: queue accounting, chunk-program acquisition,
+        then bootstrap (fresh) or token load (resume).  Returns True
+        when the item is RESOLVED (queue-expired deadline, bad token,
+        or acquisition failure); False to keep marching."""
+        req = item.request
+        now = time.monotonic()
+        wait = max(0.0, now - item.enqueued)
+        if self.brownout is not None:
+            self.brownout.observe_wait(wait)
+        self._dec_depth(1)
+        if item.deadline is not None and now >= item.deadline:
+            self.metrics.observe_deadline_expired()
+            if not item.future.done():
+                item.future.set_exception(DeadlineExceededError(
+                    f"deadline expired after {wait * 1e3:.0f} ms in "
+                    f"queue (dropped before execution)",
+                    queue_s=wait,
+                ))
+            return True
+        plan = self.fault_plan
+        compile_ledger.set_request_context(tenant=req.tenant)
+        try:
+            runner, source, acquire_s = self.engine.chunk_runner(
+                req.problem, req.scheme, req.path, req.k,
+                req.dtype_name, self.chunk_steps,
+            )
+            warm_label = (
+                "true" if source == "memory"
+                else "disk" if source == "disk" else "false"
+            )
+            cp = _ChunkProgress(
+                runner, warm=warm_label, compile_s=acquire_s,
+                wait_s=wait,
+            )
+            if req.resume_token is not None:
+                # Chaos seam: serve-handoff-corrupt truncates the
+                # checkpoint file between the client presenting the
+                # token and the replica loading it - the load below
+                # must reject it 422-clean, never traceback (and the
+                # breaker never hears it).
+                if plan is not None and plan.fire(
+                    "handoff-corrupt", n=req.problem.N,
+                    timesteps=req.problem.timesteps, scheme=req.scheme,
+                    path=req.path, k=req.k, dtype=req.dtype_name,
+                ):
+                    target = self.state_store.path_for(
+                        req.resume_token
+                    )
+                    import os as _os
+
+                    if _os.path.exists(target):
+                        faults.truncate_tail(target)
+                meta, step, state_np, abs_p, rel_p = (
+                    self.state_store.load(
+                        req.resume_token, cp.runner.identity
+                    )
+                )
+                cp.state = cp.runner.prepare(state_np)
+                cp.step = step
+                cp.abs[: step + 1] = abs_p
+                cp.rel[: step + 1] = rel_p
+                cp.resumed_from = step
+                # Prefer the checkpoint's origin: even when the resume
+                # arrives under a fresh client trace, the chunk spans
+                # link back to the march's FIRST request.
+                origin = meta.get("origin_trace")
+                if (isinstance(origin, (list, tuple)) and len(origin) == 2
+                        and all(isinstance(x, str) for x in origin)):
+                    cp.origin_trace = list(origin)
+                elif item.trace_context is not None:
+                    cp.origin_trace = list(item.trace_context)
+                # The march keeps the class it was ADMITTED at: the
+                # checkpoint's priority (clamped by the router when the
+                # march began) wins over whatever label the resume
+                # request carries - a preempted best_effort solve
+                # cannot relabel itself interactive via its token.
+                if "priority" in meta:
+                    req.priority = normalize_priority(
+                        meta.get("priority"), default=req.priority
+                    )
+                self.metrics.observe_resume("token")
+            else:
+                state, abs2, rel2, boot_c, boot_s = cp.runner.bootstrap()
+                cp.state = state
+                cp.step = 1
+                cp.abs[:2] = abs2
+                cp.rel[:2] = rel2
+                cp.compile_s += boot_c
+                cp.execute_s += boot_s
+                if item.trace_context is not None:
+                    cp.origin_trace = list(item.trace_context)
+            item.chunk = cp
+            self.metrics.observe_chunk_march_started()
+            with self._plock:
+                self._marches[id(item)] = item
+            # The future resolves EXACTLY once regardless of how the
+            # march ends (completion, drain/deadline preemption with a
+            # token, watchdog trip, close-sweep failure, crash fail) -
+            # the one safe place to decrement the in-flight gauge.
+            item.future.add_done_callback(
+                lambda _f, it=item: self._march_ended(it)
+            )
+            return False
+        except Exception as e:
+            if not item.future.done():
+                item.future.set_exception(e)
+            return True
+        finally:
+            compile_ledger.clear_request_context()
+
+    def _march_ended(self, item: _Item) -> None:
+        """A chunked march's future resolved: free its state on the card
+        (the answer, a token or an error has taken what it needs)."""
+        self.metrics.observe_chunk_march_ended()
+        with self._plock:
+            self._marches.pop(id(item), None)
+        if item.chunk is not None:
+            item.chunk.state = None
+
+    def chunk_state_bytes(self) -> int:
+        """Bytes of march state the in-flight chunked solves hold."""
+        with self._plock:
+            marches = list(self._marches.values())
+        total = 0
+        for item in marches:
+            cp = item.chunk
+            state = None if cp is None else cp.state
+            if state is not None:
+                total += cp.runner.state_nbytes(state)
+        return total
+
+    def _chunk_round(self, item: _Item) -> bool:
+        """March ONE chunk (or initialize on the first round); returns
+        True when the item's future is resolved.  Between rounds the
+        worker serves other traffic - the interleaving that keeps short
+        requests from queueing behind a monolithic long march.
+
+        Preemption points, checked before each chunk:
+          * drain (close(drain=True), the `fleet roll` path):
+            checkpoint -> retriable 503 + resume_token;
+          * deadline expiry: checkpoint -> 504 + resume_token;
+          * per-chunk watchdog AFTER each chunk: a poisoned march 422s
+            at the first chunk boundary past the blowup, with the
+            last-good step attributed - not after marching the
+            remaining thousands of layers.
+        A worker crash leaves the march state on the item;
+        `_crash_cleanup` re-enqueues it and the next round continues
+        from the last completed chunk.  None of these feed the circuit
+        breaker."""
+        if item.future.done():
+            # close() raced and failed it (drain timeout sweep).
+            return True
+        if item.chunk is None:
+            return self._chunk_init(item)
+        req = item.request
+        cp = item.chunk
+        timesteps = req.problem.timesteps
+        if self._closed and self._drain:
+            token = self._checkpoint(item)
+            if token is not None:
+                self.metrics.observe_preempted("drain")
+                item.future.set_exception(PreemptedError(
+                    f"replica draining: long solve checkpointed at "
+                    f"step {cp.step}/{timesteps}; resume with the "
+                    f"token on any replica sharing --solve-state-dir",
+                    resume_token=token,
+                ))
+                return True
+            # No state store: nothing to hand off - finish the march
+            # inside the drain like any other queued work.
+        if item.deadline is not None and time.monotonic() >= item.deadline:
+            token = self._checkpoint(item)
+            self.metrics.observe_deadline_expired()
+            self.metrics.observe_preempted("deadline")
+            item.future.set_exception(DeadlineExceededError(
+                f"deadline expired mid-solve at step "
+                f"{cp.step}/{timesteps}"
+                + ("" if token is None
+                   else "; resume with the returned token"),
+                resume_token=token,
+            ))
+            return True
+        plan = self.fault_plan
+        if plan is not None and plan.active:
+            ctx = dict(
+                n=req.problem.N, timesteps=timesteps,
+                scheme=req.scheme, path=req.path, k=req.k,
+                dtype=req.dtype_name,
+            )
+            if plan.fire("chunk-crash", **ctx):
+                # Models the worker thread dying mid-chunk: escapes to
+                # the supervisor, which re-enqueues this item with its
+                # state intact (see _crash_cleanup) - the client never
+                # sees it.
+                raise faults.InjectedFault(
+                    f"injected worker crash mid-chunk (step {cp.step})"
+                )
+            # slow-batch applies per CHUNK here (the drills' lever for
+            # deterministic mid-march deadline expiry / straddling a
+            # roll cutover).
+            slow = plan.fire("slow-batch", **ctx)
+            if slow is not None:
+                time.sleep(slow.seconds)
+        length = cp.runner.next_length(cp.step)
+        compile_ledger.set_request_context(tenant=req.tenant)
+        # Chunk spans run on the scheduler thread, outside the serving
+        # request's span stack: stamp the trace id explicitly, and when
+        # this march was resumed from another request's checkpoint link
+        # back to the originating trace so the joiner can stitch a
+        # preempted-and-resumed solve into ONE tree.
+        tc = item.trace_context
+        origin = cp.origin_trace
+        span_trace = tc[0] if tc else (origin[0] if origin else None)
+        links = None
+        if origin is not None and origin[0] != span_trace:
+            links = [{"trace_id": origin[0], "span_id": origin[1]}]
+        try:
+            with tracing.span(
+                "serve.chunk", request_id=item.request_id,
+                tenant=req.tenant, path=req.path, start=cp.step,
+                length=length, n=req.problem.N,
+                trace_id=span_trace, links=links,
+            ):
+                state, abs_c, rel_c, solve_s, compile_s = (
+                    cp.runner.chunk(cp.state, cp.step, length)
+                )
+        except Exception as e:
+            if not item.future.done():
+                item.future.set_exception(e)
+            return True
+        finally:
+            compile_ledger.clear_request_context()
+        cp.state = state
+        cp.abs[cp.step + 1: cp.step + length + 1] = abs_c
+        cp.rel[cp.step + 1: cp.step + length + 1] = rel_c
+        cp.step += length
+        cp.chunks_done += 1
+        cp.execute_s += solve_s
+        cp.compile_s += compile_s
+        self.metrics.observe_chunk()
+        if self.engine.watchdog:
+            amax = health.state_amax(
+                cp.runner.health_arrays(cp.state)
+            )
+            if not health.healthy(amax, self.engine.max_amp):
+                bound = (
+                    health.DEFAULT_AMP_BOUND
+                    if self.engine.max_amp is None
+                    else self.engine.max_amp
+                )
+                err = (
+                    f"numerical-health trip: guarded amax {amax:g} "
+                    f"exceeds bound {bound:g} (NaN/Inf count as inf) "
+                    f"at step {cp.step} (chunk {cp.chunks_done}); "
+                    f"last good step {cp.step - length}"
+                )
+                item.future.set_result(
+                    (None, err, self._chunk_info(item))
+                )
+                return True
+        if cp.step < timesteps:
+            return False
+        # Complete: the full-march result, bitwise-identical to the
+        # unpreempted monolithic solve (bootstrap-to-1 + block-grid
+        # chunks replay the same op sequence - the supervisor's
+        # invariant).
+        marched = timesteps - (cp.resumed_from or 0)
+        result = cp.runner.to_result(
+            cp.state, cp.abs, cp.rel, timesteps,
+            init_s=cp.compile_s, solve_s=cp.execute_s, marched=marched,
+        )
+        # As the engine does for a batch: the answer is the error vectors
+        # and report fields; only the shadow sampler keeps the final
+        # layer.
+        result.u_prev = result.comp_v = result.comp_carry = None
+        if not getattr(self.engine, "keep_final_state", False):
+            result.u_cur = None
+        cells = req.problem.cells_per_step * marched
+        self.metrics.observe_batch(
+            occupancy=1, batched=True, cells=cells,
+            solve_seconds=cp.execute_s, batch_size=1,
+            queue_waits=[cp.wait_s],
+            request_ids=[item.request_id],
+        )
+        if not item.future.done():
+            item.future.set_result(
+                (result, None, self._chunk_info(item))
+            )
+        return True
+
+    def _chunk_info(self, item: _Item) -> dict:
+        cp = item.chunk
+        agg = (
+            item.request.problem.cells_per_step
+            * (cp.step - (cp.resumed_from or 0))
+            / cp.execute_s / 1e9
+            if cp.execute_s else 0.0
+        )
+        return {
+            "occupancy": 1,
+            "batch_size": 1,
+            "batched": True,
+            "fallback_reason": None,
+            "path": item.request.path,
+            "padding_lanes": 0,
+            "aggregate_gcells_per_s": round(agg, 4),
+            "warm": cp.warm,
+            "chunked": True,
+            "chunks": cp.chunks_done,
+            "chunk_len": cp.runner.chunk_len,
+            "resumed_from": cp.resumed_from,
+            "timing": {
+                "queue_s": cp.wait_s,
+                "compile_s": cp.compile_s,
+                "execute_s": cp.execute_s,
+                "padding_s": 0.0,
+            },
+        }

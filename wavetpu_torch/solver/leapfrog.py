@@ -223,7 +223,7 @@ def _host(v: torch.Tensor) -> np.ndarray:
     return v.cpu().numpy().astype(np.float64)
 
 
-def solve(
+def make_solver(
     problem: Problem,
     dtype=torch.float32,
     step_fn: Optional[Callable] = None,
@@ -233,19 +233,21 @@ def solve(
     c2tau2_field=None,
     kernel: str = "pallas",
     phase: float = oracle.TWO_PI,
-) -> SolveResult:
-    """The standard leapfrog solve with the reference's two timing phases:
-    `init_seconds` covers the kernel build/load and the state set-up (layer
-    0, the oracle factors, the field); `solve_seconds` brackets the march,
-    from the layer-1 bootstrap to the read-back of the error vectors.
+) -> Callable:
+    """Set up the standard leapfrog solve - kernels built and loaded, the
+    field (once, in the compute dtype) and the oracle tables on the
+    device, layer 0 - and return `run()` -> (u_prev, u_cur, abs_all,
+    rel_all) with the per-layer error vectors on the device.  The port of
+    wavetpu's `make_solver`: `solve` is set-up plus one timed `run()`, so
+    a runner built once (the serve layer's chunk bootstrap to
+    `stop_step=1`) replays `solve`'s op sequence exactly.
 
     `step_fn(u_prev, u, problem) -> u_next` defaults to K1
     (`stencil_cuda.leapfrog_step`).  Layer 1 is derived from it -
     u1 = (u0 + step(u0, u0))/2 in the compute dtype, which equals the
     Taylor half-step for any leapfrog-form step.  `c2tau2_field` (a host
     tau^2 c^2 (N,N,N) array, `stencil_ref.make_c2tau2_field`, or a tensor)
-    selects the variable-c solve: the field is placed on the device once,
-    in the compute dtype, during set-up and K5 steps over it
+    selects the variable-c solve: K5 steps over the field
     (`stencil_cuda.make_step_fn`); it takes no `step_fn` and needs
     compute_errors=False (no analytic oracle for variable c).
     `kernel="roll"` steps with K1's (K5's) plain version on the device.
@@ -254,8 +256,7 @@ def solve(
     identity of the ensembles; the default 2*pi is the reference's).  A
     shifted phase has a nonzero initial velocity, which the step-derived
     bootstrap cannot represent, so layer 1 is then the exact analytic
-    layer (`analytic_layer(n=1)`, wavetpu's `make_solver`); constant speed
-    only.
+    layer (`analytic_layer(n=1)`); constant speed only.
     """
     analytic = check_phase(phase, c2tau2_field)
     if c2tau2_field is not None and (compute_errors or step_fn is not None):
@@ -271,25 +272,54 @@ def solve(
         raise ValueError(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
         )
-    t0 = time.perf_counter()
     prepare_kernels(device, kernel)
     if c2tau2_field is not None:
         step = stencil_cuda.make_step_fn(
             state.c2tau2_field(c2tau2_field, dtype, device), kernel)
     errors = _error_fn(problem, dtype, device, phase)
     u0 = initial_layer0(problem, dtype, device, phase)
-    abs_all = _zeros(nsteps + 1, dtype, device)
-    rel_all = _zeros(nsteps + 1, dtype, device)
+
+    def run():
+        abs_all = _zeros(nsteps + 1, dtype, device)
+        rel_all = _zeros(nsteps + 1, dtype, device)
+        u1 = (analytic_layer(problem, dtype, device, phase, 1) if analytic
+              else step_layer1(u0, step, problem, dtype))
+        # Layer 0 is assigned from the oracle: its error is 0 by
+        # definition.
+        if compute_errors:
+            abs_all[1], rel_all[1] = errors(u1, 1)
+        u_prev, u_cur = _march(problem, step, errors, compute_errors, u0,
+                               u1, 1, nsteps, abs_all, rel_all)
+        return u_prev, u_cur, abs_all, rel_all
+
+    return run
+
+
+def solve(
+    problem: Problem,
+    dtype=torch.float32,
+    step_fn: Optional[Callable] = None,
+    compute_errors: bool = True,
+    stop_step: Optional[int] = None,
+    device=None,
+    c2tau2_field=None,
+    kernel: str = "pallas",
+    phase: float = oracle.TWO_PI,
+) -> SolveResult:
+    """The standard leapfrog solve with the reference's two timing phases:
+    `init_seconds` covers the kernel build/load and the state set-up (layer
+    0, the oracle factors, the field: `make_solver`); `solve_seconds`
+    brackets the march, from the layer-1 bootstrap to the read-back of the
+    error vectors.  The arguments are `make_solver`'s.
+    """
+    t0 = time.perf_counter()
+    run = make_solver(problem, dtype, step_fn, compute_errors, stop_step,
+                      device, c2tau2_field, kernel, phase)
+    device = resolve_device(device)
+    nsteps = problem.timesteps if stop_step is None else stop_step
     _sync(device)
     t1 = time.perf_counter()
-
-    u1 = (analytic_layer(problem, dtype, device, phase, 1) if analytic
-          else step_layer1(u0, step, problem, dtype))
-    # Layer 0 is assigned from the oracle: its error is 0 by definition.
-    if compute_errors:
-        abs_all[1], rel_all[1] = errors(u1, 1)
-    u_prev, u_cur = _march(problem, step, errors, compute_errors, u0, u1,
-                           1, nsteps, abs_all, rel_all)
+    u_prev, u_cur, abs_all, rel_all = run()
     abs_np, rel_np = _host(abs_all), _host(rel_all)
     _sync(device)
     t2 = time.perf_counter()
@@ -612,3 +642,33 @@ def make_comp_chunk_runner(
                 _host(rel_all[start + 1:stop + 1]))
 
     return run
+
+
+def solve_history(problem: Problem, dtype=torch.float64,
+                  device=None) -> np.ndarray:
+    """Full time history (timesteps+1, N, N, N) - the openmp_sol storage
+    model (every layer kept, errors post hoc; openmp_sol.cpp:216-219,
+    169-190).  Layers 0 and 1 are `initial_state`'s, the march
+    `stencil_ref.leapfrog_step`'s.  For parity testing and small-N
+    debugging; O(T * N^3) memory."""
+    device = resolve_device(device)
+    u_prev, u = initial_state(problem, dtype, device)
+    layers = [u_prev, u]
+    for _ in range(problem.timesteps - 1):
+        u_prev, u = u, stencil_ref.leapfrog_step(u_prev, u, problem)
+        layers.append(u)
+    return torch.stack(layers).cpu().numpy()
+
+
+def to_reference_grid(u) -> np.ndarray:
+    """Expand a fundamental-domain (N,N,N) field to the reference's
+    (N+1)^3: the duplicated periodic seam plane x=N (= x=0) and the zero
+    Dirichlet planes y=N, z=N re-attached, giving index-for-index
+    comparability with the reference's `Grid` layout
+    (openmp_sol.cpp:44-50)."""
+    u = u.cpu().numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
+    n = u.shape[0]
+    out = np.zeros((n + 1, n + 1, n + 1), dtype=u.dtype)
+    out[:n, :n, :n] = u
+    out[n, :n, :n] = u[0]
+    return out

@@ -114,3 +114,15 @@ def layer_errors(u, f, mask_x=None, mask_y=None, mask_z=None):
         diff = torch.where(mask, diff, 0.0)
         rel = torch.where(mask, rel, 0.0)
     return diff.amax(), rel.amax()
+
+
+def full_analytic_grid(problem: Problem, n: int,
+                       dtype=np.float64) -> np.ndarray:
+    """Host-side (N+1)^3 analytic grid for layer n in the reference's
+    indexing (the analog of its precomputed `prec_sol` grid,
+    openmp_sol.cpp:85-100); for tests and post-hoc error checks."""
+    sx, sy, sz = spatial_factors_np(problem, problem.N + 1)
+    ct = math.cos(problem.a_t * problem.tau * n + TWO_PI)
+    return (
+        sx[:, None, None] * sy[None, :, None] * sz[None, None, :] * ct
+    ).astype(dtype)
