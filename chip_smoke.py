@@ -126,9 +126,16 @@ without them or when any phase fails.  Phases:
                comp_sharded.cu) beside the replaced cone kernels' and
                their own times recorded in PERF.md (the phase fails if
                one is more than 8% over its recorded time), K4 and
-               K11-K12f also at k=1; the k-block exchange of one field
-               over four shards, apart (mesh 2,2,1: y extension and x
-               windows; mesh 4,1,1: x windows).
+               K11-K12f also at k=1 (and K6 held to its recorded time
+               the same way); the solo K6 (constant speed: the
+               x-streaming lane kernel on one lane on blocks of >= 32
+               planes and 32 rows, the one-thread-per-cell body on
+               thinner ones) against that body alone
+               (kernels/tile_ab.py, held bitwise), old, new, new, old, on
+               the main block and on the overlap mode's one-plane x and y
+               face blocks of it; the k-block exchange of
+               one field over four shards, apart (mesh 2,2,1: y
+               extension and x windows; mesh 4,1,1: x windows).
 
  7. measurement - the sharded API with `overlap=True` (the ghost copies on
                side streams): mesh 2,2,1 at N=512 / 1000 steps bitwise
@@ -199,7 +206,15 @@ without them or when any phase fails.  Phases:
                its run's N on 3; its time on 8 lanes beside 8 solo
                launches, the plain version and 8 x the solo bound (K6's
                lane mode also on the mesh-2,2,1 block of N=512, the main
-               path's block, beside its N=256 row); five
+               path's block, held lane by lane against the solo K6
+               too, beside its N=256 row, and failing if it is more than
+               8% over its time recorded in PERF.md; every K6 lane
+               check also holds each lane against the
+               one-thread-per-cell solo body; there and at N=256
+               also the solo body's lane instantiation that the
+               x-streaming K6 lane kernel replaced, from
+               kernels/tile_ab.py, held bitwise and timed old, new, new,
+               old beside it); five
                main-path runs through `solve_ensemble` /
                `solve_ensemble_sharded`, each with the counters zeroed
                just before and read just after (exact counts, the same
@@ -306,7 +321,7 @@ from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.ensemble import batched as ensemble
 from wavetpu_torch.ensemble import sharded as ensemble_sharded
 from wavetpu_torch.io import checkpoint, nativeio, state
-from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref
+from wavetpu_torch.kernels import build, stencil_cuda, stencil_ref, tile_ab
 from wavetpu_torch.obs import perf as obs_perf
 from wavetpu_torch.solver import (
     kfused, kfused_comp, leapfrog, sharded, sharded_kfused, timing,
@@ -471,6 +486,9 @@ LANE_KERNELS = {
                      run="ens_sharded_221", ops=19),
 }
 KERNELS.update(LANE_KERNELS)
+# K6's lane mode before the x-streaming kernel: the solo body's lane
+# instantiation, launched only through kernels/tile_ab.py (phase 9's A/B).
+K6_OLD = "K6 lanes old body"
 N_FULL, N_ODD, STEPS, K = 512, 510, 1000, 4
 LENS = "gaussian-lens"
 NB, REM = (STEPS - 1) // K, (STEPS - 1) % K
@@ -552,14 +570,18 @@ ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
                "sharded_uneven_411": 5e-3, "flagship_mesh": 2e-5,
                "sharded_kfused_221": 5e-3, "sharded_flagship_411": 2e-5,
                "sharded_flagship_221": 2e-5}
-# The phase-6 times of the pipelines at k=4 as recorded in PERF.md §6
-# (NVIDIA H100 80GB HBM3, 700.00 W; launches back to back): K3-K10f on
-# kstep_pipe.cu's, K4-K12f on comp_sharded.cu's.  Phase 6 fails if a
-# kernel times more than GUARD_SLACK over its recorded time.
+# The phase-6 times of the redesigned kernels as recorded in PERF.md §6
+# (NVIDIA H100 80GB HBM3, 700.00 W; launches back to back): the pipelines
+# at k=4, K3-K10f on kstep_pipe.cu's, K4-K12f on comp_sharded.cu's, and
+# the x-streaming K6 on the mesh-2,2,1 block of N=512.  Phase 6 fails if
+# a kernel times more than GUARD_SLACK over its recorded time; phase 9
+# holds K6's lane mode at the main block (B=8 on that block) to
+# LANE_GUARD_MS the same way.
 GUARD_MS = {"K3": 4.4214, "K3f": 4.0705, "K8": 1.1942, "K8f": 1.0910,
             "K9": 4.0484, "K9f": 0.9427, "K10": 1.1937, "K10f": 1.0897,
             "K4": 4.5978, "K4f": 4.2447, "K11": 1.1835, "K11f": 1.0900,
-            "K12": 1.1765, "K12f": 1.0886}
+            "K12": 1.1765, "K12f": 1.0886, "K6": 0.1775}
+LANE_GUARD_MS = {"K6 lanes": 1.3227}
 GUARD_SLACK = 0.08
 # The phase-6 times of the cone kernels that the pipelines replaced, as
 # recorded in PERF.md (same card and limit; k=4, the main-path shapes;
@@ -1623,6 +1645,10 @@ def phase_times_sharded(rate):
             # run it (phase 7).
             times[name]["ms_rows_off"] = time_launches(rows_off[name], 20)
             print(f"  {name} rows off: {times[name]['ms_rows_off']:.4f} ms")
+    times["K6"].update(k6_solo_old_vs_new(k6_block))
+    times["K6"]["face_ab"] = {
+        label: k6_solo_old_vs_new(face, reps=100)
+        for label, face in k6_face_blocks(k6_block)}
     # The k-block exchange of one field over the four shards, apart from
     # the kernels: mesh 2,2,1 (y extension by K rows, then the x windows of
     # the extended blocks) and mesh 4,1,1 (x windows only).
@@ -1643,6 +1669,47 @@ def phase_times_sharded(rate):
     return times
 
 
+def k6_face_blocks(block):
+    """The overlap mode's one-plane face blocks of a mesh-2,2,1 shard
+    block (solver/sharded.py `patch`): (label, block) for its x and y
+    faces at q = 0."""
+    label, mesh, n, shape, r_last, offsets = block
+    out = []
+    for axis in range(2):
+        face = list(shape)
+        face[axis] = 1
+        out.append((f"{'xy'[axis]} face {tuple(face)}",
+                    (label, mesh, n, tuple(face), r_last, offsets)))
+    return out
+
+
+def k6_solo_old_vs_new(block, reps=20):
+    """The solo K6 at constant speed (`sharded_fused_step`: the
+    x-streaming kernel on one lane where `k6_solo_streams` says so, else
+    the one-thread-per-cell body) against the one-thread-per-cell body
+    alone (tile_ab.k6_solo_old) on `block`: the old body held bitwise
+    against the plain version, then timed old, new, new, old
+    (time_launches each, `reps` launches)."""
+    args, kw = k6_args(block, torch.float32, 70)
+    kw.pop("c2tau2_block")
+    streams = stencil_cuda.k6_solo_streams(args[1].shape)
+
+    def new():
+        return stencil_cuda.sharded_fused_step(*args, **kw)
+
+    def old():
+        return tile_ab.k6_solo_old(*args, **kw)
+    check_outputs("K6 old solo body", [old()],
+                  [stencil_cuda.sharded_fused_step_plain(*args, **kw)], [])
+    runs = [time_launches(f, reps) for f in (old, new, new, old)]
+    old_ms, new_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    print(f"  K6 {tuple(args[1].shape)} (streams: {streams}) old, new, "
+          f"new, old: {', '.join(f'{r:.4f}' for r in runs)} ms; new / old "
+          f"{new_ms / old_ms:.3f} ({smi()})")
+    return dict(old_body_ms=old_ms, ab_ms=new_ms, ab_runs=runs,
+                streams=streams)
+
+
 # Phase 7: the measurement slice.  The CLI runs' solve times recorded in
 # PERF.md §5 (NVIDIA H100 80GB HBM3, 700.00 W): phase 7 fails
 # if one of this run's phase-3 CLI runs is more than RUN_SLACK over, which
@@ -1652,7 +1719,7 @@ RUN_S = {"default": 3.6437261330000013, "flagship": 1.1683708649999858,
          "kfused": 1.1246251889999996, "varc": 0.7651891879999937,
          "kfused_varc": 1.005125410000005,
          "flagship_varc": 1.064270434000008,
-         "uneven_kfused": 1.0255811730000062, "sharded": 3.776583205999998,
+         "uneven_kfused": 1.0255811730000062, "sharded": 3.608997794000004,
          "flagship_mesh": 1.155902287999993}
 RUN_SLACK = 0.08
 # The phase-timing probes: (label, measure_phase_breakdown arguments, the
@@ -2662,11 +2729,19 @@ def lane_cases(n, lanes, names):
                          ghosts()[1][i], ghosts()[2][i], solo_ghosts(i), off,
                          n, **kb)),
     }
+    # The lane mode's old body (tile_ab's A/B side) on the same operands,
+    # and the one-thread-per-cell solo body on lane i: code apart from the
+    # streaming kernel, which the solo wrapper also takes on these blocks.
+    cases[K6_OLD] = (lambda: k6(tile_ab.k6_lanes_old),
+                     cases["K6 lanes"][1],
+                     lambda i: tile_ab.k6_solo_old(
+                         ghosts()[1][i], ghosts()[2][i], solo_ghosts(i), off,
+                         n, **kb))
     out = {}
     cells = lanes * n ** 3
     for name in names:
-        meta = LANE_KERNELS[name]
-        if name == "K6 lanes":
+        meta = LANE_KERNELS[name if name != K6_OLD else "K6 lanes"]
+        if meta is LANE_KERNELS["K6 lanes"]:
             g, _, bc = ghosts()
             nb = 3 * nbytes(bc) + nbytes(*(x for a in g[:2] for x in a))
             ops = meta["ops"] * bc.numel()
@@ -2691,22 +2766,31 @@ def phase_lane_kernels(errs, rate):
     around 10 launches back to back, against 8 solo launches back to back
     and the plain version; bound = the bytes and f32 operations of the 8
     lanes (8 x the solo row's)."""
-    names = list(LANE_KERNELS)
+    names = tuple(LANE_KERNELS)
     for n, lanes, subset in [(128, 3, names), (128, 2, names)] + [
             (n, 3, sub) for n, sub in LANE_SHAPES]:
-        for name, (fn, plain, solo, _, _) in lane_cases(n, lanes,
-                                                        subset).items():
+        cases = lane_cases(n, lanes, subset + ((K6_OLD,) if "K6 lanes" in
+                                               subset else ()))
+        old = cases.pop(K6_OLD, None)
+        for name, (fn, plain, solo, _, _) in cases.items():
             got = _as_list(fn())
             check_outputs(f"{name} N={n} B={lanes}", got, _as_list(plain()),
                           errs[name])
             check_outputs(f"{name} N={n} B={lanes} lane by lane", got,
                           _stack_solo(solo, lanes), errs[name])
+            if name == "K6 lanes":
+                check_outputs(f"{name} N={n} B={lanes} lane by lane, the "
+                              f"one-thread-per-cell solo body", got,
+                              _stack_solo(old[2], lanes), errs[name])
             del got
+        del cases, old
         torch.cuda.empty_cache()
     times = {}
     for n, subset in LANE_SHAPES:
-        for name, (fn, plain, solo, nb, ops) in lane_cases(
-                n, 8, subset).items():
+        cases = lane_cases(n, 8, subset + ((K6_OLD,) if "K6 lanes" in subset
+                                           else ()))
+        old = cases.pop(K6_OLD, None)
+        for name, (fn, plain, solo, nb, ops) in cases.items():
             ms = time_launches(fn, 10)
             solo_ms = time_launches(lambda: [solo(i) for i in range(8)], 10)
             plain_ms = time_launches(plain, 1, warmup=1)
@@ -2720,20 +2804,51 @@ def phase_lane_kernels(errs, rate):
                   f"{solo_ms:.4f} ms ({solo_ms / ms:.3f}x); plain "
                   f"{plain_ms:.3f} ms; bound {times[name]['bound_ms']:.4f} "
                   f"ms by {times[name]['bound_by']}")
+            if old is not None and name == "K6 lanes":
+                times[name].update(k6_old_vs_new(n, fn, old[0], plain,
+                                                 errs[name]))
+        del cases, old
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     times["K6 lanes"].update(k6_lanes_main_block(errs, rate))
     return times
 
 
+def k6_old_vs_new(n, new, old, plain, errs):
+    """The x-streaming K6 lane kernel against the old lane body (the solo
+    body's lane instantiation, tile_ab.k6_lanes_old) on the same B=8
+    batch: the old body held bitwise against the plain version, then
+    timed old, new, new, old (time_launches each)."""
+    check_outputs(f"K6 lanes old body N={n} B=8", _as_list(old()),
+                  _as_list(plain()), errs)
+    runs = [time_launches(f, 10) for f in (old, new, new, old)]
+    old_ms, new_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    sfx = "" if n == N_FULL // 2 else f"_N{n}"
+    print(f"  K6 lanes N={n} B=8 old, new, new, old: "
+          f"{', '.join(f'{r:.4f}' for r in runs)} ms; new / old "
+          f"{new_ms / old_ms:.3f} ({smi()})")
+    return {f"old_body_ms{sfx}": old_ms, f"ab_ms{sfx}": new_ms,
+            f"ab_runs{sfx}": runs}
+
+
 def k6_lanes_main_block(errs, rate):
     """K6's lane mode at the main path's block: B=8 lanes on the
     mesh-2,2,1 block of N=512 (~3.2 GB of state), held against its plain
-    version and timed beside eight solo launches; bound = 8 x K6's."""
-    (fn, plain, solo, nb, ops), = lane_cases(N_FULL, 8,
-                                              ["K6 lanes"]).values()
-    check_outputs(f"K6 lanes N={N_FULL} B=8", _as_list(fn()),
-                  _as_list(plain()), errs["K6 lanes"])
+    version and, lane by lane, the solo K6 (its wrapper, and the
+    one-thread-per-cell solo body), and timed beside eight solo launches
+    and the old lane body; bound = 8 x K6's.  Fails if it is more than
+    GUARD_SLACK over LANE_GUARD_MS."""
+    cases = lane_cases(N_FULL, 8, ["K6 lanes", K6_OLD])
+    fn, plain, solo, nb, ops = cases["K6 lanes"]
+    got = _as_list(fn())
+    check_outputs(f"K6 lanes N={N_FULL} B=8", got, _as_list(plain()),
+                  errs["K6 lanes"])
+    check_outputs(f"K6 lanes N={N_FULL} B=8 lane by lane", got,
+                  _stack_solo(solo, 8), errs["K6 lanes"])
+    check_outputs(f"K6 lanes N={N_FULL} B=8 lane by lane, the "
+                  f"one-thread-per-cell solo body", got,
+                  _stack_solo(cases[K6_OLD][2], 8), errs["K6 lanes"])
+    del got
     ms = time_launches(fn, 10)
     solo_ms = time_launches(lambda: [solo(i) for i in range(8)], 10)
     plain_ms = time_launches(plain, 1, warmup=1)
@@ -2746,6 +2861,16 @@ def k6_lanes_main_block(errs, rate):
           f"{plain_ms:.3f} ms; bound {out['bound_ms_N512']:.4f} ms by "
           f"{out['bound_by_N512']} ({out['bound_ms_N512'] / ms:.3f} of "
           f"it reached)")
+    out.update(k6_old_vs_new(N_FULL, fn, cases[K6_OLD][0], plain,
+                             errs["K6 lanes"]))
+    del cases
+    recorded = LANE_GUARD_MS["K6 lanes"]
+    print(f"  K6 lanes N={N_FULL} B=8: recorded {recorded:.4f} ms "
+          f"({100 * (ms / recorded - 1):+.1f}%)")
+    if ms > (1 + GUARD_SLACK) * recorded:
+        fail(f"K6 lanes times {ms:.4f} ms at the main block, more than "
+             f"{100 * GUARD_SLACK:.0f}% over the {recorded:.4f} ms "
+             f"recorded in PERF.md")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -3807,7 +3932,9 @@ def pipe_registers(logs):
     k=1, its pad mode (K9 on a block with pad planes) alike, its lane mode
     (K3, K3f) at k=4, and the compensated pipeline of K4 and K11/K12 at
     k=4 (f32 v, bf16 carry, without and with a field) and k=1, and its
-    lane mode (K4) at k=4 and 1."""
+    lane mode (K4) at k=4 and 1; and K6 (f32): the solo body, its lane
+    instantiation (the lane mode's old body, kept for the A/B) and the
+    x-streaming lane kernel."""
     want = {
         "K3/K8/K10 k=4": "17kstep_pipe_kernelILi4EfLb0ELb0ELb0EE",
         "K3f/K8f/K10f k=4": "17kstep_pipe_kernelILi4EfLb1ELb0ELb0EE",
@@ -3827,6 +3954,9 @@ def pipe_registers(logs):
             "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0ELb1EE",
         "K4 lanes k=1":
             "22kstep_comp_pipe_kernelILi1Ef13__nv_bfloat16Lb1ELb0ELb1EE",
+        "K6": "19sharded_step_kernelIfLb0ELb0EE",
+        "K6 lanes old body": "19sharded_step_kernelIfLb0ELb1EE",
+        "K6 lanes": "20sharded_lanes_kernelIfEE",
     }
     found, func, spill = {}, None, None
     for line in "\n".join(logs.values()).splitlines():
@@ -3985,7 +4115,9 @@ def main() -> int:
             "library_ms": None,
         }
         for extra in ("ms_k1", "solo_x8_ms", "ms_N512", "solo_x8_ms_N512",
-                      "plain_ms_N512", "bound_ms_N512", "bound_by_N512"):
+                      "plain_ms_N512", "bound_ms_N512", "bound_by_N512",
+                      "old_body_ms", "old_body_ms_N512", "ab_ms",
+                      "ab_ms_N512", "face_ab"):
             if extra in times[name]:
                 row[extra] = times[name][extra]
         rows.append(row)

@@ -19,7 +19,7 @@ import torch
 
 from wavetpu_torch import cli
 from wavetpu_torch.core.problem import Problem
-from wavetpu_torch.kernels import stencil_cuda, stencil_ref
+from wavetpu_torch.kernels import stencil_cuda, stencil_ref, tile_ab
 from wavetpu_torch.solver import (
     kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
 )
@@ -1339,6 +1339,111 @@ def test_k6_lanes(cuda, mesh, n, shape, r_last, offsets, dtype):
         equal([got], [torch.stack([stencil_cuda.sharded_fused_step(
             up[i], u[i], [tuple(x[i] for x in a) for a in g], offsets, n,
             **kw) for i in range(live)])])
+
+
+# K6's lane mode is its own x-streaming kernel (csrc/sharded.cu
+# `sharded_lanes_kernel`): y/z tiles of 32 x ty columns and x segments
+# (`stencil_cuda.k6_lane_tile`).  Blocks whose by and bz no tile divides
+# (N=130 on mesh 2,2,1: 65 x 130), uneven padded blocks (r_last < block)
+# and every mesh solve_ensemble_sharded takes, at B = 1, 3 and 8.
+K6_LANE_BLOCKS = [
+    ((2, 2, 1), 130, (65, 65, 130), None, (65, 65, 0)),
+    ((2, 1, 1), 130, (65, 130, 130), None, (0, 0, 0)),
+    ((1, 2, 1), 64, (64, 32, 64), None, (0, 32, 0)),
+    ((2, 2, 1), 17, (9, 9, 17), (8, 8, 17), (9, 9, 0)),
+    ((4, 1, 1), 15, (4, 15, 15), (3, 15, 15), (12, 0, 0)),
+    ((2, 3, 4), 17, (9, 6, 5), (8, 5, 2), (9, 12, 15)),
+]
+
+
+@pytest.mark.parametrize("mesh,n,shape,r_last,offsets", K6_LANE_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+def test_k6_lanes_streaming(cuda, mesh, n, shape, r_last, offsets, dtype,
+                            lanes):
+    """The streaming K6 lane kernel bitwise its plain version and, lane
+    by lane, the solo K6 launch and the one-thread-per-cell solo body
+    (code apart from the streaming kernel, which the solo wrapper also
+    takes on thick blocks); K1's coefficients and the beta = 0 form (no
+    u_prev read)."""
+    p = Problem(N=n, timesteps=10)
+    up = torch.stack([rand(shape, 1 + i, dtype) for i in range(lanes)])
+    u = torch.stack([rand(shape, 11 + i, dtype) for i in range(lanes)])
+    up, u = up.to(cuda), u.to(cuda)
+    g = lane_ghosts(shape, 3, dtype, cuda, lanes)
+    for alpha, beta in ((2.0, 1.0), (1.0, 0.0)):
+        kw = dict(inv_h2=p.inv_h2, mesh_shape=mesh, r_last=r_last,
+                  coeff=p.a2tau2, alpha=alpha, beta=beta)
+        before = stencil_cuda.launches["sharded_step_lanes"]
+        got = stencil_cuda.sharded_fused_step_lanes(up, u, g, offsets, n,
+                                                    **kw)
+        assert stencil_cuda.launches["sharded_step_lanes"] == before + 1
+        equal([got], [stencil_cuda.sharded_fused_step_lanes_plain(
+            up, u, g, offsets, n, **kw)])
+        for solo in (stencil_cuda.sharded_fused_step, tile_ab.k6_solo_old):
+            equal([got], [torch.stack([solo(
+                up[i], u[i], [tuple(x[i] for x in a) for a in g], offsets,
+                n, **kw) for i in range(lanes)])])
+
+
+# The overlap mode's one-plane face blocks (solver/sharded.py `patch`) of a
+# mesh-2,2,1 shard of N=64, and blocks either side of k6_solo_streams'
+# limits: the solo K6 wrapper bitwise its plain version whichever body it
+# takes, and the counter moves once.
+K6_SOLO_EDGES = [(1, 32, 64), (32, 1, 64), (31, 32, 64), (32, 32, 64),
+                 (32, 31, 64)]
+
+
+@pytest.mark.parametrize("shape", K6_SOLO_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_k6_solo_thin_and_thick_blocks(cuda, shape, dtype):
+    n = 64
+    p = Problem(N=n, timesteps=10)
+    up, u = rand(shape, 1, dtype).to(cuda), rand(shape, 2, dtype).to(cuda)
+    g = ghosts_of(shape, 3, dtype, cuda)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=(2, 2, 1), coeff=p.a2tau2)
+    offsets = (32, 0, 0)
+    before = stencil_cuda.launches["sharded_step"]
+    got = stencil_cuda.sharded_fused_step(up, u, g, offsets, n, **kw)
+    assert stencil_cuda.launches["sharded_step"] == before + 1
+    equal([got], [stencil_cuda.sharded_fused_step_plain(up, u, g, offsets,
+                                                        n, **kw)])
+    equal([got], [tile_ab.k6_solo_old(up, u, g, offsets, n, **kw)])
+
+
+@pytest.mark.parametrize("tile", [(1, 4, 32), (3, 8, 32), (7, 8, 32),
+                                  (64, 8, 32), (17, 5, 32), (2, 3, 32)])
+def test_k6_lanes_any_tile(cuda, tile):
+    """Every segment length and row count the kernel takes covers the
+    block exactly: bitwise the plain version on the N=130 mesh-2,2,1
+    block."""
+    mesh, n, shape, r_last, offsets = K6_LANE_BLOCKS[0]
+    p = Problem(N=n, timesteps=10)
+    up = torch.stack([rand(shape, 1 + i) for i in range(LANES)]).to(cuda)
+    u = torch.stack([rand(shape, 11 + i) for i in range(LANES)]).to(cuda)
+    g = lane_ghosts(shape, 3, torch.float32, cuda)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=mesh, r_last=r_last,
+              coeff=p.a2tau2)
+    got = stencil_cuda.sharded_fused_step_lanes(up, u, g, offsets, n,
+                                                tile=tile, **kw)
+    equal([got], [stencil_cuda.sharded_fused_step_lanes_plain(
+        up, u, g, offsets, n, **kw)])
+
+
+def test_k6_lanes_refuse_a_tile_they_do_not_take(cuda):
+    u = torch.zeros((2, 8, 8, 8), device=cuda)
+    g = [tuple(torch.zeros((2, 1, 8, 8), device=cuda) for _ in range(2))]
+    g += [None, None]
+    p = Problem(N=16, timesteps=10)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=(2, 1, 1), coeff=p.a2tau2)
+    before = dict(stencil_cuda.launches)
+    for tile in ((4, 8, 16), (4, 9, 32), (4, 2, 32), (0, 8, 32)):
+        with pytest.raises(ValueError, match="tile"):
+            stencil_cuda.sharded_fused_step_lanes(u, u, g, (0, 0, 0), 16,
+                                                  tile=tile, **kw)
+    assert stencil_cuda.launches == before
 
 
 def test_lane_modes_refuse_what_they_do_not_take(cuda):

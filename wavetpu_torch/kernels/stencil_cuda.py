@@ -27,7 +27,9 @@ K5 `fused_step_lanes(c2tau2_field=)` (`var_step_lanes`), K2
 `compensated_step_lanes` (`comp_step_lanes`), K3 `fused_kstep_lanes`
 (`kstep_lanes`), K3f `fused_kstep_lanes(c2tau2_field=)`
 (`kstep_field_lanes`), K4 `fused_kstep_comp_lanes` (`kstep_comp_lanes`),
-K6 `sharded_fused_step_lanes` (`sharded_step_lanes`).
+K6 `sharded_fused_step_lanes` (`sharded_step_lanes`; a kernel of its
+own, csrc/sharded.cu's x-streaming `sharded_lanes_kernel`, tiled by
+`k6_lane_tile`).
 
 The sharded kernels (K6-K12) take one shard's block and the ghost planes
 that comm/halo.py (or the sharded k-fused solvers) delivered from the
@@ -61,6 +63,7 @@ yardsticks of speed.
 from __future__ import annotations
 
 import ctypes
+import functools
 import time
 from typing import Dict, Optional, Tuple
 
@@ -164,6 +167,9 @@ def _sharded_lib() -> ctypes.CDLL:
         lib.wt_sharded_comp_step.argtypes = (
             [p] * 12 + [i] * 11 + [d] * 4 + [p])
         lib.wt_sharded_comp_step.restype = i
+        lib.wt_sharded_lanes.argtypes = (
+            [p] * 9 + [i] * 11 + [d] * 6 + [i] * 4 + [p])
+        lib.wt_sharded_lanes.restype = i
         lib._wt_typed = True
     return lib
 
@@ -831,7 +837,10 @@ def sharded_fused_step(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
     (K5's with `c2tau2_block`, the block's tau^2 c^2 in the compute dtype;
     `coeff` is then ignored).  On an uneven axis the last shard's hi ghost
     must already sit in its first pad plane (comm/halo.absorb_hi_ghosts).
-    On the card: f32/f64/bf16 state."""
+    On the card: f32/f64/bf16 state; constant speed runs csrc/sharded.cu's
+    x-streaming kernel (the lane mode's, one lane) where `k6_solo_streams`
+    says so, else - and with a field - the one-thread-per-cell body
+    `sharded_step_kernel`."""
     if u.device.type == "cpu":
         return sharded_fused_step_plain(
             u_prev, u, ghosts, offsets, n_global, inv_h2=inv_h2,
@@ -843,19 +852,37 @@ def sharded_fused_step(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
         _check_on_card(u.device, compute_dtype(u.dtype),
                        c2tau2_block=(c2tau2_block, u.shape))
     ghost_ptrs = _ghost_ptrs(u, ghosts, need)
+    geom = _block_geometry(u, offsets, n_global, pads)
+    field = c2tau2_block is not None
+    if not field and k6_solo_streams(u.shape):
+        out = _k6_stream(u_prev, u, ghost_ptrs, geom, 1, alpha, beta,
+                         coeff, inv_h2, None, "sharded_step")
+        launches["sharded_step"] += 1
+        return out
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         _run(_sharded_lib().wt_sharded_step, u_prev.data_ptr(),
              u.data_ptr(), out.data_ptr(), _ptr(c2tau2_block), *ghost_ptrs,
-             *_block_geometry(u, offsets, n_global, pads), _CODE[u.dtype],
-             float(alpha), float(beta),
-             float(coeff if c2tau2_block is None else 0.0),
-             *(float(h) for h in inv_h2), int(beta != 0), 1,
-             inst=("sharded_step", u.dtype, c2tau2_block is not None,
-                   beta != 0))
-    launches["sharded_step" if c2tau2_block is None
-             else "sharded_step_field"] += 1
+             *geom, _CODE[u.dtype], float(alpha), float(beta),
+             float(0.0 if field else coeff), *(float(h) for h in inv_h2),
+             int(beta != 0), 1,
+             inst=("sharded_step", u.dtype, field, beta != 0))
+    launches["sharded_step_field" if field else "sharded_step"] += 1
     return out
+
+
+def k6_solo_streams(block) -> bool:
+    """Whether the solo K6 at constant speed takes the x-streaming kernel
+    (on one lane) for a shard block (bx, by, bz): where the block has at
+    least _K6_SOLO_MIN planes and rows.  Thinner blocks - the overlap
+    mode's one-plane face blocks (solver/sharded.py `patch`) among them -
+    keep the one-thread-per-cell body, whose device time is lower there:
+    a block of few rows leaves the streaming tile's rows of threads idle,
+    and one of few planes gives each block too short a march to fill its
+    ring (`tile_ab.py --parts k6solo` times both bodies either side of
+    the limit)."""
+    bx, by, _ = (int(b) for b in block)
+    return bx >= _K6_SOLO_MIN and by >= _K6_SOLO_MIN
 
 
 # K7: the 1-step compensated update of a shard block.
@@ -1735,21 +1762,56 @@ def sharded_fused_step_lanes_plain(u_prev, u, ghosts, offsets, n_global, *,
         for i in range(u.shape[0])])
 
 
-def sharded_fused_step_lanes(u_prev, u, ghosts, offsets, n_global, *,
-                             inv_h2, mesh_shape, r_last=None, alpha=2.0,
-                             beta=1.0, coeff=None):
-    """K6 lane mode: one update of B shard blocks (B, bx, by, bz) in one
-    launch of `sharded_fused_step`'s kernel, each lane with its ghosts -
-    the (B, face) planes comm/halo.collect_ghosts delivers for a batch
-    (one copy per face for every lane).  Constant speed: the sharded
-    ensemble takes no field."""
-    if u.device.type == "cpu":
-        return sharded_fused_step_lanes_plain(
-            u_prev, u, ghosts, offsets, n_global, inv_h2=inv_h2,
-            mesh_shape=mesh_shape, r_last=r_last, alpha=alpha, beta=beta,
-            coeff=coeff)
-    block = tuple(u.shape[1:])
-    lanes = _lanes_of("K6 lanes", u, block[0])
+# K6's lane mode tiles a lane's block (bx, by, bz) into y/z tiles of
+# ty x _K6L_TZ cells (one thread per column; kLaneTz and kLaneMaxTy of
+# csrc/sharded.cu) and x segments; segments are cut until the launch has
+# about _K6L_BLOCKS blocks (~5 waves of the H100's 132 SMs at six
+# 256-thread blocks each), but none shorter than _K6L_MIN_SEG planes (each
+# segment reads one extra plane per end).  ty = 8 and the kernel's
+# prefetch depth of 8 planes won a sweep on the card (PERF.md §6).
+_K6L_TZ = 32
+_K6L_MIN_TY, _K6L_MAX_TY = 3, 8  # 3: the halo's 2 (32 + ty) cells fit
+_K6L_BLOCKS = 4096
+_K6L_MIN_SEG = 16
+_K6_SOLO_MIN = 32  # k6_solo_streams: the solo K6's planes and rows
+_GRID_X_MAX = 2 ** 31 - 1
+
+
+def k6_lane_tile(block, lanes: int) -> Tuple[int, int, int]:
+    """(seg, ty, tz) of K6's lane mode on `lanes` blocks of shape `block`
+    (bx, by, bz): tz = 32 z columns (a warp per tile row), ty = 8 rows (4
+    where by is that small), and x segments of seg planes, the fewest
+    equal ones (the last may be shorter) that bring the launch to
+    _K6L_BLOCKS blocks, none shorter than _K6L_MIN_SEG planes unless the
+    block is.  The grid is one dimension of nzt * nyt * ceil(bx / seg) *
+    lanes blocks."""
+    bx, by, bz = (int(b) for b in block)
+    if min(bx, by, bz) < 1 or lanes < 1:
+        raise ValueError(f"K6 lanes: block {tuple(block)} x {lanes} lanes")
+    ty = 4 if by <= 4 else _K6L_MAX_TY
+    cols = -(-bz // _K6L_TZ) * -(-by // ty) * lanes
+    nseg = min(max(1, -(-_K6L_BLOCKS // cols)),
+               max(1, bx // _K6L_MIN_SEG))
+    seg = -(-bx // nseg)
+    return seg, ty, _K6L_TZ
+
+
+def k6_lane_grid(block, lanes: int, tile) -> int:
+    """The blocks of a K6 lane launch with `tile` = (seg, ty, tz)."""
+    seg, ty, tz = tile
+    bx, by, bz = block
+    return -(-bz // tz) * -(-by // ty) * -(-bx // seg) * lanes
+
+
+def _k6_lane_operands(u_prev, u, ghosts, offsets, n_global, mesh_shape,
+                      r_last):
+    """Check a K6 lane batch on the card; returns (lanes, ghost pointers,
+    geometry ints): the six (B, face) ghost pointers (None on axes whose
+    mesh dim is 1), then (bx, by, bz, ox, oy, oz, n, padx, pady, padz)."""
+    if u.dim() != 4 or u.shape[0] < 1:
+        raise ValueError(f"K6 lanes takes a (B, ...) batch, got "
+                         f"{tuple(u.shape)}")
+    lanes, block = u.shape[0], tuple(u.shape[1:])
     _check_block_state(u, tuple(_CODE), "K6 lanes", u_prev=u_prev)
     need, pads = _need_pads(block, mesh_shape, r_last)
     ptrs = []
@@ -1763,14 +1825,61 @@ def sharded_fused_step_lanes(u_prev, u, ghosts, offsets, n_global, *,
         _check_on_card(u.device, u.dtype, **{f"ghost {axis} lo": (lo, face),
                                              f"ghost {axis} hi": (hi, face)})
         ptrs += [lo.data_ptr(), hi.data_ptr()]
+    geom = (*block, *(int(o) for o in offsets), int(n_global),
+            *(int(p) for p in pads))
+    return lanes, ptrs, geom
+
+
+def sharded_fused_step_lanes(u_prev, u, ghosts, offsets, n_global, *,
+                             inv_h2, mesh_shape, r_last=None, alpha=2.0,
+                             beta=1.0, coeff=None, tile=None):
+    """K6 lane mode: one update of B shard blocks (B, bx, by, bz) in one
+    launch of csrc/sharded.cu's x-streaming `sharded_lanes_kernel`, each
+    lane with its ghosts - the (B, face) planes comm/halo.collect_ghosts
+    delivers for a batch (one copy per face for every lane) - and each
+    lane bit for bit the solo `sharded_fused_step`.  Constant speed: the
+    sharded ensemble takes no field.  `tile` (seg, ty, tz) overrides
+    `k6_lane_tile` (kernels/tile_ab.py's A/B)."""
+    if u.device.type == "cpu":
+        return sharded_fused_step_lanes_plain(
+            u_prev, u, ghosts, offsets, n_global, inv_h2=inv_h2,
+            mesh_shape=mesh_shape, r_last=r_last, alpha=alpha, beta=beta,
+            coeff=coeff)
+    lanes, ptrs, geom = _k6_lane_operands(u_prev, u, ghosts, offsets,
+                                          n_global, mesh_shape, r_last)
+    out = _k6_stream(u_prev, u, ptrs, geom, lanes, alpha, beta, coeff,
+                     inv_h2, tile, "sharded_step_lanes")
+    launches["sharded_step_lanes"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _k6_launch_tile(block, lanes, tile):
+    """`tile` (or `k6_lane_tile`'s for None) checked against what the
+    kernel takes; cached per shape, as a march launches one shape per
+    shard over and over."""
+    seg, ty, tz = tile or k6_lane_tile(block, lanes)
+    if tz != _K6L_TZ or not _K6L_MIN_TY <= ty <= _K6L_MAX_TY or seg < 1:
+        raise ValueError(f"K6 lanes: tile {(seg, ty, tz)} (tz must be "
+                         f"{_K6L_TZ}, {_K6L_MIN_TY} <= ty <= {_K6L_MAX_TY})")
+    if k6_lane_grid(block, lanes, (seg, ty, tz)) > _GRID_X_MAX:
+        raise ValueError(f"K6 lanes: {lanes} lanes of {block} exceed the "
+                         f"grid's {_GRID_X_MAX} blocks; split the batch")
+    return seg, ty
+
+
+def _k6_stream(u_prev, u, ptrs, geom, lanes, alpha, beta, coeff, inv_h2,
+               tile, counter):
+    """Launch csrc/sharded.cu's x-streaming K6 kernel on `lanes` blocks
+    (checked operands: ghost pointers and geometry ints as
+    `_k6_lane_operands` returns them) at `tile` or `k6_lane_tile`'s."""
+    seg, ty = _k6_launch_tile(geom[:3], lanes,
+                              None if tile is None else tuple(tile))
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
-        _run(_sharded_lib().wt_sharded_step, u_prev.data_ptr(),
-             u.data_ptr(), out.data_ptr(), None, *ptrs, *block,
-             *(int(o) for o in offsets), int(n_global),
-             *(int(p) for p in pads), _CODE[u.dtype], float(alpha),
-             float(beta), float(coeff), *(float(h) for h in inv_h2),
-             int(beta != 0), lanes,
-             inst=("sharded_step_lanes", u.dtype, beta != 0))
-    launches["sharded_step_lanes"] += 1
+        _run(_sharded_lib().wt_sharded_lanes, u_prev.data_ptr(),
+             u.data_ptr(), out.data_ptr(), *ptrs, *geom, _CODE[u.dtype],
+             float(alpha), float(beta), float(coeff),
+             *(float(h) for h in inv_h2), int(beta != 0), lanes, seg, ty,
+             inst=(counter, u.dtype))
     return out

@@ -1,7 +1,8 @@
 """A/B timing of the k-step pipelines' tiles on the card.
 
     python -m wavetpu_torch.kernels.tile_ab [--n 512] [--reps 30]
-                                            [--parts pipe,kpipe]
+                                            [--parts pipe,kpipe,k6lanes,k6solo,ens,overlap]
+                                            [--ens-reps 5]
 
 Part `pipe`: the x-streaming pipeline of K4, K11 and K12
 (csrc/comp_sharded.cu) as K11 on the main path's mesh-4,1,1 block (N/4,
@@ -18,6 +19,44 @@ the y0 = N/2 shard), k=4, f32, rows on (K8f: the field, rows off): its
 segment length L (8, 16, 32, 64 against the default 128) and its y/z
 face, each against the default tile (`kstep_pipe_tile`).
 
+Part `k6lanes`: K6's lane mode (csrc/sharded.cu) at the sharded
+ensemble's blocks, B=8 lanes on the mesh-2,2,1 block of N/2 and of N
+(N/4 x N/4 x N/2 and N/2 x N/2 x N, x and y ghosts as (B, face) planes):
+the solo body's lane instantiation that the x-streaming kernel replaced
+(reachable from here only, `k6_lanes_old`) against the streaming kernel
+at `k6_lane_tile`'s tile, then the streaming kernel's ty and segment
+against that tile, and the solo K6 (the streaming kernel at one lane)
+against the one-thread-per-cell solo body (`k6_solo_old`); eight solo
+launches are timed beside them.
+
+Part `k6solo`: the solo K6 at constant speed on thin and thick blocks of
+the mesh-2,2,1 shard of N (bx x by x N: the overlap mode's one-plane x
+and y faces, then 4-32 planes or 4-8 rows, then the whole N/2 x N/2 x N
+block): the one-thread-per-cell body (`k6_solo_old`) against the
+x-streaming kernel on one lane, each timed twice: its device time alone
+(`reps` launches in a CUDA graph, `_graph_ms`) and with the host's work,
+launches enqueued back to back as a march enqueues them (`_batched_ms`;
+a thin block's launch takes less device time than its Python wrapper's
+host time).  The wrapper takes the streaming kernel where
+`stencil_cuda.k6_solo_streams` says so.
+
+Part `overlap`: the sharded march with `overlap=True` on mesh 2,2,1 at
+N, 1000 steps, the four shards on the card (chip_smoke.py phase 7's
+overlap_221), with the solo K6 on the one-thread-per-cell body on every
+block (`body`), on the streaming kernel on every block (`streaming`,
+the overlap mode's one-plane faces included) and as
+`stencil_cuda.k6_solo_streams` chooses (`dispatch`), run body,
+streaming, dispatch, dispatch, streaming, body, each run the median
+solve seconds of `--ens-reps` solves; the three states are held
+bitwise equal.
+
+Part `ens`: the sharded ensemble end to end (phase 9's ens_sharded_221:
+N/2 = 256, 200 steps, B=4 with 3 real lanes, mesh 2,2,1, the four shards
+on the card) with K6's lane mode on the streaming kernel against the old
+lane body, old, new, new, old, each run the median solve seconds of
+`--ens-reps` solves, and each side's quartiles over all its solves; the
+two sides' states are held bitwise equal.
+
 Each comparison runs default, other, other, default; each run is the
 median of `reps` launches (CUDA events), and the printed ratio is the
 mean of the two `other` runs over the mean of the two default runs.
@@ -29,6 +68,7 @@ times.  Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -36,8 +76,9 @@ import subprocess
 import torch
 
 from wavetpu_torch.core.problem import Problem
+from wavetpu_torch.ensemble import batched, sharded as esh
 from wavetpu_torch.kernels import build, stencil_cuda
-from wavetpu_torch.solver import kfused, sharded_kfused
+from wavetpu_torch.solver import kfused, sharded, sharded_kfused
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -55,6 +96,50 @@ def _median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _batched_ms(fn, reps: int) -> float:
+    """Device time (ms) of one call: CUDA events around `reps` calls
+    enqueued back to back (the host's work per call hides behind the
+    device's unless it is longer), the median of three such runs."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time (ms) of one call without the host's: `reps` calls
+    captured in one CUDA graph, replayed three times (CUDA events around
+    each replay), the median replay over `reps`."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def _equal(label, got, want) -> None:
     for i, (a, b) in enumerate(zip(got, want)):
         if (a is None) != (b is None) or (
@@ -63,8 +148,8 @@ def _equal(label, got, want) -> None:
             raise SystemExit(f"{label} output {i} differs")
 
 
-def _abba(label, fn_a, fn_b, reps, result) -> None:
-    runs = [[name, _median_ms(fn, reps)]
+def _abba(label, fn_a, fn_b, reps, result, timer=_median_ms) -> None:
+    runs = [[name, timer(fn, reps)]
             for name, fn in (("A", fn_a), ("B", fn_b), ("B", fn_b),
                              ("A", fn_a))]
     a_ms = (runs[0][1] + runs[3][1]) / 2
@@ -243,11 +328,251 @@ def _kpipe_part(n, reps, result) -> None:
                   launch(name, (base[0],) + face), reps, result)
 
 
+def k6_lanes_old(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
+                 mesh_shape, r_last=None, alpha=2.0, beta=1.0, coeff=None):
+    """The solo K6 body's lane instantiation (block z = lane * bx + x, one
+    thread per cell), K6's lane mode before the x-streaming kernel: the
+    A/B's old side.  Counts no launch."""
+    sc = stencil_cuda
+    lanes, ptrs, geom = sc._k6_lane_operands(u_prev, u, ghosts, offsets,
+                                             n_global, mesh_shape, r_last)
+    if lanes * geom[0] > 65535:
+        raise ValueError("the old lane body's grid caps lanes x bx at 65535")
+    out = torch.empty_like(u)
+    sc._run(sc._sharded_lib().wt_sharded_step, u_prev.data_ptr(),
+            u.data_ptr(), out.data_ptr(), None, *ptrs, *geom,
+            sc._CODE[u.dtype], float(alpha), float(beta), float(coeff),
+            *(float(h) for h in inv_h2), int(beta != 0), lanes,
+            inst=("sharded_step_lanes_old", u.dtype, beta != 0))
+    return out
+
+
+def k6_solo_old(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
+                mesh_shape, r_last=None, alpha=2.0, beta=1.0, coeff=None):
+    """The solo K6 body at constant speed (one thread per cell), which
+    `sharded_fused_step` keeps for thin blocks and replaced by the
+    x-streaming kernel at one lane on the others: the A/B's old side.
+    Counts no launch."""
+    sc = stencil_cuda
+    sc._check_block_state(u, tuple(sc._CODE), "K6", u_prev=u_prev)
+    need, pads = sc._need_pads(u.shape, mesh_shape, r_last)
+    out = torch.empty_like(u)
+    sc._run(sc._sharded_lib().wt_sharded_step, u_prev.data_ptr(),
+            u.data_ptr(), out.data_ptr(), None,
+            *sc._ghost_ptrs(u, ghosts, need),
+            *sc._block_geometry(u, offsets, n_global, pads),
+            sc._CODE[u.dtype], float(alpha), float(beta), float(coeff),
+            *(float(h) for h in inv_h2), int(beta != 0), 1,
+            inst=("sharded_step_old", u.dtype, beta != 0))
+    return out
+
+
+def k6_lanes_case(n, lanes=8, seed=5):
+    """K6's lane operands on the mesh-2,2,1 block of n (the block at
+    x offset n/2): (args, kwargs) of `sharded_fused_step_lanes`, x and y
+    ghosts as (lanes, face) planes, made on the card from `seed`."""
+    p = Problem(N=n, timesteps=1000)
+    h = n // 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    ghosts = []
+    for axis in range(3):
+        face = [lanes, h, h, n]
+        face[axis + 1] = 1
+        ghosts.append((rand(face), rand(face)))
+    args = (rand((lanes, h, h, n)), rand((lanes, h, h, n)), ghosts,
+            (h, 0, 0), n)
+    return args, dict(inv_h2=p.inv_h2, mesh_shape=(2, 2, 1),
+                      coeff=p.a2tau2)
+
+
+def k6_lanes_ab(n, reps, result, lanes=8, variants=True) -> None:
+    """Part `k6lanes` at the mesh-2,2,1 block of n (module docstring)."""
+    build.build_all(names=["sharded"])
+    sc = stencil_cuda
+    args, kw = k6_lanes_case(n, lanes)
+    plain = sc.sharded_fused_step_lanes_plain(*args, **kw)
+    up, u, ghosts, off, ng = args
+
+    def checked(label, fn, want=plain):
+        _equal(label, [fn()], [want])
+        return fn
+
+    def new(tile=None):
+        return checked(f"K6 lanes N={n} tile={tile}",
+                       lambda: sc.sharded_fused_step_lanes(*args, tile=tile,
+                                                           **kw))
+
+    ref = new()
+    old = checked(f"K6 lanes old body N={n}",
+                  lambda: k6_lanes_old(*args, **kw))
+    _abba(f"K6 lanes N={n} B={lanes}: streaming vs old body", old, ref,
+          reps, result)
+    solo_g = [[tuple(x[i] for x in a) for a in ghosts] for i in range(lanes)]
+    result[f"K6 lanes N={n} B={lanes}: 8 solo launches ms"] = _median_ms(
+        lambda: [sc.sharded_fused_step(up[i], u[i], solo_g[i], off, ng, **kw)
+                 for i in range(lanes)], reps)
+    print(f"K6 lanes N={n}: {lanes} solo launches "
+          f"{result[f'K6 lanes N={n} B={lanes}: 8 solo launches ms']:.4f} "
+          f"ms", flush=True)
+    if not variants:
+        return
+    block = tuple(u.shape[1:])
+    tile = sc.k6_lane_tile(block, lanes)
+    for t in (4, 6):
+        _abba(f"K6 lanes N={n} ty={t} vs {tile}", ref,
+              new((tile[0], t, tile[2])), reps, result)
+    for s in (8, 32, 64, block[0]):
+        if s != tile[0]:
+            _abba(f"K6 lanes N={n} seg={s} vs {tile}", ref,
+                  new((s,) + tile[1:]), reps, result)
+    # One lane: the solo wrapper (the streaming kernel) against the old
+    # solo body.
+    want = plain[:1]
+    old1 = checked(f"K6 old solo body N={n}", lambda: k6_solo_old(
+        up[0], u[0], solo_g[0], off, ng, **kw)[None], want)
+    new1 = checked(f"K6 N={n}", lambda: sc.sharded_fused_step(
+        up[0], u[0], solo_g[0], off, ng, **kw)[None], want)
+    _abba(f"K6 N={n}: streaming (one lane) vs old solo body", old1, new1,
+          reps, result)
+
+
+def _ens_part(n, reps, result) -> None:
+    """Part `ens` (module docstring)."""
+    build.build_all(names=["sharded"])
+    sc = stencil_cuda
+    p = Problem(N=n // 2, timesteps=200)
+    lanes = [batched.LaneSpec(), batched.LaneSpec(phase=1.0),
+             batched.LaneSpec(phase=1.3, stop_step=100)]
+    new_k6 = sc.sharded_fused_step_lanes
+
+    @contextlib.contextmanager
+    def body(old):
+        sc.sharded_fused_step_lanes = k6_lanes_old if old else new_k6
+        try:
+            yield
+        finally:
+            sc.sharded_fused_step_lanes = new_k6
+
+    def solve(old):
+        with body(old):
+            res = esh.solve_ensemble_sharded(p, lanes, (2, 2, 1),
+                                             kernel="pallas", pad_to=4,
+                                             devices=["cuda"] * 4)
+        torch.cuda.synchronize()
+        return res
+
+    a, b = solve(True), solve(False)
+    for ra, rb in zip(a.results, b.results):
+        if not torch.equal(ra.u_cur.fundamental(), rb.u_cur.fundamental()):
+            raise SystemExit("ens_sharded_221: the two K6 lane bodies differ")
+    samples = {"old": [], "new": []}
+    runs = []
+    for side in ("old", "new", "new", "old"):
+        got = [solve(side == "old").solve_seconds for _ in range(reps)]
+        samples[side] += got
+        runs.append([side, statistics.median(got)])
+    old_s, new_s = (runs[0][1] + runs[3][1]) / 2, (runs[1][1] + runs[2][1]) / 2
+    quart = {side: statistics.quantiles(v, n=4) for side, v in samples.items()}
+    result["ens_sharded_221 solve s: streaming vs old lane body"] = dict(
+        runs=runs, a_s=old_s, b_s=new_s, b_over_a=new_s / old_s,
+        quartiles=quart, samples=samples)
+    print(f"ens_sharded_221 solve s (median of {reps}): {runs}; new / old "
+          f"{new_s / old_s:.4f}; quartiles of {2 * reps} solves: old "
+          f"{quart['old']}, new {quart['new']}", flush=True)
+
+
+def _k6solo_part(n, reps, result) -> None:
+    """Part `k6solo` (module docstring)."""
+    build.build_all(names=["sharded"])
+    sc = stencil_cuda
+    h = n // 2
+    p = Problem(N=n, timesteps=1000)
+    kw = dict(inv_h2=p.inv_h2, mesh_shape=(2, 2, 1), coeff=p.a2tau2)
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    for block in ((1, h, n), (h, 1, n), (4, h, n), (8, h, n), (16, h, n),
+                  (32, h, n), (64, h, n), (h, 4, n), (h, 8, n), (h, 16, n),
+                  (h, 32, n), (h, h, n)):
+        up, u = rand((1,) + block), rand((1,) + block)
+        ghosts = []
+        for axis in range(3):
+            face = [1, *block]
+            face[axis + 1] = 1
+            ghosts.append((rand(face), rand(face)))
+        args = (up, u, ghosts, (h, 0, 0), n)
+        solo = (up[0], u[0], [tuple(x[0] for x in a) for a in ghosts],
+                (h, 0, 0), n)
+        want = sc.sharded_fused_step_lanes_plain(*args, **kw)
+        old = lambda: k6_solo_old(*solo, **kw)[None]  # noqa: E731
+        stream = lambda: sc.sharded_fused_step_lanes(*args, **kw)  # noqa
+        _equal(f"K6 old solo body {block}", [old()], [want])
+        _equal(f"K6 streaming one lane {block}", [stream()], [want])
+        label = (f"K6 solo {block} (streams: {sc.k6_solo_streams(block)}): "
+                 f"streaming vs old body")
+        _abba(f"{label}, device", old, stream, reps, result,
+              timer=_graph_ms)
+        _abba(f"{label}, back to back", old, stream, reps, result,
+              timer=_batched_ms)
+        del up, u, ghosts, args, solo, want
+
+
+def _overlap_part(n, reps, result) -> None:
+    """Part `overlap` (module docstring)."""
+    build.build_all(names=["sharded"])
+    sc = stencil_cuda
+    p = Problem(N=n, timesteps=1000)
+    rule = sc.k6_solo_streams
+    variants = {"body": lambda block: False,
+                "streaming": lambda block: True, "dispatch": rule}
+
+    def solve(name):
+        sc.k6_solo_streams = variants[name]
+        try:
+            res = sharded.solve_sharded(p, (2, 2, 1), devices=["cuda"] * 4,
+                                        overlap=True)
+            torch.cuda.synchronize()
+        finally:
+            sc.k6_solo_streams = rule
+        return res
+
+    ref = solve("dispatch")
+    for name in ("body", "streaming"):
+        got = solve(name)
+        if not all(torch.equal(a, b) for a, b in zip(got.u_cur.blocks,
+                                                     ref.u_cur.blocks)):
+            raise SystemExit(f"overlap_221: the {name} march differs")
+    del ref, got
+    runs = [[name, statistics.median(solve(name).solve_seconds
+                                     for _ in range(reps))]
+            for name in ("body", "streaming", "dispatch", "dispatch",
+                         "streaming", "body")]
+    mean = {name: statistics.mean(r for v, r in runs if v == name)
+            for name in variants}
+    result["overlap_221 solve s"] = dict(runs=runs, **mean)
+    print(f"overlap_221 solve s (median of {reps}): {runs}; means {mean}",
+          flush=True)
+
+
+def _k6lanes_part(n, reps, result) -> None:
+    for m in (n // 2, n):
+        k6_lanes_ab(m, reps, result)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--parts", default="pipe,kpipe")
+    ap.add_argument("--ens-reps", type=int, default=5,
+                    help="solves a run in parts ens and overlap")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tile_ab needs a CUDA device")
@@ -257,6 +582,14 @@ def main(argv=None) -> int:
         _pipe_part(args.n, args.reps, result)
     if "kpipe" in parts:
         _kpipe_part(args.n, args.reps, result)
+    if "k6lanes" in parts:
+        _k6lanes_part(args.n, args.reps, result)
+    if "k6solo" in parts:
+        _k6solo_part(args.n, args.reps, result)
+    if "ens" in parts:
+        _ens_part(args.n, args.ens_reps, result)
+    if "overlap" in parts:
+        _overlap_part(args.n, args.ens_reps, result)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
