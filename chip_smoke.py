@@ -290,6 +290,36 @@ without them or when any phase fails.  Phases:
                equals a shadow-less replica's, its twin runs K2's lane
                mode x100 (never the plain versions), the divergence
                lands in the accuracy ledger (source "shadow").
+12. fleet    - the fleet tier (wavetpu_torch/fleet, loadgen) in front of
+               replica processes on the card: two `warmup` processes fill
+               replica A's program cache (the N=256/100 tiers at every
+               bucket, the flagship and the N=512/1000 standard tier with
+               its chunk runner) and replica B's (the N=256/100 tiers
+               only); `python -m wavetpu_torch router --member A --member
+               B` in its own process.
+               a. affinity: the three flagship bodies through the router
+               all land on A (X-Wavetpu-Member), K2 lanes x1 + K4 lanes
+               x252 per batch there (A's /admin/launches), none on B,
+               bit-equal to phase 9's lanes, the 2 pi answer's max abs
+               error phase 3's flagship's bits;
+               b. a roll: the N=512/1000 standard march in flight on A
+               (chunks of 200, A holding each chunk after the first
+               FLEET_HOLD_S seconds), `fleet roll --old A --new C --
+               python -m wavetpu_torch serve ...` spawns C; A's drain
+               answers 503 + resume_token, the router re-injects it, C
+               resumes: one 200 bit-equal to phase 3's default run, K1 on
+               A (its shutdown line) and on C summing to 1000,
+               resume_handoffs_total +1, roll exit 0, C 0 nvcc runs, the
+               router's Prometheus counters monotonic across the roll;
+               c. load: `loadgen generate --pallas --n 256 --timesteps
+               100 --duration 15 --qps 4` replayed through the router
+               (`--retries 2 --error-budget 0 --max-cold-compiles 0`):
+               p50/p95/p99 per tier, requests/s, requests per member,
+               affinity hits; bench.py's B=8 serving rows through the
+               router with a fresh connection per request and with the
+               keep-alive WavetpuClient, both p95s;
+               d. B's `--record-trace` file parses as a loadgen trace and
+               replays through the router, all 200.
 
 Each phase prints its wall time.
 
@@ -3470,34 +3500,49 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def replica_process(tmp, name, flags, build_dir):
-    """`python -m wavetpu_torch serve` in its own process with its own
-    build directory and telemetry; returns (process, base URL, spawn
-    time, log path) once /healthz answers."""
+def spawn_replica(tmp, name, flags, build_dir, telemetry=None, env=None):
+    """`python -m wavetpu_torch serve` started in its own process with its
+    own build directory (and its own telemetry directory unless
+    `telemetry` names a shared one); returns (process, base URL, spawn
+    time, log path) without waiting."""
     port = free_port()
     log_path = os.path.join(tmp, f"{name}.log")
-    env = dict(os.environ, WAVETPU_TORCH_BUILD_DIR=build_dir)
+    env = dict(os.environ, WAVETPU_TORCH_BUILD_DIR=build_dir, **(env or {}))
     t_spawn = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "wavetpu_torch", "serve", "--port",
              str(port), "--max-wait-ms", "200", "--telemetry-dir",
-             os.path.join(tmp, f"tel_{name}")] + flags + CLI_EXTRA,
+             telemetry or os.path.join(tmp, f"tel_{name}")]
+            + flags + CLI_EXTRA,
             env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
-    base = f"http://127.0.0.1:{port}"
-    deadline = time.monotonic() + 300
+    return proc, f"http://127.0.0.1:{port}", t_spawn, log_path
+
+
+def wait_healthz(proc, base, name, log_path, timeout=300):
+    """Wait until the process answers /healthz; fail if it exits first."""
+    deadline = time.monotonic() + timeout
     while True:
         if proc.poll() is not None:
-            fail(f"replica {name} exited {proc.returncode}: "
+            fail(f"{name} exited {proc.returncode}: "
                  f"{open(log_path).read()[-2000:]}")
         try:
-            serve_get(base, "/healthz")
-            return proc, base, t_spawn, log_path
+            return serve_get(base, "/healthz")
         except OSError:
             if time.monotonic() > deadline:
                 proc.kill()
-                fail(f"replica {name} never answered /healthz")
+                fail(f"{name} never answered /healthz")
             time.sleep(0.1)
+
+
+def replica_process(tmp, name, flags, build_dir):
+    """`python -m wavetpu_torch serve` in its own process with its own
+    build directory and telemetry; returns (process, base URL, spawn
+    time, log path) once /healthz answers."""
+    proc, base, t_spawn, log_path = spawn_replica(tmp, name, flags,
+                                                  build_dir)
+    wait_healthz(proc, base, f"replica {name}", log_path)
+    return proc, base, t_spawn, log_path
 
 
 def stop_process(proc, log_path):
@@ -3925,6 +3970,572 @@ def phase_warm_state(card, sides, lane_errors):
     return counts, measured
 
 
+# Phase 12: the fleet tier (wavetpu_torch/fleet, wavetpu_torch/loadgen) in
+# front of replica processes on the card.  Replica A holds the flagship and
+# the N=512 standard tier in its program cache, replica B the N=256 tiers
+# only (A holds those too): with one cache shared by both, every member
+# would advertise every disk key and the router could not single one out.
+# A's march of the N=512 standard tier is slowed before each chunk pass
+# after the first (serve-slow-batch, selected by that tier's identity
+# alone), so the roll's drain lands mid-march.
+FLEET_HOLD_S = 10
+FLEET_QPS = 4.0
+FLEET_DURATION_S = 15
+FLEET_POLL_S = 0.5
+# bench.py's B=8 serving rows through the router: 2B requests of N=256/100.
+FLEET_ROW_B = 8
+
+
+def fleet_config():
+    """Phase 12's sizes on the card: the main path's width and depth, the
+    N=256/100 serving tier and phase 11's chunking.  (A CPU rehearsal at a
+    small size passes its own, with `count` False: the CPU launches no
+    CUDA kernel to count.)"""
+    return dict(n=N_FULL, steps=STEPS, serve_n=SERVE_N, short_steps=100,
+                chunk_threshold=CHUNK_THRESHOLD, chunk_steps=CHUNK_STEPS,
+                hold_s=FLEET_HOLD_S, qps=FLEET_QPS,
+                duration=FLEET_DURATION_S, count=True)
+
+
+def fleet_keys(cfg):
+    """(the keys both replicas' caches hold, the keys only A's holds):
+    ProgramKey dicts.  Both: the loadgen tiers at N=256/100 (standard,
+    compensated, the lens, the 200-step tier, k-fused k=2) and the
+    flagship serving row, at every batch bucket.  A only: the flagship
+    at N=512/1000 (buckets 1, 2, 4) and the standard tier with its chunk
+    runner."""
+    auto = "pallas" if DEV == "cuda" else "roll"
+
+    def key(**over):
+        k = dict(N=cfg["serve_n"], Lx=1.0, Ly=1.0, Lz=1.0, T=1.0,
+                 timesteps=cfg["short_steps"], scheme="standard",
+                 path=auto, k=1, dtype="f32", with_field=False,
+                 compute_errors=True, batch=1, mesh=None)
+        k.update(over)
+        return k
+
+    tiers = (dict(), dict(timesteps=2 * cfg["short_steps"]),
+             dict(scheme="compensated"),
+             dict(with_field=True, compute_errors=False),
+             dict(path="kfused", k=2),
+             dict(scheme="compensated", path="kfused", k=K))
+    both = [key(batch=b, **t) for t in tiers for b in (1, 2, 4, 8)]
+    big = dict(N=cfg["n"], timesteps=cfg["steps"])
+    a_only = [key(scheme="compensated", path="kfused", k=K, batch=b, **big)
+              for b in (1, 2, 4)]
+    a_only += [key(**big),
+               key(path=f"{auto}@chunk{cfg['chunk_steps']}", **big)]
+    return both, a_only
+
+
+def write_manifest(tmp, name, keys):
+    """A ledger-report warmup manifest of `keys` (phase 11's route)."""
+    from wavetpu_torch.obs import ledger
+
+    lp = os.path.join(tmp, f"{name}_ledger.jsonl")
+    led = ledger.CompileLedger(lp)
+    for k in keys:
+        led.record(k, 0.0, ts=1.0, pid=1)
+    led.close()
+    mp = os.path.join(tmp, f"{name}_manifest.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if ledger.main([lp, "--emit-warmup-manifest", mp]) != 0:
+            fail(f"ledger-report --emit-warmup-manifest ({name}) failed")
+    return mp
+
+
+def admin_post(base, path):
+    """POST an empty JSON body to an admin endpoint; its JSON answer."""
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=b"{}", headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def fleet_launches(base, reset=False):
+    """A replica process's launch counters (its /admin/launches; POST sets
+    them to 0 and answers what it cleared), the non-zero ones."""
+    got = (admin_post(base, "/admin/launches") if reset
+           else serve_get(base, "/admin/launches"))
+    return {c: n for c, n in got["launches"].items() if n}
+
+
+def launches_in_log(log):
+    """The `kernel launches: {...}` line a replica prints at shutdown."""
+    m = re.search(r"^kernel launches: (\{.*\})$", log, re.M)
+    if m is None:
+        fail(f"no kernel-launches line in the replica's log: {log[-2000:]}")
+    return json.loads(m.group(1))
+
+
+def wait_until(what, predicate, timeout=300, every=0.05):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = predicate()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            fail(f"timed out waiting for {what}")
+        time.sleep(every)
+
+
+def counter_samples(text):
+    """The monotonic samples of a Prometheus text cut (counters, histogram
+    counts, sums and buckets), without the store and HA families, which
+    are per router process by design."""
+    from wavetpu_torch.loadgen.runner import parse_prometheus_text
+
+    out = {}
+    for name, v in parse_prometheus_text(text).items():
+        base = name.split("{")[0]
+        if base.startswith(("wavetpu_store_", "wavetpu_fleet_ha_")):
+            continue
+        if base.endswith(("_total", "_count", "_sum", "_bucket")):
+            out[name] = v
+    return out
+
+
+def fleet_member_rows(router):
+    return {row["url"]: row for row in serve_get(router, "/metrics")[
+        "members"]}
+
+
+def fleet_rows_b8(router, cfg, card):
+    """bench.py's B=8 serving rows (phase 10's bodies: N=256/100, pallas
+    and flagship), 2B concurrent requests through the router, twice: with
+    a fresh connection per request (urllib, no retry), and through one
+    keep-alive WavetpuClient (a connection per thread; retries=2 absorb
+    what the first round's connection burst meets).  Each of the 2B
+    threads sends a first request (connections open, programs warm),
+    waits at a barrier, then the timed one.  The keep-alive arm must
+    answer every timed request 200 at its first attempt; the fresh arm's
+    transport errors are counted, not failed on: they are what this row
+    measures (the listen backlog against a burst of new connections)."""
+    import threading
+
+    from wavetpu_torch.client import WavetpuClient
+
+    out = {}
+    for label, extra, _ in SERVE_ROWS:
+        n = 2 * FLEET_ROW_B
+        bodies = [dict(N=cfg["serve_n"], timesteps=cfg["short_steps"],
+                       phase=oracle_phase(i), **extra,
+                       **cfg.get("body_extra", {})) for i in range(n)]
+        row = {}
+        for arm in ("fresh", "keepalive"):
+            client = WavetpuClient(router, retries=2, timeout=600)
+            barrier = threading.Barrier(n, timeout=600)
+            lat, codes = [None] * n, [[] for _ in range(n)]
+
+            def go(i, arm=arm, client=client, barrier=barrier):
+                for timed in (False, True):
+                    if timed:
+                        barrier.wait()
+                    t0 = time.perf_counter()
+                    try:
+                        if arm == "fresh":
+                            code = serve_post(router, bodies[i])[0]
+                        else:
+                            res = client.solve(bodies[i])
+                            code = (res.status if not timed
+                                    or res.attempts == 1
+                                    else f"{res.status} at attempt "
+                                         f"{res.attempts}")
+                    except Exception as e:  # a transport error, counted
+                        code = repr(e)
+                    codes[i].append(code)
+                    if timed:
+                        lat[i] = time.perf_counter() - t0
+
+            threads = [threading.Thread(target=go, args=(i,))
+                       for i in range(n)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            client.close()
+            if None in lat or any(len(c) != 2 for c in codes):
+                fail(f"B=8 row {label} ({arm}): a thread did not finish")
+            errors = [c for pair in codes for c in pair if c != 200]
+            if arm == "keepalive" and any(pair[1] != 200 for pair in codes):
+                fail(f"B=8 row {label} keep-alive: timed answers "
+                     f"{[pair[1] for pair in codes]}")
+            if any(isinstance(c, int) and c != 200 for c in errors):
+                fail(f"B=8 row {label} ({arm}): answers {codes}")
+            lat.sort()
+            row[arm] = dict(p50_s=lat[n // 2],
+                            p95_s=lat[min(n - 1, int(0.95 * n))],
+                            max_s=lat[-1], latencies_s=lat,
+                            transport_errors=errors)
+        out[label] = row
+        print(f"  B=8 row {label} through the router, {n} requests: p95 "
+              f"{row['fresh']['p95_s']!r} s with a fresh connection each "
+              f"({len(row['fresh']['transport_errors'])} transport errors "
+              f"in its {2 * n} requests), {row['keepalive']['p95_s']!r} s "
+              f"keep-alive (p50 {row['fresh']['p50_s']!r} / "
+              f"{row['keepalive']['p50_s']!r} s) ({card})")
+    return out
+
+
+def phase_fleet(card, sides, lane_errors, cfg=None):
+    """Phase 12: the router (a process) in front of two replica processes
+    on the card.  Affinity: the three flagship bodies land on A, the
+    member whose cache holds the flagship tier, K2 lanes x1 + K4 lanes
+    x252 per batch there and nothing on B, each answer bit-equal to phase
+    9's lanes (body 0's max abs error phase 3's flagship's bits).  A
+    roll: `fleet roll` spawns C while the N=512/1000 standard march is
+    mid-flight on A; A's drain checkpoints it (503 + resume_token), the
+    router re-injects the token, C resumes: one 200 bit-equal to phase
+    3's default run, K1 on A and C summing to 1000,
+    resume_handoffs_total +1, C 0 nvcc runs, roll exit 0, the router's
+    fleet-wide counters monotonic across the roll.  Load: a loadgen trace
+    replayed through the router, zero errors and zero cold compiles;
+    bench.py's B=8 rows with fresh connections and keep-alive; B's
+    --record-trace file replayed, all 200s."""
+    import threading
+
+    from wavetpu_torch import progkey
+    from wavetpu_torch.client import WavetpuClient
+    from wavetpu_torch.loadgen import trace as lg_trace
+
+    cfg = cfg or fleet_config()
+    count = cfg["count"]
+    tmp = tempfile.mkdtemp(prefix="wt-fleet-")
+    procs = {}   # name -> (process, log path)
+    out = {}
+    roll = None
+    c_base = None
+    try:
+        both, a_only = fleet_keys(cfg)
+        m_a = write_manifest(tmp, "a", both + a_only)
+        m_b = write_manifest(tmp, "b", both)
+        big = dict(N=cfg["n"], timesteps=cfg["steps"], T=1.0)
+        m_c = write_manifest(tmp, "c", a_only[-2:])
+        cache = {name: os.path.join(tmp, f"pc_{name}") for name in "ab"}
+        state_dir = os.path.join(tmp, "state")
+        tel = os.path.join(tmp, "tel")
+        record = os.path.join(tmp, "b_recorded.jsonl")
+        t0 = time.perf_counter()
+        warms = {
+            name: subprocess.Popen(
+                [sys.executable, "-m", "wavetpu_torch", "warmup",
+                 "--manifest", mp, "--program-cache-dir", cache[name]]
+                + CLI_EXTRA,
+                env=dict(os.environ,
+                         WAVETPU_TORCH_BUILD_DIR=str(build.build_dir())),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, mp in (("a", m_a), ("b", m_b))}
+        chunked = ["--chunk-threshold", str(cfg["chunk_threshold"]),
+                   "--chunk-steps", str(cfg["chunk_steps"]),
+                   "--solve-state-dir", state_dir, "--max-programs", "64"]
+        hold = (f"serve-slow-batch:seconds={cfg['hold_s']},after=1,"
+                f"scheme=standard,n={cfg['n']},timesteps={cfg['steps']}")
+        reps = {
+            "A": spawn_replica(tmp, "A", ["--program-cache-dir", cache["a"]]
+                               + chunked, os.path.join(tmp, "build_A"),
+                               telemetry=tel,
+                               env={"WAVETPU_FAULT": hold}),
+            "B": spawn_replica(tmp, "B", ["--program-cache-dir", cache["b"],
+                                          "--record-trace", record]
+                               + chunked, os.path.join(tmp, "build_B"),
+                               telemetry=tel),
+        }
+        for name, (proc, _, _, log) in reps.items():
+            procs[name] = (proc, log)
+        a_base, b_base = reps["A"][1], reps["B"][1]
+        r_port = free_port()
+        router = f"http://127.0.0.1:{r_port}"
+        r_log = os.path.join(tmp, "router.log")
+        with open(r_log, "w") as log:
+            procs["router"] = (subprocess.Popen(
+                [sys.executable, "-m", "wavetpu_torch", "router", "--port",
+                 str(r_port), "--member", a_base, "--member", b_base,
+                 "--poll-interval-s", str(FLEET_POLL_S),
+                 "--proxy-timeout-s", "900", "--telemetry-dir",
+                 os.path.join(tmp, "tel_router")],
+                stdout=log, stderr=subprocess.STDOUT, text=True), r_log)
+        for name, w in warms.items():
+            text, _ = w.communicate(timeout=600)
+            want = len(both) + (len(a_only) if name == "a" else 0)
+            if w.returncode != 0 or (count and f"{want} compiled" not in text):
+                fail(f"warmup {name}: rc {w.returncode} {text[-2000:]}")
+        warm_s = time.perf_counter() - t0
+        for name, (proc, base, _, log) in reps.items():
+            wait_healthz(proc, base, f"replica {name}", log)
+        wait_healthz(procs["router"][0], router, "router", r_log)
+        # The router has polled both members' warm keys (each member's
+        # distinct affinity keys).
+        n_warm = {a_base: len(progkey.warm_keys_to_affinity(
+                      {"disk": both + a_only})),
+                  b_base: len(progkey.warm_keys_to_affinity(
+                      {"disk": both}))}
+        wait_until("the router's view of both caches", lambda: all(
+            row["state"] == "up" and row["warm_keys"] == n_warm[url]
+            for url, row in fleet_member_rows(router).items()))
+        up_s = time.perf_counter() - t0
+        print(f"  caches (two warmup processes, {len(both) + len(a_only)} "
+              f"and {len(both)} keys) {warm_s!r} s; two replicas and the "
+              f"router up, both caches polled, {up_s!r} s after the first "
+              f"spawn ({card})")
+
+        # -- 2. affinity: the flagship tier lands on A --
+        bodies = cfg.get("flagship_bodies") or SERVE_RUNS[
+            "serve_flagship"][0]
+        refs = cfg.get("flagship_refs") or serve_reference(
+            "serve_flagship", bodies, lane_errors)
+        for base in (a_base, b_base):
+            fleet_launches(base, reset=True)
+        batches0 = serve_get(a_base, "/metrics")["batches_total"]
+        aff0 = serve_get(router, "/metrics")["affinity"]
+        answers = serve_concurrent(router, bodies)
+        launches_a = fleet_launches(a_base)
+        launches_b = fleet_launches(b_base)
+        nb = serve_get(a_base, "/metrics")["batches_total"] - batches0
+        aff = serve_get(router, "/metrics")["affinity"]
+        for i, (code, payload, headers, _) in enumerate(answers):
+            if code != 200 or headers.get("X-Wavetpu-Member") != a_base:
+                fail(f"fleet flagship {i}: {code} from "
+                     f"{headers.get('X-Wavetpu-Member')} {payload}")
+            same_errors(f"fleet flagship {i}", payload, refs[i])
+        flag_err = (cfg["flagship_max_err"] if "flagship_max_err" in cfg
+                    else sides["flagship"]["max_abs_error"])
+        if answers[0][1]["report"]["max_abs_error"] != flag_err:
+            fail(f"fleet flagship 2 pi max abs error "
+                 f"{answers[0][1]['report']['max_abs_error']!r} is not "
+                 f"phase 3's flagship's {flag_err!r}")
+        # One batch (the bodies arrive within A's 200 ms max-wait): K2
+        # lanes once for its reference-phase lane, K4 lanes per k-block.
+        want_a = {"comp_step_lanes": 1, "kstep_comp_lanes": NB + REM}
+        if count and (nb != 1 or launches_a != want_a or launches_b):
+            fail(f"fleet flagship launches: A {launches_a} (expected "
+                 f"{want_a}), B {launches_b} (expected none)")
+        if aff["hits"] - aff0["hits"] != len(bodies):
+            fail(f"fleet affinity: hits {aff0} -> {aff}")
+        out["affinity"] = dict(batches=nb, launches_a=launches_a,
+                               launches_b=launches_b, stats=aff,
+                               walls_s=[a[3] for a in answers])
+        print(f"  affinity: {len(bodies)} flagship N={cfg['n']}/"
+              f"{cfg['steps']} bodies all on A in one batch, A "
+              f"{launches_a}, B {launches_b or 'none'}, bit-equal to "
+              f"phase 9's lanes, the 2 pi answer's max abs error phase "
+              f"3's flagship's; router hit_rate {aff['hit_rate']!r} "
+              f"(hits {aff['hits']}, cold {aff['cold']}) ({card})")
+
+        # -- 3. a roll that hands the chunked march from A to C --
+        prom0 = counter_samples(serve_get(router, "/metrics", "text/plain"))
+        handoffs0 = serve_get(router, "/metrics")["resume_handoffs_total"]
+        fleet_launches(a_base, reset=True)
+        chunks0 = serve_get(a_base, "/metrics")["chunks_total"]
+        victim = {}
+
+        def long_solve():
+            t = time.perf_counter()
+            victim["out"] = WavetpuClient(router, retries=0,
+                                          timeout=900).solve(dict(big))
+            victim["wall"] = time.perf_counter() - t
+
+        vt = threading.Thread(target=long_solve, daemon=True)
+        vt.start()
+        wait_until("the march mid-flight on A", lambda: serve_get(
+            a_base, "/metrics")["chunks_total"] > chunks0, timeout=120)
+        c_port = free_port()
+        c_base = f"http://127.0.0.1:{c_port}"
+        roll_log = os.path.join(tmp, "roll.log")
+        t_roll = time.perf_counter()
+        with open(roll_log, "w") as log:
+            roll = subprocess.Popen(
+                [sys.executable, "-m", "wavetpu_torch", "fleet", "roll",
+                 "--router", router, "--old", a_base, "--new", c_base,
+                 "--manifest", m_c, "--timeout-s", "600", "--",
+                 sys.executable, "-m", "wavetpu_torch", "serve", "--port",
+                 str(c_port), "--max-wait-ms", "200", "--telemetry-dir",
+                 tel, "--program-cache-dir", cache["a"]] + chunked
+                + CLI_EXTRA,
+                env=dict(os.environ, WAVETPU_TORCH_BUILD_DIR=os.path.join(
+                    tmp, "build_C")),
+                stdout=log, stderr=subprocess.STDOUT, text=True,
+                start_new_session=True)
+        roll_rc = roll.wait(900)
+        roll_s = time.perf_counter() - t_roll
+        vt.join(900)
+        res = victim.get("out")
+        if roll_rc != 0:
+            fail(f"fleet roll exited {roll_rc}: "
+                 f"{open(roll_log).read()[-3000:]}")
+        if res is None or not res.ok or res.attempts != 1 or \
+                res.headers.get("X-Wavetpu-Member") != c_base:
+            names = {a_base: "A", b_base: "B", c_base: "C"}
+            fail(f"rolled march: {res and (res.status, res.error)}, "
+                 f"attempts {res and res.attempts}, member "
+                 f"{res and names.get(res.headers.get('X-Wavetpu-Member'))}"
+                 f"; roll: {open(roll_log).read()[-2000:]}")
+        step = res.payload["batch"].get("resumed_from")
+        if not step:
+            fail(f"rolled march was not resumed: {res.payload['batch']}")
+        same_errors("rolled march", res.payload,
+                    cfg.get("default_phase3")
+                    or phase3_errors(sides, "default"))
+        a_proc, a_log = procs.pop("A")
+        a_text = stop_process(a_proc, a_log)
+        launches_a = launches_in_log(a_text)
+        launches_c = fleet_launches(c_base)
+        if count and not (
+                set(launches_a) | set(launches_c) <= {"step"}
+                and launches_a.get("step", 0) + launches_c.get("step", 0)
+                == cfg["steps"] and launches_c.get("step", 0)
+                == cfg["steps"] - step):
+            fail(f"rolled march launches: A {launches_a} + C {launches_c}, "
+                 f"expected K1 summing to {cfg['steps']} (C from step "
+                 f"{step})")
+        handoffs = serve_get(router, "/metrics")["resume_handoffs_total"]
+        if handoffs - handoffs0 != 1:
+            fail(f"resume_handoffs_total {handoffs0} -> {handoffs}")
+        prom1 = counter_samples(serve_get(router, "/metrics", "text/plain"))
+        back = {k: (v, prom1[k]) for k, v in prom0.items()
+                if k in prom1 and prom1[k] < v}
+        if back:
+            fail(f"router counters went backwards across the roll: {back}")
+        rows = fleet_member_rows(router)
+        if rows[a_base]["state"] != "left" or rows[c_base]["state"] != "up":
+            fail(f"after the roll: {rows}")
+        out["roll"] = dict(
+            resumed_from=step, launches_a=launches_a, launches_c=launches_c,
+            roll_s=roll_s, victim_wall_s=victim["wall"],
+            timing=res.payload["batch"].get("timing"),
+            samples_held=len([k for k in prom0 if k in prom1]))
+        print(f"  roll: march resumed on C from step {step}; K1 A "
+              f"{launches_a} + C {launches_c}; bit-equal to phase 3's "
+              f"default; one attempt, {victim['wall']!r} s (A holds "
+              f"{cfg['hold_s']} s before each chunk after the first); roll "
+              f"{roll_s!r} s, exit 0; resume_handoffs_total +1; "
+              f"{out['roll']['samples_held']} router counter samples "
+              f"monotonic ({card})")
+
+        # -- 4. load: a loadgen trace through the router (B and C) --
+        trace_path = os.path.join(tmp, "trace.jsonl")
+        report_path = os.path.join(tmp, "report.json")
+        gen = subprocess.run(
+            [sys.executable, "-m", "wavetpu_torch", "loadgen", "generate",
+             "--out", trace_path, "--pallas", "--n", str(cfg["serve_n"]),
+             "--timesteps", str(cfg["short_steps"]), "--duration",
+             str(cfg["duration"]), "--seed", "0", "--qps", str(cfg["qps"])],
+            capture_output=True, text=True, timeout=120)
+        if gen.returncode != 0:
+            fail(f"loadgen generate: {gen.stdout} {gen.stderr}")
+        rows0 = fleet_member_rows(router)
+        aff0 = serve_get(router, "/metrics")["affinity"]
+        rep = subprocess.run(
+            [sys.executable, "-m", "wavetpu_torch", "loadgen", "replay",
+             trace_path, "--target", router, "--retries", "2",
+             "--error-budget", "0", "--max-cold-compiles", "0",
+             "--timeout", "600", "--out", report_path],
+            capture_output=True, text=True, timeout=900)
+        if rep.returncode != 0:
+            fail(f"loadgen replay rc {rep.returncode}: {rep.stdout[-3000:]}"
+                 f" {rep.stderr[-2000:]}")
+        with open(report_path) as f:
+            report = json.load(f)
+        rows1 = fleet_member_rows(router)
+        aff1 = serve_get(router, "/metrics")["affinity"]
+        if report["ok"] != report["requests"] or \
+                report["server"]["cold_compiles"] != 0:
+            fail(f"loadgen report: {report['ok']}/{report['requests']} ok, "
+                 f"{report['server']['cold_compiles']} cold compiles")
+        per_member = {url: rows1[url]["proxied_total"]
+                      - rows0[url]["proxied_total"]
+                      for url in (b_base, c_base)}
+        out["load"] = dict(
+            qps=cfg["qps"], requests=report["requests"],
+            requests_per_s=report["requests_per_s"],
+            latency_ms=report["latency_ms"],
+            tiers={t: {k: row[k] for k in ("requests", "p50_ms", "p95_ms",
+                                             "p99_ms")}
+                   for t, row in report["tiers"].items()},
+            server=report["server"], per_member=per_member,
+            affinity_hits=aff1["hits"] - aff0["hits"],
+            affinity_cold=aff1["cold"] - aff0["cold"])
+        print(f"  load: {report['requests']} requests offered at "
+              f"{cfg['qps']} /s for {cfg['duration']} s, "
+              f"{report['requests_per_s']!r} /s answered, all 200, 0 cold "
+              f"compiles; per member B {per_member[b_base]}, C "
+              f"{per_member[c_base]}; affinity hits "
+              f"{out['load']['affinity_hits']} (cold "
+              f"{out['load']['affinity_cold']}) ({card})")
+        for tier, row in sorted(out["load"]["tiers"].items()):
+            print(f"    {tier}: {row['requests']} requests, p50 "
+                  f"{row['p50_ms']!r} p95 {row['p95_ms']!r} p99 "
+                  f"{row['p99_ms']!r} ms")
+        out["rows_b8"] = fleet_rows_b8(router, cfg, card)
+
+        # -- 5. B's recording replays through the router --
+        recorded = lg_trace.load_scenario_trace(record)
+        replay2 = os.path.join(tmp, "replay_recorded.json")
+        rep = subprocess.run(
+            [sys.executable, "-m", "wavetpu_torch", "loadgen", "replay",
+             record, "--target", router, "--mode", "closed",
+             "--concurrency", "4", "--retries", "2", "--error-budget", "0",
+             "--timeout", "600", "--out", replay2],
+            capture_output=True, text=True, timeout=900)
+        if rep.returncode != 0 or not recorded:
+            fail(f"replay of B's recording ({len(recorded)} records): rc "
+                 f"{rep.returncode} {rep.stdout[-3000:]} {rep.stderr[-2000:]}")
+        with open(replay2) as f:
+            report2 = json.load(f)
+        if report2["ok"] != len(recorded) or \
+                report2["requests"] != len(recorded):
+            fail(f"replay of B's recording: {report2['ok']}/"
+                 f"{report2['requests']} ok of {len(recorded)} records")
+        out["recorded"] = dict(records=len(recorded),
+                               p95_ms=report2["latency_ms"]["p95_ms"])
+        print(f"  B's --record-trace: {len(recorded)} records, replayed "
+              f"through the router all 200 (p95 "
+              f"{report2['latency_ms']['p95_ms']!r} ms) ({card})")
+
+        # -- 6. the fleet's counters monotonic since before the roll --
+        prom2 = counter_samples(serve_get(router, "/metrics", "text/plain"))
+        back = {k: (v, prom2[k]) for k, v in prom0.items()
+                if k in prom2 and prom2[k] < v}
+        if back:
+            fail(f"router counters went backwards: {back}")
+
+        # Shut down: C drains through its admin endpoint (roll spawned it
+        # in roll's session), B and the router by SIGTERM.
+        admin_post(c_base, "/admin/drain")
+        wait_until("C's shutdown", lambda: "shut down cleanly" in open(
+            roll_log).read(), timeout=180, every=0.1)
+        c_stats = kernel_stats(open(roll_log).read())
+        b_proc, b_log = procs.pop("B")
+        b_stats = kernel_stats(stop_process(b_proc, b_log))
+        a_stats = kernel_stats(a_text)
+        if count and (c_stats["nvcc_runs"] or b_stats["nvcc_runs"]
+                      or a_stats["nvcc_runs"]):
+            fail(f"nvcc runs: A {a_stats['nvcc_runs']}, B "
+                 f"{b_stats['nvcc_runs']}, C {c_stats['nvcc_runs']}")
+        out["nvcc_runs"] = dict(A=a_stats["nvcc_runs"],
+                                B=b_stats["nvcc_runs"],
+                                C=c_stats["nvcc_runs"])
+        print(f"  nvcc runs: A {a_stats['nvcc_runs']}, B "
+              f"{b_stats['nvcc_runs']}, C {c_stats['nvcc_runs']} (every "
+              f"library from a program cache) ({card})")
+        return out
+    finally:
+        for proc, log in procs.values():
+            stop_process(proc, log)
+        if roll is not None:
+            import signal
+
+            if roll.poll() is None:
+                roll.kill()
+                roll.wait(30)
+            try:  # C and anything else roll's session still holds
+                os.killpg(roll.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def pipe_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
     main-path instantiations, from the verbose build log: the standard
@@ -4095,10 +4706,15 @@ def main() -> int:
     print(f"phase 11: serving's warm state and long solves ({card})")
     warm_counts, measured["warm_state"] = phase_warm_state(
         card, sides, lane_errors)
-    del lane_errors
     counts.update(warm_counts)
-    done("warm_state", t)
+    t = done("warm_state", t)
     print(f"  phase 11 wall: {phase_s['warm_state']!r} s ({card})")
+
+    print(f"phase 12: the fleet ({card})")
+    measured["fleet"] = phase_fleet(card, sides, lane_errors)
+    del lane_errors
+    done("fleet", t)
+    print(f"  phase 12 wall: {phase_s['fleet']!r} s ({card})")
     rows = []
     for name, meta in KERNELS.items():
         row = {

@@ -230,16 +230,52 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
 @pytest.mark.parametrize("argv,needle", [
     (["8", "1", "1", "1", "1", "--distributed"],
      "queue 1 item 10, step 5"),
-    (["router"], "queue 1 item 12c"),
-    (["loadgen"], "queue 1 item 12c"),
-    (["fleet"], "queue 1 item 12c"),
-    (["serve", "--record-trace", "t.jsonl"], "queue 1 item 12c"),
-], ids=["distributed", "router", "loadgen", "fleet",
-        "serve-record-trace"])
+], ids=["distributed"])
 def test_unported_flags_name_their_roadmap_item(argv, needle, capsys):
     assert cli.main(argv + ["--platform", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP.md" in err and needle in err
+
+
+# The fleet tier's commands: each usage error exits 2 with wavetpu's own
+# error line (the usage text names each package's command).
+FLEET_USAGE_ERRORS = {
+    "router": ["router"],
+    "router-bad-flag": ["router", "--member", "http://a:1", "--bogus",
+                        "1"],
+    "router-bad-number": ["router", "--member", "http://a:1", "--port",
+                          "x"],
+    "fleet": ["fleet"],
+    "fleet-unknown": ["fleet", "drain"],
+    "fleet-roll": ["fleet", "roll"],
+    "fleet-roll-no-source": ["fleet", "roll", "--router", "http://r:1",
+                             "--old", "http://a:1", "--new",
+                             "http://b:1"],
+    "fleet-roll-no-successor": ["fleet", "roll", "--router", "http://r:1",
+                                "--old", "http://a:1", "--new",
+                                "http://b:1", "--manifest", "m.json"],
+    "loadgen": ["loadgen"],
+    "loadgen-unknown": ["loadgen", "soak"],
+    "loadgen-generate": ["loadgen", "generate"],
+    "loadgen-generate-bad-mix": ["loadgen", "generate", "--out", "t.jsonl",
+                                 "--mix", "bogus"],
+    "loadgen-replay": ["loadgen", "replay"],
+    "loadgen-gate": ["loadgen", "gate"],
+}
+
+
+@pytest.mark.parametrize("argv", list(FLEET_USAGE_ERRORS.values()),
+                         ids=list(FLEET_USAGE_ERRORS))
+def test_fleet_commands_usage_errors_exit_2_as_wavetpus(argv, capsys,
+                                                        tmp_path,
+                                                        monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(argv) == 2
+    ours = capsys.readouterr().err.splitlines()
+    assert jcli.main(argv) == 2
+    theirs = capsys.readouterr().err.splitlines()
+    assert ours[0].startswith("error: ") and ours[0] == theirs[0]
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("argv", [

@@ -1681,3 +1681,61 @@ def test_adopt_into_an_empty_build_dir_runs_no_nvcc(cuda, tmp_path):
     assert adopted["disk_hits"] == 1 and adopted["misses"] == 0
     assert adopted["nvcc_runs"] == 0 and adopted["disk_loads"] >= 1
     assert adopted["abs"] == built["abs"]
+
+
+# ---- the fleet tier on the card ----
+
+
+def test_fleet_router_fronts_two_replicas_on_card(cuda):
+    """The port's router in front of two replicas on the card: the
+    flagship tier warmed on replica A lands there through the router (an
+    affinity hit), its counters show the flagship's lane modes (K2 lanes
+    x1 - the reference phase's bootstrap - and K4 lanes x(blocks +
+    tail)), and the answer is bit for bit its `solve_ensemble` lane."""
+    import random
+    import threading
+
+    from wavetpu_torch.client import WavetpuClient
+    from wavetpu_torch.ensemble import batched as eb
+    from wavetpu_torch.fleet.router import build_router
+    from wavetpu_torch.serve.api import build_server
+
+    servers = [build_server(port=0, max_wait=0.02, device=cuda)
+               for _ in range(2)]
+    for httpd, _ in servers:
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    ua, ub = (f"http://127.0.0.1:{h.server_address[1]}" for h, _ in servers)
+    rhttpd, rstate = build_router([ua, ub], poll_interval_s=60.0,
+                                  rng=random.Random(0), start_poller=False)
+    threading.Thread(target=rhttpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{rhttpd.server_address[1]}"
+    body = {"N": 64, "timesteps": 40, "scheme": "compensated",
+            "fuse_steps": 4}
+    try:
+        warm = WavetpuClient(ua, retries=0, timeout=300).solve(
+            dict(body, phase=0.3))
+        assert warm.ok, (warm.status, warm.error)
+        rstate.table.poll_once()
+        stencil_cuda.reset_launches()
+        out = WavetpuClient(base, retries=0, timeout=300).solve(body)
+        torch.cuda.synchronize()
+        launches = {c: n for c, n in stencil_cuda.launches.items() if n}
+    finally:
+        rhttpd.shutdown()
+        rhttpd.server_close()
+        for httpd, state in servers:
+            httpd.shutdown()
+            state.batcher.close()
+            httpd.server_close()
+    assert out.ok, (out.status, out.error)
+    assert out.headers.get("X-Wavetpu-Member") == ua
+    assert rstate.snapshot()["affinity"]["hits"] == 1
+    assert launches == {"comp_step_lanes": 1,
+                        "kstep_comp_lanes": (40 - 1) // 4 + (40 - 1) % 4}
+    ref = eb.solve_ensemble(Problem(N=64, timesteps=40),
+                            [eb.LaneSpec()], scheme="compensated",
+                            path="kfused", k=4).results[0]
+    assert np.array_equal(out.payload["report"]["abs_errors"],
+                          ref.abs_errors)
+    assert np.array_equal(out.payload["report"]["rel_errors"],
+                          ref.rel_errors)

@@ -72,3 +72,50 @@ def test_port_imports_neither_jax_nor_wavetpu():
     assert len(names) >= 31
     for name in MEASUREMENT_MODULES + SERVING_12B_MODULES:
         assert name in names
+
+
+# The fleet tier runs on hosts with no accelerator stack: its modules (and
+# the CLI's dispatch to them) load neither torch nor jax nor wavetpu.
+HOST_ONLY_SCRIPT = r"""
+import contextlib, importlib, io, pkgutil, sys
+
+import wavetpu_torch.fleet, wavetpu_torch.loadgen
+names = []
+for pkg in (wavetpu_torch.fleet, wavetpu_torch.loadgen):
+    names.append(pkg.__name__)
+    names += [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from wavetpu_torch import cli
+with contextlib.redirect_stderr(io.StringIO()):
+    codes = [cli.main(argv) for argv in (["router"], ["fleet", "roll"],
+                                         ["loadgen", "replay"])]
+assert codes == [2, 2, 2], codes
+leaked = sorted(n for n in sys.modules
+                if n.split(".")[0] in ("torch", "jax", "jaxlib", "wavetpu"))
+assert not leaked, leaked
+print(" ".join(names))
+"""
+
+HOST_ONLY_MODULES = (
+    "wavetpu_torch.fleet.router", "wavetpu_torch.fleet.roll",
+    "wavetpu_torch.fleet.membership", "wavetpu_torch.fleet.affinity",
+    "wavetpu_torch.fleet.edgecache", "wavetpu_torch.fleet.quota",
+    "wavetpu_torch.fleet.store", "wavetpu_torch.fleet.ha",
+    "wavetpu_torch.loadgen.trace", "wavetpu_torch.loadgen.report",
+    "wavetpu_torch.loadgen.runner", "wavetpu_torch.loadgen.cli",
+)
+
+
+def test_fleet_and_loadgen_import_neither_torch_nor_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run(
+        [sys.executable, "-c", HOST_ONLY_SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    names = proc.stdout.split()
+    for name in HOST_ONLY_MODULES:
+        assert name in names

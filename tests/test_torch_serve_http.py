@@ -740,19 +740,22 @@ class TestNotPortedYet:
     ])
     def test_serve_flags_exit_2_naming_their_item(self, flag, item,
                                                    capsys):
-        """Each item-12b flag parses and is no longer refused; beside
-        `--record-trace` the replica still exits 2 naming item 12c."""
+        """Each item-12b flag parses beside `--record-trace` (item 12c,
+        ported now) and none is refused as not ported: the replica exits
+        2 only for the usage error planted beside them (a bad
+        --kernel), naming that flag and no ROADMAP.md item."""
         from wavetpu_torch.serve import api as api_mod
 
+        assert not hasattr(api_mod, "_NOT_PORTED")
         if flag:
             assert api_mod._split_flags(flag)
-            assert flag[0][2:] not in api_mod._NOT_PORTED
         assert api_mod.main(flag + ["--record-trace", "t.jsonl",
                                     "--platform", "cpu", "--port",
-                                    "0"]) == 2
+                                    "0", "--kernel", "bogus"]) == 2
         err = capsys.readouterr().err
-        assert "not ported yet" in err and f"queue 1 item {item}" in err
-        assert "--record-trace" in err
+        assert "--kernel must be auto|roll|pallas" in err
+        assert "not ported yet" not in err
+        assert f"item {item}" not in err
 
 
 class TestCLI:

@@ -131,11 +131,17 @@ Subcommands: `serve [...]` (serve/api.py: the serving replica, answering
 manifest), `trace-report [TRACE.jsonl ...] [--dir DIR ...] [--request
 ID]` (obs/report.py), `ledger-report TELEMETRY_DIR [--json]
 [--emit-warmup-manifest OUT.json]` (obs/ledger.py),
-`plan-report TELEMETRY_DIR [--json]` (obs/accuracy.py) and `profile --out
-DIR ARGS...` (obs/perf.py: one full command line under torch.profiler).
+`plan-report TELEMETRY_DIR [--json]` (obs/accuracy.py), `profile --out
+DIR ARGS...` (obs/perf.py: one full command line under torch.profiler),
+and the fleet tier, which imports neither torch nor jax: `router --member
+URL [...]` (fleet/router.py: the ProgramKey-affinity front of N
+replicas), `fleet roll --router URL --old URL --new URL (--ledger DIR |
+--manifest FILE) -- SUCCESSOR ARGV...` (fleet/roll.py: a rolling deploy)
+and `loadgen generate|replay|gate [...]` (loadgen/cli.py: trace replay
+and its SLO gate).
 
-wavetpu's other flags and subcommands are not ported yet: each exits 2
-and names the ROADMAP.md item that brings it.  Exit codes: 0 complete,
+wavetpu's `--distributed` is not ported yet: it exits 2 and names the
+ROADMAP.md item that brings it.  Exit codes: 0 complete,
 2 usage or checkpoint-load error, 3 preempted with a resumable checkpoint
 (requeue with --resume), 4 watchdog halt with the last-good checkpoint;
 a supervised run that exits 3 or 4 prints `resumable checkpoint: PATH`.
@@ -149,17 +155,11 @@ from typing import Optional, Sequence
 from wavetpu_torch.core.flags import split_flags
 from wavetpu_torch.core.problem import Problem
 
-# wavetpu flags (and subcommands) the port does not take yet, with the
-# ROADMAP.md item that will bring each.
-_ITEM_12C = "queue 1 item 12c (router, fleet, load generator)"
+# wavetpu flags the port does not take yet, with the ROADMAP.md item that
+# will bring each.
 _NOT_PORTED = {
     "distributed": "queue 1 item 10, step 5 (--distributed: one process "
                    "per card)",
-}
-_NOT_PORTED_SUBCOMMANDS = {
-    "router": _ITEM_12C,
-    "fleet": _ITEM_12C,
-    "loadgen": _ITEM_12C,
 }
 _PORTED = ("scheme", "fuse-steps", "dtype", "v-dtype", "no-errors",
            "out-dir", "platform", "c2-field", "backend", "mesh", "kernel",
@@ -182,7 +182,8 @@ _USAGE = (
     "[--no-watchdog] [--debug-nans] [--program-cache-dir DIR] | "
     "serve [...] | warmup --manifest M.json [...] | "
     "trace-report [...] | ledger-report DIR [...] | plan-report DIR [...] "
-    "| profile --out DIR ARGS... | --version"
+    "| profile --out DIR ARGS... | router --member URL [...] | "
+    "fleet roll [...] | loadgen generate|replay|gate [...] | --version"
 )
 # The subcommands: (module, its entry point).
 _SUBCOMMANDS = {
@@ -192,6 +193,10 @@ _SUBCOMMANDS = {
     "ledger-report": ("wavetpu_torch.obs.ledger", "main"),
     "plan-report": ("wavetpu_torch.obs.accuracy", "main"),
     "profile": ("wavetpu_torch.obs.perf", "profile_main"),
+    # The fleet tier (stdlib only, never torch: routers and load
+    # generators run on hosts with no accelerator stack).
+    "router": ("wavetpu_torch.fleet.router", "main"),
+    "loadgen": ("wavetpu_torch.loadgen.cli", "main"),
 }
 
 
@@ -430,9 +435,15 @@ def _c2_field(spec: str, problem: Problem):
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _NOT_PORTED_SUBCOMMANDS:
-        print(f"error: `{argv[0]}` is not ported yet: ROADMAP.md "
-              f"{_NOT_PORTED_SUBCOMMANDS[argv[0]]}", file=sys.stderr)
+    if argv and argv[0] == "fleet":
+        # Fleet operations; `fleet roll`, the rolling-deploy driver.
+        if len(argv) > 1 and argv[1] == "roll":
+            from wavetpu_torch.fleet import roll as fleet_roll
+
+            return fleet_roll.main(argv[2:])
+        print("error: fleet wants a subcommand: roll", file=sys.stderr)
+        print("usage: python -m wavetpu_torch fleet roll ...",
+              file=sys.stderr)
         return 2
     if argv and argv[0] in _SUBCOMMANDS:
         import importlib

@@ -1,27 +1,40 @@
 """ProgramKey: the compiled-program identity of the serve engine's program
 cache, the compile ledger and its manifests (the port's own copy of
 wavetpu/progkey.py: the same fields and canonical JSON, so ledgers written
-by either package read alike), the `--kernel` resolver, and the identity a
-/solve body determines (`identity_from_body`, `result_key`).
+by either package read alike), the `--kernel` resolver, the identity a
+/solve body determines (`identity_from_body`, `result_key`), and the
+fleet router's affinity keys.
 
 Imports only `core.problem` (itself import-free) - never torch: the
-ledger tools run on hosts with no accelerator stack.  The router's
-affinity keys come with the router (ROADMAP.md queue 1 item 12c).
+router and the ledger tools run on hosts with no accelerator stack.
+
+Affinity keys: the router's warm-key table is keyed by the program
+identity MINUS the `batch` bucket (the replica picks the bucket at
+batch-assembly time; any bucket of a tier shares its built kernels and
+the same breaker, see `ServeEngine.breaker_key`) and MINUS
+`compute_errors` (a server-side config flag a request body cannot see).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 from wavetpu_torch.core.problem import Problem, parse_length
 
-# The ProgramKey field order - also the JSON-dict shape of the ledger and
-# the warmup manifests.
+# The ProgramKey field order - also the JSON-dict shape the ledger,
+# warmup manifests, and the /metrics warm_keys block use.
 KEY_FIELDS = (
     "N", "Lx", "Ly", "Lz", "T", "timesteps", "scheme", "path", "k",
     "dtype", "with_field", "compute_errors", "batch", "mesh",
+)
+
+# The routing identity: everything a request body determines.  `batch`
+# is the replica's bucketing decision and `compute_errors` its config;
+# neither is visible to (or stable for) the router.
+AFFINITY_FIELDS = tuple(
+    f for f in KEY_FIELDS if f not in ("batch", "compute_errors")
 )
 
 
@@ -96,6 +109,25 @@ def program_key_from_dict(d: dict) -> ProgramKey:
     return ProgramKey(**d)
 
 
+def affinity_key_from_dict(key: dict) -> str:
+    """The router's warm-key-table key for a ProgramKey JSON dict: the
+    AFFINITY_FIELDS projection as canonical JSON.  Every batch bucket of
+    a tier maps to the same affinity key, so a replica that advertises
+    {.., batch: 4} warmth attracts the tier's traffic at any occupancy."""
+    out = {}
+    for f in AFFINITY_FIELDS:
+        v = key.get(f)
+        if f == "mesh" and v is not None:
+            v = [int(x) for x in v]
+        out[f] = v
+    return json.dumps(out, sort_keys=True)
+
+
+def affinity_key(pk) -> str:
+    """Affinity key of a ProgramKey (or any `_asdict` NamedTuple)."""
+    return affinity_key_from_dict(dict(pk._asdict()))
+
+
 def resolve_kernel(flag_value: str, platform: str) -> str:
     """Map --kernel {auto,roll,pallas} to the concrete kernel for
     `platform` ("gpu" or "cpu", the CLI's --platform).  pallas = the CUDA
@@ -129,6 +161,16 @@ class RequestIdentity(NamedTuple):
             self.problem, self.scheme, self.path, self.k, self.dtype,
             self.with_field, compute_errors, batch, mesh=self.mesh,
         )
+
+    def affinity_key(self) -> str:
+        p = self.problem
+        return affinity_key_from_dict({
+            "N": p.N, "Lx": p.Lx, "Ly": p.Ly, "Lz": p.Lz, "T": p.T,
+            "timesteps": p.timesteps, "scheme": self.scheme,
+            "path": self.path, "k": self.k, "dtype": self.dtype,
+            "with_field": self.with_field,
+            "mesh": None if self.mesh is None else list(self.mesh),
+        })
 
 
 # `platform` for identity_from_body: "gpu" or "cpu" (the replica's
@@ -251,8 +293,9 @@ def result_key(body: dict, default_kernel: str = "auto",
     """The content-addressed RESULT identity of a /solve body: a sha256
     hex digest over the canonical `RequestIdentity` projection plus the
     answer-shaping RESULT_FIELDS.  Derived through the SAME
-    `identity_from_body` normalization the engine caches programs under,
-    so two replicas hash a body identically.  Raises ValueError on a
+    `identity_from_body` normalization the engine caches programs under
+    and the router routes by, so the replica result cache and the
+    router edge cache hash a body identically.  Raises ValueError on a
     body that yields no identity (the caller treats that as
     ineligible)."""
     ident = identity_from_body(body, default_kernel, platform=platform)
@@ -269,3 +312,27 @@ def result_key(body: dict, default_kernel: str = "auto",
     return hashlib.sha256(
         json.dumps(payload, sort_keys=True).encode()
     ).hexdigest()
+
+
+def warm_keys_to_affinity(warm_keys: dict) -> List[str]:
+    """Flatten a /metrics `program_cache.warm_keys` block ({"memory":
+    [keydict..], "disk": [keydict..]}) into affinity keys, ignoring
+    malformed entries (a half-written cache dir must not poison the
+    router's table)."""
+    out: List[str] = []
+    seen = set()
+    for tier in ("memory", "disk"):
+        for kd in warm_keys.get(tier, ()) or ():
+            if not isinstance(kd, dict):
+                continue
+            if any(kd.get(f) is None
+                   for f in ("N", "timesteps", "path", "dtype")):
+                continue  # not a ProgramKey dict; don't poison the table
+            try:
+                ak = affinity_key_from_dict(kd)
+            except (ValueError, TypeError):
+                continue
+            if ak not in seen:
+                seen.add(ak)
+                out.append(ak)
+    return out

@@ -58,6 +58,14 @@ Endpoints (contract in docs/serving.md):
                  form with request-id EXEMPLARS on latency histogram
                  buckets, all from the same registry cut
                  (docs/observability.md).
+  GET /admin/launches   {"launches": {counter: n}}: the kernel wrappers'
+                 launch counters of this process (kernels/stencil_cuda.py
+                 `launches`: every kernel the worker launched since the
+                 start or the last reset); POST /admin/launches sets them to 0
+                 and answers the counts it cleared.  The port's own
+                 endpoint (wavetpu's replica has no kernel counters):
+                 how a test or chip_smoke.py holds a replica PROCESS to
+                 exact launch counts.  The shutdown lines print them too.
 
 Request fields: N (required), Np, Lx, Ly, Lz (floats or "pi"), T,
 timesteps, phase (initial time phase, default 2*pi), steps (stop layer,
@@ -103,9 +111,9 @@ Warm state and long solves:
  * `--shadow-sample-rate P [--shadow-deadline-s S]`: a sampled fraction
    of answers is re-solved off the hot path with the reference plan and
    the divergence ledgered (serve/shadow.py).
-
-Not ported yet, exiting 2 with the ROADMAP.md item that brings it:
---record-trace (queue 1 item 12c, with the load generator's traces).
+ * `--record-trace FILE`: every accepted /solve body is appended to FILE
+   with its arrival offset, a replayable loadgen trace (loadgen/trace.py,
+   wavetpu's format).
 """
 
 from __future__ import annotations
@@ -120,7 +128,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence, Tuple
 
 from wavetpu_torch import progkey
-from wavetpu_torch.cli import _ITEM_12C
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.obs import tracing
 
@@ -141,13 +148,9 @@ _USAGE = (
     "[--result-cache] [--result-cache-max-bytes B] "
     "[--result-cache-ttl-s S] "
     "[--shadow-sample-rate P] [--shadow-deadline-s S] "
-    "[--platform gpu|cpu] "
+    "[--record-trace FILE.jsonl] [--platform gpu|cpu] "
     "[--telemetry-dir DIR] [--version]"
 )
-
-# wavetpu's serve flags the port does not take yet, with the ROADMAP.md
-# item that brings each.
-_NOT_PORTED = {"record-trace": _ITEM_12C}
 
 _KNOWN = (
     "host", "port", "max-batch", "max-wait-ms", "bucket-sizes",
@@ -358,7 +361,9 @@ class ServerState:
     `max_body_bytes` / `max_lane_cells` are the pre-scheduling request
     size limits (413 / 422); `server_timing=False` suppresses the
     Server-Timing response header (ops escape hatch); `result_cache` and
-    `shadow` are the result tier and the shadow sampler (None = off)."""
+    `shadow` are the result tier and the shadow sampler (None = off);
+    `recorder` (a loadgen.trace.TraceRecorder, None = off) captures
+    accepted /solve bodies."""
 
     def __init__(self, engine, batcher, metrics, default_kernel: str,
                  request_timeout: float = 600.0,
@@ -369,7 +374,7 @@ class ServerState:
                  tenant_inflight_cap: Optional[int] = None,
                  result_cache=None,
                  result_cache_fp_tag: Optional[str] = None,
-                 shadow=None):
+                 shadow=None, recorder=None):
         self.engine = engine
         self.batcher = batcher
         self.metrics = metrics
@@ -405,6 +410,7 @@ class ServerState:
         # fraction of eligible answers is re-solved off the hot path with
         # the reference plan and the divergence ledgered.
         self.shadow = shadow
+        self.recorder = recorder
         self.started = time.time()
         self.draining = False
         # Readiness: `warming` is True while the background --warmup
@@ -546,6 +552,10 @@ class _Handler(BaseHTTPRequestHandler):
             if self.state.warmup_error is not None:
                 payload["warmup_error"] = self.state.warmup_error
             self._send(200, payload)
+        elif self.path == "/admin/launches":
+            from wavetpu_torch.kernels import stencil_cuda
+
+            self._send(200, {"launches": dict(stencil_cuda.launches)})
         elif self.path == "/metrics":
             accept = self.headers.get("Accept", "") or ""
             # A client that lists application/json at all (e.g. the
@@ -584,6 +594,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(404, {"status": "error", "error": "not found"})
 
     def do_POST(self) -> None:  # noqa: N802
+        if self.path == "/admin/launches":
+            from wavetpu_torch.kernels import stencil_cuda
+
+            cleared = dict(stencil_cuda.launches)
+            stencil_cuda.reset_launches()
+            self._send(200, {"launches": cleared})
+            return
         if self.path == "/admin/drain":
             # HTTP-equivalent of SIGTERM, for a rolling fleet deploy: flip
             # draining (healthz ready -> false, new /solve -> 503 +
@@ -796,6 +813,10 @@ class _Handler(BaseHTTPRequestHandler):
                     f"--max-lane-cells {st.max_lane_cells}"
                 ),
             }, {}
+        if st.recorder is not None:
+            # Accepted traffic only (post-validation, post-limits): the
+            # recorded trace replays cleanly instead of re-issuing junk.
+            st.recorder.record(body, request_id=rid)
         if not st.try_acquire_tenant_slot(req.tenant):
             # Defensive per-tenant in-flight cap (--tenant-inflight-cap):
             # the router's token buckets are the authoritative quota;
@@ -1073,6 +1094,7 @@ def build_server(
     result_cache_ttl_s: Optional[float] = None,
     shadow_sample_rate: float = 0.0,
     shadow_deadline_s: float = 120.0,
+    record_trace: Optional[str] = None,
 ) -> Tuple[ThreadingHTTPServer, ServerState]:
     """Assemble engine + batcher + HTTP server on `device` (default: the
     CUDA device, raising without one; "cpu" runs the kernels' plain
@@ -1105,7 +1127,9 @@ def build_server(
     drift.  `shadow_sample_rate` (default 0 = off) re-solves that
     fraction of eligible answers off the hot path with the reference
     plan and ledgers the divergence (serve/shadow.py);
-    `shadow_deadline_s` caps each twin's scheduler budget."""
+    `shadow_deadline_s` caps each twin's scheduler budget.
+    `record_trace` captures accepted /solve traffic into a replayable
+    loadgen scenario trace (loadgen/trace.py)."""
     from wavetpu_torch.obs.registry import MetricsRegistry
     from wavetpu_torch.run import faults
     from wavetpu_torch.serve.engine import ServeEngine
@@ -1142,6 +1166,11 @@ def build_server(
         fault_plan=fault_plan, chunk_threshold=chunk_threshold,
         chunk_steps=chunk_steps, state_store=state_store, brownout=bo,
     )
+    recorder = None
+    if record_trace is not None:
+        from wavetpu_torch.loadgen.trace import TraceRecorder
+
+        recorder = TraceRecorder(record_trace)
     rcache = None
     rcache_fp_tag = None
     if result_cache:
@@ -1180,7 +1209,7 @@ def build_server(
         server_timing=server_timing, fault_plan=fault_plan,
         proxy_token=proxy_token, tenant_inflight_cap=tenant_inflight_cap,
         result_cache=rcache, result_cache_fp_tag=rcache_fp_tag,
-        shadow=shadow,
+        shadow=shadow, recorder=recorder,
     )
     return httpd, httpd.wavetpu_state
 
@@ -1229,11 +1258,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         print(f"wavetpu-torch-serve {__version__}")
         return 0
-    for name, item in _NOT_PORTED.items():
-        if name in flags:
-            print(f"error: --{name} is not ported yet: ROADMAP.md {item}",
-                  file=sys.stderr)
-            return 2
     try:
         host = flags.get("host", "127.0.0.1")
         port = int(flags.get("port", "8077"))
@@ -1365,11 +1389,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         result_cache_ttl_s=result_cache_ttl_s,
         shadow_sample_rate=shadow_sample_rate,
         shadow_deadline_s=shadow_deadline_s,
+        record_trace=flags.get("record-trace"),
     )
     if state.engine.progcache is not None:
         pc = state.engine.progcache
         print(f"program cache: {pc.directory} [built kernel libraries, "
               f"fingerprint {pc._fp_hash}]")
+    if state.recorder is not None:
+        print(f"recording accepted /solve traffic: {flags['record-trace']}")
     if state.shadow is not None:
         print(f"shadow sampling: rate={state.shadow.rate} "
               f"deadline_s={state.shadow.deadline_s}")
@@ -1427,6 +1454,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         state.batcher.close(timeout=120.0 if serving else 5.0,
                             drain=serving)
         httpd.server_close()
+        if state.recorder is not None:
+            state.recorder.close()
         if telemetry is not None:
             telemetry.stop()
     from wavetpu_torch.kernels import build, stencil_cuda
@@ -1436,6 +1465,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"{build.stats['disk_loads']} disk load(s), "
           f"{build.stats['loads']} load(s); first launches "
           f"{stencil_cuda.first_launch_seconds:.3f} s")
+    print("kernel launches: " + json.dumps(
+        {c: n for c, n in stencil_cuda.launches.items() if n},
+        sort_keys=True))
     print("wavetpu_torch serve: shut down cleanly (drained)")
     return 0
 
