@@ -320,6 +320,22 @@ without them or when any phase fails.  Phases:
                keep-alive WavetpuClient, both p95s;
                d. B's `--record-trace` file parses as a loadgen trace and
                replays through the router, all 200.
+13. distributed - `--distributed`: the port's CLI as separate rank
+               processes (explicit env:// variables, each with its own
+               --out-dir, libraries loaded from phase 1's build
+               directory: 0 nvcc runs) at N=512/1000: mesh 2,1,1 on 2
+               ranks (K6 x1000 per rank), the flagship on 2,1,1 (K11
+               x253 per rank), mesh 2,2,1 on 4 ranks with --fuse-steps 4
+               (K10 x253) and the flagship (K12 x253); each run's errors
+               bit-equal to the same mesh solved in one process with
+               every shard on the card; `--stop-step 500 --save-state`
+               (meta.npz once, each rank's shard container) then
+               `--resume` on 2 ranks, bit-equal from layer 501; an NCCL
+               run (mesh 2,1,1 on two cards, or one rank holding both
+               shards where the machine shows one card).  Rank 1 writes
+               nothing and prints neither the Courant nor the report
+               line.  Each run's backend, ranks, wall, solve seconds and
+               rank 0's share of the solve in the cross-rank exchange.
 
 Each phase prints its wall time.
 
@@ -4536,6 +4552,225 @@ def phase_fleet(card, sides, lane_errors, cfg=None):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 13: --distributed ----
+
+# One rank of a --distributed run: the port's CLI (its `main`), then the
+# rank's kernel launch counters, nvcc runs and cross-rank exchange costs
+# into the file CHIP_SMOKE_RANK_STATS names.
+RANK_MAIN = (
+    "import json, os, sys\n"
+    "from wavetpu_torch import cli\n"
+    "from wavetpu_torch.comm import halo\n"
+    "from wavetpu_torch.kernels import build, stencil_cuda\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "with open(os.environ['CHIP_SMOKE_RANK_STATS'], 'w') as f:\n"
+    "    json.dump(dict(launches=stencil_cuda.launches,\n"
+    "                   nvcc_runs=build.stats['nvcc_runs'],\n"
+    "                   disk_loads=build.stats['disk_loads'],\n"
+    "                   cross_rank=halo.cross_rank), f)\n"
+    "sys.exit(rc)\n")
+DIST_N = 512
+
+
+def dist_run(tmp, label, world, argv, want=None):
+    """`world` ranks of the port's CLI with `--distributed`, each a process
+    of its own with explicit env:// variables and its own --out-dir, on
+    the card; every rank must exit 0, load its libraries from phase 1's
+    build directory (0 nvcc runs) and, with `want` (the counters of ONE
+    rank), launch exactly those kernels.  Rank 0 alone writes and speaks.
+    Returns dict(wall, outs, dirs, stats, side)."""
+    port = free_port()
+    procs, dirs, paths = [], [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        dirs.append(os.path.join(tmp, label, str(r)))
+        os.makedirs(dirs[-1])
+        paths.append(os.path.join(tmp, f"{label}.rank{r}.json"))
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                   RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world),
+                   WAVETPU_TORCH_BUILD_DIR=str(build.build_dir()),
+                   CHIP_SMOKE_RANK_STATS=paths[-1])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_MAIN] + argv
+            + ["--distributed", "--out-dir", dirs[-1]] + CLI_EXTRA,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{label}: rank {r} exited {p.returncode}: {out[-3000:]}")
+    stats = []
+    for path in paths:
+        with open(path) as f:
+            stats.append(json.load(f))
+    for r, st in enumerate(stats):
+        if st["nvcc_runs"]:
+            fail(f"{label}: rank {r} ran nvcc {st['nvcc_runs']} time(s)")
+        if want is not None:
+            got = {k: v for k, v in st["launches"].items() if v}
+            if got != want:
+                fail(f"{label}: rank {r} launched {got}, want {want}")
+    if not ("C = " in outs[0] and "report:" in outs[0]):
+        fail(f"{label}: rank 0 printed no Courant or report line")
+    for r in range(1, world):
+        if os.listdir(dirs[r]):
+            fail(f"{label}: rank {r} wrote {os.listdir(dirs[r])}")
+        if "C = " in outs[r] or "report:" in outs[r]:
+            fail(f"{label}: rank {r} spoke: {outs[r][-1000:]}")
+    n = int(argv[0]) if argv[0] != "--resume" else DIST_N
+    n_procs = 1
+    for m in re.search(r"mesh: (\d+),(\d+),(\d+)", outs[0]).groups():
+        n_procs *= int(m)
+    with open(os.path.join(dirs[0],
+                           f"output_N{n}_Np{n_procs}_CUDA.json")) as f:
+        side = json.load(f)
+    if side["run_config"]["distributed"] is not True:
+        fail(f"{label}: the sidecar says distributed "
+             f"{side['run_config']['distributed']}")
+    backend = re.search(r"distributed: (.*)", outs[0]).group(1)
+    cross = stats[0]["cross_rank"]
+    share = cross["seconds"] / side["solve_seconds"]
+    print(f"  {label}: {backend}; wall {wall!r} s, solve "
+          f"{side['solve_seconds']!r} s, max abs error "
+          f"{side['max_abs_error']!r}; rank 0's cross-rank exchange "
+          f"{cross['exchanges']} x, {cross['bytes']} B, "
+          f"{cross['seconds']!r} s = {share!r} of the solve", flush=True)
+    return dict(wall=wall, outs=outs, dirs=dirs, stats=stats, side=side,
+                backend=backend, exchange_share=share,
+                cross_rank=cross)
+
+
+def same_error_bits(label, got, want):
+    """The sidecar's error vector against a host vector, bit for bit."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.array_equal(
+            got.view(np.int64), want.view(np.int64)):
+        bad = np.flatnonzero(got != want)[:5] if got.shape == want.shape \
+            else "shape"
+        fail(f"{label}: errors differ from the in-process solve at {bad}")
+
+
+def phase_distributed(card, sides, device="cuda"):
+    """--distributed on the card: the port's CLI as 2 and 4 rank processes
+    (gloo with the crossing planes staged through pinned host memory when
+    they share the one card; NCCL where each has a card), each run held
+    bit-equal to the same mesh solved in one process with every shard on
+    the card; rank 1 silent; a stop + resume across processes; an NCCL
+    run.  Returns the runs' numbers.  `device="cpu"` (with CLI_EXTRA
+    `--platform cpu`) rehearses it on the CPU, the last run over gloo."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    out = {}
+    n, base = DIST_N, [str(DIST_N), "1", "1", "1", "1", "1", str(STEPS)]
+    p = Problem(N=n, timesteps=STEPS)
+    nb = (STEPS - 1) // K + (STEPS - 1) % K + 1
+    cuda2, cuda4 = [device] * 2, [device] * 4
+    run = dist_run
+    if device == "cpu":
+        # The plain versions run on the CPU: no launch to count.
+        def run(tmp, label, world, argv, want=None):
+            return dist_run(tmp, label, world, argv)
+    try:
+        # 1. K6 on mesh 2,1,1.
+        r1 = run(tmp, "dist_211", 2, base + ["--mesh", "2,1,1"],
+                 {"sharded_step": STEPS})
+        ref = sharded.solve_sharded(p, (2, 1, 1), devices=cuda2)
+        same_error_bits("dist_211", r1["side"]["abs_errors"],
+                        ref.abs_errors)
+        if r1["side"]["max_abs_error"] != sides["default"]["max_abs_error"]:
+            fail("dist_211: not the default run's max abs error")
+        del ref
+        # 2. The distributed flagship, K11 on mesh 2,1,1.
+        flag = ["--scheme", "compensated", "--fuse-steps", str(K)]
+        r2 = run(tmp, "dist_flagship_211", 2,
+                 base + flag + ["--mesh", "2,1,1"],
+                 {"kstep_comp_sharded": nb})
+        ref = kfused_comp.solve_kfused_comp_sharded(
+            p, k=K, mesh_shape=(2, 1, 1), devices=cuda2)
+        same_error_bits("dist_flagship_211", r2["side"]["abs_errors"],
+                        ref.abs_errors)
+        err = r2["side"]["max_abs_error"]
+        if device == "cuda" and not err < ERROR_CLASS["flagship"]:
+            fail(f"dist_flagship_211: max abs error {err}")
+        print(f"  dist_flagship_211 max abs error {err!r} against phase "
+              f"3's flagship {sides['flagship']['max_abs_error']!r} "
+              f"(equal: {err == sides['flagship']['max_abs_error']})")
+        del ref
+        # 3. Mesh 2,2,1 on four ranks: K10 and K12.
+        r3 = run(tmp, "dist_kfused_221", 4,
+                 base + ["--fuse-steps", str(K), "--mesh", "2,2,1"],
+                 {"kstep_sharded_xy": nb})
+        ref = sharded_kfused.solve_sharded_kfused(
+            p, k=K, mesh_shape=(2, 2, 1), devices=cuda4)
+        same_error_bits("dist_kfused_221", r3["side"]["abs_errors"],
+                        ref.abs_errors)
+        del ref
+        r4 = run(tmp, "dist_flagship_221", 4,
+                 base + flag + ["--mesh", "2,2,1"],
+                 {"kstep_comp_sharded_xy": nb})
+        ref = kfused_comp.solve_kfused_comp_sharded(
+            p, k=K, mesh_shape=(2, 2, 1), devices=cuda4)
+        same_error_bits("dist_flagship_221", r4["side"]["abs_errors"],
+                        ref.abs_errors)
+        del ref
+        # 4. A checkpoint across processes: stop at 500, resume.
+        ck = os.path.join(tmp, "ck")
+        half = STEPS // 2
+        r5 = run(tmp, "dist_stop", 2,
+                 base + ["--mesh", "2,1,1", "--stop-step", str(half),
+                         "--save-state", ck],
+                 {"sharded_step": half})
+        files = sorted(os.listdir(ck))
+        if files != ["meta.npz", "shard_0_0_0.wts",
+                     f"shard_{n // 2}_0_0.wts"]:
+            fail(f"dist_stop: the checkpoint holds {files}")
+        r6 = run(tmp, "dist_resume", 2, ["--resume", ck],
+                 {"sharded_step": STEPS - half})
+        same_error_bits("dist_resume", r6["side"]["abs_errors"][half + 1:],
+                        r1["side"]["abs_errors"][half + 1:])
+        print(f"  dist_stop + dist_resume: {files}, errors from layer "
+              f"{half + 1} bit-equal to dist_211")
+        # 5. NCCL: one card per rank where there are two, else one rank
+        # holding both shards.
+        if torch.cuda.device_count() >= 2:
+            label, world, want = "dist_211_nccl", 2, {"sharded_step": STEPS}
+        else:
+            label, world, want = ("dist_211_nccl_1rank", 1,
+                                  {"sharded_step": 2 * STEPS})
+        r7 = run(tmp, label, world, base + ["--mesh", "2,1,1"], want)
+        if device == "cuda" and not r7["backend"].startswith("nccl"):
+            fail(f"{label}: backend {r7['backend']}, not nccl")
+        same_error_bits(label, r7["side"]["abs_errors"],
+                        r1["side"]["abs_errors"])
+        print(f"  NCCL ran as {label} ({world} rank(s))")
+        for label, r in (("dist_211", r1), ("dist_flagship_211", r2),
+                         ("dist_kfused_221", r3), ("dist_flagship_221", r4),
+                         ("dist_stop", r5), ("dist_resume", r6),
+                         (label, r7)):
+            out[label] = dict(
+                backend=r["backend"], ranks=len(r["dirs"]), wall=r["wall"],
+                solve_seconds=r["side"]["solve_seconds"],
+                max_abs_error=r["side"]["max_abs_error"],
+                exchange_share=r["exchange_share"],
+                cross_rank=r["cross_rank"],
+                launches_per_rank=[{k: v for k, v in st["launches"].items()
+                                    if v} for st in r["stats"]])
+        print(f"  ({card}) ranks sharing one card measure the transport, "
+              f"not the scaling")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def pipe_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
     main-path instantiations, from the verbose build log: the standard
@@ -4713,8 +4948,13 @@ def main() -> int:
     print(f"phase 12: the fleet ({card})")
     measured["fleet"] = phase_fleet(card, sides, lane_errors)
     del lane_errors
-    done("fleet", t)
+    t = done("fleet", t)
     print(f"  phase 12 wall: {phase_s['fleet']!r} s ({card})")
+
+    print(f"phase 13: --distributed ({card})")
+    measured["distributed"] = phase_distributed(card, sides)
+    done("distributed", t)
+    print(f"  phase 13 wall: {phase_s['distributed']!r} s ({card})")
     rows = []
     for name, meta in KERNELS.items():
         row = {

@@ -227,14 +227,37 @@ def test_without_cuda_exits_2_unless_cpu_asked(tmp_path, capsys):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("argv,needle", [
-    (["8", "1", "1", "1", "1", "--distributed"],
-     "queue 1 item 10, step 5"),
-], ids=["distributed"])
-def test_unported_flags_name_their_roadmap_item(argv, needle, capsys):
-    assert cli.main(argv + ["--platform", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err and needle in err
+# --distributed's usage errors exit 2 before any process group is joined,
+# naming what is wrong: a missing env:// variable, a world size that does
+# not divide the mesh's shards, the single backend across ranks.
+DIST_ENV = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1", "WORLD_SIZE": "2",
+            "RANK": "0", "LOCAL_RANK": "0"}
+
+
+@pytest.mark.parametrize("argv,env,needle", [
+    (["--mesh", "2,1,1"], dict(DIST_ENV, WORLD_SIZE=""), "WORLD_SIZE"),
+    (["--mesh", "2,1,1"], {k: v for k, v in DIST_ENV.items()
+                           if k != "MASTER_ADDR"}, "MASTER_ADDR"),
+    (["--mesh", "3,1,1"], DIST_ENV, "the mesh has 3 shard(s)"),
+    (["--backend", "single"], DIST_ENV, "--backend single runs on one"),
+    (["--fuse-steps", "2"], DIST_ENV, "--backend single runs on one"),
+    (["--mesh", "2,1,1", "--rank-count"], DIST_ENV, "--rank-count"),
+    (["--mesh", "2,1,1", "--overlap", "--fuse-steps", "2"], DIST_ENV,
+     "--overlap applies to the 1-step"),
+], ids=["no-world-size", "no-master-addr", "world-not-dividing-mesh",
+        "single-backend-across-ranks", "kfused-without-mesh",
+        "unknown-flag", "overlap-with-kfusion"])
+def test_distributed_usage_errors_exit_2(argv, env, needle, capsys,
+                                         monkeypatch, tmp_path):
+    for name in DIST_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert cli.main(["12", "1", "1", "1", "1", "1", "3", "--distributed",
+                     "--platform", "cpu", "--out-dir", str(tmp_path)]
+                    + argv) == 2
+    assert needle in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
 
 
 # The fleet tier's commands: each usage error exits 2 with wavetpu's own
@@ -351,16 +374,6 @@ def test_uneven_kfused_f64_layer_lines_byte_identical(tmp_path, extra,
     ours = layer_lines(tmp_path / "ours" / name)
     assert len(ours) == 13
     assert ours == layer_lines(tmp_path / "ref" / "output_N15_Np1_TPU.txt")
-
-
-@pytest.mark.parametrize("argv,needle", [
-    (["--distributed"], "item 10, step 5"),
-], ids=["distributed"])
-def test_sharded_paths_not_ported_name_their_item(argv, needle, capsys):
-    assert cli.main(["16", "1", "1", "1", "1"] + argv
-                    + ["--platform", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err and needle in err
 
 
 # The k-fused marches on a mesh, each on CPU shards: k-fusion on a

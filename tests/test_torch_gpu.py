@@ -939,6 +939,75 @@ def test_mesh_larger_than_the_cards_exits_2(cuda, capsys):
     assert "visible" in capsys.readouterr().err
 
 
+# A rank of a --distributed run: the CLI's own main, then the rank's
+# kernel launch counters into the file WAVETPU_TEST_LAUNCHES names.
+RANK_MAIN = (
+    "import json, os, sys\n"
+    "from wavetpu_torch import cli\n"
+    "from wavetpu_torch.kernels import stencil_cuda\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "with open(os.environ['WAVETPU_TEST_LAUNCHES'], 'w') as f:\n"
+    "    json.dump(stencil_cuda.launches, f)\n"
+    "sys.exit(rc)\n")
+
+
+@pytest.mark.parametrize("extra", [[], ["--overlap", "--phase-timing"]],
+                         ids=["serial", "overlap-probes"])
+def test_distributed_two_ranks_on_the_card(cuda, tmp_path, extra):
+    """--distributed on the card: two ranks (on one card they share it
+    over gloo, host-staged; on two, NCCL) march K6 on mesh 2,1,1, 20
+    launches each (serial); the errors are bit-equal to the in-process
+    solve with both shards on the card, with the overlap mode and the
+    phase-timing probes too; rank 1 writes and says nothing."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs, dirs = [], []
+    for r in range(2):
+        dirs.append(str(tmp_path / f"rank{r}"))
+        os.makedirs(dirs[-1])
+        env = dict(os.environ, PYTHONPATH=root, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
+                   LOCAL_RANK=str(r),
+                   WAVETPU_TEST_LAUNCHES=str(tmp_path / f"launches{r}"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_MAIN, "64", "1", "1", "1", "1", "1",
+             "20", "--mesh", "2,1,1", "--distributed", "--out-dir",
+             dirs[-1]] + extra, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert os.listdir(dirs[1]) == []
+    assert "C = " not in outs[1] and "report:" not in outs[1]
+    with open(os.path.join(dirs[0], "output_N64_Np2_CUDA.json")) as f:
+        side = json.load(f)
+    local = sharded.solve_sharded(Problem(N=64, timesteps=20), (2, 1, 1),
+                                  devices=["cuda"] * 2)
+    got = np.asarray(side["abs_errors"])
+    assert np.array_equal(got.view(np.int64),
+                          local.abs_errors.view(np.int64))
+    for r in range(2):
+        with open(tmp_path / f"launches{r}") as f:
+            launches = json.load(f)
+        if extra:
+            assert launches["sharded_step"] > 20
+            assert side["exchange_seconds"] is not None
+        else:
+            assert launches["sharded_step"] == 20
+        assert sum(launches.values()) == launches["sharded_step"]
+
+
 # The measurement slice: --overlap (side streams), the phase-timing
 # probes, the allocator read, and the profiler's view of the kernels.
 

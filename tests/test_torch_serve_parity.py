@@ -25,6 +25,7 @@ depth and wavetpu's (they differ), so they agree within the tolerance.
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -33,10 +34,12 @@ import pytest
 import torch
 
 from tests.test_obs import parse_prometheus
+from wavetpu.run import faults as jfaults
 from wavetpu.serve import api as japi
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.ensemble import batched as eb
 from wavetpu_torch.ensemble import sharded as es
+from wavetpu_torch.run import faults as tfaults
 from wavetpu_torch.serve import api
 from wavetpu_torch.solver import kfused, kfused_comp, leapfrog, sharded
 
@@ -290,10 +293,12 @@ def replicas_12b(tmp_path_factory):
     kw = dict(chunk_threshold=64, chunk_steps=1, result_cache=True,
               shadow_sample_rate=1.0, default_kernel="roll")
     j = _start(japi.build_server, program_cache_dir=str(d / "jpc"),
-               solve_state_dir=str(d / "js"), **kw)
+               solve_state_dir=str(d / "js"),
+               fault_plan=_march_gate(jfaults.ServeFaultPlan)(), **kw)
     t = _start(api.build_server, device="cpu",
                program_cache_dir=str(d / "tpc"),
-               solve_state_dir=str(d / "ts"), **kw)
+               solve_state_dir=str(d / "ts"),
+               fault_plan=_march_gate(tfaults.ServeFaultPlan)(), **kw)
     yield j, t
     for httpd, state, _ in (j, t):
         httpd.shutdown()
@@ -301,9 +306,62 @@ def replicas_12b(tmp_path_factory):
         httpd.server_close()
 
 
-def _wait_shadows(state, n, timeout=300.0):
-    import time
+def _march_gate(base):
+    """A serve fault plan class (on `base`, wavetpu's ServeFaultPlan or
+    the port's) that holds one chunked march at a chunk boundary: once
+    `arm(timesteps, release_at)`ed, the first chunk pass of the
+    `timesteps` tier goes through and the next one waits until
+    `time.monotonic()` reaches `release_at`, then the gate disarms.
+    Unarmed it fires nothing."""
 
+    class Gate(base):
+        def __init__(self):
+            super().__init__([])
+            self._lock = threading.Lock()
+            self.timesteps = self.release_at = None
+            self.passes = 0
+
+        @property
+        def active(self) -> bool:
+            return True
+
+        def arm(self, timesteps, release_at):
+            with self._lock:
+                self.timesteps, self.release_at = timesteps, release_at
+                self.passes = 0
+
+        def fire(self, kind, **ctx):
+            with self._lock:
+                if (kind != "slow-batch" or self.release_at is None
+                        or str(ctx.get("timesteps")) != str(self.timesteps)):
+                    return None
+                self.passes += 1
+                if self.passes < 2:
+                    return None
+                release_at, self.release_at = self.release_at, None
+            time.sleep(max(0.0, release_at - time.monotonic()))
+            return None
+
+    return Gate
+
+
+def _shadow_total(state):
+    """Every shadow offer's outcome so far: twins run, failed or
+    skipped (a busy sampler skips an offer)."""
+    snap = state.shadow.snapshot()
+    return snap["solves"] + snap["failures"] + sum(snap["skipped"].values())
+
+
+def _wait_for_shadow_offer(state, n, timeout=300.0):
+    """Wait until `_shadow_total` reaches n, then join the twin."""
+    deadline = time.monotonic() + timeout
+    while _shadow_total(state) < n:
+        assert time.monotonic() < deadline, "shadow offer never resolved"
+        time.sleep(0.05)
+    assert state.shadow.wait_idle(timeout)
+
+
+def _wait_shadows(state, n, timeout=300.0):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         snap = state.shadow.snapshot()
@@ -345,12 +403,22 @@ def test_12b_metrics_views_agree(replicas_12b):
 
 # How often wavetpu's replica is asked again for a 504 with its token.
 CUT_TRIES = 8
+# The cut request's budget: far longer than a pickup from the idle queue,
+# so the budget runs out while the gate holds the march, never in the
+# queue.
+CUT_BUDGET_MS = 1000
 
 
 def test_12b_deadline_504_payload_with_token_agrees(replicas_12b):
     """A deadline that expires mid-march: 504 on both, the same payload
     keys with `resume_token`; each token resumes on its own replica to
     the uninterrupted answer.
+
+    The cut lands mid-march by construction: the replica's gate holds the
+    march at its second chunk boundary until the budget, counted from
+    before the request was sent, has run out (and 20 ms more), so the
+    chunk round after the gate finds the deadline passed, checkpoints and
+    answers; the budget is long enough that no queue wait spends it.
 
     wavetpu's handler waits only 50 ms past the deadline for the chunk
     boundary's checkpoint (wavetpu/serve/api.py:890-897); on a loaded
@@ -363,16 +431,21 @@ def test_12b_deadline_504_payload_with_token_agrees(replicas_12b):
     keys = []
     for base, state, tries in ((jbase, jstate, CUT_TRIES),
                                (tbase, tstate, 1)):
+        gate = state.fault_plan
+        # A shadow twin left running by an earlier request would march
+        # beside the cut below; join it before counting offers.
+        assert state.shadow.wait_idle(300.0)
+        seen = _shadow_total(state)
         # Warms every chunk program; `steps` keeps this answer's
         # result-cache key apart from the cut request's.
-        seen = state.shadow.snapshot()
         code, whole = _post(base, dict(body, steps=793))
         assert code == 200 and whole["batch"]["chunked"] is True
-        # Its shadow twin marches first, so the cut below finds the
-        # worker free.
-        _wait_shadows(state, seen["solves"] + seen["failures"] + 1)
+        # Its shadow twin (or the offer's skip) comes first, so the cut
+        # below finds the worker free.
+        _wait_for_shadow_offer(state, seen + 1)
         for _ in range(tries):
-            code, cut = _post(base, dict(body, deadline_ms=60))
+            gate.arm(793, time.monotonic() + CUT_BUDGET_MS / 1e3 + 0.020)
+            code, cut = _post(base, dict(body, deadline_ms=CUT_BUDGET_MS))
             assert code == 504, cut
             if "resume_token" in cut:
                 break

@@ -13,6 +13,13 @@ may appear more than once: several shards then live on one card, or all of
 them on the CPU, driven by one process - the single-controller shape of
 wavetpu's `shard_map`.  A sharded tensor is a `ShardedArray`: one block per
 shard on that shard's device.
+
+Under `--distributed` (comm/dist.py) the mesh spans processes: shard i
+belongs to rank i // (S / W), process-major as wavetpu's `jax.devices()`
+orders them (`Mesh.ranks`), and a process holds only its own shards'
+blocks - a block list keeps one entry per shard, None where another rank
+holds it, and the device of such a shard is `meta`.  Without a process
+group `ranks` is None and every shard is local.
 """
 
 from __future__ import annotations
@@ -95,14 +102,29 @@ class Topology:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """An (MX, MY, MZ) mesh: `devices[i]` holds the shard at `coords[i]`,
-    in mesh order (x slowest, z fastest)."""
+    in mesh order (x slowest, z fastest).  `ranks[i]` is the process that
+    holds shard i and `rank` this process (None and 0 in a single
+    process, where every shard is local)."""
 
     shape: Tuple[int, int, int]
     devices: Tuple[torch.device, ...]
+    ranks: Optional[Tuple[int, ...]] = None
+    rank: int = 0
 
     @property
     def coords(self) -> List[Tuple[int, int, int]]:
         return list(itertools.product(*(range(m) for m in self.shape)))
+
+    @property
+    def local(self) -> List[int]:
+        """The indices of the shards this process holds, in mesh order."""
+        return [i for i in range(len(self.devices)) if self.is_local(i)]
+
+    def is_local(self, i: int) -> bool:
+        return self.ranks is None or self.ranks[i] == self.rank
+
+    def owner(self, i: int) -> int:
+        return 0 if self.ranks is None else self.ranks[i]
 
     def index(self, coord) -> int:
         """The flat shard index of a coordinate, each axis taken cyclically
@@ -118,12 +140,27 @@ def build_mesh(mesh_shape: Tuple[int, int, int],
     counterpart of `MPI_Cart_create` with periods {1,0,0},
     mpi_sol.cpp:409-410; periodicity lives in comm/halo.py's neighbour
     maps).  A device may be named more than once."""
+    from wavetpu_torch.comm import dist
+
     mesh_shape = tuple(int(m) for m in mesh_shape)
     n = mesh_shape[0] * mesh_shape[1] * mesh_shape[2]
     if len(devices) != n:
         raise ValueError(f"mesh {mesh_shape} needs {n} devices, got "
                          f"{len(devices)}")
-    return Mesh(mesh_shape, tuple(torch.device(d) for d in devices))
+    devices = tuple(torch.device(d) for d in devices)
+    world = dist.current()
+    if world is None:
+        return Mesh(mesh_shape, devices)
+    ranks = tuple(dist.shard_ranks(n, world.size))
+    devices = tuple(d if r == world.rank else torch.device("meta")
+                    for d, r in zip(devices, ranks))
+    return Mesh(mesh_shape, devices, ranks, world.rank)
+
+
+def each(fn, *lists) -> list:
+    """`fn(*entries)` at every shard whose entry in the first list is
+    present (the shards this process holds), None at the others."""
+    return [None if args[0] is None else fn(*args) for args in zip(*lists)]
 
 
 def block_slices(topo: Topology, coord) -> Tuple[slice, slice, slice]:
@@ -137,17 +174,20 @@ class ShardedArray:
     `blocks[i]` on `mesh.devices[i]` - the port's form of wavetpu's
     P("x", "y", "z")-sharded state.  Pad cells hold zero."""
 
-    blocks: List[torch.Tensor]
+    blocks: List[Optional[torch.Tensor]]
     topo: Topology
     mesh: Mesh
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.blocks[0].dtype
+        return self.blocks[self.mesh.local[0]].dtype
 
     def assemble(self, device=None) -> torch.Tensor:
         """The padded global array on `device` (default: the first
-        shard's)."""
+        shard's); every block must be local."""
+        if any(b is None for b in self.blocks):
+            raise ValueError("a mesh spread over processes has no global "
+                             "array in one of them")
         device = self.blocks[0].device if device is None else device
         out = torch.empty(self.topo.padded, dtype=self.dtype, device=device)
         for coord, blk in zip(self.mesh.coords, self.blocks):
@@ -163,7 +203,8 @@ class ShardedArray:
 def split_global(a: torch.Tensor, topo: Topology, mesh: Mesh,
                  dtype: Optional[torch.dtype] = None) -> ShardedArray:
     """Cut a padded global (topo.padded) tensor into the mesh's blocks, each
-    a contiguous copy on its shard's device."""
+    a contiguous copy on its shard's device (this process's shards only;
+    None at the others)."""
     if tuple(a.shape) != topo.padded:
         raise ValueError(f"expected the padded shape {topo.padded}, got "
                          f"{tuple(a.shape)}")
@@ -171,7 +212,8 @@ def split_global(a: torch.Tensor, topo: Topology, mesh: Mesh,
     blocks = [
         a[block_slices(topo, coord)].to(device=dev, dtype=dtype,
                                         copy=True).contiguous()
-        for coord, dev in zip(mesh.coords, mesh.devices)
+        if mesh.is_local(i) else None
+        for i, (coord, dev) in enumerate(zip(mesh.coords, mesh.devices))
     ]
     return ShardedArray(blocks, topo, mesh)
 

@@ -253,8 +253,8 @@ class ShardedEnsembleSolver:
                      lambda st, n: tuple([x[:n] for x in c] for c in st),
                      keep)
         abs_b, rel_b = (np.empty((b, t + 1)) for _ in range(2))
-        abs_b[order] = sharded._reduce(errs[0])
-        rel_b[order] = sharded._reduce(errs[1])
+        abs_b[order] = sharded._reduce(errs[0], self.mesh)
+        rel_b[order] = sharded._reduce(errs[1], self.mesh)
         sharded._sync(self.mesh)
         t2 = time.perf_counter()
         return (out[0], out[1], abs_b, rel_b), t1 - t0, t2 - t1

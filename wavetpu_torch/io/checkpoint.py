@@ -20,6 +20,11 @@ y-extended blocks, the K9 pad layout): the solvers return their state on
 the Topology layout and the chunk runners convert it back
 (solver/sharded_kfused.py).  Pad planes are zeros.
 
+Under `--distributed` (comm/dist.py) every rank writes the containers of
+its own shards, and rank 0 writes `meta.npz` after a barrier, so meta
+never names a step before every shard has landed; a load reads each
+rank's own shards.  The files are the same as one process writes.
+
 bf16 travels as its uint16 bits with a dtype tag, as wavetpu stores it;
 numpy has no bf16, so the bits are reinterpreted as `torch.bfloat16` on
 load (exact), and no `ml_dtypes` is needed.  Loads return CPU tensors
@@ -42,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from wavetpu_torch.comm import dist
 from wavetpu_torch.core.grid import ShardedArray, Topology, build_mesh
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import nativeio
@@ -293,8 +299,8 @@ def save_sharded_checkpoint(path_dir: str, result) -> str:
     carry = result.comp_carry
     in_flight = []
     try:
-        for i, coord in enumerate(mesh.coords):
-            starts = _starts(topo, coord)
+        for i in mesh.local:
+            starts = _starts(topo, mesh.coords[i])
             fields = dict(u_prev=_encode_field(u_prev.blocks[i]),
                           u_cur=_encode_field(u_cur.blocks[i]))
             if compensated:
@@ -314,26 +320,36 @@ def save_sharded_checkpoint(path_dir: str, result) -> str:
         for w in in_flight:
             w.abort()
         raise
-    meta = os.path.join(path_dir, "meta.npz")
-    clean_stale_tmps("meta.npz")
-    tmp = f"{meta}.tmp-{os.getpid()}.npz"
-    try:
-        np.savez(tmp, format_version=_FORMAT_VERSION, step=step,
-                 mesh_shape=np.asarray(topo.mesh_shape),
-                 state_dtype=np.asarray(dtype_name(u_cur.dtype)),
-                 scheme=np.asarray("compensated" if compensated
-                                   else "standard"),
-                 **_problem_fields(p))
-        os.replace(tmp, meta)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    # Every rank's shards are on disk before meta names their step.
+    dist.barrier()
+    if mesh.rank == 0:
+        _write_meta(path_dir, clean_stale_tmps, step, topo, u_cur.dtype,
+                    compensated, p)
+    dist.barrier()
     seconds = time.perf_counter() - t0
     nbytes = _tree_bytes(path_dir)
     _record_io("save", "sharded", nbytes, seconds)
     tracing.event("checkpoint.save", kind="sharded", step=step,
                   bytes=nbytes, seconds=round(seconds, 6), path=path_dir)
     return path_dir
+
+
+def _write_meta(path_dir, clean_stale_tmps, step, topo, dtype, compensated,
+                problem) -> None:
+    meta = os.path.join(path_dir, "meta.npz")
+    clean_stale_tmps("meta.npz")
+    tmp = f"{meta}.tmp-{os.getpid()}.npz"
+    try:
+        np.savez(tmp, format_version=_FORMAT_VERSION, step=step,
+                 mesh_shape=np.asarray(topo.mesh_shape),
+                 state_dtype=np.asarray(dtype_name(dtype)),
+                 scheme=np.asarray("compensated" if compensated
+                                   else "standard"),
+                 **_problem_fields(problem))
+        os.replace(tmp, meta)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load_sharded_meta(path_dir: str):
@@ -386,7 +402,11 @@ def load_sharded_checkpoint(path_dir: str, devices=None):
                              f"the mesh's {topo.block}")
         return t.to(dev)
 
-    for coord, dev in zip(mesh.coords, mesh.devices):
+    for i, (coord, dev) in enumerate(zip(mesh.coords, mesh.devices)):
+        if not mesh.is_local(i):
+            for key in keys:
+                blocks[key].append(None)
+            continue
         starts = _starts(topo, coord)
         wts_path = os.path.join(path_dir, _shard_filename(starts))
         legacy_path = os.path.join(path_dir, _legacy_shard_filename(starts))

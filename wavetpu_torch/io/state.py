@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from wavetpu_torch.core.grid import (
-    ShardedArray, Topology, build_mesh, pad_global, split_global,
+    ShardedArray, Topology, build_mesh, each, pad_global, split_global,
 )
 from wavetpu_torch.kernels.stencil_ref import compute_dtype
 from wavetpu_torch.solver import leapfrog
@@ -127,8 +127,9 @@ def to_blocks(a, topo: Topology, mesh, dtype=None):
             raise ValueError(f"state on mesh {a.topo.mesh_shape} "
                              f"(N={a.topo.N}) given to mesh "
                              f"{topo.mesh_shape} (N={topo.N})")
-        return [b.to(device=dev, dtype=dtype or b.dtype).contiguous()
-                for b, dev in zip(a.blocks, mesh.devices)]
+        return each(lambda b, dev: b.to(device=dev,
+                                        dtype=dtype or b.dtype).contiguous(),
+                    a.blocks, mesh.devices)
     t = as_tensor(a)
     if tuple(t.shape) == (topo.N,) * 3 and topo.padded != tuple(t.shape):
         t = pad_global(t, topo)

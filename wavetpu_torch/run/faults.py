@@ -108,11 +108,13 @@ def rewrite_shard_step(ckpt_dir: str, new_step: int,
 
 def _poison(a):
     """A copy of one state array (tensor or ShardedArray) with its first
-    element NaN."""
+    element NaN (under --distributed, where the rank holds shard 0)."""
     blocks = getattr(a, "blocks", None)
     if blocks is not None:
         import dataclasses
 
+        if blocks[0] is None:
+            return a
         first = blocks[0].clone()
         first.view(-1)[0] = float("nan")
         return dataclasses.replace(a, blocks=[first] + list(blocks[1:]))

@@ -11,7 +11,9 @@ step and checkpoint; the CLI's `--debug-nans` runs the same guard after
 every launch of an unsupervised march.
 
 The guard, per state array (a tensor or a ShardedArray, whose blocks are
-reduced on their devices and the maxima taken on the host):
+reduced on their devices and the maxima taken on the host; a process of a
+`--distributed` run sees its own blocks, and the supervisor reduces the
+reading across ranks):
 
     amax* = max(where(isfinite(|u|), |u|, +inf))    in f32
 
@@ -51,7 +53,8 @@ def guarded_amax(array) -> float:
     blocks = getattr(array, "blocks", None)
     if blocks is None:
         return float(_device_amax(array).item())
-    return max(float(_device_amax(b).item()) for b in blocks)
+    return max(float(_device_amax(b).item()) for b in blocks
+               if b is not None)
 
 
 def guarded_amax_per_lane(array):

@@ -44,6 +44,12 @@ restartable job:
    exhausts the budget, landing in the watchdog halt (CLI exit code 4 -
    page me).
 
+Under `--distributed` (comm/dist.py) every rank runs the supervisor over
+its own shards: the health reading and the preemption flag are reduced
+across ranks at each chunk boundary, so every rank retries, halts or
+preempts at the same step, and only rank 0 flips the rotation's `latest`
+pointer and collects old entries (wavetpu's `is_main`).
+
 Exit-code contract (wavetpu_torch.cli): 0 complete, 2 usage/load error,
 3 preempted-but-checkpointed (resumable), 4 watchdog halt (last-good
 checkpoint preserved).
@@ -119,13 +125,16 @@ def looks_like_rotation_root(path: str) -> bool:
 
 class CheckpointRotation:
     """Rotating fresh-entry checkpoint writer with a `latest` pointer and
-    keep-last-N garbage collection (see the module docstring)."""
+    keep-last-N garbage collection (see the module docstring); with
+    `is_main` False (a rank other than 0) it writes its entries' files
+    and leaves the pointer and the collection to the main process."""
 
-    def __init__(self, root: str, keep: int = 2):
+    def __init__(self, root: str, keep: int = 2, is_main: bool = True):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.root = root
         self.keep = keep
+        self.is_main = is_main
         os.makedirs(root, exist_ok=True)
 
     def entry_path(self, step: int, directory: bool) -> str:
@@ -134,12 +143,13 @@ class CheckpointRotation:
 
     def save(self, save_fn: Callable[[str], Optional[str]], step: int,
              directory: bool) -> str:
-        """Run `save_fn(entry_path)` into a fresh entry, then flip the
-        `latest` pointer and GC old entries."""
+        """Run `save_fn(entry_path)` into a fresh entry, then (on the main
+        process) flip the `latest` pointer and GC old entries."""
         path = self.entry_path(step, directory)
         actual = save_fn(path) or path
-        self._write_latest(os.path.basename(actual))
-        self._gc()
+        if self.is_main:
+            self._write_latest(os.path.basename(actual))
+            self._gc()
         return actual
 
     def latest_path(self) -> Optional[str]:
@@ -471,6 +481,13 @@ class _Path:
     def health_arrays(self, state):
         return tuple(a for a in state if a is not None)
 
+    def amax(self, state) -> float:
+        """The guarded amax of the state over every rank's shards."""
+        from wavetpu_torch.comm import dist
+        from wavetpu_torch.run import health
+
+        return dist.max_across(health.state_amax(self.health_arrays(state)))
+
     def _shim_result(self, state, step: int):
         import numpy as np
 
@@ -658,8 +675,12 @@ def supervise(problem, spec: PathSpec, opts: SupervisorOptions,
         "watchdog_trips_total", "numerical-health check failures")
     g_step = obs_metrics.supervisor_step_gauge()
 
+    from wavetpu_torch.comm import dist
+
     path = _Path(problem, spec)
-    rot = CheckpointRotation(opts.ckpt_dir, keep=opts.keep)
+    world = dist.current()
+    rot = CheckpointRotation(opts.ckpt_dir, keep=opts.keep,
+                             is_main=world is None or world.is_main)
     T = problem.timesteps
     L = chunk_length(opts.ckpt_every, path.k)
     hook = opts.chunk_hook or faults.hook_from_env()
@@ -678,7 +699,7 @@ def supervise(problem, spec: PathSpec, opts: SupervisorOptions,
             raise ValueError("state injection requires start_step")
         state = path.prepare(state)
         cur = start_step
-        if rot.latest_path() is None:
+        if dist.any_across(rot.latest_path() is None):
             # Seed a fresh rotation with the injected state: the retry and
             # watchdog-halt fallbacks reload `latest`, and without this
             # seed a resumed run whose first chunk trips would restart
@@ -764,7 +785,7 @@ def supervise(problem, spec: PathSpec, opts: SupervisorOptions,
                 ok = True
                 if opts.watchdog:
                     with tracing.span("supervisor.health", step=cur) as sp:
-                        amax = health.state_amax(path.health_arrays(state))
+                        amax = path.amax(state)
                         ok = health.healthy(amax, opts.max_amp)
                         sp["amax"] = amax
                         sp["ok"] = ok
@@ -805,7 +826,7 @@ def supervise(problem, spec: PathSpec, opts: SupervisorOptions,
                 overhead_s += time.perf_counter() - t0
                 if cur >= T:
                     break
-                if sig.triggered is not None:
+                if dist.any_across(sig.triggered is not None):
                     status = "preempted"
                     tracing.event("supervisor.preempted", step=cur,
                                   signal=sig.triggered)
@@ -836,9 +857,7 @@ def _check_finite(path: _Path, state, first: int, last: int,
                   where: Optional[str] = None) -> None:
     """--debug-nans: raise FloatingPointError naming layers first..last
     when the state holds a non-finite value (the health guard's +inf)."""
-    from wavetpu_torch.run import health
-
-    if health.state_amax(path.health_arrays(state)) == float("inf"):
+    if path.amax(state) == float("inf"):
         where = where or f"the launch that computed layer {last}"
         raise FloatingPointError(
             f"--debug-nans: a non-finite value appeared in layers "

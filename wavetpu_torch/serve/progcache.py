@@ -288,13 +288,18 @@ class ProgramCache:
     full disk) is a counted event in
     `wavetpu_progcache_events_total{event=}` and a None/False return -
     the serve path treats disk problems as cache misses, never as request
-    failures."""
+    failures.  `read_only` (a --distributed rank other than 0) loads
+    entries and changes nothing on disk: no directory made, no LRU
+    touch, no corrupt entry removed."""
 
     def __init__(self, directory: str,
                  max_bytes: Optional[int] = None,
-                 registry=None, fault_plan=None, device=None):
+                 registry=None, fault_plan=None, device=None,
+                 read_only: bool = False):
         self.directory = directory
-        os.makedirs(directory, exist_ok=True)
+        self.read_only = read_only
+        if not read_only:
+            os.makedirs(directory, exist_ok=True)
         self.max_bytes = max_bytes
         self.fault_plan = fault_plan
         self._lock = threading.Lock()
@@ -414,6 +419,8 @@ class ProgramCache:
 
         def _corrupt():
             self.count("corrupt")
+            if self.read_only:
+                return None
             try:
                 os.remove(path)
             except OSError:
@@ -466,7 +473,8 @@ class ProgramCache:
         except Exception:
             return _corrupt()
         try:
-            os.utime(path)
+            if not self.read_only:
+                os.utime(path)
         except OSError:
             pass
         self.count("disk_hit")

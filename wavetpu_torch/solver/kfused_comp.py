@@ -42,7 +42,9 @@ whose carry is also zero on the y ghost rows (within 1e-6 of it).  The
 bootstrap is the same kernel at k=1 with coeff C/2 on zero v and carry
 (half the field with c2tau2_field), the tail k=1 launches of it; layer 1's
 errors come from per-x-plane rows (`sharded_kfused._layer_rows_local`).
-At N=512 / 1000 steps / k=4 each shard runs 253 launches.
+At N=512 / 1000 steps / k=4 each shard runs 253 launches.  Under
+`--distributed` each process marches its own shards and the rows of every
+shard are gathered before their max (comm/dist.py).
 """
 
 from __future__ import annotations
@@ -53,8 +55,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wavetpu_torch.comm import dist
 from wavetpu_torch.core.grid import (
-    ShardedArray, Topology, build_mesh, split_global,
+    ShardedArray, Topology, build_mesh, each, split_global,
 )
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
@@ -96,8 +99,8 @@ def _normalize_carry(carry, dtype):
     if cd == dtype or (cd == torch.bfloat16 and dtype == torch.float32):
         return carry
     if isinstance(carry, ShardedArray):
-        return ShardedArray([b.to(dtype) for b in carry.blocks], carry.topo,
-                            carry.mesh)
+        return ShardedArray(each(lambda b: b.to(dtype), carry.blocks),
+                            carry.topo, carry.mesh)
     return carry.to(dtype)
 
 
@@ -414,10 +417,12 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
     sx, ct, syz, rsyz, xmask, inv_absx = oracle_parts_guarded(problem, f,
                                                               host)
     sxct_all = ct[:, None] * sx[None, :]                     # (T+1, N)
-    sxct_on = {dev: sxct_all.to(dev) for dev in set(devices)}
+    local = mesh.local
+    sxct_on = {devices[i]: sxct_all.to(devices[i]) for i in local}
     planes = [tuple(a[cy * nl_y:(cy + 1) * nl_y].to(dev).contiguous()
-                    for a in (syz, rsyz))
-              for dev, (_, cy, _) in zip(devices, mesh.coords)]
+                    for a in (syz, rsyz)) if mesh.is_local(i) else None
+              for i, (dev, (_, cy, _)) in enumerate(zip(devices,
+                                                        mesh.coords))]
     topo = Topology(N=n, mesh_shape=mesh.shape)
     u0 = split_global(leapfrog.initial_layer0(problem, dtype, host), topo,
                       mesh).blocks
@@ -427,17 +432,20 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
         fields = split_global(state.c2tau2_field(c2tau2_field, dtype, host),
                               topo, mesh).blocks
         for kk in (1, k):
-            packs[kk] = list(zip(*sharded_kfused.exchange(fields, mesh, kk)))
+            packs[kk] = [None if b is None else (b, g) for b, g in
+                         zip(*sharded_kfused.exchange(fields, mesh, kk))]
         # The bootstrap's half field (wavetpu's field_pack(0.5 * fld, 1)):
         # halving is exact, so it is the k=1 pack halved.
-        half = [(0.5 * b, (0.5 * g[0], 0.5 * g[1])) for b, g in packs[1]]
+        half = each(lambda p: (0.5 * p[0], (0.5 * p[1][0], 0.5 * p[1][1])),
+                    packs[1])
 
     def kcall(u, v, c, kk, layer, coeff, with_errors, fpack):
         """kk fused layers (layer+1 .. layer+kk) of every shard."""
         ue, ug = sharded_kfused.exchange(u, mesh, kk)
         ve, vg = sharded_kfused.exchange(v, mesh, kk)
-        outs = []
-        for i, dev in enumerate(devices):
+        outs = [None] * len(devices)
+        for i in local:
+            dev = devices[i]
             cx, cy, _ = mesh.coords[i]
             fp = fpack[i]
             kw = dict(k=kk, coeff=coeff, inv_h2=problem.inv_h2,
@@ -446,28 +454,30 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
             sxct_k = sxct_on[dev][layer + 1:layer + 1 + kk,
                                   cx * nl:(cx + 1) * nl].contiguous()
             if n_y == 1:
-                outs.append(stencil_cuda.fused_kstep_comp_sharded(
+                outs[i] = stencil_cuda.fused_kstep_comp_sharded(
                     ue[i], ve[i], c[i], ug[i], vg[i], *planes[i], sxct_k,
-                    c2tau2_block=None if fp is None else fp[0], **kw))
+                    c2tau2_block=None if fp is None else fp[0], **kw)
             else:
-                outs.append(stencil_cuda.fused_kstep_comp_sharded_xy(
+                outs[i] = stencil_cuda.fused_kstep_comp_sharded_xy(
                     ue[i], ve[i], c[i], ug[i], vg[i], *planes[i], sxct_k,
                     cy * nl_y, n, nl_y=nl_y,
-                    c2tau2_ext=None if fp is None else fp[0], **kw))
+                    c2tau2_ext=None if fp is None else fp[0], **kw)
         return outs
 
     def new_rows():
         return [[torch.zeros((nsteps + 1, nl), dtype=f, device=dev)
-                 for dev in devices]
+                 if mesh.is_local(i) else None
+                 for i, dev in enumerate(devices)]
                 for _ in range(2)] if compute_errors else None
 
     def step(state_, kk, layer, coeff, with_errors, fpack, rows):
         outs = kcall(*state_, kk, layer, coeff, with_errors, fpack)
         if with_errors:
-            for i, o in enumerate(outs):
-                rows[0][i][layer + 1:layer + 1 + kk] = o[3]
-                rows[1][i][layer + 1:layer + 1 + kk] = o[4]
-        return tuple([o[j] for o in outs] for j in range(3))
+            for i in local:
+                rows[0][i][layer + 1:layer + 1 + kk] = outs[i][3]
+                rows[1][i][layer + 1:layer + 1 + kk] = outs[i][4]
+        return tuple([None if o is None else o[j] for o in outs]
+                     for j in range(3))
 
     def advance(st, start, stop, rows):
         """Layers start+1..stop: (stop-start)//k blocks, then k=1 tail
@@ -485,24 +495,25 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
         if not compute_errors:
             z = np.zeros(nsteps + 1)
             return z, z.copy()
-        dmax, rmax = (sharded_kfused.rows_max_y(rs, n_x, n_y, host)
-                      for rs in rows)
+        dmax, rmax = (sharded_kfused.rows_max_y(
+            dist.gather_shards(mesh, rs), n_x, n_y, host) for rs in rows)
         abs_e, rel_e = kfused._block_errors(
             dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
         return leapfrog._host(abs_e), leapfrog._host(rel_e)
 
     def run():
         rows = new_rows()
-        zero_v = [torch.zeros(b.shape, dtype=v_dtype, device=b.device)
-                  for b in u0]
+        zero_v = each(lambda b: torch.zeros(b.shape, dtype=v_dtype,
+                                            device=b.device), u0)
         zero_c = [torch.zeros(b.shape, dtype=carry_dtype, device=b.device)
-                  if carry_on else None for b in u0]
+                  if carry_on and b is not None else None for b in u0]
         # Layer 1: the same kernel at k=1, coeff C/2 on zero v and carry
         # (the compensated half-step; half the field with a field).
         st = step((u0, zero_v, zero_c), 1, 0, 0.5 * problem.a2tau2, False,
                   half, rows)
         if compute_errors:
-            for i, dev in enumerate(devices):
+            for i in local:
+                dev = devices[i]
                 cx = mesh.coords[i][0]
                 dr, rr = sharded_kfused._layer_rows_local(
                     st[0][i], sxct_on[dev][1, cx * nl:(cx + 1) * nl],
@@ -581,8 +592,8 @@ def solve_kfused_comp_sharded(
 
     result = leapfrog.SolveResult(
         problem=problem,
-        u_prev=sharded((a.to(f) - b.to(f)).to(a.dtype)
-                       for a, b in zip(u, v)),
+        u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
+                            u, v)),
         u_cur=sharded(u),
         abs_errors=abs_np, rel_errors=rel_np,
         init_seconds=t1 - t0, solve_seconds=t2 - t1,
@@ -787,13 +798,13 @@ def resume_kfused_comp_sharded(
     f = stencil_ref.compute_dtype(dtype)
 
     def sharded(blocks):
-        return None if blocks is None or blocks[0] is None else \
-            ShardedArray(list(blocks), topo, mesh)
+        return None if blocks is None or blocks[mesh.local[0]] is None \
+            else ShardedArray(list(blocks), topo, mesh)
 
     result = leapfrog.SolveResult(
         problem=problem,
-        u_prev=sharded([(a.to(f) - b.to(f)).to(a.dtype)
-                        for a, b in zip(u, vv)]),
+        u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
+                            u, vv)),
         u_cur=sharded(u),
         abs_errors=np.concatenate([head, abs_t]),
         rel_errors=np.concatenate([head, rel_t]),
@@ -804,7 +815,8 @@ def resume_kfused_comp_sharded(
     obs_metrics.record_solve(
         result, "kfused_comp_sharded", scheme="compensated", k=k,
         v_itemsize=v_dtype.itemsize, carry=c is not None,
-        carry_itemsize=c[0].dtype.itemsize if c is not None else None,
+        carry_itemsize=(c[mesh.local[0]].dtype.itemsize if c is not None
+                        else None),
         with_field=c2tau2_field is not None,
         block=(problem.N // n_x, problem.N // n_y, problem.N),
         mesh_shape=(n_x, n_y, 1), rows=compute_errors)
@@ -853,7 +865,7 @@ def make_sharded_chunk_runner(
             *_sharded_state(topo, mesh, u, vv, c, dtype, v_dtype), start,
             stop)
         return (ShardedArray(u, topo, mesh), ShardedArray(vv, topo, mesh),
-                None if c[0] is None else ShardedArray(c, topo, mesh),
-                abs_t, rel_t)
+                None if c[mesh.local[0]] is None
+                else ShardedArray(c, topo, mesh), abs_t, rel_t)
 
     return run

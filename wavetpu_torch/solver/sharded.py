@@ -40,6 +40,15 @@ as `leapfrog.solve`.
 `resume_sharded` re-enters the march at a checkpoint's layer and
 `make_sharded_chunk_runner` marches a supervised run's fixed-length chunks
 (run/supervisor.py), both through `_make_march`'s march.
+
+Under `--distributed` (comm/dist.py) the mesh spans processes: each one
+builds and marches only its own shards (the block lists hold None at the
+others), the exchange moves crossing planes between ranks
+(`halo.transfer`), and `_reduce` gathers every rank's error vectors before
+it takes their max - the same march, so the same bits as one process.
+In the overlap mode the planes from other ranks arrive before the bulk
+update is queued, so across ranks it keeps the serial step's bits but
+overlaps only the copies within a rank.
 """
 
 from __future__ import annotations
@@ -50,9 +59,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from wavetpu_torch.comm import halo
+from wavetpu_torch.comm import dist, halo
 from wavetpu_torch.core.grid import (
-    Mesh, ShardedArray, Topology, build_mesh, choose_mesh_shape,
+    Mesh, ShardedArray, Topology, build_mesh, choose_mesh_shape, each,
     split_global,
 )
 from wavetpu_torch.core.problem import Problem
@@ -260,15 +269,16 @@ def _make_local_step(problem: Problem, topo: Topology, mesh: Mesh,
     def ghosts_of(cur, streams=None):
         if exchange:
             return halo.collect_ghosts(cur, topo, mesh, streams)
-        return [_self_ghosts(u, topo, None if streams is None
+        return [None if u is None else
+                _self_ghosts(u, topo, None if streams is None
                              else streams[i]) for i, u in enumerate(cur)]
 
     def step_serial(prev, cur, fields):
         ghosts = ghosts_of(cur)
         u_in = halo.absorb_hi_ghosts(cur, ghosts, topo, mesh)
-        return [update(p, u, g, off, fld, topo.mesh_shape, topo.r_last)
-                for p, u, g, off, fld in zip(prev, u_in, ghosts, offsets,
-                                             fields)]
+        return each(lambda p, u, g, off, fld: update(
+            p, u, g, off, fld, topo.mesh_shape, topo.r_last),
+            prev, u_in, ghosts, offsets, fields)
 
     cards = sorted({d for d in mesh.devices if d.type == "cuda"}, key=str)
     side = {d: torch.cuda.Stream(d) for d in cards} if overlap else {}
@@ -276,12 +286,13 @@ def _make_local_step(problem: Problem, topo: Topology, mesh: Mesh,
     def gather_ghosts(cur):
         """Every shard's ghosts, each copy on its sender's and receiver's
         side streams (`halo.send`), which first wait for the work that
-        made `cur`."""
+        made `cur`.  Planes from another rank arrive on the main stream
+        (`halo.transfer`), before the bulk update is queued."""
         if not cards:
             return ghosts_of(cur)
         for d in cards:
             side[d].wait_stream(torch.cuda.current_stream(d))
-        return ghosts_of(cur, [side[d] for d in mesh.devices])
+        return ghosts_of(cur, [side.get(d) for d in mesh.devices])
 
     def join(ghosts):
         """The main streams wait for the ghost copies; the copies' memory
@@ -313,13 +324,13 @@ def _make_local_step(problem: Problem, topo: Topology, mesh: Mesh,
 
     def step_overlap(prev, cur, fields):
         ghosts = gather_ghosts(cur)
-        bulk = [update(p, u, None, off, fld, (1, 1, 1), None)
-                for p, u, off, fld in zip(prev, cur, offsets, fields)]
+        bulk = each(lambda p, u, off, fld: update(p, u, None, off, fld,
+                                                  (1, 1, 1), None),
+                    prev, cur, offsets, fields)
         if not multi_axes:
             return bulk
         join(ghosts)
-        return [patch(*a) for a in zip(bulk, prev, cur, ghosts, offsets,
-                                        fields)]
+        return each(patch, bulk, prev, cur, ghosts, offsets, fields)
 
     return step_overlap if overlap else step_serial
 
@@ -338,9 +349,11 @@ def _make_local_comp_step(problem: Problem, topo: Topology, mesh: Mesh,
     def comp_step(u, v, carry, coeff):
         ghosts = halo.collect_ghosts(u, topo, mesh)
         u_in = halo.absorb_hi_ghosts(u, ghosts, topo, mesh)
-        outs = [k7(a, b, c, g, off, problem.N, coeff=coeff, **kw)
-                for a, b, c, g, off in zip(u_in, v, carry, ghosts, offsets)]
-        return tuple(list(x) for x in zip(*outs))
+        outs = each(lambda a, b, c, g, off: k7(a, b, c, g, off, problem.N,
+                                               coeff=coeff, **kw),
+                    u_in, v, carry, ghosts, offsets)
+        return tuple([None if o is None else o[j] for o in outs]
+                     for j in range(3))
 
     return comp_step
 
@@ -416,41 +429,46 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
     masks = _masks(problem, topo)
     ct = oracle.time_factor_table(problem, f, phase=phase)
     shards = [_Shard(problem, topo, coord, dev, f, factors, masks, ct)
-              for coord, dev in zip(mesh.coords, mesh.devices)]
+              if mesh.is_local(i) else None
+              for i, (coord, dev) in enumerate(zip(mesh.coords,
+                                                   mesh.devices))]
     fields = _field_blocks(c2tau2_field, topo, mesh, f)
-    offsets = [sh.offsets for sh in shards]
+    offsets = [_shard_offsets(topo, coord) for coord in mesh.coords]
     if compensated:
         comp_step = _make_local_comp_step(problem, topo, mesh, offsets,
                                           kernel)
     else:
         step = _make_local_step(problem, topo, mesh, offsets, kernel,
                                 overlap)
-    u0 = [sh.layer0(dtype) for sh in shards]
+    u0 = each(lambda sh: sh.layer0(dtype), shards)
 
     def vectors(n):
-        return [torch.zeros(n, dtype=f, device=sh.device) for sh in shards]
+        return each(lambda sh: torch.zeros(n, dtype=f, device=sh.device),
+                    shards)
 
     def record(layer, n, abs_s, rel_s):
         if compute_errors:
             for sh, u, a, r in zip(shards, layer, abs_s, rel_s):
-                a[n], r[n] = sh.errors(u, n)
+                if sh is not None:
+                    a[n], r[n] = sh.errors(u, n)
 
     def bootstrap(u0, abs_s, rel_s):
         if compensated:
             # Layer 1 is the same step with v = carry = 0 and half the
             # coefficient: the Taylor half-step (sharded.py:429-435).
-            zero = [torch.zeros_like(u) for u in u0]
+            zero = each(torch.zeros_like, u0)
             st = comp_step(u0, zero, zero, 0.5 * problem.a2tau2)
             record(st[0], 1, abs_s, rel_s)
             return st
         if analytic:
-            cur = [sh.analytic(sh.ct[1], dtype) for sh in shards]
+            cur = each(lambda sh: sh.analytic(sh.ct[1], dtype), shards)
             record(cur, 1, abs_s, rel_s)
             return u0, cur
         # Layer 1 derived from the step: u1 = (u0 + step(u0, u0))/2 in the
         # compute dtype, as leapfrog.solve.
         s0 = step(u0, u0, fields)
-        cur = [(0.5 * (a.to(f) + b.to(f))).to(dtype) for a, b in zip(u0, s0)]
+        cur = each(lambda a, b: (0.5 * (a.to(f) + b.to(f))).to(dtype), u0,
+                   s0)
         record(cur, 1, abs_s, rel_s)
         return u0, cur
 
@@ -503,15 +521,17 @@ def make_sharded_solver(
         st = advance(bootstrap(u0, abs_s, rel_s), 1, nsteps, abs_s, rel_s)
         if scheme == "compensated":
             u, v, c = st
-            return [a - b for a, b in zip(u, v)], u, abs_s, rel_s, v, c
+            return each(torch.sub, u, v), u, abs_s, rel_s, v, c
         return st + (abs_s, rel_s, None, None)
 
     return run
 
 
-def _reduce(per_shard: List[torch.Tensor]) -> np.ndarray:
+def _reduce(per_shard: List[torch.Tensor], mesh: Mesh) -> np.ndarray:
     """The cross-shard max of the per-shard error vectors (wavetpu's
-    pmax), read back once."""
+    pmax), read back once; across ranks every shard's vector is gathered
+    first (`dist.gather_shards`), so the max (NaN wins) is the same."""
+    per_shard = dist.gather_shards(mesh, per_shard)
     return np.max(np.stack([leapfrog._host(v) for v in per_shard]), axis=0)
 
 
@@ -554,7 +574,7 @@ def solve_sharded(
     _sync(mesh)
     t1 = time.perf_counter()
     u_prev, u_cur, abs_s, rel_s, v, c = run()
-    abs_np, rel_np = _reduce(abs_s), _reduce(rel_s)
+    abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
     _sync(mesh)
     t2 = time.perf_counter()
 
@@ -614,7 +634,7 @@ def _as_sharded(st, scheme, topo, mesh):
 
     if scheme == "compensated":
         u, v, c = st
-        return sh([a - b for a, b in zip(u, v)]), sh(u), sh(v), sh(c)
+        return sh(each(torch.sub, u, v)), sh(u), sh(v), sh(c)
     return sh(st[0]), sh(st[1]), None, None
 
 
@@ -655,7 +675,7 @@ def resume_sharded(
     _sync(mesh)
     t1 = time.perf_counter()
     st = advance(st, start_step, nsteps, abs_s, rel_s)
-    abs_np, rel_np = _reduce(abs_s), _reduce(rel_s)
+    abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
     _sync(mesh)
     t2 = time.perf_counter()
     u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
@@ -713,7 +733,7 @@ def make_sharded_chunk_runner(
         st = advance(st, start, stop, abs_s, rel_s)
         u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
         out = (u_c, v, c) if scheme == "compensated" else (u_p, u_c)
-        return out + (_reduce(abs_s)[start + 1:stop + 1],
-                      _reduce(rel_s)[start + 1:stop + 1])
+        return out + (_reduce(abs_s, mesh)[start + 1:stop + 1],
+                      _reduce(rel_s, mesh)[start + 1:stop + 1])
 
     return run

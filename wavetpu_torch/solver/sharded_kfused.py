@@ -45,8 +45,14 @@ sx*sy*sz*ct).
 given layer from state on the Topology layout (a sharded checkpoint's, or
 wavetpu's padded global arrays); on the pad-and-mask path they convert it
 to the D-deep padded blocks K9 marches and back
-(`_from_topology_layout`, `_to_topology_layout`), as wavetpu's
-supervisor does per chunk.
+(`_from_topology_layout`, `_to_topology_layout`: x slabs moved between
+shards, `_move_x`), as wavetpu's supervisor does per chunk.
+
+Under `--distributed` (comm/dist.py) each process marches its own shards:
+the windows, the y extension and the layout moves cross ranks through
+`halo.transfer` (shapes from the layout, never from a block the rank
+lacks), and the error rows of every shard are gathered
+(`dist.gather_shards`) before `rows_max_y` takes their max.
 """
 
 from __future__ import annotations
@@ -57,9 +63,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from wavetpu_torch.comm import halo
+from wavetpu_torch.comm import dist, halo
 from wavetpu_torch.core.grid import (
-    ShardedArray, Topology, build_mesh, pad_global, split_global,
+    ShardedArray, Topology, build_mesh, each, split_global,
 )
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
@@ -163,42 +169,66 @@ def _layer_rows_local(u, sxct_row, syz, rsyz, f):
     return d, r
 
 
-def _windows(blocks: Sequence[torch.Tensor], counts: Sequence[int],
-             devices, kk: int):
-    """Every shard's (lo, hi) ghost windows of depth kk: the kk real planes
-    globally before its first plane and after its last real one (shard j
-    owns counts[j] real planes, cyclically), each copied onto the shard's
-    device from as many shards as it spans.  A 1-shard mesh takes views of
-    its own block."""
-    m = len(blocks)
-    if m == 1:
-        r = counts[0]
-        return [(blocks[0][r - kk:r], blocks[0][:kk])]
-    out = []
-    for i, dst in enumerate(devices):
-        lo, need, j = [], kk, i
-        while need:
-            j = (j - 1) % m
-            take = min(need, counts[j])
-            lo.insert(0, halo.send(blocks[j][counts[j] - take:counts[j]],
-                                   dst))
-            need -= take
-        hi, need, j = [], kk, i
-        while need:
-            j = (j + 1) % m
-            take = min(need, counts[j])
-            hi.append(halo.send(blocks[j][:take], dst))
-            need -= take
-        out.append(tuple(p[0] if len(p) == 1 else torch.cat(p)
-                         for p in (lo, hi)))
+def _windows(blocks: Sequence[torch.Tensor], counts: Sequence[int], mesh,
+             kk: int, columns: Optional[Sequence[Sequence[int]]] = None):
+    """Every shard's (lo, hi) ghost windows of depth kk along the x
+    columns of the mesh (`columns`: lists of shard indices, x order;
+    default one column of every shard): the kk real planes globally
+    before a shard's first plane and after its last real one (shard
+    column[j] owns counts[j] real planes, cyclically), each copied onto
+    the shard's device from as many shards as it spans - one exchange
+    (`halo.transfer`) for all columns.  A 1-shard column takes views of
+    its own block.  None at shards of other ranks."""
+    if columns is None:
+        columns = [list(range(len(blocks)))]
+    ref = blocks[mesh.local[0]]
+    out = [None] * len(blocks)
+    moves, recipe = [], []
+
+    def piece(src, dst, lo, hi):
+        b = blocks[src]
+        moves.append((src, dst, None if b is None else b[lo:hi],
+                      (hi - lo,) + tuple(ref.shape[1:]), ref.dtype))
+        return len(moves) - 1
+
+    for column in columns:
+        m = len(column)
+        for i, dst in enumerate(column):
+            if m == 1:
+                r = counts[0]
+                if blocks[dst] is not None:
+                    out[dst] = (blocks[dst][r - kk:r], blocks[dst][:kk])
+                continue
+            lo, need, j = [], kk, i
+            while need:
+                j = (j - 1) % m
+                take = min(need, counts[j])
+                lo.insert(0, piece(column[j], dst, counts[j] - take,
+                                   counts[j]))
+                need -= take
+            hi, need, j = [], kk, i
+            while need:
+                j = (j + 1) % m
+                take = min(need, counts[j])
+                hi.append(piece(column[j], dst, 0, take))
+                need -= take
+            recipe.append((dst, lo, hi))
+    got = halo.transfer(mesh, moves)
+    for dst, lo, hi in recipe:
+        if mesh.is_local(dst):
+            out[dst] = tuple(got[p[0]] if len(p) == 1
+                             else torch.cat([got[x] for x in p])
+                             for p in (lo, hi))
     return out
 
 
-def _split_x(a: torch.Tensor, d: int, devices) -> List[torch.Tensor]:
-    """The (len(devices) * d, N, N) tensor cut into x blocks of depth d,
-    each a contiguous copy on its device."""
+def _split_x(a: torch.Tensor, d: int, mesh) -> List[torch.Tensor]:
+    """The (MX * d, N, N) tensor cut into x blocks of depth d, each a
+    contiguous copy on its shard's device (this process's shards; None at
+    the others)."""
     return [a[i * d:(i + 1) * d].to(dev, copy=True).contiguous()
-            for i, dev in enumerate(devices)]
+            if mesh.is_local(i) else None
+            for i, dev in enumerate(mesh.devices)]
 
 
 def xy_windows(blocks: Sequence[torch.Tensor], mesh, kk: int):
@@ -206,15 +236,10 @@ def xy_windows(blocks: Sequence[torch.Tensor], mesh, kk: int):
     (MX, MY, 1) mesh: `_windows` along each y column of the mesh (mesh
     order is x slowest, so shard (cx, cy) is blocks[cx * MY + cy])."""
     n_x, n_y, _ = mesh.shape
-    out = [None] * len(blocks)
-    for cy in range(n_y):
-        idx = [cx * n_y + cy for cx in range(n_x)]
-        col = [blocks[i] for i in idx]
-        wins = _windows(col, [b.shape[0] for b in col],
-                        [mesh.devices[i] for i in idx], kk)
-        for i, w in zip(idx, wins):
-            out[i] = w
-    return out
+    depth = blocks[mesh.local[0]].shape[0]
+    return _windows(blocks, [depth] * n_x, mesh, kk,
+                    [[cx * n_y + cy for cx in range(n_x)]
+                     for cy in range(n_y)])
 
 
 def exchange(blocks: Sequence[torch.Tensor], mesh, kk: int,
@@ -226,8 +251,9 @@ def exchange(blocks: Sequence[torch.Tensor], mesh, kk: int,
     the windows are cut from the x neighbours' extended blocks, which
     carries the corner cells."""
     if mesh.shape[1] == 1:
-        counts = [b.shape[0] for b in blocks] if counts is None else counts
-        return list(blocks), _windows(blocks, counts, mesh.devices, kk)
+        if counts is None:
+            counts = [blocks[mesh.local[0]].shape[0]] * len(blocks)
+        return list(blocks), _windows(blocks, counts, mesh, kk)
     ext = halo.extend_y(blocks, mesh, kk)
     return ext, xy_windows(ext, mesh, kk)
 
@@ -254,6 +280,7 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
     (x-only meshes)."""
     n_x, n_y, _ = mesh.shape
     devices = list(mesh.devices)
+    local = mesh.local
     n = problem.N
     nl_y = n // n_y
     even = _is_even(problem, k, n_x)
@@ -288,10 +315,11 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
     # The oracle rows on every device and each shard's central (nl_y, N)
     # oracle planes, in the compute dtype (f32 on the card, where K8-K10
     # take f32 or bf16 states).
-    sxct_on = {dev: sxct_all.to(dev) for dev in set(devices)}
+    sxct_on = {devices[i]: sxct_all.to(devices[i]) for i in local}
     planes = [tuple(a[cy * nl_y:(cy + 1) * nl_y].to(dev).contiguous()
-                    for a in (syz, rsyz))
-              for dev, (_, cy, _) in zip(devices, mesh.coords)]
+                    for a in (syz, rsyz)) if mesh.is_local(i) else None
+              for i, (dev, (_, cy, _)) in enumerate(zip(devices,
+                                                        mesh.coords))]
     u0 = torch.zeros((dg, n, n), dtype=dtype)
     u0[:n] = leapfrog.initial_layer0(problem, dtype, host)
     fld = None
@@ -299,8 +327,8 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
         fld = torch.zeros((dg, n, n), dtype=f)
         fld[:n] = torch.as_tensor(c2tau2_field, dtype=torch.float64).to(f)
     if n_y == 1:
-        u0 = _split_x(u0, d, devices)
-        fields = None if fld is None else _split_x(fld, d, devices)
+        u0 = _split_x(u0, d, mesh)
+        fields = None if fld is None else _split_x(fld, d, mesh)
     else:
         topo = Topology(N=n, mesh_shape=mesh.shape)
         u0 = split_global(u0, topo, mesh).blocks
@@ -320,8 +348,9 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
         """kk fused layers (layer+1 .. layer+kk) of every shard."""
         pe, pg = exchange(prev, mesh, kk, counts)
         ce, cg = exchange(cur, mesh, kk, counts)
-        outs = []
-        for i, dev in enumerate(devices):
+        outs = [None] * len(devices)
+        for i in local:
+            dev = devices[i]
             cx, cy, _ = mesh.coords[i]
             fp = fpacks[kk][i]
             kw = dict(k=kk, coeff=problem.a2tau2, inv_h2=problem.inv_h2,
@@ -330,26 +359,27 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
             sxct_k = sxct_on[dev][layer + 1:layer + 1 + kk,
                                   cx * d:(cx + 1) * d].contiguous()
             if n_y == 1:
-                outs.append(kstep(
+                outs[i] = kstep(
                     i, pe[i], ce[i], pg[i], cg[i], *planes[i], sxct_k,
-                    c2tau2_block=None if fp is None else fp[0], **kw))
+                    c2tau2_block=None if fp is None else fp[0], **kw)
             else:
-                outs.append(stencil_cuda.fused_kstep_sharded_xy(
+                outs[i] = stencil_cuda.fused_kstep_sharded_xy(
                     pe[i], ce[i], pg[i], cg[i], *planes[i], sxct_k,
                     cy * nl_y, n, nl_y=nl_y,
-                    c2tau2_ext=None if fp is None else fp[0], **kw))
+                    c2tau2_ext=None if fp is None else fp[0], **kw)
         return outs
 
     def new_rows():
         return [[torch.zeros((nsteps + 1, d), dtype=f, device=dev)
-                 for dev in devices]
+                 if mesh.is_local(i) else None
+                 for i, dev in enumerate(devices)]
                 for _ in range(2)] if compute_errors else None
 
     def record(rows, outs, layer, kk):
         if compute_errors:
-            for i, o in enumerate(outs):
-                rows[0][i][layer + 1:layer + 1 + kk] = o[2]
-                rows[1][i][layer + 1:layer + 1 + kk] = o[3]
+            for i in local:
+                rows[0][i][layer + 1:layer + 1 + kk] = outs[i][2]
+                rows[1][i][layer + 1:layer + 1 + kk] = outs[i][3]
 
     def advance(prev, cur, start, stop, rows):
         """Layers start+1..stop: (stop-start)//k blocks, then k=1 tail
@@ -360,7 +390,8 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
             for _ in range(count):
                 outs = kcall(prev, cur, kk, layer, compute_errors)
                 record(rows, outs, layer, kk)
-                prev, cur = [o[0] for o in outs], [o[1] for o in outs]
+                prev, cur = (each(lambda o: o[0], outs),
+                             each(lambda o: o[1], outs))
                 layer += kk
         return prev, cur
 
@@ -370,7 +401,8 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
         if not compute_errors:
             z = np.zeros(nsteps + 1)
             return z, z.copy()
-        dmax, rmax = (rows_max_y(rs, n_x, n_y, host) for rs in rows)
+        dmax, rmax = (rows_max_y(dist.gather_shards(mesh, rs), n_x, n_y,
+                                 host) for rs in rows)
         abs_e, rel_e = _assemble_errors(parts, dmax, rmax)
         return leapfrog._host(abs_e), leapfrog._host(rel_e)
 
@@ -379,10 +411,12 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
         # kcall returns (layer n+k-1, layer n+k, ...): with u_prev = u = u0
         # at k = 1 the second output is u0 + C*lap(u0) (the field's cell
         # in place of C), so layer 1 needs no half coefficient.
-        s0 = [o[1] for o in kcall(u0, u0, 1, 0, False)]
-        cur = [(0.5 * (a.to(f) + b.to(f))).to(dtype) for a, b in zip(u0, s0)]
+        s0 = each(lambda o: o[1], kcall(u0, u0, 1, 0, False))
+        cur = each(lambda a, b: (0.5 * (a.to(f) + b.to(f))).to(dtype), u0,
+                   s0)
         if compute_errors:
-            for i, dev in enumerate(devices):
+            for i in local:
+                dev = devices[i]
                 cx = mesh.coords[i][0]
                 dr, rr = _layer_rows_local(
                     cur[i], sxct_on[dev][1, cx * d:(cx + 1) * d],
@@ -401,18 +435,52 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
     return run, chunk, d, counts
 
 
+def _move_x(blocks, src, dst, depth: int, mesh):
+    """x slabs re-cut between two layouts of the same x-only mesh: shard i
+    holds global planes [start, start + count) of `src[i]` = (start,
+    count) in its block's first planes, and gets those of `dst[i]` in a
+    zero block `depth` planes deep; every overlap is one move of
+    `halo.transfer` (shapes from the layouts)."""
+    ref = blocks[mesh.local[0]]
+    yz = tuple(ref.shape[1:])
+    out = [torch.zeros((depth,) + yz, dtype=ref.dtype, device=dev)
+           if mesh.is_local(i) else None
+           for i, dev in enumerate(mesh.devices)]
+    moves = []
+    for i, (d0, dn) in enumerate(dst):
+        for j, (s0, sn) in enumerate(src):
+            lo, hi = max(d0, s0), min(d0 + dn, s0 + sn)
+            if lo >= hi:
+                continue
+            b, o = blocks[j], out[i]
+            moves.append((j, i, None if b is None else b[lo - s0:hi - s0],
+                          (hi - lo,) + yz, ref.dtype,
+                          None if o is None else o[lo - d0:hi - d0]))
+    halo.transfer(mesh, moves)
+    return out
+
+
+def _layouts(counts, d, topo: Topology):
+    """The (start, count) x slabs of the pad-and-mask layout (D-deep,
+    counts real planes) and of the Topology layout of an x-only mesh."""
+    b, n = topo.block[0], topo.N
+    return ([(i * d, c) for i, c in enumerate(counts)],
+            [(i * b, min(b, n - i * b)) for i in range(len(counts))])
+
+
 def _to_topology_layout(blocks, counts, problem: Problem, mesh):
     """The blocks on the standard Topology layout of the mesh: an even
     decomposition is that layout already; uneven x-only blocks (depth D,
     counts[i] real planes each, zero pad) are re-cut into ceil(N/MX)-plane
-    blocks, so uneven k-fused results are laid out as every other sharded
-    result."""
+    blocks (`_move_x`), so uneven k-fused results are laid out as every
+    other sharded result."""
     topo = Topology(N=problem.N, mesh_shape=mesh.shape)
-    if tuple(blocks[0].shape) == topo.block:
+    d = blocks[mesh.local[0]].shape[0]
+    if d == topo.block[0]:
         return ShardedArray(list(blocks), topo, mesh)
-    dev = mesh.devices[0]
-    real = torch.cat([b[:c].to(dev) for b, c in zip(blocks, counts)])
-    return split_global(pad_global(real, topo), topo, mesh)
+    pad_layout, topo_layout = _layouts(counts, d, topo)
+    return ShardedArray(_move_x(blocks, pad_layout, topo_layout,
+                                topo.block[0], mesh), topo, mesh)
 
 
 def _resolve_grid(mesh_shape, n_shards, devices):
@@ -498,17 +566,11 @@ def _from_topology_layout(a, counts, d, problem: Problem, mesh, dtype):
     zero-padded to MX*D planes and cut into D-deep blocks (the inverse of
     `_to_topology_layout`)."""
     topo = Topology(N=problem.N, mesh_shape=mesh.shape)
+    blocks = state.to_blocks(a, topo, mesh, dtype)
     if topo.block[0] == d:
-        return state.to_blocks(a, topo, mesh, dtype)
-    n = problem.N
-    dev = mesh.devices[0]
-    if isinstance(a, ShardedArray):
-        real = a.fundamental(dev)
-    else:
-        real = state.as_tensor(a)[:n, :n, :n].to(dev)
-    full = torch.zeros((len(counts) * d, n, n), dtype=dtype, device=dev)
-    full[:n] = real
-    return _split_x(full, d, mesh.devices)
+        return blocks
+    pad_layout, topo_layout = _layouts(counts, d, topo)
+    return _move_x(blocks, topo_layout, pad_layout, d, mesh)
 
 
 def _grid_setup(problem, n_shards, devices, mesh_shape, k, compute_errors,

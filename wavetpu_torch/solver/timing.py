@@ -30,6 +30,10 @@ A --backend single run is probed on a (1, 1, 1) mesh: the sharded kernel
 wavetpu's probe does.  The 1-step compensated scheme has no probe; the
 CLI rejects that combination.  The numbers are extrapolated from the
 probe's steps to the full solve length; the report labels them so.
+
+Under `--distributed` every rank runs the same probes over its own shards
+(the exchanges are collective) and times them on its own clock; the CLI
+reports rank 0's.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from wavetpu_torch.comm import halo
-from wavetpu_torch.core.grid import Topology, build_mesh, choose_mesh_shape
+from wavetpu_torch.core.grid import (
+    Topology, build_mesh, choose_mesh_shape, each,
+)
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.solver import kfused, leapfrog
@@ -117,20 +123,21 @@ def _self_exchange(blocks, mesh, kk: int):
     exchange takes them), no data from another shard."""
     n_x, n_y, _ = mesh.shape
     if n_y > 1:
-        ext = []
-        for b in blocks:
+        def extend(b):
             bx, by, bz = b.shape
             e = torch.empty((bx, by + 2 * kk, bz), dtype=b.dtype,
                             device=b.device)
             e[:, :kk].copy_(b[:, by - kk:], non_blocking=True)
             e[:, kk:kk + by].copy_(b, non_blocking=True)
             e[:, kk + by:].copy_(b[:, :kk], non_blocking=True)
-            ext.append(e)
-        blocks = ext
+            return e
+
+        blocks = each(extend, blocks)
     if n_x == 1:
-        return list(blocks), [(b[-kk:], b[:kk]) for b in blocks]
-    return list(blocks), [(halo.send(b[-kk:], b.device),
-                           halo.send(b[:kk], b.device)) for b in blocks]
+        return list(blocks), each(lambda b: (b[-kk:], b[:kk]), blocks)
+    return list(blocks), each(lambda b: (halo.send(b[-kk:], b.device),
+                                         halo.send(b[:kk], b.device)),
+                              blocks)
 
 
 def _oracle_planes(problem: Problem, mesh, f, k: int, depth: int):
@@ -144,7 +151,9 @@ def _oracle_planes(problem: Problem, mesh, f, k: int, depth: int):
     return [(tuple(a[cy * nl_y:(cy + 1) * nl_y].to(dev).contiguous()
                    for a in (syz, rsyz)),
              torch.zeros((k, depth), dtype=f, device=dev))
-            for dev, (_, cy, _) in zip(mesh.devices, mesh.coords)]
+            if mesh.is_local(i) else None
+            for i, (dev, (_, cy, _)) in enumerate(zip(mesh.devices,
+                                                      mesh.coords))]
 
 
 def _kfused_probe_runner(problem: Problem, mesh, dtype, k: int,
@@ -166,17 +175,19 @@ def _kfused_probe_runner(problem: Problem, mesh, dtype, k: int,
         for _ in range(iters):
             pe, pg = xch(prev, mesh, k)
             ce, cg = xch(cur, mesh, k)
-            outs = []
-            for i, ((syz, rsyz), sxct) in enumerate(planes):
+            outs = [None] * len(planes)
+            for i in mesh.local:
+                (syz, rsyz), sxct = planes[i]
                 if n_y == 1:
-                    outs.append(stencil_cuda.fused_kstep_sharded(
-                        pe[i], ce[i], pg[i], cg[i], syz, rsyz, sxct, **kw))
+                    outs[i] = stencil_cuda.fused_kstep_sharded(
+                        pe[i], ce[i], pg[i], cg[i], syz, rsyz, sxct, **kw)
                 else:
                     cy = mesh.coords[i][1]
-                    outs.append(stencil_cuda.fused_kstep_sharded_xy(
+                    outs[i] = stencil_cuda.fused_kstep_sharded_xy(
                         pe[i], ce[i], pg[i], cg[i], syz, rsyz, sxct,
-                        cy * nl_y, n, nl_y=nl_y, **kw))
-            prev, cur = [o[0] for o in outs], [o[1] for o in outs]
+                        cy * nl_y, n, nl_y=nl_y, **kw)
+            prev, cur = (each(lambda o: o[0], outs),
+                         each(lambda o: o[1], outs))
         return cur
 
     return run
@@ -202,18 +213,20 @@ def _kfused_comp_probe_runner(problem: Problem, mesh, dtype, k: int,
         for _ in range(iters):
             ue, ug = xch(u, mesh, k)
             ve, vg = xch(v, mesh, k)
-            outs = []
-            for i, ((syz, rsyz), sxct) in enumerate(planes):
+            outs = [None] * len(planes)
+            for i in mesh.local:
+                (syz, rsyz), sxct = planes[i]
                 if n_y == 1:
-                    outs.append(stencil_cuda.fused_kstep_comp_sharded(
+                    outs[i] = stencil_cuda.fused_kstep_comp_sharded(
                         ue[i], ve[i], carry[i], ug[i], vg[i], syz, rsyz,
-                        sxct, **kw))
+                        sxct, **kw)
                 else:
                     cy = mesh.coords[i][1]
-                    outs.append(stencil_cuda.fused_kstep_comp_sharded_xy(
+                    outs[i] = stencil_cuda.fused_kstep_comp_sharded_xy(
                         ue[i], ve[i], carry[i], ug[i], vg[i], syz, rsyz,
-                        sxct, cy * nl_y, n, nl_y=nl_y, **kw))
-            u, v, carry = ([o[j] for o in outs] for j in range(3))
+                        sxct, cy * nl_y, n, nl_y=nl_y, **kw)
+            u, v, carry = ([None if o is None else o[j] for o in outs]
+                           for j in range(3))
         return u
 
     return run
@@ -276,7 +289,8 @@ def measure_phase_breakdown(
 
         def zeros(dt):
             return [torch.zeros(shape, dtype=dt, device=d)
-                    for d in mesh.devices]
+                    if mesh.is_local(i) else None
+                    for i, d in enumerate(mesh.devices)]
 
         if scheme == "compensated":
             from wavetpu_torch.solver import kfused_comp as _kc
@@ -290,10 +304,11 @@ def measure_phase_breakdown(
         else:
             state = (zeros(dtype), zeros(dtype))
             runner = _kfused_probe_runner
+        local = [mesh.devices[i] for i in mesh.local]
         t_full = _time_best(runner(problem, mesh, dtype, k, True, iters),
-                            state, mesh.devices, repeats)
+                            state, local, repeats)
         t_comp = _time_best(runner(problem, mesh, dtype, k, False, iters),
-                            state, mesh.devices, repeats)
+                            state, local, repeats)
         scale = problem.timesteps / (iters * k)
         return PhaseBreakdown(
             loop_seconds=t_comp * scale,
@@ -304,13 +319,15 @@ def measure_phase_breakdown(
     if kernel == "pallas" and any(d.type == "cuda" for d in mesh.devices):
         stencil_cuda.load_libraries()
     state = tuple([torch.zeros(topo.block, dtype=dtype, device=d)
-                   for d in mesh.devices] for _ in range(2))
+                   if mesh.is_local(i) else None
+                   for i, d in enumerate(mesh.devices)] for _ in range(2))
+    local = [mesh.devices[i] for i in mesh.local]
     t_full = _time_best(
         _probe_runner(problem, topo, mesh, kernel, overlap, True, iters),
-        state, mesh.devices, repeats)
+        state, local, repeats)
     t_comp = _time_best(
         _probe_runner(problem, topo, mesh, kernel, overlap, False, iters),
-        state, mesh.devices, repeats)
+        state, local, repeats)
     scale = problem.timesteps / iters
     return PhaseBreakdown(
         loop_seconds=t_comp * scale,
