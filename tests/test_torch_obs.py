@@ -91,8 +91,10 @@ def test_span_records_have_wavetpus_keys_and_links(tmp_path):
     ref = _span_tree(jtracing, str(tmp_path / "ref.jsonl"))
     assert [r["kind"] for r in ours] == [r["kind"] for r in ref]
     for a, b in zip(ours, ref):
-        assert set(a) == set(b)
+        # The port's records add t_start_ns (the profiler's clock).
+        assert set(a) == set(b) | {"t_start_ns"}
         assert a["type"] == b["type"] and a["attrs"] == b["attrs"]
+        assert abs(a["t_start_ns"] * 1e-9 - a["t_start"]) < 1e-5
 
     def links(recs):
         kind_of = {r["span_id"]: r["kind"] for r in recs}

@@ -590,8 +590,8 @@ def _main(argv) -> int:
     telemetry = None
     if "telemetry-dir" in flags and main_rank:
         # Spans to DIR/trace.jsonl, heartbeat registry snapshots and the
-        # ledgers (obs/telemetry.py); spans open record_function ranges,
-        # so with --profile the application structure lands in the trace.
+        # ledgers (obs/telemetry.py).  With --profile the spans label the
+        # profiler's trace whether or not this is on (obs/tracing.py).
         from wavetpu_torch.obs import telemetry as obs_telemetry
 
         telemetry = obs_telemetry.start(flags["telemetry-dir"])
@@ -637,7 +637,7 @@ def _main(argv) -> int:
                             flags.get("v-dtype") == "bf16", kernel, overlap,
                             stop_step)
         span_extra = {}
-        if solve_span is not None:
+        if tracing.enabled():
             span_extra = _roofline_attrs(_perf_path(backend, scheme,
                                                     fuse_steps))
         tracing.end_span(

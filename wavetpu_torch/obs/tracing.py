@@ -9,28 +9,46 @@ tail and `wavetpu-torch trace-report` can summarize:
 
     {"type": "span", "kind": "supervisor.chunk", "span_id": "1f03-4",
      "parent_id": "1f03-1", "thread": "MainThread",
-     "t_start": 1722772800.123, "dur_s": 0.512, "attrs": {...}}
+     "t_start": 1722772800.123, "t_start_ns": 1722772800123456789,
+     "dur_s": 0.512, "attrs": {...}}
+
+(`t_start_ns` is `time.time_ns()`, the Unix-epoch clock the profiler
+stamps its events with, so a record can be placed on a device trace of
+the same run.)
 
  * `span(kind, **attrs)` - context manager: allocates a span id, links
    the enclosing span on the SAME THREAD as parent, measures wall time,
    and writes one record on exit.  The yielded dict is the record's
    `attrs`: mutate it to attach results discovered mid-span (occupancy,
-   cache verdicts).  While a span is open it also holds a matching
-   `torch.profiler.record_function(kind)` - IF torch is already imported
-   - so application spans line up with device traces captured via
-   `--profile` in the same run.  (torch is never imported here: tracing
-   must not drag the backend in; `sys.modules` is consulted instead.)
+   cache verdicts).
  * `begin_span()` / `end_span()` - the same span without the `with`
    block, for call sites where a context manager would force a 300-line
    reindent (cli.py's solve dispatch).
+ * `TimedSpan(kind, **attrs)` - a span that also keeps its own clock
+   readings (`t0`, `t1`, `seconds`), traced or not: the solvers' timed
+   phases (solver/phases.py), whose `init_seconds` / `solve_seconds` are
+   the same readings as the records' `dur_s`.
+ * `annotate(kind)` - a profiler label alone: never a JSONL record.
  * `event(kind, **attrs)` - a zero-duration record.
 
+The profiler side: while the torch profiler records (`torch.profiler.
+profile`, the CLI's `--profile`, a benchmark's traced window) every span
+and annotation also holds a matching `torch.profiler.record_function(
+kind)`, whether or not a tracer is configured, so the application's
+phases line up with the device work they launched in the same trace.
+Whether it records is one flag read (`torch.autograd.profiler.
+_is_profiler_enabled`, found through `sys.modules`: tracing never
+imports torch, so it never drags the backend in).
+
 The module-level tracer is a process-wide singleton configured by
-`configure(path)` (the CLI's `--telemetry-dir` does this).  When NOT
-configured every call is a cheap no-op - `span()` yields a throwaway
-dict without allocating ids or touching any lock - so instrumented code
-paths cost nothing in untraced runs.  Spans are per solve or chunk,
-never per step.
+`configure(path)` (the CLI's `--telemetry-dir` does this).  With neither
+a tracer nor a recording profiler every call is that flag read and a
+return - `span()` yields a throwaway dict without allocating ids,
+touching any lock or creating a `record_function` - so instrumented code
+paths cost nothing in untraced runs.  Spans are per solve, phase or
+chunk, never per step: a site that runs once per layer or per k-block
+(the error pass, `verify.errors`) uses `annotate`, which writes nothing
+and labels the profiler only while it records.
 
 Cross-thread linkage: parenthood is thread-local (a scheduler-worker
 span is not a child of whatever the HTTP thread had open).  Cross-thread
@@ -140,6 +158,65 @@ def rotate_file(path: str, keep: int) -> None:
             os.replace(src, f"{path}.{i}")
 
 
+# ------------------------------------------------ the profiler side
+
+
+def _profiling() -> bool:
+    """True while the torch profiler records in this process (torch
+    already imported; one attribute read)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    try:
+        return torch.autograd.profiler._is_profiler_enabled
+    except AttributeError:
+        return False
+
+
+def _open_annotation(kind: str):
+    """An entered `record_function(kind)` while the profiler records, else
+    None (nothing is created)."""
+    if not _profiling():
+        return None
+    try:
+        annotation = sys.modules["torch"].profiler.record_function(kind)
+        annotation.__enter__()
+        return annotation
+    except Exception:
+        return None
+
+
+def _close_annotation(annotation) -> None:
+    if annotation is not None:
+        try:
+            annotation.__exit__(None, None, None)
+        except Exception:
+            pass
+
+
+class annotate:
+    """`with annotate(kind):` labels the enclosed host work (and, by
+    launch correlation, the device work it launches) in a recording
+    profiler's trace; never writes a JSONL record.  For sites that run
+    once per layer or per k-block; without a recording profiler it is
+    the flag read and nothing else."""
+
+    __slots__ = ("kind", "_annotation")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._annotation = None
+
+    def __enter__(self):
+        self._annotation = _open_annotation(self.kind)
+        return self
+
+    def __exit__(self, *exc):
+        _close_annotation(self._annotation)
+        self._annotation = None
+        return False
+
+
 _tracer_instances = itertools.count()
 
 
@@ -223,10 +300,13 @@ class Tracer:
     def begin(self, kind: str, attrs: dict, /,
               remote: Optional[Tuple[str, Optional[str]]] = None,
               links: Optional[List[dict]] = None,
-              trace_id: Optional[str] = None) -> dict:
+              trace_id: Optional[str] = None,
+              t0: Optional[float] = None) -> dict:
         """Open a span; returns the handle `end()` wants.  Also opens a
-        matching torch.profiler.record_function when torch is already
-        loaded so application spans land in `--profile` device traces.
+        matching torch.profiler.record_function while the profiler
+        records, so application spans land in `--profile` device traces.
+        `t0` is the span's start on the `time.perf_counter` clock when the
+        caller took it (TimedSpan), else now.
 
         `remote=(trace_id, parent_id)` adopts an INBOUND W3C context
         (another process's traceparent) as the parent instead of this
@@ -237,14 +317,7 @@ class Tracer:
         belongs to a request's trace but is not its tree child).
         `links` attaches record-level cross-trace links (the preemption
         resume chain)."""
-        annotation = None
-        torch = sys.modules.get("torch")
-        if torch is not None:
-            try:
-                annotation = torch.profiler.record_function(kind)
-                annotation.__enter__()
-            except Exception:
-                annotation = None
+        annotation = _open_annotation(kind)
         if remote is not None:
             parent_id: Optional[str] = remote[1]
             trace_id = remote[0]
@@ -258,15 +331,18 @@ class Tracer:
             "parent_id": parent_id,
             "trace_id": trace_id,
             "links": list(links) if links else None,
-            "t_start": time.time(),
-            "_t0": time.perf_counter(),
+            "t_start_ns": time.time_ns(),
+            "_t0": time.perf_counter() if t0 is None else t0,
             "_annotation": annotation,
             "attrs": attrs,
         }
         self._stack().append((handle["span_id"], trace_id))
         return handle
 
-    def end(self, handle: dict, **extra_attrs) -> None:
+    def end(self, handle: dict, t1: Optional[float] = None, /,
+            **extra_attrs) -> None:
+        """Close a span and write its record; `t1` is its end on the
+        `time.perf_counter` clock when the caller took it, else now."""
         t0 = handle.pop("_t0", None)
         if t0 is None:
             # Already ended: a crash-path end_span can race the normal
@@ -282,21 +358,17 @@ class Tracer:
                 if sid == handle["span_id"]:
                     del st[i]
                     break
-        annotation = handle.pop("_annotation", None)
-        if annotation is not None:
-            try:
-                annotation.__exit__(None, None, None)
-            except Exception:
-                pass
+        _close_annotation(handle.pop("_annotation", None))
         handle["attrs"] = dict(handle["attrs"], **extra_attrs)
-        dur = time.perf_counter() - t0
+        dur = (time.perf_counter() if t1 is None else t1) - t0
         record = {
             "type": "span",
             "kind": handle["kind"],
             "span_id": handle["span_id"],
             "parent_id": handle["parent_id"],
             "thread": threading.current_thread().name,
-            "t_start": round(handle["t_start"], 6),
+            "t_start": round(handle["t_start_ns"] * 1e-9, 6),
+            "t_start_ns": handle["t_start_ns"],
             "dur_s": round(dur, 6),
             "attrs": handle["attrs"],
         }
@@ -319,13 +391,15 @@ class Tracer:
             self.end(handle)
 
     def event(self, kind: str, /, **attrs) -> None:
+        now_ns = time.time_ns()
         record = {
             "type": "event",
             "kind": kind,
             "span_id": self.new_id(),
             "parent_id": self.current_span_id(),
             "thread": threading.current_thread().name,
-            "t_start": round(time.time(), 6),
+            "t_start": round(now_ns * 1e-9, 6),
+            "t_start_ns": now_ns,
             "attrs": attrs,
         }
         tid = self.current_trace_id()
@@ -379,15 +453,21 @@ def enabled() -> bool:
 def span(kind: str, /, remote: Optional[Tuple[str, Optional[str]]] = None,
          links: Optional[List[dict]] = None,
          trace_id: Optional[str] = None, **attrs):
-    """Module-level span: no-op (fresh throwaway attrs dict) when no
-    tracer is configured, so instrumented paths cost nothing untraced."""
+    """Module-level span: a JSONL record when a tracer is configured, a
+    profiler label while the profiler records, and otherwise a no-op
+    (fresh throwaway attrs dict), so instrumented paths cost nothing
+    untraced."""
     t = _tracer
-    if t is None:
-        yield attrs
+    if t is not None:
+        with t.span(kind, remote=remote, links=links, trace_id=trace_id,
+                    **attrs) as a:
+            yield a
         return
-    with t.span(kind, remote=remote, links=links, trace_id=trace_id,
-                **attrs) as a:
-        yield a
+    annotation = _open_annotation(kind)
+    try:
+        yield attrs
+    finally:
+        _close_annotation(annotation)
 
 
 def begin_span(kind: str, /,
@@ -395,16 +475,64 @@ def begin_span(kind: str, /,
                links: Optional[List[dict]] = None,
                trace_id: Optional[str] = None, **attrs
                ) -> Optional[dict]:
+    """`span` without the `with` block: the handle `end_span` wants, or
+    None with neither a tracer nor a recording profiler (a profiler
+    alone gets a label-only handle)."""
     t = _tracer
-    return None if t is None else t.begin(
-        kind, attrs, remote=remote, links=links, trace_id=trace_id
-    )
+    if t is not None:
+        return t.begin(kind, attrs, remote=remote, links=links,
+                       trace_id=trace_id)
+    annotation = _open_annotation(kind)
+    return None if annotation is None else {"_annotation": annotation}
 
 
 def end_span(handle: Optional[dict], **extra_attrs) -> None:
+    if handle is None:
+        return
     t = _tracer
-    if t is not None and handle is not None:
+    if t is not None and "span_id" in handle:
         t.end(handle, **extra_attrs)
+    else:
+        # A label-only handle, or a tracer disabled while the span was
+        # open: the profiler's range still closes.
+        _close_annotation(handle.pop("_annotation", None))
+
+
+class TimedSpan:
+    """`with TimedSpan(kind, **attrs) as s:` - a span (JSONL record and
+    profiler label as `span`) that keeps its own clock readings, traced
+    or not: `s.t0` / `s.t1` on the `time.perf_counter` clock and
+    `s.seconds`.  A record's `dur_s` is the same pair of readings."""
+
+    __slots__ = ("kind", "attrs", "t0", "t1", "_handle")
+
+    def __init__(self, kind: str, /, **attrs):
+        self.kind = kind
+        self.attrs = attrs
+        self.t0: Optional[float] = None
+        self.t1: Optional[float] = None
+        self._handle: Optional[dict] = None
+
+    @property
+    def seconds(self) -> float:
+        return self.t1 - self.t0
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        t = _tracer
+        self._handle = (begin_span(self.kind) if t is None
+                        else t.begin(self.kind, self.attrs, t0=self.t0))
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter()
+        handle, self._handle = self._handle, None
+        t = _tracer
+        if t is not None and handle is not None and "span_id" in handle:
+            t.end(handle, self.t1)
+        else:
+            end_span(handle)
+        return False
 
 
 def event(kind: str, /, **attrs) -> None:

@@ -34,7 +34,6 @@ the uninterrupted march's bit for bit.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -43,8 +42,8 @@ import torch
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.obs import metrics as obs_metrics
-from wavetpu_torch.solver import leapfrog
+from wavetpu_torch.obs import tracing
+from wavetpu_torch.solver import leapfrog, phases
 from wavetpu_torch.verify import oracle
 
 # The K3 kernel's pipeline takes k <= 8 (stencil_cuda.kstep_pipe_tile).
@@ -135,8 +134,9 @@ def _make_march(problem, dtype, k, compute_errors, nsteps, device,
             c2tau2_field=c2tau2_field, with_errors=compute_errors,
         )
         if compute_errors:
-            return (up, uc) + _block_errors(dmax, rmax, ctk, xmask,
-                                            inv_absx)
+            with tracing.annotate("verify.errors"):
+                return (up, uc) + _block_errors(dmax, rmax, ctk, xmask,
+                                                inv_absx)
         return up, uc, None, None
 
     def march(u_prev, u_cur, start, abs_all, rel_all, stop=nsteps):
@@ -195,14 +195,17 @@ def make_kfused_solver(
     u0 = leapfrog.initial_layer0(problem, dtype, device, phase)
 
     def run():
-        abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-        rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-        u1 = (leapfrog.analytic_layer(problem, dtype, device, phase, 1)
-              if analytic else leapfrog.step_layer1(u0, step1, problem,
-                                                    dtype))
-        if compute_errors:
-            abs_all[1], rel_all[1] = errors(u1, 1)
-        u_prev, u_cur = march(u0, u1, 1, abs_all, rel_all)
+        with phases.bootstrap():
+            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            u1 = (leapfrog.analytic_layer(problem, dtype, device, phase, 1)
+                  if analytic else leapfrog.step_layer1(u0, step1, problem,
+                                                        dtype))
+            if compute_errors:
+                with tracing.annotate("verify.errors"):
+                    abs_all[1], rel_all[1] = errors(u1, 1)
+        with phases.march():
+            u_prev, u_cur = march(u0, u1, 1, abs_all, rel_all)
         return u_prev, u_cur, abs_all, rel_all
 
     return run
@@ -226,24 +229,23 @@ def solve_kfused(
     march; pair it with compute_errors=False.  `phase` as
     `leapfrog.solve`'s."""
     device = leapfrog.resolve_device(device)
-    t0 = time.perf_counter()
-    run = make_kfused_solver(problem, dtype, k, compute_errors, stop_step,
-                             c2tau2_field, device, phase)
-    leapfrog._sync(device)
-    t1 = time.perf_counter()
-    u_prev, u_cur, abs_all, rel_all = run()
-    abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
-    leapfrog._sync(device)
-    t2 = time.perf_counter()
-    result = leapfrog.SolveResult(
-        problem=problem, u_prev=u_prev, u_cur=u_cur,
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=stop_step,
-        final_step=problem.timesteps if stop_step is None else stop_step,
-    )
-    obs_metrics.record_solve(result, "kfused", k=k,
-                             with_field=c2tau2_field is not None)
+    nsteps = problem.timesteps if stop_step is None else stop_step
+    with phases.SolveSpans("kfused", problem, nsteps, k) as ph:
+        with ph.init():
+            run = make_kfused_solver(problem, dtype, k, compute_errors,
+                                     stop_step, c2tau2_field, device, phase)
+            leapfrog._sync(device)
+        u_prev, u_cur, abs_all, rel_all = run()
+        with ph.readback():
+            abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
+            leapfrog._sync(device)
+        result = leapfrog.SolveResult(
+            problem=problem, u_prev=u_prev, u_cur=u_cur,
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=stop_step, final_step=nsteps,
+        )
+        ph.record(result, k=k, with_field=c2tau2_field is not None)
     return result
 
 
@@ -281,27 +283,29 @@ def resume_kfused(
     device = leapfrog.resolve_device(device)
     nsteps = problem.timesteps
     leapfrog._check_start(start_step, nsteps)
-    t0 = time.perf_counter()
-    march = _setup(problem, dtype, k, compute_errors, c2tau2_field, device)
-    f = stencil_ref.compute_dtype(dtype)
-    u_p = leapfrog._state_in(u_prev, dtype, device)
-    u_c = leapfrog._state_in(u_cur, dtype, device)
-    abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-    rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-    leapfrog._sync(device)
-    t1 = time.perf_counter()
-    u_p, u_c = march(u_p, u_c, start_step, abs_all, rel_all)
-    abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
-    leapfrog._sync(device)
-    t2 = time.perf_counter()
-    result = leapfrog.SolveResult(
-        problem=problem, u_prev=u_p, u_cur=u_c,
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=nsteps - start_step, final_step=nsteps,
-    )
-    obs_metrics.record_solve(result, "kfused", k=k,
-                             with_field=c2tau2_field is not None)
+    with phases.SolveSpans("kfused", problem, nsteps - start_step,
+                           k) as ph:
+        with ph.init():
+            march = _setup(problem, dtype, k, compute_errors, c2tau2_field,
+                           device)
+            f = stencil_ref.compute_dtype(dtype)
+            u_p = leapfrog._state_in(u_prev, dtype, device)
+            u_c = leapfrog._state_in(u_cur, dtype, device)
+            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            leapfrog._sync(device)
+        with phases.march():
+            u_p, u_c = march(u_p, u_c, start_step, abs_all, rel_all)
+        with ph.readback():
+            abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
+            leapfrog._sync(device)
+        result = leapfrog.SolveResult(
+            problem=problem, u_prev=u_p, u_cur=u_c,
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=nsteps - start_step, final_step=nsteps,
+        )
+        ph.record(result, k=k, with_field=c2tau2_field is not None)
     return result
 
 

@@ -49,7 +49,6 @@ shard are gathered before their max (comm/dist.py).
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -61,9 +60,9 @@ from wavetpu_torch.core.grid import (
 )
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
-from wavetpu_torch.obs import metrics as obs_metrics
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.solver import kfused, leapfrog, sharded_kfused
+from wavetpu_torch.obs import tracing
+from wavetpu_torch.solver import kfused, leapfrog, phases, sharded_kfused
 from wavetpu_torch.verify import oracle
 
 # The K4 kernel's pipeline takes k <= 8 stages (stencil_cuda.comp_pipe_tile).
@@ -206,9 +205,10 @@ def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
             c2tau2_field=c2tau2_field,
         )
         if compute_errors:
-            return (u2, v2, c2) + kfused._block_errors(
-                dmax, rmax, ctk, xmask, inv_absx
-            )
+            with tracing.annotate("verify.errors"):
+                return (u2, v2, c2) + kfused._block_errors(
+                    dmax, rmax, ctk, xmask, inv_absx
+                )
         return u2, v2, c2, None, None
 
     def march(u, v, carry, start, abs_all, rel_all, stop=nsteps):
@@ -323,35 +323,37 @@ def solve_kfused_comp(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
         )
     f = stencil_ref.compute_dtype(dtype)
-    t0 = time.perf_counter()
-    leapfrog.prepare_kernels(device)
-    errors = _error_fn_guarded(problem, dtype, device, phase)
-    field = None
-    if c2tau2_field is not None:
-        field = state.c2tau2_field(c2tau2_field, dtype, device)
-    march = _make_march(problem, dtype, k, compute_errors, block_x, nsteps,
-                        device, field, phase)
-    abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-    rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-    leapfrog._sync(device)
-    t1 = time.perf_counter()
-
-    u1, v1, c1 = _bootstrap(problem, dtype, v_dtype, carry, carry_dtype,
-                            device, field, phase)
-    if compute_errors:
-        abs_all[1], rel_all[1] = errors(u1, 1)
-    u, v, c = march(u1, v1, c1, 1, abs_all, rel_all)
-    abs_np = abs_all.cpu().numpy().astype(np.float64)
-    rel_np = rel_all.cpu().numpy().astype(np.float64)
-    leapfrog._sync(device)
-    t2 = time.perf_counter()
-    result = _as_result(problem, u, v, c, abs_np, rel_np, t1 - t0, t2 - t1,
-                        stop_step, nsteps)
-    obs_metrics.record_solve(
-        result, "kfused_comp", scheme="compensated", k=k,
-        v_itemsize=v_dtype.itemsize, carry=carry,
-        carry_itemsize=carry_dtype.itemsize if carry else None,
-        with_field=c2tau2_field is not None)
+    with phases.SolveSpans("kfused_comp", problem, nsteps, k) as ph:
+        with ph.init():
+            leapfrog.prepare_kernels(device)
+            errors = _error_fn_guarded(problem, dtype, device, phase)
+            field = None
+            if c2tau2_field is not None:
+                field = state.c2tau2_field(c2tau2_field, dtype, device)
+            march = _make_march(problem, dtype, k, compute_errors, block_x,
+                                nsteps, device, field, phase)
+            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            leapfrog._sync(device)
+        with phases.bootstrap():
+            u1, v1, c1 = _bootstrap(problem, dtype, v_dtype, carry,
+                                    carry_dtype, device, field, phase)
+            if compute_errors:
+                with tracing.annotate("verify.errors"):
+                    abs_all[1], rel_all[1] = errors(u1, 1)
+        with phases.march():
+            u, v, c = march(u1, v1, c1, 1, abs_all, rel_all)
+        with ph.readback():
+            abs_np = leapfrog._host(abs_all)
+            rel_np = leapfrog._host(rel_all)
+            leapfrog._sync(device)
+        result = _as_result(problem, u, v, c, abs_np, rel_np,
+                            ph.init_seconds, ph.solve_seconds, stop_step,
+                            nsteps)
+        ph.record(result, scheme="compensated", k=k,
+                  v_itemsize=v_dtype.itemsize, carry=carry,
+                  carry_itemsize=carry_dtype.itemsize if carry else None,
+                  with_field=c2tau2_field is not None)
     return result
 
 
@@ -393,12 +395,13 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
                          compute_errors, nsteps, block_x, carry_dtype,
                          c2tau2_field=None):
     """Set up the distributed flagship over the (MX, MY, 1) `mesh` and
-    return `(run, chunk)`: `run()` -> (u, v, carry | None blocks, abs, rel)
-    marches from layer 0 to nsteps with the per-layer errors as host f64
-    arrays of nsteps+1 entries; `chunk(u, v, carry, start, stop)` (lists
-    of blocks) marches layers start+1..stop - the resumed and chunked
-    marches, on the uninterrupted march's block grid from an aligned
-    start - and returns their errors alone.  One block_x serves every launch
+    return `(run, march, errors_of)`: `run()` -> (u, v, carry | None
+    blocks, rows) marches from layer 0 to nsteps; `march(u, v, carry,
+    start, stop)` (lists of blocks) marches layers start+1..stop - the
+    resumed and chunked marches, on the uninterrupted march's block grid
+    from an aligned start - and returns the same; `errors_of(rows)` reads
+    the kernels' error rows back as per-layer host f64 arrays of nsteps+1
+    entries (zero where no layer was marched).  One block_x serves every launch
     (default `default_block_x(N/MX, k)`, which equals the single-device
     default `default_block_x(N, k)` wherever that divides N/MX), so the op
     sequence matches the single-device kernel's slab partition."""
@@ -497,40 +500,45 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
             return z, z.copy()
         dmax, rmax = (sharded_kfused.rows_max_y(
             dist.gather_shards(mesh, rs), n_x, n_y, host) for rs in rows)
-        abs_e, rel_e = kfused._block_errors(
-            dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
+        with tracing.annotate("verify.errors"):
+            abs_e, rel_e = kfused._block_errors(
+                dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
         return leapfrog._host(abs_e), leapfrog._host(rel_e)
 
     def run():
-        rows = new_rows()
-        zero_v = each(lambda b: torch.zeros(b.shape, dtype=v_dtype,
-                                            device=b.device), u0)
-        zero_c = [torch.zeros(b.shape, dtype=carry_dtype, device=b.device)
-                  if carry_on and b is not None else None for b in u0]
-        # Layer 1: the same kernel at k=1, coeff C/2 on zero v and carry
-        # (the compensated half-step; half the field with a field).
-        st = step((u0, zero_v, zero_c), 1, 0, 0.5 * problem.a2tau2, False,
-                  half, rows)
-        if compute_errors:
-            for i in local:
-                dev = devices[i]
-                cx = mesh.coords[i][0]
-                dr, rr = sharded_kfused._layer_rows_local(
-                    st[0][i], sxct_on[dev][1, cx * nl:(cx + 1) * nl],
-                    *planes[i], f)
-                rows[0][i][1:2] = dr
-                rows[1][i][1:2] = rr
-        st = advance(st, 1, nsteps, rows)
-        return st + errors_of(rows)
+        with phases.bootstrap():
+            rows = new_rows()
+            zero_v = each(lambda b: torch.zeros(b.shape, dtype=v_dtype,
+                                                device=b.device), u0)
+            zero_c = [torch.zeros(b.shape, dtype=carry_dtype,
+                                  device=b.device)
+                      if carry_on and b is not None else None for b in u0]
+            # Layer 1: the same kernel at k=1, coeff C/2 on zero v and
+            # carry (the compensated half-step; half the field with a
+            # field).
+            st = step((u0, zero_v, zero_c), 1, 0, 0.5 * problem.a2tau2,
+                      False, half, rows)
+            if compute_errors:
+                with tracing.annotate("verify.errors"):
+                    for i in local:
+                        dev = devices[i]
+                        cx = mesh.coords[i][0]
+                        dr, rr = sharded_kfused._layer_rows_local(
+                            st[0][i], sxct_on[dev][1, cx * nl:(cx + 1) * nl],
+                            *planes[i], f)
+                        rows[0][i][1:2] = dr
+                        rows[1][i][1:2] = rr
+        with phases.march():
+            st = advance(st, 1, nsteps, rows)
+        return st + (rows,)
 
-    def chunk(u, v, c, start, stop):
+    def march(u, v, c, start, stop):
         rows = new_rows()
         st = advance((u, v, c if carry_on else [None] * len(u)), start,
                      stop, rows)
-        abs_e, rel_e = errors_of(rows)
-        return st + (abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1])
+        return st + (rows,)
 
-    return run, chunk
+    return run, march, errors_of
 
 
 def solve_kfused_comp_sharded(
@@ -575,39 +583,39 @@ def solve_kfused_comp_sharded(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
         )
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    t0 = time.perf_counter()
-    run, _ = _make_sharded_runner(problem, mesh, dtype, v_dtype, carry, k,
-                                  compute_errors, nsteps, block_x,
-                                  carry_dtype, c2tau2_field)
-    sharded_kfused._sync(mesh)
-    t1 = time.perf_counter()
-    u, v, c, abs_np, rel_np = run()
-    sharded_kfused._sync(mesh)
-    t2 = time.perf_counter()
-    f = stencil_ref.compute_dtype(dtype)
-    topo = Topology(N=problem.N, mesh_shape=mesh.shape)
+    with phases.SolveSpans("kfused_comp_sharded", problem, nsteps, k) as ph:
+        with ph.init():
+            run, _, errors_of = _make_sharded_runner(
+                problem, mesh, dtype, v_dtype, carry, k, compute_errors,
+                nsteps, block_x, carry_dtype, c2tau2_field)
+            sharded_kfused._sync(mesh)
+        u, v, c, rows = run()
+        with ph.readback():
+            abs_np, rel_np = errors_of(rows)
+            sharded_kfused._sync(mesh)
+        f = stencil_ref.compute_dtype(dtype)
+        topo = Topology(N=problem.N, mesh_shape=mesh.shape)
 
-    def sharded(blocks):
-        return ShardedArray(list(blocks), topo, mesh)
+        def sharded(blocks):
+            return ShardedArray(list(blocks), topo, mesh)
 
-    result = leapfrog.SolveResult(
-        problem=problem,
-        u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
-                            u, v)),
-        u_cur=sharded(u),
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=stop_step, final_step=nsteps,
-        comp_v=sharded(v),
-        comp_carry=sharded(c) if carry else None,
-    )
-    obs_metrics.record_solve(
-        result, "kfused_comp_sharded", scheme="compensated", k=k,
-        v_itemsize=v_dtype.itemsize, carry=carry,
-        carry_itemsize=carry_dtype.itemsize if carry else None,
-        with_field=c2tau2_field is not None,
-        block=(problem.N // n_x, problem.N // n_y, problem.N),
-        mesh_shape=(n_x, n_y, 1), rows=compute_errors)
+        result = leapfrog.SolveResult(
+            problem=problem,
+            u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
+                                u, v)),
+            u_cur=sharded(u),
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=stop_step, final_step=nsteps,
+            comp_v=sharded(v),
+            comp_carry=sharded(c) if carry else None,
+        )
+        ph.record(result, scheme="compensated", k=k,
+                  v_itemsize=v_dtype.itemsize, carry=carry,
+                  carry_itemsize=carry_dtype.itemsize if carry else None,
+                  with_field=c2tau2_field is not None,
+                  block=(problem.N // n_x, problem.N // n_y, problem.N),
+                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
     return result
 
 
@@ -653,32 +661,34 @@ def resume_kfused_comp(
     _validate(problem, dtype, v_dtype, c is not None, k, c2tau2_field,
               compute_errors)
     f = stencil_ref.compute_dtype(dtype)
-    t0 = time.perf_counter()
-    leapfrog.prepare_kernels(device)
-    field = None
-    if c2tau2_field is not None:
-        field = state.c2tau2_field(c2tau2_field, dtype, device)
-    march = _make_march(problem, dtype, k, compute_errors, block_x, nsteps,
-                        device, field)
-    u = u.to(device=device, dtype=dtype).contiguous()
-    vv = vv.to(device=device, dtype=v_dtype).contiguous()
-    c = None if c is None else c.to(device).contiguous()
-    abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-    rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-    leapfrog._sync(device)
-    t1 = time.perf_counter()
-    u, vv, c = march(u, vv, c, start_step, abs_all, rel_all)
-    abs_np = leapfrog._host(abs_all)
-    rel_np = leapfrog._host(rel_all)
-    leapfrog._sync(device)
-    t2 = time.perf_counter()
-    result = _as_result(problem, u, vv, c, abs_np, rel_np, t1 - t0,
-                        t2 - t1, nsteps - start_step, nsteps)
-    obs_metrics.record_solve(
-        result, "kfused_comp", scheme="compensated", k=k,
-        v_itemsize=v_dtype.itemsize, carry=c is not None,
-        carry_itemsize=c.dtype.itemsize if c is not None else None,
-        with_field=c2tau2_field is not None)
+    with phases.SolveSpans("kfused_comp", problem, nsteps - start_step,
+                           k) as ph:
+        with ph.init():
+            leapfrog.prepare_kernels(device)
+            field = None
+            if c2tau2_field is not None:
+                field = state.c2tau2_field(c2tau2_field, dtype, device)
+            march = _make_march(problem, dtype, k, compute_errors, block_x,
+                                nsteps, device, field)
+            u = u.to(device=device, dtype=dtype).contiguous()
+            vv = vv.to(device=device, dtype=v_dtype).contiguous()
+            c = None if c is None else c.to(device).contiguous()
+            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
+            leapfrog._sync(device)
+        with phases.march():
+            u, vv, c = march(u, vv, c, start_step, abs_all, rel_all)
+        with ph.readback():
+            abs_np = leapfrog._host(abs_all)
+            rel_np = leapfrog._host(rel_all)
+            leapfrog._sync(device)
+        result = _as_result(problem, u, vv, c, abs_np, rel_np,
+                            ph.init_seconds, ph.solve_seconds,
+                            nsteps - start_step, nsteps)
+        ph.record(result, scheme="compensated", k=k,
+                  v_itemsize=v_dtype.itemsize, carry=c is not None,
+                  carry_itemsize=c.dtype.itemsize if c is not None else None,
+                  with_field=c2tau2_field is not None)
     return result
 
 
@@ -734,19 +744,21 @@ def make_chunk_runner(
 
 def _sharded_setup(problem, n_x, n_y, devices, dtype, v_dtype, carry_on, k,
                    compute_errors, block_x, carry_dtype, c2tau2_field):
-    """(mesh, topo, chunk) of the distributed flagship's resumed and chunked
-    marches over the first MX*MY `devices`."""
+    """(mesh, topo, march, errors_of) of the distributed flagship's resumed
+    and chunked marches over the first MX*MY `devices`
+    (`_make_sharded_runner`)."""
     _validate_sharded(problem, dtype, v_dtype, carry_on, k, n_x, n_y,
                       c2tau2_field, compute_errors)
     if len(devices) < n_x * n_y:
         raise ValueError(f"mesh ({n_x}, {n_y}, 1) needs {n_x * n_y} "
                          f"devices, only {len(devices)} available")
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    _, chunk = _make_sharded_runner(
+    _, march, errors_of = _make_sharded_runner(
         problem, mesh, dtype, v_dtype, carry_on, k, compute_errors,
         problem.timesteps, block_x,
         carry_dtype if carry_dtype is not None else dtype, c2tau2_field)
-    return mesh, Topology(N=problem.N, mesh_shape=mesh.shape), chunk
+    return (mesh, Topology(N=problem.N, mesh_shape=mesh.shape), march,
+            errors_of)
 
 
 def _sharded_state(topo, mesh, u, v, c, dtype, v_dtype):
@@ -783,43 +795,45 @@ def resume_kfused_comp_sharded(
     nsteps = problem.timesteps
     leapfrog._check_start(start_step, nsteps)
     u, vv, c, v_dtype = _resume_state(u_cur, v, carry, dtype, v_dtype)
-    t0 = time.perf_counter()
-    mesh, topo, chunk = _sharded_setup(
-        problem, n_x, n_y, devices, dtype, v_dtype, c is not None, k,
-        compute_errors, block_x, None if c is None else c.dtype,
-        c2tau2_field)
-    st = _sharded_state(topo, mesh, u, vv, c, dtype, v_dtype)
-    sharded_kfused._sync(mesh)
-    t1 = time.perf_counter()
-    u, vv, c, abs_t, rel_t = chunk(*st, start_step, nsteps)
-    sharded_kfused._sync(mesh)
-    t2 = time.perf_counter()
-    head = np.zeros(start_step + 1)
-    f = stencil_ref.compute_dtype(dtype)
+    with phases.SolveSpans("kfused_comp_sharded", problem,
+                           nsteps - start_step, k) as ph:
+        with ph.init():
+            mesh, topo, march, errors_of = _sharded_setup(
+                problem, n_x, n_y, devices, dtype, v_dtype, c is not None, k,
+                compute_errors, block_x, None if c is None else c.dtype,
+                c2tau2_field)
+            st = _sharded_state(topo, mesh, u, vv, c, dtype, v_dtype)
+            sharded_kfused._sync(mesh)
+        with phases.march():
+            u, vv, c, rows = march(*st, start_step, nsteps)
+        with ph.readback():
+            abs_e, rel_e = errors_of(rows)
+            sharded_kfused._sync(mesh)
+        head = np.zeros(start_step + 1)
+        f = stencil_ref.compute_dtype(dtype)
 
-    def sharded(blocks):
-        return None if blocks is None or blocks[mesh.local[0]] is None \
-            else ShardedArray(list(blocks), topo, mesh)
+        def sharded(blocks):
+            return None if blocks is None or blocks[mesh.local[0]] is None \
+                else ShardedArray(list(blocks), topo, mesh)
 
-    result = leapfrog.SolveResult(
-        problem=problem,
-        u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
-                            u, vv)),
-        u_cur=sharded(u),
-        abs_errors=np.concatenate([head, abs_t]),
-        rel_errors=np.concatenate([head, rel_t]),
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=nsteps - start_step, final_step=nsteps,
-        comp_v=sharded(vv), comp_carry=sharded(c),
-    )
-    obs_metrics.record_solve(
-        result, "kfused_comp_sharded", scheme="compensated", k=k,
-        v_itemsize=v_dtype.itemsize, carry=c is not None,
-        carry_itemsize=(c[mesh.local[0]].dtype.itemsize if c is not None
-                        else None),
-        with_field=c2tau2_field is not None,
-        block=(problem.N // n_x, problem.N // n_y, problem.N),
-        mesh_shape=(n_x, n_y, 1), rows=compute_errors)
+        result = leapfrog.SolveResult(
+            problem=problem,
+            u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
+                                u, vv)),
+            u_cur=sharded(u),
+            abs_errors=np.concatenate([head, abs_e[start_step + 1:]]),
+            rel_errors=np.concatenate([head, rel_e[start_step + 1:]]),
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=nsteps - start_step, final_step=nsteps,
+            comp_v=sharded(vv), comp_carry=sharded(c),
+        )
+        ph.record(result, scheme="compensated", k=k,
+                  v_itemsize=v_dtype.itemsize, carry=c is not None,
+                  carry_itemsize=(c[mesh.local[0]].dtype.itemsize
+                                  if c is not None else None),
+                  with_field=c2tau2_field is not None,
+                  block=(problem.N // n_x, problem.N // n_y, problem.N),
+                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
     return result
 
 
@@ -851,7 +865,7 @@ def make_sharded_chunk_runner(
         carry_dtype = (_default_carry_dtype(dtype) if carry_dtype is None
                        else carry_dtype)
         _validate_carry_dtype(dtype, carry_dtype)
-    mesh, topo, chunk = _sharded_setup(
+    mesh, topo, march, errors_of = _sharded_setup(
         problem, n_x, n_y, devices, dtype, v_dtype, carry, k,
         compute_errors, block_x, carry_dtype if carry else None,
         c2tau2_field)
@@ -861,11 +875,13 @@ def make_sharded_chunk_runner(
         stop = leapfrog._chunk_stop(start, length, nsteps)
         u, vv, c, _ = _resume_state(u_cur, v, carry_ if carry else None,
                                     dtype, v_dtype)
-        u, vv, c, abs_t, rel_t = chunk(
+        u, vv, c, rows = march(
             *_sharded_state(topo, mesh, u, vv, c, dtype, v_dtype), start,
             stop)
+        abs_e, rel_e = errors_of(rows)
         return (ShardedArray(u, topo, mesh), ShardedArray(vv, topo, mesh),
                 None if c[mesh.local[0]] is None
-                else ShardedArray(c, topo, mesh), abs_t, rel_t)
+                else ShardedArray(c, topo, mesh),
+                abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1])
 
     return run

@@ -19,7 +19,6 @@ versions run (kernels/stencil_cuda.py dispatches on the tensor's device).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +27,8 @@ import torch
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.obs import metrics as obs_metrics
+from wavetpu_torch.obs import tracing
+from wavetpu_torch.solver import phases
 from wavetpu_torch.verify import oracle
 
 
@@ -207,9 +207,10 @@ def _march(problem, step, errors, compute_errors, u_prev, u, start, stop,
     for n in range(start + 1, stop + 1):
         u_next = step(u_prev, u, problem)
         if compute_errors:
-            a, r = errors(u_next, n)
-            abs_all[n] = a
-            rel_all[n] = r
+            with tracing.annotate("verify.errors"):
+                a, r = errors(u_next, n)
+                abs_all[n] = a
+                rel_all[n] = r
         u_prev, u = u, u_next
     return u_prev, u
 
@@ -280,16 +281,19 @@ def make_solver(
     u0 = initial_layer0(problem, dtype, device, phase)
 
     def run():
-        abs_all = _zeros(nsteps + 1, dtype, device)
-        rel_all = _zeros(nsteps + 1, dtype, device)
-        u1 = (analytic_layer(problem, dtype, device, phase, 1) if analytic
-              else step_layer1(u0, step, problem, dtype))
-        # Layer 0 is assigned from the oracle: its error is 0 by
-        # definition.
-        if compute_errors:
-            abs_all[1], rel_all[1] = errors(u1, 1)
-        u_prev, u_cur = _march(problem, step, errors, compute_errors, u0,
-                               u1, 1, nsteps, abs_all, rel_all)
+        with phases.bootstrap():
+            abs_all = _zeros(nsteps + 1, dtype, device)
+            rel_all = _zeros(nsteps + 1, dtype, device)
+            u1 = (analytic_layer(problem, dtype, device, phase, 1)
+                  if analytic else step_layer1(u0, step, problem, dtype))
+            # Layer 0 is assigned from the oracle: its error is 0 by
+            # definition.
+            if compute_errors:
+                with tracing.annotate("verify.errors"):
+                    abs_all[1], rel_all[1] = errors(u1, 1)
+        with phases.march():
+            u_prev, u_cur = _march(problem, step, errors, compute_errors,
+                                   u0, u1, 1, nsteps, abs_all, rel_all)
         return u_prev, u_cur, abs_all, rel_all
 
     return run
@@ -312,26 +316,25 @@ def solve(
     brackets the march, from the layer-1 bootstrap to the read-back of the
     error vectors.  The arguments are `make_solver`'s.
     """
-    t0 = time.perf_counter()
-    run = make_solver(problem, dtype, step_fn, compute_errors, stop_step,
-                      device, c2tau2_field, kernel, phase)
-    device = resolve_device(device)
     nsteps = problem.timesteps if stop_step is None else stop_step
-    _sync(device)
-    t1 = time.perf_counter()
-    u_prev, u_cur, abs_all, rel_all = run()
-    abs_np, rel_np = _host(abs_all), _host(rel_all)
-    _sync(device)
-    t2 = time.perf_counter()
-    result = SolveResult(
-        problem=problem, u_prev=u_prev, u_cur=u_cur,
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=stop_step,
-        final_step=nsteps,
-    )
-    obs_metrics.record_solve(result, "leapfrog",
-                             with_field=c2tau2_field is not None)
+    with phases.SolveSpans("leapfrog", problem, nsteps) as ph:
+        with ph.init():
+            run = make_solver(problem, dtype, step_fn, compute_errors,
+                              stop_step, device, c2tau2_field, kernel, phase)
+            device = resolve_device(device)
+            _sync(device)
+        u_prev, u_cur, abs_all, rel_all = run()
+        with ph.readback():
+            abs_np, rel_np = _host(abs_all), _host(rel_all)
+            _sync(device)
+        result = SolveResult(
+            problem=problem, u_prev=u_prev, u_cur=u_cur,
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=stop_step,
+            final_step=nsteps,
+        )
+        ph.record(result, with_field=c2tau2_field is not None)
     return result
 
 
@@ -401,29 +404,30 @@ def resume(
     device = resolve_device(device)
     nsteps = problem.timesteps
     _check_start(start_step, nsteps)
-    t0 = time.perf_counter()
-    prepare_kernels(device, kernel)
-    step = _standard_step(step_fn, c2tau2_field, dtype, device, kernel)
-    errors = _error_fn(problem, dtype, device)
-    u_p = _state_in(u_prev, dtype, device)
-    u_c = _state_in(u_cur, dtype, device)
-    abs_all = _zeros(nsteps + 1, dtype, device)
-    rel_all = _zeros(nsteps + 1, dtype, device)
-    _sync(device)
-    t1 = time.perf_counter()
-    u_p, u_c = _march(problem, step, errors, compute_errors, u_p, u_c,
-                      start_step, nsteps, abs_all, rel_all)
-    abs_np, rel_np = _host(abs_all), _host(rel_all)
-    _sync(device)
-    t2 = time.perf_counter()
-    result = SolveResult(
-        problem=problem, u_prev=u_p, u_cur=u_c,
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=nsteps - start_step, final_step=nsteps,
-    )
-    obs_metrics.record_solve(result, "leapfrog",
-                             with_field=c2tau2_field is not None)
+    with phases.SolveSpans("leapfrog", problem, nsteps - start_step) as ph:
+        with ph.init():
+            prepare_kernels(device, kernel)
+            step = _standard_step(step_fn, c2tau2_field, dtype, device,
+                                  kernel)
+            errors = _error_fn(problem, dtype, device)
+            u_p = _state_in(u_prev, dtype, device)
+            u_c = _state_in(u_cur, dtype, device)
+            abs_all = _zeros(nsteps + 1, dtype, device)
+            rel_all = _zeros(nsteps + 1, dtype, device)
+            _sync(device)
+        with phases.march():
+            u_p, u_c = _march(problem, step, errors, compute_errors, u_p,
+                              u_c, start_step, nsteps, abs_all, rel_all)
+        with ph.readback():
+            abs_np, rel_np = _host(abs_all), _host(rel_all)
+            _sync(device)
+        result = SolveResult(
+            problem=problem, u_prev=u_p, u_cur=u_c,
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=nsteps - start_step, final_step=nsteps,
+        )
+        ph.record(result, with_field=c2tau2_field is not None)
     return result
 
 
@@ -505,37 +509,40 @@ def solve_compensated(
         raise ValueError(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
         )
-    t0 = time.perf_counter()
-    prepare_kernels(device, kernel)
-    errors = _error_fn(problem, dtype, device, phase)
-    u0 = initial_layer0(problem, dtype, device, phase)
-    zero = torch.zeros_like(u0)
-    abs_all = _zeros(nsteps + 1, dtype, device)
-    rel_all = _zeros(nsteps + 1, dtype, device)
-    _sync(device)
-    t1 = time.perf_counter()
-
-    if analytic:
-        u = analytic_layer(problem, dtype, device, phase, 1)
-        v = analytic_increment_layer1(problem, dtype, device, phase)
-        c = zero
-    else:
-        u, v, c = step(u0, zero, zero, problem, 0.5 * problem.a2tau2)
-    if compute_errors:
-        abs_all[1], rel_all[1] = errors(u, 1)
-    u, v, c = _comp_march(problem, step, errors, compute_errors, u, v, c,
-                          1, nsteps, abs_all, rel_all)
-    abs_np, rel_np = _host(abs_all), _host(rel_all)
-    _sync(device)
-    t2 = time.perf_counter()
-    result = SolveResult(
-        problem=problem, u_prev=u - v, u_cur=u,
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=stop_step, final_step=nsteps,
-        comp_v=v, comp_carry=c,
-    )
-    obs_metrics.record_solve(result, "compensated", scheme="compensated")
+    with phases.SolveSpans("compensated", problem, nsteps) as ph:
+        with ph.init():
+            prepare_kernels(device, kernel)
+            errors = _error_fn(problem, dtype, device, phase)
+            u0 = initial_layer0(problem, dtype, device, phase)
+            zero = torch.zeros_like(u0)
+            abs_all = _zeros(nsteps + 1, dtype, device)
+            rel_all = _zeros(nsteps + 1, dtype, device)
+            _sync(device)
+        with phases.bootstrap():
+            if analytic:
+                u = analytic_layer(problem, dtype, device, phase, 1)
+                v = analytic_increment_layer1(problem, dtype, device, phase)
+                c = zero
+            else:
+                u, v, c = step(u0, zero, zero, problem,
+                               0.5 * problem.a2tau2)
+            if compute_errors:
+                with tracing.annotate("verify.errors"):
+                    abs_all[1], rel_all[1] = errors(u, 1)
+        with phases.march():
+            u, v, c = _comp_march(problem, step, errors, compute_errors, u,
+                                  v, c, 1, nsteps, abs_all, rel_all)
+        with ph.readback():
+            abs_np, rel_np = _host(abs_all), _host(rel_all)
+            _sync(device)
+        result = SolveResult(
+            problem=problem, u_prev=u - v, u_cur=u,
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=stop_step, final_step=nsteps,
+            comp_v=v, comp_carry=c,
+        )
+        ph.record(result, scheme="compensated")
     return result
 
 
@@ -548,7 +555,8 @@ def _comp_march(problem, step, errors, compute_errors, u, v, c, start, stop,
     for n in range(start + 1, stop + 1):
         u, v, c = step(u, v, c, problem, None)
         if compute_errors:
-            abs_all[n], rel_all[n] = errors(u, n)
+            with tracing.annotate("verify.errors"):
+                abs_all[n], rel_all[n] = errors(u, n)
     return u, v, c
 
 
@@ -584,27 +592,30 @@ def resume_compensated(
     _check_start(start_step, nsteps)
     step = (stencil_cuda.make_compensated_step_fn(kernel)
             if comp_step_fn is None else comp_step_fn)
-    t0 = time.perf_counter()
-    prepare_kernels(device, kernel)
-    errors = _error_fn(problem, dtype, device)
-    u, vv, c = _comp_state_in(u_cur, v, carry, dtype, device)
-    abs_all = _zeros(nsteps + 1, dtype, device)
-    rel_all = _zeros(nsteps + 1, dtype, device)
-    _sync(device)
-    t1 = time.perf_counter()
-    u, vv, c = _comp_march(problem, step, errors, compute_errors, u, vv, c,
-                           start_step, nsteps, abs_all, rel_all)
-    abs_np, rel_np = _host(abs_all), _host(rel_all)
-    _sync(device)
-    t2 = time.perf_counter()
-    result = SolveResult(
-        problem=problem, u_prev=u - vv, u_cur=u,
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=nsteps - start_step, final_step=nsteps,
-        comp_v=vv, comp_carry=c,
-    )
-    obs_metrics.record_solve(result, "compensated", scheme="compensated")
+    with phases.SolveSpans("compensated", problem,
+                           nsteps - start_step) as ph:
+        with ph.init():
+            prepare_kernels(device, kernel)
+            errors = _error_fn(problem, dtype, device)
+            u, vv, c = _comp_state_in(u_cur, v, carry, dtype, device)
+            abs_all = _zeros(nsteps + 1, dtype, device)
+            rel_all = _zeros(nsteps + 1, dtype, device)
+            _sync(device)
+        with phases.march():
+            u, vv, c = _comp_march(problem, step, errors, compute_errors, u,
+                                   vv, c, start_step, nsteps, abs_all,
+                                   rel_all)
+        with ph.readback():
+            abs_np, rel_np = _host(abs_all), _host(rel_all)
+            _sync(device)
+        result = SolveResult(
+            problem=problem, u_prev=u - vv, u_cur=u,
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=nsteps - start_step, final_step=nsteps,
+            comp_v=vv, comp_carry=c,
+        )
+        ph.record(result, scheme="compensated")
     return result
 
 

@@ -53,7 +53,6 @@ overlaps only the copies within a rank.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,8 +66,8 @@ from wavetpu_torch.core.grid import (
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.obs import metrics as obs_metrics
-from wavetpu_torch.solver import leapfrog
+from wavetpu_torch.obs import tracing
+from wavetpu_torch.solver import leapfrog, phases
 from wavetpu_torch.verify import oracle
 
 
@@ -448,9 +447,10 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
 
     def record(layer, n, abs_s, rel_s):
         if compute_errors:
-            for sh, u, a, r in zip(shards, layer, abs_s, rel_s):
-                if sh is not None:
-                    a[n], r[n] = sh.errors(u, n)
+            with tracing.annotate("verify.errors"):
+                for sh, u, a, r in zip(shards, layer, abs_s, rel_s):
+                    if sh is not None:
+                        a[n], r[n] = sh.errors(u, n)
 
     def bootstrap(u0, abs_s, rel_s):
         if compensated:
@@ -517,8 +517,11 @@ def make_sharded_solver(
         kernel, overlap, phase)
 
     def run():
-        abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
-        st = advance(bootstrap(u0, abs_s, rel_s), 1, nsteps, abs_s, rel_s)
+        with phases.bootstrap():
+            abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
+            st = bootstrap(u0, abs_s, rel_s)
+        with phases.march():
+            st = advance(st, 1, nsteps, abs_s, rel_s)
         if scheme == "compensated":
             u, v, c = st
             return each(torch.sub, u, v), u, abs_s, rel_s, v, c
@@ -566,34 +569,34 @@ def solve_sharded(
     `ShardedArray`s in wavetpu's padded layout; its errors are the
     cross-shard maxima.
     """
-    t0 = time.perf_counter()
-    topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
-    run = make_sharded_solver(problem, topo, mesh, dtype, compute_errors,
-                              c2tau2_field, stop_step, scheme, kernel,
-                              overlap, phase)
-    _sync(mesh)
-    t1 = time.perf_counter()
-    u_prev, u_cur, abs_s, rel_s, v, c = run()
-    abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
-    _sync(mesh)
-    t2 = time.perf_counter()
+    nsteps = problem.timesteps if stop_step is None else stop_step
+    with phases.SolveSpans("sharded", problem, nsteps) as ph:
+        with ph.init():
+            topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
+            run = make_sharded_solver(problem, topo, mesh, dtype,
+                                      compute_errors, c2tau2_field,
+                                      stop_step, scheme, kernel, overlap,
+                                      phase)
+            _sync(mesh)
+        u_prev, u_cur, abs_s, rel_s, v, c = run()
+        with ph.readback():
+            abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
+            _sync(mesh)
 
-    def sharded(blocks):
-        return None if blocks is None else ShardedArray(blocks, topo, mesh)
+        def sharded(blocks):
+            return None if blocks is None else ShardedArray(blocks, topo,
+                                                            mesh)
 
-    result = leapfrog.SolveResult(
-        problem=problem, u_prev=sharded(u_prev), u_cur=sharded(u_cur),
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=stop_step,
-        final_step=problem.timesteps if stop_step is None else stop_step,
-        comp_v=sharded(v), comp_carry=sharded(c),
-    )
-    obs_metrics.record_solve(
-        result, "sharded", scheme=scheme,
-        with_field=c2tau2_field is not None, block=topo.block,
-        mesh_shape=topo.mesh_shape,
-    )
+        result = leapfrog.SolveResult(
+            problem=problem, u_prev=sharded(u_prev), u_cur=sharded(u_cur),
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=stop_step, final_step=nsteps,
+            comp_v=sharded(v), comp_carry=sharded(c),
+        )
+        ph.record(result, scheme=scheme,
+                  with_field=c2tau2_field is not None, block=topo.block,
+                  mesh_shape=topo.mesh_shape)
     return result
 
 
@@ -664,33 +667,32 @@ def resume_sharded(
     `c2tau2_field`."""
     nsteps = problem.timesteps
     leapfrog._check_start(start_step, nsteps)
-    t0 = time.perf_counter()
-    topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
-    _, _, advance, vectors = _make_march(
-        problem, topo, mesh, dtype, compute_errors, c2tau2_field, scheme,
-        kernel, overlap)
-    st = _state_blocks(topo, mesh, dtype, scheme, u_prev, u_cur, comp_v,
-                       comp_carry)
-    abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
-    _sync(mesh)
-    t1 = time.perf_counter()
-    st = advance(st, start_step, nsteps, abs_s, rel_s)
-    abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
-    _sync(mesh)
-    t2 = time.perf_counter()
-    u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
-    result = leapfrog.SolveResult(
-        problem=problem, u_prev=u_p, u_cur=u_c,
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=nsteps - start_step, final_step=nsteps,
-        comp_v=v, comp_carry=c,
-    )
-    obs_metrics.record_solve(
-        result, "sharded", scheme=scheme,
-        with_field=c2tau2_field is not None, block=topo.block,
-        mesh_shape=topo.mesh_shape,
-    )
+    with phases.SolveSpans("sharded", problem, nsteps - start_step) as ph:
+        with ph.init():
+            topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
+            _, _, advance, vectors = _make_march(
+                problem, topo, mesh, dtype, compute_errors, c2tau2_field,
+                scheme, kernel, overlap)
+            st = _state_blocks(topo, mesh, dtype, scheme, u_prev, u_cur,
+                               comp_v, comp_carry)
+            abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
+            _sync(mesh)
+        with phases.march():
+            st = advance(st, start_step, nsteps, abs_s, rel_s)
+        with ph.readback():
+            abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
+            _sync(mesh)
+        u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
+        result = leapfrog.SolveResult(
+            problem=problem, u_prev=u_p, u_cur=u_c,
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=nsteps - start_step, final_step=nsteps,
+            comp_v=v, comp_carry=c,
+        )
+        ph.record(result, scheme=scheme,
+                  with_field=c2tau2_field is not None, block=topo.block,
+                  mesh_shape=topo.mesh_shape)
     return result
 
 

@@ -57,7 +57,6 @@ lacks), and the error rows of every shard are gathered
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,8 +69,8 @@ from wavetpu_torch.core.grid import (
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.obs import metrics as obs_metrics
-from wavetpu_torch.solver import kfused, leapfrog
+from wavetpu_torch.obs import tracing
+from wavetpu_torch.solver import kfused, leapfrog, phases
 
 MAX_K = 8  # the k-step pipeline of K8-K10 (stencil_cuda._KSTEP_MAX_K)
 
@@ -272,12 +271,13 @@ def rows_max_y(rows: Sequence[torch.Tensor], n_x: int, n_y: int,
 def _make_runner(problem: Problem, mesh, dtype, k: int,
                  compute_errors: bool, nsteps: int, c2tau2_field=None):
     """Set up the march over the (MX, MY, 1) `mesh` and return
-    `(run, chunk, d, counts)`: `run()` -> (u_prev blocks, u_cur blocks,
-    abs, rel) marches from layer 0 to nsteps with the per-layer errors as
-    host f64 arrays; `chunk(u_prev, u_cur, start, stop)` (block lists in
-    the march's layout) marches layers start+1..stop and returns their
-    errors alone; d is the blocks' x depth and counts their real planes
-    (x-only meshes)."""
+    `(run, march, errors_of, d, counts)`: `run()` -> (u_prev blocks,
+    u_cur blocks, rows) marches from layer 0 to nsteps; `march(u_prev,
+    u_cur, start, stop)` (block lists in the march's layout) marches
+    layers start+1..stop and returns the same; `errors_of(rows)` reads
+    the kernels' error rows back as per-layer host f64 arrays of nsteps+1
+    entries (zero where no layer was marched); d is the blocks' x depth
+    and counts their real planes (x-only meshes)."""
     n_x, n_y, _ = mesh.shape
     devices = list(mesh.devices)
     local = mesh.local
@@ -403,36 +403,40 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
             return z, z.copy()
         dmax, rmax = (rows_max_y(dist.gather_shards(mesh, rs), n_x, n_y,
                                  host) for rs in rows)
-        abs_e, rel_e = _assemble_errors(parts, dmax, rmax)
+        with tracing.annotate("verify.errors"):
+            abs_e, rel_e = _assemble_errors(parts, dmax, rmax)
         return leapfrog._host(abs_e), leapfrog._host(rel_e)
 
     def run():
-        rows = new_rows()
-        # kcall returns (layer n+k-1, layer n+k, ...): with u_prev = u = u0
-        # at k = 1 the second output is u0 + C*lap(u0) (the field's cell
-        # in place of C), so layer 1 needs no half coefficient.
-        s0 = each(lambda o: o[1], kcall(u0, u0, 1, 0, False))
-        cur = each(lambda a, b: (0.5 * (a.to(f) + b.to(f))).to(dtype), u0,
-                   s0)
-        if compute_errors:
-            for i in local:
-                dev = devices[i]
-                cx = mesh.coords[i][0]
-                dr, rr = _layer_rows_local(
-                    cur[i], sxct_on[dev][1, cx * d:(cx + 1) * d],
-                    *planes[i], f)
-                rows[0][i][1:2] = dr
-                rows[1][i][1:2] = rr
-        prev, cur = advance(u0, cur, 1, nsteps, rows)
-        return (prev, cur) + errors_of(rows)
+        with phases.bootstrap():
+            rows = new_rows()
+            # kcall returns (layer n+k-1, layer n+k, ...): with u_prev = u
+            # = u0 at k = 1 the second output is u0 + C*lap(u0) (the
+            # field's cell in place of C), so layer 1 needs no half
+            # coefficient.
+            s0 = each(lambda o: o[1], kcall(u0, u0, 1, 0, False))
+            cur = each(lambda a, b: (0.5 * (a.to(f) + b.to(f))).to(dtype),
+                       u0, s0)
+            if compute_errors:
+                with tracing.annotate("verify.errors"):
+                    for i in local:
+                        dev = devices[i]
+                        cx = mesh.coords[i][0]
+                        dr, rr = _layer_rows_local(
+                            cur[i], sxct_on[dev][1, cx * d:(cx + 1) * d],
+                            *planes[i], f)
+                        rows[0][i][1:2] = dr
+                        rows[1][i][1:2] = rr
+        with phases.march():
+            prev, cur = advance(u0, cur, 1, nsteps, rows)
+        return prev, cur, rows
 
-    def chunk(prev, cur, start, stop):
+    def march(prev, cur, start, stop):
         rows = new_rows()
         prev, cur = advance(prev, cur, start, stop, rows)
-        abs_e, rel_e = errors_of(rows)
-        return prev, cur, abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1]
+        return prev, cur, rows
 
-    return run, chunk, d, counts
+    return run, march, errors_of, d, counts
 
 
 def _move_x(blocks, src, dst, depth: int, mesh):
@@ -529,27 +533,28 @@ def solve_sharded_kfused(
             f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
         )
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    t0 = time.perf_counter()
-    run, _, d, counts = _make_runner(problem, mesh, dtype, k, compute_errors,
-                                  nsteps, c2tau2_field)
-    _sync(mesh)
-    t1 = time.perf_counter()
-    u_prev, u_cur, abs_np, rel_np = run()
-    _sync(mesh)
-    t2 = time.perf_counter()
-    result = leapfrog.SolveResult(
-        problem=problem,
-        u_prev=_to_topology_layout(u_prev, counts, problem, mesh),
-        u_cur=_to_topology_layout(u_cur, counts, problem, mesh),
-        abs_errors=abs_np, rel_errors=rel_np,
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=stop_step,
-        final_step=problem.timesteps if stop_step is None else stop_step,
-    )
-    obs_metrics.record_solve(
-        result, "sharded_kfused", k=k, with_field=c2tau2_field is not None,
-        block=(d, problem.N // n_y, problem.N), mesh_shape=(n_x, n_y, 1),
-        rows=compute_errors)
+    with phases.SolveSpans("sharded_kfused", problem, nsteps, k) as ph:
+        with ph.init():
+            run, _, errors_of, d, counts = _make_runner(
+                problem, mesh, dtype, k, compute_errors, nsteps,
+                c2tau2_field)
+            _sync(mesh)
+        u_prev, u_cur, rows = run()
+        with ph.readback():
+            abs_np, rel_np = errors_of(rows)
+            _sync(mesh)
+        result = leapfrog.SolveResult(
+            problem=problem,
+            u_prev=_to_topology_layout(u_prev, counts, problem, mesh),
+            u_cur=_to_topology_layout(u_cur, counts, problem, mesh),
+            abs_errors=abs_np, rel_errors=rel_np,
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=stop_step, final_step=nsteps,
+        )
+        ph.record(result, k=k,
+                  with_field=c2tau2_field is not None,
+                  block=(d, problem.N // n_y, problem.N),
+                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
     return result
 
 
@@ -610,30 +615,35 @@ def resume_sharded_kfused(
     nsteps = problem.timesteps
     leapfrog._check_start(start_step, nsteps)
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    t0 = time.perf_counter()
-    _, chunk, d, counts = _make_runner(problem, mesh, dtype, k,
-                                       compute_errors, nsteps, c2tau2_field)
-    prev, cur = (_from_topology_layout(a, counts, d, problem, mesh, dtype)
-                 for a in (u_prev, u_cur))
-    _sync(mesh)
-    t1 = time.perf_counter()
-    prev, cur, abs_t, rel_t = chunk(prev, cur, start_step, nsteps)
-    _sync(mesh)
-    t2 = time.perf_counter()
-    head = np.zeros(start_step + 1)
-    result = leapfrog.SolveResult(
-        problem=problem,
-        u_prev=_to_topology_layout(prev, counts, problem, mesh),
-        u_cur=_to_topology_layout(cur, counts, problem, mesh),
-        abs_errors=np.concatenate([head, abs_t]),
-        rel_errors=np.concatenate([head, rel_t]),
-        init_seconds=t1 - t0, solve_seconds=t2 - t1,
-        steps_computed=nsteps - start_step, final_step=nsteps,
-    )
-    obs_metrics.record_solve(
-        result, "sharded_kfused", k=k, with_field=c2tau2_field is not None,
-        block=(d, problem.N // n_y, problem.N), mesh_shape=(n_x, n_y, 1),
-        rows=compute_errors)
+    with phases.SolveSpans("sharded_kfused", problem, nsteps - start_step,
+                           k) as ph:
+        with ph.init():
+            _, march, errors_of, d, counts = _make_runner(
+                problem, mesh, dtype, k, compute_errors, nsteps,
+                c2tau2_field)
+            prev, cur = (_from_topology_layout(a, counts, d, problem, mesh,
+                                               dtype)
+                         for a in (u_prev, u_cur))
+            _sync(mesh)
+        with phases.march():
+            prev, cur, rows = march(prev, cur, start_step, nsteps)
+        with ph.readback():
+            abs_e, rel_e = errors_of(rows)
+            _sync(mesh)
+        head = np.zeros(start_step + 1)
+        result = leapfrog.SolveResult(
+            problem=problem,
+            u_prev=_to_topology_layout(prev, counts, problem, mesh),
+            u_cur=_to_topology_layout(cur, counts, problem, mesh),
+            abs_errors=np.concatenate([head, abs_e[start_step + 1:]]),
+            rel_errors=np.concatenate([head, rel_e[start_step + 1:]]),
+            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
+            steps_computed=nsteps - start_step, final_step=nsteps,
+        )
+        ph.record(result, k=k,
+                  with_field=c2tau2_field is not None,
+                  block=(d, problem.N // n_y, problem.N),
+                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
     return result
 
 
@@ -661,15 +671,17 @@ def make_chunk_runner(
                                     k, compute_errors, c2tau2_field)
     nsteps = problem.timesteps
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    _, chunk, d, counts = _make_runner(problem, mesh, dtype, k,
-                                       compute_errors, nsteps, c2tau2_field)
+    _, march, errors_of, d, counts = _make_runner(
+        problem, mesh, dtype, k, compute_errors, nsteps, c2tau2_field)
 
     def run(u_prev, u_cur, start: int):
         stop = leapfrog._chunk_stop(start, length, nsteps)
         prev, cur = (_from_topology_layout(a, counts, d, problem, mesh, dtype)
                      for a in (u_prev, u_cur))
-        prev, cur, abs_t, rel_t = chunk(prev, cur, start, stop)
+        prev, cur, rows = march(prev, cur, start, stop)
+        abs_e, rel_e = errors_of(rows)
         return (_to_topology_layout(prev, counts, problem, mesh),
-                _to_topology_layout(cur, counts, problem, mesh), abs_t, rel_t)
+                _to_topology_layout(cur, counts, problem, mesh),
+                abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1])
 
     return run
