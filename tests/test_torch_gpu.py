@@ -23,6 +23,7 @@ from wavetpu_torch.kernels import stencil_cuda, stencil_ref, tile_ab
 from wavetpu_torch.solver import (
     kfused, kfused_comp, leapfrog, sharded, sharded_kfused,
 )
+from wavetpu_torch.verify import oracle
 
 pytestmark = pytest.mark.gpu
 
@@ -294,6 +295,136 @@ def test_solvers_card_vs_cpu(cuda, solver):
     cpu = run("cpu")
     assert (gpu.u_cur.cpu() - cpu.u_cur).abs().max().item() <= 1e-5
     assert np.max(np.abs(gpu.abs_errors - cpu.abs_errors)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The 1-step error pass (csrc/errors.cu) against its plain version.
+
+
+def same_errors(got, want):
+    """Bit for bit, a NaN matching a NaN (its payload may differ)."""
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert (np.isnan(a) and np.isnan(b)) or a.tobytes() == b.tobytes(), (
+            a, b)
+
+
+def error_inputs(n, dtype, device, layer=3, seed=7):
+    """Layer `layer` of the closed form plus 1e-3 noise in the state
+    dtype, the interior factors and the time factor, on `device`."""
+    p = Problem(N=n, timesteps=8)
+    f = stencil_ref.compute_dtype(dtype)
+    sx, sy, sz = oracle.spatial_factors(p, torch.float64)
+    exact = oracle.analytic_field(sx, sy, sz, oracle.time_factor(
+        p, layer, torch.float64))
+    u = (exact + 1e-3 * field(n, seed, dtype=torch.float64)).to(f).to(dtype)
+    fac = [v[1:].to(device) for v in oracle.spatial_factors(p, f)]
+    ct = oracle.time_factor_table(p, f, device)[layer]
+    return u.to(device), fac, ct
+
+
+@pytest.mark.parametrize("n", [16, 17, 64, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_error_pass(cuda, n, dtype):
+    u, fac, ct = error_inputs(n, dtype, cuda)
+    view = u[1:, 1:, 1:]
+    before = stencil_cuda.launches["layer_errors"]
+    got = stencil_cuda.layer_errors(view, *fac, ct)
+    assert stencil_cuda.launches["layer_errors"] == before + 1
+    same_errors(got, oracle.separable_layer_errors(view, *fac, ct))
+    # In place, into zeroed slots of a vector.
+    vec = torch.zeros((2, 4), dtype=ct.dtype, device=cuda)
+    stencil_cuda.layer_errors(view, *fac, ct, (vec[0, 2], vec[1, 2]))
+    same_errors((vec[0, 2], vec[1, 2]), got)
+    assert not vec[:, [0, 1, 3]].any()
+
+
+@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_error_pass_nan_at_a_block_edge_and_in_the_last_cell(cuda, n, dtype):
+    u, fac, ct = error_inputs(n, dtype, cuda)
+    view = u[1:, 1:, 1:]
+    m = n - 1
+    # Row 7 closes the first block's first eight rows (one warp a row);
+    # (m-1, m-1, m-1) is the last cell of the last row.
+    for cell in ((0, 7, m - 1), (m - 1, m - 1, m - 1)):
+        v = view.clone()
+        v[cell] = float("nan")
+        got = stencil_cuda.layer_errors(v, *fac, ct)
+        assert np.isnan(got[0].item()) and np.isfinite(got[1].item())
+        same_errors(got, oracle.separable_layer_errors(v, *fac, ct))
+
+
+def test_error_pass_on_a_mesh_221_shard_box(cuda):
+    p = Problem(N=32, timesteps=8)
+    topo, mesh = sharded._resolve_mesh(p, (2, 2, 1), [cuda] * 4)
+    factors = sharded._padded_factors(p, topo)
+    masks = sharded._masks(p, topo)
+    ct = oracle.time_factor_table(p, torch.float32)
+    for i, (coord, dev) in enumerate(zip(mesh.coords, mesh.devices)):
+        sh = sharded._Shard(p, topo, coord, dev, torch.float32, factors,
+                            masks, ct)
+        block = (torch.randn(topo.block, generator=torch.Generator()
+                             .manual_seed(i)) * 0.1).to(cuda)
+        assert not block[sh.box].is_contiguous()
+        before = stencil_cuda.launches["layer_errors"]
+        got = sh.errors_at(block, sh.ct[3])
+        assert stencil_cuda.launches["layer_errors"] == before + 1
+        same_errors(got, oracle.separable_layer_errors(
+            block[sh.box], *sh.box_factors, sh.ct[3]))
+
+
+def test_error_pass_launches_once_a_layer_of_the_1step_solve(cuda):
+    """leapfrog.solve at N=64/100: one launch a layer (layers 1-100), and
+    its vectors are the plain pass's on the same states (K1 is
+    deterministic, so a second march gives them)."""
+    p = Problem(N=64, timesteps=100)
+    stencil_cuda.reset_launches()
+    res = leapfrog.solve(p, device=cuda)
+    torch.cuda.synchronize()
+    assert stencil_cuda.launches["layer_errors"] == p.timesteps
+    assert stencil_cuda.launches["step"] == p.timesteps
+    plain = leapfrog._error_fn(p, torch.float32, cuda, kernel="roll")
+    u_prev = leapfrog.initial_layer0(p, device=cuda)
+    u = leapfrog.step_layer1(u_prev, stencil_cuda.leapfrog_step, p,
+                             torch.float32)
+    abs_e, rel_e = np.zeros(p.timesteps + 1), np.zeros(p.timesteps + 1)
+    for n in range(1, p.timesteps + 1):
+        if n > 1:
+            u_prev, u = u, stencil_cuda.leapfrog_step(u_prev, u, p)
+        a, r = plain(u, n)
+        abs_e[n], rel_e[n] = a.item(), r.item()
+    assert torch.equal(u, res.u_cur)
+    assert np.array_equal(res.abs_errors, abs_e)
+    assert np.array_equal(res.rel_errors, rel_e)
+
+
+def test_error_pass_refuses_what_it_does_not_take(cuda):
+    u, fac, ct = error_inputs(16, torch.float32, cuda)
+    view = u[1:, 1:, 1:]
+    slots = torch.zeros(2, device=cuda)
+    bad = [
+        (view.transpose(1, 2), fac, ct),                     # last stride
+        (view[0], fac, ct),                                  # 2-D
+        (view.to(torch.float16), fac, ct),                   # dtype
+        (view, [fac[0][1:], fac[1], fac[2]], ct),            # factor length
+        (view, [fac[0].double(), fac[1], fac[2]], ct),       # factor dtype
+        (view, [torch.stack([fac[0], fac[0]], 1)[:, 0], fac[1], fac[2]],
+         ct),                                                # strided factor
+        (view, fac, ct.double()),                            # ct dtype
+        (view[:0], [fac[0][:0], fac[1], fac[2]], ct),        # empty
+    ]
+    before = stencil_cuda.launches["layer_errors"]
+    for args in bad:
+        with pytest.raises(ValueError):
+            stencil_cuda.layer_errors(args[0], *args[1], args[2])
+    with pytest.raises(ValueError):
+        stencil_cuda.layer_errors(view, *fac, ct,
+                                  (slots[0].double(), slots[1]))
+    with pytest.raises(ValueError):
+        stencil_cuda.layer_errors(view, *fac, ct.cpu())
+    assert stencil_cuda.launches["layer_errors"] == before
 
 
 # ---------------------------------------------------------------------------
@@ -1005,7 +1136,10 @@ def test_distributed_two_ranks_on_the_card(cuda, tmp_path, extra):
             assert side["exchange_seconds"] is not None
         else:
             assert launches["sharded_step"] == 20
-        assert sum(launches.values()) == launches["sharded_step"]
+        # The error pass: one launch a layer on the rank's one shard.
+        assert launches["layer_errors"] == 20
+        assert sum(launches.values()) == (launches["sharded_step"]
+                                          + launches["layer_errors"])
 
 
 # The measurement slice: --overlap (side streams), the phase-timing
@@ -1552,6 +1686,14 @@ def test_ensemble_lanes_equal_solo_on_card(cuda, scheme, path):
                                  pad_to=4)
     counts = dict(stencil_cuda.launches)
     assert res.batched and res.fallback_reason is None
+    # The error pass runs lane by lane, a launch a live lane a layer: four
+    # lanes at layer 1 (the padding lane stops there), three to layer 9,
+    # two to 17 on the 1-step paths; layer 1 alone before the k-blocks;
+    # the flagship's bootstrap is its masked plain pass.
+    errors = {"roll": 0, "pallas": 4 + 3 * 8 + 2 * 8, "kfused": 4}[path]
+    if scheme == "compensated" and path == "kfused":
+        errors = 0
+    assert counts.pop("layer_errors") == errors
     solo_launches = {k: v for k, v in counts.items()
                      if not k.endswith("_lanes")}
     assert not any(solo_launches.values()), solo_launches
@@ -1699,7 +1841,9 @@ def test_chunked_march_equals_monolithic_on_card(cuda, path, k):
         b.close()
     assert health is None and info["chunked"] and info["chunks"] == 4
     # The bootstrap's K1, then 40 layers: 40 K1, or 10 K3 blocks.
-    want = {"step": 41} if path == "pallas" else {"kstep": 10, "step": 1}
+    # The error pass: every layer on the 1-step path, layer 1 on k-fused.
+    want = ({"step": 41, "layer_errors": 41} if path == "pallas"
+            else {"kstep": 10, "step": 1, "layer_errors": 1})
     assert {name: n for name, n in counts.items() if n} == want
     mono, mono_health = eng.solve(p, [eb.LaneSpec()], path=path, k=k)
     assert mono_health == [None]

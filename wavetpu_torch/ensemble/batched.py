@@ -217,11 +217,12 @@ def fill_fields(problem: Problem, lanes: Sequence[LaneSpec]) -> list:
     return out
 
 
-def _lane_error_fn(problem: Problem, dtype, device):
+def _lane_error_fn(problem: Problem, dtype, device, kernel: str = "pallas"):
     """(u, n, ct_table) -> (abs_e, rel_e): leapfrog._error_fn with the
     lane's time-factor table a runtime argument (`leapfrog.lane_error_fn`,
-    one spatial product for every lane)."""
-    errors = leapfrog.lane_error_fn(problem, dtype, device)
+    one set of factors for every lane; the error kernel, or with
+    kernel="roll" its plain version)."""
+    errors = leapfrog.lane_error_fn(problem, dtype, device, kernel)
     return lambda u, n, ct_table: errors(u, ct_table[n])
 
 
@@ -369,6 +370,8 @@ class EnsembleSolver:
         self.n_lanes = n_lanes
         self.dtype = dtype
         self.path = path
+        # What the 1-step error pass runs: the plain versions on "roll".
+        self._kernel = "roll" if path == "roll" else "pallas"
         self.k = k if path == "kfused" else 1
         self.compute_errors = compute_errors
         self.block_x = block_x
@@ -501,7 +504,7 @@ class EnsembleSolver:
 
     def _march_standard(self, batch, u0, errs, out, order):
         problem, dtype, dev = self.problem, self.dtype, self.device
-        errors = _lane_error_fn(problem, dtype, dev)
+        errors = _lane_error_fn(problem, dtype, dev, self._kernel)
         field = batch.fields
         step_lanes = (stencil_cuda.fused_step_lanes_plain
                       if self.path == "roll"
@@ -573,8 +576,8 @@ class EnsembleSolver:
         v_dtype = dtype
         carry_dtype = (kfused_comp._default_carry_dtype(dtype) if kfused_path
                        else dtype)
-        errors = (_lane_error_fn_guarded if kfused_path
-                  else _lane_error_fn)(problem, dtype, dev)
+        errors = (_lane_error_fn_guarded(problem, dtype, dev) if kfused_path
+                  else _lane_error_fn(problem, dtype, dev, self._kernel))
         if self.path == "roll":
             def comp_step(u, v, c, coeff=None):
                 return stencil_cuda.compensated_step_lanes_plain(

@@ -116,7 +116,7 @@ class ShardedEnsembleSolver:
         masks = sharded._masks(problem, self.topo)
         self.shards = [
             sharded._Shard(problem, self.topo, coord, dev, f, factors, masks,
-                           ct)
+                           ct, kernel)
             for coord, dev in zip(self.mesh.coords, self.mesh.devices)]
 
     # ---- packing / compiling / running (EnsembleSolver contract) ----
@@ -143,7 +143,8 @@ class ShardedEnsembleSolver:
     @property
     def libraries(self) -> Tuple[str, ...]:
         """The kernel libraries this program launches: K6's lane mode
-        (sharded.cu) on the card, none for the plain versions."""
+        (sharded.cu) and the error pass (errors.cu) on the card, none for
+        the plain versions."""
         if self.kernel != "pallas" or not any(
                 d.type == "cuda" for d in self.mesh.devices):
             return ()

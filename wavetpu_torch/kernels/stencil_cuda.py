@@ -1,7 +1,8 @@
 """Wrappers of the CUDA stencil kernels (csrc/stencil.cu,
-csrc/kstep_pipe.cu, csrc/sharded.cu, csrc/comp_sharded.cu),
-each with its plain PyTorch version and a launch counter - the port of
-wavetpu/kernels/stencil_pallas.py's kernels.
+csrc/kstep_pipe.cu, csrc/sharded.cu, csrc/comp_sharded.cu) and of the
+1-step error pass (csrc/errors.cu), each with its plain PyTorch version
+and a launch counter - the port of wavetpu/kernels/stencil_pallas.py's
+kernels.
 
 | kernel | replaces (wavetpu/kernels/stencil_pallas.py)          | wrapper            | counter            |
 |--------|-------------------------------------------------------|--------------------|--------------------|
@@ -19,6 +20,7 @@ wavetpu/kernels/stencil_pallas.py's kernels.
 | K10    | `_kstep_sharded_xy_kernel` :1972 via `fused_kstep_sharded_xy` :2066 | `fused_kstep_sharded_xy` | `kstep_sharded_xy` (`kstep_sharded_xy_field`) |
 | K11    | `_kstep_comp_sharded_kernel` :1163 via `fused_kstep_comp_sharded` :1264 | `fused_kstep_comp_sharded` | `kstep_comp_sharded` (`kstep_comp_sharded_field`) |
 | K12    | `_kstep_comp_sharded_xy_kernel` :1369 via `fused_kstep_comp_sharded_xy` :1478 | `fused_kstep_comp_sharded_xy` | `kstep_comp_sharded_xy` (`kstep_comp_sharded_xy_field`) |
+| errors | none (wavetpu's `verify/oracle.layer_errors`, fused by XLA) | `layer_errors` | `layer_errors` |
 
 Lane modes (the ensembles' batch axis, wavetpu's `jax.vmap` of the same
 Pallas bodies in ensemble/batched.py and ensemble/sharded.py; one launch
@@ -74,6 +76,7 @@ from wavetpu_torch.kernels import build
 from wavetpu_torch.kernels.stencil_ref import (
     compute_dtype, ghost_extend, laplacian, laplacian_ext,
 )
+from wavetpu_torch.verify import oracle
 
 launches: Dict[str, int] = {
     "step": 0, "var_step": 0, "comp_step": 0, "kstep": 0, "kstep_field": 0,
@@ -88,6 +91,8 @@ launches: Dict[str, int] = {
     "step_lanes": 0, "var_step_lanes": 0, "comp_step_lanes": 0,
     "kstep_lanes": 0, "kstep_field_lanes": 0, "kstep_comp_lanes": 0,
     "sharded_step_lanes": 0,
+    # The 1-step error pass (csrc/errors.cu).
+    "layer_errors": 0,
 }
 
 # dtype codes of csrc/stencil.cu.
@@ -186,8 +191,21 @@ def _comp_sharded_lib() -> ctypes.CDLL:
     return lib
 
 
+def _errors_lib() -> ctypes.CDLL:
+    """csrc/errors.cu: the 1-step error pass."""
+    lib = build.load("errors")
+    if not getattr(lib, "_wt_typed", False):
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.wt_layer_errors.argtypes = (
+            [p, i, i, i, i64, i64] + [p] * 6 + [i, p])
+        lib.wt_layer_errors.restype = i
+        lib._wt_typed = True
+    return lib
+
+
 _LOADERS = {"stencil": _lib, "kstep_pipe": _kstep_pipe_lib,
-            "sharded": _sharded_lib, "comp_sharded": _comp_sharded_lib}
+            "sharded": _sharded_lib, "comp_sharded": _comp_sharded_lib,
+            "errors": _errors_lib}
 
 
 def load_libraries(names=None) -> None:
@@ -204,18 +222,21 @@ def libraries_for(path: str, scheme: str = "standard", k: int = 1,
                   mesh=None) -> Tuple[str, ...]:
     """The kernel libraries a serve program of this identity launches
     (ensemble/batched.py, ensemble/sharded.py): "roll" runs the plain
-    versions and builds none; a mesh K6's lane mode (sharded.cu); 1-step
-    pallas K1/K5 or K2 (stencil.cu); kfused K3/K3f and the K1/K5 bootstrap
-    (kstep_pipe.cu, stencil.cu) or, compensated, K4 and the K2 bootstrap
-    (comp_sharded.cu, stencil.cu)."""
+    versions and builds none; a mesh K6's lane mode (sharded.cu) and the
+    error pass (errors.cu); 1-step pallas K1/K5 or K2 (stencil.cu) and the
+    error pass; kfused K3/K3f, the K1/K5 bootstrap and the error pass of
+    layer 1 and the 1-step tail (kstep_pipe.cu, stencil.cu, errors.cu) or,
+    compensated, K4 and the K2 bootstrap, whose layer-1 errors are the
+    masked plain pass (comp_sharded.cu, stencil.cu)."""
     if path == "roll":
         return ()
     if mesh is not None:
-        return ("sharded",)
+        return ("sharded", "errors")
+    if path == "kfused" and k > 1 and scheme == "compensated":
+        return ("comp_sharded", "stencil")
     if path == "kfused" and k > 1:
-        return (("comp_sharded" if scheme == "compensated"
-                 else "kstep_pipe"), "stencil")
-    return ("stencil",)
+        return ("kstep_pipe", "stencil", "errors")
+    return ("stencil", "errors")
 
 
 def launched_instantiations() -> list:
@@ -431,6 +452,62 @@ def compensated_step(u, v, carry, problem: Problem, coeff=None):
              inst=("comp_step", u.dtype))
     launches["comp_step"] += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# The 1-step error pass.
+
+
+def layer_errors(u, sx, sy, sz, ct, out=None):
+    """The L-inf abs / rel error of layer `u` against the separable closed
+    form, csrc/errors.cu `layer_errors_kernel`: bit for bit its plain
+    version `oracle.separable_layer_errors`, which it runs for CPU tensors
+    (NaN in u -> abs NaN, rel finite; 0/0 -> 0; an inf kept), in one read
+    of `u` and one launch.
+
+    `u` is a 3-D view (f32, bf16 or f64; last stride 1, e.g. the interior
+    u[1:, 1:, 1:] or a shard's error box), `sx`, `sy`, `sz` its 1-D
+    factors (contiguous, one value per plane, row and column of the view,
+    in the compute dtype: f32 for bf16), `ct` the 0-d time factor on the
+    device (a layer's entry of the time-factor table: no host sync).
+    `out` = (abs slot, rel slot), 0-d tensors of the compute dtype on u's
+    device, e.g. `abs_all[n]`, that hold 0: the kernel folds its maxima
+    into them with atomicMax (the solvers' error vectors are allocated
+    zeroed and each slot is written once).  Without `out` a fresh zeroed
+    pair is allocated.  Returns the pair."""
+    if u.device.type == "cpu":
+        return oracle.separable_layer_errors(u, sx, sy, sz, ct, out)
+    _require_cuda(u)
+    f = compute_dtype(u.dtype)
+    if u.dtype not in _CODE or u.dim() != 3 or u.stride(2) != 1:
+        raise ValueError(f"the error pass takes a 3-D f32/bf16/f64 view "
+                         f"with last stride 1, got {u.dtype} shape "
+                         f"{tuple(u.shape)} strides {u.stride()}")
+    if u.numel() == 0:
+        raise ValueError("the error pass needs a non-empty view")
+    if out is None:
+        pair = torch.zeros(2, dtype=f, device=u.device)
+        out = (pair[0], pair[1])
+    _check_on_card(u.device, f, sx=(sx, u.shape[:1]), sy=(sy, u.shape[1:2]),
+                   sz=(sz, u.shape[2:]), ct=(ct, ()), abs_out=(out[0], ()),
+                   rel_out=(out[1], ()))
+    with torch.cuda.device(u.device):
+        _run(_errors_lib().wt_layer_errors, u.data_ptr(), *u.shape,
+             u.stride(0), u.stride(1), sx.data_ptr(), sy.data_ptr(),
+             sz.data_ptr(), ct.data_ptr(), out[0].data_ptr(),
+             out[1].data_ptr(), _CODE[u.dtype],
+             inst=("layer_errors", u.dtype))
+    launches["layer_errors"] += 1
+    return out
+
+
+def make_layer_errors_fn(kernel: str = "pallas"):
+    """The error pass a solver runs, `(u, sx, sy, sz, ct, out=None) ->
+    (abs, rel)`: the error kernel (`layer_errors`), or with kernel="roll"
+    its plain version."""
+    check_kernel(kernel)
+    return (layer_errors if kernel == "pallas"
+            else oracle.separable_layer_errors)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ march with the per-layer L-inf errors against the separable oracle written
 into device vectors - the analog of the reference's
 `max_abs_errors.push_back` (mpi_new.cpp:350) with no host round trip
 inside the loop.  PyTorch runs eagerly, so the march is a Python
-loop that enqueues one K1 launch and a few error reductions per layer; the
-only synchronisation is the read-back of the error vectors at the end.
+loop that enqueues one K1 launch and one launch of the error pass per
+layer (`stencil_cuda.layer_errors`, which writes the layer's two maxima
+into their slots); the only synchronisation is the read-back of the
+error vectors at the end.
 
 Devices: `device=None` means the CUDA device and raises without one; the
 CPU runs only when asked (`device="cpu"`), and then the kernels' plain
@@ -98,39 +100,43 @@ def prepare_kernels(device: torch.device, kernel: str = "pallas") -> None:
         stencil_cuda.load_libraries()
 
 
-def lane_error_fn(problem: Problem, dtype, device):
-    """Returns (u, ct) -> (abs_e, rel_e), 0-d device tensors, against the
-    analytic field at the time factor `ct` (a 0-d tensor in the compute
-    dtype): `_error_fn` with the time factor a runtime argument, so the
-    ensemble's lanes (each with its own phase's table) share one spatial
-    product.  The oracle evaluates in the compute dtype (f32 for bf16
-    state).
+def lane_error_fn(problem: Problem, dtype, device, kernel: str = "pallas"):
+    """Returns (u, ct, out=None) -> (abs_e, rel_e), 0-d device tensors,
+    against the analytic field at the time factor `ct` (a 0-d tensor in
+    the compute dtype): `_error_fn` with the time factor a runtime
+    argument, so the ensemble's lanes (each with its own phase's table)
+    share one set of factors.  The oracle evaluates in the compute dtype
+    (f32 for bf16 state).  `out` = (abs slot, rel slot), 0-d views of
+    zeroed error vectors (`abs_all[n]`), takes the maxima in place.
 
     The error interior excludes index 0 on every axis
     (`oracle.interior_masks_1d`), so the errors are taken on the interior
-    view u[1:, 1:, 1:] - the same maxima as masking the full field, without
-    the masking passes - and the spatial product ((sx*sy)*sz) is formed once
-    (times ct per layer, the same multiply order as
-    `oracle.analytic_field`).
+    view u[1:, 1:, 1:] against the factors' [1:] slices - the same maxima
+    as masking the full field, without the masking passes.  On the card
+    that is one launch of the error kernel (`stencil_cuda.layer_errors`),
+    which forms ((sx*sy)*sz)*ct in registers (`oracle.analytic_field`'s
+    multiply order); on the CPU, and with kernel="roll", its plain version.
     """
     f_dtype = stencil_ref.compute_dtype(dtype)
-    sx, sy, sz = oracle.spatial_factors(problem, f_dtype, device)
+    sx, sy, sz = (a[1:] for a in
+                  oracle.spatial_factors(problem, f_dtype, device))
     assert not oracle.interior_masks_1d(problem.N)[0]
-    spatial = sx[1:, None, None] * sy[None, 1:, None] * sz[None, None, 1:]
+    fn = stencil_cuda.make_layer_errors_fn(kernel)
 
-    def errors(u, ct):
-        return oracle.layer_errors(u[1:, 1:, 1:].to(f_dtype), spatial * ct)
+    def errors(u, ct, out=None):
+        return fn(u[1:, 1:, 1:], sx, sy, sz, ct, out)
 
     return errors
 
 
-def _error_fn(problem: Problem, dtype, device, phase: float = oracle.TWO_PI):
-    """Returns (u, n) -> (abs_e, rel_e) of layer n (`lane_error_fn` over
-    the phase's time-factor table)."""
-    errors = lane_error_fn(problem, dtype, device)
+def _error_fn(problem: Problem, dtype, device, phase: float = oracle.TWO_PI,
+              kernel: str = "pallas"):
+    """Returns (u, n, out=None) -> (abs_e, rel_e) of layer n
+    (`lane_error_fn` over the phase's time-factor table)."""
+    errors = lane_error_fn(problem, dtype, device, kernel)
     ct_table = oracle.time_factor_table(
         problem, stencil_ref.compute_dtype(dtype), device, phase)
-    return lambda u, n: errors(u, ct_table[n])
+    return lambda u, n, out=None: errors(u, ct_table[n], out)
 
 
 def analytic_layer(problem: Problem, dtype=torch.float32, device=None,
@@ -202,15 +208,13 @@ def initial_state(problem: Problem, dtype=torch.float32,
 def _march(problem, step, errors, compute_errors, u_prev, u, start, stop,
            abs_all, rel_all):
     """March layers start+1..stop from (layer start-1, layer start), writing
-    each layer's errors into the device vectors.  Shared by solve and
-    resume, so a resumed run's op sequence is the uninterrupted run's."""
+    each layer's errors into the device vectors' slots.  Shared by solve
+    and resume, so a resumed run's op sequence is the uninterrupted run's."""
     for n in range(start + 1, stop + 1):
         u_next = step(u_prev, u, problem)
         if compute_errors:
             with tracing.annotate("verify.errors"):
-                a, r = errors(u_next, n)
-                abs_all[n] = a
-                rel_all[n] = r
+                errors(u_next, n, (abs_all[n], rel_all[n]))
         u_prev, u = u, u_next
     return u_prev, u
 
@@ -277,7 +281,7 @@ def make_solver(
     if c2tau2_field is not None:
         step = stencil_cuda.make_step_fn(
             state.c2tau2_field(c2tau2_field, dtype, device), kernel)
-    errors = _error_fn(problem, dtype, device, phase)
+    errors = _error_fn(problem, dtype, device, phase, kernel)
     u0 = initial_layer0(problem, dtype, device, phase)
 
     def run():
@@ -290,7 +294,7 @@ def make_solver(
             # definition.
             if compute_errors:
                 with tracing.annotate("verify.errors"):
-                    abs_all[1], rel_all[1] = errors(u1, 1)
+                    errors(u1, 1, (abs_all[1], rel_all[1]))
         with phases.march():
             u_prev, u_cur = _march(problem, step, errors, compute_errors,
                                    u0, u1, 1, nsteps, abs_all, rel_all)
@@ -409,7 +413,7 @@ def resume(
             prepare_kernels(device, kernel)
             step = _standard_step(step_fn, c2tau2_field, dtype, device,
                                   kernel)
-            errors = _error_fn(problem, dtype, device)
+            errors = _error_fn(problem, dtype, device, kernel=kernel)
             u_p = _state_in(u_prev, dtype, device)
             u_c = _state_in(u_cur, dtype, device)
             abs_all = _zeros(nsteps + 1, dtype, device)
@@ -460,7 +464,7 @@ def make_chunk_runner(
     device = resolve_device(device)
     prepare_kernels(device, kernel)
     step = _standard_step(step_fn, c2tau2_field, dtype, device, kernel)
-    errors = _error_fn(problem, dtype, device)
+    errors = _error_fn(problem, dtype, device, kernel=kernel)
     nsteps = problem.timesteps
 
     def run(u_prev, u_cur, start: int):
@@ -512,7 +516,7 @@ def solve_compensated(
     with phases.SolveSpans("compensated", problem, nsteps) as ph:
         with ph.init():
             prepare_kernels(device, kernel)
-            errors = _error_fn(problem, dtype, device, phase)
+            errors = _error_fn(problem, dtype, device, phase, kernel)
             u0 = initial_layer0(problem, dtype, device, phase)
             zero = torch.zeros_like(u0)
             abs_all = _zeros(nsteps + 1, dtype, device)
@@ -528,7 +532,7 @@ def solve_compensated(
                                0.5 * problem.a2tau2)
             if compute_errors:
                 with tracing.annotate("verify.errors"):
-                    abs_all[1], rel_all[1] = errors(u, 1)
+                    errors(u, 1, (abs_all[1], rel_all[1]))
         with phases.march():
             u, v, c = _comp_march(problem, step, errors, compute_errors, u,
                                   v, c, 1, nsteps, abs_all, rel_all)
@@ -556,7 +560,7 @@ def _comp_march(problem, step, errors, compute_errors, u, v, c, start, stop,
         u, v, c = step(u, v, c, problem, None)
         if compute_errors:
             with tracing.annotate("verify.errors"):
-                abs_all[n], rel_all[n] = errors(u, n)
+                errors(u, n, (abs_all[n], rel_all[n]))
     return u, v, c
 
 
@@ -596,7 +600,7 @@ def resume_compensated(
                            nsteps - start_step) as ph:
         with ph.init():
             prepare_kernels(device, kernel)
-            errors = _error_fn(problem, dtype, device)
+            errors = _error_fn(problem, dtype, device, kernel=kernel)
             u, vv, c = _comp_state_in(u_cur, v, carry, dtype, device)
             abs_all = _zeros(nsteps + 1, dtype, device)
             rel_all = _zeros(nsteps + 1, dtype, device)
@@ -638,7 +642,7 @@ def make_comp_chunk_runner(
     step = (stencil_cuda.make_compensated_step_fn(kernel)
             if comp_step_fn is None else comp_step_fn)
     prepare_kernels(device, kernel)
-    errors = _error_fn(problem, dtype, device)
+    errors = _error_fn(problem, dtype, device, kernel=kernel)
     nsteps = problem.timesteps
 
     def run(u_cur, v, carry, start: int):

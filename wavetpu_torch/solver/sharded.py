@@ -122,10 +122,12 @@ def _shard_offsets(topo: Topology, coord) -> Tuple[int, int, int]:
 
 class _Shard:
     """What one shard's march needs on its device: its offsets, its slices
-    of the factors and masks, and its error function."""
+    of the factors and masks, and its error function (the error kernel,
+    `stencil_cuda.layer_errors`, or with kernel="roll" its plain
+    version)."""
 
     def __init__(self, problem, topo, coord, device, f_dtype, factors,
-                 masks, ct):
+                 masks, ct, kernel: str = "pallas"):
         self.device = device
         self.offsets = _shard_offsets(topo, coord)
         sl = [slice(o, o + b) for o, b in zip(self.offsets, topo.block)]
@@ -148,9 +150,9 @@ class _Shard:
                        else None)
         self.box = None if None in box else tuple(box)
         if self.box is not None:
-            bx, by, bz = self.box
-            self.spatial = (fx[bx, None, None] * fy[None, by, None]
-                            * fz[None, None, bz])
+            self.box_factors = tuple(v[b] for v, b in zip(self.factors,
+                                                          self.box))
+        self.layer_errors = stencil_cuda.make_layer_errors_fn(kernel)
         self.ct = ct.to(device)
 
     def analytic(self, ct, dtype):
@@ -165,19 +167,22 @@ class _Shard:
     def layer0(self, dtype):
         return self.analytic(self.ct[0], dtype)
 
-    def errors_at(self, u, ct):
+    def errors_at(self, u, ct, out=None):
         """(abs, rel) of block `u` against the analytic field at time factor
         `ct` over the block's error interior, 0-d tensors on the shard's
-        device (zeros for a block with none)."""
+        device (zeros for a block with none); written into `out` = (abs
+        slot, rel slot) of zeroed vectors when given
+        (`stencil_cuda.layer_errors` on the box's view and factors)."""
         if self.box is None:
+            if out is not None:
+                return out
             z = torch.zeros((), dtype=self.ct.dtype, device=self.device)
             return z, z
-        return oracle.layer_errors(u[self.box].to(self.ct.dtype),
-                                   self.spatial * ct)
+        return self.layer_errors(u[self.box], *self.box_factors, ct, out)
 
-    def errors(self, u, n):
+    def errors(self, u, n, out=None):
         """(abs, rel) of layer n (`errors_at` ct(n))."""
-        return self.errors_at(u, self.ct[n])
+        return self.errors_at(u, self.ct[n], out)
 
 
 def _self_ghosts(u: torch.Tensor, topo: Topology,
@@ -427,7 +432,8 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
     factors = _padded_factors(problem, topo)
     masks = _masks(problem, topo)
     ct = oracle.time_factor_table(problem, f, phase=phase)
-    shards = [_Shard(problem, topo, coord, dev, f, factors, masks, ct)
+    shards = [_Shard(problem, topo, coord, dev, f, factors, masks, ct,
+                     kernel)
               if mesh.is_local(i) else None
               for i, (coord, dev) in enumerate(zip(mesh.coords,
                                                    mesh.devices))]
@@ -450,7 +456,7 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
             with tracing.annotate("verify.errors"):
                 for sh, u, a, r in zip(shards, layer, abs_s, rel_s):
                     if sh is not None:
-                        a[n], r[n] = sh.errors(u, n)
+                        sh.errors(u, n, (a[n], r[n]))
 
     def bootstrap(u0, abs_s, rel_s):
         if compensated:

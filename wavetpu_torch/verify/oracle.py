@@ -81,6 +81,21 @@ def analytic_field(sx, sy, sz, ct):
     return sx[:, None, None] * sy[None, :, None] * sz[None, None, :] * ct
 
 
+def separable_layer_errors(u, sx, sy, sz, ct, out=None):
+    """`layer_errors` of `u`, taken in the factors' dtype, against the
+    separable analytic field `analytic_field(sx, sy, sz, ct)` - (abs, rel),
+    0-d tensors; written into `out` = (abs slot, rel slot), 0-d tensors,
+    when given, and returned there.  The plain version of the error kernel
+    (`stencil_cuda.layer_errors`); the factors are in the compute dtype
+    (f32 for bf16 state)."""
+    a, r = layer_errors(u.to(sx.dtype), analytic_field(sx, sy, sz, ct))
+    if out is None:
+        return a, r
+    out[0].copy_(a)
+    out[1].copy_(r)
+    return out
+
+
 def interior_masks_1d(n: int, start: int = 0) -> np.ndarray:
     """Boolean 1-D mask selecting the error interior of a block: the
     reference's error loops cover global indices 1..N-1 on every axis, i.e.
