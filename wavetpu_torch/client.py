@@ -354,12 +354,18 @@ class WavetpuClient:
         retries: Optional[int] = None,
         timeout: Optional[float] = None,
         headers: Optional[Dict[str, str]] = None,
+        probes: Optional[Sequence[Sequence[int]]] = None,
     ) -> SolveOutcome:
         """POST /solve with retry/backoff/deadline per the class doc.
         The per-call kwargs override the client defaults; `request_id`
         (else a minted `cl-*` id) rides EVERY attempt.  `headers`
         merge OVER the client-level extra headers per attempt (e.g. a
-        per-request X-Priority on a shared authenticated client)."""
+        per-request X-Priority on a shared authenticated client).
+        `probes` ([i, j, k] held nodes) rides in the body as its
+        `probes`: a 200's report then carries `final_probes` and
+        `final_rms`, the lane's final-state digest."""
+        if probes is not None:
+            body = dict(body, probes=[[int(c) for c in p] for p in probes])
         retries = self.retries if retries is None else retries
         deadline_s = (
             self.deadline_s if deadline_s is None else deadline_s

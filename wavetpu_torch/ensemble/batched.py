@@ -117,6 +117,10 @@ class EnsembleResult:
     # holds views of it.
     u_prev_batch: Optional[object] = None
     u_cur_batch: Optional[object] = None
+    # Per-lane final-state digests the serve engine gathers before it
+    # releases the states (serve/engine.final_digests), None where no
+    # lane asked.
+    digests: Optional[List[Optional[dict]]] = None
 
     @property
     def aggregate_gcells_per_second(self) -> float:

@@ -78,7 +78,16 @@ batched composition over that device mesh, its shards on the visible
 cards, repeated as needed; standard scheme, no fuse_steps/c2_field).
 kernel auto resolves to pallas (the CUDA kernels) on the card and to roll
 (their plain versions) with --platform cpu.  resume_token (64 hex) resumes
-a checkpointed long solve (below).
+a checkpointed long solve (below).  probes (at most 64 [i, j, k] node
+indices of the held grid, each in 0..N-1) asks for a digest of the lane's
+final state: the 200's report then also carries `final_probes` ([u_last,
+u_before] at each node: the program's own last two layers) and
+`final_rms` (the root mean square of the last layer over all N^3 held
+nodes, summed in float64), gathered on the card before the batch's
+states are released (engine.final_digests).  A request without probes
+gets the same payload as before, byte for byte; a mesh or chunked
+request with probes gets 422, and one with probes never touches the
+result cache.
 
 A request whose lane trips the numerical-health watchdog (NaN/Inf or
 amplitude blowup - e.g. a Courant-unstable config) gets HTTP 422 with the
@@ -125,7 +134,7 @@ import threading
 import time
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 from wavetpu_torch import progkey
 from wavetpu_torch.core.problem import Problem
@@ -258,16 +267,55 @@ def parse_solve_request(body: dict, default_kernel: str = "auto",
         k=ident.k, dtype_name=ident.dtype,
         mesh_shape=mesh, resume_token=resume_token,
         priority=normalize_priority(body.get("priority")),
+        probes=parse_probes(body.get("probes"), problem.N),
     )
+
+
+MAX_PROBES = 64
+
+
+def parse_probes(raw, n: int) -> Optional[list]:
+    """A /solve body's `probes`: None, or a list of at most MAX_PROBES
+    [i, j, k] node indices of the held grid (integers in 0..N-1 on each
+    axis).  Anything else raises ValueError (HTTP 400)."""
+    if raw is None:
+        return None
+    if not isinstance(raw, list) or len(raw) > MAX_PROBES:
+        raise ValueError(f"probes must be a list of at most {MAX_PROBES} "
+                         f"[i, j, k] node indices")
+    nodes = []
+    for node in raw:
+        if not (isinstance(node, list) and len(node) == 3 and all(
+                type(c) is int and 0 <= c < n for c in node)):
+            raise ValueError(f"each probe must be [i, j, k] with integers "
+                             f"in 0..{n - 1}, got {node!r}")
+        nodes.append(list(node))
+    return nodes
+
+
+class _Answer(NamedTuple):
+    """A solved lane on its way to the wire: `_Handler._answer_body`
+    builds its payload inside the `serve.respond` span."""
+
+    lane_result: object
+    batch_info: dict
+    errors_computed: bool
+    cache_key: Optional[str]
+    coalesced: bool
 
 
 def _ok_payload(result, batch_info: dict, errors_computed: bool) -> dict:
     """The reference report fields for one lane (io/report.py sidecar
-    contract) plus the verbatim text report."""
+    contract) plus the verbatim text report; a lane that asked for
+    `probes` also reports its digest (`final_probes`, `final_rms`), which
+    the scheduler hands over under the batch info's "digest"."""
     from wavetpu_torch.io import report
 
+    digest = batch_info.get("digest")
+    if digest is not None:
+        batch_info = {k: v for k, v in batch_info.items() if k != "digest"}
     p = result.problem
-    return {
+    payload = {
         "status": "ok",
         "report": {
             "problem": dataclasses.asdict(p),
@@ -295,6 +343,9 @@ def _ok_payload(result, batch_info: dict, errors_computed: bool) -> dict:
         ),
         "batch": batch_info,
     }
+    if digest is not None:
+        payload["report"].update(digest)
+    return payload
 
 
 _RID_ALLOWED = frozenset(
@@ -689,7 +740,11 @@ class _Handler(BaseHTTPRequestHandler):
             headers.setdefault("X-Request-Id", rid)
         if echo_tp:
             headers.setdefault("traceparent", echo_tp)
-        self._send(code, payload, headers)
+        # serve.respond: the answer's payload, its JSON and the send.
+        with tracing.span("serve.respond", status=code):
+            if isinstance(payload, _Answer):
+                payload = self._answer_body(payload, headers)
+            self._send(code, payload, headers)
         offer = self._shadow_offer
         if offer is not None and self.state.shadow is not None:
             req, lane_result = offer
@@ -732,74 +787,76 @@ class _Handler(BaseHTTPRequestHandler):
                 "Connection": "close",
             }
         t0 = time.monotonic()
-        try:
-            length = int(self.headers.get("Content-Length", "0") or 0)
-            if length < 0:
-                # A negative length would turn rfile.read(length) into
-                # read-to-EOF and pin this handler thread forever.
-                raise ValueError(length)
-        except (TypeError, ValueError):
-            # A malformed Content-Length is a 400 like any other bad
-            # field, not a dropped connection (or a hung thread).
-            st.metrics.observe_response(False)
-            return 400, {
-                "status": "error",
-                "error": "malformed Content-Length header",
-            }, {"Connection": "close"}
-        if st.max_body_bytes is not None and length > st.max_body_bytes:
-            # Refused before the body is even read: an oversized upload
-            # must not be buffered just to be thrown away.
-            st.metrics.observe_limit_rejected("body_bytes")
-            st.metrics.observe_response(False)
-            return 413, {
-                "status": "error",
-                "error": (
-                    f"request body {length} bytes exceeds "
-                    f"--max-body-bytes {st.max_body_bytes}"
-                ),
-            }, {"Connection": "close"}
-        try:
-            body = json.loads(self.rfile.read(length) or b"{}")
-            req = parse_solve_request(body, st.default_kernel,
-                                      platform=st.backend)
-            tenant_hdr = self.headers.get("X-Wavetpu-Tenant")
-            prio_hdr = self.headers.get("X-Priority")
-            if st.proxy_token is not None and (tenant_hdr or prio_hdr):
-                # Replica-side tenant trust: identity/class headers are
-                # honored only from the router (it holds --proxy-token).
-                # A direct client's claim is IGNORED - the request still
-                # serves, untenanted and at its body-declared class.
-                if self.headers.get("X-Wavetpu-Proxy-Token") \
-                        != st.proxy_token:
-                    st.metrics.observe_tenant_spoof_rejected()
-                    tenant_hdr = prio_hdr = None
-            tenant = sanitize_tenant(tenant_hdr)
-            if tenant is not None:
-                req = dataclasses.replace(req, tenant=tenant)
-            if prio_hdr:
-                # The router-stamped (ceiling-clamped) class wins over
-                # the body's self-declared one.
-                req = dataclasses.replace(req, priority=normalize_priority(
-                    prio_hdr, default=req.priority
-                ))
-            # Deadline contract: `X-Deadline-Ms` header (proxy-settable,
-            # wins) or JSON `deadline_ms` - a RELATIVE budget in ms from
-            # server receipt.  None (the historical default) disables
-            # every deadline path bit-for-bit.
-            raw_dl = self.headers.get("X-Deadline-Ms")
-            if raw_dl is None:
-                raw_dl = body.get("deadline_ms")
-            deadline = deadline_ms = None
-            if raw_dl is not None:
-                deadline_ms = float(raw_dl)
-                if not deadline_ms > 0:
-                    raise ValueError(
-                        f"deadline_ms must be > 0, got {deadline_ms}"
-                    )
-                deadline = t0 + deadline_ms / 1e3
-        except (ValueError, TypeError, json.JSONDecodeError) as e:
-            st.metrics.observe_response(False)
-            return 400, {"status": "error", "error": str(e)}, {}
+        # serve.parse: the body's read, JSON decode and validation.
+        with tracing.span("serve.parse"):
+            try:
+                length = int(self.headers.get("Content-Length", "0") or 0)
+                if length < 0:
+                    # A negative length would turn rfile.read(length) into
+                    # read-to-EOF and pin this handler thread forever.
+                    raise ValueError(length)
+            except (TypeError, ValueError):
+                # A malformed Content-Length is a 400 like any other bad
+                # field, not a dropped connection (or a hung thread).
+                st.metrics.observe_response(False)
+                return 400, {
+                    "status": "error",
+                    "error": "malformed Content-Length header",
+                }, {"Connection": "close"}
+            if st.max_body_bytes is not None and length > st.max_body_bytes:
+                # Refused before the body is even read: an oversized upload
+                # must not be buffered just to be thrown away.
+                st.metrics.observe_limit_rejected("body_bytes")
+                st.metrics.observe_response(False)
+                return 413, {
+                    "status": "error",
+                    "error": (
+                        f"request body {length} bytes exceeds "
+                        f"--max-body-bytes {st.max_body_bytes}"
+                    ),
+                }, {"Connection": "close"}
+            try:
+                body = json.loads(self.rfile.read(length) or b"{}")
+                req = parse_solve_request(body, st.default_kernel,
+                                          platform=st.backend)
+                tenant_hdr = self.headers.get("X-Wavetpu-Tenant")
+                prio_hdr = self.headers.get("X-Priority")
+                if st.proxy_token is not None and (tenant_hdr or prio_hdr):
+                    # Replica-side tenant trust: identity/class headers are
+                    # honored only from the router (it holds --proxy-token).
+                    # A direct client's claim is IGNORED - the request still
+                    # serves, untenanted and at its body-declared class.
+                    if self.headers.get("X-Wavetpu-Proxy-Token") \
+                            != st.proxy_token:
+                        st.metrics.observe_tenant_spoof_rejected()
+                        tenant_hdr = prio_hdr = None
+                tenant = sanitize_tenant(tenant_hdr)
+                if tenant is not None:
+                    req = dataclasses.replace(req, tenant=tenant)
+                if prio_hdr:
+                    # The router-stamped (ceiling-clamped) class wins over
+                    # the body's self-declared one.
+                    req = dataclasses.replace(req, priority=normalize_priority(
+                        prio_hdr, default=req.priority
+                    ))
+                # Deadline contract: `X-Deadline-Ms` header (proxy-settable,
+                # wins) or JSON `deadline_ms` - a RELATIVE budget in ms from
+                # server receipt.  None (the historical default) disables
+                # every deadline path bit-for-bit.
+                raw_dl = self.headers.get("X-Deadline-Ms")
+                if raw_dl is None:
+                    raw_dl = body.get("deadline_ms")
+                deadline = deadline_ms = None
+                if raw_dl is not None:
+                    deadline_ms = float(raw_dl)
+                    if not deadline_ms > 0:
+                        raise ValueError(
+                            f"deadline_ms must be > 0, got {deadline_ms}"
+                        )
+                    deadline = t0 + deadline_ms / 1e3
+            except (ValueError, TypeError, json.JSONDecodeError) as e:
+                st.metrics.observe_response(False)
+                return 400, {"status": "error", "error": str(e)}, {}
         cells = req.problem.cells_per_step
         if st.max_lane_cells is not None and cells > st.max_lane_cells:
             # A parseable but oversized grid is rejected BEFORE it can
@@ -813,6 +870,10 @@ class _Handler(BaseHTTPRequestHandler):
                     f"--max-lane-cells {st.max_lane_cells}"
                 ),
             }, {}
+        refusal = st.batcher.digest_refusal(req)
+        if refusal is not None:
+            st.metrics.observe_response(False)
+            return 422, {"status": "error", "error": refusal}, {}
         if st.recorder is not None:
             # Accepted traffic only (post-validation, post-limits): the
             # recorded trace replays cleanly instead of re-issuing junk.
@@ -840,9 +901,10 @@ class _Handler(BaseHTTPRequestHandler):
         # march.  Eligibility is conservative - deterministic full solves
         # only, never a resume-token request; `Cache-Control: no-cache`
         # opts this request out of the lookup (counted bypass) while its
-        # fresh answer still refreshes the entry.
+        # fresh answer still refreshes the entry.  A request with `probes`
+        # neither reads, stores nor coalesces: its digest is its own.
         cache_key = None
-        if st.result_cache is not None and \
+        if st.result_cache is not None and req.probes is None and \
                 progkey.result_cache_eligible(body):
             try:
                 cache_key = progkey.result_key(
@@ -1039,24 +1101,34 @@ class _Handler(BaseHTTPRequestHandler):
             # Offered after the response is sent (do_POST); the sampler
             # does its own eligibility/rate/busy checks there.
             self._shadow_offer = (req, lane_result)
-        payload = _ok_payload(lane_result, batch_info, errors_computed)
-        if cache_key is None:
-            return 200, payload, headers
+        return 200, _Answer(
+            lane_result, batch_info, errors_computed, cache_key,
+            getattr(fut, "wavetpu_coalesced", False),
+        ), headers
+
+    def _answer_body(self, answer: _Answer, headers: dict):
+        """A solved lane's payload: the report dict, or with the result
+        cache its serialized bytes (stored, or marked as a rider's)."""
+        st = self.state
+        payload = _ok_payload(answer.lane_result, answer.batch_info,
+                              answer.errors_computed)
+        if answer.cache_key is None:
+            return payload
         # Serialize ONCE: the stored entry and this response are the
         # same bytes, so a later hit is byte-identical by construction.
         body_bytes = json.dumps(payload).encode()
-        if getattr(fut, "wavetpu_coalesced", False):
+        if answer.coalesced:
             # A singleflight rider - the primary's answer fanned out to
             # this request; the primary stores, this one just says so.
             headers["X-Wavetpu-Cache"] = "coalesced"
-        elif batch_info.get("batched") and \
-                batch_info.get("fallback_reason") is None:
-            if st.result_cache.put(cache_key, body_bytes,
+        elif answer.batch_info.get("batched") and \
+                answer.batch_info.get("fallback_reason") is None:
+            if st.result_cache.put(answer.cache_key, body_bytes,
                                    headers.get("Server-Timing")):
                 headers["X-Wavetpu-Cache"] = (
                     f"store;fp={st.result_cache_fp_tag or 'none'}"
                 )
-        return 200, body_bytes, headers
+        return body_bytes
 
 
 def build_server(

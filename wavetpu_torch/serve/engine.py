@@ -25,9 +25,12 @@ Every batch passes the per-lane numerical-health watchdog (run/health.py's
 guarded amax, one reduction over the batch): a poisoned lane - NaN, Inf,
 or an amplitude blowup from e.g. a Courant-unstable field - yields a
 per-lane error string while its batchmates' results stand.  The batch's
-states are released right after that reduction: a lane's answer is its
-error vectors and report fields, and the next batch must not find the
-last one's (B, N, N, N) states still on the card.
+states are released right after that reduction and the digest of every
+lane that asked for `probes` (`final_digests`: one gather and one
+reduction over the asking lanes, one copy to the host, under a
+`serve.digest` span): a lane's answer is its error vectors, digest and
+report fields, and the next batch must not find the last one's
+(B, N, N, N) states still on the card.
 
 The engine runs on one `torch.device`: the CUDA device (the kernels'
 lane modes; `kernel: auto` resolves to pallas) or the CPU (their plain
@@ -62,6 +65,7 @@ need) each lane keeps its own copy of its final layer after the release.
 from __future__ import annotations
 
 import contextlib
+import math
 import sys
 import threading
 import time
@@ -621,6 +625,7 @@ class ServeEngine:
         mesh: Optional[Tuple[int, int, int]] = None,
         timing: Optional[dict] = None,
         feed_breaker: bool = True,
+        probes: Optional[Sequence[Optional[list]]] = None,
     ) -> Tuple[ensemble.EnsembleResult, List[Optional[str]]]:
         """Pad to the bucket, run the cached solver (or the recorded
         fallback), watchdog each lane, release the batch's states;
@@ -631,7 +636,10 @@ class ServeEngine:
         `warm` ("true"/"false"/"disk"/"fallback") for the Server-Timing
         header.  `feed_breaker=False` (a batch of only shadow lanes,
         serve/shadow.py) neither consults nor feeds the circuit
-        breaker."""
+        breaker.  `probes`, one entry per lane (a list of [i, j, k] held
+        nodes, or None), fills `EnsembleResult.digests` with each asking
+        lane's `final_digests` before the states are released (a single-
+        device batch's: the scheduler refuses probes on a mesh)."""
         lanes = list(lanes)
         with_field = any(lane.c2tau2_field is not None for lane in lanes)
         compute_errors = self.compute_errors and not with_field
@@ -698,6 +706,20 @@ class ServeEngine:
         ):
             _poison_states(result)
         verdicts = self.lane_health(result)
+        if probes is not None and any(p is not None for p in probes):
+            asked = sum(len(p) for p in probes if p is not None)
+            with tracing.span("serve.digest", lanes=len(lanes),
+                              probes=asked):
+                result.digests = final_digests(
+                    result.u_prev_batch, result.u_cur_batch, probes)
+            # Registered at the first digest: wavetpu's replica has no
+            # probes, and until a request asks for them the exposition
+            # holds wavetpu's metric families and no other.
+            self.registry.counter(
+                "wavetpu_serve_probes_total",
+                "probe nodes answered in /solve reports (final-state "
+                "digests)",
+            ).inc(asked)
         _release_states(result, keep_u_cur=self.keep_final_state)
         # Accuracy observatory: every HEALTHY lane that computed oracle
         # errors appends one accuracy-ledger line (obs/accuracy.py).
@@ -759,6 +781,53 @@ class ServeEngine:
             perf.record_memory(self.registry, context="serve")
         except Exception:
             pass
+
+
+def final_digests(u_prev: torch.Tensor, u_cur: torch.Tensor,
+                  probes: Sequence[Optional[list]]) -> List[Optional[dict]]:
+    """The digest of each asking lane's final state, as /solve reports it.
+
+    `u_prev` / `u_cur` are a batch's (B, N, N, N) last two layers, lane i
+    of `probes` at index i (padding lanes past `len(probes)` are never
+    read); `probes[i]` is a list of [i, j, k] held nodes, or None for a
+    lane that asked for nothing.  Lane i's digest is {"final_probes":
+    [[u_last, u_before] at each node], "final_rms": the root mean square
+    of u_last over all N^3 held nodes, its squares summed in float64}.
+
+    One gather and one reduction over the asking lanes and one copy to
+    the host: the reduction sums each lane's (N, N) planes on the device
+    and the last N partial sums with `math.fsum` on the host, so a lane's
+    digest does not depend on its batchmates (a lane reads the digest of
+    its solo solve bit for bit)."""
+    asking = [i for i, p in enumerate(probes) if p is not None]
+    out: List[Optional[dict]] = [None] * len(probes)
+    if not asking:
+        return out
+    dev, n = u_cur.device, u_cur.shape[-1]
+    nodes = [(lane, *node) for lane in asking for node in probes[lane]]
+    at = tuple(torch.tensor(c, dtype=torch.long, device=dev)
+               for c in zip(*nodes)) if nodes else None
+    rows = (u_cur[:len(asking)] if asking == list(range(len(asking)))
+            else u_cur.index_select(0, torch.tensor(asking, device=dev)))
+    planes = rows.to(torch.float64).square_().sum(-1).sum(-1)
+    parts = [planes.reshape(-1)]
+    if at is not None:
+        parts = [u_cur[at].to(torch.float64), u_prev[at].to(torch.float64),
+                 *parts]
+    host = torch.cat(parts).cpu().tolist()
+    k = len(nodes)
+    last, before, sums = host[:k], host[k:2 * k], host[2 * k:]
+    cursor = 0
+    for row, lane in enumerate(asking):
+        m = len(probes[lane])
+        out[lane] = {
+            "final_probes": [[last[cursor + q], before[cursor + q]]
+                             for q in range(m)],
+            "final_rms": math.sqrt(
+                math.fsum(sums[row * n:(row + 1) * n]) / n ** 3),
+        }
+        cursor += m
+    return out
 
 
 def _poison_states(result: ensemble.EnsembleResult) -> None:

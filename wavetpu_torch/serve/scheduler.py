@@ -146,6 +146,11 @@ class SolveRequest:
     # batch of the same key (a free ride) - but a batch of ONLY
     # shadows runs with the circuit breaker bypassed.
     shadow: bool = False
+    # Final-state probes ([i, j, k] held nodes; None = none asked): the
+    # engine gathers them into the lane's digest (`final_probes`,
+    # `final_rms`).  Never part of the program identity or the lane, so
+    # requests with different probes still share one program and batch.
+    probes: Optional[List[List[int]]] = None
 
     def bucket_key(self) -> Tuple:
         """Everything the compiled program identity depends on; only
@@ -934,6 +939,26 @@ class DynamicBatcher:
             and request.problem.timesteps >= self.chunk_threshold
         )
 
+    def digest_refusal(self, request: SolveRequest) -> Optional[str]:
+        """Why this replica cannot answer the request's `probes` (the
+        HTTP layer's 422), or None: a mesh request's state is sharded
+        over its cards and a chunked march's final state never passes
+        through a batch, so neither gathers a digest."""
+        if request.probes is None:
+            return None
+        if request.mesh_shape is not None:
+            return ("probes are not answered for mesh requests: the state "
+                    "is sharded over the mesh's cards")
+        try:
+            chunked = self._chunk_mode(request)
+        except InvalidStateTokenError:
+            return None  # submit() answers the token's own 422
+        if chunked:
+            return ("probes are not answered for chunked marches "
+                    f"(timesteps >= --chunk-threshold {self.chunk_threshold}"
+                    " or a resume_token)")
+        return None
+
     def _dec_depth(self, n: int) -> None:
         # Gauge set INSIDE _plock: a set outside could interleave with a
         # concurrent submit and leave a stale depth on an idle server.
@@ -1426,6 +1451,9 @@ class DynamicBatcher:
         solve_kw: dict = {}
         if all(item.request.shadow for item in batch):
             solve_kw["feed_breaker"] = False
+        probes = [item.request.probes for item in batch]
+        if any(p is not None for p in probes):
+            solve_kw["probes"] = probes
         # Tenant attribution is thread-local (the worker thread, not the
         # handler thread, pays the builds): any ledger line the engine
         # records during this solve carries the batch leader's tenant.
@@ -1489,12 +1517,15 @@ class DynamicBatcher:
             result.solve_seconds * padding_lanes / result.batch_size
             if result.batch_size else 0.0
         )
+        digests = getattr(result, "digests", None)
         for i, item in enumerate(batch):
             # done() guard: a close() that timed out may have failed
             # this future already; a second set_ would raise
             # InvalidStateError inside the worker.
             if not item.future.done():
                 info = dict(batch_info)
+                if digests is not None and digests[i] is not None:
+                    info["digest"] = digests[i]
                 info["timing"] = {
                     "queue_s": waits[i],
                     "compile_s": compile_s,

@@ -155,7 +155,7 @@ class ShadowSampler:
         return dataclasses.replace(
             request, scheme=scheme, path=self.reference_path, k=1,
             dtype_name=REFERENCE_DTYPE, resume_token=None,
-            priority="best_effort", shadow=True,
+            priority="best_effort", shadow=True, probes=None,
         )
 
     # ---- hot-path touch point ----
