@@ -557,6 +557,10 @@ K6_OLD = "K6 lanes old body"
 N_FULL, N_ODD, STEPS, K = 512, 510, 1000, 4
 LENS = "gaussian-lens"
 NB, REM = (STEPS - 1) // K, (STEPS - 1) % K
+# The face rows a thread of the flagship's k=4 launches (its k=1 tail
+# takes R = 1).
+FLAGSHIP_R = stencil_cuda.comp_pipe_block(
+    K, stencil_cuda.default_block_x(N_FULL, K))[3]
 # The main-path CLI runs: N, the flags after `N 1 1 1 1 1 1000` and the
 # launch count of every counter that must move (all others stay 0).
 # The error pass (`layer_errors`) runs once a layer on the 1-step marches
@@ -651,8 +655,8 @@ ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
 # LANE_GUARD_MS the same way.
 GUARD_MS = {"K3": 4.4214, "K3f": 4.0705, "K8": 1.1942, "K8f": 1.0910,
             "K9": 4.0484, "K9f": 0.9427, "K10": 1.1937, "K10f": 1.0897,
-            "K4": 4.5978, "K4f": 4.2447, "K11": 1.1835, "K11f": 1.0900,
-            "K12": 1.1765, "K12f": 1.0886, "K6": 0.1775}
+            "K4": 3.0284, "K4f": 3.6361, "K11": 0.7930, "K11f": 0.9362,
+            "K12": 0.7846, "K12f": 0.9333, "K6": 0.1775}
 LANE_GUARD_MS = {"K6 lanes": 1.3227}
 GUARD_SLACK = 0.08
 # The phase-6 times of the cone kernels that the pipelines replaced, as
@@ -670,6 +674,31 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
 def fail(msg):
     raise RuntimeError(f"chip_smoke FAILED: {msg}")
+
+
+# The counters by face rows a thread (`kstep_comp_r<R>`, csrc/
+# comp_sharded.cu's shapes) count the compensated pipeline's launches once
+# more.  Every run's exact counts are of the kernels' own counters:
+# `kernel_launches` checks that the counters by R add up to them and drops
+# them; `rows_launches` keeps them alone.
+ROWS_COUNTER = re.compile(r"kstep_comp_r\d+$")
+COMP_COUNTERS = ("kstep_comp", "kstep_comp_field", "kstep_comp_sharded",
+                 "kstep_comp_sharded_field", "kstep_comp_sharded_xy",
+                 "kstep_comp_sharded_xy_field", "kstep_comp_lanes")
+
+
+def kernel_launches(counts, nonzero=False):
+    by_r = sum(n for c, n in counts.items() if ROWS_COUNTER.match(c))
+    comp = sum(counts.get(c, 0) for c in COMP_COUNTERS)
+    if by_r != comp:
+        fail(f"launches by face rows {rows_launches(counts)} add up to "
+             f"{by_r}, the compensated pipeline's counters to {comp}")
+    return {c: n for c, n in counts.items()
+            if not ROWS_COUNTER.match(c) and (n or not nonzero)}
+
+
+def rows_launches(counts):
+    return {c: n for c, n in counts.items() if ROWS_COUNTER.match(c) and n}
 
 
 def smi() -> str:
@@ -1113,8 +1142,9 @@ def check_comp(name, d, n, k, ny, y0, mname, rows, field, errs,
                                      bootstrap=bootstrap, bx=bx)
     name += "f" if field else ""
     bx = bx or stencil_cuda.default_block_x(d, k)
+    shape = stencil_cuda.comp_pipe_block(k, bx, *COMP_MODES[mname], field)
     check_outputs(f"{name} D={d} N={n} k={k} nl_y={ny} y0={y0} bx={bx} "
-                  f"tile={stencil_cuda.comp_pipe_tile(k, bx)} {mname} "
+                  f"shape={shape} {mname} "
                   f"rows={rows}{' bootstrap' if bootstrap else ''}", kern(),
                   plain(), errs[name])
 
@@ -1202,7 +1232,8 @@ def run_cli(label):
     stencil_cuda.reset_launches()
     rc = cli.main(argv + CLI_EXTRA + ["--out-dir", out])
     torch.cuda.synchronize()
-    counts = dict(stencil_cuda.launches)
+    by_rows = rows_launches(stencil_cuda.launches)
+    counts = kernel_launches(stencil_cuda.launches)
     if rc != 0:
         fail(f"{label}: CLI exit code {rc}")
     name = f"output_N{argv[0]}_Np1_CUDA"
@@ -1210,13 +1241,17 @@ def run_cli(label):
         fail(f"{label}: no report file")
     with open(os.path.join(out, name + ".json")) as f:
         side = json.load(f)
-    print(f"  {label}: launches={counts} max_abs_error="
-          f"{side['max_abs_error']!r} gcells_per_second="
+    print(f"  {label}: launches={counts} by face rows={by_rows} "
+          f"max_abs_error={side['max_abs_error']!r} gcells_per_second="
           f"{side['gcells_per_second']!r} solve_seconds="
           f"{side['solve_seconds']!r}")
     expected = {c: want.get(c, 0) for c in counts}
     if counts != expected:
         fail(f"{label}: launches {counts}, expected {expected}")
+    if label == "flagship" and by_rows.get(f"kstep_comp_r{FLAGSHIP_R}") \
+            != NB:
+        fail(f"flagship: its {NB} k=4 launches are not all at "
+             f"R={FLAGSHIP_R}: {by_rows}")
     errors_on = "--c2-field" not in flags
     if side["errors_computed"] != errors_on:
         fail(f"{label}: errors_computed {side['errors_computed']}")
@@ -1249,7 +1284,7 @@ def run_api(label):
                                     scheme=spec.get("scheme", "standard"),
                                     **kw)
     torch.cuda.synchronize()
-    counts = dict(stencil_cuda.launches)
+    counts = kernel_launches(stencil_cuda.launches)
     side = {"max_abs_error": (float(res.abs_errors.max()) if not kw
                               else None),
             "gcells_per_second": res.gcells_per_second,
@@ -2287,7 +2322,7 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
             "--save-state", fin, "--out-dir",
             os.path.join(OUT_DIR, f"resil_{label}_resume")])
         torch.cuda.synchronize()
-        launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+        launched = kernel_launches(stencil_cuda.launches, nonzero=True)
         if (rc1, rc2) != (0, 0):
             fail(f"{label} stop/resume exit codes {rc1}, {rc2}")
         want = {c: n for c, n in counts[label].items() if n}
@@ -2364,7 +2399,7 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
             res = kfused_comp.resume_kfused_comp_sharded(
                 p, u_cur, *aux, step, k=K, mesh_shape=mesh, devices=devs)
         torch.cuda.synchronize()
-        launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+        launched = kernel_launches(stencil_cuda.launches, nonzero=True)
         want = {c: n for c, n in counts[label].items() if n}
         print(f"  {label}: stop {stop} + resume launches {launched}")
         if launched != want:
@@ -2498,7 +2533,7 @@ def _resilience(sides, counts, refs, card, tmp, io_rec):
     rc, text = drill(None, ["--resume", rot] + sup_flags[:2] + CLI_EXTRA + [
         "--fuse-steps", str(K), "--out-dir",
         os.path.join(OUT_DIR, "resil_preempt_resume")])
-    launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+    launched = kernel_launches(stencil_cuda.launches, nonzero=True)
     if rc != 0:
         fail(f"--resume after the preemption exit {rc}")
     if launched != {c: n for c, n in counts["flagship"].items() if n}:
@@ -2597,7 +2632,7 @@ def supervised_uneven(sides, counts, refs, card, tmp):
         + CLI_EXTRA + ["--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", rot,
                        "--out-dir", out_dir])
     torch.cuda.synchronize()
-    launched = {c: n for c, n in stencil_cuda.launches.items() if n}
+    launched = kernel_launches(stencil_cuda.launches, nonzero=True)
     if rc != 0:
         fail(f"supervised {label} exit {rc}: {text[-500:]}")
     if launched != {c: n for c, n in counts[label].items() if n}:
@@ -2732,7 +2767,7 @@ def run_ensemble(label):
     else:
         res = ensemble.solve_ensemble(p, lanes, **kw)
     torch.cuda.synchronize()
-    counts = dict(stencil_cuda.launches)
+    counts = kernel_launches(stencil_cuda.launches)
     expected = {c: want.get(c, 0) for c in counts}
     if counts != expected:
         fail(f"{label}: launches {counts}, expected {expected}")
@@ -3259,7 +3294,7 @@ def serve_run(base, label, lane_errors, card):
     torch.cuda.reset_peak_memory_stats()
     answers = serve_concurrent(base, bodies)
     torch.cuda.synchronize()
-    counts = dict(stencil_cuda.launches)
+    counts = kernel_launches(stencil_cuda.launches)
     peak = torch.cuda.max_memory_allocated()
     expected = {c: want.get(c, 0) for c in counts}
     if counts != expected:
@@ -3608,7 +3643,7 @@ def counted(label, want, fn):
     stencil_cuda.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    got = dict(stencil_cuda.launches)
+    got = kernel_launches(stencil_cuda.launches)
     expected = {c: want.get(c, 0) for c in got}
     if got != expected:
         fail(f"{label}: launches {got}, expected {expected}")
@@ -3945,7 +3980,7 @@ def phase_long_solves(card, sides):
             LONG_BODY, deadline_ms=RESUME_DEADLINE_MS))
         cut_wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        first_half = {c: v for c, v in stencil_cuda.launches.items() if v}
+        first_half = kernel_launches(stencil_cuda.launches, nonzero=True)
         token = cut.get("resume_token")
         if code != 504 or token is None:
             fail(f"deadline mid-march: {code} {cut}")
@@ -3955,7 +3990,7 @@ def phase_long_solves(card, sides):
                                                   resume_token=token))
         resume_wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        second_half = {c: v for c, v in stencil_cuda.launches.items() if v}
+        second_half = kernel_launches(stencil_cuda.launches, nonzero=True)
         step = resumed.get("batch", {}).get("resumed_from")
         if code != 200 or not step:
             fail(f"resume on the second replica: {code} {resumed}")
@@ -4192,7 +4227,7 @@ def fleet_launches(base, reset=False):
     them to 0 and answers what it cleared), the non-zero ones."""
     got = (admin_post(base, "/admin/launches") if reset
            else serve_get(base, "/admin/launches"))
-    return {c: n for c, n in got["launches"].items() if n}
+    return kernel_launches(got["launches"], nonzero=True)
 
 
 def launches_in_log(log):
@@ -4200,7 +4235,7 @@ def launches_in_log(log):
     m = re.search(r"^kernel launches: (\{.*\})$", log, re.M)
     if m is None:
         fail(f"no kernel-launches line in the replica's log: {log[-2000:]}")
-    return json.loads(m.group(1))
+    return kernel_launches(json.loads(m.group(1)), nonzero=True)
 
 
 def wait_until(what, predicate, timeout=300, every=0.05):
@@ -4735,7 +4770,7 @@ def dist_run(tmp, label, world, argv, want=None):
         if st["nvcc_runs"]:
             fail(f"{label}: rank {r} ran nvcc {st['nvcc_runs']} time(s)")
         if want is not None:
-            got = {k: v for k, v in st["launches"].items() if v}
+            got = kernel_launches(st["launches"], nonzero=True)
             if got != want:
                 fail(f"{label}: rank {r} launched {got}, want {want}")
     if not ("C = " in outs[0] and "report:" in outs[0]):
@@ -4884,13 +4919,25 @@ def phase_distributed(card, sides, device="cuda"):
                 max_abs_error=r["side"]["max_abs_error"],
                 exchange_share=r["exchange_share"],
                 cross_rank=r["cross_rank"],
-                launches_per_rank=[{k: v for k, v in st["launches"].items()
-                                    if v} for st in r["stats"]])
+                launches_per_rank=[kernel_launches(st["launches"], True)
+                                   for st in r["stats"]])
         print(f"  ({card}) ranks sharing one card measure the transport, "
               f"not the scaling")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def comp_kernel(k, field, lanes):
+    """The mangled name's parts ('*' between them) of the compensated
+    pipeline's instantiation that a main-path launch at k takes (f32 v, a
+    bf16 carry): its shape `Shape<R, block size, blocks an SM>` as the
+    chooser gives it, the storage, the field, the lane mode."""
+    seg, ty, tz, r, block = stencil_cuda._comp_shape(
+        k, stencil_cuda.default_block_x(N_FULL, k), None, torch.float32,
+        torch.bfloat16, field, lanes)
+    return (f"22kstep_comp_pipe_kernelILi{k}ENS_5ShapeILi{r}ELi{block}E*"
+            f"EEf13__nv_bfloat16Lb1ELb{int(field)}ELb{int(lanes)}EE")
 
 
 def pipe_registers(logs):
@@ -4912,16 +4959,11 @@ def pipe_registers(logs):
         "K9 k=1": "17kstep_pipe_kernelILi1EfLb0ELb1ELb0EE",
         "K3 lanes k=4": "17kstep_pipe_kernelILi4EfLb0ELb0ELb1EE",
         "K3f lanes k=4": "17kstep_pipe_kernelILi4EfLb1ELb0ELb1EE",
-        "K4/K11/K12 k=4":
-            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0ELb0EE",
-        "K4f/K11f/K12f k=4":
-            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb1ELb0EE",
-        "K4/K11/K12 k=1":
-            "22kstep_comp_pipe_kernelILi1Ef13__nv_bfloat16Lb1ELb0ELb0EE",
-        "K4 lanes k=4":
-            "22kstep_comp_pipe_kernelILi4Ef13__nv_bfloat16Lb1ELb0ELb1EE",
-        "K4 lanes k=1":
-            "22kstep_comp_pipe_kernelILi1Ef13__nv_bfloat16Lb1ELb0ELb1EE",
+        "K4/K11/K12 k=4": comp_kernel(K, False, False),
+        "K4f/K11f/K12f k=4": comp_kernel(K, True, False),
+        "K4/K11/K12 k=1": comp_kernel(1, False, False),
+        "K4 lanes k=4": comp_kernel(K, False, True),
+        "K4 lanes k=1": comp_kernel(1, False, True),
         "K6": "19sharded_step_kernelIfLb0ELb0EE",
         "K6 lanes old body": "19sharded_step_kernelIfLb0ELb1EE",
         "K6 lanes": "20sharded_lanes_kernelIfEE",
@@ -4937,7 +4979,7 @@ def pipe_registers(logs):
         m = re.search(r"Used (\d+) registers", line)
         if m and func:
             for label, key in want.items():
-                if key in func:
+                if all(part in func for part in key.split("*")):
                     found[label] = {"registers": int(m.group(1)),
                                     "spill_stores": spill}
     return found

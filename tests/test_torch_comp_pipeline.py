@@ -13,6 +13,8 @@ one.  The deep slab keeps the flagship within tests/test_torch_solver.py's
 1e-6 of an f64 reference.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,9 +76,136 @@ def test_pipeline_tile_fits_a_block(k):
         threads = (ty + 2 * k) * (tz + 2 * k)
         assert threads <= stencil_cuda.pipe_max_threads(k) <= 1024
         assert threads % 32 == 0  # whole warps, one per z row
-        assert stencil_cuda.comp_pipe_smem(k, ty, tz) <= SMEM
+        assert stencil_cuda.comp_pipe_smem(
+            k, 1, stencil_cuda.pipe_max_threads(k)) <= SMEM
     with pytest.raises(ValueError):
         stencil_cuda.comp_pipe_tile(9, 9)
+
+
+STORAGE = {"f32v_bf16carry": (torch.float32, torch.bfloat16),
+           "f32v_f32carry": (torch.float32, torch.float32),
+           "f32v_nocarry": (torch.float32, None),
+           "bf16v_nocarry": (torch.bfloat16, None)}
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("mode", list(STORAGE))
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_pipeline_shape_fits_a_block(k, mode, with_field):
+    # comp_pipe_block for every k, storage and field, on every depth the
+    # wrappers accept: the segment divides the slab, the halo face's
+    # columns fit the block's threads x r, the threads fit a block size
+    # built for that r, the rings fit shared memory; r = 1 is
+    # comp_pipe_tile's face.
+    v_dt, c_dt = STORAGE[mode]
+    shapes = stencil_cuda.comp_pipe_shapes(k, v_dt, c_dt, with_field)
+    for d, lanes in itertools.product(range(k, 520, k), (False, True)):
+        bx = stencil_cuda.default_block_x(d, k)
+        seg, ty, tz, r = stencil_cuda.comp_pipe_block(k, bx, v_dt, c_dt,
+                                                      with_field, lanes)
+        assert bx % seg == 0 and seg <= stencil_cuda._PIPE_SEG
+        assert ty >= 1 and tz >= 1 and r in shapes
+        threads = stencil_cuda.comp_pipe_threads(k, ty, tz, r)
+        assert (ty + 2 * k) * (tz + 2 * k) <= threads * r
+        assert threads % 32 == 0 and threads <= shapes[r] <= 1024
+        assert tz + 2 * k <= stencil_cuda._COMP_MAX_EZ
+        assert stencil_cuda.comp_pipe_smem(k, r, shapes[r]) <= SMEM
+        if r == 1:
+            assert (seg, ty, tz) == stencil_cuda.comp_pipe_tile(k, bx)
+        assert stencil_cuda._comp_shape(k, bx, None, v_dt, c_dt, with_field,
+                                        lanes)[:4] == (seg, ty, tz, r)
+
+
+@pytest.mark.parametrize("n,lanes", [(512, False), (256, True)])
+def test_claimed_cells_take_a_blocked_shape(n, lanes):
+    # n512_flagship (solo, N=512) and serve_flagship_b8 (lanes, N=256): k=4,
+    # f32 u and v, a bf16 carry, no field.
+    bx = stencil_cuda.default_block_x(n, 4)
+    shape = stencil_cuda.comp_pipe_block(4, bx, torch.float32,
+                                         torch.bfloat16, False, lanes)
+    assert shape[3] >= 2
+    assert stencil_cuda._comp_shape(4, bx, None, torch.float32,
+                                    torch.bfloat16, False,
+                                    lanes)[:4] == shape
+
+
+@pytest.mark.parametrize("tile,ok", [
+    ((32, 24, 24), True),          # r = 1: comp_pipe_tile's face
+    ((32, 24, 24, 1), True),
+    ((32, 32, 24, 2), True),       # 640 threads
+    ((32, 24, 24, 2), True),       # 512 of the 640-thread block
+    ((32, 40, 24, 3), True),
+    ((32, 38, 24, 3), True),       # 512, a padding row
+    ((32, 48, 24, 2), False),      # 768 threads: no such block built
+    ((32, 24, 24, 4), False),      # no r = 4 shape
+    ((32, 25, 24, 1), False),      # 1056 threads
+    ((32, 8, 60, 1), False),       # 68 columns: wider than a ring's guard
+    ((12, 24, 24, 2), False),      # 12 does not divide the 32-plane slab
+    ((32, 0, 24, 2), False),
+])
+def test_blocked_shape_checks(tile, ok):
+    args = (4, 32, tile, torch.float32, torch.bfloat16, False)
+    if ok:
+        seg, ty, tz, r, block = stencil_cuda._comp_shape(*args)
+        assert (seg, ty, tz) == tile[:3] and r == (tile + (1,))[3]
+        assert stencil_cuda.comp_pipe_threads(4, ty, tz, r) <= block
+    else:
+        with pytest.raises(ValueError):
+            stencil_cuda._comp_shape(*args)
+
+
+@pytest.mark.parametrize("mode", ["f32v_f32carry", "f32v_nocarry",
+                                  "bf16v_nocarry"])
+@pytest.mark.parametrize("with_field", [False, True], ids=["const", "field"])
+def test_blocked_shapes_only_where_built(mode, with_field):
+    # Other storage modes and the field forms take r = 1 alone at k=4, as
+    # does the flagship's storage with a field.
+    v_dt, c_dt = STORAGE[mode]
+    for field in (with_field, True):
+        for dt in ((v_dt, c_dt), (torch.float32, torch.bfloat16)):
+            if dt == (torch.float32, torch.bfloat16) and not field:
+                continue
+            assert list(stencil_cuda.comp_pipe_shapes(4, *dt, field)) == [1]
+            with pytest.raises(ValueError):
+                stencil_cuda._comp_shape(4, 32, (32, 24, 24, 2), *dt, field)
+
+
+@pytest.mark.parametrize("ey,ez,r", [(40, 32, 2), (32, 32, 2), (48, 32, 3),
+                                     (46, 32, 3), (15, 21, 2), (13, 32, 3),
+                                     (9, 9, 3), (32, 32, 1), (20, 32, 1)])
+def test_ring_layout_holds_every_neighbour(ey, ez, r):
+    # csrc/comp_sharded.cu's ring slot: plane q holds row q of every
+    # thread's r rows at guard + tid, tid = (row / r) * ez + column.  Each
+    # cell has its own word; a cell's y/z neighbours are the words the
+    # kernel reads for them (its own registers for the rows between its
+    # thread's) and lie inside the slot.
+    guard = stencil_cuda._COMP_MAX_EZ
+    rb = -(-ey // r)
+    threads = rb * ez
+    plane = -(-threads // 32) * 32 + 2 * guard
+
+    def word(ly, lz):
+        return (ly % r) * plane + guard + (ly // r) * ez + lz
+
+    words = {word(y, z) for y in range(rb * r) for z in range(ez)}
+    assert len(words) == rb * r * ez
+    for y in range(1, ey - 1):
+        for z in range(1, ez - 1):
+            tid, q = (y // r) * ez + z, y % r
+            up = word(y - 1, z) if q == 0 else None
+            dn = word(y + 1, z) if q == r - 1 else None
+            if up is not None:  # the last row of the thread rows above
+                assert up == (r - 1) * plane + guard + tid - ez
+            if dn is not None:  # the first row of the thread rows below
+                assert dn == guard + tid + ez
+            assert word(y, z - 1) == word(y, z) - 1
+            assert word(y, z + 1) == word(y, z) + 1
+    for y in (0, rb * r - 1):
+        for z in (0, ez - 1):
+            tid, q = (y // r) * ez + z, y % r
+            for w in (q * plane + guard + tid - 1, q * plane + guard + tid + 1,
+                      (r - 1) * plane + guard + tid - ez, guard + tid + ez):
+                assert 0 <= w < r * plane
 
 
 @pytest.mark.parametrize("k,bx,seg", [(4, 64, 32), (4, 8, 8), (4, 4, 4),

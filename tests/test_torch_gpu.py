@@ -956,6 +956,171 @@ def test_k11_k12_pipeline_tiles(cuda, tile, mode, kernel, with_field):
     equal(got, stencil_cuda._comp_chain_plain(*args, **kw))
 
 
+# K4's blocked faces (ty, tz, r) at k=4 in the flagship's storage (f32 v,
+# a bf16 carry): every block size built, whole and ragged row blocks (ey =
+# ty + 8 not a multiple of R), faces that overhang N, faces narrower than
+# a warp.
+BLOCKED_FACES = [(24, 24, 2), (32, 24, 2), (28, 24, 2), (40, 24, 3),
+                 (38, 24, 3), (7, 13, 2), (5, 24, 3), (1, 1, 3)]
+FLAGSHIP = "f32v_bf16carry"
+
+
+def k4_case(cuda, n, k, seed=6):
+    p = Problem(N=n, timesteps=20)
+    sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, cuda)
+    sxct = (ct[2:2 + k][:, None] * sx[None, :]).contiguous()
+    u = field(n, seed).to(cuda)
+    v = field(n, seed + 1, 1e-3).to(cuda)
+    c = field(n, seed + 2, 1e-8).to(cuda, torch.bfloat16)
+    return p, (u, v, c, syz, rsyz, sxct)
+
+
+def k4_blocked(args, k, tile, **kw):
+    """K4 through `_comp_chain` at `tile`, and its counter by R."""
+    u, v, c, syz, rsyz, sxct = args
+    return stencil_cuda._comp_chain(
+        "kstep_comp", u, v, c, stencil_cuda.wrap_planes(u, k),
+        stencil_cuda.wrap_planes(v, k), syz, rsyz, sxct, k=k,
+        c2tau2_block=None, c2_ghosts=None, y0=0, nl_y=None, tile=tile, **kw)
+
+
+@pytest.mark.parametrize("n", [40, 72])
+@pytest.mark.parametrize("face", BLOCKED_FACES)
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k4_blocked_faces(cuda, n, face, with_errors):
+    k = 4
+    p, args = k4_case(cuda, n, k)
+    bx = stencil_cuda.default_block_x(n, k)
+    tile = (stencil_cuda.comp_pipe_tile(k, bx)[0],) + face
+    kw = dict(coeff=p.a2tau2, inv_h2=p.inv_h2, block_x=bx,
+              with_errors=with_errors)
+    name = f"kstep_comp_r{face[2]}"
+    before = stencil_cuda.launches[name]
+    got = k4_blocked(args, k, tile, **kw)
+    assert stencil_cuda.launches[name] == before + 1
+    equal(got, stencil_cuda.fused_kstep_comp_plain(*args, k=k, **kw))
+
+
+@pytest.mark.parametrize("n", [40, 72])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_k4_default_shape_on_ragged_faces(cuda, n, k):
+    # The chooser's shape (R >= 2 at k=4 in the flagship's storage) on
+    # states its face does not divide; the launch counts under its R.
+    p, args = k4_case(cuda, n, k)
+    bx = stencil_cuda.default_block_x(n, k)
+    r = stencil_cuda.comp_pipe_block(k, bx)[3]
+    assert (r >= 2) == (k == 4)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, block_x=bx)
+    before = dict(stencil_cuda.launches)
+    got = stencil_cuda.fused_kstep_comp(*args, **kw)
+    assert stencil_cuda.launches[f"kstep_comp_r{r}"] == \
+        before[f"kstep_comp_r{r}"] + 1
+    assert stencil_cuda.launches["kstep_comp"] == before["kstep_comp"] + 1
+    equal(got, stencil_cuda.fused_kstep_comp_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("d,n,bx,ny,y0", [(64, 64, 64, 21, 30),
+                                          (16, 40, 8, 13, 0),
+                                          (32, 72, 32, 35, 37),
+                                          (16, 20, 4, 10, 10)])
+@pytest.mark.parametrize("face", [(24, 24, 2), (32, 24, 2), (40, 24, 3),
+                                  (26, 24, 3), (5, 24, 3)])
+def test_k12_blocked_faces(cuda, d, n, bx, ny, y0, face):
+    # The y-extended block with central rows that no R divides.
+    k = 4
+    p, args, kw, _ = comp_case(cuda, d, n, k, ny, y0, FLAGSHIP, False, False)
+    kw.update(block_x=bx, with_errors=True, c2tau2_block=None, y0=y0,
+              nl_y=ny)
+    tile = (stencil_cuda.comp_pipe_tile(k, bx)[0],) + face
+    got = stencil_cuda._comp_chain("kstep_comp_sharded_xy", *args,
+                                   tile=tile, **kw)
+    equal(got, stencil_cuda._comp_chain_plain(*args, **kw))
+    if face[2] == 2:  # the default shape gives the same bits
+        equal(got, stencil_cuda.fused_kstep_comp_sharded_xy(
+            *args, y0, n, k=k, nl_y=ny, coeff=p.a2tau2, inv_h2=p.inv_h2,
+            block_x=bx))
+
+
+@pytest.mark.parametrize("face", [None, (24, 24, 2), (32, 24, 2),
+                                  (40, 24, 3), (7, 13, 2)])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_k4_lanes_blocked_equal_solo(cuda, face, with_errors):
+    n, k = 48, 4
+    p = Problem(N=n, timesteps=20)
+    u = batch(n, 3).to(cuda)
+    v = batch(n, 13, scale=1e-3).to(cuda)
+    c = batch(n, 23, scale=1e-8).to(cuda, torch.bfloat16)
+    syz, rsyz, sxct = (t.to(cuda) for t in lane_sxct(n, k))
+    bx = stencil_cuda.default_block_x(n, k)
+    tile = None if face is None else (
+        stencil_cuda.comp_pipe_tile(k, bx)[0],) + face
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, with_errors=with_errors,
+              block_x=bx)
+    r = face[2] if face else stencil_cuda.comp_pipe_block(k, bx,
+                                                         lanes=True)[3]
+    before = stencil_cuda.launches[f"kstep_comp_r{r}"]
+    got = stencil_cuda.fused_kstep_comp_lanes(u, v, c, syz, rsyz, sxct,
+                                              tile=tile, **kw)
+    assert stencil_cuda.launches[f"kstep_comp_r{r}"] == before + 1
+    equal(got, per_lane(lambda a, b, cc, s: stencil_cuda.fused_kstep_comp(
+        a, b, cc, syz, rsyz, s, **kw), u, v, c, sxct, live=LANES))
+
+
+def test_k4_field_form_keeps_one_row_a_thread(cuda):
+    n, k = 40, 4
+    p, args = k4_case(cuda, n, k)
+    fld = c2_field(p, 9).to(cuda)
+    bx = stencil_cuda.default_block_x(n, k)
+    assert stencil_cuda.comp_pipe_block(k, bx, field=True)[3] == 1
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, block_x=bx,
+              c2tau2_field=fld)
+    before = stencil_cuda.launches["kstep_comp_r1"]
+    got = stencil_cuda.fused_kstep_comp(*args, **kw)
+    assert stencil_cuda.launches["kstep_comp_r1"] == before + 1
+    equal(got, stencil_cuda.fused_kstep_comp_plain(*args, **kw))
+    u, v, c, syz, rsyz, sxct = args
+    with pytest.raises(ValueError):  # no blocked shape is built for it
+        stencil_cuda._comp_chain(
+            "kstep_comp", u, v, c, stencil_cuda.wrap_planes(u, k),
+            stencil_cuda.wrap_planes(v, k), syz, rsyz, sxct, k=k,
+            coeff=None, inv_h2=p.inv_h2, block_x=bx, c2tau2_block=fld,
+            c2_ghosts=stencil_cuda.wrap_planes(fld, k), with_errors=True,
+            y0=0, nl_y=None, tile=(8, 24, 24, 2))
+
+
+@pytest.mark.parametrize("face", [(32, 24, 2), (24, 24, 2), (40, 24, 3)])
+def test_k4_blocked_error_rows_propagate_nan(cuda, face):
+    # A NaN in one central cell wins its plane's row of every substep.
+    n, k = 48, 4
+    p, args = k4_case(cuda, n, k)
+    args[0][20, 30, 9] = float("nan")
+    bx = stencil_cuda.default_block_x(n, k)
+    tile = (stencil_cuda.comp_pipe_tile(k, bx)[0],) + face
+    out = k4_blocked(args, k, tile, coeff=p.a2tau2, inv_h2=p.inv_h2,
+                     block_x=bx, with_errors=True)
+    assert torch.isnan(out[3][0, 20]) and torch.isnan(out[4][0, 20])
+    assert not torch.isnan(out[3][:, 10]).any()
+    want = stencil_cuda.fused_kstep_comp_plain(
+        *args, k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, block_x=bx)
+    for a, b in zip(out, want):  # the same NaNs, the same other values
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+def test_flagship_k_blocks_take_the_blocked_shape(cuda):
+    # The flagship's k=4 launches count under R >= 2, its k=1 tail under
+    # R = 1.
+    p = Problem(N=32, timesteps=23)
+    stencil_cuda.reset_launches()
+    kfused_comp.solve_kfused_comp(p, k=4, device=cuda)
+    r = stencil_cuda.comp_pipe_block(4, stencil_cuda.default_block_x(32, 4))[3]
+    assert r >= 2
+    blocks = stencil_cuda.launches["kstep_comp"]
+    assert stencil_cuda.launches[f"kstep_comp_r{r}"] + \
+        stencil_cuda.launches["kstep_comp_r1"] == blocks
+    assert stencil_cuda.launches[f"kstep_comp_r{r}"] == (23 - 1) // 4
+
+
 def test_k10_k12_error_rows_propagate_nan(cuda):
     p, planes, sxct, (up, u), gh, _, _ = xy_case(cuda, 8, 16, 2, 8, 8,
                                                  torch.float32, 80)
@@ -1694,6 +1859,9 @@ def test_ensemble_lanes_equal_solo_on_card(cuda, scheme, path):
     if scheme == "compensated" and path == "kfused":
         errors = 0
     assert counts.pop("layer_errors") == errors
+    # The counters by face rows count the lane launches once more.
+    by_rows = {k: counts.pop(k) for k in list(counts)
+               if k.startswith("kstep_comp_r")}
     solo_launches = {k: v for k, v in counts.items()
                      if not k.endswith("_lanes")}
     assert not any(solo_launches.values()), solo_launches
@@ -1701,6 +1869,7 @@ def test_ensemble_lanes_equal_solo_on_card(cuda, scheme, path):
         name = ("kstep_comp_lanes" if scheme == "compensated"
                 else "kstep_lanes")
         assert counts[name] == 4  # (17 - 1) / 4 blocks
+    assert sum(by_rows.values()) == counts["kstep_comp_lanes"]
     for lane, got in zip(lanes, res.results):
         kw = dict(stop_step=lane.stop(p), phase=lane.phase)
         kernel = "roll" if path == "roll" else "pallas"
@@ -1943,8 +2112,12 @@ def test_fleet_router_fronts_two_replicas_on_card(cuda):
     assert out.ok, (out.status, out.error)
     assert out.headers.get("X-Wavetpu-Member") == ua
     assert rstate.snapshot()["affinity"]["hits"] == 1
+    r = stencil_cuda.comp_pipe_block(4, stencil_cuda.default_block_x(64, 4),
+                                     lanes=True)[3]
     assert launches == {"comp_step_lanes": 1,
-                        "kstep_comp_lanes": (40 - 1) // 4 + (40 - 1) % 4}
+                        "kstep_comp_lanes": (40 - 1) // 4 + (40 - 1) % 4,
+                        f"kstep_comp_r{r}": (40 - 1) // 4,
+                        "kstep_comp_r1": (40 - 1) % 4}
     ref = eb.solve_ensemble(Problem(N=64, timesteps=40),
                             [eb.LaneSpec()], scheme="compensated",
                             path="kfused", k=4).results[0]

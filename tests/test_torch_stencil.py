@@ -300,16 +300,20 @@ class TestK4Plain:
 
     @pytest.mark.parametrize("n,k", [(512, 4), (512, 1), (16, 2), (15, 3), (64, 8)])
     def test_default_block_and_tile(self, n, k):
-        # The carry slab and the compensated pipeline's tile on it (K4),
+        # The carry slab and the compensated pipeline's shape on it (K4),
         # and the standard pipeline's tile on the whole depth (K3): a
-        # segment inside the slab, one thread per halo-face column, the
-        # rings in shared memory.
+        # segment inside the slab, r halo-face cells a thread (one for
+        # K3), the rings in shared memory.
         bx = stencil_cuda.default_block_x(n, k)
         assert n % bx == 0 and bx % k == 0
-        seg, ty, tz = stencil_cuda.comp_pipe_tile(k, bx)
+        seg, ty, tz, r = stencil_cuda.comp_pipe_block(k, bx)
         assert bx % seg == 0 and seg <= 32 and ty >= 1 and tz >= 1
-        assert (ty + 2 * k) * (tz + 2 * k) <= stencil_cuda.pipe_max_threads(k)
-        assert stencil_cuda.comp_pipe_smem(k, ty, tz) <= 227 * 1024
+        threads = stencil_cuda.comp_pipe_threads(k, ty, tz, r)
+        block = stencil_cuda.comp_pipe_shapes(
+            k, torch.float32, torch.bfloat16, False)[r]
+        assert (ty + 2 * k) * (tz + 2 * k) <= threads * r
+        assert threads <= block <= 1024
+        assert stencil_cuda.comp_pipe_smem(k, r, block) <= 227 * 1024
         seg, ty, tz = stencil_cuda.kstep_pipe_tile(k, n)
         assert seg <= min(n, 128) and -(-n // seg) == -(-n // 128)
         assert (ty + 2 * k) * (tz + 2 * k) <= stencil_cuda.pipe_max_threads(k)

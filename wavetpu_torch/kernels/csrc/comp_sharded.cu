@@ -24,19 +24,22 @@
 // Each substep is op for op the TPU kernel's (`_kstep_comp_kernel`):
 //   d = mask(coeff*lap(u)); v' = v + d; Kahan two-sum u' = u + v' through
 //   the carry (y = v' - C; t = u + y; C = (t - u) - y),
-// the Laplacian summed x, then y, then z (common.cuh `cone_laplacian`).
-// The carry rides slab-only: zero outside the block_x slab in x and, for
-// K12, outside the central rows in y (wavetpu's zero-seeded carry halos).
-// For one block_x K11 runs K4's op sequence, so an x-sharded flagship
-// equals the single-device one; K12's zero y-ghost carry differs from
-// K4's (within the scheme's 1e-6 tolerance).  Storage modes as K4: f32
+// the Laplacian summed x, then y, then z (common.cuh `cone_laplacian`'s
+// order).  The carry rides slab-only: zero outside the block_x slab in x
+// and, for K12, outside the central rows in y (wavetpu's zero-seeded carry
+// halos).  For one block_x K11 runs K4's op sequence, so an x-sharded
+// flagship equals the single-device one; K12's zero y-ghost carry differs
+// from K4's (within the scheme's 1e-6 tolerance).  Storage modes as K4: f32
 // u; (v, carry) f32/bf16, f32/f32, f32/none, bf16/none.  A field (f32) has
 // its own chain, its cells in place of coeff (K11f / K12f).
 //
 // Bound: bytes.  Per launch u, v and their windows read once, the carry
 // read once, u, v and the carry written once: ~20 B per output cell at f32
 // u/v with a bf16 carry (+4 with a field, +0.5 per extra row of K12's
-// extension).
+// extension).  It runs far from that bound on instructions: each stage of
+// a cell costs ~20 f32 operations (rounded one by one under --fmad=false)
+// and its error fold, and a block computes its halo face beside its
+// outputs.
 //
 // Design: an x-streaming pipeline.  A block owns a (ty x tz) y/z output
 // face and an x segment of L planes inside one block_x slab (L | bx), and
@@ -44,39 +47,59 @@
 // as a wavefront of k stages: at step t stage 0 takes chain plane t (the
 // incoming u, v, carry and field cells), and stage s (1..k) updates plane
 // t - s, after stage s-1 has made planes t-s-1, t-s and t-s+1 (t-s+1 in
-// this very step: the stages run in order inside the step).  One thread
-// per (y, z) column of the (ty+2k)(tz+2k) halo face:
-//   * u's x neighbours are the thread's own registers - per stage the last
-//     three planes it made (`W`, slot = step mod 3); v, the carry and the
-//     field cell of each stage's current plane ride in registers beside it
-//     (two slots, step mod 2).  Registers scale with k, not with the
-//     segment: L is only the loop's trip count.
-//   * The y/z neighbours come from shared memory: each stage publishes its
-//     plane into its own two-slot ring [k][2][cols], read one step later,
-//     so one barrier per step orders everything (a slot is rewritten two
-//     steps after it was published, behind a barrier its readers passed).
-//     A stage computes only the columns inside a face that shrinks by one
-//     cell per side per stage, as the cone's does.
-//   * The chain is resolved once per incoming plane (a uniform choice of
-//     the lo window, the block or the hi window), and the field is read
-//     once as its plane enters, not at every substep.
-//   * Loads: each thread loads the next plane's cells of its own column
-//     one step ahead into registers (issued before the step's stages, so
-//     they land during the stages and the barrier), kept as stored (a bf16
-//     cell is widened only when stage 0 takes it: widening it at the load
-//     made every thread wait for its load each step).  Neither cp.async nor
-//     TMA: the thread that consumes a cell is the one that loads it, so a
-//     shared-memory stage would add a store and a load per cell; a bf16
-//     carry or v cell is 2 bytes, under cp.async's 4-byte minimum; and a
-//     TMA box cannot follow the z wrap of the first and last tiles nor the
-//     three arrays of a chain without a tensor map per array.
-// Against the cone kernel it replaces (the design K4, K11 and K12 had
-// before: a tile of at most 8 x planes, the column's u, v and carry for
-// all 8 + 2k planes in registers, an 8x32 face, 95 registers, one
-// 640-thread block per SM, the field looked up through the chain per cell
-// and substep), at k=4, L=32 and a 24x24 face:
-// x loads 1.25x the output planes instead of 2x, the y/z halo 1.78x
-// instead of 2.5x, and the substeps' work ~1.27x instead of ~2.2x.
+// this very step: the stages run in order inside the step).  The block
+// holds the (ey x ez) = (ty+2k)(tz+2k) halo face; stage s computes the
+// face shrunk by s cells a side, as the cone's does.
+//
+// Register blocking: a thread owns R cells of the face, R adjacent y rows
+// of one z column (lz = tid mod ez, rows R*(tid / ez) .. + R-1), so a
+// block has ceil(ey / R) * ez threads.  Per cell and stage:
+//   * Registers: u of the plane the stage made last step (the next
+//     stage's centre) and this step (its right x neighbour), and v, the
+//     carry and the field cell beside them (`W`, `V`, `C`, `F`, slot =
+//     step mod 2).  Registers scale with k and R, not with the segment.
+//   * The ring: each stage publishes its plane into its own three-slot
+//     ring [k][3][R planes of the thread index] (plane r holds row r of
+//     every thread's rows, at kPipeMaxEz + tid: a guard of kPipeMaxEz
+//     words either side, so every read stays inside the ring and every
+//     offset from the thread's index is fixed at compile time but the
+//     face width ez).  A stage reads the slot of last step's plane for
+//     its z neighbours and its outer rows' y neighbours (the y neighbours
+//     between the thread's rows are its registers), and the slot of two
+//     steps ago for its left x neighbour (its own word).  One barrier per
+//     step orders everything: a slot is rewritten three steps after it
+//     was published, behind barriers its readers passed.
+//   * The R cells are R independent chains inside a stage, computed
+//     without a branch; a thread whose cells all lie outside the stage's
+//     face skips the stage (whole warps, for a face 32 columns wide).  A
+//     cell outside the face computes from whatever its neighbours hold and
+//     nothing reads it: a cell of stage s's face reads only cells of stage
+//     s-1's, and only central cells are stored or reduced.
+//   * Per step a thread resolves the x chain once for its R cells (a
+//     uniform choice of the lo window, the block or the hi window) and
+//     issues R loads per array, one step ahead into registers (they land
+//     during the stages and the barrier), kept as stored (a bf16 cell is
+//     widened only when stage 0 takes it).  Neither cp.async nor TMA: the
+//     thread that consumes a cell is the one that loads it; a bf16 cell is
+//     under cp.async's 4-byte minimum; a TMA box cannot follow the z wrap
+//     of the first and last tiles nor the three arrays of a chain.
+//   * The error rows: a thread folds its R central cells' errors into one
+//     value (a max on the float bits) before the warp's reduction; a warp
+//     with no central cell skips them, its slots held at 0.  A cell's
+//     oracle pair (syz, rsyz) waits in shared memory beside the ring (one
+//     64-bit read per stage), not in registers.
+// At R = 1 a thread holds one column, as K4's body before register
+// blocking did (1024 threads for k <= 4, <= 64 registers).  A blocked shape
+// (`Shape`: R and the block's threads NT) trades threads for registers:
+// per cell and stage it shares the ring's addressing, the chain lookup,
+// the reduction and the barrier over R cells and runs R chains where one
+// ran; it reads 3 + 2/R shared words a cell and stage (the left x
+// neighbour from the ring frees a register a stage and cell).  The face
+// grows with the cells a block holds (40 x 32 at R = 2 on 640 threads,
+// 48 x 32 at R = 3 on 512: the halo 1.67x and 1.6x the output, against
+// 1.78x for 32 x 32).  stencil_cuda.comp_pipe_block
+// picks the shape per k, storage mode, field and lane mode: the fastest
+// of kernels/tile_ab.py's A/B that ptxas builds without a spill.
 //
 // Error rows per (substep, x plane): a warp max on the float bits into the
 // warp's own shared slot, then after the next step's barrier one warp per
@@ -92,19 +115,22 @@
 // rows sxct and error rows (lanes, k, d).  Block z is lane * segments +
 // segment, so a lane's blocks run the solo launch's op sequence on that
 // lane, slab by slab: each lane equals the solo launch bit for bit.  The
-// lane's offset is folded into the column's cell offsets once, before the
-// pipeline.  The lane mode takes the flagship's storage (f32 u and v, a
-// bf16 carry) without a field, the compensated ensemble's only form.
+// lane's offset is added to the plane's offset, once a step.  The lane
+// mode takes the flagship's storage (f32 u and v, a bf16 carry) without a
+// field, the compensated ensemble's only form.
 //
 // Built by wavetpu_torch/kernels/build.py with --fmad=false, beside the
-// other sources: 8 k x 4 storage modes x field on/off = 64 instantiations,
-// and 8 of the lane mode (its own instantiations, so the solo ones carry
-// none of it).
+// other sources: 8 k x 4 storage modes x field on/off at R = 1, and the
+// lane mode's 8 (its own instantiations, so the solo ones carry none of
+// it), plus the blocked shapes of `launch_shape` (k = 4, the flagship's
+// storage, solo and lanes).
 // The entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().  Wrappers, plain PyTorch
 // versions and launch counters: stencil_cuda.fused_kstep_comp,
-// fused_kstep_comp_sharded and fused_kstep_comp_sharded_xy; the tile:
-// stencil_cuda.comp_pipe_tile.
+// fused_kstep_comp_sharded and fused_kstep_comp_sharded_xy; the shape:
+// stencil_cuda.comp_pipe_block.
+
+#include <type_traits>
 
 #include "plane.cuh"
 
@@ -112,31 +138,48 @@
 // and the largest k.
 constexpr int kPipeMaxSeg = 64;
 constexpr int kPipeMaxK = 8;
+// The widest face (columns) a ring's guards hold.
+constexpr int kPipeMaxEz = 64;
 
 // Shared memory of a block, declared at file scope so that every access is
-// a shared-space access: the stages' u rings [k][2][cols] (dynamic), the
-// warps' error maxima [step parity][stage][abs|rel][warp] and the
-// segment's oracle rows sxct[stage][plane].
+// a shared-space access: the stages' u rings [k][3][R][plane] and the
+// cells' oracle pairs [R][plane] (dynamic), the warps' error maxima [step
+// parity][stage][abs|rel][warp] and the segment's oracle rows
+// sxct[stage][plane].
 extern __shared__ float pipe_ring[];
 __shared__ unsigned pipe_wmax[2][kPipeMaxK][2][32];
 __shared__ float pipe_sx[kPipeMaxK][kPipeMaxSeg];
 
 namespace {
 
-// Threads per block (one per halo-face column): the per-stage registers
-// (u x3, v x2, carry x2, field x2) grow with k, so blocks of k > 4 are
-// smaller (stencil_cuda.pipe_max_threads).
+// Threads per block of the one-cell-a-thread shape (R = 1): the
+// per-stage registers (u, v, carry and field, two of each) grow with k,
+// so blocks of k > 4 are smaller (stencil_cuda.pipe_max_threads).
 template <int K>
 struct PipeThreads {
   static constexpr int value = K <= 4 ? 1024 : 640;
 };
 
+// A block's shape: R face rows a thread, at most NT threads, one block an
+// SM (__launch_bounds__: 65536 / NT registers a thread, in steps of 8).
+template <int R_, int NT_>
+struct Shape {
+  static constexpr int R = R_, NT = NT_;
+};
+
 template <int PH>
 struct Phase {};
 
-// One thread's pipeline: its column, its operands and its registers.
-template <int K, typename VT, typename CT, bool HC, bool HF>
+// One thread's pipeline: its R cells, its operands and its registers.
+template <int K, class S, typename VT, typename CT, bool HC, bool HF>
 struct CompPipe {
+  static constexpr int R = S::R;
+  // A ring slot: R planes of the thread rows (plane r holds row r of every
+  // thread's rows, index tid), each with a guard of kPipeMaxEz words on
+  // either side, so every offset from the thread's index is known at
+  // compile time but the face's width ez.
+  static constexpr int kPlane = S::NT + 2 * kPipeMaxEz;
+  static constexpr int kSlot = R * kPlane;
   Chain<float> u;
   Chain<VT> v;
   Chain<float> c2;
@@ -146,50 +189,77 @@ struct CompPipe {
   CT* carry_out;
   unsigned* dmax;
   unsigned* rmax;
-  PlaneCone pc;
-  int d, L, bx, xb0;
-  int reach;  // the last stage whose face holds this column (-1: padding)
-  float coeff, ix, iy, iz, syz_c, rsyz_c;
+  int tid, d, L, bx, x1, xb0;
+  int ez;     // the face's columns
+  int reach;  // the last stage whose face holds one of its cells (-1: none)
+  bool wcentral;  // the warp holds a central cell (its rows are reduced)
+  int nn, onn;  // input / output plane strides (cells)
+  int odelta;   // a cell's input-plane offset less its output-plane offset
+  int64_t lane_off;  // the lane's first cell (lane mode)
+  // Per cell: its (y, z) offset in an input plane, and bits r, R + r and
+  // 2R + r of `flags`: off the Dirichlet planes, a central (output) cell,
+  // on an output row.
+  int row[R];
+  unsigned flags;
+  float coeff, ix, iy, iz;
   bool errors;
 
-  float W[K][3];  // u of stage s at the planes it made in the last 3 steps
-  float V[K][2];  // v, carry and field cell of stage s's last 2 planes
-  float C[K][2];
-  float F[K][2];
+  float W[K][R][2];  // u of stage s at the planes it made in the last 2 steps
+  float V[K][R][2];  // v, carry and field cell of stage s's last 2 planes
+  float C[K][R][2];
+  float F[K][R][2];
   // The incoming plane's cells as stored: converted where stage 0 takes
   // them, a step after the load, so no thread waits for its load.
-  float nu, nf;
-  VT nv;
-  CT nc;
+  float nu[R], nf[R];
+  VT nv[R];
+  CT nc[R];
 
-  // Load chain plane j (x = x0 - K + j) of this column into nu..nc.
-  __device__ __forceinline__ void load(int j) {
-    const Cone& cn = pc.c;
-    if (!cn.live) return;
-    const int xu = cn.x1 - K + j;
-    int64_t g;
-    const int w = chain_pos(xu, K, d, cn.nn, cn.row, g);
-    nu = (w == 0 ? u.lo : (w == 1 ? u.blk : u.hi))[g];
-    nv = (w == 0 ? v.lo : (w == 1 ? v.blk : v.hi))[g];
-    if (HF) nf = (w == 0 ? c2.lo : (w == 1 ? c2.blk : c2.hi))[g];
-    if (HC && pc.orow_ok && xu >= xb0 && xu < xb0 + bx)
-      nc = carry[(int64_t)xu * pc.onn + pc.orow];
+  __device__ __forceinline__ bool bit(int b) const { return (flags >> b) & 1u; }
+
+  // The oracle plane's (syz, rsyz) at the thread's cell r, after the ring.
+  __device__ __forceinline__ float2* oracle(int r) const {
+    return reinterpret_cast<float2*>(pipe_ring + 3 * K * kSlot) +
+           r * kPlane + kPipeMaxEz + tid;
   }
 
-  // Stage s made x plane xu = x0 + p at step parity q: the warp's max of
-  // its central cells' errors into its slot pipe_wmax[q][s-1][.][warp].
-  // Every lane of every warp calls it (a slot per warp: no atomics on one
-  // word); it has no branch, so its reads schedule with the stage's work.
-  __device__ __forceinline__ void reduce(int q, int s, int p, float t) {
-    const Cone& cn = pc.c;
-    const float diff = fabsf(t - pipe_sx[s - 1][p] * syz_c);
-    unsigned db = cn.central ? __float_as_uint(diff) : 0u;
-    unsigned rb = cn.central ? __float_as_uint(fabsf(diff * rsyz_c)) : 0u;
+  // The ring word of the thread's cell r in slot q of stage s.
+  __device__ __forceinline__ float* ring(int s, int q, int r) const {
+    return pipe_ring + (s * 3 + q) * kSlot + r * kPlane + kPipeMaxEz + tid;
+  }
+
+  // Load chain plane j (x = x1 - K + j) of the thread's cells into nu..nc.
+  __device__ __forceinline__ void load(int j) {
+    if (reach < 0) return;
+    const int xu = x1 - K + j;
+    const int w = xu < 0 ? 0 : (xu < d ? 1 : 2);
+    const int64_t base =
+        lane_off + (int64_t)(w == 0 ? xu + K : (w == 1 ? xu : xu - d)) * nn;
+    const float* pu = (w == 0 ? u.lo : (w == 1 ? u.blk : u.hi)) + base;
+    const VT* pv = (w == 0 ? v.lo : (w == 1 ? v.blk : v.hi)) + base;
+    const float* pf = HF ? (w == 0 ? c2.lo : (w == 1 ? c2.blk : c2.hi)) + base
+                         : nullptr;
+    const bool slab = HC && xu >= xb0 && xu < xb0 + bx;
+    const CT* pc = slab ? carry + lane_off + (int64_t)xu * onn - odelta
+                        : nullptr;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {  // a padding row's cell reads a valid one
+      nu[r] = pu[row[r]];
+      nv[r] = pv[row[r]];
+      if (HF) nf[r] = pf[row[r]];
+      if (slab && bit(2 * R + r)) nc[r] = pc[row[r]];
+    }
+  }
+
+  // The warp's max of its cells' folded errors into its slot
+  // pipe_wmax[q][s-1][.][warp].  Every lane of a warp that holds central
+  // cells calls it (a slot per warp: no atomics on one word).
+  __device__ __forceinline__ void reduce(int q, int s, unsigned db,
+                                         unsigned rb) {
     db = __reduce_max_sync(0xffffffffu, db);
     rb = __reduce_max_sync(0xffffffffu, rb);
-    if ((cn.tid & 31) == 0) {
-      pipe_wmax[q][s - 1][0][cn.tid >> 5] = db;
-      pipe_wmax[q][s - 1][1][cn.tid >> 5] = rb;
+    if ((tid & 31) == 0) {
+      pipe_wmax[q][s - 1][0][tid >> 5] = db;
+      pipe_wmax[q][s - 1][1][tid >> 5] = rb;
     }
   }
 
@@ -198,15 +268,15 @@ struct CompPipe {
   // slots and adds one atomicMax per block.  Call after a barrier that
   // follows step t.
   __device__ __forceinline__ void flush(int q, int t) {
-    const int lane = pc.c.tid & 31, warps = (blockDim.x + 31) >> 5;
-    for (int pair = pc.c.tid >> 5; pair < 2 * K; pair += warps) {
+    const int lane = tid & 31, warps = (blockDim.x + 31) >> 5;
+    for (int pair = tid >> 5; pair < 2 * K; pair += warps) {
       const int s = (pair >> 1) + 1, which = pair & 1, p = t - s;
       if (p < K || p >= K + L) continue;  // uniform across the warp
       unsigned m = lane < warps ? pipe_wmax[q][s - 1][which][lane] : 0u;
       m = __reduce_max_sync(0xffffffffu, m);
       if (lane == 0) {
         unsigned* rows = which ? rmax : dmax;
-        atomicMax(&rows[(int64_t)(s - 1) * d + pc.c.x1 - K + p], m);
+        atomicMax(&rows[(int64_t)(s - 1) * d + x1 - K + p], m);
       }
     }
   }
@@ -215,61 +285,88 @@ struct CompPipe {
   // known at compile time.
   template <int PH>
   __device__ __forceinline__ void step(int t, Phase<PH>) {
-    constexpr int w0 = PH % 3;        // W slot of this step's plane
-    constexpr int w1 = (PH + 2) % 3;  // ... of the last step's
-    constexpr int w2 = (PH + 1) % 3;  // ... of the step before
-    constexpr int r0 = PH % 2, r1 = (PH + 1) % 2;
-    const Cone& cn = pc.c;
+    constexpr int q0 = PH % 3;        // ring slot of this step's plane
+    constexpr int q1 = (PH + 2) % 3;  // ... of the last step's
+    constexpr int q2 = (PH + 1) % 3;  // ... of the step before
+    constexpr int r0 = PH % 2, r1 = (PH + 1) % 2;  // register slots
     const int T = L + 2 * K;
     __syncthreads();
     if (errors && t > 0) flush(r1, t - 1);
     if (t < T) {  // stage 0: the incoming plane t
-      W[0][w0] = nu;
-      V[0][r0] = Conv<VT>::to(nv);
-      if (HC) C[0][r0] = Conv<CT>::to(nc);
-      if (HF) F[0][r0] = nf;
-      if (cn.live) pipe_ring[r0 * cn.cols + cn.tid] = nu;
-      if (HC) nc = Conv<CT>::from(0.0f);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        W[0][r][r0] = nu[r];
+        V[0][r][r0] = Conv<VT>::to(nv[r]);
+        if (HC) C[0][r][r0] = Conv<CT>::to(nc[r]);
+        if (HF) F[0][r][r0] = nf[r];
+        if (reach >= 0) *ring(0, q0, r) = nu[r];
+        if (HC) nc[r] = Conv<CT>::from(0.0f);
+      }
       if (t + 1 < T) load(t + 1);
     }
 #pragma unroll
     for (int s = 1; s <= K; ++s) {
       const int p = t - s;  // the plane stage s makes at this step
       if (p < s || p >= T - s) continue;  // uniform across the block
-      const float c = W[s - 1][w1];
-      const float vo = V[s - 1][r1];
-      const float co0 = HC ? C[s - 1][r1] : 0.0f;
-      float tn = c, vn = vo, cc = co0;
+      // The rows of this plane, reduced by the warps that hold central
+      // cells (the others' slots stay 0).
+      const bool rows = errors && wcentral && p >= K && p < K + L;
+      unsigned db = 0u, rb = 0u;
       if (reach >= s) {
-        const float* pl = pipe_ring + ((s - 1) * 2 + r1) * cn.cols;
-        const float lap = cone_laplacian(W[s - 1][w2], W[s - 1][w0], c, pl,
-                                         cn.tid, cn.ez, ix, iy, iz);
-        const float co = HF ? F[s - 1][r1] : coeff;
-        const float dd = cn.interior ? co * lap : 0.0f;
-        vn = vo + dd;
-        const float yy = HC ? vn - co0 : vn;
-        tn = c + yy;
-        if (HC) cc = (tn - c) - yy;
+        // The outer rows' y neighbours: the last row of the thread rows
+        // above, the first of those below.
+        const float up = ring(s - 1, q1, R - 1)[-ez];
+        const float dn = ring(s - 1, q1, 0)[ez];
+        const float sxs = rows ? pipe_sx[s - 1][p - K] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float c = W[s - 1][r][r1];
+          const float ym = r == 0 ? up : W[s - 1][r - 1][r1];
+          const float yp = r == R - 1 ? dn : W[s - 1][r + 1][r1];
+          const float* pz = ring(s - 1, q1, r);
+          // common.cuh cone_laplacian's sums: the right x neighbour (made
+          // by stage s-1 this step) and the inner y neighbours from
+          // registers, the left x neighbour from the ring's slot of two
+          // steps ago.
+          float lap = (*ring(s - 1, q2, r) + W[s - 1][r][r0] - 2.0f * c) * ix;
+          lap = lap + (ym + yp - 2.0f * c) * iy;
+          lap = lap + (pz[-1] + pz[1] - 2.0f * c) * iz;
+          const float co = HF ? F[s - 1][r][r1] : coeff;
+          const float dd = bit(r) ? co * lap : 0.0f;
+          const float co0 = HC ? C[s - 1][r][r1] : 0.0f;
+          const float vn = V[s - 1][r][r1] + dd;
+          const float yy = HC ? vn - co0 : vn;
+          const float tn = c + yy;
+          if (s < K) {
+            W[s][r][r0] = tn;
+            V[s][r][r0] = vn;
+            if (HC) C[s][r][r0] = (tn - c) - yy;
+            if (HF) F[s][r][r0] = F[s - 1][r][r1];
+            *ring(s, q0, r) = tn;
+          } else if (bit(R + r)) {
+            const int64_t o = lane_off + (int64_t)(x1 - K + p) * onn - odelta;
+            u_out[o + row[r]] = tn;
+            v_out[o + row[r]] = Conv<VT>::from(vn);
+            if (HC) carry_out[o + row[r]] = Conv<CT>::from((tn - c) - yy);
+          }
+          if (rows) {
+            const float2 o = *oracle(r);
+            const float diff = fabsf(tn - sxs * o.x);
+            const unsigned a = __float_as_uint(diff);
+            const unsigned b = __float_as_uint(fabsf(diff * o.y));
+            db = bit(R + r) ? max(db, a) : db;
+            rb = bit(R + r) ? max(rb, b) : rb;
+          }
+        }
       }
-      if (s < K) {
-        W[s][w0] = tn;
-        V[s][r0] = vn;
-        if (HC) C[s][r0] = cc;
-        if (HF) F[s][r0] = F[s - 1][r1];
-        if (cn.live) pipe_ring[(s * 2 + r0) * cn.cols + cn.tid] = tn;
-      } else if (cn.central) {
-        const int64_t g = (int64_t)(cn.x1 - K + p) * pc.onn + pc.orow;
-        u_out[g] = tn;
-        v_out[g] = Conv<VT>::from(vn);
-        if (HC) carry_out[g] = Conv<CT>::from(cc);
-      }
-      if (errors && p >= K && p < K + L) reduce(r0, s, p - K, tn);
+      if (rows) reduce(r0, s, db, rb);
     }
   }
 };
 
-template <int K, typename VT, typename CT, bool HC, bool HF, bool LANES>
-__global__ void __launch_bounds__(PipeThreads<K>::value, 1)
+template <int K, class S, typename VT, typename CT, bool HC, bool HF,
+          bool LANES>
+__global__ void __launch_bounds__(S::NT, 1)
 kstep_comp_pipe_kernel(Chain<float> u, Chain<VT> v,
                        const CT* __restrict__ carry,
                        float* __restrict__ u_out, VT* __restrict__ v_out,
@@ -282,11 +379,12 @@ kstep_comp_pipe_kernel(Chain<float> u, Chain<VT> v,
                        int ny, int y0, int bx, int seg, int ty, int tz,
                        float coeff, float ix, float iy, float iz,
                        int64_t lane_stride) {
+  constexpr int R = S::R;
   // LANES (K4's lane mode): block z = lane * segments + segment.  The
   // lane's rows lie K * d on; its cells lane_stride on in every state
-  // array, an offset folded into the column's cell offsets below (not
-  // into the array pointers, which then stay kernel parameters).  The
-  // solo instantiations compile without any of it.
+  // array, an offset added to each plane's (not to the array pointers,
+  // which then stay kernel parameters).  The solo instantiations compile
+  // without any of it.
   int xs = blockIdx.z, lane = 0;
   if (LANES) {
     const int nseg = d / seg;
@@ -297,10 +395,7 @@ kstep_comp_pipe_kernel(Chain<float> u, Chain<VT> v,
       sxct += ro, dmax += ro, rmax += ro;
     }
   }
-  CompPipe<K, VT, CT, HC, HF> pp;
-  pp.L = seg;
-  pp.pc = plane_cone(K, pp.L, ty, tz, n, py, ny, y0, xs);
-  const Cone& cn = pp.pc.c;
+  CompPipe<K, S, VT, CT, HC, HF> pp;
   pp.u = u;
   pp.v = v;
   pp.c2 = c2;
@@ -310,40 +405,73 @@ kstep_comp_pipe_kernel(Chain<float> u, Chain<VT> v,
   pp.carry_out = carry_out;
   pp.dmax = dmax;
   pp.rmax = rmax;
-  pp.reach = cn.live ? min(min(cn.ly, cn.ey - 1 - cn.ly),
-                           min(cn.lz, cn.ez - 1 - cn.lz))
-                     : -1;
+  pp.L = seg;
   pp.d = d;
   pp.bx = bx;
-  pp.xb0 = (cn.x1 / bx) * bx;  // the block_x slab the segment lies in
+  pp.x1 = xs * seg;
+  pp.xb0 = (pp.x1 / bx) * bx;  // the block_x slab the segment lies in
   pp.coeff = coeff;
   pp.ix = ix;
   pp.iy = iy;
   pp.iz = iz;
   pp.errors = dmax != nullptr;
-  pp.syz_c = pp.rsyz_c = 0.0f;
-  if (pp.errors) {
-    if (cn.central) {
-      pp.syz_c = syz[pp.pc.orow];
-      pp.rsyz_c = rsyz[pp.pc.orow];
-    }
-    // The segment's oracle rows; the first step's barrier publishes them.
-    for (int i = cn.tid; i < K * pp.L; i += blockDim.x)
-      pipe_sx[i / pp.L][i % pp.L] =
-          sxct[(int64_t)(i / pp.L) * d + cn.x1 + i % pp.L];
-  }
-  if (LANES) {
-    pp.pc.c.row += lane * lane_stride;
-    pp.pc.orow += lane * lane_stride;
-  }
-  pp.nu = pp.nf = 0.0f;
-  pp.nv = Conv<VT>::from(0.0f);
-  pp.nc = Conv<CT>::from(0.0f);
+  pp.nn = py * n;
+  pp.onn = ny * n;
+  pp.lane_off = LANES ? lane * lane_stride : 0;
+  // The face (plane.cuh's geometry, R rows a thread): the thread's column
+  // lz and its first row R * rb; the y mode as plane_cone's.  An output
+  // row oy of a K12 block is input row oy + K (a clamped input row is no
+  // output row); K4 and K11 read and write the same row.
+  const int ey = ty + 2 * K, ez = tz + 2 * K, nrb = (ey + R - 1) / R;
+  const int tid = threadIdx.x;
+  const bool live = tid < nrb * ez;
+  const int lz = live ? tid % ez : 0, rb = live ? tid / ez : 0;
+  pp.tid = tid;
+  pp.ez = ez;
+  const int y1 = blockIdx.y * ty, z1 = blockIdx.x * tz;
+  const int gz = wrap(z1 - K + lz, n);
+  const bool ext = py != ny;
+  pp.odelta = ext ? K * n : 0;
+  const bool zc = lz >= K && lz < K + tz && z1 + lz - K < n;
+  const int zreach = min(lz, ez - 1 - lz);
+  pp.reach = -1;
+  pp.flags = 0u;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    pp.W[s][0] = pp.W[s][1] = pp.W[s][2] = 0.0f;
-    pp.V[s][0] = pp.V[s][1] = pp.C[s][0] = pp.C[s][1] = 0.0f;
-    pp.F[s][0] = pp.F[s][1] = 0.0f;
+  for (int r = 0; r < R; ++r) {
+    const int ly = rb * R + r;
+    const bool cl = live && ly < ey;
+    const int yo = y1 - K + ly;  // the cell's row among the output rows
+    const int pr = ext ? min(yo + K, py - 1) : wrap(yo, py);  // input row
+    const int oy = ext ? yo : pr;
+    const bool central = cl && ly >= K && ly < K + ty && zc && yo < ny;
+    pp.row[r] = pr * n + gz;
+    pp.flags |= (unsigned)(wrap(y0 + yo, n) != 0 && gz != 0) << r |
+                (unsigned)central << (R + r) |
+                (unsigned)(oy >= 0 && oy < ny) << (2 * R + r);
+    if (cl) pp.reach = max(pp.reach, min(min(ly, ey - 1 - ly), zreach));
+    if (pp.errors && live)
+      *pp.oracle(r) = central ? make_float2(syz[oy * n + gz], rsyz[oy * n + gz])
+                              : make_float2(0.0f, 0.0f);
+    pp.nu[r] = pp.nf[r] = 0.0f;
+    pp.nv[r] = Conv<VT>::from(0.0f);
+    pp.nc[r] = Conv<CT>::from(0.0f);
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      pp.W[s][r][0] = pp.W[s][r][1] = 0.0f;
+      pp.V[s][r][0] = pp.V[s][r][1] = pp.C[s][r][0] = pp.C[s][r][1] = 0.0f;
+      pp.F[s][r][0] = pp.F[s][r][1] = 0.0f;
+    }
+  }
+  pp.wcentral = __any_sync(0xffffffffu, (pp.flags >> R) & ((1u << R) - 1u));
+  if (pp.errors) {
+    // The segment's oracle rows; the first step's barrier publishes them.
+    for (int i = tid; i < K * pp.L; i += blockDim.x)
+      pipe_sx[i / pp.L][i % pp.L] =
+          sxct[(int64_t)(i / pp.L) * d + pp.x1 + i % pp.L];
+    // A warp without central cells never reduces: its slots hold 0.
+    if (!pp.wcentral && (tid & 31) < 2 * 2 * K)
+      pipe_wmax[(tid & 31) / (2 * K)][(tid & 31) / 2 % K][tid & 1][tid >> 5] =
+          0u;
   }
   pp.load(0);
   // Steps 0 .. L + 2k - 1 make the planes; step L + 2k flushes the last
@@ -364,20 +492,29 @@ struct Args {
   void *u_out, *v_out, *carry_out;
   const void *c2, *c2lo, *c2hi, *syz, *rsyz, *sxct;
   void *dmax, *rmax;
-  int d, n, py, ny, y0, bx, seg, ty, tz;
+  int d, n, py, ny, y0, bx, seg, ty, tz, r;
   float coeff, ix, iy, iz;
   int lanes;
   int64_t lane_stride;
 };
 
-template <int K, typename VT, typename CT, bool HC, bool HF, bool LANES>
+// The threads a launch of face (ty, tz) at R rows a thread takes.
+template <int K>
+int pipe_threads(const Args& a) {
+  const int ez = a.tz + 2 * K, nrb = (a.ty + 2 * K + a.r - 1) / a.r;
+  return (nrb * ez + 31) / 32 * 32;
+}
+
+template <int K, class S, typename VT, typename CT, bool HC, bool HF,
+          bool LANES>
 int launch_pipe(const Args& a, cudaStream_t stream) {
-  auto kern = kstep_comp_pipe_kernel<K, VT, CT, HC, HF, LANES>;
-  const int cols = (a.ty + 2 * K) * (a.tz + 2 * K);
-  const int threads = (cols + 31) / 32 * 32;
-  if (threads > PipeThreads<K>::value || a.seg > kPipeMaxSeg)
+  auto kern = kstep_comp_pipe_kernel<K, S, VT, CT, HC, HF, LANES>;
+  const int threads = pipe_threads<K>(a);
+  if (threads > S::NT || a.seg > kPipeMaxSeg || a.tz + 2 * K > kPipeMaxEz)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t shmem = (size_t)2 * K * cols * sizeof(float);
+  const size_t shmem =
+      (size_t)3 * K * CompPipe<K, S, VT, CT, HC, HF>::kSlot * sizeof(float) +
+      (size_t)S::R * CompPipe<K, S, VT, CT, HC, HF>::kPlane * sizeof(float2);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return (int)e;
@@ -402,6 +539,30 @@ int launch_pipe(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The blocked shapes (R > 1) built for a (k, storage, field, lane mode):
+// the flagship's storage (f32 v, a bf16 carry) without a field, solo and
+// lanes, at k = 4; one block size for each R.  Elsewhere R = 1 alone.
+template <int K, typename VT, typename CT, bool HC, bool HF>
+struct Blocked {
+  static constexpr bool value = K == 4 && !HF && HC &&
+                                std::is_same<VT, float>::value &&
+                                std::is_same<CT, __nv_bfloat16>::value;
+};
+
+template <int K, typename VT, typename CT, bool HC, bool HF, bool LANES>
+int launch_shape(const Args& a, cudaStream_t st) {
+  if (a.r == 1)
+    return launch_pipe<K, Shape<1, PipeThreads<K>::value>, VT, CT, HC, HF,
+                       LANES>(a, st);
+  if constexpr (Blocked<K, VT, CT, HC, HF>::value) {
+    if (a.r == 2)
+      return launch_pipe<K, Shape<2, 640>, VT, CT, HC, HF, LANES>(a, st);
+    if (a.r == 3)
+      return launch_pipe<K, Shape<3, 512>, VT, CT, HC, HF, LANES>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // K4's storage modes, each with and without a field; the lane mode in
 // the flagship's storage (f32 v, bf16 carry), without a field.
 template <int K>
@@ -410,12 +571,12 @@ int launch_comp_mode(int v_dtype, int carry_dtype, const Args& a,
   const bool field = a.c2 != nullptr;
   if (a.lanes > 1)
     return v_dtype == WT_F32 && carry_dtype == WT_BF16 && !field
-               ? launch_pipe<K, float, __nv_bfloat16, true, false, true>(
+               ? launch_shape<K, float, __nv_bfloat16, true, false, true>(
                      a, st)
                : (int)cudaErrorInvalidValue;
-#define WT_COMP(VT, CT, HC)                                         \
-  return field ? launch_pipe<K, VT, CT, HC, true, false>(a, st) \
-               : launch_pipe<K, VT, CT, HC, false, false>(a, st)
+#define WT_COMP(VT, CT, HC)                                          \
+  return field ? launch_shape<K, VT, CT, HC, true, false>(a, st) \
+               : launch_shape<K, VT, CT, HC, false, false>(a, st)
   if (v_dtype == WT_F32 && carry_dtype == WT_BF16)
     WT_COMP(float, __nv_bfloat16, true);
   if (v_dtype == WT_F32 && carry_dtype == WT_F32) WT_COMP(float, float, true);
@@ -438,11 +599,12 @@ extern "C" {
 // (k, py, n) f32 windows, or null.  dmax/rmax are (k, d) uint32 rows zeroed
 // by the caller, or null (then syz, rsyz - the central (ny, n) oracle
 // planes - and sxct (k, d) are not read).  1 <= k <= 8; the segment length
-// seg <= 64 divides bx, bx divides d; (ty + 2k)(tz + 2k) columns fit a
-// block.  `lanes` > 1 is K4's lane mode (whole y rows, f32 v, a bf16
-// carry, no field): u, v, the carry, their windows and the outputs hold
-// `lanes` lanes `lane_stride` elements apart, sxct and the rows (lanes, k,
-// d).
+// seg <= 64 divides bx, bx divides d; r face rows a thread (a shape built
+// for this k and storage), ceil((ty + 2k) / r)(tz + 2k) threads fit its
+// block; a plane holds fewer than 2^31 cells.  `lanes` > 1 is K4's lane
+// mode (whole y rows, f32 v, a bf16 carry, no field): u, v, the carry,
+// their windows and the outputs hold `lanes` lanes `lane_stride` elements
+// apart, sxct and the rows (lanes, k, d).
 int wt_kstep_comp_chain(const void* u, const void* ulo, const void* uhi,
                         const void* v, const void* vlo, const void* vhi,
                         const void* carry, void* u_out, void* v_out,
@@ -450,22 +612,23 @@ int wt_kstep_comp_chain(const void* u, const void* ulo, const void* uhi,
                         const void* c2hi, const void* syz, const void* rsyz,
                         const void* sxct, void* dmax, void* rmax, int d,
                         int n, int py, int ny, int y0, int k, int bx,
-                        int seg, int ty, int tz, int v_dtype,
+                        int seg, int ty, int tz, int r, int v_dtype,
                         int carry_dtype, double coeff, double ix, double iy,
                         double iz, int lanes, int64_t lane_stride,
                         void* stream) {
   const bool whole = py == ny && ny == n && y0 == 0;
   const bool ext = py == ny + 2 * k && y0 >= 0 && y0 < n;
   if (seg < 1 || bx < 1 || bx % seg || d % bx || k < 1 || k > 8 ||
-      ny < 1 || !(whole || ext) || ty < 1 || tz < 1 || lanes < 1 ||
-      (lanes > 1 && !whole) || (int64_t)(d / seg) * lanes > 65535)
+      ny < 1 || !(whole || ext) || ty < 1 || tz < 1 || r < 1 || lanes < 1 ||
+      (lanes > 1 && !whole) || (int64_t)(d / seg) * lanes > 65535 ||
+      (int64_t)py * n > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{u, ulo, uhi, v, vlo, vhi, carry,
                u_out, v_out, carry_out,
                c2, c2lo, c2hi, syz, rsyz, sxct,
                dmax, rmax,
-               d, n, py, ny, y0, bx, seg, ty, tz,
+               d, n, py, ny, y0, bx, seg, ty, tz, r,
                (float)coeff, (float)ix, (float)iy, (float)iz,
                lanes, lane_stride};
 #define WT_K(KK) \

@@ -87,6 +87,10 @@ launches: Dict[str, int] = {
     "kstep_sharded_xy": 0, "kstep_sharded_xy_field": 0,
     "kstep_comp_sharded": 0, "kstep_comp_sharded_field": 0,
     "kstep_comp_sharded_xy": 0, "kstep_comp_sharded_xy_field": 0,
+    # Every launch of csrc/comp_sharded.cu's pipeline (K4, K11, K12, their
+    # field forms and K4's lane mode) once more, by the face rows R a
+    # thread owns (`comp_pipe_block`).
+    "kstep_comp_r1": 0, "kstep_comp_r2": 0, "kstep_comp_r3": 0,
     # The lane modes (the ensembles' batch axis; see the end of the file).
     "step_lanes": 0, "var_step_lanes": 0, "comp_step_lanes": 0,
     "kstep_lanes": 0, "kstep_field_lanes": 0, "kstep_comp_lanes": 0,
@@ -104,9 +108,10 @@ _NONE = -1
 _KSTEP_MAX_K = 8
 # The carry slab's cap (`default_block_x`), and the pipelines of
 # csrc/kstep_pipe.cu (K3, K8-K10, `kstep_pipe_tile`) and csrc/comp_sharded.cu
-# (K4, K11/K12, `comp_pipe_tile`): one thread per column of the
-# (ty+2k)(tz+2k) halo face, at most 1024 for k <= 4 and 640 above (the
-# per-stage registers grow with k); x segments of up to _PIPE_SEG planes
+# (K4, K11/K12, `comp_pipe_tile`; blocked shapes `comp_pipe_block`): one
+# thread per column of the (ty+2k)(tz+2k) halo face, at most 1024 for
+# k <= 4 and 640 above (the per-stage registers grow with k), or R cells
+# of a column a thread in K4's blocked shapes; x segments of up to _PIPE_SEG planes
 # inside one carry slab (K4, K11, K12), of up to _KPIPE_SEG planes (K3,
 # K8-K10: kernels/tile_ab.py part `kpipe`, PERF.md).
 _SLAB_CAP = 32
@@ -114,6 +119,21 @@ _PIPE_SEG = 32
 _PIPE_MAX_SEG = 64  # kPipeMaxSeg: a segment's oracle rows in shared memory
 _KPIPE_SEG = 128  # kStdMaxSeg of csrc/kstep_pipe.cu
 _PIPE_FACE_Z = 32
+# K4, K11 and K12's blocked shapes (csrc/comp_sharded.cu `launch_shape`):
+# R face rows a thread -> the block size built for it, where `Blocked`
+# builds them: k = 4, f32 v and a bf16 carry, no field, solo and lanes.
+# `_COMP_CHOICE` is the R each (k, v dtype, carry dtype, field, lanes)
+# launches, from the A/B of kernels/tile_ab.py part `pipe` (PERF.md): the
+# fastest shape that ptxas builds without spilling; every other one takes
+# R = 1 at `comp_pipe_tile`'s face.  The face is _COMP_FACE_Z columns wide,
+# one warp per row, as many rows as the block's threads hold.
+_COMP_SHAPES = {2: 640, 3: 512}
+_COMP_FACE_Z = 32
+_COMP_MAX_EZ = 64  # kPipeMaxEz: the widest face (tz + 2k) a block takes
+_COMP_CHOICE = {
+    (4, torch.float32, torch.bfloat16, False, False): 2,
+    (4, torch.float32, torch.bfloat16, False, True): 3,
+}
 
 
 def pipe_max_threads(k: int) -> int:
@@ -185,7 +205,7 @@ def _comp_sharded_lib() -> ctypes.CDLL:
     if not getattr(lib, "_wt_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.wt_kstep_comp_chain.argtypes = (
-            [p] * 18 + [i] * 12 + [d] * 4 + [i, ctypes.c_int64, p])
+            [p] * 18 + [i] * 13 + [d] * 4 + [i, ctypes.c_int64, p])
         lib.wt_kstep_comp_chain.restype = i
         lib._wt_typed = True
     return lib
@@ -639,12 +659,13 @@ def kstep_pipe_smem(k: int, ty: int, tz: int) -> int:
 
 
 def comp_pipe_tile(k: int, bx: int) -> Tuple[int, int, int]:
-    """(seg, ty, tz) of K4 and K11/K12's x-streaming pipeline
-    (csrc/comp_sharded.cu): an x segment of seg planes, the largest divisor
-    of the carry slab bx up to _PIPE_SEG (a segment lies in one slab), and
-    a (ty, tz) y/z output face whose halo face, (ty+2k) rows of
-    _PIPE_FACE_Z = tz+2k columns (one warp per row), fills
-    `pipe_max_threads(k)` threads."""
+    """(seg, ty, tz) of the one-cell-a-thread pipeline face: an x segment
+    of seg planes, the largest divisor of the carry slab bx up to
+    _PIPE_SEG (a segment of K4, K11/K12 lies in one slab), and a (ty, tz)
+    y/z output face whose halo face, (ty+2k) rows of _PIPE_FACE_Z = tz+2k
+    columns (one warp per row), fills `pipe_max_threads(k)` threads.  The
+    face of K3 and K8-K10 (`kstep_pipe_tile`) and of K4's shapes at R = 1
+    (`comp_pipe_block`)."""
     if not 1 <= k <= _KSTEP_MAX_K:
         raise ValueError(f"k={k}: the pipeline takes 1 <= k <= "
                          f"{_KSTEP_MAX_K}")
@@ -653,12 +674,67 @@ def comp_pipe_tile(k: int, bx: int) -> Tuple[int, int, int]:
     return seg, ey - 2 * k, _PIPE_FACE_Z - 2 * k
 
 
-def comp_pipe_smem(k: int, ty: int, tz: int) -> int:
-    """Shared memory of one pipeline block (bytes): each stage's two-slot
-    ring of the halo face's u (dynamic), and the static error slots
-    [2][8][2][32] words (a slot per warp) and oracle rows [8][64]."""
-    return 2 * k * (ty + 2 * k) * (tz + 2 * k) * 4 + (2 * 8 * 2 * 32
-                                                      + 8 * 64) * 4
+def comp_pipe_smem(k: int, r: int, block: int) -> int:
+    """Shared memory of one K4/K11/K12 block of the shape with r face rows
+    a thread and `block` threads at most (bytes): each stage's three-slot
+    ring of the halo face's u, r planes of `block` words and their guards
+    of _COMP_MAX_EZ words either side, and the cells' (syz, rsyz) pairs in
+    one such plane set (dynamic); the static error slots [2][8][2][32]
+    words (a slot per warp) and oracle rows [8][64]."""
+    plane = block + 2 * _COMP_MAX_EZ
+    return (3 * k + 2) * r * plane * 4 + (2 * 8 * 2 * 32 + 8 * 64) * 4
+
+
+def comp_pipe_threads(k: int, ty: int, tz: int, r: int) -> int:
+    """Threads of one K4/K11/K12 block: ceil((ty + 2k) / r) rows of tz + 2k
+    columns, padded to whole warps."""
+    cols = -(-(ty + 2 * k) // r) * (tz + 2 * k)
+    return -(-cols // 32) * 32
+
+
+def comp_pipe_shapes(k: int, v_dtype, carry_dtype, field: bool) -> Dict:
+    """R -> the block size csrc/comp_sharded.cu builds for this k, storage
+    and field: R = 1 at `pipe_max_threads(k)` everywhere, the blocked
+    shapes (`_COMP_SHAPES`) where `Blocked` builds them."""
+    shapes = {1: pipe_max_threads(k)}
+    if (k == 4 and not field and v_dtype == torch.float32
+            and carry_dtype == torch.bfloat16):
+        shapes.update(_COMP_SHAPES)
+    return shapes
+
+
+def comp_pipe_block(k: int, bx: int, v_dtype=torch.float32,
+                    carry_dtype=torch.bfloat16, field: bool = False,
+                    lanes: bool = False) -> Tuple[int, int, int, int]:
+    """(seg, ty, tz, r) of K4, K11/K12 and K4's lane mode: `comp_pipe_tile`'s
+    segment, and the face and face rows a thread r of the shape
+    `_COMP_CHOICE` names for (k, storage, field, lane mode):
+    (threads / _COMP_FACE_Z) x r rows of _COMP_FACE_Z columns, or
+    `comp_pipe_tile`'s face at r = 1."""
+    seg, ty, tz = comp_pipe_tile(k, bx)
+    r = _COMP_CHOICE.get((k, v_dtype, carry_dtype, field, lanes), 1)
+    if r == 1:
+        return seg, ty, tz, 1
+    ey = _COMP_SHAPES[r] // _COMP_FACE_Z * r
+    return seg, ey - 2 * k, _COMP_FACE_Z - 2 * k, r
+
+
+def _comp_shape(k, bx, tile, v_dtype, carry_dtype, field, lanes=False):
+    """The launch's (seg, ty, tz, r, block size): `tile` ((seg, ty, tz) at
+    r = 1, or (seg, ty, tz, r)) or `comp_pipe_block`'s, checked against the
+    slab and the shapes built."""
+    if tile is None:
+        tile = comp_pipe_block(k, bx, v_dtype, carry_dtype, field, lanes)
+    seg, ty, tz, r = tuple(tile) + (1,) * (4 - len(tile))
+    shapes = comp_pipe_shapes(k, v_dtype, carry_dtype, field)
+    ok = min(seg, ty, tz, r) > 0
+    threads = comp_pipe_threads(k, ty, tz, r) if ok else 0
+    if (not ok or bx % seg or seg > _PIPE_MAX_SEG or r not in shapes
+            or threads > shapes[r] or tz + 2 * k > _COMP_MAX_EZ):
+        raise ValueError(f"tile {tuple(tile)} does not fit block_x={bx} and "
+                         f"k={k} (face rows a thread built here: "
+                         f"{sorted(shapes)})")
+    return seg, ty, tz, r, shapes[r]
 
 
 def _check_kstep(n, k, bx):
@@ -1390,9 +1466,10 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
                 *, k, coeff, inv_h2, block_x, c2tau2_block, c2_ghosts,
                 with_errors, y0, nl_y, tile=None):
     """Launch csrc/comp_sharded.cu's kernel (K4 and K11 with nl_y None,
-    K12 with the central row count), counted under `counter`, after
-    checking every operand.  `tile` (seg, ty, tz) replaces
-    `comp_pipe_tile`'s (the A/B of kernels/tile_ab.py; the results do not
+    K12 with the central row count), counted under `counter` and under
+    its face rows a thread, after checking every operand.  `tile`
+    (seg, ty, tz, r), or (seg, ty, tz) at r = 1, replaces
+    `comp_pipe_block`'s (the A/B of kernels/tile_ab.py; the results do not
     depend on it)."""
     d, w, n = u.shape
     ny = w if nl_y is None else nl_y
@@ -1428,11 +1505,9 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
                        sxct=(sxct, (k, d)))
         dmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
         rmax = torch.zeros((k, d), dtype=torch.int32, device=dev)
-    seg, ty, tz = tile or comp_pipe_tile(k, block_x)
-    if (block_x % seg or seg > _PIPE_MAX_SEG
-            or (ty + 2 * k) * (tz + 2 * k) > pipe_max_threads(k)):
-        raise ValueError(f"tile {(seg, ty, tz)} does not fit block_x="
-                         f"{block_x} and k={k}")
+    seg, ty, tz, r, nt = _comp_shape(
+        k, block_x, tile, v.dtype, None if carry is None else carry.dtype,
+        c2tau2_block is not None)
     u_out = torch.empty((d, ny, n), dtype=f32, device=dev)
     v_out = torch.empty((d, ny, n), dtype=v.dtype, device=dev)
     c_out = None if carry is None else torch.empty(
@@ -1447,14 +1522,15 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
                if with_errors else (None, None, None)),
              _ptr(dmax), _ptr(rmax), d, n, w, ny, y0, k, block_x, seg, ty,
-             tz, _CODE[v.dtype],
+             tz, r, _CODE[v.dtype],
              _NONE if carry is None else _CODE[carry.dtype],
              float(coeff if c2tau2_block is None else 0.0),
              *(float(h) for h in inv_h2), 1, 0,
              inst=("kstep_comp_pipe", k, v.dtype,
                    None if carry is None else carry.dtype,
-                   c2tau2_block is not None))
+                   c2tau2_block is not None, r, nt))
     launches[counter if c2tau2_block is None else counter + "_field"] += 1
+    launches[f"kstep_comp_r{r}"] += 1
     if with_errors:
         # The kernel combined the rows as the bits of non-negative floats.
         dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
@@ -1770,7 +1846,8 @@ def fused_kstep_comp_lanes_plain(u, v, carry, syz, rsyz, sxct, *, k, coeff,
 
 
 def fused_kstep_comp_lanes(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
-                           block_x: Optional[int] = None, with_errors=True):
+                           block_x: Optional[int] = None, with_errors=True,
+                           tile=None):
     """K4 lane mode: k compensated velocity-form substeps of every lane of
     a (B, N, N, N) batch in one launch of `fused_kstep_comp`'s pipeline,
     each lane's x windows its own wrap planes, slab by slab as the solo
@@ -1778,7 +1855,7 @@ def fused_kstep_comp_lanes(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
     flagship's storage, the compensated ensemble's only one: f32 u and v, a
     bf16 carry (the plain version takes every storage mode K4 takes).
     sxct is (B, k, N) f32; returns (u', v', carry', dmax, rmax) with
-    (B, k, N) rows (None without errors)."""
+    (B, k, N) rows (None without errors).  `tile` as `_comp_chain`'s."""
     n = u.shape[-1]
     bx = block_x or default_block_x(n, k)
     if u.device.type == "cpu":
@@ -1788,7 +1865,8 @@ def fused_kstep_comp_lanes(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
     _check_kstep(n, k, bx)
     if not 1 <= k <= _KSTEP_MAX_K:
         raise ValueError(f"k={k}: K4 takes 1 <= k <= {_KSTEP_MAX_K}")
-    seg, ty, tz = comp_pipe_tile(k, bx)
+    seg, ty, tz, r, nt = _comp_shape(k, bx, tile, torch.float32,
+                                     torch.bfloat16, False, lanes=True)
     lanes = _lanes_of("K4 lanes", u, n // seg)
     _check_lane_batch(n, u=u, v=v, carry=carry)
     f32 = torch.float32
@@ -1812,11 +1890,12 @@ def fused_kstep_comp_lanes(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
              v_out.data_ptr(), c_out.data_ptr(), None, None, None,
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
                if with_errors else (None, None, None)),
-             _ptr(dmax), _ptr(rmax), n, n, n, n, 0, k, bx, seg, ty, tz,
+             _ptr(dmax), _ptr(rmax), n, n, n, n, 0, k, bx, seg, ty, tz, r,
              _CODE[v.dtype], _CODE[carry.dtype], float(coeff),
              *(float(h) for h in inv_h2), lanes, n ** 3,
-             inst=("kstep_comp_lanes", k))
+             inst=("kstep_comp_lanes", k, r, nt))
     launches["kstep_comp_lanes"] += 1
+    launches[f"kstep_comp_r{r}"] += 1
     if with_errors:
         dmax, rmax = dmax.view(f32), rmax.view(f32)
     return u_out, v_out, c_out, dmax, rmax

@@ -1,15 +1,22 @@
 """A/B timing of the k-step pipelines' tiles on the card.
 
     python -m wavetpu_torch.kernels.tile_ab [--n 512] [--reps 30]
-                                            [--parts pipe,kpipe,k6lanes,k6solo,ens,overlap]
+                                            [--parts pipe,pipesplit,kpipe,k6lanes,k6solo,ens,overlap]
                                             [--ens-reps 5]
 
 Part `pipe`: the x-streaming pipeline of K4, K11 and K12
-(csrc/comp_sharded.cu) as K11 on the main path's mesh-4,1,1 block (N/4,
-N, N), k=4, f32 u/v, a bf16 carry, rows on (and K11f rows off): its
-segment length L and its y/z face, each against the default tile
-(`comp_pipe_tile`); and the carry slab's depth block_x (8, 16, 32, 64: L
-and the slab cap) for K11 and for K4 on the whole (N, N, N) state.
+(csrc/comp_sharded.cu).  First its split (`pipesplit` alone): K4 on the
+whole (N, N, N) state and K4's lane mode on B=8 states of N/2, f32 u/v, a
+bf16 carry, at k = 1, 2, 3, 4 with the error rows on and off, each at
+`comp_pipe_block`'s shape (what a stage and the rows cost a launch); then
+at k=4, rows on, every shape of PIPE_SHAPES (R face rows a thread and the
+face), swept in order and back, each held bitwise against the plain
+version.  The split runs on any checkout of the package (it calls the
+public wrappers alone), so a parent's body can be timed beside this one.
+Then K11 on the main path's mesh-4,1,1 block (N/4, N, N), k=4, rows on
+(and K11f rows off): its segment length L and its y/z face at R = 1,
+each against `comp_pipe_tile`'s; and the carry slab's depth block_x (8,
+16, 32, 64: L and the slab cap) for K11 and for K4 on the whole state.
 
 Part `kpipe`: the standard pipeline of K3 and K8-K10 (csrc/kstep_pipe.cu)
 as K3 on the whole (N, N, N) state, K8 on a mesh-4,1,1 block (N/4, N, N),
@@ -159,9 +166,91 @@ def _abba(label, fn_a, fn_b, reps, result, timer=_median_ms) -> None:
     print(f"{label}: median ms {runs}; B/A {b_ms / a_ms:.4f}", flush=True)
 
 
+# K4's shapes at k=4 (seg, ty, tz, r): the one-cell-a-thread face (1024
+# threads), then R = 2 on 512 and 640 of the 640-thread block (32 and 40
+# rows) and R = 3 on 512 (48 rows); the face 32 columns wide.
+PIPE_SHAPES = [(32, 24, 24, 1), (32, 24, 24, 2), (32, 32, 24, 2),
+               (32, 40, 24, 3)]
+
+
+def _pipe_split(n, reps, result, lanes=8, shapes=True) -> None:
+    """K4 on the whole (n, n, n) state and K4's lane mode on `lanes`
+    states of n/2 (the flagship's storage): k = 1..4 with rows on and off
+    at the default shape (k = 3 on the largest multiple of 3 below: its
+    time and the time scaled to the full grid); with `shapes`, every
+    PIPE_SHAPES shape at k=4, rows on, in order and back."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator().manual_seed(2)
+
+    def rand(shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=g) * scale).to("cuda", dtype)
+
+    for label, m, b in (("K4", n, None), ("K4 lanes", n // 2, lanes)):
+        p = Problem(N=m, timesteps=1000)
+        shape = (m,) * 3 if b is None else (b, m, m, m)
+        u, v, c = rand(shape), rand(shape, 1e-3), rand(shape, 1e-8, bf16)
+        where = f"{label} N={m}" + ("" if b is None else f" B={b}")
+
+        def launch(k, rows, tile=None):
+            """(kernel, plain version) at k on the state's leading m - m % k
+            planes a side."""
+            mk = m - m % k
+            pk = p if mk == m else Problem(N=mk, timesteps=1000)
+            sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(pk, f32, "cuda")
+            cut = (slice(None),) * (b is not None) + (slice(0, mk),) * 3
+            uk, vk, ck = (t[cut].contiguous() if mk < m else t
+                          for t in (u, v, c))
+            sxct = (ct[2:2 + k][:, None] * sx[None, :]).contiguous()
+            kw = dict(k=k, coeff=pk.a2tau2, inv_h2=pk.inv_h2,
+                      block_x=stencil_cuda.default_block_x(mk, k),
+                      with_errors=rows)
+            tkw = {} if tile is None else dict(tile=tile)
+            if b is not None:
+                sxct = sxct.expand(b, k, mk).contiguous()
+                return (lambda: stencil_cuda.fused_kstep_comp_lanes(
+                    uk, vk, ck, syz, rsyz, sxct, **kw, **tkw)), (
+                    lambda: stencil_cuda.fused_kstep_comp_lanes_plain(
+                        uk, vk, ck, syz, rsyz, sxct, **kw))
+            plain = (lambda: stencil_cuda.fused_kstep_comp_plain(
+                uk, vk, ck, syz, rsyz, sxct, **kw))
+            if tile is None:
+                return (lambda: stencil_cuda.fused_kstep_comp(
+                    uk, vk, ck, syz, rsyz, sxct, **kw)), plain
+            args = (uk, vk, ck, stencil_cuda.wrap_planes(uk, k),
+                    stencil_cuda.wrap_planes(vk, k), syz, rsyz, sxct)
+            return (lambda: stencil_cuda._comp_chain(
+                "kstep_comp", *args, c2tau2_block=None, c2_ghosts=None,
+                y0=0, nl_y=None, tile=tile, **kw)), plain
+
+        for k in (1, 2, 3, 4):
+            for rows in (True, False):
+                key = f"{where} k={k} rows {'on' if rows else 'off'}"
+                ms = _median_ms(launch(k, rows)[0], reps)
+                result[key] = ms * (m / (m - m % k)) ** 3
+                print(f"{key}: {ms:.4f} ms ({result[key]:.4f} ms at N={m})",
+                      flush=True)
+        if not shapes:
+            continue
+        fns = []
+        for tile in PIPE_SHAPES:
+            fn, plain = launch(4, True, tile)
+            _equal(f"{where} shape={tile}", fn(), plain())
+            fns.append(fn)
+        times = [[] for _ in fns]
+        for i in list(range(len(fns))) + list(range(len(fns)))[::-1]:
+            times[i].append(_median_ms(fns[i], reps))
+        for tile, t in zip(PIPE_SHAPES, times):
+            key = f"{where} k=4 rows on shape={tile}"
+            result[key] = dict(runs=t, ms=sum(t) / len(t))
+            print(f"{key}: {t} ms", flush=True)
+        del u, v, c
+        torch.cuda.empty_cache()
+
+
 def _pipe_part(n, reps, result) -> None:
     k = 4
     build.build_all()
+    _pipe_split(n, reps, result)
     p = Problem(N=n, timesteps=1000)
     d = n // 4
     g = torch.Generator().manual_seed(1)
@@ -199,7 +288,7 @@ def _pipe_part(n, reps, result) -> None:
                plains[bx, field])
         return fn
 
-    base = stencil_cuda.comp_pipe_tile(k, 64)
+    base = stencil_cuda.comp_pipe_tile(k, 64)  # R = 1
     _, ty, tz = base
     for field in (False, True):
         name = "K11f" if field else "K11"
@@ -580,6 +669,9 @@ def main(argv=None) -> int:
     parts = args.parts.split(",")
     if "pipe" in parts:
         _pipe_part(args.n, args.reps, result)
+    elif "pipesplit" in parts:
+        build.build_all(names=["comp_sharded"])
+        _pipe_split(args.n, args.reps, result)
     if "kpipe" in parts:
         _kpipe_part(args.n, args.reps, result)
     if "k6lanes" in parts:
