@@ -551,9 +551,10 @@ LANE_KERNELS = {
                      run="ens_sharded_221", ops=19),
 }
 KERNELS.update(LANE_KERNELS)
-# K6's lane mode before the x-streaming kernel: the solo body's lane
-# instantiation, launched only through kernels/tile_ab.py (phase 9's A/B).
-K6_OLD = "K6 lanes old body"
+# The one-thread-per-cell solo K6 body on each lane of K6's lane-mode
+# batch (tile_ab.k6_solo_old): a lane-by-lane witness apart from the
+# streaming kernel, which the solo wrapper also takes on these blocks.
+K6_SOLO_BODY = "K6 solo body"
 N_FULL, N_ODD, STEPS, K = 512, 510, 1000, 4
 LENS = "gaussian-lens"
 NB, REM = (STEPS - 1) // K, (STEPS - 1) % K
@@ -1648,7 +1649,7 @@ def k1_in_march(layers=300):
     out = {}
     for label, kernel in (("march_ms", "pallas"),
                           ("march_ms_plain_errors", "roll")):
-        errors = leapfrog._error_fn(p, torch.float32, dev, kernel=kernel)
+        errors = leapfrog.error_fn(p, torch.float32, dev, kernel=kernel)
         u_prev = leapfrog.initial_layer0(p, device=dev)
         u = leapfrog.step_layer1(u_prev, stencil_cuda.leapfrog_step, p,
                                  torch.float32)
@@ -2914,18 +2915,14 @@ def lane_cases(n, lanes, names):
                          ghosts()[1][i], ghosts()[2][i], solo_ghosts(i), off,
                          n, **kb)),
     }
-    # The lane mode's old body (tile_ab's A/B side) on the same operands,
-    # and the one-thread-per-cell solo body on lane i: code apart from the
-    # streaming kernel, which the solo wrapper also takes on these blocks.
-    cases[K6_OLD] = (lambda: k6(tile_ab.k6_lanes_old),
-                     cases["K6 lanes"][1],
-                     lambda i: tile_ab.k6_solo_old(
-                         ghosts()[1][i], ghosts()[2][i], solo_ghosts(i), off,
-                         n, **kb))
+    cases[K6_SOLO_BODY] = (None, cases["K6 lanes"][1],
+                           lambda i: tile_ab.k6_solo_old(
+                               ghosts()[1][i], ghosts()[2][i],
+                               solo_ghosts(i), off, n, **kb))
     out = {}
     cells = lanes * n ** 3
     for name in names:
-        meta = LANE_KERNELS[name if name != K6_OLD else "K6 lanes"]
+        meta = LANE_KERNELS[name if name != K6_SOLO_BODY else "K6 lanes"]
         if meta is LANE_KERNELS["K6 lanes"]:
             g, _, bc = ghosts()
             nb = 3 * nbytes(bc) + nbytes(*(x for a in g[:2] for x in a))
@@ -2954,9 +2951,10 @@ def phase_lane_kernels(errs, rate):
     names = tuple(LANE_KERNELS)
     for n, lanes, subset in [(128, 3, names), (128, 2, names)] + [
             (n, 3, sub) for n, sub in LANE_SHAPES]:
-        cases = lane_cases(n, lanes, subset + ((K6_OLD,) if "K6 lanes" in
-                                               subset else ()))
-        old = cases.pop(K6_OLD, None)
+        cases = lane_cases(n, lanes, subset + ((K6_SOLO_BODY,)
+                                               if "K6 lanes" in subset
+                                               else ()))
+        body = cases.pop(K6_SOLO_BODY, None)
         for name, (fn, plain, solo, _, _) in cases.items():
             got = _as_list(fn())
             check_outputs(f"{name} N={n} B={lanes}", got, _as_list(plain()),
@@ -2966,15 +2964,13 @@ def phase_lane_kernels(errs, rate):
             if name == "K6 lanes":
                 check_outputs(f"{name} N={n} B={lanes} lane by lane, the "
                               f"one-thread-per-cell solo body", got,
-                              _stack_solo(old[2], lanes), errs[name])
+                              _stack_solo(body[2], lanes), errs[name])
             del got
-        del cases, old
+        del cases, body
         torch.cuda.empty_cache()
     times = {}
     for n, subset in LANE_SHAPES:
-        cases = lane_cases(n, 8, subset + ((K6_OLD,) if "K6 lanes" in subset
-                                           else ()))
-        old = cases.pop(K6_OLD, None)
+        cases = lane_cases(n, 8, subset)
         for name, (fn, plain, solo, nb, ops) in cases.items():
             ms = time_launches(fn, 10)
             solo_ms = time_launches(lambda: [solo(i) for i in range(8)], 10)
@@ -2989,41 +2985,21 @@ def phase_lane_kernels(errs, rate):
                   f"{solo_ms:.4f} ms ({solo_ms / ms:.3f}x); plain "
                   f"{plain_ms:.3f} ms; bound {times[name]['bound_ms']:.4f} "
                   f"ms by {times[name]['bound_by']}")
-            if old is not None and name == "K6 lanes":
-                times[name].update(k6_old_vs_new(n, fn, old[0], plain,
-                                                 errs[name]))
-        del cases, old
+        del cases
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     times["K6 lanes"].update(k6_lanes_main_block(errs, rate))
     return times
 
 
-def k6_old_vs_new(n, new, old, plain, errs):
-    """The x-streaming K6 lane kernel against the old lane body (the solo
-    body's lane instantiation, tile_ab.k6_lanes_old) on the same B=8
-    batch: the old body held bitwise against the plain version, then
-    timed old, new, new, old (time_launches each)."""
-    check_outputs(f"K6 lanes old body N={n} B=8", _as_list(old()),
-                  _as_list(plain()), errs)
-    runs = [time_launches(f, 10) for f in (old, new, new, old)]
-    old_ms, new_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
-    sfx = "" if n == N_FULL // 2 else f"_N{n}"
-    print(f"  K6 lanes N={n} B=8 old, new, new, old: "
-          f"{', '.join(f'{r:.4f}' for r in runs)} ms; new / old "
-          f"{new_ms / old_ms:.3f} ({smi()})")
-    return {f"old_body_ms{sfx}": old_ms, f"ab_ms{sfx}": new_ms,
-            f"ab_runs{sfx}": runs}
-
-
 def k6_lanes_main_block(errs, rate):
     """K6's lane mode at the main path's block: B=8 lanes on the
     mesh-2,2,1 block of N=512 (~3.2 GB of state), held against its plain
     version and, lane by lane, the solo K6 (its wrapper, and the
-    one-thread-per-cell solo body), and timed beside eight solo launches
-    and the old lane body; bound = 8 x K6's.  Fails if it is more than
+    one-thread-per-cell solo body), and timed beside eight solo launches;
+    bound = 8 x K6's.  Fails if it is more than
     GUARD_SLACK over LANE_GUARD_MS."""
-    cases = lane_cases(N_FULL, 8, ["K6 lanes", K6_OLD])
+    cases = lane_cases(N_FULL, 8, ["K6 lanes", K6_SOLO_BODY])
     fn, plain, solo, nb, ops = cases["K6 lanes"]
     got = _as_list(fn())
     check_outputs(f"K6 lanes N={N_FULL} B=8", got, _as_list(plain()),
@@ -3032,7 +3008,7 @@ def k6_lanes_main_block(errs, rate):
                   _stack_solo(solo, 8), errs["K6 lanes"])
     check_outputs(f"K6 lanes N={N_FULL} B=8 lane by lane, the "
                   f"one-thread-per-cell solo body", got,
-                  _stack_solo(cases[K6_OLD][2], 8), errs["K6 lanes"])
+                  _stack_solo(cases[K6_SOLO_BODY][2], 8), errs["K6 lanes"])
     del got
     ms = time_launches(fn, 10)
     solo_ms = time_launches(lambda: [solo(i) for i in range(8)], 10)
@@ -3046,8 +3022,6 @@ def k6_lanes_main_block(errs, rate):
           f"{plain_ms:.3f} ms; bound {out['bound_ms_N512']:.4f} ms by "
           f"{out['bound_by_N512']} ({out['bound_ms_N512'] / ms:.3f} of "
           f"it reached)")
-    out.update(k6_old_vs_new(N_FULL, fn, cases[K6_OLD][0], plain,
-                             errs["K6 lanes"]))
     del cases
     recorded = LANE_GUARD_MS["K6 lanes"]
     print(f"  K6 lanes N={N_FULL} B=8: recorded {recorded:.4f} ms "
@@ -4947,8 +4921,7 @@ def pipe_registers(logs):
     k=1, its pad mode (K9 on a block with pad planes) alike, its lane mode
     (K3, K3f) at k=4, and the compensated pipeline of K4 and K11/K12 at
     k=4 (f32 v, bf16 carry, without and with a field) and k=1, and its
-    lane mode (K4) at k=4 and 1; and K6 (f32): the solo body, its lane
-    instantiation (the lane mode's old body, kept for the A/B) and the
+    lane mode (K4) at k=4 and 1; and K6 (f32): the solo body and the
     x-streaming lane kernel."""
     want = {
         "K3/K8/K10 k=4": "17kstep_pipe_kernelILi4EfLb0ELb0ELb0EE",
@@ -4964,8 +4937,7 @@ def pipe_registers(logs):
         "K4/K11/K12 k=1": comp_kernel(1, False, False),
         "K4 lanes k=4": comp_kernel(K, False, True),
         "K4 lanes k=1": comp_kernel(1, False, True),
-        "K6": "19sharded_step_kernelIfLb0ELb0EE",
-        "K6 lanes old body": "19sharded_step_kernelIfLb0ELb1EE",
+        "K6": "19sharded_step_kernelIfLb0EE",
         "K6 lanes": "20sharded_lanes_kernelIfEE",
     }
     found, func, spill = {}, None, None
@@ -5137,8 +5109,7 @@ def main() -> int:
         for extra in ("ms_k1", "march_ms", "march_ms_plain_errors",
                       "solo_x8_ms", "ms_N512", "solo_x8_ms_N512",
                       "plain_ms_N512", "bound_ms_N512", "bound_by_N512",
-                      "old_body_ms", "old_body_ms_N512", "ab_ms",
-                      "ab_ms_N512", "face_ab"):
+                      "old_body_ms", "ab_ms", "face_ab"):
             if extra in times[name]:
                 row[extra] = times[name][extra]
         rows.append(row)

@@ -385,7 +385,7 @@ def test_error_pass_launches_once_a_layer_of_the_1step_solve(cuda):
     torch.cuda.synchronize()
     assert stencil_cuda.launches["layer_errors"] == p.timesteps
     assert stencil_cuda.launches["step"] == p.timesteps
-    plain = leapfrog._error_fn(p, torch.float32, cuda, kernel="roll")
+    plain = leapfrog.error_fn(p, torch.float32, cuda, kernel="roll")
     u_prev = leapfrog.initial_layer0(p, device=cuda)
     u = leapfrog.step_layer1(u_prev, stencil_cuda.leapfrog_step, p,
                              torch.float32)
@@ -1489,27 +1489,38 @@ def test_uneven_chunk_runner_keeps_the_state_on_the_card(cuda, monkeypatch,
                                                          n, n_shards):
     """The K9 route's chunk runner re-cuts the Topology layout into the
     pad-and-mask blocks and back on the card (no state passes through the
-    host), and its chunks equal the uninterrupted march bit for bit."""
+    host): every slab its re-cut moves (`halo.transfer`, into a block
+    given) goes from a card tensor into a card tensor, and nothing is
+    assembled off the card.  Its chunks equal the uninterrupted march bit
+    for bit."""
+    from wavetpu_torch.comm import halo
     from wavetpu_torch.core.grid import ShardedArray
 
     p = Problem(N=n, timesteps=17)       # K9's pad and mask: D != N / MX
     kw = dict(n_shards=n_shards, k=4, devices=["cuda"] * n_shards)
     whole = sharded_kfused.solve_sharded_kfused(p, **kw)
     half = sharded_kfused.solve_sharded_kfused(p, stop_step=9, **kw)
-    seen = []
-    assemble = ShardedArray.assemble
+    seen, recut = [], []
+    assemble, transfer = ShardedArray.assemble, halo.transfer
 
     def spy(self, device=None):
         seen.append(torch.device(device or self.blocks[0].device))
         return assemble(self, device)
 
+    def spy_transfer(mesh, moves, streams=None):
+        recut.extend((m[2].device, m[5].device) for m in moves
+                     if len(m) > 5)
+        return transfer(mesh, moves, streams)
+
     monkeypatch.setattr(ShardedArray, "assemble", spy)
+    monkeypatch.setattr(halo, "transfer", spy_transfer)
     run = sharded_kfused.make_chunk_runner(p, 4, **kw)
     prev, cur, start = half.u_prev, half.u_cur, 9
     while start < p.timesteps:
         prev, cur, _, _ = run(prev, cur, start)
         start += 4
-    assert seen and all(dv.type == "cuda" for dv in seen), seen
+    assert recut and all(a.type == b.type == "cuda" for a, b in recut), recut
+    assert all(dv.type == "cuda" for dv in seen), seen
     assert all(b.device.type == "cuda" for b in prev.blocks + cur.blocks)
     monkeypatch.undo()
     for got, want in ((prev, whole.u_prev), (cur, whole.u_cur)):

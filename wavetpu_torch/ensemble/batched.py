@@ -57,7 +57,7 @@ import torch
 from wavetpu_torch.core.problem import Problem
 from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.solver import kfused, kfused_comp, leapfrog
+from wavetpu_torch.solver import kfused, kfused_comp, leapfrog, phases
 from wavetpu_torch.verify import oracle
 
 PATHS = ("roll", "pallas", "kfused")
@@ -222,7 +222,7 @@ def fill_fields(problem: Problem, lanes: Sequence[LaneSpec]) -> list:
 
 
 def _lane_error_fn(problem: Problem, dtype, device, kernel: str = "pallas"):
-    """(u, n, ct_table) -> (abs_e, rel_e): leapfrog._error_fn with the
+    """(u, n, ct_table) -> (abs_e, rel_e): leapfrog.error_fn with the
     lane's time-factor table a runtime argument (`leapfrog.lane_error_fn`,
     one set of factors for every lane; the error kernel, or with
     kernel="roll" its plain version)."""
@@ -482,16 +482,16 @@ class EnsembleSolver:
                             device=dev) for _ in range(2)]
         out = [torch.empty_like(u0) for _ in range(2)]
         order = torch.as_tensor(batch.order, device=dev)
-        leapfrog._sync(dev)
+        phases.sync(dev)
         t1 = time.perf_counter()
         if self.scheme == "compensated":
             self._march_compensated(batch, u0, errs, out, order)
         else:
             self._march_standard(batch, u0, errs, out, order)
         abs_b, rel_b = (np.empty((b, e.shape[1])) for e in errs)
-        abs_b[batch.order] = leapfrog._host(errs[0])
-        rel_b[batch.order] = leapfrog._host(errs[1])
-        leapfrog._sync(dev)
+        abs_b[batch.order] = phases.host(errs[0])
+        rel_b[batch.order] = phases.host(errs[1])
+        phases.sync(dev)
         t2 = time.perf_counter()
         return (out[0], out[1], abs_b, rel_b), t1 - t0, t2 - t1
 

@@ -45,7 +45,7 @@ from wavetpu_torch.ensemble.batched import (
     padding_lane,
 )
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
-from wavetpu_torch.solver import leapfrog, sharded
+from wavetpu_torch.solver import leapfrog, phases, sharded
 from wavetpu_torch.verify import oracle
 
 KERNELS = ("roll", "pallas")
@@ -214,7 +214,7 @@ class ShardedEnsembleSolver:
         orders = [torch.as_tensor(order, device=sh.device)
                   for sh in self.shards]
         step = self._step()
-        sharded._sync(self.mesh)
+        phases.sync(*self.mesh.devices)
         t1 = time.perf_counter()
 
         def record(cur, layer, n):
@@ -256,7 +256,7 @@ class ShardedEnsembleSolver:
         abs_b, rel_b = (np.empty((b, t + 1)) for _ in range(2))
         abs_b[order] = sharded._reduce(errs[0], self.mesh)
         rel_b[order] = sharded._reduce(errs[1], self.mesh)
-        sharded._sync(self.mesh)
+        phases.sync(*self.mesh.devices)
         t2 = time.perf_counter()
         return (out[0], out[1], abs_b, rel_b), t1 - t0, t2 - t1
 

@@ -37,13 +37,13 @@ from wavetpu_torch.core.grid import (
     ShardedArray, Topology, build_mesh, each, pad_global, split_global,
 )
 from wavetpu_torch.kernels.stencil_ref import compute_dtype
-from wavetpu_torch.solver import leapfrog
+from wavetpu_torch.solver import phases
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
     """One numpy array (any float dtype, ml_dtypes bf16 included) as a
     contiguous tensor of the same dtype on `device` (default: CUDA)."""
-    device = leapfrog.resolve_device(device)
+    device = phases.resolve_device(device)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -70,7 +70,7 @@ def c2tau2_field(field, dtype=torch.float32, device=None) -> torch.Tensor:
     tensor on `device` (default: CUDA) in the compute dtype of a `dtype`
     state: f32 for f32 and bf16 states, f64 for f64 - one rounding from
     f64, as wavetpu's `jnp.asarray(field, compute_dtype)`."""
-    device = leapfrog.resolve_device(device)
+    device = phases.resolve_device(device)
     t = field if isinstance(field, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(field, dtype=np.float64))
     return t.to(device=device, dtype=compute_dtype(dtype)).contiguous()

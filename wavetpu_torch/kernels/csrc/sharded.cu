@@ -29,11 +29,9 @@
 // enough (kernels/stencil_cuda.py k6_solo_streams); a lane's cells run
 // the one-thread-per-cell body's op sequence.  That body
 // (sharded_step_kernel) runs K6f and the thin solo blocks (the overlap
-// mode's one-plane faces); its lane instantiation (block z = lane * bx +
-// x), which the streaming kernel replaced, is launched only by
-// kernels/tile_ab.py's A/B.  Every
-// entry point launches on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError().
+// mode's one-plane faces).  Every entry point launches on the caller's
+// stream, allocates nothing, does not synchronise, and returns
+// cudaGetLastError().
 
 #include "common.cuh"
 
@@ -120,7 +118,7 @@ constexpr int kRowThreads = 32, kColThreads = 8;  // 1-step block: (z, y)
 // K6: out = alpha*u + coeff*lap(u) - beta*u_prev (beta term only if
 // use_beta), or with FIELD the block's field cell in place of coeff and
 // (alpha, beta) = (2, 1): K1's and K5's body, masked by in_domain.
-template <typename T, bool FIELD, bool LANES>
+template <typename T, bool FIELD>
 __global__ void sharded_step_kernel(const T* __restrict__ uprev,
                                     const T* __restrict__ u,
                                     T* __restrict__ out,
@@ -135,22 +133,8 @@ __global__ void sharded_step_kernel(const T* __restrict__ uprev,
   using F = typename Conv<T>::F;
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  int x = blockIdx.z;
+  const int x = blockIdx.z;
   if (z >= g.bz || y >= g.by) return;
-  if (LANES) {  // block z = lane * bx + x; offsets into the lane's block
-    const int lane = blockIdx.z / g.bx;
-    x = blockIdx.z - lane * g.bx;
-    const int64_t blk = (int64_t)lane * g.bx * g.by * g.bz;
-    uprev += blk;
-    u += blk;
-    out += blk;
-    const int64_t fx = (int64_t)lane * g.by * g.bz,
-                  fy = (int64_t)lane * g.bx * g.bz,
-                  fz = (int64_t)lane * g.bx * g.by;
-    if (h.xlo) h.xlo += fx, h.xhi += fx;
-    if (h.ylo) h.ylo += fy, h.yhi += fy;
-    if (h.zlo) h.zlo += fz, h.zhi += fz;
-  }
   const int64_t e = ((int64_t)x * g.by + y) * g.bz + z;
   const F c = Conv<T>::to(u[e]);
   const F lap = ghost_laplacian<T, F>(u, h, g, x, y, z, e, c, ix, iy, iz);
@@ -405,9 +389,9 @@ __global__ void __launch_bounds__(kLaneTz * kLaneMaxTy, kLaneMinBlocks)
   }
 }
 
-dim3 grid_block(const Geom& g, int lanes) {
+dim3 grid_block(const Geom& g) {
   return dim3((g.bz + kRowThreads - 1) / kRowThreads,
-              (g.by + kColThreads - 1) / kColThreads, g.bx * lanes);
+              (g.by + kColThreads - 1) / kColThreads, g.bx);
 }
 
 template <typename T>
@@ -425,37 +409,30 @@ extern "C" {
 // K6 with a null c2; with c2 (the block's field in the compute dtype: f64
 // for an f64 state, else f32) the variable-speed body, launched with
 // (alpha, beta) = (2, 1).  Ghost pointers are null on axes whose mesh dim
-// is 1; pad flags are 1 on axes that carry pad planes.  `lanes` > 1 is
-// the solo body over `lanes` blocks and ghosts side by side (constant
-// speed: c2 null), which wt_sharded_lanes replaced: kept for
-// kernels/tile_ab.py's A/B only.
+// is 1; pad flags are 1 on axes that carry pad planes.
 int wt_sharded_step(const void* uprev, const void* u, void* out,
                     const void* c2, const void* xlo, const void* xhi,
                     const void* ylo, const void* yhi, const void* zlo,
                     const void* zhi, int bx, int by, int bz, int ox, int oy,
                     int oz, int n, int padx, int pady, int padz, int dtype,
                     double alpha, double beta, double coeff, double ix,
-                    double iy, double iz, int use_beta, int lanes,
-                    void* stream) {
-  if (bx < 1 || by < 1 || bz < 1 || lanes < 1 ||
-      (int64_t)bx * lanes > 65535 || (lanes > 1 && c2))
+                    double iy, double iz, int use_beta, void* stream) {
+  if (bx < 1 || by < 1 || bz < 1 || bx > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geom g{bx, by, bz, ox, oy, oz, n, padx, pady, padz};
-  const dim3 grid = grid_block(g, lanes), block(kRowThreads, kColThreads);
-#define WT_STEP_L(T, F, FIELD, LANES)                                        \
-  sharded_step_kernel<T, FIELD, LANES><<<grid, block, 0, st>>>(              \
+  const dim3 grid = grid_block(g), block(kRowThreads, kColThreads);
+#define WT_STEP_F(T, F, FIELD)                                               \
+  sharded_step_kernel<T, FIELD><<<grid, block, 0, st>>>(                     \
       static_cast<const T*>(uprev), static_cast<const T*>(u),                \
       static_cast<T*>(out), static_cast<const F*>(c2),                       \
       halo_of<T>(xlo, xhi, ylo, yhi, zlo, zhi), g, (F)alpha, (F)beta,        \
       (F)coeff, (F)ix, (F)iy, (F)iz, use_beta)
 #define WT_STEP(T, F)                                                        \
-  if (lanes > 1)                                                             \
-    WT_STEP_L(T, F, false, true);                                            \
-  else if (c2)                                                               \
-    WT_STEP_L(T, F, true, false);                                            \
+  if (c2)                                                                    \
+    WT_STEP_F(T, F, true);                                                   \
   else                                                                       \
-    WT_STEP_L(T, F, false, false)
+    WT_STEP_F(T, F, false)
   switch (dtype) {
     case WT_F32:
       WT_STEP(float, float);
@@ -470,7 +447,7 @@ int wt_sharded_step(const void* uprev, const void* u, void* out,
       return (int)cudaErrorInvalidValue;
   }
 #undef WT_STEP
-#undef WT_STEP_L
+#undef WT_STEP_F
   return (int)cudaGetLastError();
 }
 
@@ -537,7 +514,7 @@ int wt_sharded_comp_step(const void* u, const void* v, const void* carry,
   if (bx < 1 || by < 1 || bz < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geom g{bx, by, bz, ox, oy, oz, n, padx, pady, padz};
-  const dim3 grid = grid_block(g, 1), block(kRowThreads, kColThreads);
+  const dim3 grid = grid_block(g), block(kRowThreads, kColThreads);
 #define WT_COMP(T)                                                           \
   sharded_comp_kernel<T><<<grid, block, 0, st>>>(                            \
       static_cast<const T*>(u), static_cast<const T*>(v),                    \

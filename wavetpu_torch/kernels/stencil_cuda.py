@@ -154,78 +154,53 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    """csrc/stencil.cu: K1/K5, K2."""
-    lib = build.load("stencil")
+_P, _I, _D, _I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                    ctypes.c_int64)
+# {library: {entry point: (argtypes, restype)}}, one library per source of
+# csrc/: stencil.cu (K1/K5, K2), kstep_pipe.cu (K3, K8, K9, K10),
+# sharded.cu (K6, K7), comp_sharded.cu (K4, K11/K12), errors.cu (the
+# 1-step error pass).  Every entry point takes the stream last and returns
+# a cudaError_t code.
+_SIGNATURES = {
+    "stencil": {
+        "wt_error_string": ([_I], ctypes.c_char_p),
+        "wt_step": ([_P] * 4 + [_I] * 2 + [_D] * 6 + [_I] * 2 + [_P], _I),
+        "wt_comp_step": ([_P] * 6 + [_I] * 2 + [_D] * 4 + [_I, _P], _I),
+    },
+    "kstep_pipe": {
+        "wt_kstep_pipe": ([_P] * 16 + [_I] * 11 + [_D] * 4 + [_I, _I64, _P],
+                          _I),
+    },
+    "sharded": {
+        "wt_sharded_step": ([_P] * 10 + [_I] * 11 + [_D] * 6 + [_I, _P], _I),
+        "wt_sharded_comp_step": ([_P] * 12 + [_I] * 11 + [_D] * 4 + [_P],
+                                 _I),
+        "wt_sharded_lanes": ([_P] * 9 + [_I] * 11 + [_D] * 6 + [_I] * 4
+                             + [_P], _I),
+    },
+    "comp_sharded": {
+        "wt_kstep_comp_chain": ([_P] * 18 + [_I] * 13 + [_D] * 4
+                                + [_I, _I64, _P], _I),
+    },
+    "errors": {
+        "wt_layer_errors": ([_P, _I, _I, _I, _I64, _I64] + [_P] * 6
+                            + [_I, _P], _I),
+    },
+}
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """Library `name` (built, loaded), its entry points typed once."""
+    lib = build.load(name)
     if not getattr(lib, "_wt_typed", False):
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_error_string.argtypes = [i]
-        lib.wt_error_string.restype = ctypes.c_char_p
-        lib.wt_step.argtypes = [p, p, p, p, i, i, d, d, d, d, d, d, i, i, p]
-        lib.wt_step.restype = i
-        lib.wt_comp_step.argtypes = [p, p, p, p, p, p, i, i, d, d, d, d, i, p]
-        lib.wt_comp_step.restype = i
+        for symbol, (argtypes, restype) in _SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, restype
         lib._wt_typed = True
     return lib
 
 
-def _kstep_pipe_lib() -> ctypes.CDLL:
-    """csrc/kstep_pipe.cu: K3, K8, K9, K10."""
-    lib = build.load("kstep_pipe")
-    if not getattr(lib, "_wt_typed", False):
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_kstep_pipe.argtypes = (
-            [p] * 16 + [i] * 11 + [d] * 4 + [i, ctypes.c_int64, p])
-        lib.wt_kstep_pipe.restype = i
-        lib._wt_typed = True
-    return lib
-
-
-def _sharded_lib() -> ctypes.CDLL:
-    """csrc/sharded.cu: K6, K7."""
-    lib = build.load("sharded")
-    if not getattr(lib, "_wt_typed", False):
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_sharded_step.argtypes = (
-            [p] * 10 + [i] * 11 + [d] * 6 + [i, i, p])
-        lib.wt_sharded_step.restype = i
-        lib.wt_sharded_comp_step.argtypes = (
-            [p] * 12 + [i] * 11 + [d] * 4 + [p])
-        lib.wt_sharded_comp_step.restype = i
-        lib.wt_sharded_lanes.argtypes = (
-            [p] * 9 + [i] * 11 + [d] * 6 + [i] * 4 + [p])
-        lib.wt_sharded_lanes.restype = i
-        lib._wt_typed = True
-    return lib
-
-
-def _comp_sharded_lib() -> ctypes.CDLL:
-    """csrc/comp_sharded.cu: K4, K11/K12."""
-    lib = build.load("comp_sharded")
-    if not getattr(lib, "_wt_typed", False):
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.wt_kstep_comp_chain.argtypes = (
-            [p] * 18 + [i] * 13 + [d] * 4 + [i, ctypes.c_int64, p])
-        lib.wt_kstep_comp_chain.restype = i
-        lib._wt_typed = True
-    return lib
-
-
-def _errors_lib() -> ctypes.CDLL:
-    """csrc/errors.cu: the 1-step error pass."""
-    lib = build.load("errors")
-    if not getattr(lib, "_wt_typed", False):
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.wt_layer_errors.argtypes = (
-            [p, i, i, i, i64, i64] + [p] * 6 + [i, p])
-        lib.wt_layer_errors.restype = i
-        lib._wt_typed = True
-    return lib
-
-
-_LOADERS = {"stencil": _lib, "kstep_pipe": _kstep_pipe_lib,
-            "sharded": _sharded_lib, "comp_sharded": _comp_sharded_lib,
-            "errors": _errors_lib}
+_LOADERS = {name: functools.partial(_load, name) for name in _SIGNATURES}
 
 
 def load_libraries(names=None) -> None:
@@ -301,7 +276,7 @@ def _run(fn, *args, inst: tuple) -> None:
         _launched.add(inst)
         first_launch_seconds += time.perf_counter() - t0
     if err != 0:
-        msg = _lib().wt_error_string(err).decode()
+        msg = _load("stencil").wt_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
 
@@ -362,7 +337,7 @@ def fused_step(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff=None,
         alpha, beta, coeff = 2.0, 1.0, 0.0
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
-        _run(_lib().wt_step, u_prev.data_ptr(), u.data_ptr(),
+        _run(_load("stencil").wt_step, u_prev.data_ptr(), u.data_ptr(),
              out.data_ptr(), _ptr(c2tau2_field), n, _CODE[u.dtype],
              float(alpha), float(beta), float(coeff),
              *(float(h) for h in inv_h2), int(beta != 0), 1,
@@ -465,7 +440,7 @@ def compensated_step(u, v, carry, problem: Problem, coeff=None):
         raise ValueError("K2 takes f32 or f64 u, v and carry of one dtype")
     outs = tuple(torch.empty_like(u) for _ in range(3))
     with torch.cuda.device(u.device):
-        _run(_lib().wt_comp_step, u.data_ptr(), v.data_ptr(),
+        _run(_load("stencil").wt_comp_step, u.data_ptr(), v.data_ptr(),
              carry.data_ptr(), *(o.data_ptr() for o in outs), n,
              _CODE[u.dtype], float(coeff),
              *(float(h) for h in problem.inv_h2), 1,
@@ -512,7 +487,7 @@ def layer_errors(u, sx, sy, sz, ct, out=None):
                    sz=(sz, u.shape[2:]), ct=(ct, ()), abs_out=(out[0], ()),
                    rel_out=(out[1], ()))
     with torch.cuda.device(u.device):
-        _run(_errors_lib().wt_layer_errors, u.data_ptr(), *u.shape,
+        _run(_load("errors").wt_layer_errors, u.data_ptr(), *u.shape,
              u.stride(0), u.stride(1), sx.data_ptr(), sy.data_ptr(),
              sz.data_ptr(), ct.data_ptr(), out[0].data_ptr(),
              out[1].data_ptr(), _CODE[u.dtype],
@@ -1014,11 +989,11 @@ def sharded_fused_step(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
         return out
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
-        _run(_sharded_lib().wt_sharded_step, u_prev.data_ptr(),
+        _run(_load("sharded").wt_sharded_step, u_prev.data_ptr(),
              u.data_ptr(), out.data_ptr(), _ptr(c2tau2_block), *ghost_ptrs,
              *geom, _CODE[u.dtype], float(alpha), float(beta),
              float(0.0 if field else coeff), *(float(h) for h in inv_h2),
-             int(beta != 0), 1,
+             int(beta != 0),
              inst=("sharded_step", u.dtype, field, beta != 0))
     launches["sharded_step_field" if field else "sharded_step"] += 1
     return out
@@ -1074,7 +1049,7 @@ def sharded_compensated_step(u, v, carry, ghosts, offsets, n_global, *,
     ghost_ptrs = _ghost_ptrs(u, ghosts, need)
     outs = tuple(torch.empty_like(u) for _ in range(3))
     with torch.cuda.device(u.device):
-        _run(_sharded_lib().wt_sharded_comp_step, u.data_ptr(),
+        _run(_load("sharded").wt_sharded_comp_step, u.data_ptr(),
              v.data_ptr(), carry.data_ptr(), *(o.data_ptr() for o in outs),
              *ghost_ptrs, *_block_geometry(u, offsets, n_global, pads),
              _CODE[u.dtype], float(coeff), *(float(h) for h in inv_h2),
@@ -1231,7 +1206,7 @@ def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
     out = torch.empty_like(prev_out)
     c2g = (None, None) if c2tau2_block is None else c2_ghosts
     with torch.cuda.device(dev):
-        _run(_kstep_pipe_lib().wt_kstep_pipe, u_prev.data_ptr(),
+        _run(_load("kstep_pipe").wt_kstep_pipe, u_prev.data_ptr(),
              prev_ghosts[0].data_ptr(), prev_ghosts[1].data_ptr(),
              u.data_ptr(), cur_ghosts[0].data_ptr(),
              cur_ghosts[1].data_ptr(), prev_out.data_ptr(), out.data_ptr(),
@@ -1514,7 +1489,7 @@ def _comp_chain(counter, u, v, carry, u_ghosts, v_ghosts, syz, rsyz, sxct,
         (d, ny, n), dtype=carry.dtype, device=dev)
     c2g = (None, None) if c2tau2_block is None else c2_ghosts
     with torch.cuda.device(dev):
-        _run(_comp_sharded_lib().wt_kstep_comp_chain, u.data_ptr(),
+        _run(_load("comp_sharded").wt_kstep_comp_chain, u.data_ptr(),
              u_ghosts[0].data_ptr(), u_ghosts[1].data_ptr(), v.data_ptr(),
              v_ghosts[0].data_ptr(), v_ghosts[1].data_ptr(), _ptr(carry),
              u_out.data_ptr(), v_out.data_ptr(), _ptr(c_out),
@@ -1711,7 +1686,7 @@ def fused_step_lanes(u_prev, u, *, inv_h2, alpha=2.0, beta=1.0, coeff=None,
     out = torch.empty_like(u)
     name = "step_lanes" if c2tau2_field is None else "var_step_lanes"
     with torch.cuda.device(u.device):
-        _run(_lib().wt_step, u_prev.data_ptr(), u.data_ptr(),
+        _run(_load("stencil").wt_step, u_prev.data_ptr(), u.data_ptr(),
              out.data_ptr(), _ptr(c2tau2_field), n, _CODE[u.dtype],
              float(alpha), float(beta), float(coeff),
              *(float(h) for h in inv_h2), int(beta != 0), lanes,
@@ -1744,7 +1719,7 @@ def compensated_step_lanes(u, v, carry, problem: Problem, coeff=None):
         raise ValueError("K2 takes f32 or f64 u, v and carry of one dtype")
     outs = tuple(torch.empty_like(u) for _ in range(3))
     with torch.cuda.device(u.device):
-        _run(_lib().wt_comp_step, u.data_ptr(), v.data_ptr(),
+        _run(_load("stencil").wt_comp_step, u.data_ptr(), v.data_ptr(),
              carry.data_ptr(), *(o.data_ptr() for o in outs), n,
              _CODE[u.dtype], float(coeff),
              *(float(h) for h in problem.inv_h2), lanes,
@@ -1818,7 +1793,7 @@ def fused_kstep_lanes(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
     up, uc = _window_ptrs(u_prev, k), _window_ptrs(u, k)
     name = "kstep_lanes" if c2tau2_field is None else "kstep_field_lanes"
     with torch.cuda.device(dev):
-        _run(_kstep_pipe_lib().wt_kstep_pipe, up[1], up[0], up[2], uc[1],
+        _run(_load("kstep_pipe").wt_kstep_pipe, up[1], up[0], up[2], uc[1],
              uc[0], uc[2], prev_out.data_ptr(), out.data_ptr(), c2[1],
              c2[0], c2[2],
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
@@ -1885,7 +1860,7 @@ def fused_kstep_comp_lanes(u, v, carry, syz, rsyz, sxct, *, k, coeff, inv_h2,
     u_out, v_out, c_out = (torch.empty_like(t) for t in (u, v, carry))
     uc, vc = _window_ptrs(u, k), _window_ptrs(v, k)
     with torch.cuda.device(dev):
-        _run(_comp_sharded_lib().wt_kstep_comp_chain, uc[1], uc[0], uc[2],
+        _run(_load("comp_sharded").wt_kstep_comp_chain, uc[1], uc[0], uc[2],
              vc[1], vc[0], vc[2], carry.data_ptr(), u_out.data_ptr(),
              v_out.data_ptr(), c_out.data_ptr(), None, None, None,
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
@@ -2033,7 +2008,7 @@ def _k6_stream(u_prev, u, ptrs, geom, lanes, alpha, beta, coeff, inv_h2,
                               None if tile is None else tuple(tile))
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
-        _run(_sharded_lib().wt_sharded_lanes, u_prev.data_ptr(),
+        _run(_load("sharded").wt_sharded_lanes, u_prev.data_ptr(),
              u.data_ptr(), out.data_ptr(), *ptrs, *geom, _CODE[u.dtype],
              float(alpha), float(beta), float(coeff),
              *(float(h) for h in inv_h2), int(beta != 0), lanes, seg, ty,

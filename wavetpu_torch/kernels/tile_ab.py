@@ -1,7 +1,7 @@
 """A/B timing of the k-step pipelines' tiles on the card.
 
     python -m wavetpu_torch.kernels.tile_ab [--n 512] [--reps 30]
-                                            [--parts pipe,pipesplit,kpipe,k6lanes,k6solo,ens,overlap]
+                                            [--parts pipe,pipesplit,kpipe,k6lanes,k6solo,overlap]
                                             [--ens-reps 5]
 
 Part `pipe`: the x-streaming pipeline of K4, K11 and K12
@@ -29,12 +29,10 @@ face, each against the default tile (`kstep_pipe_tile`).
 Part `k6lanes`: K6's lane mode (csrc/sharded.cu) at the sharded
 ensemble's blocks, B=8 lanes on the mesh-2,2,1 block of N/2 and of N
 (N/4 x N/4 x N/2 and N/2 x N/2 x N, x and y ghosts as (B, face) planes):
-the solo body's lane instantiation that the x-streaming kernel replaced
-(reachable from here only, `k6_lanes_old`) against the streaming kernel
-at `k6_lane_tile`'s tile, then the streaming kernel's ty and segment
-against that tile, and the solo K6 (the streaming kernel at one lane)
-against the one-thread-per-cell solo body (`k6_solo_old`); eight solo
-launches are timed beside them.
+the x-streaming kernel's ty and segment against `k6_lane_tile`'s tile,
+and the solo K6 (the streaming kernel at one lane) against the
+one-thread-per-cell solo body (`k6_solo_old`); eight solo launches are
+timed beside them.
 
 Part `k6solo`: the solo K6 at constant speed on thin and thick blocks of
 the mesh-2,2,1 shard of N (bx x by x N: the overlap mode's one-plane x
@@ -57,13 +55,6 @@ streaming, dispatch, dispatch, streaming, body, each run the median
 solve seconds of `--ens-reps` solves; the three states are held
 bitwise equal.
 
-Part `ens`: the sharded ensemble end to end (phase 9's ens_sharded_221:
-N/2 = 256, 200 steps, B=4 with 3 real lanes, mesh 2,2,1, the four shards
-on the card) with K6's lane mode on the streaming kernel against the old
-lane body, old, new, new, old, each run the median solve seconds of
-`--ens-reps` solves, and each side's quartiles over all its solves; the
-two sides' states are held bitwise equal.
-
 Each comparison runs default, other, other, default; each run is the
 median of `reps` launches (CUDA events), and the printed ratio is the
 mean of the two `other` runs over the mean of the two default runs.
@@ -75,7 +66,6 @@ times.  Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import statistics
 import subprocess
@@ -83,7 +73,6 @@ import subprocess
 import torch
 
 from wavetpu_torch.core.problem import Problem
-from wavetpu_torch.ensemble import batched, sharded as esh
 from wavetpu_torch.kernels import build, stencil_cuda
 from wavetpu_torch.solver import kfused, sharded, sharded_kfused
 
@@ -417,25 +406,6 @@ def _kpipe_part(n, reps, result) -> None:
                   launch(name, (base[0],) + face), reps, result)
 
 
-def k6_lanes_old(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
-                 mesh_shape, r_last=None, alpha=2.0, beta=1.0, coeff=None):
-    """The solo K6 body's lane instantiation (block z = lane * bx + x, one
-    thread per cell), K6's lane mode before the x-streaming kernel: the
-    A/B's old side.  Counts no launch."""
-    sc = stencil_cuda
-    lanes, ptrs, geom = sc._k6_lane_operands(u_prev, u, ghosts, offsets,
-                                             n_global, mesh_shape, r_last)
-    if lanes * geom[0] > 65535:
-        raise ValueError("the old lane body's grid caps lanes x bx at 65535")
-    out = torch.empty_like(u)
-    sc._run(sc._sharded_lib().wt_sharded_step, u_prev.data_ptr(),
-            u.data_ptr(), out.data_ptr(), None, *ptrs, *geom,
-            sc._CODE[u.dtype], float(alpha), float(beta), float(coeff),
-            *(float(h) for h in inv_h2), int(beta != 0), lanes,
-            inst=("sharded_step_lanes_old", u.dtype, beta != 0))
-    return out
-
-
 def k6_solo_old(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
                 mesh_shape, r_last=None, alpha=2.0, beta=1.0, coeff=None):
     """The solo K6 body at constant speed (one thread per cell), which
@@ -446,12 +416,12 @@ def k6_solo_old(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
     sc._check_block_state(u, tuple(sc._CODE), "K6", u_prev=u_prev)
     need, pads = sc._need_pads(u.shape, mesh_shape, r_last)
     out = torch.empty_like(u)
-    sc._run(sc._sharded_lib().wt_sharded_step, u_prev.data_ptr(),
+    sc._run(sc._load("sharded").wt_sharded_step, u_prev.data_ptr(),
             u.data_ptr(), out.data_ptr(), None,
             *sc._ghost_ptrs(u, ghosts, need),
             *sc._block_geometry(u, offsets, n_global, pads),
             sc._CODE[u.dtype], float(alpha), float(beta), float(coeff),
-            *(float(h) for h in inv_h2), int(beta != 0), 1,
+            *(float(h) for h in inv_h2), int(beta != 0),
             inst=("sharded_step_old", u.dtype, beta != 0))
     return out
 
@@ -496,10 +466,6 @@ def k6_lanes_ab(n, reps, result, lanes=8, variants=True) -> None:
                                                            **kw))
 
     ref = new()
-    old = checked(f"K6 lanes old body N={n}",
-                  lambda: k6_lanes_old(*args, **kw))
-    _abba(f"K6 lanes N={n} B={lanes}: streaming vs old body", old, ref,
-          reps, result)
     solo_g = [[tuple(x[i] for x in a) for a in ghosts] for i in range(lanes)]
     result[f"K6 lanes N={n} B={lanes}: 8 solo launches ms"] = _median_ms(
         lambda: [sc.sharded_fused_step(up[i], u[i], solo_g[i], off, ng, **kw)
@@ -527,51 +493,6 @@ def k6_lanes_ab(n, reps, result, lanes=8, variants=True) -> None:
         up[0], u[0], solo_g[0], off, ng, **kw)[None], want)
     _abba(f"K6 N={n}: streaming (one lane) vs old solo body", old1, new1,
           reps, result)
-
-
-def _ens_part(n, reps, result) -> None:
-    """Part `ens` (module docstring)."""
-    build.build_all(names=["sharded"])
-    sc = stencil_cuda
-    p = Problem(N=n // 2, timesteps=200)
-    lanes = [batched.LaneSpec(), batched.LaneSpec(phase=1.0),
-             batched.LaneSpec(phase=1.3, stop_step=100)]
-    new_k6 = sc.sharded_fused_step_lanes
-
-    @contextlib.contextmanager
-    def body(old):
-        sc.sharded_fused_step_lanes = k6_lanes_old if old else new_k6
-        try:
-            yield
-        finally:
-            sc.sharded_fused_step_lanes = new_k6
-
-    def solve(old):
-        with body(old):
-            res = esh.solve_ensemble_sharded(p, lanes, (2, 2, 1),
-                                             kernel="pallas", pad_to=4,
-                                             devices=["cuda"] * 4)
-        torch.cuda.synchronize()
-        return res
-
-    a, b = solve(True), solve(False)
-    for ra, rb in zip(a.results, b.results):
-        if not torch.equal(ra.u_cur.fundamental(), rb.u_cur.fundamental()):
-            raise SystemExit("ens_sharded_221: the two K6 lane bodies differ")
-    samples = {"old": [], "new": []}
-    runs = []
-    for side in ("old", "new", "new", "old"):
-        got = [solve(side == "old").solve_seconds for _ in range(reps)]
-        samples[side] += got
-        runs.append([side, statistics.median(got)])
-    old_s, new_s = (runs[0][1] + runs[3][1]) / 2, (runs[1][1] + runs[2][1]) / 2
-    quart = {side: statistics.quantiles(v, n=4) for side, v in samples.items()}
-    result["ens_sharded_221 solve s: streaming vs old lane body"] = dict(
-        runs=runs, a_s=old_s, b_s=new_s, b_over_a=new_s / old_s,
-        quartiles=quart, samples=samples)
-    print(f"ens_sharded_221 solve s (median of {reps}): {runs}; new / old "
-          f"{new_s / old_s:.4f}; quartiles of {2 * reps} solves: old "
-          f"{quart['old']}, new {quart['new']}", flush=True)
 
 
 def _k6solo_part(n, reps, result) -> None:
@@ -661,7 +582,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--parts", default="pipe,kpipe")
     ap.add_argument("--ens-reps", type=int, default=5,
-                    help="solves a run in parts ens and overlap")
+                    help="solves a run in part overlap")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tile_ab needs a CUDA device")
@@ -678,8 +599,6 @@ def main(argv=None) -> int:
         _k6lanes_part(args.n, args.reps, result)
     if "k6solo" in parts:
         _k6solo_part(args.n, args.reps, result)
-    if "ens" in parts:
-        _ens_part(args.n, args.ens_reps, result)
     if "overlap" in parts:
         _overlap_part(args.n, args.ens_reps, result)
     card = subprocess.run(

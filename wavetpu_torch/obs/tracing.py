@@ -316,7 +316,9 @@ class Tracer:
         without touching parenthood (a scheduler-thread chunk span that
         belongs to a request's trace but is not its tree child).
         `links` attaches record-level cross-trace links (the preemption
-        resume chain)."""
+        resume chain).  The record's start is read before the profiler
+        range opens, so the range starts inside the record's window."""
+        t_start_ns = time.time_ns()
         annotation = _open_annotation(kind)
         if remote is not None:
             parent_id: Optional[str] = remote[1]
@@ -331,7 +333,7 @@ class Tracer:
             "parent_id": parent_id,
             "trace_id": trace_id,
             "links": list(links) if links else None,
-            "t_start_ns": time.time_ns(),
+            "t_start_ns": t_start_ns,
             "_t0": time.perf_counter() if t0 is None else t0,
             "_annotation": annotation,
             "attrs": attrs,

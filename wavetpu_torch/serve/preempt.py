@@ -372,7 +372,7 @@ class ChunkRunner:
     def bootstrap(self):
         """Run layers 0..1 exactly as the uninterrupted solve would;
         returns (state, abs2, rel2, compile_s, solve_s)."""
-        from wavetpu_torch.solver import leapfrog
+        from wavetpu_torch.solver import phases
 
         from wavetpu_torch.kernels import stencil_cuda
 
@@ -380,7 +380,7 @@ class ChunkRunner:
         fl0 = stencil_cuda.first_launch_seconds
         t0 = time.perf_counter()
         u_prev, u_cur, abs_all, rel_all = self._boot()
-        abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
+        abs_np, rel_np = phases.host(abs_all), phases.host(rel_all)
         solve_s = time.perf_counter() - t0
         first = stencil_cuda.first_launch_seconds - fl0
         return ((u_prev, u_cur), abs_np, rel_np, compile_s + first,

@@ -105,20 +105,20 @@ def _validate(problem: Problem, k: int, c2tau2_field=None,
         )
 
 
-def _make_march(problem, dtype, k, compute_errors, nsteps, device,
+def _make_march(problem, dtype, k, compute_errors, device,
                 c2tau2_field=None, phase: float = oracle.TWO_PI):
     """Shared march: k-fused blocks + a 1-step remainder tail.
 
-    Returns `(march, step1, errors)`; `march(u_prev, u_cur, start, abs_all,
-    rel_all, stop=nsteps)` -> (u_prev, u_cur) covers layers start+1..stop
-    and writes their errors into the device vectors.  `c2tau2_field` is a device
-    tensor in the compute dtype (or None); `phase` the analytic solution's
-    time phase.
+    Returns `(march, step1, errors)`; `march((u_prev, u_cur), start, stop,
+    (abs_all, rel_all))` -> (state, errs) covers layers start+1..stop and
+    writes their errors into the device vectors (a `phases.Parts` march).
+    `c2tau2_field` is a device tensor in the compute dtype (or None);
+    `phase` the analytic solution's time phase.
     """
     f = stencil_ref.compute_dtype(dtype)
     sx, ct, syz, rsyz, xmask, inv_absx = _oracle_parts(problem, f, device,
                                                        phase)
-    errors = leapfrog._error_fn(problem, dtype, device, phase)
+    errors = leapfrog.error_fn(problem, dtype, device, phase)
     step1 = stencil_cuda.make_step_fn(c2tau2_field)
     # The kernel takes f32 oracle planes; the plain version (CPU) takes them
     # in the compute dtype, as the TPU kernel does.
@@ -139,7 +139,8 @@ def _make_march(problem, dtype, k, compute_errors, nsteps, device,
                                                 inv_absx)
         return up, uc, None, None
 
-    def march(u_prev, u_cur, start, abs_all, rel_all, stop=nsteps):
+    def march(st, start, stop, errs):
+        (u_prev, u_cur), (abs_all, rel_all) = st, errs
         nblocks = (stop - start) // k
         layer = start
         for _ in range(nblocks):
@@ -149,11 +150,41 @@ def _make_march(problem, dtype, k, compute_errors, nsteps, device,
                 rel_all[layer + 1: layer + 1 + k] = r
             layer += k
         # The remainder: the 1-step kernel with full-field errors.
-        return leapfrog._march(problem, step1, errors, compute_errors,
-                               u_prev, u_cur, layer, stop, abs_all,
-                               rel_all)
+        return leapfrog.march_layers(problem, step1, errors, compute_errors,
+                                     u_prev, u_cur, layer, stop, abs_all,
+                                     rel_all), errs
 
     return march, step1, errors
+
+
+def _solver(problem, dtype, k, compute_errors, stop_step, c2tau2_field,
+            device, phase) -> phases.Parts:
+    """`make_kfused_solver`'s set-up, as `phases.Parts` with the solve's
+    `run`."""
+    device = leapfrog.resolve_device(device)
+    _validate(problem, k, c2tau2_field, compute_errors)
+    analytic = leapfrog.check_phase(phase, c2tau2_field)
+    nsteps = phases.last_layer(problem, stop_step)
+    leapfrog.prepare_kernels(device)
+    field = None
+    if c2tau2_field is not None:
+        field = state.c2tau2_field(c2tau2_field, dtype, device)
+    march, step1, errors = _make_march(problem, dtype, k, compute_errors,
+                                       device, field, phase)
+    u0 = leapfrog.initial_layer0(problem, dtype, device, phase)
+    parts = leapfrog.standard_parts(march, dtype, device, nsteps)
+
+    def bootstrap(errs):
+        u1 = (leapfrog.analytic_layer(problem, dtype, device, phase, 1)
+              if analytic else leapfrog.step_layer1(u0, step1, problem,
+                                                    dtype))
+        if compute_errors:
+            with tracing.annotate("verify.errors"):
+                errors(u1, 1, (errs[0][1], errs[1][1]))
+        return u0, u1
+
+    parts.run = phases.from_layer0(bootstrap, march, nsteps, parts.vectors)
+    return parts
 
 
 def make_kfused_solver(
@@ -177,38 +208,14 @@ def make_kfused_solver(
     1-step kernel.  Requires 2 <= k <= 8, k | N; a field requires
     compute_errors=False and the reference phase.
     """
-    device = leapfrog.resolve_device(device)
-    _validate(problem, k, c2tau2_field, compute_errors)
-    analytic = leapfrog.check_phase(phase, c2tau2_field)
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
-        )
-    f = stencil_ref.compute_dtype(dtype)
-    leapfrog.prepare_kernels(device)
-    field = None
-    if c2tau2_field is not None:
-        field = state.c2tau2_field(c2tau2_field, dtype, device)
-    march, step1, errors = _make_march(problem, dtype, k, compute_errors,
-                                       nsteps, device, field, phase)
-    u0 = leapfrog.initial_layer0(problem, dtype, device, phase)
+    run = _solver(problem, dtype, k, compute_errors, stop_step, c2tau2_field,
+                  device, phase).run
 
-    def run():
-        with phases.bootstrap():
-            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            u1 = (leapfrog.analytic_layer(problem, dtype, device, phase, 1)
-                  if analytic else leapfrog.step_layer1(u0, step1, problem,
-                                                        dtype))
-            if compute_errors:
-                with tracing.annotate("verify.errors"):
-                    errors(u1, 1, (abs_all[1], rel_all[1]))
-        with phases.march():
-            u_prev, u_cur = march(u0, u1, 1, abs_all, rel_all)
+    def runner():
+        (u_prev, u_cur), (abs_all, rel_all) = run()
         return u_prev, u_cur, abs_all, rel_all
 
-    return run
+    return runner
 
 
 def solve_kfused(
@@ -229,27 +236,15 @@ def solve_kfused(
     march; pair it with compute_errors=False.  `phase` as
     `leapfrog.solve`'s."""
     device = leapfrog.resolve_device(device)
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    with phases.SolveSpans("kfused", problem, nsteps, k) as ph:
-        with ph.init():
-            run = make_kfused_solver(problem, dtype, k, compute_errors,
-                                     stop_step, c2tau2_field, device, phase)
-            leapfrog._sync(device)
-        u_prev, u_cur, abs_all, rel_all = run()
-        with ph.readback():
-            abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
-            leapfrog._sync(device)
-        result = leapfrog.SolveResult(
-            problem=problem, u_prev=u_prev, u_cur=u_cur,
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=stop_step, final_step=nsteps,
-        )
-        ph.record(result, k=k, with_field=c2tau2_field is not None)
-    return result
+    return phases.timed_solve(
+        "kfused", problem, stop_step,
+        lambda: _solver(problem, dtype, k, compute_errors, stop_step,
+                        c2tau2_field, device, phase),
+        k=k, with_field=c2tau2_field is not None)
 
 
-def _setup(problem, dtype, k, compute_errors, c2tau2_field, device):
+def _resumed(problem, dtype, k, compute_errors, c2tau2_field,
+             device) -> phases.Parts:
     """Kernels loaded, the field placed once and the march built, for the
     resumed and chunked marches (run to `problem.timesteps` at most)."""
     _validate(problem, k, c2tau2_field, compute_errors)
@@ -257,9 +252,9 @@ def _setup(problem, dtype, k, compute_errors, c2tau2_field, device):
     field = None
     if c2tau2_field is not None:
         field = state.c2tau2_field(c2tau2_field, dtype, device)
-    march, _, _ = _make_march(problem, dtype, k, compute_errors,
-                              problem.timesteps, device, field)
-    return march
+    march, _, _ = _make_march(problem, dtype, k, compute_errors, device,
+                              field)
+    return leapfrog.standard_parts(march, dtype, device, problem.timesteps)
 
 
 def resume_kfused(
@@ -281,32 +276,12 @@ def resume_kfused(
     are zero up to start_step.  A variable-c checkpoint resumes under the
     re-passed `c2tau2_field` (checkpoints store state, not the field)."""
     device = leapfrog.resolve_device(device)
-    nsteps = problem.timesteps
-    leapfrog._check_start(start_step, nsteps)
-    with phases.SolveSpans("kfused", problem, nsteps - start_step,
-                           k) as ph:
-        with ph.init():
-            march = _setup(problem, dtype, k, compute_errors, c2tau2_field,
-                           device)
-            f = stencil_ref.compute_dtype(dtype)
-            u_p = leapfrog._state_in(u_prev, dtype, device)
-            u_c = leapfrog._state_in(u_cur, dtype, device)
-            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            leapfrog._sync(device)
-        with phases.march():
-            u_p, u_c = march(u_p, u_c, start_step, abs_all, rel_all)
-        with ph.readback():
-            abs_np, rel_np = leapfrog._host(abs_all), leapfrog._host(rel_all)
-            leapfrog._sync(device)
-        result = leapfrog.SolveResult(
-            problem=problem, u_prev=u_p, u_cur=u_c,
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=nsteps - start_step, final_step=nsteps,
-        )
-        ph.record(result, k=k, with_field=c2tau2_field is not None)
-    return result
+    phases.check_start(start_step, problem.timesteps)
+    return phases.timed_resume(
+        "kfused", problem, start_step,
+        lambda: _resumed(problem, dtype, k, compute_errors, c2tau2_field,
+                         device),
+        (u_prev, u_cur), k=k, with_field=c2tau2_field is not None)
 
 
 def make_chunk_runner(
@@ -323,21 +298,7 @@ def make_chunk_runner(
     `runner(u_prev, u_cur, start)` -> (u_prev, u_cur, abs, rel) marches
     layers start+1..start+length - length//k K3 blocks, then the 1-step
     tail - with the chunk's errors as host f64 arrays."""
-    if length < 1:
-        raise ValueError(f"chunk length must be >= 1, got {length}")
-    device = leapfrog.resolve_device(device)
-    march = _setup(problem, dtype, k, compute_errors, c2tau2_field, device)
-    f = stencil_ref.compute_dtype(dtype)
-    nsteps = problem.timesteps
-
-    def run(u_prev, u_cur, start: int):
-        stop = leapfrog._chunk_stop(start, length, nsteps)
-        abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-        rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-        u_p, u_c = march(leapfrog._state_in(u_prev, dtype, device),
-                         leapfrog._state_in(u_cur, dtype, device), start,
-                         abs_all, rel_all, stop)
-        return (u_p, u_c, leapfrog._host(abs_all[start + 1:stop + 1]),
-                leapfrog._host(rel_all[start + 1:stop + 1]))
-
-    return run
+    return phases.chunk_runner(
+        problem, length,
+        lambda: _resumed(problem, dtype, k, compute_errors, c2tau2_field,
+                         leapfrog.resolve_device(device)))

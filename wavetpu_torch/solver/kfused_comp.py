@@ -178,14 +178,14 @@ def oracle_parts_guarded(problem: Problem, f, device,
     return sx, ct, syz, rsyz, xmask, inv_absx
 
 
-def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
+def _make_march(problem, dtype, k, compute_errors, block_x, device,
                 c2tau2_field=None, phase: float = oracle.TWO_PI):
     """Shared march: k-fused blocks + a k=1 tail through the SAME kernel.
 
-    Returns `march(u, v, carry, start, abs_all, rel_all, stop=nsteps)` ->
-    (u, v, carry) covering layers start+1..stop and writing their errors
-    into the device vectors.  `c2tau2_field` (a device tensor in the compute dtype,
-    or None) rides every launch.
+    Returns `march((u, v, carry), start, stop, (abs_all, rel_all))` ->
+    (state, errs) covering layers start+1..stop and writing their errors
+    into the device vectors (a `phases.Parts` march).  `c2tau2_field` (a
+    device tensor in the compute dtype, or None) rides every launch.
     """
     f = stencil_ref.compute_dtype(dtype)
     sx, ct, syz, rsyz, xmask, inv_absx = oracle_parts_guarded(
@@ -211,7 +211,8 @@ def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
                 )
         return u2, v2, c2, None, None
 
-    def march(u, v, carry, start, abs_all, rel_all, stop=nsteps):
+    def march(st, start, stop, errs):
+        (u, v, carry), (abs_all, rel_all) = st, errs
         nblocks = (stop - start) // k
         rem = (stop - start) - nblocks * k
         layer = start
@@ -222,9 +223,36 @@ def _make_march(problem, dtype, k, compute_errors, block_x, nsteps, device,
                     abs_all[layer + 1: layer + 1 + kk] = a
                     rel_all[layer + 1: layer + 1 + kk] = r
                 layer += kk
-        return u, v, carry
+        return (u, v, carry), errs
 
     return march
+
+
+def _fields(st):
+    """The SolveResult's state of a flagship march's (u, v, carry)."""
+    u, v, c = st
+    f = stencil_ref.compute_dtype(u.dtype)
+    return dict(u_prev=(u.to(f) - v.to(f)).to(u.dtype), u_cur=u, comp_v=v,
+                comp_carry=c)
+
+
+def _parts(problem, dtype, v_dtype, carry_on, k, compute_errors, block_x,
+           nsteps, device, field=None, phase: float = oracle.TWO_PI):
+    """The flagship's `phases.Parts` on `device`: the march, an injected
+    (u_cur, v, carry) in the state dtype, v in `v_dtype` and the carry
+    normalized (`_resume_state`; None without `carry_on`), error vectors
+    of nsteps+1 layers."""
+    def state_in(u_cur, v, carry):
+        u, vv, c, _ = _resume_state(u_cur, v, carry if carry_on else None,
+                                    dtype, v_dtype)
+        return (u.to(device=device, dtype=dtype).contiguous(),
+                vv.to(device=device, dtype=v_dtype).contiguous(),
+                None if c is None else c.to(device).contiguous())
+
+    return phases.on_device(
+        device, dtype, nsteps, state_in=state_in, fields=_fields,
+        march=_make_march(problem, dtype, k, compute_errors, block_x, device,
+                          field, phase))
 
 
 def _bootstrap(problem, dtype, v_dtype, carry_on, carry_dtype, device,
@@ -266,24 +294,6 @@ def _bootstrap(problem, dtype, v_dtype, carry_on, carry_dtype, device,
     return u1, v1, c1
 
 
-def _as_result(problem, u, v, c, abs_all, rel_all, init_s, solve_s,
-               steps_computed, final_step):
-    f = stencil_ref.compute_dtype(u.dtype)
-    return leapfrog.SolveResult(
-        problem=problem,
-        u_prev=(u.to(f) - v.to(f)).to(u.dtype),
-        u_cur=u,
-        abs_errors=abs_all,
-        rel_errors=rel_all,
-        init_seconds=init_s,
-        solve_seconds=solve_s,
-        steps_computed=steps_computed,
-        final_step=final_step,
-        comp_v=v,
-        comp_carry=c,
-    )
-
-
 def solve_kfused_comp(
     problem: Problem,
     dtype=torch.float32,
@@ -317,44 +327,35 @@ def solve_kfused_comp(
         _validate_carry_dtype(dtype, carry_dtype)
     _validate(problem, dtype, v_dtype, carry, k, c2tau2_field,
               compute_errors)
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
-        )
-    f = stencil_ref.compute_dtype(dtype)
-    with phases.SolveSpans("kfused_comp", problem, nsteps, k) as ph:
-        with ph.init():
-            leapfrog.prepare_kernels(device)
-            errors = _error_fn_guarded(problem, dtype, device, phase)
-            field = None
-            if c2tau2_field is not None:
-                field = state.c2tau2_field(c2tau2_field, dtype, device)
-            march = _make_march(problem, dtype, k, compute_errors, block_x,
-                                nsteps, device, field, phase)
-            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            leapfrog._sync(device)
-        with phases.bootstrap():
+    nsteps = phases.last_layer(problem, stop_step)
+
+    def setup():
+        leapfrog.prepare_kernels(device)
+        errors = _error_fn_guarded(problem, dtype, device, phase)
+        field = None
+        if c2tau2_field is not None:
+            field = state.c2tau2_field(c2tau2_field, dtype, device)
+        parts = _parts(problem, dtype, v_dtype, carry, k, compute_errors,
+                       block_x, nsteps, device, field, phase)
+        errs = parts.vectors()
+
+        def bootstrap(errs):
             u1, v1, c1 = _bootstrap(problem, dtype, v_dtype, carry,
                                     carry_dtype, device, field, phase)
             if compute_errors:
                 with tracing.annotate("verify.errors"):
-                    abs_all[1], rel_all[1] = errors(u1, 1)
-        with phases.march():
-            u, v, c = march(u1, v1, c1, 1, abs_all, rel_all)
-        with ph.readback():
-            abs_np = leapfrog._host(abs_all)
-            rel_np = leapfrog._host(rel_all)
-            leapfrog._sync(device)
-        result = _as_result(problem, u, v, c, abs_np, rel_np,
-                            ph.init_seconds, ph.solve_seconds, stop_step,
-                            nsteps)
-        ph.record(result, scheme="compensated", k=k,
-                  v_itemsize=v_dtype.itemsize, carry=carry,
-                  carry_itemsize=carry_dtype.itemsize if carry else None,
-                  with_field=c2tau2_field is not None)
-    return result
+                    errs[0][1], errs[1][1] = errors(u1, 1)
+            return u1, v1, c1
+
+        parts.run = phases.from_layer0(bootstrap, parts.march, nsteps,
+                                       lambda: errs)
+        return parts
+
+    return phases.timed_solve(
+        "kfused_comp", problem, stop_step, setup, k=k, scheme="compensated",
+        v_itemsize=v_dtype.itemsize, carry=carry,
+        carry_itemsize=carry_dtype.itemsize if carry else None,
+        with_field=c2tau2_field is not None)
 
 
 def _validate_sharded(problem: Problem, dtype, v_dtype, carry, k, n_x,
@@ -391,17 +392,16 @@ def _validate_mesh(problem: Problem, k: int, n_x: int, n_y: int):
         )
 
 
-def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
-                         compute_errors, nsteps, block_x, carry_dtype,
-                         c2tau2_field=None):
+def _sharded_parts(problem, mesh, dtype, v_dtype, carry_on, k,
+                   compute_errors, nsteps, block_x, carry_dtype,
+                   c2tau2_field=None) -> phases.Parts:
     """Set up the distributed flagship over the (MX, MY, 1) `mesh` and
-    return `(run, march, errors_of)`: `run()` -> (u, v, carry | None
-    blocks, rows) marches from layer 0 to nsteps; `march(u, v, carry,
-    start, stop)` (lists of blocks) marches layers start+1..stop - the
-    resumed and chunked marches, on the uninterrupted march's block grid
-    from an aligned start - and returns the same; `errors_of(rows)` reads
-    the kernels' error rows back as per-layer host f64 arrays of nsteps+1
-    entries (zero where no layer was marched).  One block_x serves every launch
+    return its `phases.Parts`: the state (u, v, carry | None) as block
+    lists, the error rows made by the run from layer 0 or by the march
+    (the resumed and chunked marches, on the uninterrupted march's block
+    grid from an aligned start), read back as per-layer host f64 arrays
+    of nsteps+1 entries (zero where no layer was marched), the results
+    as ShardedArrays on the Topology layout.  One block_x serves every launch
     (default `default_block_x(N/MX, k)`, which equals the single-device
     default `default_block_x(N, k)` wherever that divides N/MX), so the op
     sequence matches the single-device kernel's slab partition."""
@@ -416,9 +416,9 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
     f = stencil_ref.compute_dtype(dtype)
     if any(dev.type == "cuda" for dev in devices):
         stencil_cuda.load_libraries()
-    host = torch.device("cpu")
+    host_dev = torch.device("cpu")
     sx, ct, syz, rsyz, xmask, inv_absx = oracle_parts_guarded(problem, f,
-                                                              host)
+                                                              host_dev)
     sxct_all = ct[:, None] * sx[None, :]                     # (T+1, N)
     local = mesh.local
     sxct_on = {devices[i]: sxct_all.to(devices[i]) for i in local}
@@ -427,13 +427,14 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
               for i, (dev, (_, cy, _)) in enumerate(zip(devices,
                                                         mesh.coords))]
     topo = Topology(N=n, mesh_shape=mesh.shape)
-    u0 = split_global(leapfrog.initial_layer0(problem, dtype, host), topo,
+    u0 = split_global(leapfrog.initial_layer0(problem, dtype, host_dev), topo,
                       mesh).blocks
     packs = {kk: [None] * len(devices) for kk in (1, k)}
     half = [None] * len(devices)
     if c2tau2_field is not None:
-        fields = split_global(state.c2tau2_field(c2tau2_field, dtype, host),
-                              topo, mesh).blocks
+        fields = split_global(
+            state.c2tau2_field(c2tau2_field, dtype, host_dev), topo,
+            mesh).blocks
         for kk in (1, k):
             packs[kk] = [None if b is None else (b, g) for b, g in
                          zip(*sharded_kfused.exchange(fields, mesh, kk))]
@@ -494,51 +495,70 @@ def _make_sharded_runner(problem, mesh, dtype, v_dtype, carry_on, k,
                 layer += kk
         return st
 
-    def errors_of(rows):
+    def read(rows, sl=None):
         if not compute_errors:
             z = np.zeros(nsteps + 1)
-            return z, z.copy()
-        dmax, rmax = (sharded_kfused.rows_max_y(
-            dist.gather_shards(mesh, rs), n_x, n_y, host) for rs in rows)
-        with tracing.annotate("verify.errors"):
-            abs_e, rel_e = kfused._block_errors(
-                dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
-        return leapfrog._host(abs_e), leapfrog._host(rel_e)
+            abs_e, rel_e = z, z.copy()
+        else:
+            dmax, rmax = (sharded_kfused.rows_max_y(
+                dist.gather_shards(mesh, rs), n_x, n_y, host_dev)
+                for rs in rows)
+            with tracing.annotate("verify.errors"):
+                abs_e, rel_e = kfused._block_errors(
+                    dmax, rmax, ct[:nsteps + 1], xmask, inv_absx)
+            abs_e, rel_e = phases.host(abs_e), phases.host(rel_e)
+        return (abs_e, rel_e) if sl is None else (abs_e[sl], rel_e[sl])
 
-    def run():
-        with phases.bootstrap():
+    def bootstrap(rows):
+        zero_v = each(lambda b: torch.zeros(b.shape, dtype=v_dtype,
+                                            device=b.device), u0)
+        zero_c = [torch.zeros(b.shape, dtype=carry_dtype, device=b.device)
+                  if carry_on and b is not None else None for b in u0]
+        # Layer 1: the same kernel at k=1, coeff C/2 on zero v and carry
+        # (the compensated half-step; half the field with a field).
+        st = step((u0, zero_v, zero_c), 1, 0, 0.5 * problem.a2tau2, False,
+                  half, rows)
+        if compute_errors:
+            with tracing.annotate("verify.errors"):
+                for i in local:
+                    dev = devices[i]
+                    cx = mesh.coords[i][0]
+                    dr, rr = sharded_kfused._layer_rows_local(
+                        st[0][i], sxct_on[dev][1, cx * nl:(cx + 1) * nl],
+                        *planes[i], f)
+                    rows[0][i][1:2] = dr
+                    rows[1][i][1:2] = rr
+        return st
+
+    def march(st, start, stop, rows=None):
+        if rows is None:
             rows = new_rows()
-            zero_v = each(lambda b: torch.zeros(b.shape, dtype=v_dtype,
-                                                device=b.device), u0)
-            zero_c = [torch.zeros(b.shape, dtype=carry_dtype,
-                                  device=b.device)
-                      if carry_on and b is not None else None for b in u0]
-            # Layer 1: the same kernel at k=1, coeff C/2 on zero v and
-            # carry (the compensated half-step; half the field with a
-            # field).
-            st = step((u0, zero_v, zero_c), 1, 0, 0.5 * problem.a2tau2,
-                      False, half, rows)
-            if compute_errors:
-                with tracing.annotate("verify.errors"):
-                    for i in local:
-                        dev = devices[i]
-                        cx = mesh.coords[i][0]
-                        dr, rr = sharded_kfused._layer_rows_local(
-                            st[0][i], sxct_on[dev][1, cx * nl:(cx + 1) * nl],
-                            *planes[i], f)
-                        rows[0][i][1:2] = dr
-                        rows[1][i][1:2] = rr
-        with phases.march():
-            st = advance(st, 1, nsteps, rows)
-        return st + (rows,)
+        u, v, c = st
+        return advance((u, v, c if carry_on else [None] * len(u)), start,
+                       stop, rows), rows
 
-    def march(u, v, c, start, stop):
-        rows = new_rows()
-        st = advance((u, v, c if carry_on else [None] * len(u)), start,
-                     stop, rows)
-        return st + (rows,)
+    def state_in(u_cur, v, carry):
+        u, vv, c, _ = _resume_state(u_cur, v, carry if carry_on else None,
+                                    dtype, v_dtype)
+        return (state.to_blocks(u, topo, mesh, dtype),
+                state.to_blocks(vv, topo, mesh, v_dtype),
+                None if c is None else state.to_blocks(c, topo, mesh))
 
-    return run, march, errors_of
+    def sharded(blocks):
+        return None if blocks is None or blocks[local[0]] is None \
+            else ShardedArray(list(blocks), topo, mesh)
+
+    def result_fields(st):
+        u, v, c = st
+        return dict(u_prev=sharded(each(
+            lambda a, b: (a.to(f) - b.to(f)).to(a.dtype), u, v)),
+            u_cur=sharded(u), comp_v=sharded(v), comp_carry=sharded(c))
+
+    return phases.Parts(
+        run=phases.from_layer0(bootstrap, march, nsteps, new_rows),
+        march=march, state_in=state_in, host=read, fields=result_fields,
+        out=lambda st: tuple(sharded(b) for b in st),
+        sync=lambda: phases.sync(*devices))
 
 
 def solve_kfused_comp_sharded(
@@ -577,46 +597,18 @@ def solve_kfused_comp_sharded(
     if len(devices) < n_x * n_y:
         raise ValueError(f"mesh ({n_x}, {n_y}, 1) needs {n_x * n_y} "
                          f"devices, only {len(devices)} available")
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
-        )
+    nsteps = phases.last_layer(problem, stop_step)
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    with phases.SolveSpans("kfused_comp_sharded", problem, nsteps, k) as ph:
-        with ph.init():
-            run, _, errors_of = _make_sharded_runner(
-                problem, mesh, dtype, v_dtype, carry, k, compute_errors,
-                nsteps, block_x, carry_dtype, c2tau2_field)
-            sharded_kfused._sync(mesh)
-        u, v, c, rows = run()
-        with ph.readback():
-            abs_np, rel_np = errors_of(rows)
-            sharded_kfused._sync(mesh)
-        f = stencil_ref.compute_dtype(dtype)
-        topo = Topology(N=problem.N, mesh_shape=mesh.shape)
-
-        def sharded(blocks):
-            return ShardedArray(list(blocks), topo, mesh)
-
-        result = leapfrog.SolveResult(
-            problem=problem,
-            u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
-                                u, v)),
-            u_cur=sharded(u),
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=stop_step, final_step=nsteps,
-            comp_v=sharded(v),
-            comp_carry=sharded(c) if carry else None,
-        )
-        ph.record(result, scheme="compensated", k=k,
-                  v_itemsize=v_dtype.itemsize, carry=carry,
-                  carry_itemsize=carry_dtype.itemsize if carry else None,
-                  with_field=c2tau2_field is not None,
-                  block=(problem.N // n_x, problem.N // n_y, problem.N),
-                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
-    return result
+    return phases.timed_solve(
+        "kfused_comp_sharded", problem, stop_step,
+        lambda: _sharded_parts(problem, mesh, dtype, v_dtype, carry, k,
+                               compute_errors, nsteps, block_x, carry_dtype,
+                               c2tau2_field),
+        k=k, scheme="compensated", v_itemsize=v_dtype.itemsize, carry=carry,
+        carry_itemsize=carry_dtype.itemsize if carry else None,
+        with_field=c2tau2_field is not None,
+        block=(problem.N // n_x, problem.N // n_y, problem.N),
+        mesh_shape=(n_x, n_y, 1), rows=compute_errors)
 
 
 def _resume_state(u_cur, v, carry, dtype, v_dtype):
@@ -655,41 +647,26 @@ def resume_kfused_comp(
     defaults to the stored v's dtype.  A variable-c checkpoint resumes
     under the re-passed `c2tau2_field`."""
     device = leapfrog.resolve_device(device)
-    nsteps = problem.timesteps
-    leapfrog._check_start(start_step, nsteps)
+    phases.check_start(start_step, problem.timesteps)
     u, vv, c, v_dtype = _resume_state(u_cur, v, carry, dtype, v_dtype)
     _validate(problem, dtype, v_dtype, c is not None, k, c2tau2_field,
               compute_errors)
-    f = stencil_ref.compute_dtype(dtype)
-    with phases.SolveSpans("kfused_comp", problem, nsteps - start_step,
-                           k) as ph:
-        with ph.init():
-            leapfrog.prepare_kernels(device)
-            field = None
-            if c2tau2_field is not None:
-                field = state.c2tau2_field(c2tau2_field, dtype, device)
-            march = _make_march(problem, dtype, k, compute_errors, block_x,
-                                nsteps, device, field)
-            u = u.to(device=device, dtype=dtype).contiguous()
-            vv = vv.to(device=device, dtype=v_dtype).contiguous()
-            c = None if c is None else c.to(device).contiguous()
-            abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-            leapfrog._sync(device)
-        with phases.march():
-            u, vv, c = march(u, vv, c, start_step, abs_all, rel_all)
-        with ph.readback():
-            abs_np = leapfrog._host(abs_all)
-            rel_np = leapfrog._host(rel_all)
-            leapfrog._sync(device)
-        result = _as_result(problem, u, vv, c, abs_np, rel_np,
-                            ph.init_seconds, ph.solve_seconds,
-                            nsteps - start_step, nsteps)
-        ph.record(result, scheme="compensated", k=k,
-                  v_itemsize=v_dtype.itemsize, carry=c is not None,
-                  carry_itemsize=c.dtype.itemsize if c is not None else None,
-                  with_field=c2tau2_field is not None)
-    return result
+
+    def setup():
+        leapfrog.prepare_kernels(device)
+        field = None
+        if c2tau2_field is not None:
+            field = state.c2tau2_field(c2tau2_field, dtype, device)
+        return _parts(problem, dtype, v_dtype, c is not None, k,
+                      compute_errors, block_x, problem.timesteps, device,
+                      field)
+
+    return phases.timed_resume(
+        "kfused_comp", problem, start_step, setup, (u, vv, c), k=k,
+        scheme="compensated", v_itemsize=v_dtype.itemsize,
+        carry=c is not None,
+        carry_itemsize=c.dtype.itemsize if c is not None else None,
+        with_field=c2tau2_field is not None)
 
 
 def make_chunk_runner(
@@ -711,63 +688,34 @@ def make_chunk_runner(
     On block-aligned starts with length a multiple of k - the supervisor's
     chunks - the op sequence is the uninterrupted march's, so supervision
     keeps the flagship's exact trajectory."""
-    if length < 1:
-        raise ValueError(f"chunk length must be >= 1, got {length}")
-    device = leapfrog.resolve_device(device)
-    v_dtype = dtype if v_dtype is None else v_dtype
-    _validate(problem, dtype, v_dtype, carry, k, c2tau2_field,
-              compute_errors)
-    f = stencil_ref.compute_dtype(dtype)
-    nsteps = problem.timesteps
-    leapfrog.prepare_kernels(device)
-    field = None
-    if c2tau2_field is not None:
-        field = state.c2tau2_field(c2tau2_field, dtype, device)
-    march = _make_march(problem, dtype, k, compute_errors, block_x, nsteps,
-                        device, field)
+    def setup():
+        dev = leapfrog.resolve_device(device)
+        vd = dtype if v_dtype is None else v_dtype
+        _validate(problem, dtype, vd, carry, k, c2tau2_field, compute_errors)
+        leapfrog.prepare_kernels(dev)
+        field = None
+        if c2tau2_field is not None:
+            field = state.c2tau2_field(c2tau2_field, dtype, dev)
+        return _parts(problem, dtype, vd, carry, k, compute_errors, block_x,
+                      problem.timesteps, dev, field)
 
-    def run(u_cur, v, carry_, start: int):
-        stop = leapfrog._chunk_stop(start, length, nsteps)
-        u, vv, c, _ = _resume_state(u_cur, v, carry_ if carry else None,
-                                    dtype, v_dtype)
-        abs_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-        rel_all = torch.zeros(nsteps + 1, dtype=f, device=device)
-        u, vv, c = march(u.to(device=device, dtype=dtype).contiguous(),
-                         vv.to(device=device, dtype=v_dtype).contiguous(),
-                         None if c is None else c.to(device).contiguous(),
-                         start, abs_all, rel_all, stop)
-        return (u, vv, c, leapfrog._host(abs_all[start + 1:stop + 1]),
-                leapfrog._host(rel_all[start + 1:stop + 1]))
-
-    return run
+    return phases.chunk_runner(problem, length, setup)
 
 
 def _sharded_setup(problem, n_x, n_y, devices, dtype, v_dtype, carry_on, k,
                    compute_errors, block_x, carry_dtype, c2tau2_field):
-    """(mesh, topo, march, errors_of) of the distributed flagship's resumed
-    and chunked marches over the first MX*MY `devices`
-    (`_make_sharded_runner`)."""
+    """The `phases.Parts` of the distributed flagship's resumed and
+    chunked marches over the first MX*MY `devices` (`_sharded_parts`)."""
     _validate_sharded(problem, dtype, v_dtype, carry_on, k, n_x, n_y,
                       c2tau2_field, compute_errors)
     if len(devices) < n_x * n_y:
         raise ValueError(f"mesh ({n_x}, {n_y}, 1) needs {n_x * n_y} "
                          f"devices, only {len(devices)} available")
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    _, march, errors_of = _make_sharded_runner(
+    return _sharded_parts(
         problem, mesh, dtype, v_dtype, carry_on, k, compute_errors,
         problem.timesteps, block_x,
         carry_dtype if carry_dtype is not None else dtype, c2tau2_field)
-    return (mesh, Topology(N=problem.N, mesh_shape=mesh.shape), march,
-            errors_of)
-
-
-def _sharded_state(topo, mesh, u, v, c, dtype, v_dtype):
-    """An injected (u, v, carry) - ShardedArrays, or wavetpu's padded
-    global arrays - as block lists on the mesh (the carry keeps its
-    normalized dtype)."""
-    return (state.to_blocks(u, topo, mesh, dtype),
-            state.to_blocks(v, topo, mesh, v_dtype),
-            None if c is None else state.to_blocks(c, topo, mesh))
 
 
 def resume_kfused_comp_sharded(
@@ -792,49 +740,20 @@ def resume_kfused_comp_sharded(
     (MX, MY, 1) mesh over `devices` (default: every visible card)."""
     devices = leapfrog.resolve_devices(devices)
     n_x, n_y = sharded_kfused._resolve_grid(mesh_shape, n_shards, devices)
-    nsteps = problem.timesteps
-    leapfrog._check_start(start_step, nsteps)
+    phases.check_start(start_step, problem.timesteps)
     u, vv, c, v_dtype = _resume_state(u_cur, v, carry, dtype, v_dtype)
-    with phases.SolveSpans("kfused_comp_sharded", problem,
-                           nsteps - start_step, k) as ph:
-        with ph.init():
-            mesh, topo, march, errors_of = _sharded_setup(
-                problem, n_x, n_y, devices, dtype, v_dtype, c is not None, k,
-                compute_errors, block_x, None if c is None else c.dtype,
-                c2tau2_field)
-            st = _sharded_state(topo, mesh, u, vv, c, dtype, v_dtype)
-            sharded_kfused._sync(mesh)
-        with phases.march():
-            u, vv, c, rows = march(*st, start_step, nsteps)
-        with ph.readback():
-            abs_e, rel_e = errors_of(rows)
-            sharded_kfused._sync(mesh)
-        head = np.zeros(start_step + 1)
-        f = stencil_ref.compute_dtype(dtype)
-
-        def sharded(blocks):
-            return None if blocks is None or blocks[mesh.local[0]] is None \
-                else ShardedArray(list(blocks), topo, mesh)
-
-        result = leapfrog.SolveResult(
-            problem=problem,
-            u_prev=sharded(each(lambda a, b: (a.to(f) - b.to(f)).to(a.dtype),
-                                u, vv)),
-            u_cur=sharded(u),
-            abs_errors=np.concatenate([head, abs_e[start_step + 1:]]),
-            rel_errors=np.concatenate([head, rel_e[start_step + 1:]]),
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=nsteps - start_step, final_step=nsteps,
-            comp_v=sharded(vv), comp_carry=sharded(c),
-        )
-        ph.record(result, scheme="compensated", k=k,
-                  v_itemsize=v_dtype.itemsize, carry=c is not None,
-                  carry_itemsize=(c[mesh.local[0]].dtype.itemsize
-                                  if c is not None else None),
-                  with_field=c2tau2_field is not None,
-                  block=(problem.N // n_x, problem.N // n_y, problem.N),
-                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
-    return result
+    return phases.timed_resume(
+        "kfused_comp_sharded", problem, start_step,
+        lambda: _sharded_setup(
+            problem, n_x, n_y, devices, dtype, v_dtype, c is not None, k,
+            compute_errors, block_x, None if c is None else c.dtype,
+            c2tau2_field),
+        (u, vv, c), k=k, scheme="compensated", v_itemsize=v_dtype.itemsize,
+        carry=c is not None,
+        carry_itemsize=c.dtype.itemsize if c is not None else None,
+        with_field=c2tau2_field is not None,
+        block=(problem.N // n_x, problem.N // n_y, problem.N),
+        mesh_shape=(n_x, n_y, 1), rows=compute_errors)
 
 
 def make_sharded_chunk_runner(
@@ -856,32 +775,16 @@ def make_sharded_chunk_runner(
     abs, rel) with the state as ShardedArrays on the Topology layout (or
     padded global arrays) and the result as ShardedArrays - the
     supervised chunk of the distributed flagship."""
-    if length < 1:
-        raise ValueError(f"chunk length must be >= 1, got {length}")
-    devices = [torch.device(dv) for dv in devices]
-    n_x, n_y = sharded_kfused._resolve_grid(mesh_shape, None, devices)
-    v_dtype = dtype if v_dtype is None else v_dtype
-    if carry:
-        carry_dtype = (_default_carry_dtype(dtype) if carry_dtype is None
-                       else carry_dtype)
-        _validate_carry_dtype(dtype, carry_dtype)
-    mesh, topo, march, errors_of = _sharded_setup(
-        problem, n_x, n_y, devices, dtype, v_dtype, carry, k,
-        compute_errors, block_x, carry_dtype if carry else None,
-        c2tau2_field)
-    nsteps = problem.timesteps
+    def setup():
+        devs = [torch.device(dv) for dv in devices]
+        n_x, n_y = sharded_kfused._resolve_grid(mesh_shape, None, devs)
+        vd = dtype if v_dtype is None else v_dtype
+        cd = carry_dtype
+        if carry:
+            cd = _default_carry_dtype(dtype) if cd is None else cd
+            _validate_carry_dtype(dtype, cd)
+        return _sharded_setup(problem, n_x, n_y, devs, dtype, vd, carry, k,
+                              compute_errors, block_x,
+                              cd if carry else None, c2tau2_field)
 
-    def run(u_cur, v, carry_, start: int):
-        stop = leapfrog._chunk_stop(start, length, nsteps)
-        u, vv, c, _ = _resume_state(u_cur, v, carry_ if carry else None,
-                                    dtype, v_dtype)
-        u, vv, c, rows = march(
-            *_sharded_state(topo, mesh, u, vv, c, dtype, v_dtype), start,
-            stop)
-        abs_e, rel_e = errors_of(rows)
-        return (ShardedArray(u, topo, mesh), ShardedArray(vv, topo, mesh),
-                None if c[mesh.local[0]] is None
-                else ShardedArray(c, topo, mesh),
-                abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1])
-
-    return run
+    return phases.chunk_runner(problem, length, setup)

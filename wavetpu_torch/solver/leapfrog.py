@@ -20,8 +20,7 @@ versions run (kernels/stencil_cuda.py dispatches on the tensor's device).
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,65 +30,10 @@ from wavetpu_torch.io import state
 from wavetpu_torch.kernels import stencil_cuda, stencil_ref
 from wavetpu_torch.obs import tracing
 from wavetpu_torch.solver import phases
+from wavetpu_torch.solver.phases import (  # noqa: F401 (the solver API)
+    SolveResult, resolve_device, resolve_devices,
+)
 from wavetpu_torch.verify import oracle
-
-
-@dataclasses.dataclass
-class SolveResult:
-    problem: Problem
-    u_prev: torch.Tensor       # layer final_step-1 (fundamental (N,N,N) domain)
-    u_cur: torch.Tensor        # layer final_step
-    abs_errors: np.ndarray     # per-layer L-inf abs error, shape (timesteps+1,)
-    rel_errors: np.ndarray     # per-layer L-inf rel error, shape (timesteps+1,)
-    init_seconds: float = 0.0
-    solve_seconds: float = 0.0
-    steps_computed: Optional[int] = None  # steps THIS run marched (throughput)
-    final_step: Optional[int] = None      # layer index u_cur holds
-    # Compensated-scheme state (None on the standard scheme): the increment
-    # v = u_n - u_{n-1} and the Kahan carry at final_step.
-    comp_v: Optional[torch.Tensor] = None
-    comp_carry: Optional[torch.Tensor] = None
-
-    @property
-    def gcells_per_second(self) -> float:
-        """(N+1)^3 cell updates per step (the reference's grid-point count,
-        `Problem.cells_per_step`) over the solve wall time."""
-        steps = (
-            self.steps_computed
-            if self.steps_computed is not None
-            else self.problem.timesteps
-        )
-        total = self.problem.cells_per_step * steps
-        return total / self.solve_seconds / 1e9 if self.solve_seconds else 0.0
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the CUDA device unless the caller
-    names another.  Without a CUDA device, `None` raises - the port never
-    carries on on the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: wavetpu_torch runs on the GPU unless asked "
-                "for the CPU (device='cpu', or --platform cpu on the CLI)"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def resolve_devices(devices=None) -> List[torch.device]:
-    """The devices of a mesh: as given (a device may repeat), or every
-    visible card - raising without one, as `resolve_device`."""
-    if devices is None:
-        resolve_device(None)
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    return [torch.device(d) for d in devices]
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def prepare_kernels(device: torch.device, kernel: str = "pallas") -> None:
@@ -103,7 +47,7 @@ def prepare_kernels(device: torch.device, kernel: str = "pallas") -> None:
 def lane_error_fn(problem: Problem, dtype, device, kernel: str = "pallas"):
     """Returns (u, ct, out=None) -> (abs_e, rel_e), 0-d device tensors,
     against the analytic field at the time factor `ct` (a 0-d tensor in
-    the compute dtype): `_error_fn` with the time factor a runtime
+    the compute dtype): `error_fn` with the time factor a runtime
     argument, so the ensemble's lanes (each with its own phase's table)
     share one set of factors.  The oracle evaluates in the compute dtype
     (f32 for bf16 state).  `out` = (abs slot, rel slot), 0-d views of
@@ -129,8 +73,8 @@ def lane_error_fn(problem: Problem, dtype, device, kernel: str = "pallas"):
     return errors
 
 
-def _error_fn(problem: Problem, dtype, device, phase: float = oracle.TWO_PI,
-              kernel: str = "pallas"):
+def error_fn(problem: Problem, dtype, device, phase: float = oracle.TWO_PI,
+             kernel: str = "pallas"):
     """Returns (u, n, out=None) -> (abs_e, rel_e) of layer n
     (`lane_error_fn` over the phase's time-factor table)."""
     errors = lane_error_fn(problem, dtype, device, kernel)
@@ -205,8 +149,8 @@ def initial_state(problem: Problem, dtype=torch.float32,
     return u0, stencil_ref.taylor_half_step(u0, problem).to(dtype)
 
 
-def _march(problem, step, errors, compute_errors, u_prev, u, start, stop,
-           abs_all, rel_all):
+def march_layers(problem, step, errors, compute_errors, u_prev, u, start,
+                 stop, abs_all, rel_all):
     """March layers start+1..stop from (layer start-1, layer start), writing
     each layer's errors into the device vectors' slots.  Shared by solve
     and resume, so a resumed run's op sequence is the uninterrupted run's."""
@@ -219,13 +163,62 @@ def _march(problem, step, errors, compute_errors, u_prev, u, start, stop,
     return u_prev, u
 
 
-def _zeros(length, dtype, device):
-    return torch.zeros(length, dtype=stencil_ref.compute_dtype(dtype),
-                       device=device)
+def _march_fn(problem, step, errors, compute_errors):
+    """`march_layers` as a `phases.Parts` march over (u_prev, u_cur)."""
+    def march(st, start, stop, errs):
+        return march_layers(problem, step, errors, compute_errors, *st,
+                            start, stop, *errs), errs
+
+    return march
 
 
-def _host(v: torch.Tensor) -> np.ndarray:
-    return v.cpu().numpy().astype(np.float64)
+def standard_parts(march, dtype, device, nsteps: int) -> phases.Parts:
+    """The `phases.Parts` of a standard march on `device` (the 1-step
+    march's, kfused's): `march` over the state (u_prev, u_cur), error
+    vectors of nsteps+1 layers."""
+    return phases.on_device(
+        device, dtype, nsteps, march=march,
+        state_in=lambda u_prev, u_cur: (
+            phases.state_in(u_prev, dtype, device),
+            phases.state_in(u_cur, dtype, device)),
+        fields=lambda st: dict(u_prev=st[0], u_cur=st[1]))
+
+
+def _solver(problem, dtype, step_fn, compute_errors, stop_step, device,
+            c2tau2_field, kernel, phase) -> phases.Parts:
+    """`make_solver`'s set-up, as `phases.Parts` with the solve's `run`."""
+    analytic = check_phase(phase, c2tau2_field)
+    if c2tau2_field is not None and (compute_errors or step_fn is not None):
+        raise ValueError(
+            "variable-c runs have no analytic oracle and step with K5: pass "
+            "compute_errors=False and no step_fn with c2tau2_field"
+        )
+    device = resolve_device(device)
+    step = stencil_cuda.make_step_fn(None, kernel) if step_fn is None \
+        else step_fn
+    nsteps = phases.last_layer(problem, stop_step)
+    prepare_kernels(device, kernel)
+    if c2tau2_field is not None:
+        step = stencil_cuda.make_step_fn(
+            state.c2tau2_field(c2tau2_field, dtype, device), kernel)
+    errors = error_fn(problem, dtype, device, phase, kernel)
+    u0 = initial_layer0(problem, dtype, device, phase)
+    parts = standard_parts(_march_fn(problem, step, errors, compute_errors),
+                           dtype, device, nsteps)
+
+    def bootstrap(errs):
+        u1 = (analytic_layer(problem, dtype, device, phase, 1)
+              if analytic else step_layer1(u0, step, problem, dtype))
+        # Layer 0 is assigned from the oracle: its error is 0 by
+        # definition.
+        if compute_errors:
+            with tracing.annotate("verify.errors"):
+                errors(u1, 1, (errs[0][1], errs[1][1]))
+        return u0, u1
+
+    parts.run = phases.from_layer0(bootstrap, parts.march, nsteps,
+                                   parts.vectors)
+    return parts
 
 
 def make_solver(
@@ -263,44 +256,14 @@ def make_solver(
     bootstrap cannot represent, so layer 1 is then the exact analytic
     layer (`analytic_layer(n=1)`); constant speed only.
     """
-    analytic = check_phase(phase, c2tau2_field)
-    if c2tau2_field is not None and (compute_errors or step_fn is not None):
-        raise ValueError(
-            "variable-c runs have no analytic oracle and step with K5: pass "
-            "compute_errors=False and no step_fn with c2tau2_field"
-        )
-    device = resolve_device(device)
-    step = stencil_cuda.make_step_fn(None, kernel) if step_fn is None \
-        else step_fn
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
-        )
-    prepare_kernels(device, kernel)
-    if c2tau2_field is not None:
-        step = stencil_cuda.make_step_fn(
-            state.c2tau2_field(c2tau2_field, dtype, device), kernel)
-    errors = _error_fn(problem, dtype, device, phase, kernel)
-    u0 = initial_layer0(problem, dtype, device, phase)
+    run = _solver(problem, dtype, step_fn, compute_errors, stop_step, device,
+                  c2tau2_field, kernel, phase).run
 
-    def run():
-        with phases.bootstrap():
-            abs_all = _zeros(nsteps + 1, dtype, device)
-            rel_all = _zeros(nsteps + 1, dtype, device)
-            u1 = (analytic_layer(problem, dtype, device, phase, 1)
-                  if analytic else step_layer1(u0, step, problem, dtype))
-            # Layer 0 is assigned from the oracle: its error is 0 by
-            # definition.
-            if compute_errors:
-                with tracing.annotate("verify.errors"):
-                    errors(u1, 1, (abs_all[1], rel_all[1]))
-        with phases.march():
-            u_prev, u_cur = _march(problem, step, errors, compute_errors,
-                                   u0, u1, 1, nsteps, abs_all, rel_all)
+    def runner():
+        (u_prev, u_cur), (abs_all, rel_all) = run()
         return u_prev, u_cur, abs_all, rel_all
 
-    return run
+    return runner
 
 
 def solve(
@@ -320,62 +283,36 @@ def solve(
     brackets the march, from the layer-1 bootstrap to the read-back of the
     error vectors.  The arguments are `make_solver`'s.
     """
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    with phases.SolveSpans("leapfrog", problem, nsteps) as ph:
-        with ph.init():
-            run = make_solver(problem, dtype, step_fn, compute_errors,
-                              stop_step, device, c2tau2_field, kernel, phase)
-            device = resolve_device(device)
-            _sync(device)
-        u_prev, u_cur, abs_all, rel_all = run()
-        with ph.readback():
-            abs_np, rel_np = _host(abs_all), _host(rel_all)
-            _sync(device)
-        result = SolveResult(
-            problem=problem, u_prev=u_prev, u_cur=u_cur,
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=stop_step,
-            final_step=nsteps,
-        )
-        ph.record(result, with_field=c2tau2_field is not None)
-    return result
+    return phases.timed_solve(
+        "leapfrog", problem, stop_step,
+        lambda: _solver(problem, dtype, step_fn, compute_errors, stop_step,
+                        device, c2tau2_field, kernel, phase),
+        with_field=c2tau2_field is not None)
 
 
-def _state_in(a, dtype, device) -> torch.Tensor:
-    """An injected state array (tensor, or numpy as a wavetpu SolveResult
-    or a checkpoint holds it, bf16 included) on `device` in `dtype`."""
-    t = a if isinstance(a, torch.Tensor) else state.to_tensor(a, "cpu")
-    return t.to(device=device, dtype=dtype).contiguous()
-
-
-def _check_start(start_step: int, nsteps: int) -> None:
-    if not 1 <= start_step <= nsteps:
+def _check_field(c2tau2_field, compute_errors: bool) -> None:
+    if c2tau2_field is not None and compute_errors:
         raise ValueError(
-            f"start_step must be in [1, {nsteps}], got {start_step}"
+            "variable-c runs have no analytic oracle; pass "
+            "compute_errors=False with c2tau2_field"
         )
 
 
-def _chunk_stop(start: int, length: int, nsteps: int) -> int:
-    """The last layer of a chunk of `length` layers after layer `start`,
-    checked against the march's layers."""
-    _check_start(start, nsteps)
-    if start + length > nsteps:
-        raise ValueError(f"chunk {start}+{length} passes the last layer "
-                         f"{nsteps}")
-    return start + length
-
-
-def _standard_step(step_fn, c2tau2_field, dtype, device, kernel):
-    """The 1-step function of a resumed or chunked standard march: K1, K5
-    over `c2tau2_field` (placed once, in the compute dtype), or the
-    caller's `step_fn`."""
-    if step_fn is not None:
-        return step_fn
-    field = None
-    if c2tau2_field is not None:
-        field = state.c2tau2_field(c2tau2_field, dtype, device)
-    return stencil_cuda.make_step_fn(field, kernel)
+def _resumed(problem, dtype, step_fn, compute_errors, device, c2tau2_field,
+             kernel) -> phases.Parts:
+    """The set-up of a resumed or chunked standard march: K1, K5 over
+    `c2tau2_field` (placed once, in the compute dtype), or the caller's
+    `step_fn`."""
+    prepare_kernels(device, kernel)
+    step = step_fn
+    if step_fn is None:
+        field = None
+        if c2tau2_field is not None:
+            field = state.c2tau2_field(c2tau2_field, dtype, device)
+        step = stencil_cuda.make_step_fn(field, kernel)
+    errors = error_fn(problem, dtype, device, kernel=kernel)
+    return standard_parts(_march_fn(problem, step, errors, compute_errors),
+                          dtype, device, problem.timesteps)
 
 
 def resume(
@@ -400,39 +337,14 @@ def resume(
     layers start_step+1..timesteps; earlier entries are zero (they belong
     to the run that produced the state).
     """
-    if c2tau2_field is not None and compute_errors:
-        raise ValueError(
-            "variable-c runs have no analytic oracle; pass "
-            "compute_errors=False with c2tau2_field"
-        )
+    _check_field(c2tau2_field, compute_errors)
     device = resolve_device(device)
-    nsteps = problem.timesteps
-    _check_start(start_step, nsteps)
-    with phases.SolveSpans("leapfrog", problem, nsteps - start_step) as ph:
-        with ph.init():
-            prepare_kernels(device, kernel)
-            step = _standard_step(step_fn, c2tau2_field, dtype, device,
-                                  kernel)
-            errors = _error_fn(problem, dtype, device, kernel=kernel)
-            u_p = _state_in(u_prev, dtype, device)
-            u_c = _state_in(u_cur, dtype, device)
-            abs_all = _zeros(nsteps + 1, dtype, device)
-            rel_all = _zeros(nsteps + 1, dtype, device)
-            _sync(device)
-        with phases.march():
-            u_p, u_c = _march(problem, step, errors, compute_errors, u_p,
-                              u_c, start_step, nsteps, abs_all, rel_all)
-        with ph.readback():
-            abs_np, rel_np = _host(abs_all), _host(rel_all)
-            _sync(device)
-        result = SolveResult(
-            problem=problem, u_prev=u_p, u_cur=u_c,
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=nsteps - start_step, final_step=nsteps,
-        )
-        ph.record(result, with_field=c2tau2_field is not None)
-    return result
+    phases.check_start(start_step, problem.timesteps)
+    return phases.timed_resume(
+        "leapfrog", problem, start_step,
+        lambda: _resumed(problem, dtype, step_fn, compute_errors, device,
+                         c2tau2_field, kernel),
+        (u_prev, u_cur), with_field=c2tau2_field is not None)
 
 
 def make_chunk_runner(
@@ -452,33 +364,54 @@ def make_chunk_runner(
     Returns `runner(u_prev, u_cur, start)` -> (u_prev, u_cur, abs, rel):
     layers start+1..start+length from the state at layer `start`, given
     when the runner runs, with the chunk's per-layer errors as host f64
-    arrays of `length` entries.  The march is `resume`'s (`_march`), so
-    chunked layers are bitwise the uninterrupted march's."""
-    if length < 1:
-        raise ValueError(f"chunk length must be >= 1, got {length}")
-    if c2tau2_field is not None and compute_errors:
-        raise ValueError(
-            "variable-c runs have no analytic oracle; pass "
-            "compute_errors=False with c2tau2_field"
-        )
-    device = resolve_device(device)
-    prepare_kernels(device, kernel)
-    step = _standard_step(step_fn, c2tau2_field, dtype, device, kernel)
-    errors = _error_fn(problem, dtype, device, kernel=kernel)
-    nsteps = problem.timesteps
+    arrays of `length` entries.  The march is `resume`'s, so chunked
+    layers are bitwise the uninterrupted march's."""
+    def setup():
+        _check_field(c2tau2_field, compute_errors)
+        return _resumed(problem, dtype, step_fn, compute_errors,
+                        resolve_device(device), c2tau2_field, kernel)
 
-    def run(u_prev, u_cur, start: int):
-        stop = _chunk_stop(start, length, nsteps)
-        abs_all = _zeros(nsteps + 1, dtype, device)
-        rel_all = _zeros(nsteps + 1, dtype, device)
-        u_p, u_c = _march(problem, step, errors, compute_errors,
-                          _state_in(u_prev, dtype, device),
-                          _state_in(u_cur, dtype, device), start, stop,
-                          abs_all, rel_all)
-        return (u_p, u_c, _host(abs_all[start + 1:stop + 1]),
-                _host(rel_all[start + 1:stop + 1]))
+    return phases.chunk_runner(problem, length, setup)
 
-    return run
+
+def _comp_march(problem, step, errors, compute_errors, u, v, c, start, stop,
+                abs_all, rel_all):
+    """March the 1-step compensated scheme over layers start+1..stop from
+    (u, v, carry) at layer start.  Shared by solve_compensated's march,
+    resume_compensated and the chunk runner, so their op sequences are one
+    another's."""
+    for n in range(start + 1, stop + 1):
+        u, v, c = step(u, v, c, problem, None)
+        if compute_errors:
+            with tracing.annotate("verify.errors"):
+                errors(u, n, (abs_all[n], rel_all[n]))
+    return u, v, c
+
+
+def _comp_parts(problem, dtype, step, errors, compute_errors, device,
+                nsteps) -> phases.Parts:
+    """The 1-step compensated march's `phases.Parts` on `device`: state
+    (u, v, carry) in the state dtype (wavetpu's unconditional cast; bf16
+    refused)."""
+    def march(st, start, stop, errs):
+        return _comp_march(problem, step, errors, compute_errors, *st, start,
+                           stop, *errs), errs
+
+    def state_in(u_cur, v, carry):
+        if dtype == torch.bfloat16:
+            raise ValueError("compensated scheme requires f32/f64 state")
+        return tuple(phases.state_in(a, dtype, device)
+                     for a in (u_cur, v, carry))
+
+    return phases.on_device(
+        device, dtype, nsteps, march=march, state_in=state_in,
+        fields=lambda st: dict(u_prev=st[0] - st[1], u_cur=st[0],
+                               comp_v=st[1], comp_carry=st[2]))
+
+
+def _comp_step(comp_step_fn, kernel):
+    return (stencil_cuda.make_compensated_step_fn(kernel)
+            if comp_step_fn is None else comp_step_fn)
 
 
 def solve_compensated(
@@ -506,23 +439,19 @@ def solve_compensated(
             "error dominates anything the compensation recovers)"
         )
     device = resolve_device(device)
-    step = (stencil_cuda.make_compensated_step_fn(kernel)
-            if comp_step_fn is None else comp_step_fn)
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
-        )
-    with phases.SolveSpans("compensated", problem, nsteps) as ph:
-        with ph.init():
-            prepare_kernels(device, kernel)
-            errors = _error_fn(problem, dtype, device, phase, kernel)
-            u0 = initial_layer0(problem, dtype, device, phase)
-            zero = torch.zeros_like(u0)
-            abs_all = _zeros(nsteps + 1, dtype, device)
-            rel_all = _zeros(nsteps + 1, dtype, device)
-            _sync(device)
-        with phases.bootstrap():
+    step = _comp_step(comp_step_fn, kernel)
+    nsteps = phases.last_layer(problem, stop_step)
+
+    def setup():
+        prepare_kernels(device, kernel)
+        errors = error_fn(problem, dtype, device, phase, kernel)
+        u0 = initial_layer0(problem, dtype, device, phase)
+        zero = torch.zeros_like(u0)
+        parts = _comp_parts(problem, dtype, step, errors, compute_errors,
+                            device, nsteps)
+        errs = parts.vectors()
+
+        def bootstrap(errs):
             if analytic:
                 u = analytic_layer(problem, dtype, device, phase, 1)
                 v = analytic_increment_layer1(problem, dtype, device, phase)
@@ -532,45 +461,15 @@ def solve_compensated(
                                0.5 * problem.a2tau2)
             if compute_errors:
                 with tracing.annotate("verify.errors"):
-                    errors(u, 1, (abs_all[1], rel_all[1]))
-        with phases.march():
-            u, v, c = _comp_march(problem, step, errors, compute_errors, u,
-                                  v, c, 1, nsteps, abs_all, rel_all)
-        with ph.readback():
-            abs_np, rel_np = _host(abs_all), _host(rel_all)
-            _sync(device)
-        result = SolveResult(
-            problem=problem, u_prev=u - v, u_cur=u,
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=stop_step, final_step=nsteps,
-            comp_v=v, comp_carry=c,
-        )
-        ph.record(result, scheme="compensated")
-    return result
+                    errors(u, 1, (errs[0][1], errs[1][1]))
+            return u, v, c
 
+        parts.run = phases.from_layer0(bootstrap, parts.march, nsteps,
+                                       lambda: errs)
+        return parts
 
-def _comp_march(problem, step, errors, compute_errors, u, v, c, start, stop,
-                abs_all, rel_all):
-    """March the 1-step compensated scheme over layers start+1..stop from
-    (u, v, carry) at layer start.  Shared by solve_compensated's march,
-    resume_compensated and the chunk runner, so their op sequences are one
-    another's."""
-    for n in range(start + 1, stop + 1):
-        u, v, c = step(u, v, c, problem, None)
-        if compute_errors:
-            with tracing.annotate("verify.errors"):
-                errors(u, n, (abs_all[n], rel_all[n]))
-    return u, v, c
-
-
-def _comp_state_in(u_cur, v, carry, dtype, device):
-    """(u, v, carry) of an injected compensated state in the state dtype:
-    the 1-step scheme carries v and the carry in it (wavetpu's
-    unconditional cast)."""
-    if dtype == torch.bfloat16:
-        raise ValueError("compensated scheme requires f32/f64 state")
-    return tuple(_state_in(a, dtype, device) for a in (u_cur, v, carry))
+    return phases.timed_solve("compensated", problem, stop_step, setup,
+                              scheme="compensated")
 
 
 def resume_compensated(
@@ -592,35 +491,17 @@ def resume_compensated(
     K2 (its plain version with kernel="roll") unless `comp_step_fn` is
     given."""
     device = resolve_device(device)
-    nsteps = problem.timesteps
-    _check_start(start_step, nsteps)
-    step = (stencil_cuda.make_compensated_step_fn(kernel)
-            if comp_step_fn is None else comp_step_fn)
-    with phases.SolveSpans("compensated", problem,
-                           nsteps - start_step) as ph:
-        with ph.init():
-            prepare_kernels(device, kernel)
-            errors = _error_fn(problem, dtype, device, kernel=kernel)
-            u, vv, c = _comp_state_in(u_cur, v, carry, dtype, device)
-            abs_all = _zeros(nsteps + 1, dtype, device)
-            rel_all = _zeros(nsteps + 1, dtype, device)
-            _sync(device)
-        with phases.march():
-            u, vv, c = _comp_march(problem, step, errors, compute_errors, u,
-                                   vv, c, start_step, nsteps, abs_all,
-                                   rel_all)
-        with ph.readback():
-            abs_np, rel_np = _host(abs_all), _host(rel_all)
-            _sync(device)
-        result = SolveResult(
-            problem=problem, u_prev=u - vv, u_cur=u,
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=nsteps - start_step, final_step=nsteps,
-            comp_v=vv, comp_carry=c,
-        )
-        ph.record(result, scheme="compensated")
-    return result
+    phases.check_start(start_step, problem.timesteps)
+    step = _comp_step(comp_step_fn, kernel)
+
+    def setup():
+        prepare_kernels(device, kernel)
+        return _comp_parts(problem, dtype, step,
+                           error_fn(problem, dtype, device, kernel=kernel),
+                           compute_errors, device, problem.timesteps)
+
+    return phases.timed_resume("compensated", problem, start_step, setup,
+                               (u_cur, v, carry), scheme="compensated")
 
 
 def make_comp_chunk_runner(
@@ -636,27 +517,15 @@ def make_comp_chunk_runner(
     `runner(u, v, carry, start)` -> (u, v, carry, abs, rel) marches
     `length` layers from the compensated state at layer `start` through
     `resume_compensated`'s march."""
-    if length < 1:
-        raise ValueError(f"chunk length must be >= 1, got {length}")
-    device = resolve_device(device)
-    step = (stencil_cuda.make_compensated_step_fn(kernel)
-            if comp_step_fn is None else comp_step_fn)
-    prepare_kernels(device, kernel)
-    errors = _error_fn(problem, dtype, device, kernel=kernel)
-    nsteps = problem.timesteps
+    def setup():
+        dev = resolve_device(device)
+        step = _comp_step(comp_step_fn, kernel)
+        prepare_kernels(dev, kernel)
+        return _comp_parts(problem, dtype, step,
+                           error_fn(problem, dtype, dev, kernel=kernel),
+                           compute_errors, dev, problem.timesteps)
 
-    def run(u_cur, v, carry, start: int):
-        stop = _chunk_stop(start, length, nsteps)
-        abs_all = _zeros(nsteps + 1, dtype, device)
-        rel_all = _zeros(nsteps + 1, dtype, device)
-        u, vv, c = _comp_march(problem, step, errors, compute_errors,
-                               *_comp_state_in(u_cur, v, carry, dtype,
-                                               device),
-                               start, stop, abs_all, rel_all)
-        return (u, vv, c, _host(abs_all[start + 1:stop + 1]),
-                _host(rel_all[start + 1:stop + 1]))
-
-    return run
+    return phases.chunk_runner(problem, length, setup)
 
 
 def solve_history(problem: Problem, dtype=torch.float64,

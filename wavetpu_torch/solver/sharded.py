@@ -39,7 +39,7 @@ as `leapfrog.solve`.
 
 `resume_sharded` re-enters the march at a checkpoint's layer and
 `make_sharded_chunk_runner` marches a supervised run's fixed-length chunks
-(run/supervisor.py), both through `_make_march`'s march.
+(run/supervisor.py), both through `_parts`'s march.
 
 Under `--distributed` (comm/dist.py) the mesh spans processes: each one
 builds and marches only its own shards (the block lists hold None at the
@@ -389,19 +389,19 @@ def _field_blocks(c2tau2_field, topo: Topology, mesh: Mesh, f_dtype):
                         dtype=f_dtype).blocks
 
 
-def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
-                compute_errors: bool, c2tau2_field, scheme: str, kernel: str,
-                overlap: bool, phase: float = oracle.TWO_PI):
+def _parts(problem: Problem, topo: Topology, mesh: Mesh, dtype,
+           compute_errors: bool, c2tau2_field, scheme: str, kernel: str,
+           overlap: bool, nsteps: int, phase: float = oracle.TWO_PI):
     """Set up the sharded march - kernels built and loaded, every shard's
-    factors, masks and field block on its device - and return `(u0,
-    bootstrap, advance, vectors)`: layer 0's blocks; `bootstrap(u0,
-    abs_s, rel_s)` -> the state at layer 1; `advance(st, start, stop,
-    abs_s, rel_s)` -> the state at layer stop, marching layers
-    start+1..stop; `vectors(n)` -> per-shard zero error vectors of n
-    entries.  The state is (u_prev, u_cur) block lists, or (u, v, carry)
-    for the compensated scheme; the error vectors are indexed by layer.
-    A shifted `phase` bootstraps layer 1 from the analytic solution
-    (standard scheme, constant speed)."""
+    factors, masks and field block on its device - and return `(parts,
+    u0, bootstrap)`: its `phases.Parts` (per-shard error vectors of
+    nsteps+1 layers, read back as their cross-shard maxima, the results
+    as ShardedArrays in wavetpu's padded layout), layer 0's blocks and
+    `bootstrap(u0, abs_s, rel_s)` -> the state at layer 1.  The state is
+    (u_prev, u_cur) block lists, or (u, v, carry) for the compensated
+    scheme; the error vectors are indexed by layer.  A shifted `phase`
+    bootstraps layer 1 from the analytic solution (standard scheme,
+    constant speed)."""
     if scheme not in ("standard", "compensated"):
         raise ValueError(
             f"scheme must be 'standard' or 'compensated', got {scheme!r}")
@@ -447,9 +447,10 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
                                 overlap)
     u0 = each(lambda sh: sh.layer0(dtype), shards)
 
-    def vectors(n):
-        return each(lambda sh: torch.zeros(n, dtype=f, device=sh.device),
-                    shards)
+    def vectors():
+        return tuple(each(lambda sh: torch.zeros(nsteps + 1, dtype=f,
+                                                 device=sh.device), shards)
+                     for _ in range(2))
 
     def record(layer, n, abs_s, rel_s):
         if compute_errors:
@@ -491,7 +492,60 @@ def _make_march(problem: Problem, topo: Topology, mesh: Mesh, dtype,
             record(cur, n, abs_s, rel_s)
         return prev, cur
 
-    return u0, bootstrap, advance, vectors
+    def march(st, start, stop, errs):
+        return advance(st, start, stop, *errs), errs
+
+    def state_in(*arrays):
+        if compensated and (arrays[1] is None or arrays[2] is None):
+            raise ValueError("a compensated resume needs comp_v and "
+                             "comp_carry")
+        return tuple(state.to_blocks(a, topo, mesh, dtype) for a in arrays)
+
+    def read(errs, sl=None):
+        abs_np, rel_np = _reduce(errs[0], mesh), _reduce(errs[1], mesh)
+        return (abs_np, rel_np) if sl is None else (abs_np[sl], rel_np[sl])
+
+    def out(st):
+        u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
+        return (u_c, v, c) if compensated else (u_p, u_c)
+
+    parts = phases.Parts(
+        march=march, state_in=state_in, vectors=vectors, host=read,
+        fields=lambda st: dict(zip(_FIELDS, _as_sharded(st, scheme, topo,
+                                                        mesh))),
+        out=out, sync=lambda: phases.sync(*mesh.devices),
+        record=dict(block=topo.block, mesh_shape=topo.mesh_shape))
+    return parts, u0, bootstrap
+
+
+_FIELDS = ("u_prev", "u_cur", "comp_v", "comp_carry")
+
+
+def _solver(problem, topo, mesh, dtype, compute_errors, c2tau2_field,
+            stop_step, scheme, kernel, overlap, phase) -> phases.Parts:
+    """`make_sharded_solver`'s set-up, as `phases.Parts` whose `run` ->
+    ((u_prev, u_cur, v, carry) block lists, errs), v and carry None on the
+    standard scheme."""
+    nsteps = phases.last_layer(problem, stop_step)
+    parts, u0, bootstrap = _parts(problem, topo, mesh, dtype, compute_errors,
+                                  c2tau2_field, scheme, kernel, overlap,
+                                  nsteps, phase)
+    layer0 = phases.from_layer0(lambda errs: bootstrap(u0, *errs),
+                                parts.march, nsteps, parts.vectors)
+
+    def run():
+        st, errs = layer0()
+        if scheme == "compensated":
+            u, v, c = st
+            return (each(torch.sub, u, v), u, v, c), errs
+        return st + (None, None), errs
+
+    def sharded(blocks):
+        return None if blocks is None else ShardedArray(blocks, topo, mesh)
+
+    parts.run = run
+    parts.fields = lambda st: dict(zip(_FIELDS, map(sharded, st)))
+    return parts
 
 
 def make_sharded_solver(
@@ -507,33 +561,21 @@ def make_sharded_solver(
     overlap: bool = False,
     phase: float = oracle.TWO_PI,
 ):
-    """Set up the sharded solve (`_make_march`) and return `run()` ->
+    """Set up the sharded solve (`_parts`) and return `run()` ->
     (u_prev, u_cur, abs_per_shard, rel_per_shard, v, carry): lists of
     blocks in mesh order, the per-shard (nsteps+1,) error vectors, and for
     the compensated scheme the increment and Kahan carry (else None).
     `kernel="roll"` runs the kernels' plain versions on the same devices;
     `overlap` runs the standard step's exchange beside the bulk update
     (`_make_local_step`)."""
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}")
-    u0, bootstrap, advance, vectors = _make_march(
-        problem, topo, mesh, dtype, compute_errors, c2tau2_field, scheme,
-        kernel, overlap, phase)
+    run = _solver(problem, topo, mesh, dtype, compute_errors, c2tau2_field,
+                  stop_step, scheme, kernel, overlap, phase).run
 
-    def run():
-        with phases.bootstrap():
-            abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
-            st = bootstrap(u0, abs_s, rel_s)
-        with phases.march():
-            st = advance(st, 1, nsteps, abs_s, rel_s)
-        if scheme == "compensated":
-            u, v, c = st
-            return each(torch.sub, u, v), u, abs_s, rel_s, v, c
-        return st + (abs_s, rel_s, None, None)
+    def runner():
+        (u_prev, u_cur, v, c), (abs_s, rel_s) = run()
+        return u_prev, u_cur, abs_s, rel_s, v, c
 
-    return run
+    return runner
 
 
 def _reduce(per_shard: List[torch.Tensor], mesh: Mesh) -> np.ndarray:
@@ -541,7 +583,7 @@ def _reduce(per_shard: List[torch.Tensor], mesh: Mesh) -> np.ndarray:
     pmax), read back once; across ranks every shard's vector is gathered
     first (`dist.gather_shards`), so the max (NaN wins) is the same."""
     per_shard = dist.gather_shards(mesh, per_shard)
-    return np.max(np.stack([leapfrog._host(v) for v in per_shard]), axis=0)
+    return np.max(np.stack([phases.host(v) for v in per_shard]), axis=0)
 
 
 def solve_sharded(
@@ -575,41 +617,15 @@ def solve_sharded(
     `ShardedArray`s in wavetpu's padded layout; its errors are the
     cross-shard maxima.
     """
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    with phases.SolveSpans("sharded", problem, nsteps) as ph:
-        with ph.init():
-            topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
-            run = make_sharded_solver(problem, topo, mesh, dtype,
-                                      compute_errors, c2tau2_field,
-                                      stop_step, scheme, kernel, overlap,
-                                      phase)
-            _sync(mesh)
-        u_prev, u_cur, abs_s, rel_s, v, c = run()
-        with ph.readback():
-            abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
-            _sync(mesh)
+    def setup():
+        topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
+        return _solver(problem, topo, mesh, dtype, compute_errors,
+                       c2tau2_field, stop_step, scheme, kernel, overlap,
+                       phase)
 
-        def sharded(blocks):
-            return None if blocks is None else ShardedArray(blocks, topo,
-                                                            mesh)
-
-        result = leapfrog.SolveResult(
-            problem=problem, u_prev=sharded(u_prev), u_cur=sharded(u_cur),
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=stop_step, final_step=nsteps,
-            comp_v=sharded(v), comp_carry=sharded(c),
-        )
-        ph.record(result, scheme=scheme,
-                  with_field=c2tau2_field is not None, block=topo.block,
-                  mesh_shape=topo.mesh_shape)
-    return result
-
-
-def _sync(mesh: Mesh) -> None:
-    for dev in sorted({d for d in mesh.devices if d.type == "cuda"},
-                      key=str):
-        torch.cuda.synchronize(dev)
+    return phases.timed_solve("sharded", problem, stop_step, setup,
+                              scheme=scheme,
+                              with_field=c2tau2_field is not None)
 
 
 def gather_fundamental(u: ShardedArray, problem: Problem) -> torch.Tensor:
@@ -618,21 +634,6 @@ def gather_fundamental(u: ShardedArray, problem: Problem) -> torch.Tensor:
     if u.topo.N != problem.N:
         raise ValueError(f"field is for N={u.topo.N}, not {problem.N}")
     return u.fundamental("cpu")
-
-
-def _state_blocks(topo, mesh, dtype, scheme, u_prev, u_cur, comp_v,
-                  comp_carry):
-    """An injected sharded state (ShardedArrays, or wavetpu's padded
-    global arrays) as the march's block lists in `dtype`: (u_prev, u_cur),
-    or (u, v, carry) for the compensated scheme."""
-    if scheme == "compensated":
-        if comp_v is None or comp_carry is None:
-            raise ValueError("a compensated resume needs comp_v and "
-                             "comp_carry")
-        return tuple(state.to_blocks(a, topo, mesh, dtype)
-                     for a in (u_cur, comp_v, comp_carry))
-    return tuple(state.to_blocks(a, topo, mesh, dtype)
-                 for a in (u_prev, u_cur))
 
 
 def _as_sharded(st, scheme, topo, mesh):
@@ -671,35 +672,22 @@ def resume_sharded(
     so the resumed state is bitwise equal; the error vectors are zero up
     to start_step.  A variable-c checkpoint resumes under the re-passed
     `c2tau2_field`."""
-    nsteps = problem.timesteps
-    leapfrog._check_start(start_step, nsteps)
-    with phases.SolveSpans("sharded", problem, nsteps - start_step) as ph:
-        with ph.init():
-            topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
-            _, _, advance, vectors = _make_march(
-                problem, topo, mesh, dtype, compute_errors, c2tau2_field,
-                scheme, kernel, overlap)
-            st = _state_blocks(topo, mesh, dtype, scheme, u_prev, u_cur,
-                               comp_v, comp_carry)
-            abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
-            _sync(mesh)
-        with phases.march():
-            st = advance(st, start_step, nsteps, abs_s, rel_s)
-        with ph.readback():
-            abs_np, rel_np = _reduce(abs_s, mesh), _reduce(rel_s, mesh)
-            _sync(mesh)
-        u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
-        result = leapfrog.SolveResult(
-            problem=problem, u_prev=u_p, u_cur=u_c,
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=nsteps - start_step, final_step=nsteps,
-            comp_v=v, comp_carry=c,
-        )
-        ph.record(result, scheme=scheme,
-                  with_field=c2tau2_field is not None, block=topo.block,
-                  mesh_shape=topo.mesh_shape)
-    return result
+    phases.check_start(start_step, problem.timesteps)
+    arrays = ((u_cur, comp_v, comp_carry) if scheme == "compensated"
+              else (u_prev, u_cur))
+    return phases.timed_resume(
+        "sharded", problem, start_step,
+        lambda: _resumed(problem, mesh_shape, devices, dtype, compute_errors,
+                         c2tau2_field, scheme, kernel, overlap),
+        arrays, scheme=scheme, with_field=c2tau2_field is not None)
+
+
+def _resumed(problem, mesh_shape, devices, dtype, compute_errors,
+             c2tau2_field, scheme, kernel, overlap) -> phases.Parts:
+    """The `phases.Parts` of a resumed or chunked sharded march."""
+    topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
+    return _parts(problem, topo, mesh, dtype, compute_errors, c2tau2_field,
+                  scheme, kernel, overlap, problem.timesteps)[0]
 
 
 def make_sharded_chunk_runner(
@@ -721,27 +709,7 @@ def make_sharded_chunk_runner(
     (u_prev, u_cur) - or (u, v, carry) compensated - as ShardedArrays on
     `mesh_shape` over `devices` (or padded global arrays), the errors as
     the chunk's host f64 cross-shard maxima."""
-    if length < 1:
-        raise ValueError(f"chunk length must be >= 1, got {length}")
-    topo, mesh = _resolve_mesh(problem, mesh_shape, devices)
-    _, _, advance, vectors = _make_march(
-        problem, topo, mesh, dtype, compute_errors, c2tau2_field, scheme,
-        kernel, overlap)
-    nsteps = problem.timesteps
-
-    def run(*args):
-        *arrays, start = args
-        stop = leapfrog._chunk_stop(start, length, nsteps)
-        if scheme == "compensated":
-            st = _state_blocks(topo, mesh, dtype, scheme, None, *arrays)
-        else:
-            st = _state_blocks(topo, mesh, dtype, scheme, *arrays, None,
-                               None)
-        abs_s, rel_s = vectors(nsteps + 1), vectors(nsteps + 1)
-        st = advance(st, start, stop, abs_s, rel_s)
-        u_p, u_c, v, c = _as_sharded(st, scheme, topo, mesh)
-        out = (u_c, v, c) if scheme == "compensated" else (u_p, u_c)
-        return out + (_reduce(abs_s, mesh)[start + 1:stop + 1],
-                      _reduce(rel_s, mesh)[start + 1:stop + 1])
-
-    return run
+    return phases.chunk_runner(
+        problem, length,
+        lambda: _resumed(problem, mesh_shape, devices, dtype, compute_errors,
+                         c2tau2_field, scheme, kernel, overlap))

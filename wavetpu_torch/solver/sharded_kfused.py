@@ -268,16 +268,15 @@ def rows_max_y(rows: Sequence[torch.Tensor], n_x: int, n_y: int,
     return torch.cat(cols, dim=1)
 
 
-def _make_runner(problem: Problem, mesh, dtype, k: int,
-                 compute_errors: bool, nsteps: int, c2tau2_field=None):
-    """Set up the march over the (MX, MY, 1) `mesh` and return
-    `(run, march, errors_of, d, counts)`: `run()` -> (u_prev blocks,
-    u_cur blocks, rows) marches from layer 0 to nsteps; `march(u_prev,
-    u_cur, start, stop)` (block lists in the march's layout) marches
-    layers start+1..stop and returns the same; `errors_of(rows)` reads
-    the kernels' error rows back as per-layer host f64 arrays of nsteps+1
-    entries (zero where no layer was marched); d is the blocks' x depth
-    and counts their real planes (x-only meshes)."""
+def _parts(problem: Problem, mesh, dtype, k: int, compute_errors: bool,
+           nsteps: int, c2tau2_field=None) -> phases.Parts:
+    """Set up the march over the (MX, MY, 1) `mesh` and return its
+    `phases.Parts`: the state (u_prev, u_cur) as block lists in the
+    march's layout (D-deep blocks of counts real planes on the
+    pad-and-mask path), coming in from and going out to the Topology
+    layout; the error rows made by the run from layer 0 or by the march,
+    read back as per-layer host f64 arrays of nsteps+1 entries (zero
+    where no layer was marched)."""
     n_x, n_y, _ = mesh.shape
     devices = list(mesh.devices)
     local = mesh.local
@@ -395,48 +394,57 @@ def _make_runner(problem: Problem, mesh, dtype, k: int,
                 layer += kk
         return prev, cur
 
-    def errors_of(rows):
+    def read(rows, sl=None):
         """The cross-shard assembly (wavetpu's pmax over y and rows
         out_spec P(None, "x")), read back once."""
         if not compute_errors:
             z = np.zeros(nsteps + 1)
-            return z, z.copy()
-        dmax, rmax = (rows_max_y(dist.gather_shards(mesh, rs), n_x, n_y,
-                                 host) for rs in rows)
-        with tracing.annotate("verify.errors"):
-            abs_e, rel_e = _assemble_errors(parts, dmax, rmax)
-        return leapfrog._host(abs_e), leapfrog._host(rel_e)
+            abs_e, rel_e = z, z.copy()
+        else:
+            dmax, rmax = (rows_max_y(dist.gather_shards(mesh, rs), n_x, n_y,
+                                     host) for rs in rows)
+            with tracing.annotate("verify.errors"):
+                abs_e, rel_e = _assemble_errors(parts, dmax, rmax)
+            abs_e, rel_e = phases.host(abs_e), phases.host(rel_e)
+        return (abs_e, rel_e) if sl is None else (abs_e[sl], rel_e[sl])
 
-    def run():
-        with phases.bootstrap():
+    def bootstrap(rows):
+        # kcall returns (layer n+k-1, layer n+k, ...): with u_prev = u = u0
+        # at k = 1 the second output is u0 + C*lap(u0) (the field's cell in
+        # place of C), so layer 1 needs no half coefficient.
+        s0 = each(lambda o: o[1], kcall(u0, u0, 1, 0, False))
+        cur = each(lambda a, b: (0.5 * (a.to(f) + b.to(f))).to(dtype), u0,
+                   s0)
+        if compute_errors:
+            with tracing.annotate("verify.errors"):
+                for i in local:
+                    dev = devices[i]
+                    cx = mesh.coords[i][0]
+                    dr, rr = _layer_rows_local(
+                        cur[i], sxct_on[dev][1, cx * d:(cx + 1) * d],
+                        *planes[i], f)
+                    rows[0][i][1:2] = dr
+                    rows[1][i][1:2] = rr
+        return u0, cur
+
+    def march(st, start, stop, rows=None):
+        if rows is None:
             rows = new_rows()
-            # kcall returns (layer n+k-1, layer n+k, ...): with u_prev = u
-            # = u0 at k = 1 the second output is u0 + C*lap(u0) (the
-            # field's cell in place of C), so layer 1 needs no half
-            # coefficient.
-            s0 = each(lambda o: o[1], kcall(u0, u0, 1, 0, False))
-            cur = each(lambda a, b: (0.5 * (a.to(f) + b.to(f))).to(dtype),
-                       u0, s0)
-            if compute_errors:
-                with tracing.annotate("verify.errors"):
-                    for i in local:
-                        dev = devices[i]
-                        cx = mesh.coords[i][0]
-                        dr, rr = _layer_rows_local(
-                            cur[i], sxct_on[dev][1, cx * d:(cx + 1) * d],
-                            *planes[i], f)
-                        rows[0][i][1:2] = dr
-                        rows[1][i][1:2] = rr
-        with phases.march():
-            prev, cur = advance(u0, cur, 1, nsteps, rows)
-        return prev, cur, rows
+        return advance(*st, start, stop, rows), rows
 
-    def march(prev, cur, start, stop):
-        rows = new_rows()
-        prev, cur = advance(prev, cur, start, stop, rows)
-        return prev, cur, rows
+    def to_topology(st):
+        return tuple(_to_topology_layout(b, counts, problem, mesh)
+                     for b in st)
 
-    return run, march, errors_of, d, counts
+    return phases.Parts(
+        run=phases.from_layer0(bootstrap, march, nsteps, new_rows),
+        march=march, host=read, out=to_topology,
+        state_in=lambda u_prev, u_cur: tuple(
+            _from_topology_layout(a, counts, d, problem, mesh, dtype)
+            for a in (u_prev, u_cur)),
+        fields=lambda st: dict(zip(("u_prev", "u_cur"), to_topology(st))),
+        sync=lambda: phases.sync(*devices),
+        record=dict(block=(d, problem.N // n_y, problem.N)))
 
 
 def _move_x(blocks, src, dst, depth: int, mesh):
@@ -527,41 +535,14 @@ def solve_sharded_kfused(
     if len(devices) < n_x * n_y:
         raise ValueError(f"mesh ({n_x}, {n_y}, 1) needs {n_x * n_y} "
                          f"devices, only {len(devices)} available")
-    nsteps = problem.timesteps if stop_step is None else stop_step
-    if not 1 <= nsteps <= problem.timesteps:
-        raise ValueError(
-            f"stop_step must be in [1, {problem.timesteps}], got {nsteps}"
-        )
+    nsteps = phases.last_layer(problem, stop_step)
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    with phases.SolveSpans("sharded_kfused", problem, nsteps, k) as ph:
-        with ph.init():
-            run, _, errors_of, d, counts = _make_runner(
-                problem, mesh, dtype, k, compute_errors, nsteps,
-                c2tau2_field)
-            _sync(mesh)
-        u_prev, u_cur, rows = run()
-        with ph.readback():
-            abs_np, rel_np = errors_of(rows)
-            _sync(mesh)
-        result = leapfrog.SolveResult(
-            problem=problem,
-            u_prev=_to_topology_layout(u_prev, counts, problem, mesh),
-            u_cur=_to_topology_layout(u_cur, counts, problem, mesh),
-            abs_errors=abs_np, rel_errors=rel_np,
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=stop_step, final_step=nsteps,
-        )
-        ph.record(result, k=k,
-                  with_field=c2tau2_field is not None,
-                  block=(d, problem.N // n_y, problem.N),
-                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
-    return result
-
-
-def _sync(mesh) -> None:
-    for dev in sorted({dv for dv in mesh.devices if dv.type == "cuda"},
-                      key=str):
-        torch.cuda.synchronize(dev)
+    return phases.timed_solve(
+        "sharded_kfused", problem, stop_step,
+        lambda: _parts(problem, mesh, dtype, k, compute_errors, nsteps,
+                       c2tau2_field),
+        k=k, with_field=c2tau2_field is not None, mesh_shape=(n_x, n_y, 1),
+        rows=compute_errors)
 
 
 def _from_topology_layout(a, counts, d, problem: Problem, mesh, dtype):
@@ -612,39 +593,14 @@ def resume_sharded_kfused(
     error vectors are zero up to start_step."""
     devices, n_x, n_y = _grid_setup(problem, n_shards, devices, mesh_shape,
                                     k, compute_errors, c2tau2_field)
-    nsteps = problem.timesteps
-    leapfrog._check_start(start_step, nsteps)
+    phases.check_start(start_step, problem.timesteps)
     mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    with phases.SolveSpans("sharded_kfused", problem, nsteps - start_step,
-                           k) as ph:
-        with ph.init():
-            _, march, errors_of, d, counts = _make_runner(
-                problem, mesh, dtype, k, compute_errors, nsteps,
-                c2tau2_field)
-            prev, cur = (_from_topology_layout(a, counts, d, problem, mesh,
-                                               dtype)
-                         for a in (u_prev, u_cur))
-            _sync(mesh)
-        with phases.march():
-            prev, cur, rows = march(prev, cur, start_step, nsteps)
-        with ph.readback():
-            abs_e, rel_e = errors_of(rows)
-            _sync(mesh)
-        head = np.zeros(start_step + 1)
-        result = leapfrog.SolveResult(
-            problem=problem,
-            u_prev=_to_topology_layout(prev, counts, problem, mesh),
-            u_cur=_to_topology_layout(cur, counts, problem, mesh),
-            abs_errors=np.concatenate([head, abs_e[start_step + 1:]]),
-            rel_errors=np.concatenate([head, rel_e[start_step + 1:]]),
-            init_seconds=ph.init_seconds, solve_seconds=ph.solve_seconds,
-            steps_computed=nsteps - start_step, final_step=nsteps,
-        )
-        ph.record(result, k=k,
-                  with_field=c2tau2_field is not None,
-                  block=(d, problem.N // n_y, problem.N),
-                  mesh_shape=(n_x, n_y, 1), rows=compute_errors)
-    return result
+    return phases.timed_resume(
+        "sharded_kfused", problem, start_step,
+        lambda: _parts(problem, mesh, dtype, k, compute_errors,
+                       problem.timesteps, c2tau2_field),
+        (u_prev, u_cur), k=k, with_field=c2tau2_field is not None,
+        mesh_shape=(n_x, n_y, 1), rows=compute_errors)
 
 
 def make_chunk_runner(
@@ -665,23 +621,11 @@ def make_chunk_runner(
     state as ShardedArrays on the Topology layout (converted to and from
     the pad-and-mask layout where K9 marches), the errors as the chunk's
     host f64 arrays."""
-    if length < 1:
-        raise ValueError(f"chunk length must be >= 1, got {length}")
-    devices, n_x, n_y = _grid_setup(problem, n_shards, devices, mesh_shape,
-                                    k, compute_errors, c2tau2_field)
-    nsteps = problem.timesteps
-    mesh = build_mesh((n_x, n_y, 1), devices[:n_x * n_y])
-    _, march, errors_of, d, counts = _make_runner(
-        problem, mesh, dtype, k, compute_errors, nsteps, c2tau2_field)
+    def setup():
+        devs, n_x, n_y = _grid_setup(problem, n_shards, devices, mesh_shape,
+                                     k, compute_errors, c2tau2_field)
+        mesh = build_mesh((n_x, n_y, 1), devs[:n_x * n_y])
+        return _parts(problem, mesh, dtype, k, compute_errors,
+                      problem.timesteps, c2tau2_field)
 
-    def run(u_prev, u_cur, start: int):
-        stop = leapfrog._chunk_stop(start, length, nsteps)
-        prev, cur = (_from_topology_layout(a, counts, d, problem, mesh, dtype)
-                     for a in (u_prev, u_cur))
-        prev, cur, rows = march(prev, cur, start, stop)
-        abs_e, rel_e = errors_of(rows)
-        return (_to_topology_layout(prev, counts, problem, mesh),
-                _to_topology_layout(cur, counts, problem, mesh),
-                abs_e[start + 1:stop + 1], rel_e[start + 1:stop + 1])
-
-    return run
+    return phases.chunk_runner(problem, length, setup)
