@@ -562,6 +562,8 @@ NB, REM = (STEPS - 1) // K, (STEPS - 1) % K
 # takes R = 1).
 FLAGSHIP_R = stencil_cuda.comp_pipe_block(
     K, stencil_cuda.default_block_x(N_FULL, K))[3]
+# ... and of the standard k-fused path's k=4 launches (K3).
+KFUSED_R = stencil_cuda.kstep_pipe_block(K, N_FULL)[3]
 # The main-path CLI runs: N, the flags after `N 1 1 1 1 1 1000` and the
 # launch count of every counter that must move (all others stay 0).
 # The error pass (`layer_errors`) runs once a layer on the 1-step marches
@@ -654,8 +656,8 @@ ERROR_CLASS = {"default": 5e-3, "flagship": 2e-5, "kfused": 5e-3,
 # a kernel times more than GUARD_SLACK over its recorded time; phase 9
 # holds K6's lane mode at the main block (B=8 on that block) to
 # LANE_GUARD_MS the same way.
-GUARD_MS = {"K3": 4.4214, "K3f": 4.0705, "K8": 1.1942, "K8f": 1.0910,
-            "K9": 4.0484, "K9f": 0.9427, "K10": 1.1937, "K10f": 1.0897,
+GUARD_MS = {"K3": 2.7660, "K3f": 2.5176, "K8": 0.8123, "K8f": 0.8317,
+            "K9": 2.3818, "K9f": 0.6663, "K10": 0.7982, "K10f": 0.7403,
             "K4": 3.0284, "K4f": 3.6361, "K11": 0.7930, "K11f": 0.9362,
             "K12": 0.7846, "K12f": 0.9333, "K6": 0.1775}
 LANE_GUARD_MS = {"K6 lanes": 1.3227}
@@ -678,22 +680,30 @@ def fail(msg):
 
 
 # The counters by face rows a thread (`kstep_comp_r<R>`, csrc/
-# comp_sharded.cu's shapes) count the compensated pipeline's launches once
-# more.  Every run's exact counts are of the kernels' own counters:
-# `kernel_launches` checks that the counters by R add up to them and drops
-# them; `rows_launches` keeps them alone.
-ROWS_COUNTER = re.compile(r"kstep_comp_r\d+$")
-COMP_COUNTERS = ("kstep_comp", "kstep_comp_field", "kstep_comp_sharded",
-                 "kstep_comp_sharded_field", "kstep_comp_sharded_xy",
-                 "kstep_comp_sharded_xy_field", "kstep_comp_lanes")
+# comp_sharded.cu's shapes; `kstep_pipe_r<R>`, csrc/kstep_pipe.cu's) count
+# each pipeline's launches once more.  Every run's exact counts are of the
+# kernels' own counters: `kernel_launches` checks that each family's
+# counters by R add up to them and drops them; `rows_launches` keeps them
+# alone.
+ROWS_COUNTER = re.compile(r"kstep_(comp|pipe)_r\d+$")
+PIPE_COUNTERS = {
+    "comp": ("kstep_comp", "kstep_comp_field", "kstep_comp_sharded",
+             "kstep_comp_sharded_field", "kstep_comp_sharded_xy",
+             "kstep_comp_sharded_xy_field", "kstep_comp_lanes"),
+    "pipe": ("kstep", "kstep_field", "kstep_sharded", "kstep_sharded_field",
+             "kstep_padded", "kstep_padded_field", "kstep_sharded_xy",
+             "kstep_sharded_xy_field", "kstep_lanes", "kstep_field_lanes"),
+}
 
 
 def kernel_launches(counts, nonzero=False):
-    by_r = sum(n for c, n in counts.items() if ROWS_COUNTER.match(c))
-    comp = sum(counts.get(c, 0) for c in COMP_COUNTERS)
-    if by_r != comp:
-        fail(f"launches by face rows {rows_launches(counts)} add up to "
-             f"{by_r}, the compensated pipeline's counters to {comp}")
+    for family, names in PIPE_COUNTERS.items():
+        by_r = sum(n for c, n in counts.items()
+                   if c.startswith(f"kstep_{family}_r"))
+        launched = sum(counts.get(c, 0) for c in names)
+        if by_r != launched:
+            fail(f"launches by face rows {rows_launches(counts)} add up to "
+                 f"{by_r}, the {family} pipeline's counters to {launched}")
     return {c: n for c, n in counts.items()
             if not ROWS_COUNTER.match(c) and (n or not nonzero)}
 
@@ -879,9 +889,9 @@ def check_k3(p, up, u, fld, k, dt, rows, with_f, errs):
     got = stencil_cuda.fused_kstep(*args, **kw)
     want = stencil_cuda.fused_kstep_plain(*args, **kw)
     name = "K3f" if with_f else "K3"
-    check_outputs(f"{name} N={p.N} k={k} {dt} rows={rows} "
-                  f"tile={stencil_cuda.kstep_pipe_tile(k, p.N)}", got, want,
-                  errs[name])
+    shape = stencil_cuda.kstep_pipe_block(k, p.N, dt, with_f)
+    check_outputs(f"{name} N={p.N} k={k} {dt} rows={rows} shape={shape}",
+                  got, want, errs[name])
 
 
 def rand(shape, seed, scale=1.0, dtype=torch.float32):
@@ -1253,6 +1263,9 @@ def run_cli(label):
             != NB:
         fail(f"flagship: its {NB} k=4 launches are not all at "
              f"R={FLAGSHIP_R}: {by_rows}")
+    if label == "kfused" and by_rows != {f"kstep_pipe_r{KFUSED_R}": NB}:
+        fail(f"kfused: its {NB} k=4 launches are not all at "
+             f"R={KFUSED_R}: {by_rows}")
     errors_on = "--c2-field" not in flags
     if side["errors_computed"] != errors_on:
         fail(f"{label}: errors_computed {side['errors_computed']}")
@@ -4914,6 +4927,40 @@ def comp_kernel(k, field, lanes):
             f"EEf13__nv_bfloat16Lb1ELb{int(field)}ELb{int(lanes)}EE")
 
 
+def kpipe_kernel(k, r, block, field, pad, lanes):
+    """The mangled name's parts ('*' between them) of the standard
+    pipeline's f32 instantiation at k in shape `Shape<r, block>`, with or
+    without a field, in the pad or lane mode."""
+    return (f"17kstep_pipe_kernelILi{k}ENS_5ShapeILi{r}ELi{block}E*"
+            f"EEfLb{int(field)}ELb{int(pad)}ELb{int(lanes)}EE")
+
+
+def kpipe_main_kernels():
+    """{label: name parts} of the standard pipeline's f32 instantiations:
+    k=4 in each mode at the shape `kstep_pipe_block` gives it (what the
+    main paths launch) and at R = 1 (the body the other k and dtypes
+    keep), and k=1 (K8/K9's tails)."""
+    out = {}
+    for label, keys in (("K3/K8", {}), ("K3f/K8f", dict(field=True)),
+                        ("K10", dict(ext=True)),
+                        ("K10f", dict(ext=True, field=True)),
+                        ("K9", dict(pad=True)),
+                        ("K9f", dict(pad=True, field=True)),
+                        ("K3 lanes", dict(lanes=True)),
+                        ("K3f lanes", dict(lanes=True, field=True))):
+        r, block = stencil_cuda.kstep_pipe_block(K, N_FULL, torch.float32,
+                                                 **keys)[3:]
+        for rr, bb in sorted({(1, stencil_cuda.pipe_max_threads(K)),
+                              (r, block)}):
+            out[f"{label} k={K} R={rr}/{bb}"] = kpipe_kernel(
+                K, rr, bb, keys.get("field", False), keys.get("pad", False),
+                keys.get("lanes", False))
+    for label, pad in (("K3/K8/K10", False), ("K9", True)):
+        out[f"{label} k=1"] = kpipe_kernel(
+            1, 1, stencil_cuda.pipe_max_threads(1), False, pad, False)
+    return out
+
+
 def pipe_registers(logs):
     """ptxas's registers (and spill stores) of the k-step kernels at their
     main-path instantiations, from the verbose build log: the standard
@@ -4924,14 +4971,7 @@ def pipe_registers(logs):
     lane mode (K4) at k=4 and 1; and K6 (f32): the solo body and the
     x-streaming lane kernel."""
     want = {
-        "K3/K8/K10 k=4": "17kstep_pipe_kernelILi4EfLb0ELb0ELb0EE",
-        "K3f/K8f/K10f k=4": "17kstep_pipe_kernelILi4EfLb1ELb0ELb0EE",
-        "K3/K8/K10 k=1": "17kstep_pipe_kernelILi1EfLb0ELb0ELb0EE",
-        "K9 k=4": "17kstep_pipe_kernelILi4EfLb0ELb1ELb0EE",
-        "K9f k=4": "17kstep_pipe_kernelILi4EfLb1ELb1ELb0EE",
-        "K9 k=1": "17kstep_pipe_kernelILi1EfLb0ELb1ELb0EE",
-        "K3 lanes k=4": "17kstep_pipe_kernelILi4EfLb0ELb0ELb1EE",
-        "K3f lanes k=4": "17kstep_pipe_kernelILi4EfLb1ELb0ELb1EE",
+        **kpipe_main_kernels(),
         "K4/K11/K12 k=4": comp_kernel(K, False, False),
         "K4f/K11f/K12f k=4": comp_kernel(K, True, False),
         "K4/K11/K12 k=1": comp_kernel(1, False, False),

@@ -753,6 +753,146 @@ def test_k3_equals_k_k1_steps(cuda, k, dtype, with_field):
     assert torch.equal(got[0], prev) and torch.equal(got[1], cur)
 
 
+# ---- K3, K8-K10 and K3's lane mode in the blocked shapes (R face rows a
+# thread, csrc/kstep_pipe.cu `StdBlock`) ----
+
+KPIPE_KERNELS = ["K3", "K3f", "K8", "K8f", "K9", "K9f", "K10", "K10f",
+                 "K3 lanes", "K3f lanes"]
+
+
+def kpipe_case(cuda, kernel, n, with_errors, seed=140, nan=False):
+    """One pipeline kernel at k=4, f32, on N = n: (launch(tile), want(),
+    depth, `kstep_pipe_block`'s keys); want() is the plain version (for
+    the lanes each lane's solo launch).  K3 the whole state (its windows
+    the wrap planes), K8 a block of N/2 planes, K9 N planes of which N-3
+    are real, K10 the y-extended block of N/2 - 3 central rows at y0 =
+    N/2, the lanes three states; "f" with a field.  With `nan` u holds a
+    NaN at plane 20, row 12, column 9 (in every lane)."""
+    k, field = 4, kernel.startswith(("K3f", "K8f", "K9f", "K10f"))
+    p = Problem(N=n, timesteps=20)
+    keys = dict(field=field)
+    if kernel.endswith("lanes"):
+        up = batch(n, seed).to(cuda)
+        u = batch(n, seed + 10).to(cuda)
+        if nan:
+            u[:, 20, 12, 9] = float("nan")
+        fld = lane_fields(p, seed + 20).to(cuda) if field else None
+        syz, rsyz, sxct = (t.to(cuda) for t in lane_sxct(n, k))
+        kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2, c2tau2_field=fld,
+                  with_errors=with_errors)
+        keys.update(lanes=True)
+        return (lambda tile: stencil_cuda.fused_kstep_lanes(
+                    up, u, syz, rsyz, sxct, tile=tile, **kw),
+                lambda: per_lane(lambda a, b, s, c: stencil_cuda.fused_kstep(
+                    a, b, syz, rsyz, s, **dict(kw, c2tau2_field=c)),
+                    up, u, sxct, fld, live=LANES), n, keys)
+    if kernel.startswith("K10"):
+        d, ny, y0 = n // 2, n // 2 - 3, n // 2
+        p, planes, sxct, (up, u), gh, fld, fg = xy_case(cuda, d, n, k, ny,
+                                                        y0, torch.float32,
+                                                        seed)
+        if nan:
+            u[20, 12, 9] = float("nan")
+        args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), *planes, sxct)
+        kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+                  c2_ghosts=fg if field else None, with_errors=with_errors)
+        fld = fld if field else None
+        keys.update(ext=True)
+        return (lambda tile: stencil_cuda._kstep_pipe(
+                    "kstep_sharded_xy", *args, c2tau2_block=fld, y0=y0,
+                    nl_y=ny, tile=tile, **kw),
+                lambda: stencil_cuda.fused_kstep_sharded_xy_plain(
+                    *args, y0, n, nl_y=ny, c2tau2_ext=fld, **kw), d, keys)
+    d = n if kernel.startswith(("K3", "K9")) else n // 2
+    p, syz, rsyz, sxct, up, u, gh, fld, fg = chain_case(
+        cuda, d, n, k, torch.float32, seed)
+    n_real = n - 3 if kernel.startswith("K9") else d
+    if nan:
+        u[20, 12, 9] = float("nan")
+    if kernel.startswith("K3"):
+        gh = [*stencil_cuda.wrap_planes(up, k),
+              *stencil_cuda.wrap_planes(u, k)]
+        fg = stencil_cuda.wrap_planes(fld, k)
+    if n_real < d:
+        up[n_real:], u[n_real:], sxct[:, n_real:] = 0.0, 0.0, 0.0
+        keys.update(pad=True)
+    args = (up, u, (gh[0], gh[1]), (gh[2], gh[3]), syz, rsyz, sxct)
+    kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+              c2tau2_block=fld if field else None,
+              c2_ghosts=tuple(fg) if field else None,
+              with_errors=with_errors)
+    return (lambda tile: stencil_cuda._kstep_pipe(
+                "kstep_padded", *args, n_real=n_real, tile=tile, **kw),
+            lambda: stencil_cuda.fused_kstep_padded_plain(
+                up, u, n_real, *args[2:], **kw), d, keys)
+
+
+def kpipe_tiles(d, keys, k=4):
+    """The default shape (None), then every blocked shape built for the
+    mode: its whole 32-column face, a face of ragged thread rows (ty + 2k
+    not a multiple of R) with a segment that does not divide the depth
+    (the last one overlaps the one before), and a narrow face."""
+    seg = stencil_cuda.kstep_pipe_tile(k, d)[0]
+    tiles = [None]
+    for r, nt in stencil_cuda.kstep_pipe_shapes(
+            k, torch.float32, keys.get("field", False),
+            keys.get("pad", False), keys.get("lanes", False))[1:]:
+        ey = nt // 32 * r
+        tiles += [(seg, ey - 2 * k, 32 - 2 * k, r, nt),
+                  (max(1, 2 * d // 3), ey - 2 * k - 1, 32 - 2 * k, r, nt),
+                  (seg, 7, 13, r, nt)]
+    return tiles
+
+
+@pytest.mark.parametrize("kernel", KPIPE_KERNELS)
+@pytest.mark.parametrize("n", [40, 72])
+@pytest.mark.parametrize("with_errors", [True, False], ids=["rows", "norows"])
+def test_kpipe_blocked_shapes(cuda, kernel, n, with_errors):
+    # Every shape built for the mode on states its faces do not divide:
+    # states and rows bitwise the plain version's (the lanes: each lane's
+    # solo launch), each launch counted under its R.
+    launch, plain, d, keys = kpipe_case(cuda, kernel, n, with_errors)
+    want = plain()
+    for tile in kpipe_tiles(d, keys):
+        r = stencil_cuda._kstep_shape(
+            4, d, tile, torch.float32, keys["field"], keys.get("pad", False),
+            keys.get("lanes", False), keys.get("ext", False))[3]
+        before = stencil_cuda.launches[f"kstep_pipe_r{r}"]
+        got = launch(tile)
+        assert stencil_cuda.launches[f"kstep_pipe_r{r}"] == before + 1
+        equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K9", "K10", "K3 lanes"])
+def test_kpipe_blocked_error_rows_propagate_nan(cuda, kernel):
+    # A NaN in one central cell wins its plane's row of every substep, in
+    # every shape built.
+    launch, plain, d, keys = kpipe_case(cuda, kernel, 48, True, nan=True)
+    want = plain()
+    x = 20
+    for tile in kpipe_tiles(d, keys):
+        got = launch(tile)
+        assert torch.isnan(got[2][..., 0, x]).all()
+        assert torch.isnan(got[3][..., 0, x]).all()
+        assert not torch.isnan(got[2][..., 10]).any()
+        for a, b in zip(got, want):  # the same NaNs, the same other values
+            assert torch.equal(a.isnan(), b.isnan())
+            assert torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+def test_kfused_k_blocks_take_the_blocked_shape(cuda):
+    # n512_kfused's solve: its 249 k=4 launches at the chosen R, none at
+    # R = 1 (the 4-layer tail is K1's).
+    p = Problem(N=512, timesteps=1000)
+    r = stencil_cuda.kstep_pipe_block(4, 512)[3]
+    assert r >= 2
+    stencil_cuda.reset_launches()
+    kfused.solve_kfused(p, k=4, device=cuda)
+    assert stencil_cuda.launches["kstep"] == 249
+    assert stencil_cuda.launches[f"kstep_pipe_r{r}"] == 249
+    assert stencil_cuda.launches["kstep_pipe_r1"] == 0
+
+
 def test_sharded_kernels_never_fall_back(cuda):
     p = Problem(N=16, timesteps=10)
     u = rand((8, 16, 16), 1).to(cuda)
@@ -1873,6 +2013,8 @@ def test_ensemble_lanes_equal_solo_on_card(cuda, scheme, path):
     # The counters by face rows count the lane launches once more.
     by_rows = {k: counts.pop(k) for k in list(counts)
                if k.startswith("kstep_comp_r")}
+    std_rows = {k: counts.pop(k) for k in list(counts)
+                if k.startswith("kstep_pipe_r")}
     solo_launches = {k: v for k, v in counts.items()
                      if not k.endswith("_lanes")}
     assert not any(solo_launches.values()), solo_launches
@@ -1881,6 +2023,8 @@ def test_ensemble_lanes_equal_solo_on_card(cuda, scheme, path):
                 else "kstep_lanes")
         assert counts[name] == 4  # (17 - 1) / 4 blocks
     assert sum(by_rows.values()) == counts["kstep_comp_lanes"]
+    assert sum(std_rows.values()) == (counts["kstep_lanes"]
+                                      + counts["kstep_field_lanes"])
     for lane, got in zip(lanes, res.results):
         kw = dict(stop_step=lane.stop(p), phase=lane.phase)
         kernel = "roll" if path == "roll" else "pallas"
@@ -2020,10 +2164,13 @@ def test_chunked_march_equals_monolithic_on_card(cuda, path, k):
     finally:
         b.close()
     assert health is None and info["chunked"] and info["chunks"] == 4
-    # The bootstrap's K1, then 40 layers: 40 K1, or 10 K3 blocks.
-    # The error pass: every layer on the 1-step path, layer 1 on k-fused.
+    # The bootstrap's K1, then 40 layers: 40 K1, or 10 K3 blocks (each
+    # counted once more under its face rows a thread).  The error pass:
+    # every layer on the 1-step path, layer 1 on k-fused.
+    r = stencil_cuda.kstep_pipe_block(4, 64)[3]
     want = ({"step": 41, "layer_errors": 41} if path == "pallas"
-            else {"kstep": 10, "step": 1, "layer_errors": 1})
+            else {"kstep": 10, f"kstep_pipe_r{r}": 10, "step": 1,
+                  "layer_errors": 1})
     assert {name: n for name, n in counts.items() if n} == want
     mono, mono_health = eng.solve(p, [eb.LaneSpec()], path=path, k=k)
     assert mono_health == [None]

@@ -7,9 +7,9 @@ compiled by nvcc for Hopper and loaded with ctypes:
          -Xcompiler -fPIC -o <build dir>/lib<name>-<hash>.so csrc/<name>.cu
 
 No PyTorch headers are included, so a build takes about a minute
-(comp_sharded.cu holds 64 instantiations of the compensated pipeline of K4,
-K11 and K12, kstep_pipe.cu 64 of the standard pipeline of K3 and K8-K10;
-the sources build side by side).  Sources
+(comp_sharded.cu and kstep_pipe.cu hold about a hundred instantiations each
+of the compensated pipeline of K4, K11 and K12 and of the standard one of
+K3 and K8-K10; the sources build side by side).  Sources
 share `csrc/*.cuh`, which every library's hash covers.  The build directory
 is `kernels/_build/` inside the checkout (git ignores it; the
 WAVETPU_TORCH_BUILD_DIR environment variable moves it).  The file name

@@ -37,8 +37,9 @@ The sharded kernels (K6-K12) take one shard's block and the ghost planes
 that comm/halo.py (or the sharded k-fused solvers) delivered from the
 neighbour shards.  K3, K8, K9 and K10 are one CUDA kernel
 (csrc/kstep_pipe.cu `kstep_pipe_kernel`, an x-streaming pipeline of the
-standard substep; K3 runs it over the whole domain, its x windows the
-domain's own wrap planes; K9 masks the planes past its real-plane count),
+standard substep, its shape from `kstep_pipe_block`; K3 runs it over the
+whole domain, its x windows the domain's own wrap planes; K9 masks the
+planes past its real-plane count),
 and so are K4, K11 and K12 (csrc/comp_sharded.cu `kstep_comp_pipe_kernel`,
 the compensated substep's pipeline, K4 over the whole domain).  K10 and
 K12 take a block of an (MX, MY, 1) mesh extended in y by k ghost rows per
@@ -91,6 +92,11 @@ launches: Dict[str, int] = {
     # field forms and K4's lane mode) once more, by the face rows R a
     # thread owns (`comp_pipe_block`).
     "kstep_comp_r1": 0, "kstep_comp_r2": 0, "kstep_comp_r3": 0,
+    # Every launch of csrc/kstep_pipe.cu's pipeline (K3, K8, K9, K10,
+    # their field forms and K3's lane mode) once more, by the face rows R
+    # a thread owns (`kstep_pipe_block`).
+    "kstep_pipe_r1": 0, "kstep_pipe_r2": 0, "kstep_pipe_r3": 0,
+    "kstep_pipe_r4": 0,
     # The lane modes (the ensembles' batch axis; see the end of the file).
     "step_lanes": 0, "var_step_lanes": 0, "comp_step_lanes": 0,
     "kstep_lanes": 0, "kstep_field_lanes": 0, "kstep_comp_lanes": 0,
@@ -107,11 +113,12 @@ _NONE = -1
 # 1 <= k <= 8.
 _KSTEP_MAX_K = 8
 # The carry slab's cap (`default_block_x`), and the pipelines of
-# csrc/kstep_pipe.cu (K3, K8-K10, `kstep_pipe_tile`) and csrc/comp_sharded.cu
-# (K4, K11/K12, `comp_pipe_tile`; blocked shapes `comp_pipe_block`): one
-# thread per column of the (ty+2k)(tz+2k) halo face, at most 1024 for
-# k <= 4 and 640 above (the per-stage registers grow with k), or R cells
-# of a column a thread in K4's blocked shapes; x segments of up to _PIPE_SEG planes
+# csrc/kstep_pipe.cu (K3, K8-K10, `kstep_pipe_tile`; blocked shapes
+# `kstep_pipe_block`) and csrc/comp_sharded.cu (K4, K11/K12,
+# `comp_pipe_tile`; blocked shapes `comp_pipe_block`): one thread per
+# column of the (ty+2k)(tz+2k) halo face, at most 1024 for k <= 4 and 640
+# above (the per-stage registers grow with k), or R cells of a column a
+# thread in the blocked shapes; x segments of up to _PIPE_SEG planes
 # inside one carry slab (K4, K11, K12), of up to _KPIPE_SEG planes (K3,
 # K8-K10: kernels/tile_ab.py part `kpipe`, PERF.md).
 _SLAB_CAP = 32
@@ -133,6 +140,24 @@ _COMP_MAX_EZ = 64  # kPipeMaxEz: the widest face (tz + 2k) a block takes
 _COMP_CHOICE = {
     (4, torch.float32, torch.bfloat16, False, False): 2,
     (4, torch.float32, torch.bfloat16, False, True): 3,
+}
+# K3 and K8-K10's shapes (csrc/kstep_pipe.cu `launch_shape`):
+# `_KSTEP_CHOICE` is the (R face rows a thread, block size) each (k, state
+# dtype, field, pad, lanes, y-extended) launches, from the A/B of
+# kernels/tile_ab.py part `kpipe` (PERF.md): the fastest that ptxas builds
+# without spilling.  The kernel builds these blocked shapes and no others;
+# every other key takes R = 1 at `kstep_pipe_tile`'s face.  A blocked face
+# is _COMP_FACE_Z columns wide, one warp per row, as many rows as the
+# block's threads hold.
+_KSTEP_CHOICE = {
+    (4, torch.float32, False, False, False, False): (4, 512),  # K3, K8
+    (4, torch.float32, False, False, False, True): (4, 512),   # K10
+    (4, torch.float32, True, False, False, False): (3, 512),   # K3f, K8f
+    (4, torch.float32, True, False, False, True): (2, 640),    # K10f
+    (4, torch.float32, False, True, False, False): (2, 768),   # K9
+    (4, torch.float32, True, True, False, False): (3, 512),    # K9f
+    (4, torch.float32, False, False, True, False): (4, 512),   # K3 lanes
+    (4, torch.float32, True, False, True, False): (3, 512),    # K3f lanes
 }
 
 
@@ -168,7 +193,7 @@ _SIGNATURES = {
         "wt_comp_step": ([_P] * 6 + [_I] * 2 + [_D] * 4 + [_I, _P], _I),
     },
     "kstep_pipe": {
-        "wt_kstep_pipe": ([_P] * 16 + [_I] * 11 + [_D] * 4 + [_I, _I64, _P],
+        "wt_kstep_pipe": ([_P] * 16 + [_I] * 13 + [_D] * 4 + [_I, _I64, _P],
                           _I),
     },
     "sharded": {
@@ -625,12 +650,71 @@ def kstep_pipe_tile(k: int, d: int) -> Tuple[int, int, int]:
     return (seg,) + comp_pipe_tile(k, seg)[1:]
 
 
-def kstep_pipe_smem(k: int, ty: int, tz: int) -> int:
-    """Shared memory of one K3/K8-K10 pipeline block (bytes): each stage's
-    two-slot ring of the halo face's u (dynamic), and the static error
-    slots [2][8][2][32] words and oracle rows [8][128]."""
-    return 2 * k * (ty + 2 * k) * (tz + 2 * k) * 4 + (2 * 8 * 2 * 32
-                                                      + 8 * 128) * 4
+def kstep_pipe_smem(k: int, ty: int, tz: int, r: int = 1,
+                    block: int = 0) -> int:
+    """Shared memory of one K3/K8-K10 pipeline block (bytes): at r = 1
+    each stage's two-slot ring of the halo face's u; in the blocked shape
+    of r face rows a thread on `block` threads each stage's three-slot
+    ring, r planes of `block` words and their guards of _COMP_MAX_EZ words
+    either side, and the cells' (syz, rsyz) pairs in one such plane set
+    (dynamic); the static error slots [2][8][2][32] words and oracle rows
+    [8][128]."""
+    static = (2 * 8 * 2 * 32 + 8 * 128) * 4
+    if r == 1:
+        return 2 * k * (ty + 2 * k) * (tz + 2 * k) * 4 + static
+    plane = block + 2 * _COMP_MAX_EZ
+    return (3 * k + 2) * r * plane * 4 + static
+
+
+def kstep_pipe_shapes(k: int, dtype=torch.float32, field: bool = False,
+                      pad: bool = False, lanes: bool = False) -> list:
+    """The (R, block size) pairs csrc/kstep_pipe.cu builds for this k,
+    state dtype, field and mode (K9's pad, K3's lanes): R = 1 at
+    `pipe_max_threads(k)`, then the blocked shapes `_KSTEP_CHOICE` names
+    for it (K10's y-extended block shares the solo instantiation)."""
+    return [(1, pipe_max_threads(k))] + sorted(
+        {shape for key, shape in _KSTEP_CHOICE.items()
+         if key[:5] == (k, dtype, field, pad, lanes)}, reverse=True)
+
+
+def kstep_pipe_block(k: int, d: int, dtype=torch.float32,
+                     field: bool = False, pad: bool = False,
+                     lanes: bool = False, ext: bool = False
+                     ) -> Tuple[int, int, int, int, int]:
+    """(seg, ty, tz, r, block) of K3, K8-K10 and K3's lane mode on a depth
+    d: `kstep_pipe_tile`'s segment, and the face, face rows a thread r and
+    block size of the shape `_KSTEP_CHOICE` names for (k, state dtype,
+    field, K9's pad, lanes, K10's y-extended block): (block /
+    _COMP_FACE_Z) x r rows of _COMP_FACE_Z columns, or `kstep_pipe_tile`'s
+    face at r = 1."""
+    seg, ty, tz = kstep_pipe_tile(k, d)
+    r, nt = _KSTEP_CHOICE.get((k, dtype, field, pad, lanes, ext),
+                              (1, pipe_max_threads(k)))
+    if r == 1:
+        return seg, ty, tz, 1, nt
+    ey = nt // _COMP_FACE_Z * r
+    return seg, ey - 2 * k, _COMP_FACE_Z - 2 * k, r, nt
+
+
+def _kstep_shape(k, d, tile, dtype, field, pad, lanes, ext):
+    """The launch's (seg, ty, tz, r, block): `tile` ((seg, ty, tz) at r =
+    1, (seg, ty, tz, r) at the block size built for r, or (seg, ty, tz, r,
+    block)) or `kstep_pipe_block`'s, checked against the depth and the
+    shapes built."""
+    shapes = kstep_pipe_shapes(k, dtype, field, pad, lanes)
+    if tile is None:
+        tile = kstep_pipe_block(k, d, dtype, field, pad, lanes, ext)
+    tile = tuple(tile) + (1,) * (len(tile) == 3)
+    if len(tile) == 4:
+        tile += (next((nt for r, nt in shapes if r == tile[3]), 0),)
+    seg, ty, tz, r, nt = tile
+    ok = min(seg, ty, tz, r) > 0
+    threads = comp_pipe_threads(k, ty, tz, r) if ok else 0
+    if (not ok or seg > min(d, _KPIPE_SEG) or (r, nt) not in shapes
+            or threads > nt or (r > 1 and tz + 2 * k > _COMP_MAX_EZ)):
+        raise ValueError(f"tile {tuple(tile)} does not fit depth {d} and "
+                         f"k={k} (shapes built here: {shapes})")
+    return seg, ty, tz, r, nt
 
 
 def comp_pipe_tile(k: int, bx: int) -> Tuple[int, int, int]:
@@ -661,8 +745,8 @@ def comp_pipe_smem(k: int, r: int, block: int) -> int:
 
 
 def comp_pipe_threads(k: int, ty: int, tz: int, r: int) -> int:
-    """Threads of one K4/K11/K12 block: ceil((ty + 2k) / r) rows of tz + 2k
-    columns, padded to whole warps."""
+    """Threads of one block of either pipeline (K4/K11/K12, K3/K8-K10):
+    ceil((ty + 2k) / r) rows of tz + 2k columns, padded to whole warps."""
     cols = -(-(ty + 2 * k) // r) * (tz + 2 * k)
     return -(-cols // 32) * 32
 
@@ -1186,8 +1270,10 @@ def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
     under `counter`, `counter`_field with a field) after checking every
     operand.  `n_real` (K9; default: every plane) masks the planes past
     it; `nl_y` (K10) marks a y-extended block whose central rows start at
-    global row `y0`.  `tile` (seg, ty, tz) replaces `kstep_pipe_tile`'s
-    (the A/B of kernels/tile_ab.py; the results do not depend on it)."""
+    global row `y0`.  Counted once more under its face rows a thread
+    (`kstep_pipe_r<R>`).  `tile` (seg, ty, tz) at r = 1, or (seg, ty, tz,
+    r[, block]), replaces `kstep_pipe_block`'s (the A/B of
+    kernels/tile_ab.py; the results do not depend on it)."""
     _check_chain_operands(u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
                           sxct, k=k, c2tau2_block=c2tau2_block,
                           c2_ghosts=c2_ghosts, with_errors=with_errors,
@@ -1195,11 +1281,9 @@ def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
     d, w, n = u.shape
     ny = w if nl_y is None else nl_y
     n_real = d if n_real is None else int(n_real)
-    seg, ty, tz = tile or kstep_pipe_tile(k, d)
-    if (not 1 <= seg <= min(d, _KPIPE_SEG)
-            or (ty + 2 * k) * (tz + 2 * k) > pipe_max_threads(k)):
-        raise ValueError(f"tile {(seg, ty, tz)} does not fit depth {d} and "
-                         f"k={k}")
+    field = c2tau2_block is not None
+    seg, ty, tz, r, nt = _kstep_shape(k, d, tile, u.dtype, field,
+                                      n_real < d, False, nl_y is not None)
     dev = u.device
     dmax, rmax = _kstep_rows(k, d, dev, with_errors)
     prev_out = torch.empty((d, ny, n), dtype=u.dtype, device=dev)
@@ -1214,12 +1298,12 @@ def _kstep_pipe(counter, u_prev, u, prev_ghosts, cur_ghosts, syz, rsyz,
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
                if with_errors else (None, None, None)),
              _ptr(dmax), _ptr(rmax), d, n, n_real, w, ny, int(y0), k, seg,
-             ty, tz, _CODE[u.dtype],
+             ty, tz, r, nt, _CODE[u.dtype],
              float(coeff if c2tau2_block is None else 0.0),
              *(float(h) for h in inv_h2), 1, 0,
-             inst=("kstep_pipe", k, u.dtype, c2tau2_block is not None,
-                   n_real < d))
+             inst=("kstep_pipe", k, u.dtype, field, n_real < d, r, nt))
     launches[counter if c2tau2_block is None else counter + "_field"] += 1
+    launches[f"kstep_pipe_r{r}"] += 1
     if with_errors:
         # The kernel combined the rows as the bits of non-negative floats.
         dmax, rmax = dmax.view(torch.float32), rmax.view(torch.float32)
@@ -1757,12 +1841,13 @@ def _window_ptrs(t, k):
 
 
 def fused_kstep_lanes(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
-                      c2tau2_field=None, with_errors=True):
+                      c2tau2_field=None, with_errors=True, tile=None):
     """K3 lane mode (K3f's with a (B, N, N, N) f32 field): k fused leapfrog
     substeps of every lane of a (B, N, N, N) f32/bf16 batch in one launch
     of `fused_kstep`'s pipeline, each lane's x windows its own wrap planes.
     sxct is (B, k, N) f32 (per-lane time factors); returns (u_{n+k-1},
-    u_{n+k}, dmax, rmax) with (B, k, N) rows (None without errors)."""
+    u_{n+k}, dmax, rmax) with (B, k, N) rows (None without errors).
+    `tile` as `_kstep_pipe`'s."""
     if u.device.type == "cpu":
         return fused_kstep_lanes_plain(
             u_prev, u, syz, rsyz, sxct, k=k, coeff=coeff, inv_h2=inv_h2,
@@ -1771,7 +1856,9 @@ def fused_kstep_lanes(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
     if not 2 <= k <= _KSTEP_MAX_K or n % k:
         raise ValueError(f"k={k}: the K3 kernel takes 2 <= k <= "
                          f"{_KSTEP_MAX_K} dividing N={n}")
-    seg, ty, tz = kstep_pipe_tile(k, n)
+    seg, ty, tz, r, nt = _kstep_shape(k, n, tile, u.dtype,
+                                      c2tau2_field is not None, False, True,
+                                      False)
     lanes = _lanes_of("K3 lanes", u, -(-n // seg))
     _check_lane_batch(n, u=u, u_prev=u_prev, c2tau2_field=c2tau2_field)
     if u.dtype not in (torch.float32, torch.bfloat16) or \
@@ -1798,11 +1885,13 @@ def fused_kstep_lanes(u_prev, u, syz, rsyz, sxct, *, k, coeff, inv_h2,
              c2[0], c2[2],
              *((syz.data_ptr(), rsyz.data_ptr(), sxct.data_ptr())
                if with_errors else (None, None, None)),
-             _ptr(dmax), _ptr(rmax), n, n, n, n, n, 0, k, seg, ty, tz,
-             _CODE[u.dtype], float(coeff if c2tau2_field is None else 0.0),
+             _ptr(dmax), _ptr(rmax), n, n, n, n, n, 0, k, seg, ty, tz, r,
+             nt, _CODE[u.dtype],
+             float(coeff if c2tau2_field is None else 0.0),
              *(float(h) for h in inv_h2), lanes, n ** 3,
-             inst=(name, k, u.dtype))
+             inst=(name, k, u.dtype, r, nt))
     launches[name] += 1
+    launches[f"kstep_pipe_r{r}"] += 1
     if with_errors:
         dmax, rmax = dmax.view(f32), rmax.view(f32)
     return prev_out, out, dmax, rmax

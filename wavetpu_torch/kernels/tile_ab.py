@@ -1,7 +1,7 @@
 """A/B timing of the k-step pipelines' tiles on the card.
 
     python -m wavetpu_torch.kernels.tile_ab [--n 512] [--reps 30]
-                                            [--parts pipe,pipesplit,kpipe,k6lanes,k6solo,overlap]
+                                            [--parts pipe,pipesplit,kpipe,kpipesplit,k6lanes,k6solo,overlap]
                                             [--ens-reps 5]
 
 Part `pipe`: the x-streaming pipeline of K4, K11 and K12
@@ -18,13 +18,24 @@ Then K11 on the main path's mesh-4,1,1 block (N/4, N, N), k=4, rows on
 each against `comp_pipe_tile`'s; and the carry slab's depth block_x (8,
 16, 32, 64: L and the slab cap) for K11 and for K4 on the whole state.
 
-Part `kpipe`: the standard pipeline of K3 and K8-K10 (csrc/kstep_pipe.cu)
-as K3 on the whole (N, N, N) state, K8 on a mesh-4,1,1 block (N/4, N, N),
-K9 on the pad-and-mask block of N-2 on one shard (N, N-2, N-2; N-2 real
-planes) and K10 on the y-extended block of mesh 2,2,1 (N/2, N/2 + 2k, N;
-the y0 = N/2 shard), k=4, f32, rows on (K8f: the field, rows off): its
-segment length L (8, 16, 32, 64 against the default 128) and its y/z
-face, each against the default tile (`kstep_pipe_tile`).
+Part `kpipe`: the standard pipeline of K3 and K8-K10 (csrc/kstep_pipe.cu).
+First its split (`kpipesplit` alone): K3 on the whole (N, N, N) f32
+state at k = 1, 2, 3, 4 with the error rows on and off, each at
+`kstep_pipe_block`'s shape (what a stage and the rows cost a launch; k=1
+through `fused_kstep_sharded` on the state's wrap planes, which is K3's
+launch, k=3 on the largest multiple of 3 below N); like
+`pipesplit` it calls the public wrappers alone.  Then, k=4, f32, each
+variant held bitwise against the plain version: K3 on the whole state
+(rows on; K3f the field, rows off), K8 on a mesh-4,1,1 block (N/4, N, N;
+K8f rows off), K9 on the pad-and-mask block of N-2 on one shard (N, N-2,
+N-2; N-2 real planes; K9f rows off), K10 on the y-extended block of mesh
+2,2,1 (N/2, N/2 + 2k, N; the y0 = N/2 shard; K10f rows off) and K3's
+lane mode on B=8 states of N/2 (rows on; K3f lanes rows off): every shape
+built for it (R = 1 at `kstep_pipe_tile`'s face, and each blocked (R,
+block size) of `kstep_pipe_shapes` at its face of 32 columns), swept in
+order and back; then the segment length L (32, 64 against the default)
+at `kstep_pipe_block`'s shape, and at R = 1 the y/z faces of
+`kstep_pipe_tile`'s alternatives, each A B B A against the default.
 
 Part `k6lanes`: K6's lane mode (csrc/sharded.cu) at the sharded
 ensemble's blocks, B=8 lanes on the mesh-2,2,1 block of N/2 and of N
@@ -313,9 +324,47 @@ def _pipe_part(n, reps, result) -> None:
         _abba(f"K4 block_x={bx} vs block_x=32", ref4, k4(bx), reps, result)
 
 
-def _kpipe_part(n, reps, result) -> None:
+def _kpipe_split(n, reps, result) -> None:
+    """Part `kpipesplit` (module docstring): K3 at k = 1..4, rows on and
+    off, through the public wrappers."""
+    g = torch.Generator().manual_seed(3)
+    up = torch.randn((n,) * 3, generator=g).to("cuda")
+    u = torch.randn((n,) * 3, generator=g).to("cuda")
+    for k in (1, 2, 3, 4):
+        m = n - n % k
+        p = Problem(N=m, timesteps=1000)
+        sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32,
+                                                       "cuda")
+        sxct = (ct[2:2 + k][:, None] * sx[None, :]).contiguous()
+        upk, uk = ((t[:m, :m, :m].contiguous() if m < n else t)
+                   for t in (up, u))
+        for rows in (True, False):
+            kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2,
+                      with_errors=rows)
+            if k > 1:
+                def fn(kw=kw):
+                    return stencil_cuda.fused_kstep(upk, uk, syz, rsyz, sxct,
+                                                    **kw)
+            else:  # K3's launch: K8 over the state's own wrap planes
+                def fn(kw=kw):
+                    return stencil_cuda.fused_kstep_sharded(
+                        upk, uk, stencil_cuda.wrap_planes(upk, k),
+                        stencil_cuda.wrap_planes(uk, k), syz, rsyz, sxct,
+                        **kw)
+            key = f"K3 N={m} k={k} rows {'on' if rows else 'off'}"
+            ms = _median_ms(fn, reps)
+            result[key] = ms * (n / m) ** 3
+            print(f"{key}: {ms:.4f} ms ({result[key]:.4f} ms at N={n})",
+                  flush=True)
+        del upk, uk
+    del up, u
+    torch.cuda.empty_cache()
+
+
+def _kpipe_cases(n):
+    """{name: (launch(tile), plain(), depth, kstep_pipe_block's keys)} of
+    part `kpipe` (module docstring), k=4, f32, made on the card."""
     k = 4
-    build.build_all()
     p = Problem(N=n, timesteps=1000)
     g = torch.Generator().manual_seed(2)
 
@@ -328,32 +377,43 @@ def _kpipe_part(n, reps, result) -> None:
     sx, ct, syz, rsyz, _, _ = kfused._oracle_parts(p, torch.float32, "cuda")
     kw = dict(k=k, coeff=p.a2tau2, inv_h2=p.inv_h2)
     cases = {}
-    # K3: the whole state, its windows the wrap planes.
-    up, u = rand((n, n, n)), rand((n, n, n))
+
+    def chain(name, counter, args, kwa, plain, keys):
+        def launch(tile=None):
+            return stencil_cuda._kstep_pipe(counter, *args, tile=tile, **kwa)
+        cases[name] = (launch, plain, args[1].shape[0], keys)
+
+    # K3 and K3f: the whole state, its windows the wrap planes.
+    up, u, fld = rand((n, n, n)), rand((n, n, n)), c2((n, n, n))
     sxct = (ct[2:2 + k][:, None] * sx[None, :]).contiguous()
-    args = (up, u, stencil_cuda.wrap_planes(up, k),
-            stencil_cuda.wrap_planes(u, k), syz, rsyz, sxct)
-    cases["K3"] = ("kstep", args, dict(kw, c2tau2_block=None,
-                                       c2_ghosts=None, with_errors=True),
-                   lambda: stencil_cuda.fused_kstep_plain(
-                       up, u, syz, rsyz, sxct, **kw))
+    for name, field in (("K3", False), ("K3f", True)):
+        kwf = dict(kw, c2tau2_block=fld if field else None,
+                   c2_ghosts=stencil_cuda.wrap_planes(fld, k) if field
+                   else None, with_errors=not field)
+        chain(name, "kstep", (up, u, stencil_cuda.wrap_planes(up, k),
+                              stencil_cuda.wrap_planes(u, k), syz, rsyz,
+                              sxct), kwf,
+              lambda field=field: stencil_cuda.fused_kstep_plain(
+                  up, u, syz, rsyz, sxct, **kw,
+                  c2tau2_field=fld if field else None,
+                  with_errors=not field),
+              dict(field=field))
     # K8 and K8f: a mesh-4,1,1 block and synthetic ghost windows.
     d = n // 4
     bp, bu = rand((d, n, n)), rand((d, n, n))
     wins = ((rand((k, n, n)), rand((k, n, n))),
             (rand((k, n, n)), rand((k, n, n))))
-    fld, fg = c2((d, n, n)), (c2((k, n, n)), c2((k, n, n)))
+    bf, fg = c2((d, n, n)), (c2((k, n, n)), c2((k, n, n)))
     sxd = (ct[2:2 + k][:, None] * sx[None, :d]).contiguous()
     args8 = (bp, bu, *wins, syz, rsyz, sxd)
     for name, field in (("K8", False), ("K8f", True)):
-        kw8 = dict(kw, c2tau2_block=fld if field else None,
+        kw8 = dict(kw, c2tau2_block=bf if field else None,
                    c2_ghosts=fg if field else None, with_errors=not field)
-        cases[name] = ("kstep_sharded", args8, kw8,
-                       lambda kw8=kw8: stencil_cuda.fused_kstep_sharded_plain(
-                           *args8, **kw8))
-
-    # K9: N-2 planes do not divide into k=4 blocks on one shard, so the
-    # solver pads them to the layout's depth (N, N-2, N-2 at N=512).
+        chain(name, "kstep_sharded", args8, kw8,
+              lambda kw8=kw8: stencil_cuda.fused_kstep_sharded_plain(
+                  *args8, **kw8), dict(field=field))
+    # K9 and K9f: N-2 planes do not divide into k=4 blocks on one shard,
+    # so the solver pads them to the layout's depth (N, N-2, N-2 at N=512).
     p9 = Problem(N=n - 2, timesteps=1000)
     _, d9, r9 = sharded_kfused.uneven_layout(p9, k, 1)
     sx9, ct9, syz9, rsyz9, _, _ = kfused._oracle_parts(p9, torch.float32,
@@ -364,13 +424,17 @@ def _kpipe_part(n, reps, result) -> None:
     a9 = (rand((d9, m, m)), rand((d9, m, m)),
           (rand((k, m, m)), rand((k, m, m))),
           (rand((k, m, m)), rand((k, m, m))), syz9, rsyz9, sxct9)
+    f9, fg9 = c2((d9, m, m)), (c2((k, m, m)), c2((k, m, m)))
     kw9 = dict(k=k, coeff=p9.a2tau2, inv_h2=p9.inv_h2)
-    cases["K9"] = ("kstep_padded", a9,
-                   dict(kw9, c2tau2_block=None, c2_ghosts=None,
-                        with_errors=True, n_real=r9),
-                   lambda: stencil_cuda.fused_kstep_padded_plain(
-                       a9[0], a9[1], r9, *a9[2:], **kw9))
-    # K10: the y = N/2 shard of mesh 2,2,1, extended by k rows per side.
+    for name, field in (("K9", False), ("K9f", True)):
+        kwf = dict(kw9, c2tau2_block=f9 if field else None,
+                   c2_ghosts=fg9 if field else None, with_errors=not field)
+        chain(name, "kstep_padded", a9, dict(kwf, n_real=r9),
+              lambda kwf=kwf: stencil_cuda.fused_kstep_padded_plain(
+                  a9[0], a9[1], r9, *a9[2:], **kwf),
+              dict(field=field, pad=True))
+    # K10 and K10f: the y = N/2 shard of mesh 2,2,1, extended by k rows a
+    # side.
     dx, ny, y0 = n // 2, n // 2, n // 2
     py = ny + 2 * k
     a10 = (rand((dx, py, n)), rand((dx, py, n)),
@@ -378,32 +442,76 @@ def _kpipe_part(n, reps, result) -> None:
            (rand((k, py, n)), rand((k, py, n))),
            syz[y0:y0 + ny].contiguous(), rsyz[y0:y0 + ny].contiguous(),
            (ct[2:2 + k][:, None] * sx[None, :dx]).contiguous())
-    cases["K10"] = ("kstep_sharded_xy", a10,
-                    dict(kw, c2tau2_block=None, c2_ghosts=None,
-                         with_errors=True, y0=y0, nl_y=ny),
-                    lambda: stencil_cuda.fused_kstep_sharded_xy_plain(
-                        *a10, y0, n, nl_y=ny, **kw))
+    f10, fg10 = c2((dx, py, n)), (c2((k, py, n)), c2((k, py, n)))
+    for name, field in (("K10", False), ("K10f", True)):
+        kwf = dict(kw, c2tau2_block=f10 if field else None,
+                   c2_ghosts=fg10 if field else None, with_errors=not field)
+        chain(name, "kstep_sharded_xy", a10, dict(kwf, y0=y0, nl_y=ny),
+              lambda kwf=kwf: stencil_cuda.fused_kstep_sharded_xy_plain(
+                  *a10, y0, n, nl_y=ny, c2tau2_ext=kwf["c2tau2_block"],
+                  **{x: v for x, v in kwf.items() if x != "c2tau2_block"}),
+              dict(field=field, ext=True))
+    # K3 lanes and K3f lanes: B=8 states of N/2.
+    h, b = n // 2, 8
+    ph = Problem(N=h, timesteps=1000)
+    sxh, cth, syzh, rsyzh, _, _ = kfused._oracle_parts(ph, torch.float32,
+                                                       "cuda")
+    lu, lp = rand((b, h, h, h)), rand((b, h, h, h))
+    lf = ph.a2tau2 * (0.5 + torch.rand((b, h, h, h), generator=g)).to("cuda")
+    lsx = (cth[2:2 + k][:, None] * sxh[None, :]).expand(b, k, h).contiguous()
+    kwl = dict(k=k, coeff=ph.a2tau2, inv_h2=ph.inv_h2)
+    for name, field in (("K3 lanes", False), ("K3f lanes", True)):
+        kwf = dict(kwl, c2tau2_field=lf if field else None,
+                   with_errors=not field)
 
-    def launch(name, tile=None):
-        counter, a, kwa, plain = cases[name]
+        def launch(tile=None, kwf=kwf):
+            return stencil_cuda.fused_kstep_lanes(lp, lu, syzh, rsyzh, lsx,
+                                                  tile=tile, **kwf)
+        cases[name] = (launch,
+                       lambda kwf=kwf: stencil_cuda.fused_kstep_lanes_plain(
+                           lp, lu, syzh, rsyzh, lsx, **kwf),
+                       h, dict(field=field, lanes=True))
+    return cases
 
-        def fn():
-            return stencil_cuda._kstep_pipe(counter, *a, tile=tile, **kwa)
-        _equal(f"{name} tile={tile}", fn(), plain())
-        return fn
 
-    for name in cases:
-        d_ = cases[name][1][1].shape[0]
-        base = stencil_cuda.kstep_pipe_tile(k, d_)
-        _, ty, tz = base
-        ref = launch(name)
-        for seg in (8, 16, 32, 64, 128):
-            if seg != base[0] and d_ % seg == 0:
-                _abba(f"{name} L={seg} vs L={base[0]}", ref,
-                      launch(name, (seg, ty, tz)), reps, result)
-        for face in ((16, 24), (8, 24), (24, 8), (4, 56), (12, 12)):
-            _abba(f"{name} face={face} vs face={(ty, tz)}", ref,
-                  launch(name, (base[0],) + face), reps, result)
+def _kpipe_part(n, reps, result) -> None:
+    k = 4
+    build.build_all(names=["kstep_pipe"])
+    _kpipe_split(n, reps, result)
+    for name, (launch, plain, d, keys) in _kpipe_cases(n).items():
+        want = plain()
+
+        def checked(tile):
+            _equal(f"{name} tile={tile}", launch(tile), want)
+            return lambda: launch(tile)
+
+        seg, ty, tz = stencil_cuda.kstep_pipe_tile(k, d)
+        shapes = [(seg, ty, tz, 1)] + [
+            (seg, nt // 32 * r - 2 * k, 32 - 2 * k, r, nt)
+            for r, nt in stencil_cuda.kstep_pipe_shapes(
+                k, torch.float32, keys.get("field", False),
+                keys.get("pad", False), keys.get("lanes", False))[1:]]
+        fns = [checked(tile) for tile in shapes]
+        times = [[] for _ in fns]
+        for i in list(range(len(fns))) + list(range(len(fns)))[::-1]:
+            times[i].append(_median_ms(fns[i], reps))
+        for tile, t in zip(shapes, times):
+            key = f"{name} k=4 shape={tile}"
+            result[key] = dict(runs=t, ms=sum(t) / len(t))
+            print(f"{key}: {t} ms", flush=True)
+        block = stencil_cuda.kstep_pipe_block(k, d, torch.float32, **keys)
+        ref = checked(None)
+        for s in (32, 64):
+            if s < block[0]:
+                _abba(f"{name} L={s} vs {block}", ref,
+                      checked((s,) + block[1:]), reps, result)
+        if name in ("K3", "K8", "K9", "K10"):
+            ref1 = checked((seg, ty, tz))
+            for face in ((16, 24), (8, 24), (24, 8), (4, 56), (12, 12)):
+                _abba(f"{name} R=1 face={face} vs face={(ty, tz)}", ref1,
+                      checked((seg,) + face), reps, result)
+        del want
+        torch.cuda.empty_cache()
 
 
 def k6_solo_old(u_prev, u, ghosts, offsets, n_global, *, inv_h2,
@@ -595,6 +703,9 @@ def main(argv=None) -> int:
         _pipe_split(args.n, args.reps, result)
     if "kpipe" in parts:
         _kpipe_part(args.n, args.reps, result)
+    elif "kpipesplit" in parts:
+        build.build_all(names=["kstep_pipe"])
+        _kpipe_split(args.n, args.reps, result)
     if "k6lanes" in parts:
         _k6lanes_part(args.n, args.reps, result)
     if "k6solo" in parts:
